@@ -1,0 +1,193 @@
+"""Batched decode paths from coarse probe to log Ẑ (counterpart of
+``repro.core.decode``; the slice carries MIMPS and the exact pass).
+
+Per decode step for a query batch h (Q, d):
+
+    probe_batch ──► (Q, p) block ids
+    plan_heads  ──► union table (U,) + membership mask (Q, U)
+    plan_tail   ──► l shared tail samples + rejection mask (Q, l)
+    ivf_decode  ──► head_lse, tail_lse, top-k        (CUDA kernel)
+    combine_head_tail_lse ──► log Ẑ                   Eq. 5, n_tail = N - k_eff
+
+Tail samples come from a ``torch.Generator`` or are injected as ``tail_idx``
+(the tests inject the JAX package's ``randint`` draws).
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from ..kernels.ivf_score import ivf_decode
+from ..kernels.topk_z import select_topk, topk_z
+from . import mips as _mips
+from .estimators import NEG_INF, combine_head_tail_lse
+
+
+class DecodePlan(NamedTuple):
+    block_ids: torch.Tensor    # (Q, p)  per-query probed blocks
+    head_ids: torch.Tensor     # (U,)    deduplicated union (pad = repeat last)
+    head_live: torch.Tensor    # ()      number of real (non-pad) union slots
+    head_member: torch.Tensor  # (Q, U)  bool membership mask
+    tail_blocks: torch.Tensor  # (l,)    block of each shared tail sample
+    tail_rows: torch.Tensor    # (l,)    row-in-block of each shared tail sample
+    tail_accept: torch.Tensor  # (Q, l)  bool rejection mask
+    k_eff: torch.Tensor        # (Q,)    real rows covered by probed blocks
+    n_accept: torch.Tensor     # (Q,)    post-rejection tail sample count
+
+
+class DecodeOut(NamedTuple):
+    log_z: torch.Tensor        # (Q,)
+    top_score: torch.Tensor    # (Q, k)
+    top_id: torch.Tensor       # (Q, k) original row ids
+    head_lse: torch.Tensor     # (Q,)
+    tail_lse: torch.Tensor     # (Q,)  -inf where no tail sample survived
+    k_eff: torch.Tensor        # (Q,)
+    head_live: Any = None      # ()   measured union size U (probe paths)
+
+
+def plan_heads(block_ids: torch.Tensor, capacity: int):
+    """Deduplicate a (Q, p) probe table into (head_ids (capacity,) int32,
+    member (Q, capacity) bool, n_unique ()). The union is sorted and
+    compacted to the front; pad slots repeat the last unique id and are
+    masked out of every membership row. No host synchronisation."""
+    flat = torch.sort(block_ids.reshape(-1)).values
+    is_new = torch.ones_like(flat, dtype=torch.bool)
+    is_new[1:] = flat[1:] != flat[:-1]
+    tgt = torch.cumsum(is_new.long(), 0) - 1               # slot per element
+    n_unique = tgt[-1] + 1
+    head_ids = flat[-1].expand(capacity).to(torch.int32).clone()
+    head_ids[tgt] = flat.to(torch.int32)
+    slot_live = torch.arange(capacity, device=flat.device) < n_unique
+    member = (head_ids[None, :, None] == block_ids[:, None, :]).any(-1) \
+        & slot_live[None, :]
+    return head_ids, member, n_unique
+
+
+def plan_tail(index: _mips.IVFIndex, l: int, block_ids: torch.Tensor, *,
+              generator: Optional[torch.Generator] = None,
+              tail_idx: Optional[torch.Tensor] = None):
+    """l uniform tail samples over original rows, shared across the batch:
+    (tail_blocks (l,), tail_rows (l,), accept (Q, l)). Sample j is rejected
+    for query q iff its block is in q's probed set. The samples are drawn
+    from ``generator`` or given as ``tail_idx (l,)``."""
+    dev = block_ids.device
+    if tail_idx is None:
+        tail_idx = torch.randint(0, index.n, (l,), generator=generator,
+                                 device=dev)
+    slots = index.slot_of_row[torch.as_tensor(tail_idx, device=dev).long()]
+    tb = torch.div(slots, index.block_rows, rounding_mode="floor") \
+        .to(torch.int32)
+    tr = (slots % index.block_rows).to(torch.int32)
+    accept = ~(tb[None, None, :] == block_ids[:, :, None]).any(1)
+    return tb, tr, accept
+
+
+def make_plan(index: _mips.IVFIndex, h: torch.Tensor, n_probe: int, l: int,
+              *, generator: Optional[torch.Generator] = None,
+              tail_idx: Optional[torch.Tensor] = None,
+              active: Optional[torch.Tensor] = None) -> DecodePlan:
+    """Probe + dedup + tail sample: everything the fused kernel consumes.
+    ``active`` (Q,) bool marks the real queries of a padded batch; masked
+    rows adopt the first live row's probe set so they never grow U."""
+    block_ids = _mips.probe_batch(index, h, n_probe)
+    if active is not None:
+        donor = block_ids[torch.argmax(active.int())]     # first live row
+        block_ids = torch.where(active[:, None], block_ids, donor[None, :])
+    capacity = min(h.shape[0] * n_probe, index.n_blocks)
+    head_ids, member, n_unique = plan_heads(block_ids, capacity)
+    tb, tr, accept = plan_tail(index, l, block_ids, generator=generator,
+                               tail_idx=tail_idx)
+    k_eff = _mips.head_count(index, block_ids)
+    return DecodePlan(block_ids=block_ids, head_ids=head_ids,
+                      head_live=n_unique.to(torch.int32),
+                      head_member=member, tail_blocks=tb, tail_rows=tr,
+                      tail_accept=accept, k_eff=k_eff,
+                      n_accept=accept.sum(-1))
+
+
+def _tail_rows(index: _mips.IVFIndex, plan: DecodePlan) -> torch.Tensor:
+    """Shared tail rows gathered once into a dense (l, d) staging buffer."""
+    flat = index.v_blocks.reshape(-1, index.v_blocks.shape[-1])
+    slots = plan.tail_blocks.long() * index.block_rows + plan.tail_rows.long()
+    return flat[slots]
+
+
+def _masked_tail_lse(ts: torch.Tensor, accept: torch.Tensor) -> torch.Tensor:
+    """Per-query tail LSE; genuine -inf where no sample survived."""
+    tail_lse = torch.logsumexp(
+        torch.where(accept, ts, torch.full_like(ts, NEG_INF)), -1)
+    return torch.where(accept.any(-1), tail_lse,
+                       torch.full_like(tail_lse, float("-inf")))
+
+
+def _head_scores_plain(index: _mips.IVFIndex, h: torch.Tensor, head_ids,
+                       member, tail_rows: torch.Tensor):
+    """Gather the union's rows once and score head and tail rows with one
+    f32-accumulated matmul: (scores (Q, U*br), mask (Q, U*br), tail scores
+    (Q, l), global slot ids (U*br,))."""
+    nb, br, d = index.v_blocks.shape
+    flat = index.v_blocks.reshape(-1, d)
+    slot = (head_ids.long()[:, None] * br +
+            torch.arange(br, device=h.device)[None, :]).reshape(-1)
+    w = torch.cat([flat[slot], tail_rows.to(flat.dtype)], 0)
+    scores = h.float() @ w.float().T
+    mask = (member[:, :, None] & index.valid[head_ids.long()][None]
+            ).reshape(h.shape[0], -1)
+    n_head = slot.shape[0]
+    return scores[:, :n_head], mask, scores[:, n_head:], slot
+
+
+def mimps_decode(index: _mips.IVFIndex, h: torch.Tensor, *, n_probe: int,
+                 l: int, k: int = 1, use_kernel: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 tail_idx: Optional[torch.Tensor] = None,
+                 active: Optional[torch.Tensor] = None) -> DecodeOut:
+    """Batched sublinear decode: h (Q, d) -> log Ẑ and top-k rows, per Eq. 5.
+
+    ``use_kernel=True`` goes through ``kernels.ivf_score.ivf_decode`` (the
+    CUDA kernel on a GPU tensor, its plain version on a CPU tensor);
+    ``use_kernel=False`` is the reference branch of the JAX package's XLA
+    path (one gather, one matmul over head and tail rows)."""
+    plan = make_plan(index, h, n_probe, l, generator=generator,
+                     tail_idx=tail_idx, active=active)
+    tail_rows_g = _tail_rows(index, plan)
+    if use_kernel:
+        row_logw = torch.where(index.valid, 0.0, NEG_INF).float()
+        head_lse, tail_lse, topv, topi = ivf_decode(
+            index.v_blocks, h, plan.head_ids, plan.head_live,
+            plan.head_member, row_logw, tail_rows_g, plan.tail_accept, k=k)
+    else:
+        scores, mask, ts, slot = _head_scores_plain(
+            index, h, plan.head_ids, plan.head_member, tail_rows_g)
+        eff = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+        head_lse = torch.logsumexp(eff, -1)
+        topv, topi = select_topk(eff, slot, k)
+        tail_lse = _masked_tail_lse(ts, plan.tail_accept)
+    log_z = combine_head_tail_lse(
+        head_lse, tail_lse, (index.n - plan.k_eff).float(),
+        plan.n_accept.float())
+    top_id = index.row_id.reshape(-1)[topi.long()]
+    return DecodeOut(log_z=log_z, top_score=topv, top_id=top_id,
+                     head_lse=head_lse, tail_lse=tail_lse, k_eff=plan.k_eff,
+                     head_live=plan.head_live)
+
+
+def exact_topk_decode(w: torch.Tensor, h: torch.Tensor, *, k: int = 1,
+                      use_kernel: bool = True) -> DecodeOut:
+    """Exact log Z + top-k in one pass: ``kernels.topk_z.topk_z`` or the
+    reference branch (logits in the input dtype, then f32, as the JAX
+    package's XLA path computes them)."""
+    if use_kernel:
+        lse, topv, topi = topk_z(h, w, k)
+    else:
+        logits = (h @ w.T).float()
+        lse = torch.logsumexp(logits, -1)
+        topv, topi = select_topk(
+            logits, torch.arange(w.shape[0], device=h.device), k)
+    q, v = h.shape[0], w.shape[0]
+    return DecodeOut(log_z=lse, top_score=topv, top_id=topi,
+                     head_lse=lse,
+                     tail_lse=torch.full((q,), float("-inf"), device=h.device),
+                     k_eff=torch.full((q,), v, dtype=torch.int32,
+                                      device=h.device))

@@ -1,0 +1,54 @@
+"""Carry state built by the JAX package into the port, through numpy.
+
+Both functions take numpy arrays only; nothing here imports JAX. The
+parameter tree keeps the JAX layout (``x @ W``, ``wq (d, nh*hd)``, per-layer
+leaves stacked on a leading layer axis), which is also the port's layout.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .core.mips import IVFIndex
+
+
+def to_tensor(a, device="cpu") -> torch.Tensor:
+    """numpy (including ml_dtypes bfloat16) -> torch tensor on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree: Mapping[str, Any], cfg, device="cpu"):
+    """The JAX ``Model.init`` tree (leaves as numpy arrays) as the port's
+    parameter dict. ``cfg`` is checked against the tree's widths."""
+    out = {k: params_from_numpy(v, cfg, device) if isinstance(v, Mapping)
+           else to_tensor(v, device) for k, v in tree.items()}
+    if "blocks" in out:
+        wq = out["blocks"]["attn"]["wq"]
+        want = (cfg.n_layers, cfg.d_model,
+                cfg.n_heads * cfg.resolved_head_dim)
+        if tuple(wq.shape) != want:
+            raise ValueError(f"wq {tuple(wq.shape)} does not match the "
+                             f"config's {want}")
+    return out
+
+
+def ivf_from_numpy(v_blocks, valid, row_id, slot_of_row, block_centroids,
+                   block_radius, n: int, block_rows: int, assign=None,
+                   device="cpu") -> IVFIndex:
+    """A JAX ``IVFIndex``'s fields (numpy arrays) as the port's index."""
+    return IVFIndex(
+        v_blocks=to_tensor(v_blocks, device),
+        valid=to_tensor(valid, device).bool(),
+        row_id=to_tensor(row_id, device).to(torch.int32),
+        slot_of_row=to_tensor(slot_of_row, device).to(torch.int32),
+        block_centroids=to_tensor(block_centroids, device),
+        block_radius=to_tensor(block_radius, device).float(),
+        n=int(n), block_rows=int(block_rows),
+        assign=None if assign is None
+        else to_tensor(assign, device).to(torch.int32))

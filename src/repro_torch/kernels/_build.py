@@ -1,0 +1,109 @@
+"""Build and bind the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into ``build/kernels/lib<name>.so`` under the repository
+root at first use, then loaded with ``ctypes``. Nothing is built or loaded
+when this module is imported. ``build_all`` starts one ``nvcc`` per source
+at once.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("topk_z", "ivf_decode")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signature of each source's one entry point; every function returns its
+# cudaError_t (0 = success).
+SIGNATURES = {
+    # h, w, Q, V, d, k, grid_x, part_m, part_s, part_v, part_i,
+    # lse, topv, topi, stream
+    "topk_z": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    # w_blocks, h, head_ids, head_live, head_member, row_logw, tail_rows,
+    # tail_accept, Q, U, br, d, L, k, grid_x, part_hm, part_hs, part_v,
+    # part_i, part_tm, part_ts, head_lse, tail_lse, topv, topi, stream
+    "ivf_decode": [_P] * 8 + [_I] * 7 + [_P] * 11,
+}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+build_log: Dict[str, str] = {}       # name -> nvcc's -Xptxas -v report
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    default = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in CSRC.iterdir()
+                 if p.suffix in (".cu", ".cuh"))
+    return lib.stat().st_mtime < newest
+
+
+def build_all(names=SOURCES) -> List[str]:
+    """Compile every stale source, one ``nvcc`` per source, all at once.
+    Returns the names that were built; raises with nvcc's output on
+    failure."""
+    todo = [n for n in names if _stale(n)]
+    if not todo:
+        return []
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        build_log[name] = out
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, _lib_path(name))
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return todo
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library of ``csrc/<name>.cu``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    _LIBS[name] = lib
+    return lib
+
+
+def check(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")

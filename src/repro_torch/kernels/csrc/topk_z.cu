@@ -1,0 +1,112 @@
+// Exact log Z plus top-k over the whole vocabulary, for a decode batch.
+//
+// Replaces the TPU kernel src/repro/kernels/topk_z.py::topk_z
+// (_topk_z_kernel, _select_topk): h (Q, d) . W (V, d)^T with an online
+// logsumexp and a running top-k (score, vocab id), never writing the
+// (Q, V) logits to device memory.
+//
+// Bound on this card: bytes. At decode Q <= 16 the kernel does 2*Q flops per
+// weight element and must read all of W once (qwen1.5-4b: 151936 x 2560 bf16
+// = 778 MB, about 0.23 ms at 3.35 TB/s), far below the tensor-core line.
+//
+// Design: the TPU grid ran one query tile's vocab sweep in order on one core.
+// Here the vocabulary is split over every warp of 2 CTAs per SM, so all SMs
+// stream W at once: a warp loads R rows with 16-byte loads, scores them
+// against the QT queries kept in shared memory (f32 FMAs), and folds them
+// into its own partial (m, s, top-k); the CTA folds its warps' partials and
+// merge_partials (streaming.cuh) reduces the CTAs' partials of each query.
+// Each query tile of QT queries is one grid row, so W is streamed once per
+// tile.
+#include "streaming.cuh"
+
+using namespace streaming;
+
+template <int KMAX>
+__global__ void __launch_bounds__(THREADS, KMAX <= 8 ? 2 : 1)
+topk_z_partial(const __nv_bfloat16* __restrict__ h,
+               const __nv_bfloat16* __restrict__ w, int Q, int V, int d,
+               int k, float* __restrict__ part_m, float* __restrict__ part_s,
+               float* __restrict__ part_v, int* __restrict__ part_i) {
+  extern __shared__ float hs[];
+  const int q0 = blockIdx.y * QT;
+  load_query_tile(h, Q, d, q0, hs);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool owner = lane < QT && q0 + lane < Q;
+  float m = NEG, s = 0.f;
+  TopK<KMAX> top;
+  top.init();
+  const int n_groups = (V + GROUP - 1) / GROUP;
+  for (int g = blockIdx.x; g < n_groups; g += gridDim.x) {
+    const int row0 = g * GROUP + warp * R;
+    const __nv_bfloat16* rows[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      rows[r] = (row0 + r < V) ? w + (size_t)(row0 + r) * d : nullptr;
+    float acc[R][QT];
+    score_rows(rows, hs, d, lane, acc);
+    if (owner) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (rows[r] == nullptr) continue;
+        float x = pick(acc[r], lane);
+        online_add(m, s, x);
+        top.insert(x, row0 + r);
+      }
+    }
+  }
+  __shared__ float sm[WARPS][QT], ss[WARPS][QT];
+  __shared__ float sv[WARPS][QT][KMAX];
+  __shared__ int si[WARPS][QT][KMAX];
+  cta_lse(m, s, warp, lane, sm, ss);
+  cta_topk(top, warp, lane, sv, si);
+  if (warp == 0 && owner) {
+    const size_t idx = (size_t)(q0 + lane) * gridDim.x + blockIdx.x;
+    part_m[idx] = m;
+    part_s[idx] = s;
+    write_topk(top, k, part_v, part_i, idx * k);
+  }
+}
+
+template <int KMAX>
+static cudaError_t launch(const __nv_bfloat16* h, const __nv_bfloat16* w,
+                          int Q, int V, int d, int k, int grid_x,
+                          float* part_m, float* part_s, float* part_v,
+                          int* part_i, float* lse, float* topv, int* topi,
+                          cudaStream_t stream) {
+  const size_t smem = (size_t)QT * d * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_z_partial<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(grid_x, (Q + QT - 1) / QT);
+  topk_z_partial<KMAX><<<grid, THREADS, smem, stream>>>(
+      h, w, Q, V, d, k, part_m, part_s, part_v, part_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  merge_partials<KMAX><<<Q, MERGE_THREADS, 0, stream>>>(
+      grid_x, k, part_m, part_s, part_v, part_i, nullptr, nullptr,
+      lse, nullptr, topv, topi);
+  return cudaGetLastError();
+}
+
+extern "C" int topk_z_launch(const void* h, const void* w, int Q, int V,
+                             int d, int k, int grid_x, void* part_m,
+                             void* part_s, void* part_v, void* part_i,
+                             void* lse, void* topv, void* topi,
+                             void* stream) {
+  auto hb = static_cast<const __nv_bfloat16*>(h);
+  auto wb = static_cast<const __nv_bfloat16*>(w);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto pm = static_cast<float*>(part_m);
+  auto ps = static_cast<float*>(part_s);
+  auto pv = static_cast<float*>(part_v);
+  auto pi = static_cast<int*>(part_i);
+  auto l = static_cast<float*>(lse);
+  auto tv = static_cast<float*>(topv);
+  auto ti = static_cast<int*>(topi);
+  if (k <= 8)
+    return (int)launch<8>(hb, wb, Q, V, d, k, grid_x, pm, ps, pv, pi, l, tv,
+                          ti, st);
+  return (int)launch<32>(hb, wb, Q, V, d, k, grid_x, pm, ps, pv, pi, l, tv,
+                         ti, st);
+}

@@ -1,0 +1,130 @@
+"""Fused batched MIMPS decode over a deduplicated probe plan (counterpart of
+``repro.kernels.ivf_score.ivf_decode``).
+
+``ivf_decode`` launches the CUDA kernel in ``csrc/ivf_decode.cu`` on CUDA
+tensors and runs ``ivf_decode_plain`` on CPU tensors. The contract is the
+TPU kernel's: union slots at or past ``head_live`` are skipped, cluster-pad
+rows carry ``row_logw = NEG``, a score counts only where it is above NEG/2,
+an empty head or tail gives a genuine ``-inf`` LSE, and the top-k is taken
+over global slot ids ``block * br + row`` with the lowest id winning ties
+and ``(NEG, 0)`` filling missing entries.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .topk_z import MAX_K, NEG, select_topk
+
+
+def _masked_lse(eff: torch.Tensor) -> torch.Tensor:
+    """m + log(s) over entries above NEG/2: -inf where there are none."""
+    ok = eff > NEG * 0.5
+    m = torch.where(ok, eff, torch.full_like(eff, NEG)).amax(-1, keepdim=True)
+    s = torch.where(ok, torch.exp(eff - m), torch.zeros_like(eff)).sum(-1)
+    return m[:, 0] + torch.log(s)
+
+
+def ivf_decode_plain(w_blocks, h, head_ids, head_live, head_member, row_logw,
+                     tail_rows, tail_accept, *, k: int = 1):
+    """Plain PyTorch version of ``ivf_decode`` (same arguments and outputs),
+    scores accumulated in f32."""
+    nb, br, d = w_blocks.shape
+    q = h.shape[0]
+    ids = head_ids.long()
+    hf = h.float()
+    scores = torch.einsum("qd,ubd->qub", hf, w_blocks[ids].float())
+    scores = scores + row_logw[ids][None]
+    live = torch.arange(ids.shape[0], device=h.device) < head_live
+    keep = (head_member & live[None, :])[:, :, None]
+    eff = torch.where(keep, scores, torch.full_like(scores, NEG)).reshape(q, -1)
+    slot_ids = (ids[:, None] * br + torch.arange(br, device=h.device)
+                ).reshape(-1)
+    head_lse = _masked_lse(eff)
+    topv, topi = select_topk(eff, slot_ids, k)
+    ts = hf @ tail_rows.float().T
+    teff = torch.where(tail_accept, ts, torch.full_like(ts, NEG))
+    tail_lse = _masked_lse(teff)
+    return head_lse, tail_lse, topv, topi
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"ivf_decode: {msg}")
+
+
+def ivf_decode(w_blocks, h, head_ids, head_live, head_member, row_logw,
+               tail_rows, tail_accept, *, k: int = 1):
+    """Fused batched MIMPS decode.
+
+      w_blocks    (nb, br, d)  block-IVF rows
+      h           (Q, d)       query batch
+      head_ids    (U,) int32   sorted union of probed blocks (pad slots
+                               repeat the last id)
+      head_live   () int32     number of real union slots, left on the
+                               device (the kernel reads it; no host sync)
+      head_member (Q, U) bool  query q probes union slot u
+      row_logw    (nb, br) f32 0 for real rows, NEG for cluster-pad rows
+      tail_rows   (l, d)       shared tail sample rows, staged dense
+      tail_accept (Q, l) bool  sample j survives rejection for query q
+
+    Returns (head_lse (Q,), tail_lse (Q,), topv (Q, k), topi (Q, k) int32
+    global slot ids)."""
+    args = (w_blocks, h, head_ids, head_live, head_member, row_logw,
+            tail_rows, tail_accept)
+    if all(t.device.type == "cpu" for t in args):
+        return ivf_decode_plain(*args, k=k)
+    dev = h.device
+    _check(all(t.device == dev for t in args) and dev.type == "cuda",
+           "every input must be on one GPU")
+    _check(w_blocks.dtype == torch.bfloat16 and h.dtype == torch.bfloat16
+           and tail_rows.dtype == torch.bfloat16,
+           f"kernel takes bf16 rows and queries, got {w_blocks.dtype}, "
+           f"{h.dtype}, {tail_rows.dtype}")
+    _check(head_ids.dtype == torch.int32 and head_live.dtype == torch.int32
+           and row_logw.dtype == torch.float32
+           and head_member.dtype == torch.bool
+           and tail_accept.dtype == torch.bool, "index/mask dtypes")
+    nb, br, d = w_blocks.shape
+    q = h.shape[0]
+    u = head_ids.shape[0]
+    l = tail_rows.shape[0]
+    _check(h.shape == (q, d) and head_ids.shape == (u,)
+           and head_live.numel() == 1 and head_member.shape == (q, u)
+           and row_logw.shape == (nb, br) and tail_rows.shape == (l, d)
+           and tail_accept.shape == (q, l), "shapes")
+    _check(all(t.is_contiguous() for t in args), "inputs not contiguous")
+    _check(d % 8 == 0 and all(t.data_ptr() % 16 == 0
+                              for t in (w_blocks, h, tail_rows)),
+           "rows must be 16-byte aligned (d % 8 == 0)")
+    _check(1 <= k <= MAX_K, f"k={k} outside [1, {MAX_K}]")
+    _check(q >= 1 and u >= 1 and l >= 1, "empty input")
+    lib = _build.load("ivf_decode")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups = u * -(-br // 32) + -(-l // 32)          # 32-row groups
+    grid_x = max(1, min(2 * sms, groups))
+    n_part = grid_x                                  # one per CTA
+    f32, i32 = torch.float32, torch.int32
+    part = [torch.empty((q, n_part), dtype=f32, device=dev) for _ in range(4)]
+    part_v = torch.empty((q, n_part, k), dtype=f32, device=dev)
+    part_i = torch.empty((q, n_part, k), dtype=i32, device=dev)
+    head_lse = torch.empty((q,), dtype=f32, device=dev)
+    tail_lse = torch.empty((q,), dtype=f32, device=dev)
+    topv = torch.empty((q, k), dtype=f32, device=dev)
+    topi = torch.empty((q, k), dtype=i32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    p = ctypes.c_void_p
+    err = lib.ivf_decode_launch(
+        *[p(t.data_ptr()) for t in args], q, u, br, d, l, k, grid_x,
+        p(part[0].data_ptr()), p(part[1].data_ptr()), p(part_v.data_ptr()),
+        p(part_i.data_ptr()), p(part[2].data_ptr()), p(part[3].data_ptr()),
+        p(head_lse.data_ptr()), p(tail_lse.data_ptr()), p(topv.data_ptr()),
+        p(topi.data_ptr()), p(stream))
+    _build.check("ivf_decode", err)
+    ivf_decode.launches += 1
+    return head_lse, tail_lse, topv, topi
+
+
+ivf_decode.launches = 0

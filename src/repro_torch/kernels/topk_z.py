@@ -1,0 +1,109 @@
+"""Exact log Z plus top-k candidates in one pass over the vocabulary
+(counterpart of ``repro.kernels.topk_z``).
+
+``topk_z`` launches the CUDA kernel in ``csrc/topk_z.cu`` on CUDA tensors
+and runs ``topk_z_plain`` on CPU tensors. Both keep the TPU kernel's rule:
+among equal scores the lowest vocab id wins, and when fewer than k real
+candidates exist the missing entries are ``(NEG, 0)``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+NEG = -1e30
+
+
+def select_topk(scores: torch.Tensor, ids: torch.Tensor,
+                k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of each row of ``scores (Q, N)`` with ``ids`` (N,) or (Q, N),
+    ordered by score descending, ties to the lowest id; entries at or below
+    NEG/2 (masked) become the filler ``(NEG, 0)``. ``ids`` must increase
+    along the row wherever scores are unmasked, so a stable sort gives the
+    lowest id on ties."""
+    q, n = scores.shape
+    if n < k:
+        scores = torch.cat([scores, scores.new_full((q, k - n), NEG)], 1)
+        pad = torch.zeros(ids.shape[:-1] + (k - n,), dtype=ids.dtype,
+                          device=ids.device)
+        ids = torch.cat([ids, pad], -1)
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    pos = order[:, :k]
+    topv = torch.gather(scores, 1, pos)
+    ids = ids.expand(q, -1) if ids.dim() == 1 else ids
+    topi = torch.gather(ids, 1, pos).to(torch.int32)
+    real = topv > NEG * 0.5
+    topv = torch.where(real, topv, torch.full_like(topv, NEG))
+    topi = torch.where(real, topi, torch.zeros_like(topi))
+    return topv, topi
+
+
+def topk_z_plain(h: torch.Tensor, w: torch.Tensor, k: int):
+    """Plain PyTorch version: h (Q, d), w (V, d) -> (lse (Q,) f32,
+    topv (Q, k) f32, topi (Q, k) int32), scores accumulated in f32."""
+    logits = h.float() @ w.float().T
+    lse = torch.logsumexp(logits, dim=-1)
+    ids = torch.arange(w.shape[0], device=h.device)
+    topv, topi = select_topk(logits, ids, k)
+    return lse, topv, topi
+
+
+MAX_K = 32
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"topk_z: {msg}")
+
+
+def topk_z(h: torch.Tensor, w: torch.Tensor, k: int):
+    """h (Q, d), w (V, d) -> (lse (Q,), topv (Q, k), topi (Q, k)).
+
+    CUDA tensors launch the kernel (bf16 inputs, f32 accumulation) on the
+    current stream; CPU tensors run ``topk_z_plain``."""
+    if h.device.type == "cpu" and w.device.type == "cpu":
+        return topk_z_plain(h, w, k)
+    _check(h.is_cuda and w.is_cuda and h.device == w.device,
+           f"h on {h.device} and w on {w.device}: both must be on one GPU")
+    _check(h.dtype == torch.bfloat16 and w.dtype == torch.bfloat16,
+           f"kernel takes bf16, got h {h.dtype} and w {w.dtype}")
+    _check(h.dim() == 2 and w.dim() == 2 and h.shape[1] == w.shape[1],
+           f"shapes h {tuple(h.shape)} w {tuple(w.shape)}")
+    _check(h.is_contiguous() and w.is_contiguous(), "inputs not contiguous")
+    q, d = h.shape
+    v = w.shape[0]
+    _check(d % 8 == 0 and w.data_ptr() % 16 == 0 and h.data_ptr() % 16 == 0,
+           "rows must be 16-byte aligned (d % 8 == 0)")
+    _check(1 <= k <= MAX_K, f"k={k} outside [1, {MAX_K}]")
+    _check(q >= 1 and v >= 1, "empty input")
+    lib = _build.load("topk_z")
+    dev = h.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows_per_cta_step = 32
+    grid_x = max(1, min(2 * sms, -(-v // rows_per_cta_step)))
+    n_part = grid_x                                      # one per CTA
+    f32, i32 = torch.float32, torch.int32
+    part_m = torch.empty((q, n_part), dtype=f32, device=dev)
+    part_s = torch.empty((q, n_part), dtype=f32, device=dev)
+    part_v = torch.empty((q, n_part, k), dtype=f32, device=dev)
+    part_i = torch.empty((q, n_part, k), dtype=i32, device=dev)
+    lse = torch.empty((q,), dtype=f32, device=dev)
+    topv = torch.empty((q, k), dtype=f32, device=dev)
+    topi = torch.empty((q, k), dtype=i32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    p = ctypes.c_void_p
+    err = lib.topk_z_launch(
+        p(h.data_ptr()), p(w.data_ptr()), q, v, d, k, grid_x,
+        p(part_m.data_ptr()), p(part_s.data_ptr()), p(part_v.data_ptr()),
+        p(part_i.data_ptr()), p(lse.data_ptr()), p(topv.data_ptr()),
+        p(topi.data_ptr()), p(stream))
+    _build.check("topk_z", err)
+    topk_z.launches += 1
+    return lse, topv, topi
+
+
+topk_z.launches = 0

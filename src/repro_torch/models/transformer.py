@@ -1,0 +1,124 @@
+"""Dense transformer decode (counterpart of ``repro.models.transformer``,
+dense family only).
+
+Parameters keep the JAX package's pytree layout — a dict whose per-layer
+leaves are stacked on a leading layer axis — so ``interop.params_from_numpy``
+is a leaf-wise conversion. A Python loop over layers takes the place of
+``lax.scan``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from .. import resolve_device
+from ..configs.base import ModelConfig
+from .attention import KVCache, decode_self_attention
+from .layers import _dense_init, embed, mlp, rmsnorm
+
+Params = Dict[str, Any]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def _layer(tree: Params, i: int) -> Params:
+    """Layer ``i`` of a stacked parameter tree."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.local_global_ratio or cfg.n_codebooks:
+        raise NotImplementedError(
+            f"the port serves the dense family only; {cfg.name!r} is "
+            f"family {cfg.family!r}")
+
+
+def tblock_decode(p: Params, x, cache: KVCache, pos: int, cfg, *, window=0):
+    h = decode_self_attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                              cache, pos, cfg, window=window)
+    x = x + h
+    y = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp(p["ffn"], y, cfg.act)
+
+
+class Model:
+    """Functional dense model for one ModelConfig."""
+
+    def __init__(self, cfg: ModelConfig):
+        _check_dense(cfg)
+        self.cfg = cfg
+
+    def init(self, gen: torch.Generator, device="cuda") -> Params:
+        """Seeded random init at the config's widths, on ``device`` (the
+        generator must live there too). Same shapes and scales as the JAX
+        package's ``Model.init``; the random numbers differ."""
+        dev = resolve_device(device)
+        cfg = self.cfg
+        dt = torch_dtype(cfg.dtype)
+        d, L, hd = cfg.d_model, cfg.n_layers, cfg.resolved_head_dim
+        nh, nkv, ff = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+
+        def dense(shape, scale=None):
+            return _dense_init(gen, shape, dt, dev, scale)
+
+        def ones(*shape):
+            return torch.ones(shape, dtype=dt, device=dev)
+
+        attn = {"wq": dense((L, d, nh * hd)), "wk": dense((L, d, nkv * hd)),
+                "wv": dense((L, d, nkv * hd)), "wo": dense((L, nh * hd, d))}
+        if cfg.qkv_bias:
+            for name, width in (("bq", nh), ("bk", nkv), ("bv", nkv)):
+                attn[name] = torch.zeros((L, width * hd), dtype=dt,
+                                         device=dev)
+        ffn = {"down": dense((L, ff, d))}
+        if cfg.act == "sqrelu":
+            ffn["up"] = dense((L, d, ff))
+        else:
+            ffn["gate"] = dense((L, d, ff))
+            ffn["up"] = dense((L, d, ff))
+        p: Params = {
+            "embed": {"table": dense((cfg.vocab, d), scale=1.0)},
+            "final_norm": {"scale": ones(d)},
+            "blocks": {"ln1": {"scale": ones(L, d)}, "attn": attn,
+                       "ln2": {"scale": ones(L, d)}, "ffn": ffn},
+        }
+        if not cfg.tie_embeddings:
+            p["lm_head"] = dense((cfg.vocab, d))
+        return p
+
+    def head_matrix(self, p: Params) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            return p["embed"]["table"]
+        return p["lm_head"]
+
+    def init_decode_state(self, batch: int, max_len: int,
+                          device) -> Dict[str, torch.Tensor]:
+        """KV cache {"k", "v"}: (L, B, S, n_kv, hd) each."""
+        cfg = self.cfg
+        length = min(max_len, cfg.sliding_window) if cfg.sliding_window \
+            else max_len
+        shape = (cfg.n_layers, batch, length, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        dt = torch_dtype(cfg.dtype)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def decode_step(self, p: Params, state: Dict[str, torch.Tensor],
+                    token: torch.Tensor, pos: int) -> torch.Tensor:
+        """token (B,) at position ``pos`` -> hidden of that position (B, d).
+        ``state`` (the KV cache) is updated in place."""
+        cfg = self.cfg
+        x = embed(p["embed"], token[:, None])                  # (B, 1, d)
+        for i in range(cfg.n_layers):
+            cache = KVCache(k=state["k"][i], v=state["v"][i])
+            x = tblock_decode(_layer(p["blocks"], i), x, cache, pos, cfg,
+                              window=cfg.sliding_window)
+        h = rmsnorm(p["final_norm"], x, cfg.norm_eps)
+        return h[:, 0]

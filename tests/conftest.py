@@ -29,3 +29,8 @@ def make_clustered_vectors(key, n, d, n_centers=32, spread=0.5,
 @pytest.fixture(scope="session")
 def vectors(rng):
     return make_clustered_vectors(rng, 8192, 64)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")
