@@ -1,5 +1,6 @@
 """Estimator-backend registry (counterpart of ``repro.core.backends``; the
-slice carries ``exact`` and ``mimps``).
+port carries ``exact``, ``selfnorm``, ``mimps``, ``mince``, ``topk`` and
+``fmbe``).
 
 A backend has two obligations: ``build`` derives its retrieval state from
 the output embedding ``w (V, d)`` once, and ``decode`` runs one batched
@@ -15,7 +16,10 @@ import torch
 from .. import resolve_device
 from ..configs.base import PartitionConfig
 from . import mips as _mips
-from .decode import DecodeOut, exact_topk_decode, mimps_decode
+from .decode import (DecodeOut, exact_topk_decode, fmbe_decode, mimps_decode,
+                     mince_decode, selfnorm_decode, topk_head_decode)
+from .feature_maps import (FeatureMap, FMBEState, build_fmbe,
+                           build_fmbe_blocks, fmbe_z_batch, make_feature_map)
 
 
 @dataclasses.dataclass
@@ -23,6 +27,7 @@ class BackendState:
     """Retrieval state built once per engine."""
     w: torch.Tensor
     index: Optional[_mips.IVFIndex] = None
+    fmbe: Optional[FMBEState] = None
 
 
 def _build_index(cfg: PartitionConfig, w: torch.Tensor, *,
@@ -45,10 +50,11 @@ class EstimatorBackend:
     def build(self, cfg: PartitionConfig, w: torch.Tensor, *,
               generator: Optional[torch.Generator] = None,
               assign: Optional[torch.Tensor] = None,
+              feature_map: Optional[FeatureMap] = None,
               device="cuda") -> BackendState:
         """``assign`` (V,) injects the k-means assignment of an index build
-        (parity with an index built elsewhere); ``generator`` seeds k-means
-        otherwise."""
+        and ``feature_map`` the FMBE feature map (parity with state built
+        elsewhere); ``generator`` draws them otherwise."""
         return BackendState(w=w.to(resolve_device(device)))
 
     def decode(self, state: BackendState, h: torch.Tensor,
@@ -89,14 +95,28 @@ class ExactBackend(EstimatorBackend):
 
 
 @register_backend
-class MimpsBackend(EstimatorBackend):
-    method = "mimps"
+class SelfnormBackend(EstimatorBackend):
+    method = "selfnorm"
 
-    def build(self, cfg, w, *, generator=None, assign=None, device="cuda"):
+    def decode(self, state, h, cfg, *, k=1, use_kernel=True, generator=None,
+               tail_idx=None, active=None):
+        return selfnorm_decode(state.w, h, k=k, use_kernel=use_kernel)
+
+
+class _IndexedBackend(EstimatorBackend):
+    """A backend whose state is the block-IVF index."""
+
+    def build(self, cfg, w, *, generator=None, assign=None, feature_map=None,
+              device="cuda"):
         state = super().build(cfg, w, device=device)
         state.index = _build_index(cfg, state.w, generator=generator,
                                    assign=assign, device=device)
         return state
+
+
+@register_backend
+class MimpsBackend(_IndexedBackend):
+    method = "mimps"
 
     def decode(self, state, h, cfg, *, k=1, use_kernel=True, generator=None,
                tail_idx=None, active=None):
@@ -105,3 +125,68 @@ class MimpsBackend(EstimatorBackend):
         return mimps_decode(state.index, h, n_probe=cfg.n_probe, l=cfg.l,
                             k=k, use_kernel=use_kernel, generator=generator,
                             tail_idx=tail_idx, active=active)
+
+
+@register_backend
+class MinceBackend(_IndexedBackend):
+    method = "mince"
+
+    def decode(self, state, h, cfg, *, k=1, use_kernel=True, generator=None,
+               tail_idx=None, active=None):
+        if state.index is None:
+            return exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel)
+        return mince_decode(state.index, h, n_probe=cfg.n_probe, l=cfg.l,
+                            k=k, iters=cfg.mince_iters,
+                            solver=cfg.mince_solver, use_kernel=use_kernel,
+                            generator=generator, tail_idx=tail_idx,
+                            active=active)
+
+
+@register_backend
+class TopkBackend(_IndexedBackend):
+    """Head-only retrieval: MIMPS's candidates, log Ẑ the probed head's LSE
+    (no tail)."""
+    method = "topk"
+
+    def decode(self, state, h, cfg, *, k=1, use_kernel=True, generator=None,
+               tail_idx=None, active=None):
+        if state.index is None:
+            return exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel)
+        return topk_head_decode(state.index, h, n_probe=cfg.n_probe, k=k,
+                                use_kernel=use_kernel, active=active)
+
+
+@register_backend
+class FmbeBackend(EstimatorBackend):
+    method = "fmbe"
+
+    def build(self, cfg, w, *, generator=None, assign=None, feature_map=None,
+              device="cuda"):
+        """The feature map (drawn first, or injected), the index, and the
+        per-block sketch sums, whose sum is lambda_tilde: one phi pass over
+        the embedding. Without an index, the global sketch alone."""
+        state = super().build(cfg, w, device=device)
+        fm = feature_map
+        if fm is None:
+            fm = make_feature_map(generator, w.shape[-1], cfg.fmbe_features,
+                                  max_degree=cfg.fmbe_max_degree,
+                                  p=cfg.fmbe_p, device=state.w.device)
+        state.index = _build_index(cfg, state.w, generator=generator,
+                                   assign=assign, device=device)
+        if state.index is not None:
+            lam_b = build_fmbe_blocks(fm, state.index.v_blocks,
+                                      state.index.valid)
+            state.fmbe = FMBEState(fm=fm, lambda_tilde=lam_b.sum(0),
+                                   lambda_blocks=lam_b)
+        else:
+            state.fmbe = build_fmbe(fm, state.w)
+        return state
+
+    def decode(self, state, h, cfg, *, k=1, use_kernel=True, generator=None,
+               tail_idx=None, active=None):
+        if state.index is None:
+            out = exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel)
+            z = fmbe_z_batch(state.fmbe, h, use_kernel)
+            return out._replace(log_z=torch.log(torch.clamp(z, min=1e-30)))
+        return fmbe_decode(state.fmbe, state.index, h, n_probe=cfg.n_probe,
+                           k=k, use_kernel=use_kernel, active=active)

@@ -1,13 +1,18 @@
 """Batched decode paths from coarse probe to log Ẑ (counterpart of
-``repro.core.decode``; the slice carries MIMPS and the exact pass).
+``repro.core.decode``: MIMPS, MINCE, FMBE, the head-only top-k, the exact
+pass and the self-normalised head).
 
 Per decode step for a query batch h (Q, d):
 
     probe_batch ──► (Q, p) block ids
     plan_heads  ──► union table (U,) + membership mask (Q, U)
     plan_tail   ──► l shared tail samples + rejection mask (Q, l)
-    ivf_decode  ──► head_lse, tail_lse, top-k        (CUDA kernel)
+    ivf_decode  ──► head_lse, tail_lse, top-k        (CUDA kernel, MIMPS)
     combine_head_tail_lse ──► log Ẑ                   Eq. 5, n_tail = N - k_eff
+
+MINCE, FMBE and the top-k decode share the plan and score the union through
+``union_scores`` (CUDA kernel) instead; FMBE estimates the complement with
+the feature sketch (``fmbe_z``, CUDA kernel) and plans no tail.
 
 Tail samples come from a ``torch.Generator`` or are injected as ``tail_idx``
 (the tests inject the JAX package's ``randint`` draws).
@@ -18,10 +23,11 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from ..kernels.ivf_score import ivf_decode
+from ..kernels.ivf_score import ivf_decode, union_scores
 from ..kernels.topk_z import select_topk, topk_z
 from . import mips as _mips
 from .estimators import NEG_INF, combine_head_tail_lse
+from .feature_maps import FMBEState, fmbe_tail_z, fmbe_z_batch
 
 
 class DecodePlan(NamedTuple):
@@ -167,10 +173,132 @@ def mimps_decode(index: _mips.IVFIndex, h: torch.Tensor, *, n_probe: int,
     log_z = combine_head_tail_lse(
         head_lse, tail_lse, (index.n - plan.k_eff).float(),
         plan.n_accept.float())
-    top_id = index.row_id.reshape(-1)[topi.long()]
-    return DecodeOut(log_z=log_z, top_score=topv, top_id=top_id,
+    return _probe_out(index, plan, log_z, head_lse, tail_lse, topv, topi)
+
+
+def union_head_scores(index: _mips.IVFIndex, h: torch.Tensor,
+                      plan: DecodePlan):
+    """Score the deduplicated probe union for every query through
+    ``kernels.ivf_score.union_scores``, which reads the U live blocks once:
+    (scores (Q, U, br) f32, mask (Q, U, br) bool)."""
+    scores = union_scores(index.v_blocks, h, plan.head_ids, plan.head_live)
+    mask = (plan.head_member[:, :, None] &
+            index.valid[plan.head_ids.long()][None])
+    return scores, mask
+
+
+def _head_topk(index: _mips.IVFIndex, head_ids: torch.Tensor,
+               scores: torch.Tensor, mask: torch.Tensor, k: int):
+    """(head_lse, topv, top global slot ids) over masked union scores
+    (Q, U*br). Ties go to the lowest slot id, which is the lowest position
+    because the live head_ids are sorted (``lax.top_k``'s rule). An empty
+    head keeps the logsumexp-over-NEG sentinel (about -1e30)."""
+    br = index.block_rows
+    eff = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    head_lse = torch.logsumexp(eff, -1)
+    slot = (head_ids.long()[:, None] * br +
+            torch.arange(br, device=scores.device)[None, :]).reshape(-1)
+    topv, topi = select_topk(eff, slot, k)
+    return head_lse, topv, topi
+
+
+def _scored_head(index: _mips.IVFIndex, h: torch.Tensor, plan: DecodePlan,
+                 k: int, use_kernel: bool,
+                 tail_rows: Optional[torch.Tensor] = None):
+    """Head LSE and top-k of the plan's union, plus the (Q, l) f32 scores
+    of ``tail_rows`` when given: the union through ``union_head_scores``
+    and the tail by one matmul, or (plain branch) head and tail rows in one
+    gather and one matmul."""
+    q, d = h.shape
+    if use_kernel:
+        scores, mask = union_head_scores(index, h, plan)
+        scores, mask = scores.reshape(q, -1), mask.reshape(q, -1)
+        ts = None if tail_rows is None else h.float() @ tail_rows.float().T
+    else:
+        rows = tail_rows if tail_rows is not None else h.new_zeros((0, d))
+        scores, mask, ts, _ = _head_scores_plain(
+            index, h, plan.head_ids, plan.head_member, rows)
+    head_lse, topv, topi = _head_topk(index, plan.head_ids, scores, mask, k)
+    return head_lse, topv, topi, ts
+
+
+def _probe_out(index: _mips.IVFIndex, plan: DecodePlan, log_z, head_lse,
+               tail_lse, topv, topi) -> DecodeOut:
+    return DecodeOut(log_z=log_z, top_score=topv,
+                     top_id=index.row_id.reshape(-1)[topi.long()],
                      head_lse=head_lse, tail_lse=tail_lse, k_eff=plan.k_eff,
                      head_live=plan.head_live)
+
+
+def topk_head_decode(index: _mips.IVFIndex, h: torch.Tensor, *,
+                     n_probe: int, k: int = 1, use_kernel: bool = True,
+                     active: Optional[torch.Tensor] = None) -> DecodeOut:
+    """Head-only decode (Eq. 4 at the output layer), the cheapest serving
+    tier: the MIMPS probe plan and candidates with no tail, so log Ẑ is the
+    probed head's LSE, a deterministic underestimate of log Z."""
+    plan = make_plan(index, h, n_probe, 0, active=active)
+    head_lse, topv, topi, _ = _scored_head(index, h, plan, k, use_kernel)
+    no_tail = torch.full_like(head_lse, float("-inf"))
+    return _probe_out(index, plan, head_lse, head_lse, no_tail, topv, topi)
+
+
+def mince_decode(index: _mips.IVFIndex, h: torch.Tensor, *, n_probe: int,
+                 l: int, k: int = 1, iters: int = 2, solver: str = "halley",
+                 use_kernel: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 tail_idx: Optional[torch.Tensor] = None,
+                 active: Optional[torch.Tensor] = None) -> DecodeOut:
+    """Batched sublinear MINCE (Eq. 6/7): the IVF probe head against the
+    plan's shared uniform tail as the noise set. The anchored NCE
+    equation's root is the Eq. 5 anchor (the collapse identity of the JAX
+    package's ``mince.anchored_solve``), so the estimate is taken in closed
+    form there; ``iters``/``solver`` parameterise the general solvers,
+    which the serving path does not run, and are ignored.
+
+    Degenerate heads are guarded per query: k_eff == 0 falls back to the
+    uniform-noise estimate over the tail, and an empty complement (k_eff ==
+    N or no surviving sample) to the exactly scored head."""
+    del iters, solver
+    if l < 1:
+        raise ValueError("MINCE needs at least one noise sample (l >= 1)")
+    plan = make_plan(index, h, n_probe, l, generator=generator,
+                     tail_idx=tail_idx, active=active)
+    head_lse, topv, topi, ts = _scored_head(
+        index, h, plan, k, use_kernel, tail_rows=_tail_rows(index, plan))
+    tail_lse = _masked_tail_lse(ts, plan.tail_accept)
+    k_eff = plan.k_eff.float()
+    n_acc = plan.n_accept.float()
+    n_tail = torch.clamp(index.n - k_eff, min=0.0)
+    theta = combine_head_tail_lse(head_lse, tail_lse, n_tail, n_acc)
+    uniform = combine_head_tail_lse(
+        torch.full_like(head_lse, NEG_INF), tail_lse,
+        torch.full_like(n_acc, float(index.n)), n_acc)
+    log_z = torch.where(k_eff == 0, uniform, theta)
+    log_z = torch.where((n_acc == 0) | (n_tail == 0), head_lse, log_z)
+    return _probe_out(index, plan, log_z, head_lse, tail_lse, topv, topi)
+
+
+def fmbe_decode(state: FMBEState, index: _mips.IVFIndex, h: torch.Tensor,
+                *, n_probe: int, k: int = 1, use_kernel: bool = True,
+                active: Optional[torch.Tensor] = None) -> DecodeOut:
+    """Batched FMBE decode: the probed head scored exactly, the feature
+    sketch estimating only the complement mass (``fmbe_tail_z``):
+
+        log Ẑ = logaddexp(head_lse, log max(phi(h) . lambda_rest, 1e-30))
+
+    With no per-block table the global sketch estimates all of Z. The
+    estimate is deterministic given the feature map; no tail is planned."""
+    plan = make_plan(index, h, n_probe, 0, active=active)
+    head_lse, topv, topi, _ = _scored_head(index, h, plan, k, use_kernel)
+    if state.lambda_blocks is not None:
+        z_tail = fmbe_tail_z(state, h, plan.block_ids, use_kernel)
+        log_z = torch.logaddexp(head_lse,
+                                torch.log(torch.clamp(z_tail, min=1e-30)))
+    else:
+        z = fmbe_z_batch(state, h, use_kernel)
+        log_z = torch.log(torch.clamp(z, min=1e-30))
+    no_tail = torch.full_like(log_z, float("-inf"))
+    return _probe_out(index, plan, log_z, head_lse, no_tail, topv, topi)
 
 
 def exact_topk_decode(w: torch.Tensor, h: torch.Tensor, *, k: int = 1,
@@ -191,3 +319,11 @@ def exact_topk_decode(w: torch.Tensor, h: torch.Tensor, *, k: int = 1,
                      tail_lse=torch.full((q,), float("-inf"), device=h.device),
                      k_eff=torch.full((q,), v, dtype=torch.int32,
                                       device=h.device))
+
+
+def selfnorm_decode(w: torch.Tensor, h: torch.Tensor, *, k: int = 1,
+                    use_kernel: bool = True) -> DecodeOut:
+    """Self-normalised head: the exact pass's candidates with Z taken as 1
+    (log Ẑ == 0; the model was trained with the selfnorm penalty)."""
+    out = exact_topk_decode(w, h, k=k, use_kernel=use_kernel)
+    return out._replace(log_z=torch.zeros_like(out.log_z))

@@ -1,8 +1,10 @@
-"""Estimator primitives (counterpart of ``repro.core.estimators``; the
-slice carries the exact log Z and the Eq. 5 head/tail combine)."""
+"""Estimator primitives (counterpart of ``repro.core.estimators``; the port
+carries the exact log Z, the Eq. 5 head/tail combine and the FMBE log Ẑ)."""
 from __future__ import annotations
 
 import torch
+
+from .feature_maps import FMBEState, fmbe_estimate_z
 
 NEG_INF = -1e30
 
@@ -29,3 +31,8 @@ def combine_head_tail_lse(log_head: torch.Tensor, log_tail: torch.Tensor,
     tail = torch.clamp(log_tail, min=NEG_INF) + log_scale
     log_tail = torch.where(ok, tail, torch.full_like(tail, NEG_INF))
     return torch.logaddexp(log_head, log_tail)
+
+
+def fmbe_log_z(state: FMBEState, q: torch.Tensor) -> torch.Tensor:
+    """FMBE's Z estimate is signed; the log of its value clipped at 1e-30."""
+    return torch.log(torch.clamp(fmbe_estimate_z(state, q), min=1e-30))

@@ -1,6 +1,6 @@
 """Carry state built by the JAX package into the port, through numpy.
 
-Both functions take numpy arrays only; nothing here imports JAX. The
+Every function takes numpy arrays only; nothing here imports JAX. The
 parameter tree keeps the JAX layout (``x @ W``, ``wq (d, nh*hd)``, per-layer
 leaves stacked on a leading layer axis), which is also the port's layout.
 """
@@ -11,6 +11,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from .core.feature_maps import FeatureMap
 from .core.mips import IVFIndex
 
 
@@ -52,3 +53,13 @@ def ivf_from_numpy(v_blocks, valid, row_id, slot_of_row, block_centroids,
         n=int(n), block_rows=int(block_rows),
         assign=None if assign is None
         else to_tensor(assign, device).to(torch.int32))
+
+
+def feature_map_from_numpy(omega, degree, coef, p: float,
+                           device="cpu") -> FeatureMap:
+    """A JAX ``FeatureMap``'s fields (numpy arrays) as the port's feature
+    map: torch cannot reproduce the JAX package's Rademacher and
+    categorical draws, so parity tests inject them."""
+    return FeatureMap(omega=to_tensor(omega, device).float(),
+                      degree=to_tensor(degree, device).to(torch.int32),
+                      coef=to_tensor(coef, device).float(), p=float(p))

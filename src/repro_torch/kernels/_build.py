@@ -17,7 +17,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("topk_z", "ivf_decode")
+SOURCES = ("topk_z", "ivf_decode", "union_scores", "fmbe_phi", "fmbe_z")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -32,6 +32,13 @@ SIGNATURES = {
     # tail_accept, Q, U, br, d, L, k, grid_x, part_hm, part_hs, part_v,
     # part_i, part_tm, part_ts, head_lse, tail_lse, topv, topi, stream
     "ivf_decode": [_P] * 8 + [_I] * 7 + [_P] * 11,
+    # w_blocks, h, head_ids, head_live, Q, U, br, d, grid_x, out, stream
+    "union_scores": [_P] * 4 + [_I] * 5 + [_P] * 2,
+    # omega, degree, coef, x, Q, P, M, d, out, stream
+    "fmbe_phi": [_P] * 4 + [_I] * 4 + [_P] * 2,
+    # omega, degree, coef, lam, lam_stride, x, Q, P, M, d, n_part, part, z,
+    # stream
+    "fmbe_z": [_P] * 4 + [_I, _P] + [_I] * 5 + [_P] * 3,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

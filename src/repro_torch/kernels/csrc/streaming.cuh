@@ -1,4 +1,5 @@
-// Shared pieces of the streaming-score kernels (topk_z.cu, ivf_decode.cu).
+// Shared pieces of the streaming-score kernels (topk_z.cu, ivf_decode.cu;
+// union_scores.cu and fmbe_tile.cuh use the query tile and the row dots).
 //
 // Both kernels stream bf16 rows of an output embedding past a small tile of
 // decode queries held in shared memory, and fold each row's scores into a

@@ -1,9 +1,10 @@
-"""Fused batched MIMPS decode over a deduplicated probe plan (counterpart of
-``repro.kernels.ivf_score.ivf_decode``).
+"""Scoring of a deduplicated probe plan (counterpart of
+``repro.kernels.ivf_score``'s ``union_scores`` and ``ivf_decode``).
 
-``ivf_decode`` launches the CUDA kernel in ``csrc/ivf_decode.cu`` on CUDA
-tensors and runs ``ivf_decode_plain`` on CPU tensors. The contract is the
-TPU kernel's: union slots at or past ``head_live`` are skipped, cluster-pad
+Each wrapper launches its CUDA kernel (``csrc/union_scores.cu``,
+``csrc/ivf_decode.cu``) on CUDA tensors and runs its plain version on CPU
+tensors. The contract is the TPU kernels': union slots at or past
+``head_live`` are skipped (``union_scores`` writes zeros there), cluster-pad
 rows carry ``row_logw = NEG``, a score counts only where it is above NEG/2,
 an empty head or tail gives a genuine ``-inf`` LSE, and the top-k is taken
 over global slot ids ``block * br + row`` with the lowest id winning ties
@@ -27,6 +28,70 @@ def _masked_lse(eff: torch.Tensor) -> torch.Tensor:
     return m[:, 0] + torch.log(s)
 
 
+def _check(cond: bool, msg: str, name: str = "ivf_decode") -> None:
+    if not cond:
+        raise ValueError(f"{name}: {msg}")
+
+
+def union_scores_plain(w_blocks, h, head_ids, head_live):
+    """Plain PyTorch version of ``union_scores``: f32 scores of every union
+    slot, zeros at slots at or past ``head_live``."""
+    scores = torch.einsum("qd,ubd->qub", h.float(),
+                          w_blocks[head_ids.long()].float())
+    live = torch.arange(head_ids.shape[0], device=h.device) < head_live
+    return torch.where(live[None, :, None], scores,
+                       torch.zeros_like(scores))
+
+
+def union_scores(w_blocks, h, head_ids, head_live):
+    """Scores of a deduplicated block union for a whole query batch.
+
+      w_blocks  (nb, br, d)  block-IVF rows
+      h         (Q, d)       query batch
+      head_ids  (U,) int32   sorted union of probed blocks (pad slots
+                             repeat the last id)
+      head_live () int32     number of real union slots, left on the
+                             device (the kernel reads it; no host sync)
+
+    Returns scores (Q, U, br) f32; slots at or past ``head_live`` are 0
+    (callers mask them through the plan's membership)."""
+    args = (w_blocks, h, head_ids, head_live)
+    if all(t.device.type == "cpu" for t in args):
+        return union_scores_plain(*args)
+    dev = h.device
+    _check(all(t.device == dev for t in args) and dev.type == "cuda",
+           "every input must be on one GPU", "union_scores")
+    _check(w_blocks.dtype == torch.bfloat16 and h.dtype == torch.bfloat16,
+           f"kernel takes bf16 rows and queries, got {w_blocks.dtype}, "
+           f"{h.dtype}", "union_scores")
+    _check(head_ids.dtype == torch.int32 and head_live.dtype == torch.int32,
+           "head_ids and head_live must be int32", "union_scores")
+    nb, br, d = w_blocks.shape
+    q = h.shape[0]
+    u = head_ids.shape[0]
+    _check(h.shape == (q, d) and head_ids.shape == (u,)
+           and head_live.numel() == 1, "shapes", "union_scores")
+    _check(all(t.is_contiguous() for t in args), "inputs not contiguous",
+           "union_scores")
+    _check(d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (w_blocks, h)),
+           "rows must be 16-byte aligned (d % 8 == 0)", "union_scores")
+    _check(q >= 1 and u >= 1, "empty input", "union_scores")
+    lib = _build.load("union_scores")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid_x = max(1, min(2 * sms, u * -(-br // 32)))    # 32-row groups
+    out = torch.empty((q, u, br), dtype=torch.float32, device=dev)
+    p = ctypes.c_void_p
+    err = lib.union_scores_launch(
+        *[p(t.data_ptr()) for t in args], q, u, br, d, grid_x,
+        p(out.data_ptr()), p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check("union_scores", err)
+    union_scores.launches += 1
+    return out
+
+
+union_scores.launches = 0
+
+
 def ivf_decode_plain(w_blocks, h, head_ids, head_live, head_member, row_logw,
                      tail_rows, tail_accept, *, k: int = 1):
     """Plain PyTorch version of ``ivf_decode`` (same arguments and outputs),
@@ -48,11 +113,6 @@ def ivf_decode_plain(w_blocks, h, head_ids, head_live, head_member, row_logw,
     teff = torch.where(tail_accept, ts, torch.full_like(ts, NEG))
     tail_lse = _masked_lse(teff)
     return head_lse, tail_lse, topv, topi
-
-
-def _check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"ivf_decode: {msg}")
 
 
 def ivf_decode(w_blocks, h, head_ids, head_live, head_member, row_logw,

@@ -1,5 +1,5 @@
 """Serving engine: cached decode with partition-estimated probabilities
-(counterpart of ``repro.serve.engine``; the slice carries ``Engine``,
+(counterpart of ``repro.serve.engine``; the port carries ``Engine``,
 ``decode_step``, ``next_token_distribution`` and ``generate``).
 
 Every method dispatches through the estimator-backend registry: one batched
@@ -17,12 +17,13 @@ import torch
 from .. import resolve_device
 from ..core.backends import BACKENDS, get_backend
 from ..core.decode import DecodeOut
+from ..core.feature_maps import FeatureMap
 from ..models import Model
 
 # Serving methods of the JAX package that the port does not carry yet; they
 # raise rather than quietly serving through the exact fallback that training-
 # only methods (nmimps, uniform) take.
-NOT_PORTED = ("selfnorm", "topk", "mince", "fmbe", "lsh")
+NOT_PORTED = ("lsh",)
 
 
 @dataclasses.dataclass
@@ -33,16 +34,18 @@ class ServeState:
 
 
 class Engine:
-    """Batched serving for one model. The retrieval state (IVF index) is
-    built once from the output embedding by the method's backend.
+    """Batched serving for one model. The retrieval state (IVF index, FMBE
+    sketch) is built once from the output embedding by the method's backend.
 
     ``seed`` seeds the engine's generator on ``device``, which draws the
-    k-means initialisation, the tail samples and the Gumbel noise;
-    ``index_assign`` injects the index's k-means assignment instead."""
+    FMBE feature map, the k-means initialisation, the tail samples and the
+    Gumbel noise; ``index_assign`` injects the index's k-means assignment
+    and ``feature_map`` the feature map instead."""
 
     def __init__(self, model: Model, params, max_len: int, *, seed: int = 0,
                  use_kernel: bool = True, device="cuda",
-                 index_assign: Optional[torch.Tensor] = None):
+                 index_assign: Optional[torch.Tensor] = None,
+                 feature_map: Optional[FeatureMap] = None):
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model.cfg
@@ -59,7 +62,7 @@ class Engine:
         self.backend = get_backend(method)
         self.state = self.backend.build(
             pc, model.head_matrix(params), generator=self.generator,
-            assign=index_assign, device=self.device)
+            assign=index_assign, feature_map=feature_map, device=self.device)
         self.index = self.state.index
 
     def decode_step(self, state: ServeState, temperature: float = 0.0,

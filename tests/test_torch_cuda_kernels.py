@@ -1,8 +1,12 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at the
 qwen1.5-4b widths and at edge shapes the CPU tests cannot reach: query
 counts that are not a multiple of the 8-query tile, k above 8 (the 32-entry
-top-k lists), a single live union slot, a query with no member slot and one
-with no accepted tail sample. bf16 inputs; LSEs and scores to 1e-3.
+top-k lists), a single live union slot and a full union, a query with no
+member slot and one with no accepted tail sample, feature counts that are
+not a multiple of the feature tile, features of degree 0 and of degree 8.
+bf16 inputs; LSEs and scores to 1e-3. FMBE sums are signed and cancel, so
+z is held to 1e-4 of sum_j |phi_j lambda_j| and phi to 1e-4 of its own
+scale |coef_j| * max(|x|_2, 1) ** degree_j (plus |phi|).
 
 These tests need a GPU and skip without one. On the GPU machine, which has
 no JAX, run them without the repository's conftest:
@@ -12,7 +16,10 @@ no JAX, run them without the repository's conftest:
 import pytest
 import torch
 
-from repro_torch.kernels.ivf_score import ivf_decode, ivf_decode_plain
+from repro_torch.kernels.fmbe import (fmbe_phi, fmbe_phi_plain, fmbe_z,
+                                     fmbe_z_plain)
+from repro_torch.kernels.ivf_score import (ivf_decode, ivf_decode_plain,
+                                          union_scores, union_scores_plain)
 from repro_torch.kernels.topk_z import topk_z, topk_z_plain
 
 pytestmark = pytest.mark.cuda
@@ -24,6 +31,7 @@ D = 2560
 def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False     # plain versions in f32
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -91,6 +99,87 @@ def test_ivf_decode_matches_plain(gen, q, k, live):
     assert torch.equal(ti, p_i)
 
 
+@pytest.mark.parametrize("q,live,cap", [(8, 23, 128), (5, 1, 80),
+                                        (13, 128, 128), (3, 2, 48)])
+def test_union_scores_matches_plain(gen, q, live, cap):
+    """Live slots equal the plain scores to 1e-3; pad slots are exactly 0
+    although the output starts as uninitialised memory."""
+    nb, br = 300, 512
+    wb = (torch.randn(nb, br, D, generator=gen, device="cuda") * 0.02
+          ).to(torch.bfloat16)
+    h = torch.randn(q, D, generator=gen, device="cuda").to(torch.bfloat16)
+    ids = torch.sort(torch.randperm(nb, generator=gen, device="cuda")[:live]
+                     ).values
+    head_ids = torch.cat([ids, ids[-1:].expand(cap - live)]).to(torch.int32)
+    head_live = torch.tensor(live, dtype=torch.int32, device="cuda")
+    torch.full((q, cap, br), float("nan"), device="cuda")   # dirty the pool
+    before = union_scores.launches
+    got = union_scores(wb, h, head_ids.contiguous(), head_live)
+    torch.cuda.synchronize()
+    assert union_scores.launches == before + 1
+    want = union_scores_plain(wb, h, head_ids, head_live)
+    assert got.shape == (q, cap, br)
+    assert (got[:, :live] - want[:, :live]).abs().max().item() <= TOL
+    assert (got[:, live:] == 0).all()
+
+
+def _feature_map(gen, p, m=8, d=D):
+    """Degrees drawn as the FMBE build draws them (truncated geometric),
+    with feature 0 of degree 0 and feature 1 of degree m forced."""
+    probs = torch.tensor([2.0 ** -(i + 1) for i in range(m + 1)],
+                         device="cuda")
+    degree = torch.multinomial(probs / probs.sum(), p, replacement=True,
+                               generator=gen).to(torch.int32)
+    degree[0], degree[1] = 0, m
+    omega = (2 * torch.randint(0, 2, (p, m, d), generator=gen,
+                               device="cuda") - 1).float()
+    coef = torch.rand(p, generator=gen, device="cuda") * 0.01
+    return omega, degree, coef
+
+
+def _phi_scale(omega, degree, coef, x):
+    norm = x.float().norm(dim=-1).clamp(min=1.0)
+    return coef.abs()[None, :] * norm[:, None] ** degree[None, :].float()
+
+
+@pytest.mark.parametrize("q,p", [(8, 4096), (5, 1000), (13, 70),
+                                 (8192, 4096)])
+def test_fmbe_phi_matches_plain(gen, q, p):
+    omega, degree, coef = _feature_map(gen, p)
+    x = (torch.randn(q, D, generator=gen, device="cuda") * 0.02
+         ).to(torch.bfloat16)
+    before = fmbe_phi.launches
+    got = fmbe_phi(omega, degree, coef, x)
+    torch.cuda.synchronize()
+    assert fmbe_phi.launches == before + 1
+    want = fmbe_phi_plain(omega, degree, coef, x)
+    assert got.shape == (q, p)
+    assert torch.equal(got[:, 0], coef[0].expand(q))    # degree 0: coef
+    tol = 1e-4 * (want.abs() + _phi_scale(omega, degree, coef, x))
+    assert ((got - want).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("q,p", [(8, 4096), (5, 1000), (13, 70)])
+def test_fmbe_z_matches_plain(gen, q, p, shared):
+    """x at the final norm's scale (|x|_2 about 50): products of up to 8
+    projections reach about 1e13 before coef."""
+    omega, degree, coef = _feature_map(gen, p)
+    x = torch.randn(q, D, generator=gen, device="cuda").to(torch.bfloat16)
+    lam = torch.randn((p,) if shared else (q, p), generator=gen,
+                      device="cuda")
+    before = fmbe_z.launches
+    got = fmbe_z(omega, degree, coef, lam, x)
+    again = fmbe_z(omega, degree, coef, lam, x)
+    torch.cuda.synchronize()
+    assert fmbe_z.launches == before + 2
+    assert torch.equal(got, again)                      # bit-reproducible
+    want = fmbe_z_plain(omega, degree, coef, lam, x)
+    scale = (fmbe_phi_plain(omega, degree, coef, x) * lam).abs().sum(-1)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= 1e-4 * scale + 1e-6).all()
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(gen):
     h = torch.randn(4, D, generator=gen, device="cuda")
     w = torch.randn(64, D, generator=gen, device="cuda")
@@ -98,3 +187,15 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(gen):
         topk_z(h, w, 4)                                 # float32
     with pytest.raises(ValueError, match="k="):
         topk_z(h.bfloat16(), w.bfloat16(), 33)
+    omega = torch.ones(16, 9, D, device="cuda")
+    degree = torch.zeros(16, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="max_degree"):
+        fmbe_phi(omega, degree, torch.ones(16, device="cuda"), h.bfloat16())
+    with pytest.raises(ValueError, match="bf16"):
+        fmbe_z(omega[:, :8].contiguous(), degree,
+               torch.ones(16, device="cuda"), torch.ones(16, device="cuda"),
+               h)                                       # float32 x
+    with pytest.raises(ValueError, match="int32"):
+        union_scores(w.bfloat16().reshape(1, 64, D), h.bfloat16(),
+                     torch.zeros(1, dtype=torch.int64, device="cuda"),
+                     torch.ones((), dtype=torch.int32, device="cuda"))

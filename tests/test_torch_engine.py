@@ -1,8 +1,9 @@
 """The port's serving engine against the JAX engine (f32, CPU): the same
 params (``interop.params_from_numpy``), the same IVF index (the JAX k-means
-assignment injected) and, for ``mimps``, the same tail samples (the JAX key
-schedule replayed by ``tail_source``). Greedy tokens are equal; log_z and
-log_prob agree to 1e-4."""
+assignment injected), for ``fmbe`` the same feature map
+(``interop.feature_map_from_numpy``) and, for ``mimps`` and ``mince``, the
+same tail samples (the JAX key schedule replayed by ``tail_source``).
+Greedy tokens are equal; log_z and log_prob agree to 1e-4."""
 import dataclasses
 
 import jax
@@ -16,20 +17,23 @@ from repro.models import Model as JModel
 from repro.serve import Engine as JEngine
 from repro.serve import generate as j_generate
 from repro_torch.configs import reduced_config
-from repro_torch.interop import params_from_numpy
+from repro_torch.interop import feature_map_from_numpy, params_from_numpy
 from repro_torch.kernels.topk_z import NEG
 from repro_torch.models import Model
 from repro_torch.serve import Engine, generate
 
 ATOL = 1e-4
 N_TOKENS = 5
+METHODS = ["exact", "mimps", "selfnorm", "topk", "mince", "fmbe"]
+INDEXED = ("mimps", "topk", "mince", "fmbe")
 
 
 def _cfg(reduced, method):
     cfg = reduced("qwen1.5-4b")
     return dataclasses.replace(
         cfg, vocab=2048, dtype="float32", partition=dataclasses.replace(
-            cfg.partition, method=method, block_rows=128, n_probe=4, l=128))
+            cfg.partition, method=method, block_rows=128, n_probe=4, l=128,
+            fmbe_features=128))
 
 
 def _tail_source(key, l, n):
@@ -41,7 +45,7 @@ def _tail_source(key, l, n):
     return source
 
 
-@pytest.fixture(scope="module", params=["exact", "mimps"])
+@pytest.fixture(scope="module", params=METHODS)
 def served(request):
     method = request.param
     jcfg, tcfg = _cfg(j_reduced_config, method), _cfg(reduced_config, method)
@@ -56,17 +60,25 @@ def served(request):
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg)
     assign = None if jeng.index is None else \
         torch.from_numpy(np.array(jeng.index.assign))
+    fm = None if jeng.state.fmbe is None else feature_map_from_numpy(
+        *(np.asarray(a) for a in jeng.state.fmbe.fm[:3]),
+        p=jeng.state.fmbe.fm.p)
     source = _tail_source(key, jcfg.partition.l, jcfg.vocab)
     return dict(method=method, jt=np.asarray(jt), jaux=jaux, tm=tm, tp=tp,
-                tcfg=tcfg, assign=assign, prompt=prompt, source=source)
+                tcfg=tcfg, assign=assign, fm=fm, prompt=prompt,
+                source=source)
+
+
+def _engine(s, **kw):
+    return Engine(s["tm"], s["tp"], device="cpu", index_assign=s["assign"],
+                  feature_map=s["fm"], **kw)
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])
 def test_greedy_generate_matches_jax(served, use_kernel):
     s = served
-    eng = Engine(s["tm"], s["tp"], max_len=32, device="cpu",
-                 use_kernel=use_kernel, index_assign=s["assign"])
-    assert (eng.index is not None) == (s["method"] == "mimps")
+    eng = _engine(s, max_len=32, use_kernel=use_kernel)
+    assert (eng.index is not None) == (s["method"] in INDEXED)
     toks, aux = generate(eng, s["prompt"], N_TOKENS,
                          tail_source=s["source"], return_aux=True)
     np.testing.assert_array_equal(toks.numpy(), s["jt"])
@@ -79,8 +91,7 @@ def test_greedy_generate_matches_jax(served, use_kernel):
 def test_temperature_draws_candidates_deterministically(served):
     s = served
     def engine(seed):
-        return Engine(s["tm"], s["tp"], max_len=32, device="cpu", seed=seed,
-                      index_assign=s["assign"])
+        return _engine(s, max_len=32, seed=seed)
     eng = engine(0)
     pc = s["tcfg"].partition
     h = torch.from_numpy(np.random.default_rng(2).standard_normal(
@@ -101,8 +112,7 @@ def test_temperature_draws_candidates_deterministically(served):
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
-@pytest.mark.parametrize("method", ["selfnorm", "topk", "mince", "fmbe",
-                                    "lsh"])
+@pytest.mark.parametrize("method", ["lsh"])
 def test_unported_serving_method_raises(served, method):
     """A serving tier of the JAX package that the port lacks is refused, not
     served through the exact fallback."""
@@ -113,8 +123,7 @@ def test_unported_serving_method_raises(served, method):
 
 def test_generate_guards(served):
     s = served
-    eng = Engine(s["tm"], s["tp"], max_len=8, device="cpu",
-                 index_assign=s["assign"])
+    eng = _engine(s, max_len=8)
     with pytest.raises(ValueError, match="non-empty prompt"):
         generate(eng, np.zeros((2, 0), np.int64), 2)
     with pytest.raises(ValueError, match="n_tokens"):

@@ -10,9 +10,11 @@ import pytest
 import torch
 
 from repro.kernels.ivf_score import ivf_decode as jax_ivf_decode
+from repro.kernels.ivf_score import union_scores as jax_union_scores
 from repro.kernels.ref import topk_z_ref
 from repro.kernels.topk_z import topk_z as jax_topk_z
-from repro_torch.kernels.ivf_score import ivf_decode, ivf_decode_plain
+from repro_torch.kernels.ivf_score import (ivf_decode, ivf_decode_plain,
+                                          union_scores, union_scores_plain)
 from repro_torch.kernels.topk_z import NEG, topk_z, topk_z_plain
 
 ATOL = 1e-4
@@ -181,3 +183,34 @@ class TestIvfDecodePlain:
         for a, b in zip(ivf_decode(*args, k=3), ivf_decode_plain(*args, k=3)):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
         assert ivf_decode.launches == before
+
+
+class TestUnionScoresPlain:
+    @pytest.mark.parametrize("q,live", [(5, 3), (8, 1), (3, 5)])
+    def test_matches_pallas(self, q, live):
+        """Q below and at the 8-row query tile, one live slot and a full
+        union: live slots equal the Pallas scores, pad slots are 0 in
+        both."""
+        rng = np.random.default_rng(q + live)
+        nb, br, d, cap = 7, 8, 32, 5
+        w_blocks = rng.standard_normal((nb, br, d)).astype(np.float32)
+        h = rng.standard_normal((q, d)).astype(np.float32)
+        ids = np.sort(rng.choice(nb, live, replace=False)).astype(np.int32)
+        head_ids = np.concatenate([ids, np.full(cap - live, ids[-1],
+                                                np.int32)])
+        args = (w_blocks, h, head_ids, np.int32(live))
+        got = union_scores_plain(*[_t(a) for a in args])
+        want = _np(jax_union_scores(*[jnp.asarray(a) for a in args]))
+        assert got.shape == (q, cap, br)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+        assert (got.numpy()[:, live:] == 0).all()
+        np.testing.assert_allclose(
+            got.numpy()[:, :live],
+            np.einsum("qd,ubd->qub", h, w_blocks[ids]), atol=ATOL)
+
+    def test_wrapper_takes_plain_version_on_cpu(self):
+        args = [_t(a) for a in _ivf_inputs(3)[:4]]
+        before = union_scores.launches
+        torch.testing.assert_close(union_scores(*args),
+                                   union_scores_plain(*args), rtol=0, atol=0)
+        assert union_scores.launches == before
