@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one GPU
 
@@ -25,7 +26,24 @@
    ``mimps``'s top ids, ``fmbe`` finite and at least its head LSE.
 5. Serves the model through ``generate`` with each estimator: 8 requests,
    prompt 16, 16 new tokens, greedy. Each run starts with every kernel's
-   launch count at 0 and must launch the kernels of its path.
+   launch count at 0 and must launch the kernels of its path. The serving
+   engines and parameters are then freed.
+6. Builds the training state of the same model (``init_train_state``:
+   bf16 parameters, f32 AdamW moments) and holds the fused CE kernels
+   against their plain versions on the forward's hidden states of one
+   synthetic batch (B 4 x S 256, T = 1024), w = lm_head, g_nll = 1/T and
+   the selfnorm cotangent g_lse = 2 alpha lse / T: nll and lse to 1e-3, dh
+   and dW (f32, before the cast) to 2**-7 of the sum of their terms'
+   magnitudes per element and 2**-10 on average (both versions round the
+   coefficient to bf16), two calls bit-equal; times both beside their
+   bounds, plain versions and library calls.
+7. Trains: 4 ``fused_ce`` steps on that batch, repeated (the loss must be
+   finite and fall), then 2 ``selfnorm`` steps, each starting with the
+   launch counts at 0 and launching each fused CE kernel exactly once;
+   prints ms/step, tokens/s and peak memory, then one more step split
+   into forward, loss, backward and optimizer, and one under
+   ``torch.profiler`` (device busy time, idle share, top kernels and host
+   ops).
 
 Prints the kernel record as one JSON line before the last, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
@@ -34,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -47,6 +66,12 @@ TOL = 1e-3
 FMBE_REL = 1e-4                # signed FMBE sums: of sum |terms|, + 1e-6
 N_REQ, PROMPT, NEW = 8, 16, 16
 PHI_CHUNK_BLOCKS = 16          # blocks per fmbe_phi launch in the build
+# fused CE backward: both versions round coef to bf16, so one coefficient
+# may round one bf16 step (<= 2**-7 relative) apart; + 1e-5 for f32 sums
+GRAD_REL = 2 ** -7 + 1e-5      # of sum |terms|, per element
+GRAD_MEAN = 2 ** -10           # of sum |terms|, on average
+TRAIN_B, TRAIN_S = 4, 256      # T = 1024 tokens a step
+FUSED_STEPS, SELFNORM_STEPS = 4, 2
 
 
 class SmokeError(RuntimeError):
@@ -185,28 +210,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.configs import get_config
-    from repro_torch.core.decode import _tail_rows, make_plan
     from repro_torch.kernels import _build
-    from repro_torch.kernels.fmbe import (fmbe_phi, fmbe_phi_plain, fmbe_z,
-                                         fmbe_z_plain)
-    from repro_torch.kernels.ivf_score import (ivf_decode, ivf_decode_plain,
-                                              union_scores,
-                                              union_scores_plain)
-    from repro_torch.kernels.topk_z import topk_z, topk_z_plain
-    from repro_torch.models import Model
-    from repro_torch.serve import Engine, generate
+    from repro_torch.kernels.fmbe import fmbe_phi, fmbe_z
+    from repro_torch.kernels.fused_ce import fused_ce_bwd, fused_ce_fwd
+    from repro_torch.kernels.ivf_score import ivf_decode, union_scores
+    from repro_torch.kernels.topk_z import topk_z
 
     kernels = {"topk_z": topk_z, "ivf_decode": ivf_decode,
                "union_scores": union_scores, "fmbe_phi": fmbe_phi,
-               "fmbe_z": fmbe_z}
-
-    def reset_counts():
-        for fn in kernels.values():
-            fn.launches = 0
-
-    def read_counts():
-        return {name: fn.launches for name, fn in kernels.items()}
+               "fmbe_z": fmbe_z, "fused_ce_fwd": fused_ce_fwd,
+               "fused_ce_bwd": fused_ce_bwd}
 
     t_start = time.time()
     card = card_line()
@@ -222,6 +235,42 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+
+    records = serve(torch, card, kernels)
+    torch.cuda.empty_cache()                    # the serving state is gone
+    records += train(torch, card, kernels)
+    line = {"kernels": records}
+    log(f"total {time.time() - t_start:.1f} s")
+    print(json.dumps(line))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def serve(torch, card, kernels):
+    """Phases 2-5: the serving engines, the five serving kernels against
+    their plain versions, the estimators, serving and the step split.
+    Returns the five kernel records; every serving tensor is freed on
+    return."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.decode import _tail_rows, make_plan
+    from repro_torch.kernels.fmbe import (fmbe_phi, fmbe_phi_plain, fmbe_z,
+                                         fmbe_z_plain)
+    from repro_torch.kernels.ivf_score import (ivf_decode, ivf_decode_plain,
+                                              union_scores,
+                                              union_scores_plain)
+    from repro_torch.kernels.topk_z import topk_z, topk_z_plain
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, generate
+
+    def reset_counts():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in kernels.items()}
 
     # -- 2. model and engines --------------------------------------------------
     dev = torch.device("cuda")
@@ -537,14 +586,251 @@ def main() -> int:
     for name, fn in parts:
         log(f"step part {name}: wall {wall_ms(torch, fn):.3f} ms, "
             f"device {time_ms(torch, fn):.3f} ms [{card}]")
-    line = {"kernels": [tz, ivf, uni, fph, fz]}
-    log(f"total {time.time() - t_start:.1f} s")
-    print(json.dumps(line))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return [tz, ivf, uni, fph, fz]
+
+
+def compare_terms(name, got, want, terms):
+    """Gradients through a coefficient rounded to bf16 on both sides: per
+    element |got - want| <= GRAD_REL * sum |terms|, and GRAD_MEAN on
+    average. Returns (max abs err, max ratio, mean ratio)."""
+    ratio = (got - want).abs() / terms.clamp(min=1e-30)
+    worst, mean = ratio.max().item(), ratio.mean().item()
+    check(worst <= GRAD_REL and mean <= GRAD_MEAN,
+          f"{name}: error up to {worst:.3e} (mean {mean:.3e}) of sum "
+          f"|terms|, allowed {GRAD_REL:.3e} (mean {GRAD_MEAN:.3e})")
+    return (got - want).abs().max().item(), worst, mean
+
+
+def profile_step(torch, fn, n_top=10):
+    """Runs ``fn`` once under torch.profiler. Returns (wall ms, device busy
+    ms, the n_top device kernels and the n_top host ops by self time, as
+    (name, calls, ms))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev, host = [], []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            dev.append((e.key, e.count, e.self_device_time_total / 1e3))
+        else:
+            host.append((e.key, e.count, e.self_cpu_time_total / 1e3))
+    dev.sort(key=lambda r: -r[2])
+    host.sort(key=lambda r: -r[2])
+    return wall, sum(r[2] for r in dev), dev[:n_top], host[:n_top]
+
+
+def train(torch, card, kernels):
+    """Phases 6-7: the fused CE kernels against their plain versions at the
+    training shapes, then train steps of full-width qwen1.5-4b. Returns the
+    two kernel records."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import DataIterator, SyntheticCorpus
+    from repro_torch.kernels.fused_ce import (ce_coef, fused_ce_bwd,
+                                             fused_ce_bwd_plain, fused_ce_fwd,
+                                             fused_ce_fwd_plain)
+    from repro_torch.models import Model
+    from repro_torch.train import (adamw_update, harvest_train_metrics,
+                                   init_train_metric_state, init_train_state,
+                                   make_train_step, observe_train_step,
+                                   streaming_ce)
+    from repro_torch.train.optimizer import tree_leaves
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen1.5-4b")
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state = init_train_state(model, TrainConfig(), seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"train state: {cfg.name} layers {cfg.n_layers} d {cfg.d_model} "
+        f"vocab {cfg.vocab} remat {cfg.remat}, {cfg.dtype} parameters and "
+        f"f32 moments, {torch.cuda.memory_allocated() / 1e9:.2f} GB, "
+        f"{time.time() - t0:.1f} s")
+    it = DataIterator(SyntheticCorpus(cfg.vocab, seed=0), TRAIN_B, TRAIN_S)
+    tokens, labels = (torch.from_numpy(a).to(dev) for a in next(it))
+    batch = {"tokens": tokens, "labels": labels}
+
+    # -- 6. the fused CE kernels at the training shapes ----------------------
+    params = state.params
+    with torch.no_grad():
+        hidden, _ = model.forward(params, tokens)
+    h = hidden.reshape(-1, cfg.d_model)
+    w = model.head_matrix(params).detach()
+    lab = labels.reshape(-1)
+    t, d, v = h.shape[0], h.shape[1], w.shape[0]
+    nll, lse = fused_ce_fwd(h, w, lab)
+    nll2, lse2 = fused_ce_fwd(h, w, lab)
+    torch.cuda.synchronize()
+    check(torch.equal(nll, nll2) and torch.equal(lse, lse2),
+          "fused_ce_fwd is not bit-reproducible")
+    p_nll, p_lse = fused_ce_fwd_plain(h, w, lab)
+    f_err = max((nll - p_nll).abs().max().item(),
+                (lse - p_lse).abs().max().item())
+    check(f_err <= TOL, f"fused_ce_fwd: nll/lse differ by {f_err}")
+    alpha = TrainConfig().selfnorm_alpha
+    g_nll = torch.full((t,), 1.0 / t, device=dev)
+    g_lse = 2 * alpha * lse / t          # d(alpha mean lse^2)/d lse
+    bargs = (h, w, lab, lse, g_nll, g_lse)
+    dh, dw = fused_ce_bwd(*bargs, cast=False)
+    dh2, dw2 = fused_ce_bwd(*bargs, cast=False)
+    torch.cuda.synchronize()
+    check(torch.equal(dh, dh2) and torch.equal(dw, dw2),
+          "fused_ce_bwd is not bit-reproducible")
+    del dh2, dw2
+    p_dh, p_dw = fused_ce_bwd_plain(*bargs, cast=False)
+    coef = ce_coef(*bargs).abs()
+    dh_err = compare_terms("fused_ce_bwd dh", dh, p_dh,
+                           coef @ w.float().abs())
+    dw_err = compare_terms("fused_ce_bwd dw", dw, p_dw,
+                           coef.T @ h.float().abs())
+    del coef, p_dh, p_dw, dh, dw
+    torch.cuda.empty_cache()
+    fwd_bytes = t * d * 2 + v * d * 2 + t * 4 + 2 * t * 4
+    fwd_bound, fwd_by = bound_ms(fwd_bytes, 2 * t * v * d)
+    bwd_bytes = 2 * (t * d * 2 + v * d * 2) + 4 * t * 4
+    bwd_bound, bwd_by = bound_ms(bwd_bytes, 6 * t * v * d)
+    gn = g_nll + g_lse
+
+    def library_fwd():
+        logits = torch.matmul(h, w.T).float()
+        lse_ = torch.logsumexp(logits, -1)
+        return lse_ - logits.gather(1, lab.long()[:, None])[:, 0], lse_
+
+    def library_bwd():
+        logits = torch.matmul(h, w.T).float()
+        coef_ = torch.softmax(logits, -1) * gn[:, None]
+        coef_.scatter_add_(1, lab.long()[:, None], -g_nll[:, None])
+        c = coef_.to(w.dtype)
+        return c @ w, c.T @ h
+
+    fwd = dict(name="fused_ce_fwd", route="cuda",
+               source="src/repro_torch/kernels/csrc/fused_ce_fwd.cu",
+               replaces="src/repro/kernels/fused_ce.py:128",
+               max_abs_err=f_err,
+               ms=time_ms(torch, lambda: fused_ce_fwd(h, w, lab)),
+               plain_ms=time_ms(torch, lambda: fused_ce_fwd_plain(h, w, lab),
+                                reps=5),
+               bound_ms=fwd_bound, bound_by=fwd_by,
+               library_ms=time_ms(torch, library_fwd))
+    bwd = dict(name="fused_ce_bwd", route="cuda",
+               source="src/repro_torch/kernels/csrc/fused_ce_bwd.cu",
+               replaces="src/repro/kernels/fused_ce.py:169",
+               max_abs_err=max(dh_err[0], dw_err[0]),
+               max_err_over_sum_terms=max(dh_err[1], dw_err[1]),
+               ms=time_ms(torch, lambda: fused_ce_bwd(*bargs), reps=10),
+               plain_ms=time_ms(torch, lambda: fused_ce_bwd_plain(*bargs),
+                                reps=5),
+               bound_ms=bwd_bound, bound_by=bwd_by,
+               library_ms=time_ms(torch, library_bwd, reps=10))
+    log(f"fused_ce_fwd: T {t} V {v} d {d}: nll/lse err {f_err:.2e}, two "
+        f"calls bit-equal; kernel {fwd['ms']:.4f} ms, plain "
+        f"{fwd['plain_ms']:.4f} ms, library {fwd['library_ms']:.4f} ms, "
+        f"bound {fwd_bound:.4f} ms ({fwd_by}, {2 * t * v * d / 1e12:.3f} "
+        f"TFLOP, {fwd_bytes / 1e6:.1f} MB) [{card}]")
+    log(f"fused_ce_bwd: T {t} V {v} d {d}, g_lse = 2 alpha lse / T: dh err "
+        f"{dh_err[0]:.2e} (max {dh_err[1]:.3e}, mean {dh_err[2]:.3e} of sum "
+        f"|terms|), dW err {dw_err[0]:.2e} (max {dw_err[1]:.3e}, mean "
+        f"{dw_err[2]:.3e}), two calls bit-equal; kernel {bwd['ms']:.4f} ms, "
+        f"plain {bwd['plain_ms']:.4f} ms, library {bwd['library_ms']:.4f} "
+        f"ms, bound {bwd_bound:.4f} ms ({bwd_by}, "
+        f"{6 * t * v * d / 1e12:.3f} TFLOP, {bwd_bytes / 1e6:.1f} MB) "
+        f"[{card}]")
+    del hidden, h, w, nll, lse, nll2, lse2, p_nll, p_lse, bargs, g_lse, gn
+    del params
+    torch.cuda.empty_cache()
+
+    # -- 7. train ------------------------------------------------------------
+    totals = {"fused_ce_fwd": 0, "fused_ce_bwd": 0}
+    tm = init_train_metric_state(dev)
+    losses = []
+    torch.cuda.reset_peak_memory_stats()
+    for loss_name, n_steps in (("fused_ce", FUSED_STEPS),
+                               ("selfnorm", SELFNORM_STEPS)):
+        tcfg = TrainConfig(loss=loss_name, warmup_steps=1)
+        step = make_train_step(model, tcfg)
+        for i in range(n_steps):
+            for fn in kernels.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = {name: kernels[name].launches for name in totals}
+            check(counts == {"fused_ce_fwd": 1, "fused_ce_bwd": 1},
+                  f"{loss_name} step {i} launched {counts}, want one each")
+            for name in totals:
+                totals[name] += counts[name]
+            tm = observe_train_step(tm, metrics)
+            loss = metrics["loss_total"].item()
+            check(math.isfinite(loss), f"{loss_name} step {i}: loss {loss}")
+            losses.append((loss_name, loss, ms))
+            log(f"train {loss_name} step {i}: loss {loss:.6f} (nll "
+                f"{metrics['loss'].item():.6f}, mean log Z "
+                f"{metrics['mean_log_z'].item():.4f}), grad norm "
+                f"{metrics['grad_norm'].item():.4f}, lr {metrics['lr']:.3e}, "
+                f"{ms:.1f} ms, {t / ms * 1e3:.1f} tokens/s, launches "
+                f"{counts} [{card}]")
+    fused = [x for x in losses if x[0] == "fused_ce"]
+    check(fused[-1][1] < fused[0][1], f"fused_ce loss did not fall: "
+          f"{[round(x[1], 6) for x in fused]}")
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(x[2] for x in losses[1:])
+    log(f"train: {len(losses)} steps of B {TRAIN_B} x S {TRAIN_S} = {t} "
+        f"tokens, steady {steady:.1f} ms/step (median of steps 2-"
+        f"{len(losses)}), {t / steady * 1e3:.1f} tokens/s, peak memory "
+        f"{peak / 1e9:.2f} GB (max_memory_allocated), depth {cfg.n_layers} "
+        f"of {cfg.n_layers} [{card}]")
+    log(f"train metrics: {harvest_train_metrics(tm)}")
+
+    # one more fused_ce step, split into its parts: host clock with a
+    # synchronise after each part, beside CUDA-event device time
+    tcfg = TrainConfig(loss="fused_ce", warmup_steps=1)
+    leaves = tree_leaves(state.params)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    walls = []
+
+    def part(i, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events[i].record()
+        out = fn()
+        events[i + 1].record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    hidden, _ = part(0, lambda: model.forward(state.params, tokens))
+    loss = part(1, lambda: streaming_ce(
+        hidden.reshape(-1, cfg.d_model), model.head_matrix(state.params),
+        labels.reshape(-1))[0].mean())
+    grads = part(2, lambda: torch.autograd.grad(loss, leaves))
+    _, opt, _ = part(3, lambda: adamw_update(tcfg, state.params, grads,
+                                             state.opt))
+    state = state._replace(opt=opt)
+    for i, name in enumerate(("forward", "loss", "backward", "optimizer")):
+        log(f"train step part {name}: wall {walls[i]:.3f} ms, device "
+            f"{events[i].elapsed_time(events[i + 1]):.3f} ms [{card}]")
+
+    # one more fused_ce step under the profiler: the device's busy time and
+    # idle share, and where the device and the host spend the step
+    step = make_train_step(model, tcfg)
+    wall, busy, dev_top, host_top = profile_step(
+        torch, lambda: step(state, batch))
+    log(f"train step profile: wall {wall:.1f} ms, device busy {busy:.1f} "
+        f"ms, idle share {1 - busy / wall:.3f} [{card}]")
+    for kind, rows in (("device", dev_top), ("host", host_top)):
+        for name, calls, ms in rows:
+            log(f"  {kind} {ms:9.3f} ms {calls:6d}x {name[:90]}")
+    fwd["launches"] = totals["fused_ce_fwd"]
+    bwd["launches"] = totals["fused_ce_bwd"]
+    return [fwd, bwd]
 
 
 def _leaves(tree):

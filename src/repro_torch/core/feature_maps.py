@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import resolve_device
 from ..kernels.fmbe import fmbe_phi, fmbe_z
 
 
@@ -41,10 +42,11 @@ class FMBEState(NamedTuple):
 
 def make_feature_map(generator: torch.Generator, d: int, n_features: int,
                      max_degree: int = 8, p: float = 2.0,
-                     device="cpu") -> FeatureMap:
+                     device="cuda") -> FeatureMap:
     """Draw a feature map from ``generator`` (which must live on
     ``device``). The draws differ from the JAX package's for any seed; tests
     inject a JAX feature map through ``interop.feature_map_from_numpy``."""
+    device = resolve_device(device)
     logits = torch.tensor([-(m + 1) * math.log(p)
                            for m in range(max_degree + 1)], device=device)
     probs = torch.softmax(logits, 0)

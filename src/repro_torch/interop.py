@@ -13,6 +13,7 @@ import torch
 
 from .core.feature_maps import FeatureMap
 from .core.mips import IVFIndex
+from .train.optimizer import OptState
 
 
 def to_tensor(a, device="cpu") -> torch.Tensor:
@@ -37,6 +38,17 @@ def params_from_numpy(tree: Mapping[str, Any], cfg, device="cpu"):
             raise ValueError(f"wq {tuple(wq.shape)} does not match the "
                              f"config's {want}")
     return out
+
+
+def opt_state_from_numpy(step, m: Mapping[str, Any], v: Mapping[str, Any],
+                         device="cpu") -> OptState:
+    """A JAX ``OptState`` (step and the f32 moment trees as numpy) as the
+    port's, so a JAX ``TrainState`` carries across with
+    ``params_from_numpy``."""
+    def tree(t):
+        return {k: tree(x) if isinstance(x, Mapping)
+                else to_tensor(x, device).float() for k, x in t.items()}
+    return OptState(step=int(step), m=tree(m), v=tree(v))
 
 
 def ivf_from_numpy(v_blocks, valid, row_id, slot_of_row, block_centroids,

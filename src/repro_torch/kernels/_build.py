@@ -17,7 +17,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("topk_z", "ivf_decode", "union_scores", "fmbe_phi", "fmbe_z")
+SOURCES = ("topk_z", "ivf_decode", "union_scores", "fmbe_phi", "fmbe_z",
+           "fused_ce_fwd", "fused_ce_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -39,6 +40,12 @@ SIGNATURES = {
     # omega, degree, coef, lam, lam_stride, x, Q, P, M, d, n_part, part, z,
     # stream
     "fmbe_z": [_P] * 4 + [_I, _P] + [_I] * 5 + [_P] * 3,
+    # h, w, labels, T, V, d, n_split, v_per_split, part_m, part_s, part_p,
+    # nll, lse, stream
+    "fused_ce_fwd": [_P] * 3 + [_I] * 5 + [_P] * 6,
+    # h, w, labels, lse, gn, go, T, V, d, n_split, v_per_split, t_per_split,
+    # part, dh, dw, stream
+    "fused_ce_bwd": [_P] * 6 + [_I] * 6 + [_P] * 4,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

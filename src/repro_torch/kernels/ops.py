@@ -1,0 +1,47 @@
+"""Public wrappers around the kernels used by training (counterpart of
+``repro.kernels.ops``): the fused cross-entropy as a differentiable
+function, and its full-logits oracle."""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import fused_ce as _fce
+
+
+class FusedCrossEntropy(torch.autograd.Function):
+    """(nll (T,), lse (T,)) of h (T, d), w (V, d), labels (T,) through the
+    streaming kernels, differentiable in h and w. Both outputs take a
+    cotangent (lse's is nonzero under the selfnorm loss); autograd hands an
+    unused output's cotangent in as zeros."""
+
+    @staticmethod
+    def forward(ctx, h, w, labels):
+        nll, lse = _fce.fused_ce_fwd(h, w, labels)
+        ctx.save_for_backward(h, w, labels, lse)
+        return nll, lse
+
+    @staticmethod
+    def backward(ctx, g_nll, g_lse):
+        h, w, labels, lse = ctx.saved_tensors
+        dh, dw = _fce.fused_ce_bwd(h, w, labels, lse, g_nll, g_lse)
+        return dh, dw, None
+
+
+def fused_cross_entropy(h: torch.Tensor, w: torch.Tensor,
+                        labels: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(nll (T,), lse (T,)) = streaming softmax CE; dh in h.dtype and dw in
+    w.dtype from the backward kernel."""
+    return FusedCrossEntropy.apply(h, w, labels)
+
+
+def fused_ce_ref(h: torch.Tensor, w: torch.Tensor,
+                 labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-softmax CE oracle (materialises the (T, V) logits):
+    -> (nll (T,), lse (T,))."""
+    logits = (h @ w.T).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, 1, labels.long()[:, None])[:, 0]
+    return lse - picked, lse

@@ -1,9 +1,10 @@
-"""Cached decode self-attention (counterpart of ``repro.models.attention``,
-decode path only). GQA stays grouped: query heads are viewed as
-``(n_kv, g, hd)`` and KV heads are never repeated."""
+"""Self-attention (counterpart of ``repro.models.attention``, without the
+cross-attention and lane-window paths): the chunked causal attention of
+training and prefill, and the cached decode step. GQA stays grouped: query
+heads are viewed as ``(n_kv, g, hd)`` and KV heads are never repeated."""
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -30,6 +31,63 @@ def _project_qkv(p: Params, x: torch.Tensor, kv_x: torch.Tensor, cfg):
     k = k.reshape(*kv_x.shape[:-1], nkv, hd)
     v = v.reshape(*kv_x.shape[:-1], nkv, hd)
     return q, k, v
+
+
+def flash_attention(q, k, v, *, causal: bool, window: int = 0,
+                    q_offset: int = 0, block_kv: int = 1024) -> torch.Tensor:
+    """Chunked attention with an online softmax, GQA-grouped, the same
+    arithmetic as the JAX package's: f32 scores, probabilities rounded to
+    v's dtype before the f32-accumulated product with v.
+
+    q (B, Sq, Kv, G, Dh); k, v (B, Skv, Kv, Dh). ``window > 0`` limits
+    attention to the last ``window`` positions. Returns (B, Sq, Kv, G, Dh).
+    The JAX package rematerialises each chunk in the backward; here the
+    caller's block checkpoint does that."""
+    b, sq, kv_h, g, hd = q.shape
+    skv = k.shape[1]
+    block_kv = min(block_kv, skv)
+    dev = q.device
+    scale = hd ** -0.5
+    q_pos = q_offset + torch.arange(sq, device=dev)
+    qf = q.float()
+    m = torch.full((b, kv_h, g, sq), NEG, dtype=torch.float32, device=dev)
+    s_sum = torch.zeros((b, kv_h, g, sq), dtype=torch.float32, device=dev)
+    o = torch.zeros((b, kv_h, g, sq, hd), dtype=torch.float32, device=dev)
+    for start in range(0, skv, block_kv):
+        kc = k[:, start:start + block_kv]
+        vc = v[:, start:start + block_kv]
+        kv_pos = start + torch.arange(kc.shape[1], device=dev)
+        s = torch.einsum("bqkgd,bckd->bkgqc", qf, kc.float()) * scale
+        mask = torch.ones((sq, kc.shape[1]), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= q_pos[:, None] >= kv_pos[None, :]
+        if window:
+            mask &= q_pos[:, None] - kv_pos[None, :] < window
+        s = torch.where(mask, s, torch.full_like(s, NEG))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        s_sum = s_sum * alpha + p.sum(-1)
+        o = o * alpha[..., None] + torch.einsum(
+            "bkgqc,bckd->bkgqd", p.to(vc.dtype).float(), vc.float())
+        m = m_new
+    out = o / torch.clamp(s_sum, min=1e-30)[..., None]   # (B, Kv, G, Sq, Dh)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)        # (B, Sq, Kv, G, Dh)
+
+
+def self_attention(p: Params, x: torch.Tensor, cfg, *, window: int = 0,
+                   positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Training / prefill self-attention (causal). x (B, S, d)."""
+    q, k, v = _project_qkv(p, x, x, cfg)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    b, s = x.shape[:2]
+    qf = q.reshape(b, s, -1, q.shape[-1])            # (B,S,H,Dh) for rope
+    qf = apply_rope(qf, positions, cfg.rope_theta)
+    q = qf.reshape(q.shape)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v, causal=True, window=window)
+    return o.reshape(*x.shape[:-1], -1) @ p["wo"]
 
 
 def _dyn_update(buf: torch.Tensor, row: torch.Tensor, slot: int) -> None:

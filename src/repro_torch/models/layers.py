@@ -51,13 +51,18 @@ def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
     return torch.pow(float(theta), exps)
 
 
-def apply_rope(x: torch.Tensor, position: int, theta: float) -> torch.Tensor:
-    """x: (..., 1, H, Dh) at one absolute ``position`` (a Python int, so no
-    host-to-device copy per layer). Rotates the split halves (not
-    interleaved pairs) with f32 angles."""
+def apply_rope(x: torch.Tensor, positions, theta: float) -> torch.Tensor:
+    """x: (..., S, H, Dh). ``positions`` is a tensor broadcastable to
+    (..., S), as in the JAX package, or one absolute position as a Python
+    int (decode: no host-to-device copy per layer). Rotates the split
+    halves (not interleaved pairs) with f32 angles."""
     hd = x.shape[-1]
     freqs = rope_frequencies(hd, theta, x.device)              # (Dh/2,)
-    angles = freqs * position                                   # f32 (Dh/2,)
+    if isinstance(positions, int):
+        angles = freqs * positions                              # f32 (Dh/2,)
+    else:
+        angles = (positions[..., None].to(torch.float32) * freqs
+                  )[..., None, :]                               # (..., S, 1, Dh/2)
     cos = torch.cos(angles)
     sin = torch.sin(angles)
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -1,20 +1,21 @@
-"""Dense transformer decode (counterpart of ``repro.models.transformer``,
-dense family only).
+"""Dense transformer: full-sequence forward (training) and cached decode
+(counterpart of ``repro.models.transformer``, dense family only).
 
 Parameters keep the JAX package's pytree layout — a dict whose per-layer
 leaves are stacked on a leading layer axis — so ``interop.params_from_numpy``
 is a leaf-wise conversion. A Python loop over layers takes the place of
-``lax.scan``.
+``lax.scan``, and ``torch.utils.checkpoint`` that of ``jax.checkpoint``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
-from .attention import KVCache, decode_self_attention
+from .attention import KVCache, decode_self_attention, self_attention
 from .layers import _dense_init, embed, mlp, rmsnorm
 
 Params = Dict[str, Any]
@@ -33,11 +34,33 @@ def _layer(tree: Params, i: int) -> Params:
             for k, v in tree.items()}
 
 
+def _unbind(tree: Params) -> Params:
+    """Each stacked leaf as a tuple of per-layer views, for ``_layer``.
+    ``unbind`` has one backward node that stacks every layer's gradient at
+    once; indexing each layer would add a zero-filled full-size gradient
+    per layer."""
+    return {k: _unbind(v) if isinstance(v, dict) else torch.unbind(v, 0)
+            for k, v in tree.items()}
+
+
+# the dense family's aux losses, all zero (the JAX package's ZERO_AUX)
+ZERO_AUX = {"moe_balance": 0.0, "moe_zloss": 0.0, "moe_drop_frac": 0.0}
+
+
 def _check_dense(cfg: ModelConfig) -> None:
     if cfg.family != "dense" or cfg.local_global_ratio or cfg.n_codebooks:
         raise NotImplementedError(
             f"the port serves the dense family only; {cfg.name!r} is "
             f"family {cfg.family!r}")
+
+
+def tblock_fwd(p: Params, x, cfg, *, window=0) -> torch.Tensor:
+    """One dense block over a full sequence x (B, S, d)."""
+    h = self_attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
+                       window=window)
+    x = x + h
+    y = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp(p["ffn"], y, cfg.act)
 
 
 def tblock_decode(p: Params, x, cache: KVCache, pos: int, cfg, *, window=0):
@@ -93,10 +116,39 @@ class Model:
             p["lm_head"] = dense((cfg.vocab, d))
         return p
 
+    def embed_tokens(self, p: Params, tokens: torch.Tensor) -> torch.Tensor:
+        return embed(p["embed"], tokens)
+
     def head_matrix(self, p: Params) -> torch.Tensor:
         if self.cfg.tie_embeddings:
             return p["embed"]["table"]
         return p["lm_head"]
+
+    def logits(self, p: Params, hidden: torch.Tensor) -> torch.Tensor:
+        """Full logits — small-vocab path / tests only (O(T V) memory)."""
+        return hidden @ self.head_matrix(p).T
+
+    def forward(self, p: Params, tokens: torch.Tensor, *,
+                img=None) -> Tuple[torch.Tensor, Dict[str, float]]:
+        """tokens (B, S) -> (hidden (B, S, d), aux). With ``cfg.remat`` other
+        than "none" each block runs under a non-reentrant checkpoint: its
+        activations are recomputed in the backward, as under
+        ``jax.checkpoint``."""
+        if img is not None:
+            raise NotImplementedError("the port's dense family takes no image")
+        cfg = self.cfg
+        x = self.embed_tokens(p, tokens)
+        remat = cfg.remat != "none"
+        blocks = _unbind(p["blocks"])
+        for i in range(cfg.n_layers):
+            layer = _layer(blocks, i)
+            if remat:
+                x = checkpoint(tblock_fwd, layer, x, cfg,
+                               window=cfg.sliding_window,
+                               use_reentrant=False)
+            else:
+                x = tblock_fwd(layer, x, cfg, window=cfg.sliding_window)
+        return rmsnorm(p["final_norm"], x, cfg.norm_eps), dict(ZERO_AUX)
 
     def init_decode_state(self, batch: int, max_len: int,
                           device) -> Dict[str, torch.Tensor]:

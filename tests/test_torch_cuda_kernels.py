@@ -6,7 +6,18 @@ member slot and one with no accepted tail sample, feature counts that are
 not a multiple of the feature tile, features of degree 0 and of degree 8.
 bf16 inputs; LSEs and scores to 1e-3. FMBE sums are signed and cancel, so
 z is held to 1e-4 of sum_j |phi_j lambda_j| and phi to 1e-4 of its own
-scale |coef_j| * max(|x|_2, 1) ** degree_j (plus |phi|).
+scale |coef_j| * max(|x|_2, 1) ** degree_j (plus |phi|). The fused CE
+kernels run at token counts and vocabularies that are not multiples of
+their tiles, with labels at 0 and V - 1 and with and without a selfnorm
+cotangent; nll and lse to 1e-3. Both the kernel and the plain version
+round the backward's coefficient to bf16 before the products, from f32
+scores summed in another order (on the tensor cores, about 1e-4 apart at
+d = 2560), so a coefficient whose two f32 values straddle a bf16 rounding
+boundary rounds one bf16 step (at most 2**-7 relative) apart. dh and dW
+(f32, before the cast) are therefore held per element to GRAD_REL = 2**-7
+(+ 1e-5 for the f32 sums) of the sum of their terms' magnitudes, which an
+element dominated by one term can reach, and on average over the elements
+to GRAD_MEAN = 2**-10, which a missing or misplaced tile would exceed.
 
 These tests need a GPU and skip without one. On the GPU machine, which has
 no JAX, run them without the repository's conftest:
@@ -18,12 +29,17 @@ import torch
 
 from repro_torch.kernels.fmbe import (fmbe_phi, fmbe_phi_plain, fmbe_z,
                                      fmbe_z_plain)
+from repro_torch.kernels.fused_ce import (ce_coef, fused_ce_bwd,
+                                         fused_ce_bwd_plain, fused_ce_fwd,
+                                         fused_ce_fwd_plain)
 from repro_torch.kernels.ivf_score import (ivf_decode, ivf_decode_plain,
                                           union_scores, union_scores_plain)
 from repro_torch.kernels.topk_z import topk_z, topk_z_plain
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-3
+GRAD_REL = 2 ** -7 + 1e-5
+GRAD_MEAN = 2 ** -10
 D = 2560
 
 
@@ -180,6 +196,61 @@ def test_fmbe_z_matches_plain(gen, q, p, shared):
     assert ((got - want).abs() <= 1e-4 * scale + 1e-6).all()
 
 
+def _ce_inputs(gen, t, v, d):
+    """h at the final norm's scale, logits about N(0, 4), labels at V - 1
+    and 0 first."""
+    h = torch.randn(t, d, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(v, d, generator=gen, device="cuda") * 2 / d ** 0.5
+         ).to(torch.bfloat16)
+    labels = torch.randint(0, v, (t,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    labels[0] = v - 1
+    labels[1:2] = 0
+    return h, w, labels
+
+
+def _within_terms(name, got, want, terms):
+    """|got - want| / sum |terms|: at most GRAD_REL, GRAD_MEAN on average
+    (an element with no terms must match exactly)."""
+    ratio = (got - want).abs() / terms.clamp(min=1e-30)
+    worst, mean = ratio.max().item(), ratio.mean().item()
+    assert worst <= GRAD_REL and mean <= GRAD_MEAN, (name, worst, mean)
+
+
+@pytest.mark.parametrize("selfnorm", [False, True])
+@pytest.mark.parametrize("d", [64, D])
+@pytest.mark.parametrize("v", [1000, 151936])
+@pytest.mark.parametrize("t", [1, 37, 1024])
+def test_fused_ce_matches_plain(gen, t, v, d, selfnorm):
+    h, w, labels = _ce_inputs(gen, t, v, d)
+    before = (fused_ce_fwd.launches, fused_ce_bwd.launches)
+    nll, lse = fused_ce_fwd(h, w, labels)
+    nll2, lse2 = fused_ce_fwd(h, w, labels)
+    torch.cuda.synchronize()
+    assert torch.equal(nll, nll2) and torch.equal(lse, lse2)
+    p_nll, p_lse = fused_ce_fwd_plain(h, w, labels)
+    assert (nll - p_nll).abs().max().item() <= TOL
+    assert (lse - p_lse).abs().max().item() <= TOL
+    # cotangents of the mean nll and of the selfnorm penalty 0.1 mean lse**2
+    g_nll = torch.full((t,), 1.0 / t, device="cuda")
+    g_lse = 2 * 0.1 * lse / t if selfnorm else torch.zeros_like(lse)
+    dh, dw = fused_ce_bwd(h, w, labels, lse, g_nll, g_lse, cast=False)
+    dh2, dw2 = fused_ce_bwd(h, w, labels, lse, g_nll, g_lse, cast=False)
+    torch.cuda.synchronize()
+    assert torch.equal(dh, dh2) and torch.equal(dw, dw2)   # no atomics
+    assert (fused_ce_fwd.launches, fused_ce_bwd.launches) == \
+        (before[0] + 2, before[1] + 2)
+    p_dh, p_dw = fused_ce_bwd_plain(h, w, labels, lse, g_nll, g_lse,
+                                    cast=False)
+    coef = ce_coef(h, w, labels, lse, g_nll, g_lse).abs()
+    assert dh.shape == (t, d) and dw.shape == (v, d)
+    _within_terms("dh", dh, p_dh, coef @ w.float().abs())
+    _within_terms("dw", dw, p_dw, coef.T @ h.float().abs())
+    cdh, cdw = fused_ce_bwd(h, w, labels, lse, g_nll, g_lse)
+    assert cdh.dtype == torch.bfloat16 and cdw.dtype == torch.bfloat16
+    assert torch.equal(cdh, dh.to(torch.bfloat16))
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(gen):
     h = torch.randn(4, D, generator=gen, device="cuda")
     w = torch.randn(64, D, generator=gen, device="cuda")
@@ -199,3 +270,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(gen):
         union_scores(w.bfloat16().reshape(1, 64, D), h.bfloat16(),
                      torch.zeros(1, dtype=torch.int64, device="cuda"),
                      torch.ones((), dtype=torch.int32, device="cuda"))
+    labels = torch.zeros(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="bf16"):
+        fused_ce_fwd(h, w, labels)                      # float32
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fused_ce_fwd(h[:, :48].bfloat16().contiguous(),
+                     w[:, :48].bfloat16().contiguous(), labels)
+    with pytest.raises(ValueError, match="per-token"):
+        fused_ce_fwd(h.bfloat16(), w.bfloat16(), labels[:3])

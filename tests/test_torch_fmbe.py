@@ -228,7 +228,8 @@ class TestMakeFeatureMap:
         truncated geometric (half of the features at degree 0)."""
         p, d = 4096, 8
         fm = jfm.make_feature_map(jax.random.PRNGKey(0), d, p)
-        t = tfm.make_feature_map(torch.Generator().manual_seed(0), d, p)
+        t = tfm.make_feature_map(torch.Generator().manual_seed(0), d, p,
+                                 device="cpu")
         assert t.omega.shape == fm.omega.shape and t.omega.dtype == \
             torch.float32
         assert set(np.unique(t.omega.numpy())) == {-1.0, 1.0}
@@ -243,8 +244,10 @@ class TestMakeFeatureMap:
         assert abs(deg.mean() - jdeg.mean()) < 0.15
 
     def test_seeded(self):
-        a = tfm.make_feature_map(torch.Generator().manual_seed(3), 8, 64)
-        b = tfm.make_feature_map(torch.Generator().manual_seed(3), 8, 64)
+        a = tfm.make_feature_map(torch.Generator().manual_seed(3), 8, 64,
+                                 device="cpu")
+        b = tfm.make_feature_map(torch.Generator().manual_seed(3), 8, 64,
+                                 device="cpu")
         for x, y in zip(a[:3], b[:3]):
             torch.testing.assert_close(x, y, rtol=0, atol=0)
 

@@ -79,9 +79,12 @@ def test_qwen_config_field_by_field():
 def test_default_device_raises_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present; the default device is usable")
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core.feature_maps import make_feature_map
     from repro_torch.core.mips import build_ivf
     from repro_torch.models import Model
     from repro_torch.serve import Engine
+    from repro_torch.train import init_train_metric_state, init_train_state
     cfg = reduced_config("qwen1.5-4b")
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
@@ -92,3 +95,9 @@ def test_default_device_raises_without_gpu():
     with pytest.raises(RuntimeError, match="cuda"):
         build_ivf(torch.zeros((64, 8)), block_rows=8,
                   assign=torch.zeros(64, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_feature_map(torch.Generator().manual_seed(0), 8, 16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_train_state(model, TrainConfig(), 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_train_metric_state()
