@@ -9,25 +9,34 @@ GPU.
 2. Builds full-width qwen1.5-4b (40 layers, d 2560, vocab 151936, bf16,
    seeded random weights) and one engine per estimator: ``exact``,
    ``mimps`` (which runs the k-means), then ``topk``, ``mince``, ``fmbe``
-   and ``selfnorm``, which reuse the mimps k-means assignment. The fmbe
-   build (feature map, index and per-block sketch sums through
-   ``fmbe_phi``) starts with every launch count at 0 and must launch
-   ``fmbe_phi``.
+   and ``selfnorm``, which reuse the mimps k-means assignment, and ``lsh``
+   (8 tables of 8-bit SimHash codes over the head). The fmbe build
+   (feature map, index and per-block sketch sums through ``fmbe_phi``)
+   starts with every launch count at 0 and must launch ``fmbe_phi``.
 3. Holds each kernel against its plain PyTorch version at the shapes the
    main path gives it (bf16 inputs; LSEs and scores to 1e-3 absolute, top
    ids equal wherever the gap to the neighbouring scores exceeds 1e-3,
    union pad slots exactly 0; the signed FMBE sums to 1e-4 of the sum of
-   their terms' magnitudes) and times the kernel, the plain version and,
-   where one exists, a PyTorch library call computing the same function,
-   beside the kernel's bound.
+   their terms' magnitudes; ``lsh_probe`` on the trimmed candidate union
+   and on the dense fallback, its counts equal exactly and its membership
+   equal to the plan's, its query codes equal to the plan's except where a
+   projection lies within 1e-5 of 0 relative to |h| |proj row|, two calls
+   bit-equal) and times the kernel, the plain version and, where one
+   exists, a PyTorch library call computing the same function, beside the
+   kernel's bound. ``ivf_score`` runs on the mimps plan's probe ids and is
+   then driven through its entry point ``ops.ivf_block_scores`` with the
+   launch counts at 0.
 4. Holds the estimators against each other on the same hidden states and
    tail draws: ``mimps`` within 0.05 of the exact log Z, ``mince`` equal to
    ``mimps`` to 1e-3, ``topk`` at most the exact log Z (+1e-3) with
-   ``mimps``'s top ids, ``fmbe`` finite and at least its head LSE.
+   ``mimps``'s top ids, ``fmbe`` and ``lsh`` finite and at least their head
+   LSE (``lsh`` draws its own tail; its gap to the exact log Z is
+   recorded).
 5. Serves the model through ``generate`` with each estimator: 8 requests,
    prompt 16, 16 new tokens, greedy. Each run starts with every kernel's
-   launch count at 0 and must launch the kernels of its path. The serving
-   engines and parameters are then freed.
+   launch count at 0 and must launch the kernels of its path; the lsh run
+   logs its candidate union per step against the trimmed capacity. The
+   serving engines and parameters are then freed.
 6. Builds the training state of the same model (``init_train_state``:
    bf16 parameters, f32 AdamW moments) and holds the fused CE kernels
    against their plain versions on the forward's hidden states of one
@@ -62,7 +71,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
+F32_FLOPS = 67e12              # H100 SXM f32 rate outside the tensor cores
 TOL = 1e-3
+CODE_REL = 1e-5                # a code may flip where |proj| <= this * |h||p|
 FMBE_REL = 1e-4                # signed FMBE sums: of sum |terms|, + 1e-6
 N_REQ, PROMPT, NEW = 8, 16, 16
 PHI_CHUNK_BLOCKS = 16          # blocks per fmbe_phi launch in the build
@@ -146,9 +157,11 @@ def wall_ms(torch, fn, reps=10):
     return statistics.median(out)
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, f32_ops=0):
+    """Least time for the work: bytes over the memory rate, or bf16 ``n_ops``
+    at the tensor-core rate plus ``f32_ops`` at the f32 rate."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / BF16_FLOPS * 1e3
+    t_ops = (n_ops / BF16_FLOPS + f32_ops / F32_FLOPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -213,13 +226,16 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.fmbe import fmbe_phi, fmbe_z
     from repro_torch.kernels.fused_ce import fused_ce_bwd, fused_ce_fwd
-    from repro_torch.kernels.ivf_score import ivf_decode, union_scores
+    from repro_torch.kernels.ivf_score import (ivf_decode, ivf_score,
+                                              union_scores)
+    from repro_torch.kernels.lsh_probe import lsh_probe
     from repro_torch.kernels.topk_z import topk_z
 
     kernels = {"topk_z": topk_z, "ivf_decode": ivf_decode,
                "union_scores": union_scores, "fmbe_phi": fmbe_phi,
                "fmbe_z": fmbe_z, "fused_ce_fwd": fused_ce_fwd,
-               "fused_ce_bwd": fused_ce_bwd}
+               "fused_ce_bwd": fused_ce_bwd, "lsh_probe": lsh_probe,
+               "ivf_score": ivf_score}
 
     t_start = time.time()
     card = card_line()
@@ -250,9 +266,9 @@ def main() -> int:
 
 
 def serve(torch, card, kernels):
-    """Phases 2-5: the serving engines, the five serving kernels against
+    """Phases 2-5: the serving engines, the seven serving kernels against
     their plain versions, the estimators, serving and the step split.
-    Returns the five kernel records; every serving tensor is freed on
+    Returns the seven kernel records; every serving tensor is freed on
     return."""
     from repro_torch.configs import get_config
     from repro_torch.core.decode import _tail_rows, make_plan
@@ -309,6 +325,18 @@ def serve(torch, card, kernels):
     build_counts = read_counts()
     check(build_counts["fmbe_phi"] > 0, "the fmbe build never launched "
           "fmbe_phi")
+    t0 = time.time()
+    engines["lsh"] = Engine(Model(with_method("lsh")), params, max_len,
+                            seed=1)
+    torch.cuda.synchronize()
+    lidx = engines["lsh"].state.lsh
+    check(lidx is not None, "lsh engine built no index")
+    log(f"lsh index: {lidx.n_tables} tables of {lidx.n_bits} bits, "
+        f"{lidx.n_buckets} buckets of {lidx.bucket_cap} rows, "
+        f"{int((lidx.slot_of_row < 0).sum())} of {lidx.n * lidx.n_tables} "
+        f"row-table slots dropped, largest bucket "
+        f"{int((lidx.buckets >= 0).sum(-1).max())}, build "
+        f"{time.time() - t0:.2f} s [{card}]")
     fstate = engines["fmbe"].state.fmbe
     fm = fstate.fm
     check(fstate.lambda_blocks is not None, "fmbe engine built no block "
@@ -322,7 +350,8 @@ def serve(torch, card, kernels):
     for name, eng in engines.items():
         check(eng.backend.method == name, f"{name}: engine serves "
               f"{eng.backend.method}")
-        check((eng.index is not None) == (name not in ("exact", "selfnorm")),
+        check((eng.index is not None) ==
+              (name in ("mimps", "topk", "mince", "fmbe")),
               f"{name}: unexpected index state")
         if eng.index is not None:
             check(torch.equal(eng.index.v_blocks, index.v_blocks),
@@ -500,11 +529,16 @@ def serve(torch, card, kernels):
         f"{fp_bound:.4f} ms ({fp_by}, {fp_bytes / 1e6:.1f} MB, "
         f"{rows * deg_sum * d / 1e9:.1f} G multiply-adds) [{card}]")
 
+    lsp = lsh_probe_phase(torch, card, lidx, w, h, pc, k, gen)
+    ivs = ivf_score_phase(torch, card, kernels, index, h, plan)
+
     # -- 4. the estimators on the same hidden states and tail draws -----------
     tail_idx = torch.randint(0, cfg.vocab, (pc.l,), generator=gen, device=dev)
 
     def decode(method, kk=k):
         eng = engines[method]
+        if method == "lsh":           # lsh draws its own norm-tempered tail
+            return eng.backend.decode(eng.state, h, pc, k=kk, generator=gen)
         return eng.backend.decode(eng.state, h, pc, k=kk, tail_idx=tail_idx)
 
     ex, mi, mc, tk, fb = (decode(m) for m in ("exact", "mimps", "mince",
@@ -526,11 +560,19 @@ def serve(torch, card, kernels):
                             mi_next.top_score, mi_next.top_id)
     below = (fb.head_lse - fb.log_z).max().item()
     check(below <= TOL, f"fmbe log_z below its head_lse by {below}")
+    ls = decode("lsh")
+    check(bool(torch.isfinite(ls.log_z).all()), "lsh log_z not finite")
+    gaps["lsh"] = (ls.log_z - ex.log_z).abs().max().item()
+    ls_below = (ls.head_lse - ls.log_z).max().item()
+    check(ls_below <= TOL, f"lsh log_z below its head_lse by {ls_below}")
     log(f"estimators vs exact log_z on the same hidden states (max abs): "
         + ", ".join(f"{m} {g:.4e}" for m, g in gaps.items())
         + f"; mince vs mimps {mince_gap:.2e}; topk - exact at most "
         f"{over:.4e}, {n_ids} topk ids equal mimps's; fmbe log_z - head_lse "
-        f"at least {-below:.4e}")
+        f"at least {-below:.4e}; lsh log_z - exact per query "
+        f"{[round(x, 4) for x in (ls.log_z - ex.log_z).tolist()]}, log_z - "
+        f"head_lse at least {-ls_below:.4e}, union {int(ls.head_live)}, "
+        f"k_eff {ls.k_eff.tolist()}")
 
     # -- 5. serve ------------------------------------------------------------
     prompt = torch.randint(0, cfg.vocab, (N_REQ, PROMPT), generator=gen,
@@ -538,13 +580,27 @@ def serve(torch, card, kernels):
     path_kernels = {"exact": ("topk_z",), "mimps": ("ivf_decode",),
                     "topk": ("union_scores",), "mince": ("union_scores",),
                     "fmbe": ("union_scores", "fmbe_z"),
-                    "selfnorm": ("topk_z",)}
+                    "selfnorm": ("topk_z",), "lsh": ("lsh_probe",)}
     served = {}
     totals = {name: 0 for name in kernels}
     totals["fmbe_phi"] = build_counts["fmbe_phi"]        # the fmbe build
+    totals["ivf_score"] = ivs.pop("path_launches")    # ops.ivf_block_scores
+    lsh_unions = []
+
+    class RecordingLsh(type(engines["lsh"].backend)):
+        """The lsh backend, keeping each step's measured union (on the
+        device; read after the run)."""
+
+        def decode(self, *args, **kwargs):
+            out = super().decode(*args, **kwargs)
+            lsh_unions.append(out.head_live)
+            return out
+
     for method, needs in path_kernels.items():
         eng = engines[method]
         generate(eng, prompt[:, :2], 2)                  # warm-up
+        if method == "lsh":
+            eng.backend = RecordingLsh()
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.time()
@@ -567,9 +623,17 @@ def serve(torch, card, kernels):
             f"new) in {secs:.3f} s, {N_REQ * NEW / secs:.1f} new tokens/s, "
             f"{secs / (PROMPT + NEW - 1) * 1e3:.2f} ms/step, launches "
             f"{counts} [{card}]")
-    for rec in (tz, ivf, uni, fph, fz):
+    unions = [int(u) for u in lsh_unions]
+    cap = lsp["trimmed_capacity"]
+    check(len(unions) == PROMPT + NEW - 1, f"lsh: {len(unions)} steps "
+          f"recorded")
+    log(f"serve lsh: candidate union per step (trimmed capacity {cap}): "
+        f"{unions}; trimmed branch on {sum(u <= cap for u in unions)} of "
+        f"{len(unions)} steps, dense fallback on "
+        f"{sum(u > cap for u in unions)}")
+    for rec in (tz, ivf, uni, fph, fz, lsp, ivs):
         rec["launches"] = totals[rec["name"]]
-    for method in ("mimps", "topk", "mince", "fmbe", "selfnorm"):
+    for method in ("mimps", "topk", "mince", "fmbe", "selfnorm", "lsh"):
         for ref in ("exact", "mimps"):
             share = (served[method]["tokens"] == served[ref]["tokens"]
                      ).float().mean().item()
@@ -586,7 +650,186 @@ def serve(torch, card, kernels):
     for name, fn in parts:
         log(f"step part {name}: wall {wall_ms(torch, fn):.3f} ms, "
             f"device {time_ms(torch, fn):.3f} ms [{card}]")
-    return [tz, ivf, uni, fph, fz]
+    # the lsh plan reads its union size back to the host (the branch), so
+    # it cannot be captured in a CUDA graph: events around eager calls
+    def lsh_out():
+        return decode("lsh")
+
+    log(f"step part lsh output: wall {wall_ms(torch, lsh_out):.3f} ms, "
+        f"events around an eager call {eager_ms(torch, lsh_out):.3f} ms "
+        f"[{card}]")
+    return [tz, ivf, uni, fph, fz, lsp, ivs]
+
+
+def lsh_probe_phase(torch, card, lidx, w, h, pc, k, gen):
+    """``lsh_probe`` against its plain version at the lsh engine's plan for
+    the hidden states h: on the trimmed union the main path scores, and on
+    the dense fallback that a small ``head_cap`` forces. Returns the
+    kernel's record (the trimmed branch's numbers, the dense branch's under
+    ``dense_*``)."""
+    from repro_torch.core.lsh import (_collide, _with_trimmed_cands,
+                                      lsh_plan, resolve_cand_cap)
+    from repro_torch.kernels.lsh_probe import (lsh_probe, lsh_probe_plain,
+                                               lsh_query_codes)
+    q, d = h.shape
+    v = w.shape[0]
+    ltab, kbits = lidx.n_tables, lidx.n_bits
+    cap = resolve_cand_cap(pc.head_cap, lidx, v)
+    plan = lsh_plan(lidx, h, pc.l, generator=gen)
+    live = int(plan.cand_live)
+    if live > cap:         # the union overflowed: widen it to hold the
+        plan = lsh_plan(lidx, h, pc.l, tail_ids=plan.tail_ids,  # trimmed
+                        cand_cap=live)                          # branch too
+    log(f"lsh plan: union {live} rows (trimmed capacity {cap}), k_eff "
+        f"{plan.k_eff.tolist()}, accepted tail samples "
+        f"{plan.tail_accept.sum(-1).tolist()} of {pc.l}")
+
+    # the kernel's query codes against the plan's (f64 projections)
+    kq = lsh_query_codes(h, lidx.proj)
+    differ = kq != plan.qcodes
+    pm = lidx.proj[..., :d].reshape(ltab * kbits, d).double()
+    rel = ((h.double() @ pm.T) / (h.double().norm(dim=1)[:, None]
+                                  * pm.norm(dim=1)[None, :])).abs()
+    flips = (((kq ^ plan.qcodes)[..., None] >> torch.arange(
+        kbits, device=h.device)) & 1).bool().reshape(q, -1)
+    worst = rel[flips].max().item() if flips.any() else 0.0
+    check(worst <= CODE_REL, f"lsh_probe: a query code differs from the "
+          f"plan's where the projection is {worst:.3e} of |h||p| from 0")
+    log(f"lsh_probe query codes: {int(differ.sum())} of {differ.numel()} "
+        f"differ from the plan's ({int(flips.sum())} bits, each within "
+        f"{CODE_REL} of 0 relative)")
+
+    def hold(label, plan_b):
+        rows, member, col_live = _with_trimmed_cands(plan_b,
+                                                     lambda *a: a)
+        args = (w, h, lidx.proj, rows, col_live, lidx.codes,
+                lidx.slot_of_row, plan_b.tail_ids, plan_b.tail_accept,
+                plan_b.tail_bias)
+        out = lsh_probe(*args, k=k)
+        again = lsh_probe(*args, k=k)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"lsh_probe {label}: not bit-reproducible")
+        hl, tl, tv, ti, cnt = out
+        p_hl, p_tl, p_v, p_i, p_cnt = lsh_probe_plain(*args, k=k + 1)
+        err = max(compare_lse(f"lsh_probe {label} head_lse", hl, p_hl),
+                  compare_lse(f"lsh_probe {label} tail_lse", tl, p_tl))
+        err_v, n_ids = compare_topk(f"lsh_probe {label}", tv, ti, p_v, p_i)
+        check(torch.equal(cnt, p_cnt), f"lsh_probe {label}: counts differ "
+              f"from the plain version's")
+        c = rows.shape[0]
+        n_live = min(int(col_live), c)
+        # membership: the plan's, or for a query whose code flipped at a
+        # projection within CODE_REL of 0, that of the kernel's codes
+        want = member.clone()
+        flipped = differ.any(-1)
+        if flipped.any():
+            want[flipped] = _collide(lidx, kq[flipped], rows) & \
+                (torch.arange(c, device=h.device) < n_live)[None, :]
+        got_member = cnt > 0
+        check(torch.equal(got_member[:, :n_live], want[:, :n_live]),
+              f"lsh_probe {label}: counts > 0 differ from the membership")
+        moved = int((got_member[:, :n_live] != member[:, :n_live]).sum())
+        check(not got_member[:, n_live:].any(), f"lsh_probe {label}: counts "
+              f"past the live columns")
+        n_tail = plan_b.tail_ids.shape[0]
+        n_bytes = (n_live * d * 2 + n_tail * d * 2 + q * d * 2
+                   + ltab * kbits * (d + 1) * 4 + n_live * 4
+                   + n_live * ltab * 8 + n_tail * 8 + q * n_tail + 4
+                   + q * c * 4 + q * (8 + 8 * k))
+        bound, by = bound_ms(n_bytes, 2 * q * (n_live + n_tail) * d,
+                             f32_ops=2 * q * ltab * kbits * d)
+        ids, t_ids = rows.long(), plan_b.tail_ids.long()
+
+        def library():
+            s = torch.matmul(h, w[ids].T).float()
+            eff = torch.where(member, s, torch.full_like(s, -1e30))
+            ts = torch.matmul(h, w[t_ids].T).float() + plan_b.tail_bias
+            tl_ = torch.logsumexp(torch.where(plan_b.tail_accept, ts,
+                                              torch.full_like(ts, -1e30)), -1)
+            return torch.logsumexp(eff, -1), torch.topk(eff, k), tl_
+
+        rec = dict(ms=time_ms(torch, lambda: lsh_probe(*args, k=k)),
+                   plain_ms=time_ms(torch,
+                                    lambda: lsh_probe_plain(*args, k=k),
+                                    reps=10),
+                   bound_ms=bound, bound_by=by,
+                   library_ms=time_ms(torch, library, reps=10),
+                   max_abs_err=max(err, err_v))
+        eager = eager_ms(torch, lambda: lsh_probe(*args, k=k))
+        log(f"lsh_probe {label}: Q {q} C {c} columns, {n_live} live, "
+            f"l {n_tail}, k {k}: lse err {err:.2e}, top-k err {err_v:.2e}, "
+            f"{n_ids} ids checked, counts equal, membership equal "
+            f"({moved} columns moved by flipped codes), two calls "
+            f"bit-equal; kernel {rec['ms']:.4f} ms (eager call "
+            f"{eager:.4f} ms), plain {rec['plain_ms']:.4f} ms, library "
+            f"{rec['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}, "
+            f"{n_bytes / 1e6:.1f} MB) [{card}]")
+        return rec
+
+    trimmed = hold("trimmed", plan)
+    dense_plan = lsh_plan(lidx, h, pc.l, tail_ids=plan.tail_ids,
+                          cand_cap=64)
+    check(int(dense_plan.cand_live) > 64, "lsh: head_cap 64 kept the union")
+    dense = hold("dense", dense_plan)
+    rec = dict(name="lsh_probe", route="cuda",
+               source="src/repro_torch/kernels/csrc/lsh_probe.cu",
+               replaces="src/repro/kernels/lsh_probe.py:133",
+               trimmed_capacity=cap, query_codes_differing=int(differ.sum()),
+               **trimmed)
+    rec.update({f"dense_{key}": val for key, val in dense.items()})
+    rec["max_abs_err"] = max(trimmed["max_abs_err"], dense["max_abs_err"])
+    return rec
+
+
+def ivf_score_phase(torch, card, kernels, index, h, plan):
+    """``ivf_score`` against its plain version on the mimps plan's (Q, p)
+    probe ids, then its main path: the entry point
+    ``ops.ivf_block_scores``, driven once with the launch counts at 0.
+    Returns the kernel's record with the path's launches under
+    ``path_launches``."""
+    from repro_torch.kernels.ivf_score import ivf_score, ivf_score_plain
+    from repro_torch.kernels.ops import ivf_block_scores
+    nb, br, d = index.v_blocks.shape
+    q, p = plan.block_ids.shape
+    args = (index.v_blocks, h, plan.block_ids)
+    got = ivf_score(*args)
+    torch.cuda.synchronize()
+    check(got.shape == (q, p, br), f"ivf_score shape {tuple(got.shape)}")
+    err = (got - ivf_score_plain(*args)).abs().max().item()
+    check(err <= TOL, f"ivf_score: scores differ by {err}")
+    unique = int(torch.unique(plan.block_ids).numel())
+    n_bytes = unique * br * d * 2 + q * d * 2 + q * p * 4 + q * p * br * 4
+    bound, by = bound_ms(n_bytes, 2 * q * p * br * d)
+    ids = plan.block_ids.long()
+    rec = dict(name="ivf_score", route="cuda",
+               source="src/repro_torch/kernels/csrc/ivf_score.cu",
+               replaces="src/repro/kernels/ivf_score.py:62",
+               max_abs_err=err,
+               ms=time_ms(torch, lambda: ivf_score(*args)),
+               plain_ms=time_ms(torch, lambda: ivf_score_plain(*args),
+                                reps=10),
+               bound_ms=bound, bound_by=by,
+               library_ms=time_ms(torch, lambda: torch.einsum(
+                   "qd,qpbd->qpb", h, index.v_blocks[ids])))
+    for fn in kernels.values():
+        fn.launches = 0
+    scores = ivf_block_scores(*args)
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    check(counts["ivf_score"] > 0, "ops.ivf_block_scores never launched "
+          "ivf_score")
+    check(torch.equal(scores, got), "ops.ivf_block_scores differs from "
+          "ivf_score")
+    rec["path_launches"] = counts["ivf_score"]
+    log(f"ivf_score: Q {q} x p {p} probes of {br} x {d} blocks ({unique} "
+        f"unique of {nb}): err {err:.2e}; kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms "
+        f"(einsum over the gathered blocks), bound {bound:.4f} ms ({by}, "
+        f"{n_bytes / 1e6:.1f} MB with each unique block read once; "
+        f"{q * p * br * d * 2 / 1e6:.1f} MB without deduplication); "
+        f"ops.ivf_block_scores launches {counts} [{card}]")
+    return rec
 
 
 def compare_terms(name, got, want, terms):

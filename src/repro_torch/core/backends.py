@@ -1,6 +1,6 @@
 """Estimator-backend registry (counterpart of ``repro.core.backends``; the
-port carries ``exact``, ``selfnorm``, ``mimps``, ``mince``, ``topk`` and
-``fmbe``).
+port carries ``exact``, ``selfnorm``, ``mimps``, ``mince``, ``topk``,
+``fmbe`` and ``lsh``).
 
 A backend has two obligations: ``build`` derives its retrieval state from
 the output embedding ``w (V, d)`` once, and ``decode`` runs one batched
@@ -15,6 +15,7 @@ import torch
 
 from .. import resolve_device
 from ..configs.base import PartitionConfig
+from . import lsh as _lsh
 from . import mips as _mips
 from .decode import (DecodeOut, exact_topk_decode, fmbe_decode, mimps_decode,
                      mince_decode, selfnorm_decode, topk_head_decode)
@@ -28,6 +29,7 @@ class BackendState:
     w: torch.Tensor
     index: Optional[_mips.IVFIndex] = None
     fmbe: Optional[FMBEState] = None
+    lsh: Optional[_lsh.LSHIndex] = None
 
 
 def _build_index(cfg: PartitionConfig, w: torch.Tensor, *,
@@ -51,10 +53,12 @@ class EstimatorBackend:
               generator: Optional[torch.Generator] = None,
               assign: Optional[torch.Tensor] = None,
               feature_map: Optional[FeatureMap] = None,
+              lsh_proj: Optional[torch.Tensor] = None,
               device="cuda") -> BackendState:
-        """``assign`` (V,) injects the k-means assignment of an index build
-        and ``feature_map`` the FMBE feature map (parity with state built
-        elsewhere); ``generator`` draws them otherwise."""
+        """``assign`` (V,) injects the k-means assignment of an index build,
+        ``feature_map`` the FMBE feature map and ``lsh_proj`` the LSH
+        hyperplanes (parity with state built elsewhere); ``generator`` draws
+        them otherwise."""
         return BackendState(w=w.to(resolve_device(device)))
 
     def decode(self, state: BackendState, h: torch.Tensor,
@@ -107,7 +111,7 @@ class _IndexedBackend(EstimatorBackend):
     """A backend whose state is the block-IVF index."""
 
     def build(self, cfg, w, *, generator=None, assign=None, feature_map=None,
-              device="cuda"):
+              lsh_proj=None, device="cuda"):
         state = super().build(cfg, w, device=device)
         state.index = _build_index(cfg, state.w, generator=generator,
                                    assign=assign, device=device)
@@ -161,7 +165,7 @@ class FmbeBackend(EstimatorBackend):
     method = "fmbe"
 
     def build(self, cfg, w, *, generator=None, assign=None, feature_map=None,
-              device="cuda"):
+              lsh_proj=None, device="cuda"):
         """The feature map (drawn first, or injected), the index, and the
         per-block sketch sums, whose sum is lambda_tilde: one phi pass over
         the embedding. Without an index, the global sketch alone."""
@@ -190,3 +194,46 @@ class FmbeBackend(EstimatorBackend):
             return out._replace(log_z=torch.log(torch.clamp(z, min=1e-30)))
         return fmbe_decode(state.fmbe, state.index, h, n_probe=cfg.n_probe,
                            k=k, use_kernel=use_kernel, active=active)
+
+
+@register_backend
+class LshBackend(EstimatorBackend):
+    """SimHash collision head + Eq. 5 tail combine (``core.lsh``). The index
+    supplies routing only: candidate and tail rows are read from
+    ``state.w``. ``cfg.head_cap`` counts candidate rows of the trimmed
+    union (0 = auto, ``lsh.resolve_cand_cap``)."""
+    method = "lsh"
+
+    def build(self, cfg, w, *, generator=None, assign=None, feature_map=None,
+              lsh_proj=None, device="cuda"):
+        """The index, skipped below 4 rows per bucket (the exact pass is
+        cheaper there)."""
+        state = super().build(cfg, w, device=device)
+        if state.w.shape[0] >= 4 * (1 << cfg.lsh_bits):
+            state.lsh = _lsh.build_lsh_device(
+                state.w, n_bits=cfg.lsh_bits, n_tables=cfg.lsh_tables,
+                bucket_cap=cfg.lsh_bucket_cap, mips_scale=cfg.lsh_mips_scale,
+                tail_beta=cfg.lsh_tail_beta, generator=generator,
+                proj=lsh_proj, device=device)
+        return state
+
+    def decode(self, state, h, cfg, *, k=1, use_kernel=True, generator=None,
+               tail_idx=None, active=None):
+        if state.lsh is None:
+            return exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel)
+        return _lsh.lsh_decode(state.lsh, state.w, h, l=cfg.l, k=k,
+                               cand_cap=cfg.head_cap, use_kernel=use_kernel,
+                               generator=generator, tail_ids=tail_idx,
+                               active=active)
+
+    def embedding_floats(self, state, cfg, q, u=None):
+        """Embedding floats one decode step of ``q`` queries touches:
+        hyperplanes, ``u`` unique candidate rows (default: every probed
+        bucket slot), the shared tail rows and the queries."""
+        v, d = state.w.shape
+        lsh = state.lsh
+        if lsh is None:
+            return v * d + q * d
+        if u is None:        # worst case: every probed bucket slot unique
+            u = min(q * lsh.n_tables * lsh.bucket_cap, v)
+        return lsh.n_tables * lsh.n_bits * d + u * d + cfg.l * d + q * d

@@ -1,6 +1,8 @@
 """Carry state built by the JAX package into the port, through numpy.
 
-Every function takes numpy arrays only; nothing here imports JAX. The
+Every function takes numpy arrays only; nothing here imports JAX. Like
+every entry point, each puts its tensors on ``device="cuda"`` unless the
+caller asks for the CPU, and raises without a GPU. The
 parameter tree keeps the JAX layout (``x @ W``, ``wq (d, nh*hd)``, per-layer
 leaves stacked on a leading layer axis), which is also the port's layout.
 """
@@ -11,13 +13,16 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from . import resolve_device
 from .core.feature_maps import FeatureMap
+from .core.lsh import LSHIndex
 from .core.mips import IVFIndex
 from .train.optimizer import OptState
 
 
-def to_tensor(a, device="cpu") -> torch.Tensor:
+def to_tensor(a, device="cuda") -> torch.Tensor:
     """numpy (including ml_dtypes bfloat16) -> torch tensor on ``device``."""
+    device = resolve_device(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
@@ -25,7 +30,7 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_numpy(tree: Mapping[str, Any], cfg, device="cpu"):
+def params_from_numpy(tree: Mapping[str, Any], cfg, device="cuda"):
     """The JAX ``Model.init`` tree (leaves as numpy arrays) as the port's
     parameter dict. ``cfg`` is checked against the tree's widths."""
     out = {k: params_from_numpy(v, cfg, device) if isinstance(v, Mapping)
@@ -41,7 +46,7 @@ def params_from_numpy(tree: Mapping[str, Any], cfg, device="cpu"):
 
 
 def opt_state_from_numpy(step, m: Mapping[str, Any], v: Mapping[str, Any],
-                         device="cpu") -> OptState:
+                         device="cuda") -> OptState:
     """A JAX ``OptState`` (step and the f32 moment trees as numpy) as the
     port's, so a JAX ``TrainState`` carries across with
     ``params_from_numpy``."""
@@ -53,7 +58,7 @@ def opt_state_from_numpy(step, m: Mapping[str, Any], v: Mapping[str, Any],
 
 def ivf_from_numpy(v_blocks, valid, row_id, slot_of_row, block_centroids,
                    block_radius, n: int, block_rows: int, assign=None,
-                   device="cpu") -> IVFIndex:
+                   device="cuda") -> IVFIndex:
     """A JAX ``IVFIndex``'s fields (numpy arrays) as the port's index."""
     return IVFIndex(
         v_blocks=to_tensor(v_blocks, device),
@@ -68,10 +73,24 @@ def ivf_from_numpy(v_blocks, valid, row_id, slot_of_row, block_centroids,
 
 
 def feature_map_from_numpy(omega, degree, coef, p: float,
-                           device="cpu") -> FeatureMap:
+                           device="cuda") -> FeatureMap:
     """A JAX ``FeatureMap``'s fields (numpy arrays) as the port's feature
     map: torch cannot reproduce the JAX package's Rademacher and
     categorical draws, so parity tests inject them."""
     return FeatureMap(omega=to_tensor(omega, device).float(),
                       degree=to_tensor(degree, device).to(torch.int32),
                       coef=to_tensor(coef, device).float(), p=float(p))
+
+
+def lsh_from_numpy(proj, aug_scale, tail_scale, tail_logits, codes, buckets,
+                   slot_of_row, device="cuda") -> LSHIndex:
+    """A JAX ``LSHIndex``'s fields (numpy arrays) as the port's index: the
+    hyperplanes are ``jax.random.normal`` draws, so parity tests inject
+    them (or the whole index) from the JAX package."""
+    return LSHIndex(proj=to_tensor(proj, device).float(),
+                    aug_scale=to_tensor(aug_scale, device).float(),
+                    tail_scale=to_tensor(tail_scale, device).float(),
+                    tail_logits=to_tensor(tail_logits, device).float(),
+                    codes=to_tensor(codes, device).to(torch.int32),
+                    buckets=to_tensor(buckets, device).to(torch.int32),
+                    slot_of_row=to_tensor(slot_of_row, device).to(torch.int32))

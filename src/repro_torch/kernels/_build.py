@@ -18,13 +18,15 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("topk_z", "ivf_decode", "union_scores", "fmbe_phi", "fmbe_z",
-           "fused_ce_fwd", "fused_ce_bwd")
+           "fused_ce_fwd", "fused_ce_bwd", "lsh_probe", "ivf_score")
+# C entry points of a source besides its own ``<name>_launch``
+EXTRA_ENTRIES = {"lsh_probe": ("lsh_codes",)}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signature of each source's one entry point; every function returns its
-# cudaError_t (0 = success).
+# C signature of each entry point ``<name>_launch``; every function returns
+# its cudaError_t (0 = success).
 SIGNATURES = {
     # h, w, Q, V, d, k, grid_x, part_m, part_s, part_v, part_i,
     # lse, topv, topi, stream
@@ -46,6 +48,15 @@ SIGNATURES = {
     # h, w, labels, lse, gn, go, T, V, d, n_split, v_per_split, t_per_split,
     # part, dh, dw, stream
     "fused_ce_bwd": [_P] * 6 + [_I] * 6 + [_P] * 4,
+    # h, proj, Q, d, L, K, qcodes, stream
+    "lsh_codes": [_P] * 2 + [_I] * 4 + [_P] * 2,
+    # w, h, proj, cand_rows, cand_live, codes, slot_of_row, tail_ids,
+    # tail_accept, tail_bias, Q, C, d, L, K, NT, k, grid_x, qcodes, counts,
+    # part_hm, part_hs, part_v, part_i, part_tm, part_ts, head_lse,
+    # tail_lse, topv, topi, stream
+    "lsh_probe": [_P] * 10 + [_I] * 8 + [_P] * 13,
+    # w_blocks, h, block_ids, Q, P, nb, br, d, out, stream
+    "ivf_score": [_P] * 3 + [_I] * 5 + [_P] * 2,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -111,9 +122,10 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     build_all([name])
     lib = ctypes.CDLL(str(_lib_path(name)))
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = SIGNATURES[name]
-    fn.restype = ctypes.c_int
+    for entry in (name,) + EXTRA_ENTRIES.get(name, ()):
+        fn = getattr(lib, f"{entry}_launch")
+        fn.argtypes = SIGNATURES[entry]
+        fn.restype = ctypes.c_int
     _LIBS[name] = lib
     return lib
 

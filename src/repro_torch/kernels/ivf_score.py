@@ -1,9 +1,11 @@
-"""Scoring of a deduplicated probe plan (counterpart of
-``repro.kernels.ivf_score``'s ``union_scores`` and ``ivf_decode``).
+"""Scoring of probed IVF blocks (counterpart of ``repro.kernels.ivf_score``:
+``ivf_score``, ``union_scores`` and ``ivf_decode``).
 
-Each wrapper launches its CUDA kernel (``csrc/union_scores.cu``,
-``csrc/ivf_decode.cu``) on CUDA tensors and runs its plain version on CPU
-tensors. The contract is the TPU kernels': union slots at or past
+Each wrapper launches its CUDA kernel (``csrc/ivf_score.cu``,
+``csrc/union_scores.cu``, ``csrc/ivf_decode.cu``) on CUDA tensors and runs
+its plain version on CPU tensors. ``ivf_score`` writes every probed
+block's scores per query. For the other two the contract is the TPU
+kernels': union slots at or past
 ``head_live`` are skipped (``union_scores`` writes zeros there), cluster-pad
 rows carry ``row_logw = NEG``, a score counts only where it is above NEG/2,
 an empty head or tail gives a genuine ``-inf`` LSE, and the top-k is taken
@@ -31,6 +33,57 @@ def _masked_lse(eff: torch.Tensor) -> torch.Tensor:
 def _check(cond: bool, msg: str, name: str = "ivf_decode") -> None:
     if not cond:
         raise ValueError(f"{name}: {msg}")
+
+
+def ivf_score_plain(w_blocks, h, block_ids):
+    """Plain PyTorch version of ``ivf_score``: f32 scores of every probed
+    block of every query."""
+    return torch.einsum("qd,qpbd->qpb", h.float(),
+                        w_blocks[block_ids.long()].float())
+
+
+def ivf_score(w_blocks, h, block_ids):
+    """Per-query gather-score of probed blocks.
+
+      w_blocks  (nb, br, d)  block-IVF rows
+      h         (Q, d)       query batch
+      block_ids (Q, p) int32 probed block of each query; an id outside
+                             [0, nb) gives NaN scores on the GPU
+
+    Returns scores (Q, p, br) f32."""
+    args = (w_blocks, h, block_ids)
+    if all(t.device.type == "cpu" for t in args):
+        return ivf_score_plain(*args)
+    dev = h.device
+    _check(all(t.device == dev for t in args) and dev.type == "cuda",
+           "every input must be on one GPU", "ivf_score")
+    _check(w_blocks.dtype == torch.bfloat16 and h.dtype == torch.bfloat16,
+           f"kernel takes bf16 rows and queries, got {w_blocks.dtype}, "
+           f"{h.dtype}", "ivf_score")
+    _check(block_ids.dtype == torch.int32, "block_ids must be int32",
+           "ivf_score")
+    nb, br, d = w_blocks.shape
+    q = h.shape[0]
+    _check(h.shape == (q, d) and block_ids.dim() == 2
+           and block_ids.shape[0] == q, "shapes", "ivf_score")
+    _check(all(t.is_contiguous() for t in args), "inputs not contiguous",
+           "ivf_score")
+    _check(d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (w_blocks, h)),
+           "rows must be 16-byte aligned (d % 8 == 0)", "ivf_score")
+    n_probe = block_ids.shape[1]
+    _check(q >= 1 and n_probe >= 1 and br >= 1, "empty input", "ivf_score")
+    lib = _build.load("ivf_score")
+    out = torch.empty((q, n_probe, br), dtype=torch.float32, device=dev)
+    p = ctypes.c_void_p
+    err = lib.ivf_score_launch(
+        *[p(t.data_ptr()) for t in args], q, n_probe, nb, br, d,
+        p(out.data_ptr()), p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check("ivf_score", err)
+    ivf_score.launches += 1
+    return out
+
+
+ivf_score.launches = 0
 
 
 def union_scores_plain(w_blocks, h, head_ids, head_live):

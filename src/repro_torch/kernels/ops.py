@@ -1,6 +1,6 @@
-"""Public wrappers around the kernels used by training (counterpart of
+"""Public wrappers around the kernels (counterpart of
 ``repro.kernels.ops``): the fused cross-entropy as a differentiable
-function, and its full-logits oracle."""
+function and its full-logits oracle, and the probed-block scores."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -8,6 +8,7 @@ from typing import Tuple
 import torch
 
 from . import fused_ce as _fce
+from . import ivf_score as _ivf
 
 
 class FusedCrossEntropy(torch.autograd.Function):
@@ -45,3 +46,9 @@ def fused_ce_ref(h: torch.Tensor, w: torch.Tensor,
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, 1, labels.long()[:, None])[:, 0]
     return lse - picked, lse
+
+
+def ivf_block_scores(w_blocks: torch.Tensor, h: torch.Tensor,
+                     block_ids: torch.Tensor) -> torch.Tensor:
+    """(Q, p, block_rows) f32 scores for the probed blocks only."""
+    return _ivf.ivf_score(w_blocks, h, block_ids)

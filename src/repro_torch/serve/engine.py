@@ -20,11 +20,6 @@ from ..core.decode import DecodeOut
 from ..core.feature_maps import FeatureMap
 from ..models import Model
 
-# Serving methods of the JAX package that the port does not carry yet; they
-# raise rather than quietly serving through the exact fallback that training-
-# only methods (nmimps, uniform) take.
-NOT_PORTED = ("lsh",)
-
 
 @dataclasses.dataclass
 class ServeState:
@@ -35,17 +30,20 @@ class ServeState:
 
 class Engine:
     """Batched serving for one model. The retrieval state (IVF index, FMBE
-    sketch) is built once from the output embedding by the method's backend.
+    sketch, LSH index) is built once from the output embedding by the
+    method's backend; training-only methods serve through ``exact``.
 
     ``seed`` seeds the engine's generator on ``device``, which draws the
-    FMBE feature map, the k-means initialisation, the tail samples and the
-    Gumbel noise; ``index_assign`` injects the index's k-means assignment
-    and ``feature_map`` the feature map instead."""
+    FMBE feature map, the k-means initialisation, the LSH hyperplanes, the
+    tail samples and the Gumbel noise; ``index_assign`` injects the index's
+    k-means assignment, ``feature_map`` the feature map and ``lsh_proj`` the
+    (L, K, d+1) hyperplanes instead."""
 
     def __init__(self, model: Model, params, max_len: int, *, seed: int = 0,
                  use_kernel: bool = True, device="cuda",
                  index_assign: Optional[torch.Tensor] = None,
-                 feature_map: Optional[FeatureMap] = None):
+                 feature_map: Optional[FeatureMap] = None,
+                 lsh_proj: Optional[torch.Tensor] = None):
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model.cfg
@@ -54,15 +52,12 @@ class Engine:
         self.use_kernel = use_kernel
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         pc = self.cfg.partition
-        if pc.method in NOT_PORTED:
-            raise NotImplementedError(
-                f"the {pc.method!r} estimator is not ported yet; the port "
-                f"serves {sorted(BACKENDS)}")
         method = pc.method if pc.method in BACKENDS else "exact"
         self.backend = get_backend(method)
         self.state = self.backend.build(
             pc, model.head_matrix(params), generator=self.generator,
-            assign=index_assign, feature_map=feature_map, device=self.device)
+            assign=index_assign, feature_map=feature_map, lsh_proj=lsh_proj,
+            device=self.device)
         self.index = self.state.index
 
     def decode_step(self, state: ServeState, temperature: float = 0.0,

@@ -9,7 +9,14 @@ z is held to 1e-4 of sum_j |phi_j lambda_j| and phi to 1e-4 of its own
 scale |coef_j| * max(|x|_2, 1) ** degree_j (plus |phi|). The fused CE
 kernels run at token counts and vocabularies that are not multiples of
 their tiles, with labels at 0 and V - 1 and with and without a selfnorm
-cotangent; nll and lse to 1e-3. Both the kernel and the plain version
+cotangent; nll and lse to 1e-3. The LSH probe runs at one query and at
+query counts off the tile, one candidate and a count off the 32-column
+group, no live candidate and all live, the dense fallback over every row,
+one tail sample and none accepted, k of 1 and 8, and d off 128; its counts
+equal the plain version's exactly and its membership the plan's, and its
+query codes equal ``hash_codes`` except where a projection lies within
+1e-5 of 0 relative to |h| |proj row|. ``ivf_score`` runs at one probe, one
+query and block heights off 32. Both the kernel and the plain version
 round the backward's coefficient to bf16 before the products, from f32
 scores summed in another order (on the tensor cores, about 1e-4 apart at
 d = 2560), so a coefficient whose two f32 values straddle a bf16 rounding
@@ -32,9 +39,13 @@ from repro_torch.kernels.fmbe import (fmbe_phi, fmbe_phi_plain, fmbe_z,
 from repro_torch.kernels.fused_ce import (ce_coef, fused_ce_bwd,
                                          fused_ce_bwd_plain, fused_ce_fwd,
                                          fused_ce_fwd_plain)
+from repro_torch.core import lsh as tlsh
 from repro_torch.kernels.ivf_score import (ivf_decode, ivf_decode_plain,
+                                          ivf_score, ivf_score_plain,
                                           union_scores, union_scores_plain)
-from repro_torch.kernels.topk_z import topk_z, topk_z_plain
+from repro_torch.kernels.lsh_probe import (hash_codes, lsh_probe,
+                                          lsh_probe_plain, lsh_query_codes)
+from repro_torch.kernels.topk_z import NEG, topk_z, topk_z_plain
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-3
@@ -137,6 +148,110 @@ def test_union_scores_matches_plain(gen, q, live, cap):
     assert got.shape == (q, cap, br)
     assert (got[:, :live] - want[:, :live]).abs().max().item() <= TOL
     assert (got[:, live:] == 0).all()
+
+
+def _codes_agree(got, want, proj, h):
+    """Query codes equal, or the differing bits' projections within 1e-5
+    of 0 relative to |h| |proj row|."""
+    diff = got != want
+    if not diff.any():
+        return
+    ltab, kbits, _ = proj.shape
+    pm = proj[..., :h.shape[1]].reshape(ltab * kbits, -1).double()
+    s = h.double() @ pm.T
+    rel = (s / (h.double().norm(dim=1)[:, None] * pm.norm(dim=1)[None, :])
+           ).abs().reshape(-1, ltab, kbits)
+    flips = ((got ^ want)[..., None] >> torch.arange(
+        kbits, device=got.device)) & 1
+    assert (rel[flips.bool()] <= 1e-5).all()
+
+
+@pytest.mark.parametrize("q,d,c_kind,live_kind,l,tail_kind,k", [
+    (1, D, "plan", "all", 1000, "sampled", 1),
+    (13, D, "one", "all", 1000, "sampled", 8),
+    (8, D, "odd", "none", 1000, "sampled", 8),
+    (5, D, "dense", "all", 1, "sampled", 8),
+    (9, D, "plan", "plan", 1000, "none", 1),
+    (7, 200, "plan", "plan", 64, "sampled", 8),
+])
+def test_lsh_probe_matches_plain(gen, q, d, c_kind, live_kind, l, tail_kind,
+                                 k):
+    """Against the plain version at edge shapes: LSEs to 1e-3, counts
+    exactly, top ids where the gap exceeds 1e-3, counts > 0 equal to the
+    plan's membership, two calls bit-equal."""
+    v = 20000
+    w = (torch.randn(v, d, generator=gen, device="cuda") * 0.02
+         ).to(torch.bfloat16)
+    idx = tlsh.build_lsh_device(w, generator=gen, device="cuda")
+    h = torch.randn(q, d, generator=gen, device="cuda").to(torch.bfloat16)
+    plan = tlsh.lsh_plan(idx, h, l, generator=gen)
+    rows, live = plan.cand_rows, int(plan.cand_live)
+    if c_kind == "one":
+        rows, live = rows[:1].contiguous(), 1
+    elif c_kind == "odd":
+        rows = rows[:37].contiguous()
+    elif c_kind == "dense":
+        rows = torch.arange(v, dtype=torch.int32, device="cuda")
+        live = v
+    if live_kind == "all":
+        live = rows.shape[0]
+    elif live_kind == "none":
+        live = 0
+    accept = plan.tail_accept
+    if tail_kind == "none":
+        accept = torch.zeros_like(accept)
+    args = (w, h, idx.proj, rows, torch.tensor(live, dtype=torch.int32,
+                                                  device="cuda"),
+            idx.codes, idx.slot_of_row, plan.tail_ids, accept.contiguous(),
+            plan.tail_bias.contiguous())
+    before = lsh_probe.launches
+    out = lsh_probe(*args, k=k)
+    again = lsh_probe(*args, k=k)
+    torch.cuda.synchronize()
+    assert lsh_probe.launches == before + 2
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    hl, tl, tv, ti, cnt = out
+    p_hl, p_tl, p_v, p_i, p_cnt = lsh_probe_plain(*args, k=k)
+    _codes_agree(lsh_query_codes(h, idx.proj), hash_codes(idx.proj, h),
+                 idx.proj, h)
+    assert torch.equal(cnt, p_cnt)
+    assert not cnt[:, live:].any()
+    if c_kind == "dense" or (c_kind == "plan" and live_kind == "plan"):
+        member = plan.occ_q if c_kind == "dense" else plan.member
+        assert torch.equal(cnt > 0, member)
+    _close_lse(hl, p_hl)
+    _close_lse(tl, p_tl)
+    if live == 0:
+        assert torch.isneginf(hl).all() and (tv == NEG).all()
+        assert not ti.any()
+    if tail_kind == "none":
+        assert torch.isneginf(tl).all()
+    assert (tv - p_v).abs().max().item() <= TOL
+    _, _, p_v1, p_i1, _ = lsh_probe_plain(*args, k=k + 1)
+    for qq in range(q):
+        for j in range(k):
+            up = p_v1[qq, j - 1] - p_v1[qq, j] if j else float("inf")
+            down = p_v1[qq, j] - p_v1[qq, j + 1]
+            if up > TOL and down > TOL:
+                assert ti[qq, j] == p_i1[qq, j]
+
+
+@pytest.mark.parametrize("q,p,br", [(8, 16, 512), (1, 1, 512), (3, 5, 100),
+                                    (4, 2, 37)])
+def test_ivf_score_matches_plain(gen, q, p, br):
+    nb = 50
+    wb = (torch.randn(nb, br, D, generator=gen, device="cuda") * 0.02
+          ).to(torch.bfloat16)
+    h = torch.randn(q, D, generator=gen, device="cuda").to(torch.bfloat16)
+    ids = torch.randint(0, nb, (q, p), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    before = ivf_score.launches
+    got = ivf_score(wb, h, ids)
+    torch.cuda.synchronize()
+    assert ivf_score.launches == before + 1
+    assert got.shape == (q, p, br)
+    assert (got - ivf_score_plain(wb, h, ids)).abs().max().item() <= TOL
 
 
 def _feature_map(gen, p, m=8, d=D):
@@ -278,3 +393,18 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(gen):
                      w[:, :48].bfloat16().contiguous(), labels)
     with pytest.raises(ValueError, match="per-token"):
         fused_ce_fwd(h.bfloat16(), w.bfloat16(), labels[:3])
+    with pytest.raises(ValueError, match="int32"):
+        ivf_score(w.bfloat16().reshape(2, 32, D), h.bfloat16(),
+                  torch.zeros((4, 1), dtype=torch.int64, device="cuda"))
+    proj = torch.randn(2, 4, D + 1, generator=gen, device="cuda")
+    ids = torch.zeros(8, dtype=torch.int32, device="cuda")
+    codes = torch.zeros((64, 2), dtype=torch.int32, device="cuda")
+    lsh_args = (ids, torch.tensor(8, dtype=torch.int32, device="cuda"),
+                codes, codes, ids, torch.ones((4, 8), dtype=torch.bool,
+                                              device="cuda"),
+                torch.zeros(8, device="cuda"))
+    with pytest.raises(ValueError, match="bf16"):
+        lsh_probe(w.bfloat16(), h, proj, *lsh_args)         # float32 h
+    with pytest.raises(ValueError, match="K="):
+        lsh_probe(w.bfloat16(), h.bfloat16(),
+                  torch.randn(2, 25, D + 1, device="cuda"), *lsh_args)

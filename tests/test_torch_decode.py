@@ -83,7 +83,8 @@ class TestIndex:
         fields = {f: np.asarray(getattr(j, f)) for f in (
             "v_blocks", "valid", "row_id", "slot_of_row", "block_centroids",
             "block_radius", "assign")}
-        c = ivf_from_numpy(n=j.n, block_rows=j.block_rows, **fields)
+        c = ivf_from_numpy(n=j.n, block_rows=j.block_rows, device="cpu",
+                           **fields)
         for name in ("v_blocks", "valid", "row_id", "slot_of_row",
                      "block_centroids", "block_radius", "assign"):
             _eq(getattr(c, name), fields[name])
@@ -180,7 +181,7 @@ def sketch(built):
                            lambda_blocks=lam_b)
     tstate = FMBEState(
         fm=feature_map_from_numpy(np.asarray(fm.omega), np.asarray(fm.degree),
-                                  np.asarray(fm.coef), fm.p),
+                                  np.asarray(fm.coef), fm.p, device="cpu"),
         lambda_tilde=torch.from_numpy(np.array(jstate.lambda_tilde)),
         lambda_blocks=torch.from_numpy(np.array(lam_b)))
     return jstate, tstate

@@ -1,7 +1,8 @@
 """The port's serving engine against the JAX engine (f32, CPU): the same
 params (``interop.params_from_numpy``), the same IVF index (the JAX k-means
 assignment injected), for ``fmbe`` the same feature map
-(``interop.feature_map_from_numpy``) and, for ``mimps`` and ``mince``, the
+(``interop.feature_map_from_numpy``), for ``lsh`` the same hyperplanes
+(``Engine(lsh_proj=...)``) and, for ``mimps``, ``mince`` and ``lsh``, the
 same tail samples (the JAX key schedule replayed by ``tail_source``).
 Greedy tokens are equal; log_z and log_prob agree to 1e-4."""
 import dataclasses
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from repro.configs import reduced_config as j_reduced_config
+from repro.core import lsh as j_lsh
 from repro.models import Model as JModel
 from repro.serve import Engine as JEngine
 from repro.serve import generate as j_generate
@@ -24,7 +26,7 @@ from repro_torch.serve import Engine, generate
 
 ATOL = 1e-4
 N_TOKENS = 5
-METHODS = ["exact", "mimps", "selfnorm", "topk", "mince", "fmbe"]
+METHODS = ["exact", "mimps", "selfnorm", "topk", "mince", "fmbe", "lsh"]
 INDEXED = ("mimps", "topk", "mince", "fmbe")
 
 
@@ -36,11 +38,16 @@ def _cfg(reduced, method):
             fmbe_features=128))
 
 
-def _tail_source(key, l, n):
+def _tail_source(key, l, n, lsh_index=None):
     """Tail draws of the JAX engine's step ``step_id``: fold_in, split,
-    then plan_tail's randint."""
+    then plan_tail's randint, or for ``lsh`` the plan's inverse-CDF draws
+    (they depend on the index and the key, not on the hidden states)."""
     def source(step_id):
         k_est = jax.random.split(jax.random.fold_in(key, step_id))[0]
+        if lsh_index is not None:
+            return np.array(j_lsh.lsh_plan(
+                lsh_index, jnp.zeros((1, lsh_index.proj.shape[-1] - 1)),
+                k_est, l).tail_ids)
         return np.array(jax.random.randint(k_est, (l,), 0, n))
     return source
 
@@ -57,21 +64,23 @@ def served(request):
     jt, jaux = j_generate(jeng, jnp.asarray(prompt, jnp.int32), N_TOKENS,
                           key, return_aux=True)
     tm = Model(tcfg)
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
     assign = None if jeng.index is None else \
         torch.from_numpy(np.array(jeng.index.assign))
     fm = None if jeng.state.fmbe is None else feature_map_from_numpy(
         *(np.asarray(a) for a in jeng.state.fmbe.fm[:3]),
-        p=jeng.state.fmbe.fm.p)
-    source = _tail_source(key, jcfg.partition.l, jcfg.vocab)
+        p=jeng.state.fmbe.fm.p, device="cpu")
+    lsh = jeng.state.lsh
+    proj = None if lsh is None else torch.from_numpy(np.array(lsh.proj))
+    source = _tail_source(key, jcfg.partition.l, jcfg.vocab, lsh)
     return dict(method=method, jt=np.asarray(jt), jaux=jaux, tm=tm, tp=tp,
-                tcfg=tcfg, assign=assign, fm=fm, prompt=prompt,
+                tcfg=tcfg, assign=assign, fm=fm, proj=proj, prompt=prompt,
                 source=source)
 
 
 def _engine(s, **kw):
     return Engine(s["tm"], s["tp"], device="cpu", index_assign=s["assign"],
-                  feature_map=s["fm"], **kw)
+                  feature_map=s["fm"], lsh_proj=s["proj"], **kw)
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])
@@ -79,6 +88,7 @@ def test_greedy_generate_matches_jax(served, use_kernel):
     s = served
     eng = _engine(s, max_len=32, use_kernel=use_kernel)
     assert (eng.index is not None) == (s["method"] in INDEXED)
+    assert (eng.state.lsh is not None) == (s["method"] == "lsh")
     toks, aux = generate(eng, s["prompt"], N_TOKENS,
                          tail_source=s["source"], return_aux=True)
     np.testing.assert_array_equal(toks.numpy(), s["jt"])
@@ -110,15 +120,6 @@ def test_temperature_draws_candidates_deterministically(served):
     a = generate(engine(3), s["prompt"], N_TOKENS, temperature=0.8)
     b = generate(engine(3), s["prompt"], N_TOKENS, temperature=0.8)
     np.testing.assert_array_equal(a.numpy(), b.numpy())
-
-
-@pytest.mark.parametrize("method", ["lsh"])
-def test_unported_serving_method_raises(served, method):
-    """A serving tier of the JAX package that the port lacks is refused, not
-    served through the exact fallback."""
-    cfg = _cfg(reduced_config, method)
-    with pytest.raises(NotImplementedError, match=method):
-        Engine(Model(cfg), served["tp"], max_len=8, device="cpu")
 
 
 def test_generate_guards(served):

@@ -39,7 +39,8 @@ def _jax_fm(seed, d, p, max_degree=8):
                               max_degree=max_degree)
     return fm, feature_map_from_numpy(np.asarray(fm.omega),
                                       np.asarray(fm.degree),
-                                      np.asarray(fm.coef), fm.p)
+                                      np.asarray(fm.coef), fm.p,
+                                      device="cpu")
 
 
 def _phi_scale(fm, x):
@@ -270,7 +271,8 @@ class TestFmbeBackendWithoutIndex:
         fm = jstate.fmbe.fm
         tmap = feature_map_from_numpy(np.asarray(fm.omega),
                                       np.asarray(fm.degree),
-                                      np.asarray(fm.coef), fm.p)
+                                      np.asarray(fm.coef), fm.p,
+                                      device="cpu")
         backend = tback.get_backend("fmbe")
         tstate = backend.build(tcfg, _t(w), feature_map=tmap, device="cpu")
         assert tstate.index is None and tstate.fmbe.lambda_blocks is None

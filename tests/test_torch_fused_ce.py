@@ -48,7 +48,7 @@ def _inputs(t, v, d, dtype, seed=0):
 
 
 def _torch(*arrays):
-    return [to_tensor(a) for a in arrays]
+    return [to_tensor(a, device="cpu") for a in arrays]
 
 
 def _within_terms(got, want, terms, rel, out_dtype):

@@ -79,9 +79,13 @@ def test_qwen_config_field_by_field():
 def test_default_device_raises_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present; the default device is usable")
+    import numpy as np
+
     from repro_torch.configs import TrainConfig
     from repro_torch.core.feature_maps import make_feature_map
+    from repro_torch.core.lsh import build_lsh_device
     from repro_torch.core.mips import build_ivf
+    from repro_torch.interop import ivf_from_numpy, params_from_numpy
     from repro_torch.models import Model
     from repro_torch.serve import Engine
     from repro_torch.train import init_train_metric_state, init_train_state
@@ -101,3 +105,12 @@ def test_default_device_raises_without_gpu():
         init_train_state(model, TrainConfig(), 0)
     with pytest.raises(RuntimeError, match="cuda"):
         init_train_metric_state()
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_numpy({"lm_head": np.zeros((4, 4), np.float32)}, cfg)
+    z = np.zeros((2, 4), np.int32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ivf_from_numpy(np.zeros((2, 4, 8), np.float32), z > 0, z, z[0], z,
+                       z[0], n=4, block_rows=4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_lsh_device(torch.zeros((64, 8)),
+                         generator=torch.Generator().manual_seed(0))

@@ -35,7 +35,7 @@ def test_decode_step_hidden_states_match():
         jp["blocks"]["attn"][name] = jnp.asarray(
             0.1 * rng.standard_normal(jp["blocks"]["attn"][name].shape),
             jnp.float32)
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
     b, steps = 3, 6
     tokens = rng.integers(0, tcfg.vocab, (steps, b))
     jstate = jm.init_decode_state(b, 8)
@@ -66,14 +66,15 @@ def test_params_from_numpy_keeps_bf16_bits():
     jcfg = dataclasses.replace(j_reduced_config("qwen1.5-4b"), vocab=256)
     tcfg = dataclasses.replace(reduced_config("qwen1.5-4b"), vocab=256)
     jp = jax.tree.map(np.asarray, JModel(jcfg).init(jax.random.PRNGKey(1)))
-    tp = params_from_numpy(jp, tcfg)
+    tp = params_from_numpy(jp, tcfg, device="cpu")
     want = jp["blocks"]["attn"]["wq"]
     got = tp["blocks"]["attn"]["wq"]
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
     np.testing.assert_array_equal(got.view(torch.int16).numpy(),
                                   want.view(np.int16))
     with pytest.raises(ValueError, match="wq"):
-        params_from_numpy(jp, dataclasses.replace(tcfg, d_model=64))
+        params_from_numpy(jp, dataclasses.replace(tcfg, d_model=64),
+                          device="cpu")
 
 
 def test_non_dense_family_refused():

@@ -64,7 +64,7 @@ def _jax_params(jm, seed=0):
 
 
 def _to_torch(jp, cfg):
-    return params_from_numpy(jax.tree.map(np.asarray, jp), cfg)
+    return params_from_numpy(jax.tree.map(np.asarray, jp), cfg, device="cpu")
 
 
 def _batches(vocab, n, b=B, s=S):
@@ -329,8 +329,9 @@ def test_carried_train_state_continues_like_jax():
                       _jbatch(b0))
     host = jax.tree.map(np.asarray, jstate)
     state = train_loop.TrainState(
-        params=params_from_numpy(host.params, tcfg),
-        opt=opt_state_from_numpy(host.opt.step, host.opt.m, host.opt.v),
+        params=params_from_numpy(host.params, tcfg, device="cpu"),
+        opt=opt_state_from_numpy(host.opt.step, host.opt.m, host.opt.v,
+                                  device="cpu"),
         rng=torch.Generator().manual_seed(0))
     assert state.opt.step == 1
     before = jstate.params
