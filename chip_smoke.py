@@ -44,8 +44,16 @@ GPU.
    the selfnorm cotangent g_lse = 2 alpha lse / T: nll and lse to 1e-3, dh
    and dW (f32, before the cast) to 2**-7 of the sum of their terms'
    magnitudes per element and 2**-10 on average (both versions round the
-   coefficient to bf16), two calls bit-equal; times both beside their
-   bounds, plain versions and library calls.
+   coefficient to bf16), the same against ``fused_ce_bwd_chunked_plain``
+   (the kernel's chunked decomposition), two calls bit-equal; times both
+   beside their bounds, plain versions and library calls, and prints their
+   achieved TFLOP/s and share of the bound, the backward's chunk size and
+   scratch bytes, its peak memory across one call, each kernel's
+   registers, shared memory and spills as ptxas reported them, each
+   launch of the two by name (``torch.profiler``), and the backward with
+   its dh and dW items dealt longest first (its path) against round-robin
+   (the same bits required; timed in the order longest-first, round-robin,
+   round-robin, longest-first).
 7. Trains: 4 ``fused_ce`` steps on that batch, repeated (the loss must be
    finite and fall), then 2 ``selfnorm`` steps, each starting with the
    launch counts at 0 and launching each fused CE kernel exactly once;
@@ -844,6 +852,19 @@ def compare_terms(name, got, want, terms):
     return (got - want).abs().max().item(), worst, mean
 
 
+def ptxas_report(text):
+    """The lines of an ``nvcc -Xptxas -v`` report that give each entry
+    function's registers, shared memory, stack and spills."""
+    out = []
+    for line in text.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            out.append(line.split("'")[1] if "'" in line else line)
+        elif "registers" in line or "spill" in line:
+            out.append("  " + line.replace("ptxas info    : ", ""))
+    return out
+
+
 def profile_step(torch, fn, n_top=10):
     """Runs ``fn`` once under torch.profiler. Returns (wall ms, device busy
     ms, the n_top device kernels and the n_top host ops by self time, as
@@ -874,9 +895,13 @@ def train(torch, card, kernels):
     two kernel records."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data import DataIterator, SyntheticCorpus
-    from repro_torch.kernels.fused_ce import (ce_coef, fused_ce_bwd,
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_ce import (bwd_launch, bwd_schedule,
+                                             ce_coef, fused_ce_bwd,
+                                             fused_ce_bwd_chunked_plain,
                                              fused_ce_bwd_plain, fused_ce_fwd,
-                                             fused_ce_fwd_plain)
+                                             fused_ce_fwd_plain, grad_items,
+                                             grad_order)
     from repro_torch.models import Model
     from repro_torch.train import (adamw_update, harvest_train_metrics,
                                    init_train_metric_state, init_train_state,
@@ -928,11 +953,21 @@ def train(torch, card, kernels):
     del dh2, dw2
     p_dh, p_dw = fused_ce_bwd_plain(*bargs, cast=False)
     coef = ce_coef(*bargs).abs()
-    dh_err = compare_terms("fused_ce_bwd dh", dh, p_dh,
-                           coef @ w.float().abs())
-    dw_err = compare_terms("fused_ce_bwd dw", dw, p_dw,
-                           coef.T @ h.float().abs())
-    del coef, p_dh, p_dw, dh, dw
+    dh_terms, dw_terms = coef @ w.float().abs(), coef.T @ h.float().abs()
+    del coef
+    dh_err = compare_terms("fused_ce_bwd dh", dh, p_dh, dh_terms)
+    dw_err = compare_terms("fused_ce_bwd dw", dw, p_dw, dw_terms)
+    # the kernel's own decomposition (chunks of C columns) in plain PyTorch
+    del p_dh, p_dw
+    c_dh, c_dw = fused_ce_bwd_chunked_plain(*bargs, cast=False)
+    cdh_err = compare_terms("fused_ce_bwd dh vs chunked plain", dh, c_dh,
+                            dh_terms)
+    cdw_err = compare_terms("fused_ce_bwd dw vs chunked plain", dw, c_dw,
+                            dw_terms)
+    log(f"fused_ce_bwd against fused_ce_bwd_chunked_plain: dh max "
+        f"{cdh_err[1]:.3e} (mean {cdh_err[2]:.3e}), dW max {cdw_err[1]:.3e} "
+        f"(mean {cdw_err[2]:.3e}) of sum |terms|")
+    del c_dh, c_dw, dh_terms, dw_terms, dh, dw
     torch.cuda.empty_cache()
     fwd_bytes = t * d * 2 + v * d * 2 + t * 4 + 2 * t * 4
     fwd_bound, fwd_by = bound_ms(fwd_bytes, 2 * t * v * d)
@@ -984,6 +1019,56 @@ def train(torch, card, kernels):
         f"ms, bound {bwd_bound:.4f} ms ({bwd_by}, "
         f"{6 * t * v * d / 1e12:.3f} TFLOP, {bwd_bytes / 1e6:.1f} MB) "
         f"[{card}]")
+    for rec, n_ops in ((fwd, 2 * t * v * d), (bwd, 6 * t * v * d)):
+        log(f"{rec['name']}: {n_ops / rec['ms'] / 1e9:.1f} TFLOP/s achieved "
+            f"(dense bf16 peak {BF16_FLOPS / 1e12:.0f}), "
+            f"{rec['bound_ms'] / rec['ms']:.3f} of its bound [{card}]")
+        for line in ptxas_report(_build.build_log.get(rec["name"], "")):
+            log(f"  ptxas {rec['name']}: {line}")
+        log(f"  {rec['name']}: {_build.load(rec['name']).hgemm_smem_bytes()} "
+            f"bytes of dynamic shared memory a CTA")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sch = bwd_schedule(t, v)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fused_ce_bwd(*bargs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"fused_ce_bwd schedule: chunk C {sch['chunk']} of V {v} "
+        f"({sch['n_chunks']} chunks), scratch {sch['scratch_bytes']} bytes "
+        f"(T x C bf16), f32 dh sum {4 * t * d} bytes; max_memory_allocated "
+        f"across one call {peak / 1e9:.3f} GB, {(peak - before) / 1e6:.1f} "
+        f"MB above the {before / 1e9:.3f} GB before it (bf16 dh and dW "
+        f"included) [{card}]")
+    # each launch of the two kernels by name, device time a call
+    reps = 5
+    _, _, dev_top, _ = profile_step(torch, lambda: [
+        (fused_ce_fwd(h, w, lab), fused_ce_bwd(*bargs)) for _ in range(reps)])
+    for name, calls, ms in dev_top:
+        name = name.replace("(anonymous namespace)::", "").split("(")[0]
+        log(f"  launch {name.split('<')[0][-40:]:40s} {calls / reps:4.0f} a "
+            f"call, {ms / reps:.4f} ms a call [{card}]")
+    # the backward's dh + dW items dealt longest first (grad_order, the
+    # kernel's path) against round-robin (what a strided loop walks):
+    # the same bits, timed in the order longest first, round-robin,
+    # round-robin, longest first
+    rr = bwd_launch(*bargs, longest_first=False)
+    torch.cuda.synchronize()
+    check(torch.equal(out[0], rr[0]) and torch.equal(out[1], rr[1]),
+          "fused_ce_bwd: round-robin deal changed the result")
+    del out, rr
+    deal_ms = {True: [], False: []}
+    for lf in (True, False, False, True):
+        deal_ms[lf].append(time_ms(
+            torch, lambda lf=lf: bwd_launch(*bargs, longest_first=lf),
+            reps=10))
+    busiest = {lf: max(grad_order(t, d, sch["chunk"], sms, lf)[2])
+               for lf in (True, False)}
+    mean = sum(grad_items(t, d, sch["chunk"])) / sms
+    log(f"fused_ce_bwd deal: longest first {deal_ms[True]} ms, round-robin "
+        f"{deal_ms[False]} ms; busiest CTA of a full chunk {busiest[True]} "
+        f"and {busiest[False]} stages of a mean {mean:.1f} [{card}]")
     del hidden, h, w, nll, lse, nll2, lse2, p_nll, p_lse, bargs, g_lse, gn
     del params
     torch.cuda.empty_cache()

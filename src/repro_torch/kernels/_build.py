@@ -42,12 +42,13 @@ SIGNATURES = {
     # omega, degree, coef, lam, lam_stride, x, Q, P, M, d, n_part, part, z,
     # stream
     "fmbe_z": [_P] * 4 + [_I, _P] + [_I] * 5 + [_P] * 3,
-    # h, w, labels, T, V, d, n_split, v_per_split, part_m, part_s, part_p,
+    # h, w, labels, T, V, d, n_split, per, grid, part_m, part_s, part_p,
     # nll, lse, stream
-    "fused_ce_fwd": [_P] * 3 + [_I] * 5 + [_P] * 6,
-    # h, w, labels, lse, gn, go, T, V, d, n_split, v_per_split, t_per_split,
-    # part, dh, dw, stream
-    "fused_ce_bwd": [_P] * 6 + [_I] * 6 + [_P] * 4,
+    "fused_ce_fwd": [_P] * 3 + [_I] * 6 + [_P] * 6,
+    # h, w, labels, lse, gn, go, T, V, d, C, grid, cast, order_full,
+    # start_full, grid_full, order_last, start_last, grid_last, scratch,
+    # dh32, dh, dw, stream
+    "fused_ce_bwd": [_P] * 6 + [_I] * 6 + [_P, _P, _I] * 2 + [_P] * 5,
     # h, proj, Q, d, L, K, qcodes, stream
     "lsh_codes": [_P] * 2 + [_I] * 4 + [_P] * 2,
     # w, h, proj, cand_rows, cand_live, codes, slot_of_row, tail_ids,

@@ -3,8 +3,9 @@
 // (T, V) logits.
 //
 // Replaces the TPU kernel src/repro/kernels/fused_ce.py::fused_ce_bwd
-// (_bwd_kernel): one sequential (token tile, vocab tile) grid that
-// accumulates dh in VMEM and dW through an aliased HBM buffer.
+// (_bwd_kernel): one sequential (token tile, vocab tile) grid whose score
+// tile feeds both dh (accumulated in VMEM) and dW (through an aliased HBM
+// buffer).
 //
 // With p = exp(s - lse) and coef = (g_nll + g_lse) p - g_nll onehot(label):
 //   dh = coef W,   dW = coef^T h.
@@ -14,194 +15,325 @@
 // Bound on this card: operations. Three products of 2*T*V*d each (qwen1.5-4b
 // at T = 1024: 2.4e12, about 2.4 ms at the bf16 tensor-core rate).
 //
-// Design: CUDA blocks run in no order, so each output has one owner and no
-// float atomics are used (two calls are bit-equal):
-//  * ce_grad<true> (dh): a CTA owns BX tokens and one split of the vocab.
-//    For each CHUNK of its vocab it scores the chunk in BY-row sub-tiles
-//    (fused_ce_tile.cuh), keeps the BX x CHUNK bf16 coef in shared memory,
-//    then multiplies it by the chunk's rows of W, DC columns of d at a time,
-//    adding into its own partial dh in device memory. sum_splits adds the
-//    splits' partials in a fixed order.
-//  * ce_grad<false> (dW): the same with the roles of h and W swapped: a CTA
-//    owns BX vocab rows, keeps coef^T for CHUNK tokens and multiplies it by
-//    those rows of h. At T <= CHUNK each dW row is written once.
-// The scores are computed twice (once per pass), so the kernels do 4 of the
-// 3 products' worth of tensor-core work.
-#include "fused_ce_tile.cuh"
+// Design: the scores are computed once per (token, vocab) pair. The
+// vocabulary is walked in chunks of C columns (the wrapper's schedule: C is
+// the largest multiple of 128 with T x C x 2 bytes <= 32 MB, 16384 at
+// T = 1024), and for each chunk, in order:
+//  (a) ce_coef: S = h W[chunk]^T on the Hopper mainloop (hopper_gemm.cuh,
+//      both operands K-major); the epilogue turns the accumulator registers
+//      into coef, rounds it to bf16 and writes it to a (T, C) scratch buffer
+//      (zeros past V), which stays in L2 for (b) and (c).
+//  (b)+(c) ce_grad, one persistent launch over two kinds of 128 x 128 items:
+//      dh items, dh += coef W[chunk] (A = scratch K-major, B = W MN-major,
+//      K = C), accumulated in f32 over the chunks in chunk order into one
+//      (T, d) buffer (the f32 output with cast = 0); the last chunk's items
+//      write dh in bf16 with cast; and dW items, dW[chunk] = coef^T h (both
+//      operands MN-major, K = T), whose rows are complete and written once,
+//      in bf16 (cast) or f32. The items differ in length (a dh item has C of
+//      depth, a dW item T: 256 and 16 stages at T = 1024), and the 160 dh
+//      items of T = 1024 do not fill 132 SMs evenly alone, so the wrapper
+//      deals them to the CTAs longest first, each to the least loaded CTA,
+//      and passes each CTA's list.
+// Every output element has one owner and a fixed order of sums, with no
+// float atomics, so two calls are bit-equal.
+// Resources (hopper_gemm.cuh): 128 x 128 tiles, 6 stages of 32 KB (about
+// 193 KB of shared memory, one CTA of 384 threads per SM), 232 registers a
+// consumer thread. Memory beside the outputs: the scratch, T x C x 2 bytes
+// (32 MB at T = 1024), and with cast a T x d x 4 byte f32 dh (10.5 MB at
+// T = 1024), never O(T V).
+#include <algorithm>
 
-using namespace fused_ce;
+#include "hopper_gemm.cuh"
 
-constexpr int CHUNK = 1024;           // coef columns kept in shared memory
-constexpr int CLD = CHUNK + 8;        // padded row of the coef block (bf16)
-constexpr int DC = 128;               // columns of d per output pass
-constexpr int DLD = DC + 8;           // padded row of a staged Y slice (bf16)
-constexpr size_t COEF_BYTES = (size_t)BX * CLD * sizeof(bf16);
-constexpr size_t GRAD_SMEM = COEF_BYTES + SCORE_SMEM;
-static_assert(2 * BK * DLD * sizeof(bf16) <= SCORE_SMEM,
-              "the output-pass stages reuse the score-tile space");
-static_assert(CHUNK % BY == 0, "chunks hold whole score sub-tiles");
+using namespace hgemm;
 
-// Stages rows [y0, y0 + BK) of Y, columns [c0, c0 + DC); zeros past ny or d.
-__device__ __forceinline__ void stage_y(const bf16* Y, int ny, int y0, int d,
-                                        int c0, bf16* st) {
-  constexpr int PER_ROW = DC / 8;
-  for (int p = threadIdx.x; p < BK * PER_ROW; p += THREADS) {
-    const int r = p / PER_ROW, c = p % PER_ROW;
-    const int y = y0 + r, col = c0 + c * 8;
-    const bool ok = y < ny && col < d;
-    cp_async16(st + r * DLD + c * 8,
-               Y + (size_t)(ok ? y : 0) * d + (ok ? col : 0), ok);
+namespace {
+
+struct Chunk {
+  int T, V, d;
+  int C;             // scratch columns (row stride)
+  int c0;            // first vocab row of the chunk
+  int valid;         // vocab rows in the chunk, <= C
+  int n_tt;          // token tiles
+};
+
+// ---- (a) the coefficient --------------------------------------------------
+
+struct CoefArgs {
+  Chunk ch;
+  const int* labels;
+  const float* lse;
+  const float* gn;   // g_nll + g_lse
+  const float* go;   // g_nll
+  bf16* coef;        // (T, C)
+};
+
+struct TileItem {
+  int nk;
+  int m0, n0;
+};
+
+struct NoState {};
+
+struct CoefJob {
+  const CUtensorMap* mh;
+  const CUtensorMap* mw;
+  CoefArgs a;
+  int n_items;
+  using State = NoState;
+
+  __device__ int begin() const { return blockIdx.x; }
+  __device__ bool valid(int p) const { return p < n_items; }
+  __device__ void advance(int& p) const { p += gridDim.x; }
+  __device__ TileItem item(int p) const {
+    return {(a.ch.d + BK - 1) / BK, (p % a.ch.n_tt) * BM, (p / a.ch.n_tt) * BN};
   }
-}
-
-template <bool X_IS_TOKENS>
-__global__ void __launch_bounds__(THREADS, 1)
-ce_grad(const bf16* __restrict__ h, const bf16* __restrict__ w,
-        const int* __restrict__ labels, const float* __restrict__ lse,
-        const float* __restrict__ gn, const float* __restrict__ go, int T,
-        int V, int d, int y_per_split, float* __restrict__ out,
-        size_t split_stride) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* coef = reinterpret_cast<bf16*>(smem);                  // [BX][CLD]
-  bf16* stage = reinterpret_cast<bf16*>(smem + COEF_BYTES);
-  float* s = reinterpret_cast<float*>(smem + COEF_BYTES + STAGES_BYTES);
-  const bf16* X = X_IS_TOKENS ? h : w;
-  const bf16* Y = X_IS_TOKENS ? w : h;
-  const int nx = X_IS_TOKENS ? T : V;
-  const int ny = X_IS_TOKENS ? V : T;
-  const int x0 = blockIdx.x * BX;
-  const int y_begin = blockIdx.y * y_per_split;
-  const int y_end = min(ny, y_begin + y_per_split);
-  float* o = out + blockIdx.y * split_stride;
-  const int warp = threadIdx.x / 32;
-  const int wx = warp / 4, wy = warp % 4;
-  for (int c0 = y_begin; c0 < y_end; c0 += CHUNK) {
-    const int clen = min(CHUNK, y_end - c0);
-    // coef[x][y - c0] for the chunk, in BY-column sub-tiles
-    for (int y0 = c0; y0 < c0 + clen; y0 += BY) {
-      score_tile(X, nx, x0, Y, ny, y0, d, stage, s);
-      for (int e = threadIdx.x; e < BX * BY; e += THREADS) {
-        const int x = e / BY, yl = e % BY;
-        const int xi = x0 + x, yi = y0 + yl;
-        float c = 0.f;
-        if (xi < nx && yi < y_end) {
-          const int t = X_IS_TOKENS ? xi : yi;
-          const int v = X_IS_TOKENS ? yi : xi;
-          c = gn[t] * expf(s[x * SLD + yl] - lse[t]);
-          if (v == labels[t]) c -= go[t];
-        }
-        coef[x * CLD + (y0 - c0) + yl] = __float2bfloat16(c);
-      }
-    }
-    __syncthreads();
-    // out[x0 + x][:] (+)= coef[x][:clen] . Y[c0 : c0 + clen][:]
-    const int nk = (clen + BK - 1) / BK;      // coef past clen is 0
-    for (int d0 = 0; d0 < d; d0 += DC) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  __device__ void load(const TileItem& it, int k, uint32_t sa, uint32_t sb,
+                       uint64_t* bar) const {
+    load_slice(mh, false, sa, bar, it.m0, k * BK);
+    load_slice(mw, false, sb, bar, a.ch.c0 + it.n0, k * BK);
+  }
+  __device__ void mma(const TileItem&, float (&acc)[2][64], uint32_t sa,
+                      uint32_t sb) const {
+    mma_stage<false, false>(acc, sa, sb);
+  }
+  __device__ void init(NoState&) const {}
+  __device__ void after(const TileItem&, NoState&, int) const {}
+  __device__ void epilogue(const TileItem& it, float (&acc)[2][64],
+                           NoState&) const {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-      stage_y(Y, ny, c0, d, d0, stage);
-      cp_async_commit();
-      for (int kk = 0; kk < nk; ++kk) {
-        if (kk + 1 < nk)
-          stage_y(Y, ny, c0 + (kk + 1) * BK, d, d0,
-                  stage + ((kk + 1) & 1) * BK * DLD);
-        cp_async_commit();
-        cp_async_wait_one();
-        __syncthreads();
-        const bf16* ys = stage + (kk & 1) * BK * DLD;
+      for (int e = 0; e < 2; ++e) {
+        const int row = it.m0 + acc_row(h, e);
+        if (row >= a.ch.T) continue;
+        const float l = a.lse[row] * LOG2E, g = a.gn[row], o = a.go[row];
+        const int lab = a.labels[row] - a.ch.c0;   // column in the chunk
+        bf16* out = a.coef + (size_t)row * a.ch.C;
 #pragma unroll
-        for (int k16 = 0; k16 < BK; k16 += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-              a[2];
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-              b[2];
+        for (int j = 0; j < 16; ++j) {
+          const int col = it.n0 + acc_col(j);
+          float v[2];
 #pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::load_matrix_sync(
-                a[i], coef + (wx * 32 + i * 16) * CLD + kk * BK + k16, CLD);
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::load_matrix_sync(b[j], ys + k16 * DLD + wy * 32 + j * 16,
-                                   DLD);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-              wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-      if (d0 + wy * 32 < d) {              // d % 32 == 0: whole warp tiles
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            float* dst = o + (size_t)(x0 + wx * 32 + i * 16) * d + d0 +
-                         wy * 32 + j * 16;
-            if (c0 != y_begin) {           // later chunks add to the first
-              wmma::fragment<wmma::accumulator, 16, 16, 16, float> prev;
-              wmma::load_matrix_sync(prev, dst, d, wmma::mem_row_major);
-#pragma unroll
-              for (int e = 0; e < prev.num_elements; ++e)
-                acc[i][j].x[e] += prev.x[e];
-            }
-            wmma::store_matrix_sync(dst, acc[i][j], d, wmma::mem_row_major);
+          for (int c = 0; c < 2; ++c) {
+            const float x = acc[h][4 * j + 2 * e + c];
+            v[c] = col + c < a.ch.valid
+                       ? g * fast_exp2(fmaf(x, LOG2E, -l)) -
+                             (col + c == lab ? o : 0.f)
+                       : 0.f;
           }
+          *reinterpret_cast<__nv_bfloat162*>(out + col) =
+              __floats2bfloat162_rn(v[0], v[1]);
+        }
       }
+  }
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+ce_coef(const __grid_constant__ CUtensorMap mh,
+        const __grid_constant__ CUtensorMap mw, CoefArgs a, int n_items) {
+  run(CoefJob{&mh, &mw, a, n_items});
+}
+
+// ---- (b) dW and (c) dh ----------------------------------------------------
+
+struct GradArgs {
+  Chunk ch;
+  int n_dt;          // 128-column tiles of d
+  int first;         // first chunk: dh32 is written, not added to
+  int last;          // last chunk: with cast, dh goes out in bf16
+  int cast;          // 1: dh (last chunk) and dW in bf16, 0: f32
+  float* dh32;       // (T, d) f32 sum over the chunks so far
+  bf16* dh;          // (T, d) bf16 output with cast
+  void* dw;          // (V, d)
+};
+
+struct GradItem {
+  int nk;
+  int m0, n0;
+  bool dh;           // a dh item, else a dW item
+};
+
+struct GradJob {
+  const CUtensorMap* mc_k;   // coef (T, C), K-major boxes
+  const CUtensorMap* mc_mn;  // coef (T, C), MN-major boxes
+  const CUtensorMap* mw_mn;  // W (V, d), MN-major boxes
+  const CUtensorMap* mh_mn;  // h (T, d), MN-major boxes
+  GradArgs a;
+  int n_dh;                  // item ids: dh items, then dW items
+  const int* order;          // item ids, CTA by CTA
+  const int* start;          // CTA b takes order[start[b] .. start[b + 1])
+  using State = NoState;
+
+  __device__ int begin() const { return start[blockIdx.x]; }
+  __device__ bool valid(int i) const { return i < start[blockIdx.x + 1]; }
+  __device__ void advance(int& i) const { ++i; }
+  __device__ GradItem item(int i) const {
+    const int p = order[i];
+    GradItem it;
+    it.dh = p < n_dh;
+    if (it.dh) {
+      it.m0 = (p % a.ch.n_tt) * BM;
+      it.n0 = (p / a.ch.n_tt) * BN;
+      it.nk = (a.ch.valid + BK - 1) / BK;
+    } else {
+      const int q = p - n_dh;
+      it.n0 = (q % a.n_dt) * BN;
+      it.m0 = (q / a.n_dt) * BM;
+      it.nk = (a.ch.T + BK - 1) / BK;
     }
-    __syncthreads();                       // coef is rewritten next chunk
+    return it;
   }
+  __device__ void load(const GradItem& it, int k, uint32_t sa, uint32_t sb,
+                       uint64_t* bar) const {
+    if (it.dh) {
+      load_slice(mc_k, false, sa, bar, it.m0, k * BK);
+      load_slice(mw_mn, true, sb, bar, it.n0, a.ch.c0 + k * BK);
+    } else {
+      load_slice(mc_mn, true, sa, bar, it.m0, k * BK);
+      load_slice(mh_mn, true, sb, bar, it.n0, k * BK);
+    }
+  }
+  __device__ void mma(const GradItem& it, float (&acc)[2][64], uint32_t sa,
+                      uint32_t sb) const {
+    if (it.dh)
+      mma_stage<false, true>(acc, sa, sb);
+    else
+      mma_stage<true, true>(acc, sa, sb);
+  }
+  __device__ void init(NoState&) const {}
+  __device__ void after(const GradItem&, NoState&, int) const {}
+  __device__ void epilogue(const GradItem& it, float (&acc)[2][64],
+                           NoState&) const {
+    const int d = a.ch.d;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = it.m0 + acc_row(h, e);
+        if (it.dh) {
+          if (r >= a.ch.T) continue;
+          float2* sum = reinterpret_cast<float2*>(a.dh32 + (size_t)r * d);
+          // all of the row's earlier sums are loaded before any store, so
+          // the loads are in flight together
+          float2 old[16];
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int col = it.n0 + acc_col(j);
+            old[j] = !a.first && col < d ? sum[col / 2] : make_float2(0.f, 0.f);
+          }
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int col = it.n0 + acc_col(j);
+            if (col >= d) continue;
+            const float x = acc[h][4 * j + 2 * e] + old[j].x;
+            const float y = acc[h][4 * j + 2 * e + 1] + old[j].y;
+            if (a.last && a.cast)
+              *reinterpret_cast<__nv_bfloat162*>(a.dh + (size_t)r * d + col) =
+                  __floats2bfloat162_rn(x, y);
+            else
+              sum[col / 2] = make_float2(x, y);
+          }
+        } else {
+          if (r >= a.ch.valid) continue;
+          const size_t off = (size_t)(a.ch.c0 + r) * d;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int col = it.n0 + acc_col(j);
+            if (col >= d) continue;
+            const float x = acc[h][4 * j + 2 * e];
+            const float y = acc[h][4 * j + 2 * e + 1];
+            if (a.cast)
+              *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dw) +
+                                                 off + col) =
+                  __floats2bfloat162_rn(x, y);
+            else
+              *reinterpret_cast<float2*>(static_cast<float*>(a.dw) + off +
+                                         col) = make_float2(x, y);
+          }
+        }
+      }
+  }
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+ce_grad(const __grid_constant__ CUtensorMap mc_k,
+        const __grid_constant__ CUtensorMap mc_mn,
+        const __grid_constant__ CUtensorMap mw_mn,
+        const __grid_constant__ CUtensorMap mh_mn, GradArgs a, int n_dh,
+        const int* order, const int* start) {
+  run(GradJob{&mc_k, &mc_mn, &mw_mn, &mh_mn, a, n_dh, order, start});
 }
 
-// out[i] = sum over splits k (in order) of part[k * stride + i], i < n.
-__global__ void sum_splits(const float* __restrict__ part, int n_split,
-                           size_t stride, size_t n, float* __restrict__ out) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int k = 0; k < n_split; ++k) acc += part[k * stride + i];
-    out[i] = acc;
-  }
-}
+}  // namespace
 
+// Schedule from the wrapper (fused_ce.py::bwd_schedule): chunk columns C,
+// grid CTAs for ce_coef; ce_grad's item lists (fused_ce.py::grad_order) for
+// a full chunk and for the last chunk, each over its own grid of CTAs.
+// scratch: (T, C) bf16; dh32: (T, d) f32, the dh output itself with
+// cast = 0; dh: (T, d) bf16 with cast != 0 (unused otherwise); dw: (V, d),
+// bf16 with cast != 0, else f32.
 extern "C" int fused_ce_bwd_launch(const void* h, const void* w,
                                    const void* labels, const void* lse,
                                    const void* gn, const void* go, int T,
-                                   int V, int d, int n_split, int v_per_split,
-                                   int t_per_split, void* part, void* dh,
+                                   int V, int d, int C, int grid, int cast,
+                                   const void* order_full,
+                                   const void* start_full, int grid_full,
+                                   const void* order_last,
+                                   const void* start_last, int grid_last,
+                                   void* scratch, void* dh32, void* dh,
                                    void* dw, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  auto hb = static_cast<const bf16*>(h);
-  auto wb = static_cast<const bf16*>(w);
-  auto lab = static_cast<const int*>(labels);
-  auto l = static_cast<const float*>(lse);
-  auto gnp = static_cast<const float*>(gn);
-  auto gop = static_cast<const float*>(go);
+  CUtensorMap mh_k, mw_k, mc_k, mc_mn, mw_mn, mh_mn;
+  if (make_map(&mh_k, h, d, T, false) || make_map(&mw_k, w, d, V, false) ||
+      make_map(&mc_k, scratch, C, T, false) ||
+      make_map(&mc_mn, scratch, C, T, true) ||
+      make_map(&mw_mn, w, d, V, true) || make_map(&mh_mn, h, d, T, true))
+    return ERR_TENSOR_MAP;
   cudaError_t err = cudaFuncSetAttribute(
-      ce_grad<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)GRAD_SMEM);
+      ce_coef, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(ce_grad<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)GRAD_SMEM);
+  err = cudaFuncSetAttribute(
+      ce_grad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  const int t_tiles = (T + BX - 1) / BX, v_tiles = (V + BX - 1) / BX;
-  const size_t t_stride = (size_t)t_tiles * BX * d;
-  ce_grad<true><<<dim3(t_tiles, n_split), THREADS, GRAD_SMEM, st>>>(
-      hb, wb, lab, l, gnp, gop, T, V, d, v_per_split,
-      static_cast<float*>(part), t_stride);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sum_splits<<<264, 256, 0, st>>>(static_cast<const float*>(part), n_split,
-                                  t_stride, (size_t)T * d,
-                                  static_cast<float*>(dh));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ce_grad<false><<<dim3(v_tiles, 1), THREADS, GRAD_SMEM, st>>>(
-      hb, wb, lab, l, gnp, gop, T, V, d, t_per_split,
-      static_cast<float*>(dw), (size_t)v_tiles * BX * d);
-  return (int)cudaGetLastError();
+  const int n_tt = (T + BM - 1) / BM;
+  const int n_dt = (d + BN - 1) / BN;
+  for (int c0 = 0; c0 < V; c0 += C) {
+    Chunk ch;
+    ch.T = T;
+    ch.V = V;
+    ch.d = d;
+    ch.C = C;
+    ch.c0 = c0;
+    ch.valid = std::min(C, V - c0);
+    ch.n_tt = n_tt;
+    CoefArgs ca;
+    ca.ch = ch;
+    ca.labels = static_cast<const int*>(labels);
+    ca.lse = static_cast<const float*>(lse);
+    ca.gn = static_cast<const float*>(gn);
+    ca.go = static_cast<const float*>(go);
+    ca.coef = static_cast<bf16*>(scratch);
+    const int n_coef = n_tt * ((ch.valid + BN - 1) / BN);
+    ce_coef<<<std::min(grid, n_coef), THREADS, SMEM_BYTES, st>>>(mh_k, mw_k, ca,
+                                                           n_coef);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    GradArgs ga;
+    ga.ch = ch;
+    ga.n_dt = n_dt;
+    ga.first = c0 == 0;
+    ga.last = c0 + C >= V;
+    ga.cast = cast;
+    ga.dh32 = static_cast<float*>(dh32);
+    ga.dh = static_cast<bf16*>(dh);
+    ga.dw = dw;
+    ce_grad<<<ga.last ? grid_last : grid_full, THREADS, SMEM_BYTES, st>>>(
+        mc_k, mc_mn, mw_mn, mh_mn, ga, n_tt * n_dt,
+        static_cast<const int*>(ga.last ? order_last : order_full),
+        static_cast<const int*>(ga.last ? start_last : start_full));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

@@ -9,99 +9,172 @@
 // T = 1024: 8.0e11, about 0.81 ms at the bf16 tensor-core rate) against 778
 // MB of W read once (0.23 ms).
 //
-// Design: CUDA blocks run in no order, so nothing is carried across CTAs.
-// A CTA owns a tile of BX tokens and one split of the vocabulary; it scores
-// BY-row sub-tiles of W on the tensor cores (fused_ce_tile.cuh) and folds
-// each into the per-token online (m, s) and label score in shared memory,
-// one warp per 8 tokens. It writes one partial (m, s, p) per token and
-// split; a second kernel merges the splits of each token in a fixed order.
-// Splits give every SM work at T = 1024 (16 token tiles), and the CTAs of one
-// split are adjacent in launch order, so they share W's sub-tiles in L2.
-#include "fused_ce_tile.cuh"
+// Design: the scores run on the Hopper mainloop of hopper_gemm.cuh (TMA
+// into a 6-stage ring of 32 KB stages, wgmma m64n128k16 with f32
+// accumulators in registers, 128 x 128 tiles, a producer warp and two
+// consumer warpgroups in ping-pong, 232 registers a consumer thread, about
+// 193 KB of shared memory, one CTA per SM). Work units are (128-token
+// tile, vocab split); persistent CTAs walk their units' 128-column vocab
+// tiles in order, and consecutive tiles go to alternate consumers. The
+// epilogue folds a tile straight from the accumulator registers: a thread
+// holds 32 columns of 4 rows; the row max is shared by the 4 threads of a
+// row (two quad shuffles), and each thread keeps the running (m, s, label
+// score) of its rows, so no f32 score goes through shared memory. At the
+// end of a unit the quad sums its s and each consumer writes one partial
+// (m, s, p) per token; a second kernel merges the 2 x n_split partials of
+// each token in a fixed order, so two calls are bit-equal. Units are
+// ordered token tile first, so CTAs that run at once share W's tiles in L2.
+#include "hopper_gemm.cuh"
 
-using namespace fused_ce;
+using namespace hgemm;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
+namespace {
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
+constexpr float NEG = -1e30f;
 
-__global__ void __launch_bounds__(THREADS)
-fused_ce_fwd_partial(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                     const int* __restrict__ labels, int T, int V, int d,
-                     int v_per_split, float* __restrict__ part_m,
-                     float* __restrict__ part_s, float* __restrict__ part_p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* stage = reinterpret_cast<bf16*>(smem);
-  float* s = reinterpret_cast<float*>(smem + STAGES_BYTES);
-  __shared__ float rm[BX], rs[BX], rp[BX];
-  __shared__ int rl[BX];
-  const int t0 = blockIdx.x * BX;
-  const int v_begin = blockIdx.y * v_per_split;
-  const int v_end = min(V, v_begin + v_per_split);
-  for (int r = threadIdx.x; r < BX; r += THREADS) {
-    rm[r] = NEG;
-    rs[r] = 0.f;
-    rp[r] = NEG;
-    rl[r] = t0 + r < T ? labels[t0 + r] : -1;
+struct FwdArgs {
+  const int* labels;
+  int T, V, d;
+  int n_tt;          // token tiles
+  int n_vt;          // vocab tiles
+  int n_split;       // vocab splits
+  int per;           // vocab tiles per split
+  float* part_m;     // (2 n_split, T)
+  float* part_s;
+  float* part_p;
+};
+
+struct FwdCursor {
+  int u;             // unit: token tile u % n_tt, split u / n_tt
+  int t;             // vocab tile within the unit
+};
+
+struct FwdItem {
+  int nk;
+  int m0, v0, split;
+  bool last;         // last vocab tile of the unit
+};
+
+struct FwdState {
+  float m[4], s[4], p[4];    // rows acc_row(h, e) at index 2 h + e
+};
+
+struct FwdJob {
+  const CUtensorMap* mh;
+  const CUtensorMap* mw;
+  FwdArgs a;
+  using State = FwdState;
+
+  __device__ int tiles(int split) const {
+    return min(a.per, a.n_vt - split * a.per);
   }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  constexpr int ROWS = BX / WARPS;                 // tokens per warp
-  constexpr int PER_LANE = BY / 32;                // columns per lane
-  for (int v0 = v_begin; v0 < v_end; v0 += BY) {
-    score_tile(h, T, t0, w, V, v0, d, stage, s);   // ends with a barrier
-#pragma unroll 1
-    for (int rr = 0; rr < ROWS; ++rr) {
-      const int r = warp * ROWS + rr;
-      float x[PER_LANE];
-      float mx = NEG, pick = NEG;
-#pragma unroll
-      for (int c = 0; c < PER_LANE; ++c) {
-        const int col = v0 + lane + 32 * c;
-        const bool ok = col < v_end;
-        x[c] = ok ? s[r * SLD + lane + 32 * c] : NEG;
-        mx = fmaxf(mx, x[c]);
-        if (ok && col == rl[r]) pick = x[c];
-      }
-      mx = warp_max(mx);
-      pick = warp_max(pick);
-      const float m_old = rm[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < PER_LANE; ++c)
-        if (v0 + lane + 32 * c < v_end) sum += expf(x[c] - m_new);
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        rs[r] = rs[r] * expf(m_old - m_new) + sum;
-        rm[r] = m_new;
-        rp[r] = fmaxf(rp[r], pick);
-      }
-      __syncwarp();
+  __device__ FwdCursor begin() const { return {(int)blockIdx.x, 0}; }
+  __device__ bool valid(const FwdCursor& c) const {
+    return c.u < a.n_tt * a.n_split;
+  }
+  __device__ void advance(FwdCursor& c) const {
+    if (c.t + 1 < tiles(c.u / a.n_tt)) {
+      ++c.t;
+    } else {
+      c.u += gridDim.x;
+      c.t = 0;
     }
   }
-  __syncthreads();
-  for (int r = threadIdx.x; r < BX; r += THREADS) {
-    if (t0 + r >= T) continue;
-    const size_t idx = (size_t)blockIdx.y * T + t0 + r;
-    part_m[idx] = rm[r];
-    part_s[idx] = rs[r];
-    part_p[idx] = rp[r];
+  __device__ FwdItem item(const FwdCursor& c) const {
+    const int split = c.u / a.n_tt;
+    FwdItem it;
+    it.nk = (a.d + BK - 1) / BK;
+    it.m0 = (c.u % a.n_tt) * BM;
+    it.v0 = (split * a.per + c.t) * BN;
+    it.split = split;
+    it.last = c.t + 1 == tiles(split);
+    return it;
   }
+  __device__ void load(const FwdItem& it, int k, uint32_t sa, uint32_t sb,
+                       uint64_t* bar) const {
+    load_slice(mh, false, sa, bar, it.m0, k * BK);
+    load_slice(mw, false, sb, bar, it.v0, k * BK);
+  }
+  __device__ void mma(const FwdItem&, float (&acc)[2][64], uint32_t sa,
+                      uint32_t sb) const {
+    mma_stage<false, false>(acc, sa, sb);
+  }
+  __device__ void init(FwdState& st) const {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      st.m[r] = NEG;
+      st.s[r] = 0.f;
+      st.p[r] = NEG;
+    }
+  }
+  __device__ void epilogue(const FwdItem& it, float (&acc)[2][64],
+                           FwdState& st) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 2 * h + e;
+        const int row = it.m0 + acc_row(h, e);
+        const int lab = row < a.T ? a.labels[row] : -1;
+        float mx = -INFINITY, pick = NEG;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = it.v0 + acc_col(j) + c;
+            float& x = acc[h][4 * j + 2 * e + c];
+            if (col >= a.V) x = -INFINITY;
+            mx = fmaxf(mx, x);
+            if (col == lab) pick = x;
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(st.m[r], mx);
+        const float ms = m_new * LOG2E;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            sum += fast_exp2(fmaf(acc[h][4 * j + 2 * e + c], LOG2E, -ms));
+        st.s[r] = st.s[r] * fast_exp2((st.m[r] - m_new) * LOG2E) + sum;
+        st.m[r] = m_new;
+        st.p[r] = fmaxf(st.p[r], pick);
+      }
+  }
+  __device__ void after(const FwdItem& it, FwdState& st, int wg) const {
+    if (!it.last) return;
+    const size_t part = (size_t)(2 * it.split + wg) * a.T;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 2 * h + e;
+        float s = st.s[r], p = st.p[r];
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        p = fmaxf(p, __shfl_xor_sync(0xffffffffu, p, 1));
+        p = fmaxf(p, __shfl_xor_sync(0xffffffffu, p, 2));
+        const int row = it.m0 + acc_row(h, e);
+        if ((threadIdx.x & 3) == 0 && row < a.T) {
+          a.part_m[part + row] = st.m[r];
+          a.part_s[part + row] = s;
+          a.part_p[part + row] = p;
+        }
+      }
+    init(st);
+  }
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+fused_ce_fwd_partial(const __grid_constant__ CUtensorMap mh,
+                     const __grid_constant__ CUtensorMap mw, FwdArgs a) {
+  run(FwdJob{&mh, &mw, a});
 }
 
 // One thread per token: lse = m + log(sum_p s_p exp(m_p - m)) over the
-// splits in order, nll = lse - the label's score.
-__global__ void fused_ce_fwd_merge(int T, int n_split,
+// partials in order, nll = lse - the label's score.
+__global__ void fused_ce_fwd_merge(int T, int n_part,
                                    const float* __restrict__ part_m,
                                    const float* __restrict__ part_s,
                                    const float* __restrict__ part_p,
@@ -110,13 +183,13 @@ __global__ void fused_ce_fwd_merge(int T, int n_split,
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= T) return;
   float mx = NEG, p = NEG;
-  for (int k = 0; k < n_split; ++k) {
+  for (int k = 0; k < n_part; ++k) {
     const size_t i = (size_t)k * T + t;
     if (part_s[i] > 0.f) mx = fmaxf(mx, part_m[i]);
     p = fmaxf(p, part_p[i]);
   }
   float sum = 0.f;
-  for (int k = 0; k < n_split; ++k) {
+  for (int k = 0; k < n_part; ++k) {
     const size_t i = (size_t)k * T + t;
     if (part_s[i] > 0.f) sum += part_s[i] * expf(part_m[i] - mx);
   }
@@ -125,26 +198,39 @@ __global__ void fused_ce_fwd_merge(int T, int n_split,
   nll[t] = l - p;
 }
 
+}  // namespace
+
+// part_m / part_s / part_p: (2 n_split, T) f32 each; grid: persistent CTAs.
 extern "C" int fused_ce_fwd_launch(const void* h, const void* w,
                                    const void* labels, int T, int V, int d,
-                                   int n_split, int v_per_split, void* part_m,
-                                   void* part_s, void* part_p, void* nll,
-                                   void* lse, void* stream) {
+                                   int n_split, int per, int grid,
+                                   void* part_m, void* part_s, void* part_p,
+                                   void* nll, void* lse, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
+  CUtensorMap mh, mw;
+  if (make_map(&mh, h, d, T, false) || make_map(&mw, w, d, V, false))
+    return ERR_TENSOR_MAP;
   cudaError_t err = cudaFuncSetAttribute(
       fused_ce_fwd_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SCORE_SMEM);
+      (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + BX - 1) / BX, n_split);
-  fused_ce_fwd_partial<<<grid, THREADS, SCORE_SMEM, st>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(w),
-      static_cast<const int*>(labels), T, V, d, v_per_split,
-      static_cast<float*>(part_m), static_cast<float*>(part_s),
-      static_cast<float*>(part_p));
+  FwdArgs a;
+  a.labels = static_cast<const int*>(labels);
+  a.T = T;
+  a.V = V;
+  a.d = d;
+  a.n_tt = (T + BM - 1) / BM;
+  a.n_vt = (V + BN - 1) / BN;
+  a.n_split = n_split;
+  a.per = per;
+  a.part_m = static_cast<float*>(part_m);
+  a.part_s = static_cast<float*>(part_s);
+  a.part_p = static_cast<float*>(part_p);
+  fused_ce_fwd_partial<<<grid, THREADS, SMEM_BYTES, st>>>(mh, mw, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fused_ce_fwd_merge<<<(T + 255) / 256, 256, 0, st>>>(
-      T, n_split, static_cast<const float*>(part_m),
+      T, 2 * n_split, static_cast<const float*>(part_m),
       static_cast<const float*>(part_s), static_cast<const float*>(part_p),
       static_cast<float*>(nll), static_cast<float*>(lse));
   return (int)cudaGetLastError();

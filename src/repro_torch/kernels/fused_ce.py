@@ -10,11 +10,18 @@ keep the TPU kernels' contract: scores accumulate in f32, a label outside
 and the backward rounds its coefficient ``coef = (g_nll + g_lse) p -
 g_nll onehot`` to the inputs' dtype before both products, accumulating dh
 and dW in f32.
+
+The backward kernel walks the vocabulary in chunks of ``C`` columns
+(``bwd_schedule``): the chunk's coefficient is computed once into a
+(T, C) bf16 scratch buffer, then feeds the chunk's dW rows and adds to dh.
+``fused_ce_bwd_chunked_plain`` is that decomposition in plain PyTorch.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+import heapq
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -22,12 +29,11 @@ from . import _build
 
 NEG = -1e30
 
-# tile sizes shared with csrc/fused_ce_tile.cuh
-BX = 64          # rows of h (forward, dh) or of w (dW) a CTA owns
-BY = 128         # width of one score sub-tile
-CHUNK = 1024     # coefficient columns a backward CTA keeps in shared memory
-FWD_CTAS = 24    # forward CTAs per SM aimed at (3 resident, about 8 waves)
-BWD_CTAS = 8     # dh CTAs per SM aimed at (1 resident, about 8 waves)
+# tiles of csrc/hopper_gemm.cuh
+BM = 128             # rows of an output tile
+BN = 128             # columns of an output tile
+BK = 64              # depth of a pipeline stage
+SCRATCH_BYTES = 32 << 20   # the backward's (T, C) bf16 coefficient buffer
 
 
 def fused_ce_fwd_plain(h: torch.Tensor, w: torch.Tensor,
@@ -68,6 +74,106 @@ def fused_ce_bwd_plain(h, w, labels, lse, g_nll, g_lse, *, cast=True):
     return dh, dw
 
 
+def fused_ce_bwd_chunked_plain(h, w, labels, lse, g_nll, g_lse, *,
+                               cast=True, chunk=None):
+    """The backward kernel's decomposition in plain PyTorch: for each chunk
+    of ``chunk`` vocab rows in order (default: ``bwd_schedule``'s C), the
+    chunk's coefficient rounded to the inputs' dtype, the chunk's dW rows
+    written once, and dh accumulated in f32 in chunk order. For tests and
+    ``chip_smoke.py``."""
+    t, d = h.shape
+    v = w.shape[0]
+    if chunk is None:
+        chunk = bwd_schedule(t, v)["chunk"]
+    hf = h.float()
+    lab = labels.long()
+    gn = (g_nll + g_lse).float()[:, None]
+    dh = torch.zeros((t, d), dtype=torch.float32, device=h.device)
+    dw = torch.empty((v, d), dtype=torch.float32, device=h.device)
+    rows = torch.arange(t, device=h.device)
+    for c0 in range(0, v, chunk):
+        wc = w[c0:c0 + chunk].float()
+        coef = torch.exp(hf @ wc.T - lse.float()[:, None]) * gn
+        hit = (lab >= c0) & (lab < c0 + wc.shape[0])
+        coef[rows[hit], lab[hit] - c0] -= g_nll.float()[hit]
+        dw[c0:c0 + wc.shape[0]] = coef.to(h.dtype).float().T @ hf
+        dh += coef.to(w.dtype).float() @ wc
+    if cast:
+        return dh.to(h.dtype), dw.to(w.dtype)
+    return dh, dw
+
+
+def fwd_schedule(t: int, v: int, sms: int) -> Dict[str, int]:
+    """The forward kernel's work: units of (128-token tile, vocab split),
+    about two a CTA, each split ``per`` 128-column vocab tiles; each unit
+    leaves two partials (one per consumer warpgroup)."""
+    n_tt, n_vt = -(-t // BM), -(-v // BN)
+    n_split = max(1, min(n_vt, -(-2 * sms // n_tt)))
+    per = -(-n_vt // n_split)
+    n_split = -(-n_vt // per)
+    return dict(n_tt=n_tt, n_vt=n_vt, n_split=n_split, per=per,
+                n_part=2 * n_split, grid=min(sms, n_tt * n_split))
+
+
+def grad_items(t: int, d: int, valid: int) -> List[int]:
+    """Stages of each item of a chunk's dh + dW launch, by item id: the dh
+    items (token tile fastest, then d tile; K = the chunk's ``valid``
+    columns), then the dW items (d tile fastest, then vocab tile; K = T),
+    as the kernel decodes them."""
+    n_tt, n_dt = -(-t // BM), -(-d // BN)
+    return ([-(-valid // BK)] * (n_tt * n_dt)
+            + [-(-t // BK)] * (-(-valid // BM) * n_dt))
+
+
+@functools.lru_cache(maxsize=16)
+def grad_order(t: int, d: int, valid: int, sms: int,
+               longest_first: bool = True
+               ) -> Tuple[Tuple[int, ...], Tuple[int, ...],
+                          Tuple[int, ...]]:
+    """Deals a chunk's dh + dW items to min(sms, items) CTAs: longest first,
+    each to the least loaded CTA (the lowest index on a tie), or with
+    ``longest_first=False`` round-robin in item order, as a strided loop
+    would walk them. Returns (order: the item ids CTA by CTA, start: CTA b
+    takes order[start[b]:start[b + 1]], loads: each CTA's stages)."""
+    cost = grad_items(t, d, valid)
+    n_cta = min(sms, len(cost))
+    lists = [[] for _ in range(n_cta)]
+    if longest_first:
+        heap = [(0, b) for b in range(n_cta)]
+        for p in sorted(range(len(cost)), key=lambda p: (-cost[p], p)):
+            load, b = heapq.heappop(heap)
+            lists[b].append(p)
+            heapq.heappush(heap, (load + cost[p], b))
+    else:
+        for p in range(len(cost)):
+            lists[p % n_cta].append(p)
+    start = [0]
+    for ids in lists:
+        start.append(start[-1] + len(ids))
+    loads = tuple(sum(cost[p] for p in ids) for ids in lists)
+    return tuple(p for ids in lists for p in ids), tuple(start), loads
+
+
+def bwd_schedule(t: int, v: int) -> Dict[str, int]:
+    """The backward kernel's chunks: ``chunk`` vocab columns each, a
+    multiple of 128, the largest whose (T, C) bf16 scratch stays within
+    SCRATCH_BYTES, at least 128."""
+    fit = SCRATCH_BYTES // (2 * t) // BN * BN
+    chunk = min(max(BN, fit), -(-v // BN) * BN)
+    return dict(chunk=chunk, n_chunks=-(-v // chunk),
+                scratch_bytes=2 * t * chunk)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_order(t, d, valid, sms, longest_first, dev):
+    """``grad_order``'s lists as int32 tensors on ``dev``, with the CTA
+    count."""
+    order, start, _ = grad_order(t, d, valid, sms, longest_first)
+    return (torch.tensor(order, dtype=torch.int32, device=dev),
+            torch.tensor(start, dtype=torch.int32, device=dev),
+            len(start) - 1)
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"fused_ce: {msg}")
@@ -91,17 +197,6 @@ def _check_inputs(h, w, labels, *vectors):
                f"want ({t},) on {h.device}")
 
 
-def _splits(n_rows: int, n_cols: int, unit: int, target: int):
-    """Split ``n_cols`` columns into ranges of whole ``unit``s so that about
-    ``target`` CTAs run over ``ceil(n_rows / BX)`` row tiles.
-    Returns (n_split, cols_per_split)."""
-    n_units = -(-n_cols // unit)
-    n_x = -(-n_rows // BX)
-    n_split = max(1, min(n_units, -(-target // n_x)))
-    per = -(-n_units // n_split) * unit
-    return -(-n_cols // per), per
-
-
 def _sms(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -119,18 +214,18 @@ def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
     v = w.shape[0]
     dev = h.device
     lab = labels.to(torch.int32).contiguous()
-    n_split, per = _splits(t, v, BY, FWD_CTAS * _sms(dev))
+    sch = fwd_schedule(t, v, _sms(dev))
     f32 = torch.float32
-    part = torch.empty((3, n_split, t), dtype=f32, device=dev)
+    part = torch.empty((3, sch["n_part"], t), dtype=f32, device=dev)
     nll = torch.empty((t,), dtype=f32, device=dev)
     lse = torch.empty((t,), dtype=f32, device=dev)
     lib = _build.load("fused_ce_fwd")
     p = ctypes.c_void_p
     err = lib.fused_ce_fwd_launch(
         p(h.data_ptr()), p(w.data_ptr()), p(lab.data_ptr()), t, v, d,
-        n_split, per, p(part[0].data_ptr()), p(part[1].data_ptr()),
-        p(part[2].data_ptr()), p(nll.data_ptr()), p(lse.data_ptr()),
-        p(torch.cuda.current_stream(dev).cuda_stream))
+        sch["n_split"], sch["per"], sch["grid"], p(part[0].data_ptr()),
+        p(part[1].data_ptr()), p(part[2].data_ptr()), p(nll.data_ptr()),
+        p(lse.data_ptr()), p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check("fused_ce_fwd", err)
     fused_ce_fwd.launches += 1
     return nll, lse
@@ -143,12 +238,28 @@ def fused_ce_bwd(h, w, labels, lse, g_nll, g_lse, *, cast=True):
     """(dh (T, d), dw (V, d)) of ``g_nll . nll + g_lse . lse``, in h.dtype /
     w.dtype, or the f32 accumulators before that cast with ``cast=False``.
 
-    CUDA tensors launch the kernels on the current stream: a dh pass whose
-    CTAs own a token tile and a vocab split, a fixed-order sum of the
-    splits, and a dW pass whose CTAs own a vocab tile; no float atomics, so
-    two calls are bit-equal. CPU tensors run ``fused_ce_bwd_plain``."""
+    CUDA tensors launch the kernels on the current stream, chunk by chunk
+    (``bwd_schedule``): the chunk's bf16 coefficient into a (T, C) scratch
+    buffer, then the chunk's dW rows (written once, in the output dtype)
+    and its share of dh, accumulated in f32 in chunk order; no float
+    atomics, so two calls are bit-equal. CPU tensors run
+    ``fused_ce_bwd_plain``."""
     if h.device.type == "cpu" and w.device.type == "cpu":
         return fused_ce_bwd_plain(h, w, labels, lse, g_nll, g_lse, cast=cast)
+    out = bwd_launch(h, w, labels, lse, g_nll, g_lse, cast=cast)
+    fused_ce_bwd.launches += 1
+    return out
+
+
+fused_ce_bwd.launches = 0
+
+
+def bwd_launch(h, w, labels, lse, g_nll, g_lse, *, cast=True,
+               longest_first=True):
+    """``fused_ce_bwd``'s kernels on CUDA tensors, without its launch
+    count. ``longest_first=False`` deals the dh and dW items round-robin
+    instead (``grad_order``), for timing the two deals against each other;
+    the results are the same bits either way."""
     _check_inputs(h, w, labels, lse, g_nll, g_lse)
     t, d = h.shape
     v = w.shape[0]
@@ -158,26 +269,25 @@ def fused_ce_bwd(h, w, labels, lse, g_nll, g_lse, *, cast=True):
     lse32 = lse.to(f32).contiguous()
     gn = (g_nll.to(f32) + g_lse.to(f32)).contiguous()
     go = g_nll.to(f32).contiguous()
-    n_split, v_per = _splits(t, v, CHUNK, BWD_CTAS * _sms(dev))
-    t_pad = -(-t // BX) * BX
-    v_pad = -(-v // BX) * BX
-    t_per = -(-t // CHUNK) * CHUNK
-    part = torch.empty((n_split, t_pad, d), dtype=f32, device=dev)
-    dh = torch.empty((t, d), dtype=f32, device=dev)
-    dw = torch.empty((v_pad, d), dtype=f32, device=dev)
+    sch = bwd_schedule(t, v)
+    sms = _sms(dev)
+    scratch = torch.empty((t, sch["chunk"]), dtype=torch.bfloat16, device=dev)
+    dh32 = torch.empty((t, d), dtype=f32, device=dev)
+    out = h.dtype if cast else f32
+    dh = torch.empty((t, d), dtype=out, device=dev) if cast else dh32
+    dw = torch.empty((v, d), dtype=out, device=dev)
+    last = v - (sch["n_chunks"] - 1) * sch["chunk"]
+    lists = [_device_order(t, d, valid, sms, longest_first, dev)
+             for valid in (sch["chunk"], last)]
     lib = _build.load("fused_ce_bwd")
     p = ctypes.c_void_p
     err = lib.fused_ce_bwd_launch(
         p(h.data_ptr()), p(w.data_ptr()), p(lab.data_ptr()),
         p(lse32.data_ptr()), p(gn.data_ptr()), p(go.data_ptr()), t, v, d,
-        n_split, v_per, t_per, p(part.data_ptr()), p(dh.data_ptr()),
+        sch["chunk"], sms, int(cast),
+        *[x for o, st, g in lists for x in (p(o.data_ptr()),
+                                            p(st.data_ptr()), g)],
+        p(scratch.data_ptr()), p(dh32.data_ptr()), p(dh.data_ptr()),
         p(dw.data_ptr()), p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check("fused_ce_bwd", err)
-    fused_ce_bwd.launches += 1
-    dw = dw[:v]
-    if cast:
-        return dh.to(h.dtype), dw.to(w.dtype)
     return dh, dw
-
-
-fused_ce_bwd.launches = 0

@@ -8,7 +8,7 @@ bf16 inputs; LSEs and scores to 1e-3. FMBE sums are signed and cancel, so
 z is held to 1e-4 of sum_j |phi_j lambda_j| and phi to 1e-4 of its own
 scale |coef_j| * max(|x|_2, 1) ** degree_j (plus |phi|). The fused CE
 kernels run at token counts and vocabularies that are not multiples of
-their tiles, with labels at 0 and V - 1 and with and without a selfnorm
+their 128 x 128 tiles or of the backward's vocab chunk (T 129, V = C + 1), with labels at 0 and V - 1 and with and without a selfnorm
 cotangent; nll and lse to 1e-3. The LSH probe runs at one query and at
 query counts off the tile, one candidate and a count off the 32-column
 group, no live candidate and all live, the dense fallback over every row,
@@ -36,9 +36,9 @@ import torch
 
 from repro_torch.kernels.fmbe import (fmbe_phi, fmbe_phi_plain, fmbe_z,
                                      fmbe_z_plain)
-from repro_torch.kernels.fused_ce import (ce_coef, fused_ce_bwd,
-                                         fused_ce_bwd_plain, fused_ce_fwd,
-                                         fused_ce_fwd_plain)
+from repro_torch.kernels.fused_ce import (bwd_launch, bwd_schedule, ce_coef,
+                                         fused_ce_bwd, fused_ce_bwd_plain,
+                                         fused_ce_fwd, fused_ce_fwd_plain)
 from repro_torch.core import lsh as tlsh
 from repro_torch.kernels.ivf_score import (ivf_decode, ivf_decode_plain,
                                           ivf_score, ivf_score_plain,
@@ -332,11 +332,7 @@ def _within_terms(name, got, want, terms):
     assert worst <= GRAD_REL and mean <= GRAD_MEAN, (name, worst, mean)
 
 
-@pytest.mark.parametrize("selfnorm", [False, True])
-@pytest.mark.parametrize("d", [64, D])
-@pytest.mark.parametrize("v", [1000, 151936])
-@pytest.mark.parametrize("t", [1, 37, 1024])
-def test_fused_ce_matches_plain(gen, t, v, d, selfnorm):
+def _check_fused_ce(gen, t, v, d, selfnorm):
     h, w, labels = _ce_inputs(gen, t, v, d)
     before = (fused_ce_fwd.launches, fused_ce_bwd.launches)
     nll, lse = fused_ce_fwd(h, w, labels)
@@ -364,6 +360,50 @@ def test_fused_ce_matches_plain(gen, t, v, d, selfnorm):
     cdh, cdw = fused_ce_bwd(h, w, labels, lse, g_nll, g_lse)
     assert cdh.dtype == torch.bfloat16 and cdw.dtype == torch.bfloat16
     assert torch.equal(cdh, dh.to(torch.bfloat16))
+    assert torch.equal(cdw, dw.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("selfnorm", [False, True])
+@pytest.mark.parametrize("d", [64, D])
+@pytest.mark.parametrize("v", [1000, 151936])
+@pytest.mark.parametrize("t", [1, 37, 129, 1024])
+def test_fused_ce_matches_plain(gen, t, v, d, selfnorm):
+    _check_fused_ce(gen, t, v, d, selfnorm)
+
+
+def _chunk(t):
+    return bwd_schedule(t, 151936)["chunk"]
+
+
+@pytest.mark.parametrize("d", [64, D])
+@pytest.mark.parametrize("t,v", [(129, _chunk(129) + 1),
+                                 (1024, _chunk(1024) + 1),
+                                 (1024, 3 * _chunk(1024) - 5)])
+def test_fused_ce_crosses_chunk_edges(gen, t, v, d):
+    """V = C + 1 leaves a one-column last chunk (and a 1-row vocab tile);
+    3 C - 5 a ragged one; T = 129 a one-row token tile."""
+    _check_fused_ce(gen, t, v, d, True)
+
+
+@pytest.mark.parametrize("t,v,d", [(129, 1000, 64), (1024, 40000, D)])
+def test_fused_ce_bwd_deals_agree(gen, t, v, d):
+    """The dh and dW items dealt round-robin give the same bits as
+    ``grad_order``'s longest-first lists, and no launch is counted."""
+    h = torch.randn(t, d, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(v, d, generator=gen, device="cuda") * 2 / d ** 0.5
+         ).bfloat16()
+    labels = torch.randint(0, v, (t,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    lse = fused_ce_fwd(h, w, labels)[1]
+    args = (h, w, labels, lse, torch.full((t,), 1.0 / t, device="cuda"),
+            0.2 * lse / t)
+    before = fused_ce_bwd.launches
+    for cast in (True, False):
+        want = bwd_launch(*args, cast=cast)
+        got = bwd_launch(*args, cast=cast, longest_first=False)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert fused_ce_bwd.launches == before
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(gen):
