@@ -11,8 +11,9 @@ GPU.
    ``mimps`` (which runs the k-means), then ``topk``, ``mince``, ``fmbe``
    and ``selfnorm``, which reuse the mimps k-means assignment, and ``lsh``
    (8 tables of 8-bit SimHash codes over the head). The fmbe build
-   (feature map, index and per-block sketch sums through ``fmbe_phi``)
-   starts with every launch count at 0 and must launch ``fmbe_phi``.
+   (feature map, index, pack and per-block sketch sums through
+   ``fmbe_phi``) starts with every launch count at 0, is timed by itself
+   and must launch only the tensor-core ``fmbe_phi``.
 3. Holds each kernel against its plain PyTorch version at the shapes the
    main path gives it (bf16 inputs; LSEs and scores to 1e-3 absolute, top
    ids equal wherever the gap to the neighbouring scores exceeds 1e-3,
@@ -62,8 +63,19 @@ GPU.
    ``torch.profiler`` (device busy time, idle share, top kernels and host
    ops).
 
-Prints the kernel record as one JSON line before the last, and as the last
-line ``{"ok": true, "device": {...}}``. Any failure exits non-zero.
+8. The f32 phase: the same model at full width in f32 with its depth cut
+   to 4 layers (the one cut). Each estimator builds its engine (the f32
+   fmbe build timed, its ``fmbe_phi`` launches all f32) and takes one
+   decode step through ``generate`` with the launch counts at 0; each
+   kernel of its path must launch, and only at f32 (``by_variant``). Every
+   kernel is held to its plain version at f32 at the path's shapes under
+   the limits above (the f32 CE pair's dh and dW to 1e-4 of the sum of
+   their terms, 1e-5 on average: nothing is rounded to bf16), then 2
+   ``fused_ce`` train steps launch one f32 CE kernel of each kind a step.
+
+Prints the kernel record as one JSON line before the last (each kernel at
+bf16, then at f32 as ``<name>[f32]``), and as the last line ``{"ok": true,
+"device": {...}}``. Any failure exits non-zero.
 """
 from __future__ import annotations
 
@@ -91,6 +103,18 @@ GRAD_REL = 2 ** -7 + 1e-5      # of sum |terms|, per element
 GRAD_MEAN = 2 ** -10           # of sum |terms|, on average
 TRAIN_B, TRAIN_S = 4, 256      # T = 1024 tokens a step
 FUSED_STEPS, SELFNORM_STEPS = 4, 2
+# the f32 phase: qwen1.5-4b at full width, f32, depth cut to F32_LAYERS
+F32_LAYERS = 4
+F32_STEPS = 2
+# the f32 CE pair rounds nothing: f32 scores, exp and sums in another order
+F32_GRAD_REL = 1e-4            # of sum |terms|, per element
+F32_GRAD_MEAN = 1e-5           # of sum |terms|, on average
+SERVE_METHODS = ("exact", "mimps", "topk", "mince", "fmbe", "selfnorm",
+                 "lsh")
+PATH_KERNELS = {"exact": ("topk_z",), "mimps": ("ivf_decode",),
+                "topk": ("union_scores",), "mince": ("union_scores",),
+                "fmbe": ("union_scores", "fmbe_z"),
+                "selfnorm": ("topk_z",), "lsh": ("lsh_probe",)}
 
 
 class SmokeError(RuntimeError):
@@ -263,6 +287,8 @@ def main() -> int:
     records = serve(torch, card, kernels)
     torch.cuda.empty_cache()                    # the serving state is gone
     records += train(torch, card, kernels)
+    torch.cuda.empty_cache()                    # the training state is gone
+    records += f32_phase(torch, card, kernels)
     line = {"kernels": records}
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps(line))
@@ -279,19 +305,14 @@ def serve(torch, card, kernels):
     Returns the seven kernel records; every serving tensor is freed on
     return."""
     from repro_torch.configs import get_config
-    from repro_torch.core.decode import _tail_rows, make_plan
-    from repro_torch.kernels.fmbe import (fmbe_phi, fmbe_phi_plain, fmbe_z,
-                                         fmbe_z_plain)
-    from repro_torch.kernels.ivf_score import (ivf_decode, ivf_decode_plain,
-                                              union_scores,
-                                              union_scores_plain)
-    from repro_torch.kernels.topk_z import topk_z, topk_z_plain
+    from repro_torch.core.decode import make_plan
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fmbe import fmbe_phi
     from repro_torch.models import Model
     from repro_torch.serve import Engine, generate
 
     def reset_counts():
-        for fn in kernels.values():
-            fn.launches = 0
+        _build.reset_counts(kernels.values())
 
     def read_counts():
         return {name: fn.launches for name, fn in kernels.items()}
@@ -326,13 +347,17 @@ def serve(torch, card, kernels):
         engines[method] = Engine(Model(with_method(method)), params, max_len,
                                  seed=1, index_assign=index.assign)
     reset_counts()
-    t0 = time.time()
+    t_fmbe = time.time()
     engines["fmbe"] = Engine(Model(with_method("fmbe")), params, max_len,
                              seed=1, index_assign=index.assign)
     torch.cuda.synchronize()
+    fmbe_secs = time.time() - t_fmbe
     build_counts = read_counts()
     check(build_counts["fmbe_phi"] > 0, "the fmbe build never launched "
           "fmbe_phi")
+    check(fmbe_phi.by_variant["bf16"] == build_counts["fmbe_phi"],
+          f"the bf16 fmbe build ran fmbe_phi variants "
+          f"{fmbe_phi.by_variant}, want the tensor-core one only")
     t0 = time.time()
     engines["lsh"] = Engine(Model(with_method("lsh")), params, max_len,
                             seed=1)
@@ -354,7 +379,8 @@ def serve(torch, card, kernels):
     deg_sum = int(fm.degree.sum())
     log(f"fmbe build: P {fm.omega.shape[0]} features, max degree "
         f"{fm.omega.shape[1]}, mean degree {deg_sum / fm.omega.shape[0]:.4f}, "
-        f"{time.time() - t0:.2f} s with launches {build_counts} [{card}]")
+        f"{fmbe_secs:.3f} s (engine build: k-means assignment injected, "
+        f"index, pack, sketch) with launches {build_counts} [{card}]")
     for name, eng in engines.items():
         check(eng.backend.method == name, f"{name}: engine serves "
               f"{eng.backend.method}")
@@ -374,168 +400,20 @@ def serve(torch, card, kernels):
     w = exact_eng.state.w
     pc = cfg.partition
     k = pc.sample_k
-    q, d, v = h.shape[0], h.shape[1], w.shape[0]
+    q = h.shape[0]
     log(f"hidden states: Q {q}, |h|_2 mean "
         f"{h.float().norm(dim=-1).mean().item():.2f}")
 
     # -- 3. kernels against their plain versions -----------------------------
-    lse, tv, ti = topk_z(h, w, k)
-    torch.cuda.synchronize()
-    p_lse, p_v, p_i = topk_z_plain(h, w, k + 1)
-    err = compare_lse("topk_z lse", lse, p_lse)
-    err_v, n_ids = compare_topk("topk_z", tv, ti, p_v, p_i)
-    tz_bytes = v * d * 2 + q * d * 2 + q * 4 + q * k * 8
-    tz_bound, tz_by = bound_ms(tz_bytes, 2 * q * v * d)
-
-    def library_topk_z():
-        logits = torch.matmul(h, w.T)
-        return torch.logsumexp(logits.float(), -1), torch.topk(logits, k)
-
-    tz = dict(name="topk_z", route="cuda",
-              source="src/repro_torch/kernels/csrc/topk_z.cu",
-              replaces="src/repro/kernels/topk_z.py:82",
-              max_abs_err=max(err, err_v),
-              ms=time_ms(torch, lambda: topk_z(h, w, k)),
-              plain_ms=time_ms(torch, lambda: topk_z_plain(h, w, k)),
-              bound_ms=tz_bound, bound_by=tz_by,
-              library_ms=time_ms(torch, library_topk_z))
-    tz_eager = eager_ms(torch, lambda: topk_z(h, w, k))
-    log(f"topk_z: Q {q} V {v} d {d} k {k}: lse err {err:.2e}, top-k err "
-        f"{err_v:.2e}, {n_ids} ids checked; kernel {tz['ms']:.4f} ms "
-        f"(eager call {tz_eager:.4f} ms), plain "
-        f"{tz['plain_ms']:.4f} ms, library {tz['library_ms']:.4f} ms, bound "
-        f"{tz_bound:.4f} ms ({tz_by}, {tz_bytes / 1e6:.1f} MB) [{card}]")
-
+    tz = topk_z_phase(torch, card, h, w, k)
     plan = make_plan(index, h, pc.n_probe, pc.l, generator=gen)
-    row_logw = torch.where(index.valid, 0.0, -1e30).float()
-    args = (index.v_blocks, h, plan.head_ids, plan.head_live,
-            plan.head_member, row_logw, _tail_rows(index, plan),
-            plan.tail_accept)
-    hl, tl, iv, ii = ivf_decode(*args, k=k)
-    torch.cuda.synchronize()
-    p_hl, p_tl, p_v, p_i = ivf_decode_plain(*args, k=k + 1)
-    err = max(compare_lse("ivf_decode head_lse", hl, p_hl),
-              compare_lse("ivf_decode tail_lse", tl, p_tl))
-    err_v, n_ids = compare_topk("ivf_decode", iv, ii, p_v, p_i)
-    live, cap = int(plan.head_live), plan.head_ids.shape[0]
-    br, l = index.block_rows, pc.l
-    iv_bytes = (live * br * d * 2 + l * d * 2 + q * d * 2 + cap * 4
-                + q * cap + live * br * 4 + q * l + q * (8 + 8 * k))
-    iv_bound, iv_by = bound_ms(iv_bytes, 2 * q * (live * br + l) * d)
-    ivf = dict(name="ivf_decode", route="cuda",
-               source="src/repro_torch/kernels/csrc/ivf_decode.cu",
-               replaces="src/repro/kernels/ivf_score.py:226",
-               max_abs_err=max(err, err_v),
-               ms=time_ms(torch, lambda: ivf_decode(*args, k=k)),
-               plain_ms=time_ms(torch, lambda: ivf_decode_plain(*args, k=k)),
-               bound_ms=iv_bound, bound_by=iv_by, library_ms=None)
-    iv_eager = eager_ms(torch, lambda: ivf_decode(*args, k=k))
-    log(f"ivf_decode: Q {q} union {live} live of {cap} slots x {br} rows, "
-        f"l {l}: lse err {err:.2e}, top-k err {err_v:.2e}, {n_ids} ids "
-        f"checked; kernel {ivf['ms']:.4f} ms (eager call {iv_eager:.4f} ms), "
-        f"plain {ivf['plain_ms']:.4f} ms, "
-        f"bound {iv_bound:.4f} ms ({iv_by}, {iv_bytes / 1e6:.1f} MB) [{card}]")
-
-    # union_scores on the same plan's union (the topk/mince/fmbe head)
-    uargs = (index.v_blocks, h, plan.head_ids, plan.head_live)
-    us = union_scores(*uargs)
-    torch.cuda.synchronize()
-    p_us = union_scores_plain(*uargs)
-    check(us.shape == (q, cap, br), f"union_scores shape {tuple(us.shape)}")
-    err = (us[:, :live] - p_us[:, :live]).abs().max().item()
-    check(err <= TOL, f"union_scores: live slots differ by {err}")
-    check(bool((us[:, live:] == 0).all()), "union_scores: pad slots not 0")
-    us_bytes = (live * br * d * 2 + q * d * 2 + cap * 4 + 4
-                + q * cap * br * 4)
-    us_bound, us_by = bound_ms(us_bytes, 2 * q * live * br * d)
-
-    def library_union_scores():
-        return torch.einsum("qd,ubd->qub", h, index.v_blocks[plan.head_ids])
-
-    uni = dict(name="union_scores", route="cuda",
-               source="src/repro_torch/kernels/csrc/union_scores.cu",
-               replaces="src/repro/kernels/ivf_score.py:110",
-               max_abs_err=err,
-               ms=time_ms(torch, lambda: union_scores(*uargs)),
-               plain_ms=time_ms(torch, lambda: union_scores_plain(*uargs)),
-               bound_ms=us_bound, bound_by=us_by,
-               library_ms=time_ms(torch, library_union_scores))
-    us_eager = eager_ms(torch, lambda: union_scores(*uargs))
-    log(f"union_scores: Q {q} union {live} live of {cap} slots x {br} rows: "
-        f"live err {err:.2e}, pad slots 0; kernel {uni['ms']:.4f} ms (eager "
-        f"call {us_eager:.4f} ms), plain {uni['plain_ms']:.4f} ms, library "
-        f"{uni['library_ms']:.4f} ms, bound {us_bound:.4f} ms ({us_by}, "
-        f"{us_bytes / 1e6:.1f} MB) [{card}]")
-
-    # fmbe_z on the decode's per-query complement lambda
-    n_feat, max_deg, _ = fm.omega.shape
-    lam_rest = (fstate.lambda_tilde[None, :] -
-                fstate.lambda_blocks[plan.block_ids.long()].sum(1))
-    zargs = (fm.omega, fm.degree, fm.coef, lam_rest.contiguous(), h)
-    z = fmbe_z(*zargs)
-    z_again = fmbe_z(*zargs)
-    torch.cuda.synchronize()
-    check(torch.equal(z, z_again), "fmbe_z is not bit-reproducible")
-    check(bool(torch.isfinite(z).all()), "fmbe_z not finite")
-    phi_h = fmbe_phi_plain(fm.omega, fm.degree, fm.coef, h)
-    err, ratio = compare_signed_sum("fmbe_z", z, fmbe_z_plain(*zargs),
-                                    phi_h * lam_rest)
-    fz_bytes = (deg_sum * d * 4 + n_feat * 8 + q * n_feat * 4 + q * d * 2
-                + q * 4)
-    fz_bound, fz_by = bound_ms(fz_bytes, 2 * q * deg_sum * d)
-    fz = dict(name="fmbe_z", route="cuda",
-              source="src/repro_torch/kernels/csrc/fmbe_z.cu",
-              replaces="src/repro/kernels/fmbe.py:121",
-              max_abs_err=err, max_err_over_tol=ratio,
-              ms=time_ms(torch, lambda: fmbe_z(*zargs)),
-              plain_ms=time_ms(torch, lambda: fmbe_z_plain(*zargs)),
-              bound_ms=fz_bound, bound_by=fz_by, library_ms=None)
-    fz_eager = eager_ms(torch, lambda: fmbe_z(*zargs))
-    log(f"fmbe_z: Q {q} P {n_feat} max degree {max_deg} (sum of degrees "
-        f"{deg_sum}), per-query lambda: max abs err {err:.3e} = {ratio:.4f} "
-        f"of the tolerance, |z| up to {z.abs().max().item():.3e}; kernel "
-        f"{fz['ms']:.4f} ms (eager call {fz_eager:.4f} ms), plain "
-        f"{fz['plain_ms']:.4f} ms, bound {fz_bound:.4f} ms ({fz_by}, "
-        f"{fz_bytes / 1e6:.1f} MB) [{card}]")
+    ivf = ivf_decode_phase(torch, card, index, h, plan, pc, k)
+    uni = union_scores_phase(torch, card, index, h, plan)
+    fz = fmbe_z_phase(torch, card, fm, fstate, h, plan, deg_sum)
 
     # fmbe_phi on one real build chunk of v_blocks, and that chunk's
     # lambda_blocks as the build computed them
-    nbc = PHI_CHUNK_BLOCKS
-    x = index.v_blocks[:nbc].reshape(-1, d)
-    rows = x.shape[0]
-    pargs = (fm.omega, fm.degree, fm.coef, x)
-    phi = fmbe_phi(*pargs)
-    torch.cuda.synchronize()
-    p_phi = fmbe_phi_plain(*pargs)
-    norm = x.float().norm(dim=-1).clamp(min=1.0)
-    scale = fm.coef.abs()[None, :] * norm[:, None] ** fm.degree[None, :]
-    perr = (phi - p_phi).abs()
-    ptol = FMBE_REL * (p_phi.abs() + scale)
-    p_ratio = (perr / ptol).max().item()
-    check(p_ratio <= 1.0, f"fmbe_phi: error {perr.max().item():.3e} is "
-          f"{p_ratio:.3f} of the tolerance")
-    masked = p_phi.reshape(nbc, br, -1) * index.valid[:nbc, :, None]
-    lerr, l_ratio = compare_signed_sum(
-        "lambda_blocks", fstate.lambda_blocks[:nbc], masked.sum(1),
-        masked.transpose(1, 2))
-    del p_phi, masked
-    fp_bytes = deg_sum * d * 4 + n_feat * 8 + rows * d * 2 + rows * n_feat * 4
-    fp_bound, fp_by = bound_ms(fp_bytes, 2 * rows * deg_sum * d)
-    fph = dict(name="fmbe_phi", route="cuda",
-               source="src/repro_torch/kernels/csrc/fmbe_phi.cu",
-               replaces="src/repro/kernels/fmbe.py:89",
-               max_abs_err=perr.max().item(), max_err_over_tol=p_ratio,
-               ms=time_ms(torch, lambda: fmbe_phi(*pargs), reps=10),
-               plain_ms=time_ms(torch, lambda: fmbe_phi_plain(*pargs),
-                                reps=5),
-               bound_ms=fp_bound, bound_by=fp_by, library_ms=None)
-    del phi, perr, ptol
-    log(f"fmbe_phi: {nbc} blocks = {rows} rows x P {n_feat}: max abs err "
-        f"{fph['max_abs_err']:.3e} = {p_ratio:.4f} of the tolerance; chunk "
-        f"lambda_blocks err {lerr:.3e} = {l_ratio:.4f} of the tolerance; "
-        f"kernel {fph['ms']:.4f} ms, plain {fph['plain_ms']:.4f} ms, bound "
-        f"{fp_bound:.4f} ms ({fp_by}, {fp_bytes / 1e6:.1f} MB, "
-        f"{rows * deg_sum * d / 1e9:.1f} G multiply-adds) [{card}]")
+    fph = fmbe_phi_phase(torch, card, fm, index, fstate, deg_sum)
 
     lsp = lsh_probe_phase(torch, card, lidx, w, h, pc, k, gen)
     ivs = ivf_score_phase(torch, card, kernels, index, h, plan)
@@ -585,10 +463,7 @@ def serve(torch, card, kernels):
     # -- 5. serve ------------------------------------------------------------
     prompt = torch.randint(0, cfg.vocab, (N_REQ, PROMPT), generator=gen,
                            device=dev)
-    path_kernels = {"exact": ("topk_z",), "mimps": ("ivf_decode",),
-                    "topk": ("union_scores",), "mince": ("union_scores",),
-                    "fmbe": ("union_scores", "fmbe_z"),
-                    "selfnorm": ("topk_z",), "lsh": ("lsh_probe",)}
+    path_kernels = PATH_KERNELS
     served = {}
     totals = {name: 0 for name in kernels}
     totals["fmbe_phi"] = build_counts["fmbe_phi"]        # the fmbe build
@@ -669,7 +544,243 @@ def serve(torch, card, kernels):
     return [tz, ivf, uni, fph, fz, lsp, ivs]
 
 
-def lsh_probe_phase(torch, card, lidx, w, h, pc, k, gen):
+def topk_z_phase(torch, card, h, w, k, tag=""):
+    """``topk_z`` against its plain version on hidden states h and the head
+    w (both bf16 or both f32); times it beside its byte bound, the plain
+    version and a library call. Returns the record, named with ``tag``."""
+    from repro_torch.kernels.topk_z import topk_z, topk_z_plain
+    q, d, v = h.shape[0], h.shape[1], w.shape[0]
+    es = h.element_size()
+    lse, tv, ti = topk_z(h, w, k)
+    torch.cuda.synchronize()
+    p_lse, p_v, p_i = topk_z_plain(h, w, k + 1)
+    err = compare_lse(f"topk_z{tag} lse", lse, p_lse)
+    err_v, n_ids = compare_topk(f"topk_z{tag}", tv, ti, p_v, p_i)
+    tz_bytes = v * d * es + q * d * es + q * 4 + q * k * 8
+    tz_bound, tz_by = bound_ms(tz_bytes, 2 * q * v * d)
+
+    def library_topk_z():
+        logits = torch.matmul(h, w.T)
+        return torch.logsumexp(logits.float(), -1), torch.topk(logits, k)
+
+    tz = dict(name=f"topk_z{tag}", route="cuda",
+              source="src/repro_torch/kernels/csrc/topk_z.cu",
+              replaces="src/repro/kernels/topk_z.py:82",
+              max_abs_err=max(err, err_v),
+              ms=time_ms(torch, lambda: topk_z(h, w, k)),
+              plain_ms=time_ms(torch, lambda: topk_z_plain(h, w, k)),
+              bound_ms=tz_bound, bound_by=tz_by,
+              library_ms=time_ms(torch, library_topk_z))
+    tz_eager = eager_ms(torch, lambda: topk_z(h, w, k))
+    log(f"topk_z{tag}: Q {q} V {v} d {d} k {k} {h.dtype}: lse err "
+        f"{err:.2e}, top-k err {err_v:.2e}, {n_ids} ids checked; kernel "
+        f"{tz['ms']:.4f} ms (eager call {tz_eager:.4f} ms), plain "
+        f"{tz['plain_ms']:.4f} ms, library {tz['library_ms']:.4f} ms, bound "
+        f"{tz_bound:.4f} ms ({tz_by}, {tz_bytes / 1e6:.1f} MB) [{card}]")
+    return tz
+
+
+def ivf_decode_phase(torch, card, index, h, plan, pc, k, tag=""):
+    """``ivf_decode`` against its plain version on the mimps plan of h.
+    Returns the record, named with ``tag``."""
+    from repro_torch.core.decode import _tail_rows
+    from repro_torch.kernels.ivf_score import ivf_decode, ivf_decode_plain
+    q, d = h.shape
+    es = h.element_size()
+    row_logw = torch.where(index.valid, 0.0, -1e30).float()
+    args = (index.v_blocks, h, plan.head_ids, plan.head_live,
+            plan.head_member, row_logw, _tail_rows(index, plan),
+            plan.tail_accept)
+    hl, tl, iv, ii = ivf_decode(*args, k=k)
+    torch.cuda.synchronize()
+    p_hl, p_tl, p_v, p_i = ivf_decode_plain(*args, k=k + 1)
+    err = max(compare_lse(f"ivf_decode{tag} head_lse", hl, p_hl),
+              compare_lse(f"ivf_decode{tag} tail_lse", tl, p_tl))
+    err_v, n_ids = compare_topk(f"ivf_decode{tag}", iv, ii, p_v, p_i)
+    live, cap = int(plan.head_live), plan.head_ids.shape[0]
+    br, l = index.block_rows, pc.l
+    iv_bytes = (live * br * d * es + l * d * es + q * d * es + cap * 4
+                + q * cap + live * br * 4 + q * l + q * (8 + 8 * k))
+    iv_bound, iv_by = bound_ms(iv_bytes, 2 * q * (live * br + l) * d)
+    ivf = dict(name=f"ivf_decode{tag}", route="cuda",
+               source="src/repro_torch/kernels/csrc/ivf_decode.cu",
+               replaces="src/repro/kernels/ivf_score.py:226",
+               max_abs_err=max(err, err_v),
+               ms=time_ms(torch, lambda: ivf_decode(*args, k=k)),
+               plain_ms=time_ms(torch, lambda: ivf_decode_plain(*args, k=k)),
+               bound_ms=iv_bound, bound_by=iv_by, library_ms=None)
+    iv_eager = eager_ms(torch, lambda: ivf_decode(*args, k=k))
+    log(f"ivf_decode{tag}: Q {q} union {live} live of {cap} slots x {br} "
+        f"rows, l {l}, {h.dtype}: lse err {err:.2e}, top-k err "
+        f"{err_v:.2e}, {n_ids} ids checked; kernel {ivf['ms']:.4f} ms "
+        f"(eager call {iv_eager:.4f} ms), plain {ivf['plain_ms']:.4f} ms, "
+        f"bound {iv_bound:.4f} ms ({iv_by}, {iv_bytes / 1e6:.1f} MB) "
+        f"[{card}]")
+    return ivf
+
+
+def union_scores_phase(torch, card, index, h, plan, tag=""):
+    """``union_scores`` on the mimps plan's union (the topk/mince/fmbe
+    head). Returns the record, named with ``tag``."""
+    from repro_torch.kernels.ivf_score import union_scores, union_scores_plain
+    q, d = h.shape
+    es = h.element_size()
+    live, cap = int(plan.head_live), plan.head_ids.shape[0]
+    br = index.block_rows
+    uargs = (index.v_blocks, h, plan.head_ids, plan.head_live)
+    us = union_scores(*uargs)
+    torch.cuda.synchronize()
+    p_us = union_scores_plain(*uargs)
+    check(us.shape == (q, cap, br), f"union_scores shape {tuple(us.shape)}")
+    err = (us[:, :live] - p_us[:, :live]).abs().max().item()
+    check(err <= TOL, f"union_scores{tag}: live slots differ by {err}")
+    check(bool((us[:, live:] == 0).all()),
+          f"union_scores{tag}: pad slots not 0")
+    us_bytes = (live * br * d * es + q * d * es + cap * 4 + 4
+                + q * cap * br * 4)
+    us_bound, us_by = bound_ms(us_bytes, 2 * q * live * br * d)
+
+    def library_union_scores():
+        return torch.einsum("qd,ubd->qub", h, index.v_blocks[plan.head_ids])
+
+    uni = dict(name=f"union_scores{tag}", route="cuda",
+               source="src/repro_torch/kernels/csrc/union_scores.cu",
+               replaces="src/repro/kernels/ivf_score.py:110",
+               max_abs_err=err,
+               ms=time_ms(torch, lambda: union_scores(*uargs)),
+               plain_ms=time_ms(torch, lambda: union_scores_plain(*uargs)),
+               bound_ms=us_bound, bound_by=us_by,
+               library_ms=time_ms(torch, library_union_scores))
+    us_eager = eager_ms(torch, lambda: union_scores(*uargs))
+    log(f"union_scores{tag}: Q {q} union {live} live of {cap} slots x {br} "
+        f"rows, {h.dtype}: live err {err:.2e}, pad slots 0; kernel "
+        f"{uni['ms']:.4f} ms (eager call {us_eager:.4f} ms), plain "
+        f"{uni['plain_ms']:.4f} ms, library {uni['library_ms']:.4f} ms, "
+        f"bound {us_bound:.4f} ms ({us_by}, {us_bytes / 1e6:.1f} MB) "
+        f"[{card}]")
+    return uni
+
+
+def fmbe_z_phase(torch, card, fm, fstate, h, plan, deg_sum, tag=""):
+    """``fmbe_z`` on the decode's per-query complement lambda. Returns the
+    record, named with ``tag``."""
+    from repro_torch.kernels.fmbe import fmbe_phi_plain, fmbe_z, fmbe_z_plain
+    q, d = h.shape
+    es = h.element_size()
+    n_feat, max_deg, _ = fm.omega.shape
+    lam_rest = (fstate.lambda_tilde[None, :] -
+                fstate.lambda_blocks[plan.block_ids.long()].sum(1))
+    zargs = (fm.omega, fm.degree, fm.coef, lam_rest.contiguous(), h)
+    z = fmbe_z(*zargs)
+    z_again = fmbe_z(*zargs)
+    torch.cuda.synchronize()
+    check(torch.equal(z, z_again), f"fmbe_z{tag} is not bit-reproducible")
+    check(bool(torch.isfinite(z).all()), f"fmbe_z{tag} not finite")
+    phi_h = fmbe_phi_plain(fm.omega, fm.degree, fm.coef, h)
+    err, ratio = compare_signed_sum(f"fmbe_z{tag}", z, fmbe_z_plain(*zargs),
+                                    phi_h * lam_rest)
+    fz_bytes = (deg_sum * d * 4 + n_feat * 8 + q * n_feat * 4 + q * d * es
+                + q * 4)
+    fz_bound, fz_by = bound_ms(fz_bytes, 2 * q * deg_sum * d)
+    fz = dict(name=f"fmbe_z{tag}", route="cuda",
+              source="src/repro_torch/kernels/csrc/fmbe_z.cu",
+              replaces="src/repro/kernels/fmbe.py:121",
+              max_abs_err=err, max_err_over_tol=ratio,
+              ms=time_ms(torch, lambda: fmbe_z(*zargs)),
+              plain_ms=time_ms(torch, lambda: fmbe_z_plain(*zargs)),
+              bound_ms=fz_bound, bound_by=fz_by, library_ms=None)
+    fz_eager = eager_ms(torch, lambda: fmbe_z(*zargs))
+    log(f"fmbe_z{tag}: Q {q} P {n_feat} max degree {max_deg} (sum of "
+        f"degrees {deg_sum}), per-query lambda, {h.dtype}: max abs err "
+        f"{err:.3e} = {ratio:.4f} of the tolerance, |z| up to "
+        f"{z.abs().max().item():.3e}; kernel {fz['ms']:.4f} ms (eager call "
+        f"{fz_eager:.4f} ms), plain {fz['plain_ms']:.4f} ms, bound "
+        f"{fz_bound:.4f} ms ({fz_by}, {fz_bytes / 1e6:.1f} MB) [{card}]")
+    return fz
+
+
+def fmbe_phi_phase(torch, card, fm, index, fstate, deg_sum):
+    """``fmbe_phi`` (bf16 rows: the tensor-core kernel) on one real build
+    chunk of ``PHI_CHUNK_BLOCKS`` blocks against its plain version, bit-equal
+    over two calls, and that chunk's ``lambda_blocks`` as the build made
+    them; times it beside its operations bound, the plain version, the
+    product alone as ``torch.matmul(x, pack.rows.T)`` (the mainloop's
+    yardstick, ``library_ms``: it does not compute phi), the packing, the
+    build's masked block sum over the chunk's phi and the whole sketch
+    (``build_fmbe_blocks``). Returns the record."""
+    from repro_torch.core.feature_maps import build_fmbe_blocks
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fmbe import fmbe_pack, fmbe_phi, fmbe_phi_plain
+    nbc = PHI_CHUNK_BLOCKS
+    br, d = index.block_rows, index.v_blocks.shape[-1]
+    x = index.v_blocks[:nbc].reshape(-1, d)
+    rows = x.shape[0]
+    n_feat = fm.omega.shape[0]
+    pack = fmbe_pack(fm.omega, fm.degree, fm.coef)
+    pargs = (fm.omega, fm.degree, fm.coef, x)
+    phi = fmbe_phi(*pargs, pack=pack)
+    again = fmbe_phi(*pargs, pack=pack)
+    torch.cuda.synchronize()
+    check(torch.equal(phi, again), "fmbe_phi is not bit-reproducible")
+    del again
+    p_phi = fmbe_phi_plain(*pargs)
+    norm = x.float().norm(dim=-1).clamp(min=1.0)
+    scale = fm.coef.abs()[None, :] * norm[:, None] ** fm.degree[None, :]
+    perr = (phi - p_phi).abs()
+    ptol = FMBE_REL * (p_phi.abs() + scale)
+    p_ratio = (perr / ptol).max().item()
+    check(p_ratio <= 1.0, f"fmbe_phi: error {perr.max().item():.3e} is "
+          f"{p_ratio:.3f} of the tolerance")
+    masked = p_phi.reshape(nbc, br, -1) * index.valid[:nbc, :, None]
+    lerr, l_ratio = compare_signed_sum(
+        "lambda_blocks", fstate.lambda_blocks[:nbc], masked.sum(1),
+        masked.transpose(1, 2))
+    del p_phi, masked
+    fp_bytes = deg_sum * d * 2 + n_feat * 8 + rows * d * 2 + rows * n_feat * 4
+    fp_bound, fp_by = bound_ms(fp_bytes, 2 * rows * deg_sum * d)
+    n_cols = pack.rows.shape[0]
+    fph = dict(name="fmbe_phi", route="cuda",
+               source="src/repro_torch/kernels/csrc/fmbe_phi_wgmma.cu",
+               replaces="src/repro/kernels/fmbe.py:89",
+               max_abs_err=perr.max().item(), max_err_over_tol=p_ratio,
+               ms=time_ms(torch, lambda: fmbe_phi(*pargs, pack=pack)),
+               plain_ms=time_ms(torch, lambda: fmbe_phi_plain(*pargs),
+                                reps=5),
+               bound_ms=fp_bound, bound_by=fp_by,
+               library_ms=time_ms(torch, lambda: torch.matmul(
+                   x, pack.rows.T)),
+               library_call="torch.matmul(x, pack.rows.T), bf16: the "
+               "projections alone, not phi",
+               pack_ms=wall_ms(torch, lambda: fmbe_pack(
+                   fm.omega, fm.degree, fm.coef), reps=3),
+               mask_sum_ms=time_ms(torch, lambda: (
+                   phi.reshape(nbc, br, -1)
+                   * index.valid[:nbc, :, None]).sum(1)),
+               pack_columns=n_cols)
+    del phi, perr, ptol
+    fph["sketch_ms"] = wall_ms(torch, lambda: build_fmbe_blocks(
+        fm, index.v_blocks, index.valid, pack=pack), reps=3)
+    macs = rows * deg_sum * d
+    log(f"fmbe_phi: {nbc} blocks = {rows} rows x P {n_feat}, pack {n_cols} "
+        f"columns for {deg_sum} live rows: max abs err "
+        f"{fph['max_abs_err']:.3e} = {p_ratio:.4f} of the tolerance, two "
+        f"calls bit-equal; chunk lambda_blocks err {lerr:.3e} = "
+        f"{l_ratio:.4f} of the tolerance; tensor-core kernel "
+        f"{fph['ms']:.4f} ms ({macs / fph['ms'] / 1e6:.1f} TMAC/s on the "
+        f"live rows, {fp_bound / fph['ms']:.3f} of the bound), plain "
+        f"{fph['plain_ms']:.4f} ms, torch.matmul(x, pack.T) {fph['library_ms']:.4f} ms "
+        f"(yardstick, no phi), bound {fp_bound:.4f} ms ({fp_by}, "
+        f"{fp_bytes / 1e6:.1f} MB, {macs / 1e9:.1f} G multiply-adds); "
+        f"pack (host clock) {fph['pack_ms']:.3f} ms, the build's masked "
+        f"block sum of the chunk's phi {fph['mask_sum_ms']:.4f} ms; the "
+        f"whole sketch (build_fmbe_blocks, host clock) "
+        f"{fph['sketch_ms']:.3f} ms [{card}]")
+    for line in ptxas_report(_build.build_log.get("fmbe_phi_wgmma", "")):
+        log(f"  ptxas fmbe_phi_wgmma: {line}")
+    return fph
+
+
+def lsh_probe_phase(torch, card, lidx, w, h, pc, k, gen, tag=""):
     """``lsh_probe`` against its plain version at the lsh engine's plan for
     the hidden states h: on the trimmed union the main path scores, and on
     the dense fallback that a small ``head_cap`` forces. Returns the
@@ -741,7 +852,8 @@ def lsh_probe_phase(torch, card, lidx, w, h, pc, k, gen):
         check(not got_member[:, n_live:].any(), f"lsh_probe {label}: counts "
               f"past the live columns")
         n_tail = plan_b.tail_ids.shape[0]
-        n_bytes = (n_live * d * 2 + n_tail * d * 2 + q * d * 2
+        es = h.element_size()
+        n_bytes = (n_live * d * es + n_tail * d * es + q * d * es
                    + ltab * kbits * (d + 1) * 4 + n_live * 4
                    + n_live * ltab * 8 + n_tail * 8 + q * n_tail + 4
                    + q * c * 4 + q * (8 + 8 * k))
@@ -775,12 +887,12 @@ def lsh_probe_phase(torch, card, lidx, w, h, pc, k, gen):
             f"{n_bytes / 1e6:.1f} MB) [{card}]")
         return rec
 
-    trimmed = hold("trimmed", plan)
+    trimmed = hold(f"trimmed{tag}", plan)
     dense_plan = lsh_plan(lidx, h, pc.l, tail_ids=plan.tail_ids,
                           cand_cap=64)
     check(int(dense_plan.cand_live) > 64, "lsh: head_cap 64 kept the union")
-    dense = hold("dense", dense_plan)
-    rec = dict(name="lsh_probe", route="cuda",
+    dense = hold(f"dense{tag}", dense_plan)
+    rec = dict(name=f"lsh_probe{tag}", route="cuda",
                source="src/repro_torch/kernels/csrc/lsh_probe.cu",
                replaces="src/repro/kernels/lsh_probe.py:133",
                trimmed_capacity=cap, query_codes_differing=int(differ.sum()),
@@ -790,16 +902,18 @@ def lsh_probe_phase(torch, card, lidx, w, h, pc, k, gen):
     return rec
 
 
-def ivf_score_phase(torch, card, kernels, index, h, plan):
+def ivf_score_phase(torch, card, kernels, index, h, plan, tag=""):
     """``ivf_score`` against its plain version on the mimps plan's (Q, p)
     probe ids, then its main path: the entry point
     ``ops.ivf_block_scores``, driven once with the launch counts at 0.
     Returns the kernel's record with the path's launches under
     ``path_launches``."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ivf_score import ivf_score, ivf_score_plain
     from repro_torch.kernels.ops import ivf_block_scores
     nb, br, d = index.v_blocks.shape
     q, p = plan.block_ids.shape
+    es = h.element_size()
     args = (index.v_blocks, h, plan.block_ids)
     got = ivf_score(*args)
     torch.cuda.synchronize()
@@ -807,10 +921,10 @@ def ivf_score_phase(torch, card, kernels, index, h, plan):
     err = (got - ivf_score_plain(*args)).abs().max().item()
     check(err <= TOL, f"ivf_score: scores differ by {err}")
     unique = int(torch.unique(plan.block_ids).numel())
-    n_bytes = unique * br * d * 2 + q * d * 2 + q * p * 4 + q * p * br * 4
+    n_bytes = unique * br * d * es + q * d * es + q * p * 4 + q * p * br * 4
     bound, by = bound_ms(n_bytes, 2 * q * p * br * d)
     ids = plan.block_ids.long()
-    rec = dict(name="ivf_score", route="cuda",
+    rec = dict(name=f"ivf_score{tag}", route="cuda",
                source="src/repro_torch/kernels/csrc/ivf_score.cu",
                replaces="src/repro/kernels/ivf_score.py:62",
                max_abs_err=err,
@@ -820,8 +934,7 @@ def ivf_score_phase(torch, card, kernels, index, h, plan):
                bound_ms=bound, bound_by=by,
                library_ms=time_ms(torch, lambda: torch.einsum(
                    "qd,qpbd->qpb", h, index.v_blocks[ids])))
-    for fn in kernels.values():
-        fn.launches = 0
+    _build.reset_counts(kernels.values())
     scores = ivf_block_scores(*args)
     torch.cuda.synchronize()
     counts = {name: fn.launches for name, fn in kernels.items()}
@@ -830,25 +943,26 @@ def ivf_score_phase(torch, card, kernels, index, h, plan):
     check(torch.equal(scores, got), "ops.ivf_block_scores differs from "
           "ivf_score")
     rec["path_launches"] = counts["ivf_score"]
-    log(f"ivf_score: Q {q} x p {p} probes of {br} x {d} blocks ({unique} "
-        f"unique of {nb}): err {err:.2e}; kernel {rec['ms']:.4f} ms, plain "
+    log(f"ivf_score{tag}: Q {q} x p {p} probes of {br} x {d} blocks "
+        f"({unique} unique of {nb}), {h.dtype}: err {err:.2e}; kernel "
+        f"{rec['ms']:.4f} ms, plain "
         f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms "
         f"(einsum over the gathered blocks), bound {bound:.4f} ms ({by}, "
         f"{n_bytes / 1e6:.1f} MB with each unique block read once; "
-        f"{q * p * br * d * 2 / 1e6:.1f} MB without deduplication); "
+        f"{q * p * br * d * es / 1e6:.1f} MB without deduplication); "
         f"ops.ivf_block_scores launches {counts} [{card}]")
     return rec
 
 
-def compare_terms(name, got, want, terms):
-    """Gradients through a coefficient rounded to bf16 on both sides: per
-    element |got - want| <= GRAD_REL * sum |terms|, and GRAD_MEAN on
-    average. Returns (max abs err, max ratio, mean ratio)."""
+def compare_terms(name, got, want, terms, rel=GRAD_REL, mean_rel=GRAD_MEAN):
+    """Gradients: per element |got - want| <= rel * sum |terms|, and
+    mean_rel on average (defaults: a coefficient rounded to bf16 on both
+    sides). Returns (max abs err, max ratio, mean ratio)."""
     ratio = (got - want).abs() / terms.clamp(min=1e-30)
     worst, mean = ratio.max().item(), ratio.mean().item()
-    check(worst <= GRAD_REL and mean <= GRAD_MEAN,
+    check(worst <= rel and mean <= mean_rel,
           f"{name}: error up to {worst:.3e} (mean {mean:.3e}) of sum "
-          f"|terms|, allowed {GRAD_REL:.3e} (mean {GRAD_MEAN:.3e})")
+          f"|terms|, allowed {rel:.3e} (mean {mean_rel:.3e})")
     return (got - want).abs().max().item(), worst, mean
 
 
@@ -1083,8 +1197,7 @@ def train(torch, card, kernels):
         tcfg = TrainConfig(loss=loss_name, warmup_steps=1)
         step = make_train_step(model, tcfg)
         for i in range(n_steps):
-            for fn in kernels.values():
-                fn.launches = 0
+            _build.reset_counts(kernels.values())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, metrics = step(state, batch)
@@ -1159,6 +1272,307 @@ def train(torch, card, kernels):
     fwd["launches"] = totals["fused_ce_fwd"]
     bwd["launches"] = totals["fused_ce_bwd"]
     return [fwd, bwd]
+
+
+def f32_phase(torch, card, kernels):
+    """Phase 8: qwen1.5-4b at full width in f32 (d 2560, 20 heads of 128,
+    d_ff 6912, vocab 151936), depth cut to F32_LAYERS, the one cut. Each
+    serving method builds its engine (the fmbe build timed, its fmbe_phi
+    launches all f32) and takes one decode step through ``generate`` with
+    the launch counts at 0; each kernel of its path must launch, and only
+    at f32. Each kernel is held to its plain version at f32 at the path's
+    shapes, under the bf16 phases' limits. Then F32_STEPS ``fused_ce``
+    train steps, one f32 launch of each CE kernel a step, and the f32 CE
+    pair against its plain versions (nll/lse to 1e-3, dh and dW to
+    F32_GRAD_REL of the sum of their terms). Returns the f32 records,
+    named ``<kernel>[f32]``, with the launches of this phase's main path
+    runs."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.decode import make_plan
+    from repro_torch.data import DataIterator, SyntheticCorpus
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fmbe import fmbe_phi
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, generate
+    from repro_torch.train import init_train_state, make_train_step
+
+    tag = "[f32]"
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("qwen1.5-4b"), dtype="float32",
+                              n_layers=F32_LAYERS)
+    pc = cfg.partition
+    k = pc.sample_k
+    t0 = time.time()
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"f32 model: {cfg.name} layers {cfg.n_layers} (cut from "
+        f"{get_config('qwen1.5-4b').n_layers}) d {cfg.d_model} heads "
+        f"{cfg.n_heads} x {cfg.d_model // cfg.n_heads} d_ff {cfg.d_ff} vocab "
+        f"{cfg.vocab} {cfg.dtype}, {n_params / 1e9:.3f} B params, init "
+        f"{time.time() - t0:.1f} s")
+    totals = {name: 0 for name in kernels}
+    records = {}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab, (N_REQ, 1), generator=gen,
+                           device=dev)
+    h = None
+    assign = None
+    for method in SERVE_METHODS:
+        mcfg = dataclasses.replace(cfg, partition=dataclasses.replace(
+            pc, method=method))
+        _build.reset_counts(kernels.values())
+        t0 = time.time()
+        eng = Engine(Model(mcfg), params, 1, seed=1, index_assign=(
+            assign if method in ("topk", "mince", "fmbe") else None))
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        build = {name: fn.launches for name, fn in kernels.items()}
+        check(all(fn.by_variant["bf16"] == 0 for fn in kernels.values()),
+              f"{method} f32 build launched a bf16 kernel")
+        if method == "fmbe":
+            check(fmbe_phi.by_variant["f32"] == build["fmbe_phi"] > 0,
+                  f"the f32 fmbe build ran fmbe_phi {fmbe_phi.by_variant}")
+            log(f"f32 fmbe build: {secs:.3f} s with fmbe_phi launches "
+                f"{fmbe_phi.by_variant} [{card}]")
+        if method == "mimps":
+            assign = eng.index.assign
+        if h is None:                      # the step's hidden states
+            cache = eng.model.init_decode_state(N_REQ, 1, dev)
+            h = eng.model.decode_step(params, cache, prompt[:, 0], 0)
+            check(h.dtype == torch.float32, f"f32 trunk gave {h.dtype}")
+            log(f"f32 hidden states: Q {h.shape[0]}, |h|_2 mean "
+                f"{h.norm(dim=-1).mean().item():.2f}")
+        _build.reset_counts(kernels.values())
+        t0 = time.time()
+        out, aux = generate(eng, prompt, 1, return_aux=True)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        counts = {name: dict(fn.by_variant) for name, fn in kernels.items()}
+        check(out.shape == (N_REQ, 1), f"f32 {method}: tokens {out.shape}")
+        check(bool(torch.isfinite(aux["log_z"]).all()),
+              f"f32 {method}: log_z not finite")
+        for name in PATH_KERNELS[method]:
+            check(counts[name]["f32"] > 0 and counts[name]["bf16"] == 0,
+                  f"f32 {method}: {name} launched {counts[name]}, want f32 "
+                  f"only")
+        for name, fn in kernels.items():
+            totals[name] += fn.launches + build[name]
+        log(f"f32 serve {method}: one decode step of {N_REQ} requests in "
+            f"{secs * 1e3:.1f} ms, log_z {aux['log_z'][:, 0].tolist()}, "
+            f"launches by dtype "
+            f"{ {n: c for n, c in counts.items() if c['f32'] or c['bf16']} } "
+            f"[{card}]")
+        # the path's kernels against their plain versions at f32
+        if method == "exact":
+            records["topk_z"] = topk_z_phase(torch, card, h, eng.state.w, k,
+                                             tag)
+        elif method == "mimps":
+            plan = make_plan(eng.index, h, pc.n_probe, pc.l, generator=gen)
+            records["ivf_decode"] = ivf_decode_phase(
+                torch, card, eng.index, h, plan, pc, k, tag)
+            rec = ivf_score_phase(torch, card, kernels, eng.index, h, plan,
+                                  tag)
+            variants = kernels["ivf_score"].by_variant
+            check(variants["f32"] == rec["path_launches"],
+                  f"ops.ivf_block_scores ran {variants}")
+            totals["ivf_score"] += rec.pop("path_launches")
+            records["ivf_score"] = rec
+        elif method == "topk":
+            plan = make_plan(eng.index, h, pc.n_probe, pc.l, generator=gen)
+            records["union_scores"] = union_scores_phase(
+                torch, card, eng.index, h, plan, tag)
+        elif method == "fmbe":
+            plan = make_plan(eng.index, h, pc.n_probe, pc.l, generator=gen)
+            fstate = eng.state.fmbe
+            deg_sum = int(fstate.fm.degree.sum())
+            records["fmbe_z"] = fmbe_z_phase(torch, card, fstate.fm, fstate,
+                                             h, plan, deg_sum, tag)
+            records["fmbe_phi"] = fmbe_phi_f32(torch, card, fstate, eng.index,
+                                               deg_sum)
+        elif method == "lsh":
+            records["lsh_probe"] = lsh_probe_phase(
+                torch, card, eng.state.lsh, eng.state.w, h, pc, k, gen, tag)
+        del eng
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+    # -- training at f32 ------------------------------------------------------
+    model = Model(cfg)
+    state = init_train_state(model, TrainConfig(), seed=0, device=dev)
+    it = DataIterator(SyntheticCorpus(cfg.vocab, seed=0), TRAIN_B, TRAIN_S)
+    tokens, labels = (torch.from_numpy(a).to(dev) for a in next(it))
+    batch = {"tokens": tokens, "labels": labels}
+    step = make_train_step(model, TrainConfig(loss="fused_ce",
+                                              warmup_steps=1))
+    for i in range(F32_STEPS):
+        _build.reset_counts(kernels.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {n: dict(kernels[n].by_variant)
+                  for n in ("fused_ce_fwd", "fused_ce_bwd")}
+        check(all(c == {"bf16": 0, "f32": 1} for c in counts.values()),
+              f"f32 fused_ce step {i} launched {counts}, want one f32 each")
+        for name in counts:
+            totals[name] += 1
+        loss = metrics["loss_total"].item()
+        check(math.isfinite(loss), f"f32 fused_ce step {i}: loss {loss}")
+        log(f"f32 train fused_ce step {i}: loss {loss:.6f}, grad norm "
+            f"{metrics['grad_norm'].item():.4f}, {ms:.1f} ms, B {TRAIN_B} x "
+            f"S {TRAIN_S}, depth {cfg.n_layers} [{card}]")
+    with torch.no_grad():
+        hidden, _ = model.forward(state.params, tokens)
+    records.update(ce_f32_phase(torch, card, hidden.reshape(-1, cfg.d_model),
+                                model.head_matrix(state.params).detach(),
+                                labels.reshape(-1)))
+    del state, hidden
+    torch.cuda.empty_cache()
+    out = []
+    for name in kernels:
+        rec = records[name]
+        rec["launches"] = totals[name]
+        out.append(rec)
+    return out
+
+
+def fmbe_phi_f32(torch, card, fstate, index, deg_sum):
+    """``fmbe_phi`` at f32 (the CUDA-core kernel) on the f32 build's first
+    chunk. Returns the record."""
+    from repro_torch.kernels.fmbe import fmbe_phi, fmbe_phi_plain
+    fm = fstate.fm
+    nbc, d = PHI_CHUNK_BLOCKS, index.v_blocks.shape[-1]
+    x = index.v_blocks[:nbc].reshape(-1, d)
+    rows, n_feat = x.shape[0], fm.omega.shape[0]
+    pargs = (fm.omega, fm.degree, fm.coef, x)
+    phi = fmbe_phi(*pargs)
+    again = fmbe_phi(*pargs)
+    torch.cuda.synchronize()
+    check(torch.equal(phi, again), "fmbe_phi[f32] is not bit-reproducible")
+    p_phi = fmbe_phi_plain(*pargs)
+    norm = x.norm(dim=-1).clamp(min=1.0)
+    scale = fm.coef.abs()[None, :] * norm[:, None] ** fm.degree[None, :]
+    perr = (phi - p_phi).abs()
+    ratio = (perr / (FMBE_REL * (p_phi.abs() + scale))).max().item()
+    check(ratio <= 1.0, f"fmbe_phi[f32]: error {perr.max().item():.3e} is "
+          f"{ratio:.3f} of the tolerance")
+    del phi, again, p_phi
+    n_bytes = deg_sum * d * 4 + n_feat * 8 + rows * d * 4 + rows * n_feat * 4
+    bound, by = bound_ms(n_bytes, 0, f32_ops=2 * rows * deg_sum * d)
+    rec = dict(name="fmbe_phi[f32]", route="cuda",
+               source="src/repro_torch/kernels/csrc/fmbe_phi.cu",
+               replaces="src/repro/kernels/fmbe.py:89",
+               max_abs_err=perr.max().item(), max_err_over_tol=ratio,
+               ms=time_ms(torch, lambda: fmbe_phi(*pargs), reps=5),
+               plain_ms=time_ms(torch, lambda: fmbe_phi_plain(*pargs),
+                                reps=5),
+               bound_ms=bound, bound_by=by, library_ms=None)
+    log(f"fmbe_phi[f32]: {rows} rows x P {n_feat}, f32 x on the CUDA cores: "
+        f"max abs err {rec['max_abs_err']:.3e} = {ratio:.4f} of the "
+        f"tolerance, two calls bit-equal; kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}, at the f32 "
+        f"rate, {n_bytes / 1e6:.1f} MB) [{card}]")
+    return rec
+
+
+def ce_f32_phase(torch, card, h, w, lab):
+    """The f32 fused CE pair (CUDA cores) against its plain versions on the
+    f32 model's hidden states: nll and lse to 1e-3, dh and dW (f32) to
+    F32_GRAD_REL of the sum of their terms' magnitudes per element and
+    F32_GRAD_MEAN on average, two calls bit-equal; times both beside their
+    bounds (f32 rate), plain versions and library calls. Returns the two
+    records."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.kernels.fused_ce import (ce_coef, fused_ce_bwd,
+                                             fused_ce_bwd_plain, fused_ce_fwd,
+                                             fused_ce_fwd_plain)
+    t, d = h.shape
+    v = w.shape[0]
+    nll, lse = fused_ce_fwd(h, w, lab)
+    nll2, lse2 = fused_ce_fwd(h, w, lab)
+    torch.cuda.synchronize()
+    check(torch.equal(nll, nll2) and torch.equal(lse, lse2),
+          "fused_ce_fwd[f32] is not bit-reproducible")
+    p_nll, p_lse = fused_ce_fwd_plain(h, w, lab)
+    f_err = max((nll - p_nll).abs().max().item(),
+                (lse - p_lse).abs().max().item())
+    check(f_err <= TOL, f"fused_ce_fwd[f32]: nll/lse differ by {f_err}")
+    g_nll = torch.full((t,), 1.0 / t, device=h.device)
+    g_lse = 2 * TrainConfig().selfnorm_alpha * lse / t
+    bargs = (h, w, lab, lse, g_nll, g_lse)
+    dh, dw = fused_ce_bwd(*bargs)
+    dh2, dw2 = fused_ce_bwd(*bargs)
+    torch.cuda.synchronize()
+    check(torch.equal(dh, dh2) and torch.equal(dw, dw2),
+          "fused_ce_bwd[f32] is not bit-reproducible")
+    del dh2, dw2
+    p_dh, p_dw = fused_ce_bwd_plain(*bargs)
+    coef = ce_coef(*bargs).abs()
+    dh_err = compare_terms("fused_ce_bwd[f32] dh", dh, p_dh, coef @ w.abs(),
+                           F32_GRAD_REL, F32_GRAD_MEAN)
+    dw_err = compare_terms("fused_ce_bwd[f32] dw", dw, p_dw,
+                           coef.T @ h.abs(), F32_GRAD_REL, F32_GRAD_MEAN)
+    del coef, p_dh, p_dw, dh, dw
+    torch.cuda.empty_cache()
+    fwd_bytes = t * d * 4 + v * d * 4 + t * 4 + 2 * t * 4
+    fwd_bound, fwd_by = bound_ms(fwd_bytes, 0, f32_ops=2 * t * v * d)
+    bwd_bytes = 2 * (t * d * 4 + v * d * 4) + 4 * t * 4
+    bwd_bound, bwd_by = bound_ms(bwd_bytes, 0, f32_ops=6 * t * v * d)
+    gn = g_nll + g_lse
+
+    def library_fwd():
+        logits = torch.matmul(h, w.T)
+        lse_ = torch.logsumexp(logits, -1)
+        return lse_ - logits.gather(1, lab.long()[:, None])[:, 0], lse_
+
+    def library_bwd():
+        coef_ = torch.softmax(torch.matmul(h, w.T), -1) * gn[:, None]
+        coef_.scatter_add_(1, lab.long()[:, None], -g_nll[:, None])
+        return coef_ @ w, coef_.T @ h
+
+    fwd = dict(name="fused_ce_fwd[f32]", route="cuda",
+               source="src/repro_torch/kernels/csrc/fused_ce_f32.cu",
+               replaces="src/repro/kernels/fused_ce.py:128",
+               max_abs_err=f_err,
+               ms=time_ms(torch, lambda: fused_ce_fwd(h, w, lab), reps=5),
+               plain_ms=time_ms(torch, lambda: fused_ce_fwd_plain(h, w, lab),
+                                reps=5),
+               bound_ms=fwd_bound, bound_by=fwd_by,
+               library_ms=time_ms(torch, library_fwd, reps=5))
+    bwd = dict(name="fused_ce_bwd[f32]", route="cuda",
+               source="src/repro_torch/kernels/csrc/fused_ce_f32.cu",
+               replaces="src/repro/kernels/fused_ce.py:169",
+               max_abs_err=max(dh_err[0], dw_err[0]),
+               max_err_over_sum_terms=max(dh_err[1], dw_err[1]),
+               ms=time_ms(torch, lambda: fused_ce_bwd(*bargs), reps=3),
+               plain_ms=time_ms(torch, lambda: fused_ce_bwd_plain(*bargs),
+                                reps=3),
+               bound_ms=bwd_bound, bound_by=bwd_by,
+               library_ms=time_ms(torch, library_bwd, reps=3))
+    log(f"fused_ce_fwd[f32]: T {t} V {v} d {d}: nll/lse err {f_err:.2e}, "
+        f"two calls bit-equal; kernel {fwd['ms']:.4f} ms "
+        f"({2 * t * v * d / fwd['ms'] / 1e9:.1f} TFLOP/s), plain "
+        f"{fwd['plain_ms']:.4f} ms, library {fwd['library_ms']:.4f} ms, "
+        f"bound {fwd_bound:.4f} ms ({fwd_by}, f32 rate "
+        f"{F32_FLOPS / 1e12:.0f} TFLOP/s) [{card}]")
+    log(f"fused_ce_bwd[f32]: T {t} V {v} d {d}, g_lse = 2 alpha lse / T: dh "
+        f"err {dh_err[0]:.2e} (max {dh_err[1]:.3e}, mean {dh_err[2]:.3e} of "
+        f"sum |terms|), dW err {dw_err[0]:.2e} (max {dw_err[1]:.3e}, mean "
+        f"{dw_err[2]:.3e}), two calls bit-equal; kernel {bwd['ms']:.4f} ms "
+        f"({6 * t * v * d / bwd['ms'] / 1e9:.1f} TFLOP/s), plain "
+        f"{bwd['plain_ms']:.4f} ms, library {bwd['library_ms']:.4f} ms, "
+        f"bound {bwd_bound:.4f} ms ({bwd_by}) [{card}]")
+    for line in ptxas_report(_build_log("fused_ce_f32")):
+        log(f"  ptxas fused_ce_f32: {line}")
+    return {"fused_ce_fwd": fwd, "fused_ce_bwd": bwd}
+
+
+def _build_log(name):
+    from repro_torch.kernels import _build
+    return _build.build_log.get(name, "")
 
 
 def _leaves(tree):

@@ -12,9 +12,12 @@ decode asks the sketch only for the complement of the probed head,
 
     Z_tail_hat(q) = phi(q) . (lambda_tilde - sum_{b probed} lambda_blocks[b]).
 
-The builds compute phi through ``kernels.fmbe.fmbe_phi`` (the CUDA kernel on
-a GPU tensor, its plain version on a CPU tensor); ``apply_feature_map`` is
-the plain reference the ``use_kernel=False`` branches take.
+The builds compute phi through ``kernels.fmbe.fmbe_phi`` (a CUDA kernel on
+a GPU tensor, its plain version on a CPU tensor). Where that kernel reads
+the feature map's live rows packed (``kernels.fmbe.pack_if_needed``), each
+build packs once and passes the pack to all its chunks.
+``apply_feature_map`` is the plain reference the
+``use_kernel=False`` branches take.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import resolve_device
-from ..kernels.fmbe import fmbe_phi, fmbe_z
+from ..kernels.fmbe import FmbePack, fmbe_phi, fmbe_z, pack_if_needed
 
 
 class FeatureMap(NamedTuple):
@@ -72,30 +75,38 @@ def apply_feature_map(fm: FeatureMap, x: torch.Tensor) -> torch.Tensor:
     return torch.prod(factors, -1) * fm.coef
 
 
-def build_fmbe(fm: FeatureMap, v: torch.Tensor, chunk: int = 2048
-               ) -> FMBEState:
-    """lambda_tilde = sum_i phi(v_i), in row chunks (bounded memory)."""
+def build_fmbe(fm: FeatureMap, v: torch.Tensor, chunk: int = 2048,
+               pack: Optional[FmbePack] = None) -> FMBEState:
+    """lambda_tilde = sum_i phi(v_i), in row chunks (bounded memory).
+    ``pack``: the map's ``fmbe_pack``, made here when ``fmbe_phi`` needs
+    one and none is given."""
+    if pack is None:
+        pack = pack_if_needed(fm.omega, fm.degree, fm.coef, v)
     lam = torch.zeros(fm.omega.shape[0], dtype=torch.float32,
                       device=v.device)
     for r0 in range(0, v.shape[0], chunk):
         lam += fmbe_phi(fm.omega, fm.degree, fm.coef,
-                        v[r0:r0 + chunk].contiguous()).sum(0)
+                        v[r0:r0 + chunk].contiguous(), pack=pack).sum(0)
     return FMBEState(fm=fm, lambda_tilde=lam)
 
 
 def build_fmbe_blocks(fm: FeatureMap, v_blocks: torch.Tensor,
-                      valid: torch.Tensor, chunk_blocks: int = 16
-                      ) -> torch.Tensor:
+                      valid: torch.Tensor, chunk_blocks: int = 16,
+                      pack: Optional[FmbePack] = None) -> torch.Tensor:
     """Per-IVF-block partial lambdas: (nb, br, d) -> (nb, P), cluster-pad
     rows masked out. ``chunk_blocks`` blocks go through ``fmbe_phi`` at a
-    time (16 blocks of 512 rows and P = 4096: a 134 MB phi)."""
+    time (16 blocks of 512 rows and P = 4096: a 134 MB phi). ``pack``: the
+    map's ``fmbe_pack``, made here when ``fmbe_phi`` needs one and none is
+    given."""
+    if pack is None:
+        pack = pack_if_needed(fm.omega, fm.degree, fm.coef, v_blocks)
     nb, br, d = v_blocks.shape
     lam = torch.empty((nb, fm.omega.shape[0]), dtype=torch.float32,
                       device=v_blocks.device)
     for b0 in range(0, nb, chunk_blocks):
         b1 = min(b0 + chunk_blocks, nb)
         phi = fmbe_phi(fm.omega, fm.degree, fm.coef,
-                       v_blocks[b0:b1].reshape(-1, d))
+                       v_blocks[b0:b1].reshape(-1, d), pack=pack)
         phi = phi.reshape(b1 - b0, br, -1) * valid[b0:b1, :, None]
         lam[b0:b1] = phi.sum(1)
     return lam

@@ -15,33 +15,43 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("topk_z", "ivf_decode", "union_scores", "fmbe_phi", "fmbe_z",
-           "fused_ce_fwd", "fused_ce_bwd", "lsh_probe", "ivf_score")
-# C entry points of a source besides its own ``<name>_launch``
-EXTRA_ENTRIES = {"lsh_probe": ("lsh_codes",)}
+SOURCES = ("topk_z", "ivf_decode", "union_scores", "fmbe_phi",
+           "fmbe_phi_wgmma", "fmbe_z", "fused_ce_fwd", "fused_ce_bwd",
+           "fused_ce_f32", "lsh_probe", "ivf_score")
+# C entry points ``<entry>_launch`` of a source, where they are not just
+# its own ``<name>_launch``
+ENTRIES = {"lsh_probe": ("lsh_probe", "lsh_codes"),
+           "fused_ce_f32": ("fused_ce_f32_fwd", "fused_ce_f32_bwd")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of each entry point ``<name>_launch``; every function returns
-# its cudaError_t (0 = success).
+# its cudaError_t (0 = success). ``f32`` is 1 for f32 rows and queries, 0
+# for bf16.
 SIGNATURES = {
     # h, w, Q, V, d, k, grid_x, part_m, part_s, part_v, part_i,
-    # lse, topv, topi, stream
-    "topk_z": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    # lse, topv, topi, f32, stream
+    "topk_z": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+               _P],
     # w_blocks, h, head_ids, head_live, head_member, row_logw, tail_rows,
     # tail_accept, Q, U, br, d, L, k, grid_x, part_hm, part_hs, part_v,
-    # part_i, part_tm, part_ts, head_lse, tail_lse, topv, topi, stream
-    "ivf_decode": [_P] * 8 + [_I] * 7 + [_P] * 11,
-    # w_blocks, h, head_ids, head_live, Q, U, br, d, grid_x, out, stream
-    "union_scores": [_P] * 4 + [_I] * 5 + [_P] * 2,
-    # omega, degree, coef, x, Q, P, M, d, out, stream
+    # part_i, part_tm, part_ts, head_lse, tail_lse, topv, topi, f32, stream
+    "ivf_decode": [_P] * 8 + [_I] * 7 + [_P] * 10 + [_I, _P],
+    # w_blocks, h, head_ids, head_live, Q, U, br, d, grid_x, out, f32, stream
+    "union_scores": [_P] * 4 + [_I] * 5 + [_P, _I, _P],
+    # omega, degree, coef, x (f32), Q, P, M, d, out, stream
     "fmbe_phi": [_P] * 4 + [_I] * 4 + [_P] * 2,
-    # omega, degree, coef, lam, lam_stride, x, Q, P, M, d, n_part, part, z,
+    # x, pack, start, tile_j0, degree, coef, Q, P, d, n_tiles, grid, out,
     # stream
-    "fmbe_z": [_P] * 4 + [_I, _P] + [_I] * 5 + [_P] * 3,
+    "fmbe_phi_wgmma": [_P] * 6 + [_I] * 5 + [_P] * 2,
+    # omega, degree, coef, lam, lam_stride, x, Q, P, M, d, n_part, part, z,
+    # f32, stream
+    "fmbe_z": [_P] * 4 + [_I, _P] + [_I] * 5 + [_P] * 2 + [_I, _P],
     # h, w, labels, T, V, d, n_split, per, grid, part_m, part_s, part_p,
     # nll, lse, stream
     "fused_ce_fwd": [_P] * 3 + [_I] * 6 + [_P] * 6,
@@ -49,16 +59,22 @@ SIGNATURES = {
     # start_full, grid_full, order_last, start_last, grid_last, scratch,
     # dh32, dh, dw, stream
     "fused_ce_bwd": [_P] * 6 + [_I] * 6 + [_P, _P, _I] * 2 + [_P] * 5,
-    # h, proj, Q, d, L, K, qcodes, stream
-    "lsh_codes": [_P] * 2 + [_I] * 4 + [_P] * 2,
+    # h, w, labels, T, V, d, n_split, grid, part_m, part_s, part_p, nll,
+    # lse, stream
+    "fused_ce_f32_fwd": [_P] * 3 + [_I] * 5 + [_P] * 6,
+    # h, w, labels, lse, gn, go, T, V, d, C, scratch, dh, dw, stream
+    "fused_ce_f32_bwd": [_P] * 6 + [_I] * 4 + [_P] * 4,
+    # h, proj, Q, d, L, K, qcodes, f32, stream
+    "lsh_codes": [_P] * 2 + [_I] * 4 + [_P, _I, _P],
     # w, h, proj, cand_rows, cand_live, codes, slot_of_row, tail_ids,
     # tail_accept, tail_bias, Q, C, d, L, K, NT, k, grid_x, qcodes, counts,
     # part_hm, part_hs, part_v, part_i, part_tm, part_ts, head_lse,
-    # tail_lse, topv, topi, stream
-    "lsh_probe": [_P] * 10 + [_I] * 8 + [_P] * 13,
-    # w_blocks, h, block_ids, Q, P, nb, br, d, out, stream
-    "ivf_score": [_P] * 3 + [_I] * 5 + [_P] * 2,
+    # tail_lse, topv, topi, f32, stream
+    "lsh_probe": [_P] * 10 + [_I] * 8 + [_P] * 12 + [_I, _P],
+    # w_blocks, h, block_ids, Q, P, nb, br, d, out, f32, stream
+    "ivf_score": [_P] * 3 + [_I] * 5 + [_P, _I, _P],
 }
+KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}   # -> the f32 flag
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}       # name -> nvcc's -Xptxas -v report
@@ -123,7 +139,7 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     build_all([name])
     lib = ctypes.CDLL(str(_lib_path(name)))
-    for entry in (name,) + EXTRA_ENTRIES.get(name, ()):
+    for entry in ENTRIES.get(name, (name,)):
         fn = getattr(lib, f"{entry}_launch")
         fn.argtypes = SIGNATURES[entry]
         fn.restype = ctypes.c_int
@@ -134,3 +150,34 @@ def load(name: str) -> ctypes.CDLL:
 def check(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+
+
+def f32_flag(name: str, **tensors) -> int:
+    """The kernels' ``f32`` argument: 1 if every named tensor is f32, 0 if
+    every one is bf16; a ValueError naming each tensor's dtype otherwise."""
+    dtypes = {t.dtype for t in tensors.values()}
+    if len(dtypes) != 1 or not dtypes <= KERNEL_DTYPES.keys():
+        got = ", ".join(f"{k} {t.dtype}" for k, t in tensors.items())
+        raise ValueError(f"{name}: kernel takes {' and '.join(tensors)} "
+                         f"all bf16 or all f32, got {got}")
+    return KERNEL_DTYPES[dtypes.pop()]
+
+
+def counted(fn):
+    """Gives a kernel wrapper its launch counts: ``fn.launches``, the total,
+    and ``fn.by_variant``, launches by input dtype ("bf16" or "f32")."""
+    fn.launches = 0
+    fn.by_variant = {"bf16": 0, "f32": 0}
+    return fn
+
+
+def count(fn, f32: int) -> None:
+    """One launch of ``fn``'s kernel at the dtype given by ``f32``."""
+    fn.launches += 1
+    fn.by_variant["f32" if f32 else "bf16"] += 1
+
+
+def reset_counts(fns) -> None:
+    for fn in fns:
+        fn.launches = 0
+        fn.by_variant = {"bf16": 0, "f32": 0}

@@ -8,16 +8,17 @@
 //
 // Bound on this card: operations. At a chunk of 8192 vocabulary rows and
 // P = 4096 features (mean degree 0.98) it does about 8.4e10 multiply-adds
-// on 83 MB of inputs and writes a 134 MB output; at the bf16 tensor-core
-// rate (omega is +-1 and x is bf16, so bf16 products with f32 sums would
-// be exact) that is about 0.17 ms.
+// on 83 MB of inputs and writes a 134 MB output: about 2.5 ms at the f32
+// rate outside the tensor cores (f32 x), about 0.17 ms at the bf16
+// tensor-core rate (bf16 x, fmbe_phi_wgmma.cu).
 //
 // Design: grid (features / FP, queries / QT). Each CTA stages QT = 8 rows
-// of x in shared memory as f32, lists the live projection rows of its
-// FP = 64 features, dots them on CUDA cores (fmbe_tile.cuh) and writes the
-// QT x FP tile of phi, consecutive threads on consecutive features. The
-// omega rows are read once per query tile, from L2 after the first.
-// Tensor cores are later work.
+// of f32 x in shared memory, lists the live projection rows of its FP = 64
+// features, dots them on CUDA cores (fmbe_tile.cuh) and writes the QT x FP
+// tile of phi, consecutive threads on consecutive features. The omega rows
+// are read once per query tile, from L2 after the first: about 42 GB of L2
+// reads at the chunk above. It serves f32 x, for which the tensor cores'
+// bf16 products would round x; bf16 x runs on them (fmbe_phi_wgmma.cu).
 #include "fmbe_tile.cuh"
 
 namespace {
@@ -27,9 +28,8 @@ constexpr int FP = 64;
 __global__ void __launch_bounds__(fmbe::THREADS, 2)
 fmbe_phi_kernel(const float* __restrict__ omega,
                 const int* __restrict__ degree,
-                const float* __restrict__ coef,
-                const __nv_bfloat16* __restrict__ x, int Q, int P, int M,
-                int d, float* __restrict__ out) {
+                const float* __restrict__ coef, const float* __restrict__ x,
+                int Q, int P, int M, int d, float* __restrict__ out) {
   extern __shared__ __align__(16) float hs[];
   __shared__ fmbe::Tile<FP> tile;
   const int j0 = blockIdx.x * FP, q0 = blockIdx.y * fmbe::QT;
@@ -44,6 +44,7 @@ fmbe_phi_kernel(const float* __restrict__ omega,
 
 }  // namespace
 
+// x (Q, d) f32.
 extern "C" int fmbe_phi_launch(const void* omega, const void* degree,
                                const void* coef, const void* x, int Q, int P,
                                int M, int d, void* out, void* stream) {
@@ -57,8 +58,7 @@ extern "C" int fmbe_phi_launch(const void* omega, const void* degree,
   fmbe_phi_kernel<<<grid, fmbe::THREADS, smem,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(omega), static_cast<const int*>(degree),
-      static_cast<const float*>(coef),
-      static_cast<const __nv_bfloat16*>(x), Q, P, M, d,
-      static_cast<float*>(out));
+      static_cast<const float*>(coef), static_cast<const float*>(x), Q, P, M,
+      d, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,8 @@
 // away. Here a CTA lists the projection rows (j, m) with m < degree_j of
 // its FP features -- about one per feature -- and its warps share the list:
 // each warp dots UR rows of omega (f32, +-1) at a time with the QT queries
-// staged in shared memory as f32, lanes splitting d in 16-byte loads, and
+// staged in shared memory as f32 (from bf16 or f32 queries,
+// streaming::load_query_tile), lanes splitting d in 16-byte loads, and
 // leaves the projections in shared memory. Degree-0 features read nothing.
 // The products are then taken per (query, feature) in the TPU kernel's
 // factor order (m ascending, then coef), so a run is bit-reproducible.

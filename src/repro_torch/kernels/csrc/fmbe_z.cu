@@ -6,8 +6,9 @@
 // block-partitioned complement the serving decode uses).
 //
 // Bound on this card: bytes. At Q = 8 and P = 4096 features of qwen1.5-4b
-// (d 2560, mean degree 0.98) the omega rows it needs are about 41 MB of f32
-// (all 8 rows of every feature would be 335 MB), about 12 us at 3.35 TB/s;
+// (d 2560, mean degree 0.98; x bf16 or f32) the omega rows it needs are
+// about 41 MB of f32 (all 8 rows of every feature would be 335 MB), about
+// 12 us at 3.35 TB/s;
 // the 2*Q flops per omega element read are far below the compute bound.
 //
 // Design: grid (features / FP, queries / QT), FP = 16 features per CTA so
@@ -23,13 +24,14 @@ namespace {
 
 constexpr int FP = 16;
 
+template <class T>
 __global__ void __launch_bounds__(fmbe::THREADS, 2)
 fmbe_z_partial(const float* __restrict__ omega,
                const int* __restrict__ degree,
                const float* __restrict__ coef,
                const float* __restrict__ lam, int lam_stride,
-               const __nv_bfloat16* __restrict__ x, int Q, int P, int M,
-               int d, float* __restrict__ part) {
+               const T* __restrict__ x, int Q, int P, int M, int d,
+               float* __restrict__ part) {
   extern __shared__ __align__(16) float hs[];
   __shared__ fmbe::Tile<FP> tile;
   __shared__ float val[fmbe::QT][FP];
@@ -63,30 +65,43 @@ fmbe_z_merge(int n_part, const float* __restrict__ part,
   if (threadIdx.x == 0) z[blockIdx.x] = s;
 }
 
+template <class T>
+cudaError_t launch(const void* omega, const void* degree, const void* coef,
+                   const void* lam, int lam_stride, const void* x, int Q,
+                   int P, int M, int d, int n_part, void* part, void* z,
+                   cudaStream_t st) {
+  const size_t smem = (size_t)fmbe::QT * d * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      fmbe_z_partial<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(n_part, (Q + fmbe::QT - 1) / fmbe::QT);
+  fmbe_z_partial<T><<<grid, fmbe::THREADS, smem, st>>>(
+      static_cast<const float*>(omega), static_cast<const int*>(degree),
+      static_cast<const float*>(coef), static_cast<const float*>(lam),
+      lam_stride, static_cast<const T*>(x), Q, P, M, d,
+      static_cast<float*>(part));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fmbe_z_merge<<<Q, streaming::MERGE_THREADS, 0, st>>>(
+      n_part, static_cast<const float*>(part), static_cast<float*>(z));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// f32: 1 if x is f32, 0 if bf16.
 extern "C" int fmbe_z_launch(const void* omega, const void* degree,
                              const void* coef, const void* lam,
                              int lam_stride, const void* x, int Q, int P,
                              int M, int d, int n_part, void* part, void* z,
-                             void* stream) {
+                             int f32, void* stream) {
   if (n_part != (P + FP - 1) / FP || M < 1 || M > fmbe::MMAX)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)fmbe::QT * d * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fmbe_z_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
   auto st = static_cast<cudaStream_t>(stream);
-  dim3 grid(n_part, (Q + fmbe::QT - 1) / fmbe::QT);
-  fmbe_z_partial<<<grid, fmbe::THREADS, smem, st>>>(
-      static_cast<const float*>(omega), static_cast<const int*>(degree),
-      static_cast<const float*>(coef), static_cast<const float*>(lam),
-      lam_stride, static_cast<const __nv_bfloat16*>(x), Q, P, M, d,
-      static_cast<float*>(part));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fmbe_z_merge<<<Q, streaming::MERGE_THREADS, 0, st>>>(
-      n_part, static_cast<const float*>(part), static_cast<float*>(z));
-  return (int)cudaGetLastError();
+  if (f32)
+    return (int)launch<float>(omega, degree, coef, lam, lam_stride, x, Q, P,
+                              M, d, n_part, part, z, st);
+  return (int)launch<__nv_bfloat16>(omega, degree, coef, lam, lam_stride, x,
+                                    Q, P, M, d, n_part, part, z, st);
 }

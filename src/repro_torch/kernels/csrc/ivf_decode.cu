@@ -8,9 +8,10 @@
 // accepted samples (-inf when none survives).
 //
 // Bound on this card: bytes. The kernel reads head_live live blocks of
-// br x d bf16 rows plus l tail rows once (qwen1.5-4b: 16 blocks of
-// 512 x 2560 plus 1000 rows is about 47 MB, about 14 us at 3.35 TB/s) and
-// does 2*Q flops per element read.
+// br x d rows plus l tail rows once (qwen1.5-4b in bf16: 16 blocks of
+// 512 x 2560 plus 1000 rows is about 47 MB, about 14 us at 3.35 TB/s; twice
+// that in f32) and does 2*Q flops per element read. Rows, queries and tail
+// rows are all bf16 or all f32.
 //
 // Design: the TPU grid walked the union slots then the tail tiles in order
 // for one query tile, with scalar-prefetched block ids. Here every 32-row
@@ -28,15 +29,14 @@
 
 using namespace streaming;
 
-template <int KMAX>
+template <class T, int KMAX>
 __global__ void __launch_bounds__(THREADS, KMAX <= 8 ? 2 : 1)
-ivf_decode_partial(const __nv_bfloat16* __restrict__ wb,
-                   const __nv_bfloat16* __restrict__ h,
+ivf_decode_partial(const T* __restrict__ wb, const T* __restrict__ h,
                    const int* __restrict__ head_ids,
                    const int* __restrict__ head_live,
                    const bool* __restrict__ member,
                    const float* __restrict__ row_logw,
-                   const __nv_bfloat16* __restrict__ tail,
+                   const T* __restrict__ tail,
                    const bool* __restrict__ accept, int Q, int U, int br,
                    int d, int L, int k, float* __restrict__ part_hm,
                    float* __restrict__ part_hs, float* __restrict__ part_v,
@@ -56,7 +56,7 @@ ivf_decode_partial(const __nv_bfloat16* __restrict__ wb,
   TopK<KMAX> top;
   top.init();
   for (int g = blockIdx.x; g < n_groups; g += gridDim.x) {
-    const __nv_bfloat16* rows[R];
+    const T* rows[R];
     float acc[R][QT];
     if (g < head_groups) {
       const int slot = g / per_slot;
@@ -113,11 +113,11 @@ ivf_decode_partial(const __nv_bfloat16* __restrict__ wb,
   }
 }
 
-template <int KMAX>
-static cudaError_t launch(const __nv_bfloat16* wb, const __nv_bfloat16* h,
+template <class T, int KMAX>
+static cudaError_t launch(const T* wb, const T* h,
                           const int* head_ids, const int* head_live,
                           const bool* member, const float* row_logw,
-                          const __nv_bfloat16* tail, const bool* accept,
+                          const T* tail, const bool* accept,
                           int Q, int U, int br, int d, int L, int k,
                           int grid_x, float* phm, float* phs, float* pv,
                           int* pi, float* ptm, float* pts, float* head_lse,
@@ -125,11 +125,12 @@ static cudaError_t launch(const __nv_bfloat16* wb, const __nv_bfloat16* h,
                           cudaStream_t stream) {
   const size_t smem = (size_t)QT * d * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ivf_decode_partial<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ivf_decode_partial<T, KMAX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(grid_x, (Q + QT - 1) / QT);
-  ivf_decode_partial<KMAX><<<grid, THREADS, smem, stream>>>(
+  ivf_decode_partial<T, KMAX><<<grid, THREADS, smem, stream>>>(
       wb, h, head_ids, head_live, member, row_logw, tail, accept, Q, U, br, d,
       L, k, phm, phs, pv, pi, ptm, pts);
   err = cudaGetLastError();
@@ -140,20 +141,21 @@ static cudaError_t launch(const __nv_bfloat16* wb, const __nv_bfloat16* h,
   return cudaGetLastError();
 }
 
-extern "C" int ivf_decode_launch(
+template <class T>
+static cudaError_t dispatch(
     const void* w_blocks, const void* h, const void* head_ids,
     const void* head_live, const void* head_member, const void* row_logw,
     const void* tail_rows, const void* tail_accept, int Q, int U, int br,
     int d, int L, int k, int grid_x, void* part_hm, void* part_hs,
     void* part_v, void* part_i, void* part_tm, void* part_ts, void* head_lse,
-    void* tail_lse, void* topv, void* topi, void* stream) {
-  auto wb = static_cast<const __nv_bfloat16*>(w_blocks);
-  auto hb = static_cast<const __nv_bfloat16*>(h);
+    void* tail_lse, void* topv, void* topi, cudaStream_t st) {
+  auto wb = static_cast<const T*>(w_blocks);
+  auto hb = static_cast<const T*>(h);
   auto ids = static_cast<const int*>(head_ids);
   auto lv = static_cast<const int*>(head_live);
   auto mem = static_cast<const bool*>(head_member);
   auto lw = static_cast<const float*>(row_logw);
-  auto tr = static_cast<const __nv_bfloat16*>(tail_rows);
+  auto tr = static_cast<const T*>(tail_rows);
   auto acc = static_cast<const bool*>(tail_accept);
   auto phm = static_cast<float*>(part_hm);
   auto phs = static_cast<float*>(part_hs);
@@ -165,12 +167,31 @@ extern "C" int ivf_decode_launch(
   auto tl = static_cast<float*>(tail_lse);
   auto tv = static_cast<float*>(topv);
   auto ti = static_cast<int*>(topi);
-  auto st = static_cast<cudaStream_t>(stream);
   if (k <= 8)
-    return (int)launch<8>(wb, hb, ids, lv, mem, lw, tr, acc, Q, U, br, d, L,
-                          k, grid_x, phm, phs, pv, pi, ptm, pts, hl, tl, tv,
-                          ti, st);
-  return (int)launch<32>(wb, hb, ids, lv, mem, lw, tr, acc, Q, U, br, d, L, k,
-                         grid_x, phm, phs, pv, pi, ptm, pts, hl, tl, tv, ti,
-                         st);
+    return launch<T, 8>(wb, hb, ids, lv, mem, lw, tr, acc, Q, U, br, d, L, k,
+                        grid_x, phm, phs, pv, pi, ptm, pts, hl, tl, tv, ti,
+                        st);
+  return launch<T, 32>(wb, hb, ids, lv, mem, lw, tr, acc, Q, U, br, d, L, k,
+                       grid_x, phm, phs, pv, pi, ptm, pts, hl, tl, tv, ti,
+                       st);
+}
+
+// f32: 1 if the rows, queries and tail rows are f32, 0 if bf16.
+extern "C" int ivf_decode_launch(
+    const void* w_blocks, const void* h, const void* head_ids,
+    const void* head_live, const void* head_member, const void* row_logw,
+    const void* tail_rows, const void* tail_accept, int Q, int U, int br,
+    int d, int L, int k, int grid_x, void* part_hm, void* part_hs,
+    void* part_v, void* part_i, void* part_tm, void* part_ts, void* head_lse,
+    void* tail_lse, void* topv, void* topi, int f32, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (f32)
+    return (int)dispatch<float>(
+        w_blocks, h, head_ids, head_live, head_member, row_logw, tail_rows,
+        tail_accept, Q, U, br, d, L, k, grid_x, part_hm, part_hs, part_v,
+        part_i, part_tm, part_ts, head_lse, tail_lse, topv, topi, st);
+  return (int)dispatch<__nv_bfloat16>(
+      w_blocks, h, head_ids, head_live, head_member, row_logw, tail_rows,
+      tail_accept, Q, U, br, d, L, k, grid_x, part_hm, part_hs, part_v,
+      part_i, part_tm, part_ts, head_lse, tail_lse, topv, topi, st);
 }

@@ -7,9 +7,10 @@
 // ops.ivf_block_scores; the serving decodes use ivf_decode and
 // union_scores, which never write this tensor.
 //
-// Bound on this card: bytes. A (query, block) pair reads one br x d bf16
-// block and writes br floats (qwen1.5-4b, Q 8 x P 16 blocks of 512 x 2560:
-// 335 MB of block reads without deduplication, about 0.1 ms at 3.35 TB/s;
+// Bound on this card: bytes. A (query, block) pair reads one br x d block
+// (bf16 or f32, as the queries) and writes br floats (qwen1.5-4b in bf16,
+// Q 8 x P 16 blocks of 512 x 2560: 335 MB of block reads without
+// deduplication, about 0.1 ms at 3.35 TB/s;
 // queries that probe the same block read it again, from L2 when it is
 // still there), and does 2 flops per element read.
 //
@@ -26,9 +27,9 @@ using namespace streaming;
 
 constexpr int ROWS_PER_CTA = 64;
 
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-ivf_score_kernel(const __nv_bfloat16* __restrict__ wb,
-                 const __nv_bfloat16* __restrict__ h,
+ivf_score_kernel(const T* __restrict__ wb, const T* __restrict__ h,
                  const int* __restrict__ block_ids, int P, int nb, int br,
                  int d, float* __restrict__ out) {
   extern __shared__ __align__(16) float hq[];
@@ -37,7 +38,7 @@ ivf_score_kernel(const __nv_bfloat16* __restrict__ wb,
   const int nvec = d / 8;
   for (int c = threadIdx.x; c < nvec; c += blockDim.x) {
     float f[8];
-    bf16x8(__ldg(reinterpret_cast<const uint4*>(h + (size_t)q * d) + c), f);
+    load8(h + (size_t)q * d, c, f);
     float4* dst = reinterpret_cast<float4*>(hq + c * 8);
     dst[0] = make_float4(f[0], f[1], f[2], f[3]);
     dst[1] = make_float4(f[4], f[5], f[6], f[7]);
@@ -53,11 +54,10 @@ ivf_score_kernel(const __nv_bfloat16* __restrict__ wb,
       if (lane < R && r0 + lane < end) dst[r0 + lane] = nanf("");
       continue;
     }
-    const uint4* rows[R];
+    const T* rows[R];
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      rows[r] = r0 + r < end ? reinterpret_cast<const uint4*>(
-                                   wb + ((size_t)blk * br + r0 + r) * d)
+      rows[r] = r0 + r < end ? wb + ((size_t)blk * br + r0 + r) * d
                              : nullptr;
     float acc[R];
 #pragma unroll
@@ -70,7 +70,7 @@ ivf_score_kernel(const __nv_bfloat16* __restrict__ wb,
       for (int r = 0; r < R; ++r) {
         if (rows[r] == nullptr) continue;
         float f[8];
-        bf16x8(__ldg(rows[r] + j), f);
+        load8(rows[r], j, f);
         acc[r] += f[0] * a.x + f[1] * a.y + f[2] * a.z + f[3] * a.w +
                   f[4] * b.x + f[5] * b.y + f[6] * b.z + f[7] * b.w;
       }
@@ -85,20 +85,32 @@ ivf_score_kernel(const __nv_bfloat16* __restrict__ wb,
   }
 }
 
-extern "C" int ivf_score_launch(const void* w_blocks, const void* h,
-                                const void* block_ids, int Q, int P, int nb,
-                                int br, int d, void* out, void* stream) {
+template <class T>
+static cudaError_t launch(const void* w_blocks, const void* h,
+                          const void* block_ids, int Q, int P, int nb, int br,
+                          int d, void* out, cudaStream_t stream) {
   const size_t smem = (size_t)d * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ivf_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ivf_score_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   dim3 grid(Q * P, (br + ROWS_PER_CTA - 1) / ROWS_PER_CTA);
-  ivf_score_kernel<<<grid, THREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(w_blocks),
-      static_cast<const __nv_bfloat16*>(h),
+  ivf_score_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(w_blocks), static_cast<const T*>(h),
       static_cast<const int*>(block_ids), P, nb, br, d,
       static_cast<float*>(out));
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+// f32: 1 if the rows and queries are f32, 0 if bf16.
+extern "C" int ivf_score_launch(const void* w_blocks, const void* h,
+                                const void* block_ids, int Q, int P, int nb,
+                                int br, int d, void* out, int f32,
+                                void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (f32)
+    return (int)launch<float>(w_blocks, h, block_ids, Q, P, nb, br, d, out,
+                              st);
+  return (int)launch<__nv_bfloat16>(w_blocks, h, block_ids, Q, P, nb, br, d,
+                                    out, st);
 }

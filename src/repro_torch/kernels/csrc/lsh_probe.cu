@@ -9,8 +9,8 @@
 // importance bias added to its score. The per-candidate counts (Q, C) are
 // written out; the top-k ids are original row ids.
 //
-// Bound on this card: bytes. The kernel reads each live candidate's bf16 row
-// of w once, by id, plus l tail rows, the candidates' codes and slots and
+// Bound on this card: bytes. The kernel reads each live candidate's row of w
+// once, by id (bf16 or f32, as the queries), plus l tail rows, the candidates' codes and slots and
 // writes the (Q, C) counts (qwen1.5-4b, trimmed union: up to 38016 rows of
 // 2560, about 195 MB plus 5.1 MB of tail rows, about 0.06 ms at 3.35 TB/s;
 // the dense fallback reads all 151936 rows, about 0.24 ms), and does 2*Q
@@ -18,7 +18,8 @@
 //
 // Design: three launches on the caller's stream. (1) lsh_codes: one CTA per
 // (query, table), one warp per hyperplane: an f32 dot product over d on the
-// CUDA cores (bf16 h is exact in f32; no tensor cores, so no TF32), the
+// CUDA cores (h, bf16 or f32, is exact in f32; no tensor cores, so no
+// TF32), the
 // sign bits packed with integer shifts. The TPU kernel made the codes in
 // every query tile's first grid step with two matmuls; here every probe CTA
 // would redo 64 dot products of length d, so they are made once. (2) The
@@ -39,16 +40,23 @@ using namespace streaming;
 
 constexpr int MAX_TABLES = 64;
 
-__global__ void lsh_codes_kernel(const __nv_bfloat16* __restrict__ h,
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+template <class T>
+__global__ void lsh_codes_kernel(const T* __restrict__ h,
                                  const float* __restrict__ proj, int d,
                                  int L, int K, int* __restrict__ qcodes) {
   __shared__ int bits[32];
   const int q = blockIdx.x, t = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float* p = proj + ((size_t)t * K + warp) * (d + 1);
-  const __nv_bfloat16* hq = h + (size_t)q * d;
+  const T* hq = h + (size_t)q * d;
   float s = 0.f;
-  for (int j = lane; j < d; j += 32) s += __bfloat162float(hq[j]) * p[j];
+  for (int j = lane; j < d; j += 32) s += to_f32(hq[j]) * p[j];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -61,18 +69,18 @@ __global__ void lsh_codes_kernel(const __nv_bfloat16* __restrict__ h,
   }
 }
 
-static cudaError_t launch_codes(const __nv_bfloat16* h, const float* proj,
-                                int Q, int d, int L, int K, int* qcodes,
+template <class T>
+static cudaError_t launch_codes(const T* h, const float* proj, int Q, int d,
+                                int L, int K, int* qcodes,
                                 cudaStream_t stream) {
-  lsh_codes_kernel<<<dim3(Q, L), 32 * K, 0, stream>>>(h, proj, d, L, K,
-                                                       qcodes);
+  lsh_codes_kernel<T><<<dim3(Q, L), 32 * K, 0, stream>>>(h, proj, d, L, K,
+                                                          qcodes);
   return cudaGetLastError();
 }
 
-template <int KMAX>
+template <class T, int KMAX>
 __global__ void __launch_bounds__(THREADS, KMAX <= 8 ? 2 : 1)
-lsh_probe_partial(const __nv_bfloat16* __restrict__ w,
-                  const __nv_bfloat16* __restrict__ h,
+lsh_probe_partial(const T* __restrict__ w, const T* __restrict__ h,
                   const int* __restrict__ qcodes,
                   const int* __restrict__ cand_rows,
                   const int* __restrict__ cand_live,
@@ -105,7 +113,7 @@ lsh_probe_partial(const __nv_bfloat16* __restrict__ w,
   TopK<KMAX> top;
   top.init();
   for (int g = blockIdx.x; g < n_groups; g += gridDim.x) {
-    const __nv_bfloat16* rows[R];
+    const T* rows[R];
     float acc[R][QT];
     if (g < head_groups) {
       const int j0 = g * GROUP + warp * R;
@@ -176,9 +184,9 @@ lsh_probe_partial(const __nv_bfloat16* __restrict__ w,
   }
 }
 
-template <int KMAX>
+template <class T, int KMAX>
 static cudaError_t launch_probe(
-    const __nv_bfloat16* w, const __nv_bfloat16* h, const float* proj,
+    const T* w, const T* h, const float* proj,
     const int* cand_rows, const int* cand_live, const int* codes,
     const int* slot_of_row, const int* tail_ids, const bool* accept,
     const float* tail_bias, int Q, int C, int d, int L, int K, int NT, int k,
@@ -188,12 +196,12 @@ static cudaError_t launch_probe(
   cudaError_t err = launch_codes(h, proj, Q, d, L, K, qcodes, stream);
   if (err != cudaSuccess) return err;
   const size_t smem = (size_t)QT * d * sizeof(float);
-  err = cudaFuncSetAttribute(lsh_probe_partial<KMAX>,
+  err = cudaFuncSetAttribute(lsh_probe_partial<T, KMAX>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(grid_x, (Q + QT - 1) / QT);
-  lsh_probe_partial<KMAX><<<grid, THREADS, smem, stream>>>(
+  lsh_probe_partial<T, KMAX><<<grid, THREADS, smem, stream>>>(
       w, h, qcodes, cand_rows, cand_live, codes, slot_of_row, tail_ids,
       accept, tail_bias, Q, C, d, L, NT, counts, phm, phs, pv, pi, ptm, pts,
       k);
@@ -204,25 +212,31 @@ static cudaError_t launch_probe(
   return cudaGetLastError();
 }
 
+// f32: 1 if h is f32, 0 if bf16.
 extern "C" int lsh_codes_launch(const void* h, const void* proj, int Q,
-                                int d, int L, int K, void* qcodes,
+                                int d, int L, int K, void* qcodes, int f32,
                                 void* stream) {
-  return (int)launch_codes(static_cast<const __nv_bfloat16*>(h),
-                           static_cast<const float*>(proj), Q, d, L, K,
-                           static_cast<int*>(qcodes),
-                           static_cast<cudaStream_t>(stream));
+  auto pj = static_cast<const float*>(proj);
+  auto qc = static_cast<int*>(qcodes);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (f32)
+    return (int)launch_codes(static_cast<const float*>(h), pj, Q, d, L, K, qc,
+                             st);
+  return (int)launch_codes(static_cast<const __nv_bfloat16*>(h), pj, Q, d, L,
+                           K, qc, st);
 }
 
-extern "C" int lsh_probe_launch(
+template <class T>
+static cudaError_t dispatch(
     const void* w, const void* h, const void* proj, const void* cand_rows,
     const void* cand_live, const void* codes, const void* slot_of_row,
     const void* tail_ids, const void* tail_accept, const void* tail_bias,
     int Q, int C, int d, int L, int K, int NT, int k, int grid_x,
     void* qcodes, void* counts, void* part_hm, void* part_hs, void* part_v,
     void* part_i, void* part_tm, void* part_ts, void* head_lse,
-    void* tail_lse, void* topv, void* topi, void* stream) {
-  auto wb = static_cast<const __nv_bfloat16*>(w);
-  auto hb = static_cast<const __nv_bfloat16*>(h);
+    void* tail_lse, void* topv, void* topi, cudaStream_t st) {
+  auto wb = static_cast<const T*>(w);
+  auto hb = static_cast<const T*>(h);
   auto pj = static_cast<const float*>(proj);
   auto cr = static_cast<const int*>(cand_rows);
   auto cl = static_cast<const int*>(cand_live);
@@ -243,12 +257,34 @@ extern "C" int lsh_probe_launch(
   auto tl = static_cast<float*>(tail_lse);
   auto tv = static_cast<float*>(topv);
   auto tix = static_cast<int*>(topi);
-  auto st = static_cast<cudaStream_t>(stream);
   if (k <= 8)
-    return (int)launch_probe<8>(wb, hb, pj, cr, cl, cd, sl, ti, ac, tb, Q, C,
-                                d, L, K, NT, k, grid_x, qc, cn, phm, phs, pv,
-                                pi, ptm, pts, hl, tl, tv, tix, st);
-  return (int)launch_probe<32>(wb, hb, pj, cr, cl, cd, sl, ti, ac, tb, Q, C,
-                               d, L, K, NT, k, grid_x, qc, cn, phm, phs, pv,
-                               pi, ptm, pts, hl, tl, tv, tix, st);
+    return launch_probe<T, 8>(wb, hb, pj, cr, cl, cd, sl, ti, ac, tb, Q, C,
+                              d, L, K, NT, k, grid_x, qc, cn, phm, phs, pv,
+                              pi, ptm, pts, hl, tl, tv, tix, st);
+  return launch_probe<T, 32>(wb, hb, pj, cr, cl, cd, sl, ti, ac, tb, Q, C, d,
+                             L, K, NT, k, grid_x, qc, cn, phm, phs, pv, pi,
+                             ptm, pts, hl, tl, tv, tix, st);
+}
+
+// f32: 1 if w and h are f32, 0 if bf16.
+extern "C" int lsh_probe_launch(
+    const void* w, const void* h, const void* proj, const void* cand_rows,
+    const void* cand_live, const void* codes, const void* slot_of_row,
+    const void* tail_ids, const void* tail_accept, const void* tail_bias,
+    int Q, int C, int d, int L, int K, int NT, int k, int grid_x,
+    void* qcodes, void* counts, void* part_hm, void* part_hs, void* part_v,
+    void* part_i, void* part_tm, void* part_ts, void* head_lse,
+    void* tail_lse, void* topv, void* topi, int f32, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (f32)
+    return (int)dispatch<float>(
+        w, h, proj, cand_rows, cand_live, codes, slot_of_row, tail_ids,
+        tail_accept, tail_bias, Q, C, d, L, K, NT, k, grid_x, qcodes, counts,
+        part_hm, part_hs, part_v, part_i, part_tm, part_ts, head_lse,
+        tail_lse, topv, topi, st);
+  return (int)dispatch<__nv_bfloat16>(
+      w, h, proj, cand_rows, cand_live, codes, slot_of_row, tail_ids,
+      tail_accept, tail_bias, Q, C, d, L, K, NT, k, grid_x, qcodes, counts,
+      part_hm, part_hs, part_v, part_i, part_tm, part_ts, head_lse, tail_lse,
+      topv, topi, st);
 }

@@ -1,7 +1,11 @@
 // Shared pieces of the streaming-score kernels (topk_z.cu, ivf_decode.cu;
 // union_scores.cu and fmbe_tile.cuh use the query tile and the row dots).
 //
-// Both kernels stream bf16 rows of an output embedding past a small tile of
+// Rows and queries are bf16 or f32 (the template parameter T of the loaders;
+// each kernel is instantiated for both). An f32 row is read as two 16-byte
+// loads per 8 elements instead of one; accumulation is f32 either way.
+//
+// Both kernels stream rows of an output embedding past a small tile of
 // decode queries held in shared memory, and fold each row's scores into a
 // per-query online logsumexp and a running top-k. The TPU kernels ran that
 // fold as one sequential grid per query tile; here the rows are split over
@@ -75,18 +79,30 @@ __device__ __forceinline__ void bf16x8(const uint4& u, float* f) {
   }
 }
 
-// Copies queries [q0, q0 + QT) of h (Q, d) bf16 into shared memory as f32,
-// zero rows past Q; 16-byte loads (d % 8 == 0).
-__device__ __forceinline__ void load_query_tile(const __nv_bfloat16* h,
-                                                int Q, int d, int q0,
-                                                float* hs) {
+// Elements [8 c, 8 c + 8) of a row as f32: one 16-byte load of bf16, two
+// of f32.
+__device__ __forceinline__ void load8(const __nv_bfloat16* row, int c,
+                                      float* f) {
+  bf16x8(__ldg(reinterpret_cast<const uint4*>(row) + c), f);
+}
+
+__device__ __forceinline__ void load8(const float* row, int c, float* f) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(row) + 2 * c);
+  const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 2 * c + 1);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// Copies queries [q0, q0 + QT) of h (Q, d) into shared memory as f32, zero
+// rows past Q; 16-byte loads (d % 8 == 0).
+template <class T>
+__device__ __forceinline__ void load_query_tile(const T* h, int Q, int d,
+                                                int q0, float* hs) {
   const int nvec = d / 8;
   for (int idx = threadIdx.x; idx < QT * nvec; idx += blockDim.x) {
     const int q = idx / nvec, c = idx - q * nvec;
     float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (q0 + q < Q)
-      bf16x8(__ldg(reinterpret_cast<const uint4*>(h + (size_t)(q0 + q) * d)
-                   + c), f);
+    if (q0 + q < Q) load8(h + (size_t)(q0 + q) * d, c, f);
     float4* dst = reinterpret_cast<float4*>(hs + q * d + c * 8);
     dst[0] = make_float4(f[0], f[1], f[2], f[3]);
     dst[1] = make_float4(f[4], f[5], f[6], f[7]);
@@ -96,7 +112,8 @@ __device__ __forceinline__ void load_query_tile(const __nv_bfloat16* h,
 
 // Dot products of R rows (null = absent, scores 0) with the QT queries in
 // shared memory, accumulated in f32. Every lane returns all R x QT sums.
-__device__ __forceinline__ void score_rows(const __nv_bfloat16* const* rows,
+template <class T>
+__device__ __forceinline__ void score_rows(const T* const* rows,
                                            const float* hs, int d, int lane,
                                            float (&acc)[R][QT]) {
 #pragma unroll
@@ -110,8 +127,7 @@ __device__ __forceinline__ void score_rows(const __nv_bfloat16* const* rows,
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (rows[r] != nullptr) {
-        uint4 u = __ldg(reinterpret_cast<const uint4*>(rows[r]) + j);
-        bf16x8(u, wv[r]);
+        load8(rows[r], j, wv[r]);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) wv[r][e] = 0.f;

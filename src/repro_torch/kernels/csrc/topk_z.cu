@@ -7,7 +7,8 @@
 //
 // Bound on this card: bytes. At decode Q <= 16 the kernel does 2*Q flops per
 // weight element and must read all of W once (qwen1.5-4b: 151936 x 2560 bf16
-// = 778 MB, about 0.23 ms at 3.35 TB/s), far below the tensor-core line.
+// = 778 MB, about 0.23 ms at 3.35 TB/s; 1556 MB and 0.46 ms in f32), far
+// below the tensor-core line. h and W are both bf16 or both f32.
 //
 // Design: the TPU grid ran one query tile's vocab sweep in order on one core.
 // Here the vocabulary is split over every warp of 2 CTAs per SM, so all SMs
@@ -21,10 +22,10 @@
 
 using namespace streaming;
 
-template <int KMAX>
+template <class T, int KMAX>
 __global__ void __launch_bounds__(THREADS, KMAX <= 8 ? 2 : 1)
-topk_z_partial(const __nv_bfloat16* __restrict__ h,
-               const __nv_bfloat16* __restrict__ w, int Q, int V, int d,
+topk_z_partial(const T* __restrict__ h, const T* __restrict__ w, int Q,
+               int V, int d,
                int k, float* __restrict__ part_m, float* __restrict__ part_s,
                float* __restrict__ part_v, int* __restrict__ part_i) {
   extern __shared__ float hs[];
@@ -38,7 +39,7 @@ topk_z_partial(const __nv_bfloat16* __restrict__ h,
   const int n_groups = (V + GROUP - 1) / GROUP;
   for (int g = blockIdx.x; g < n_groups; g += gridDim.x) {
     const int row0 = g * GROUP + warp * R;
-    const __nv_bfloat16* rows[R];
+    const T* rows[R];
 #pragma unroll
     for (int r = 0; r < R; ++r)
       rows[r] = (row0 + r < V) ? w + (size_t)(row0 + r) * d : nullptr;
@@ -67,19 +68,19 @@ topk_z_partial(const __nv_bfloat16* __restrict__ h,
   }
 }
 
-template <int KMAX>
-static cudaError_t launch(const __nv_bfloat16* h, const __nv_bfloat16* w,
-                          int Q, int V, int d, int k, int grid_x,
+template <class T, int KMAX>
+static cudaError_t launch(const T* h, const T* w, int Q, int V, int d, int k,
+                          int grid_x,
                           float* part_m, float* part_s, float* part_v,
                           int* part_i, float* lse, float* topv, int* topi,
                           cudaStream_t stream) {
   const size_t smem = (size_t)QT * d * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      topk_z_partial<KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      topk_z_partial<T, KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(grid_x, (Q + QT - 1) / QT);
-  topk_z_partial<KMAX><<<grid, THREADS, smem, stream>>>(
+  topk_z_partial<T, KMAX><<<grid, THREADS, smem, stream>>>(
       h, w, Q, V, d, k, part_m, part_s, part_v, part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -89,14 +90,13 @@ static cudaError_t launch(const __nv_bfloat16* h, const __nv_bfloat16* w,
   return cudaGetLastError();
 }
 
-extern "C" int topk_z_launch(const void* h, const void* w, int Q, int V,
-                             int d, int k, int grid_x, void* part_m,
-                             void* part_s, void* part_v, void* part_i,
-                             void* lse, void* topv, void* topi,
-                             void* stream) {
-  auto hb = static_cast<const __nv_bfloat16*>(h);
-  auto wb = static_cast<const __nv_bfloat16*>(w);
-  auto st = static_cast<cudaStream_t>(stream);
+template <class T>
+static cudaError_t dispatch(const void* h, const void* w, int Q, int V, int d,
+                            int k, int grid_x, void* part_m, void* part_s,
+                            void* part_v, void* part_i, void* lse, void* topv,
+                            void* topi, cudaStream_t st) {
+  auto hb = static_cast<const T*>(h);
+  auto wb = static_cast<const T*>(w);
   auto pm = static_cast<float*>(part_m);
   auto ps = static_cast<float*>(part_s);
   auto pv = static_cast<float*>(part_v);
@@ -105,8 +105,23 @@ extern "C" int topk_z_launch(const void* h, const void* w, int Q, int V,
   auto tv = static_cast<float*>(topv);
   auto ti = static_cast<int*>(topi);
   if (k <= 8)
-    return (int)launch<8>(hb, wb, Q, V, d, k, grid_x, pm, ps, pv, pi, l, tv,
-                          ti, st);
-  return (int)launch<32>(hb, wb, Q, V, d, k, grid_x, pm, ps, pv, pi, l, tv,
-                         ti, st);
+    return launch<T, 8>(hb, wb, Q, V, d, k, grid_x, pm, ps, pv, pi, l, tv,
+                        ti, st);
+  return launch<T, 32>(hb, wb, Q, V, d, k, grid_x, pm, ps, pv, pi, l, tv, ti,
+                       st);
+}
+
+// f32: 1 if h and w are f32, 0 if bf16.
+extern "C" int topk_z_launch(const void* h, const void* w, int Q, int V,
+                             int d, int k, int grid_x, void* part_m,
+                             void* part_s, void* part_v, void* part_i,
+                             void* lse, void* topv, void* topi, int f32,
+                             void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (f32)
+    return (int)dispatch<float>(h, w, Q, V, d, k, grid_x, part_m, part_s,
+                                part_v, part_i, lse, topv, topi, st);
+  return (int)dispatch<__nv_bfloat16>(h, w, Q, V, d, k, grid_x, part_m,
+                                      part_s, part_v, part_i, lse, topv,
+                                      topi, st);
 }

@@ -8,9 +8,10 @@
 // FMBE and top-k decodes, which mask the scores themselves.
 //
 // Bound on this card: bytes. The kernel reads head_live blocks of br x d
-// bf16 rows once and writes the (Q, U_cap, br) f32 output (qwen1.5-4b at
+// rows once and writes the (Q, U_cap, br) f32 output (qwen1.5-4b in bf16 at
 // Q = 8: about 23 blocks of 512 x 2560 plus a 2 MB output, about 62 MB,
-// about 19 us at 3.35 TB/s) and does 2*Q flops per element read.
+// about 19 us at 3.35 TB/s; about twice that in f32) and does 2*Q flops per
+// element read. Rows and queries are both bf16 or both f32.
 //
 // Design: as ivf_decode.cu. The TPU grid walked the union slots in order
 // for one query tile with scalar-prefetched block ids; here every 32-row
@@ -25,9 +26,9 @@
 
 using namespace streaming;
 
+template <class T>
 __global__ void __launch_bounds__(THREADS, 2)
-union_scores_kernel(const __nv_bfloat16* __restrict__ wb,
-                    const __nv_bfloat16* __restrict__ h,
+union_scores_kernel(const T* __restrict__ wb, const T* __restrict__ h,
                     const int* __restrict__ head_ids,
                     const int* __restrict__ head_live, int Q, int U, int br,
                     int d, float* __restrict__ out) {
@@ -53,7 +54,7 @@ union_scores_kernel(const __nv_bfloat16* __restrict__ wb,
       continue;
     }
     const int blk = head_ids[slot];
-    const __nv_bfloat16* rows[R];
+    const T* rows[R];
 #pragma unroll
     for (int r = 0; r < R; ++r)
       rows[r] = (row0 + r < br) ? wb + ((size_t)blk * br + row0 + r) * d
@@ -68,22 +69,34 @@ union_scores_kernel(const __nv_bfloat16* __restrict__ wb,
   }
 }
 
+template <class T>
+static cudaError_t launch(const void* w_blocks, const void* h,
+                          const void* head_ids, const void* head_live, int Q,
+                          int U, int br, int d, int grid_x, void* out,
+                          cudaStream_t stream) {
+  const size_t smem = (size_t)QT * d * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      union_scores_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(grid_x, (Q + QT - 1) / QT);
+  union_scores_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(w_blocks), static_cast<const T*>(h),
+      static_cast<const int*>(head_ids), static_cast<const int*>(head_live),
+      Q, U, br, d, static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+// f32: 1 if the rows and queries are f32, 0 if bf16.
 extern "C" int union_scores_launch(const void* w_blocks, const void* h,
                                    const void* head_ids,
                                    const void* head_live, int Q, int U,
                                    int br, int d, int grid_x, void* out,
-                                   void* stream) {
-  const size_t smem = (size_t)QT * d * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      union_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(grid_x, (Q + QT - 1) / QT);
-  union_scores_kernel<<<grid, THREADS, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(w_blocks),
-      static_cast<const __nv_bfloat16*>(h),
-      static_cast<const int*>(head_ids), static_cast<const int*>(head_live),
-      Q, U, br, d, static_cast<float*>(out));
-  return (int)cudaGetLastError();
+                                   int f32, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (f32)
+    return (int)launch<float>(w_blocks, h, head_ids, head_live, Q, U, br, d,
+                              grid_x, out, st);
+  return (int)launch<__nv_bfloat16>(w_blocks, h, head_ids, head_live, Q, U,
+                                    br, d, grid_x, out, st);
 }

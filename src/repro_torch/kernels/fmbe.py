@@ -6,16 +6,23 @@ counterpart of ``repro.kernels.fmbe``).
 ``fmbe_phi`` writes the (Q, P) feature matrix (the build-time kernel that
 forms the sketch sums); ``fmbe_z`` folds it straight into
 ``z = phi(x) . lambda`` (the decode kernel), so no (Q, P) tensor reaches
-device memory. Each wrapper launches its CUDA kernel (``csrc/fmbe_phi.cu``,
-``csrc/fmbe_z.cu``, sharing ``csrc/fmbe_tile.cuh``) on CUDA tensors and runs
+device memory. Each wrapper launches a CUDA kernel on CUDA tensors and runs
 its plain version on CPU tensors. The kernels compute only the projections
 with ``m < degree_j``; the plain versions, like the TPU kernels, compute
 all ``max_degree`` and multiply by 1 past the degree, which gives the same
 result.
+
+``fmbe_phi`` has two kernels. For bf16 ``x`` the projections are one GEMM
+on the tensor cores (``csrc/fmbe_phi_wgmma.cu``): the live rows of omega,
+which are +-1 and so exact in bf16, are gathered once per feature map into
+a bf16 matrix (``fmbe_pack``), and the epilogue multiplies each feature's
+columns. For f32 ``x`` it runs the CUDA-core design (``csrc/fmbe_phi.cu``,
+as ``fmbe_z``: ``csrc/fmbe_z.cu``; both share ``csrc/fmbe_tile.cuh``).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,6 +31,117 @@ from . import _build
 MAX_DEGREE = 8              # fmbe_tile.cuh's MMAX
 Z_FEATURES_PER_CTA = 16     # fmbe_z.cu's FP
 QUERY_TILE = 8              # streaming.cuh's QT
+PACK_TILE = 128             # columns of an output tile (hopper_gemm.cuh BN)
+
+
+class FmbePack(NamedTuple):
+    """The live projection rows of a feature map, laid out for the
+    tensor-core ``fmbe_phi`` (``fmbe_pack``).
+
+    Feature j's rows (j, m) for m < degree_j lie in ``rows`` at columns
+    ``start[j] + m``, features in order; no feature crosses a 128-column
+    tile (the kernel's epilogue reads a feature's columns from one tile of
+    accumulators) and the rest is zero. Column tile i writes phi for the
+    features [tile_j0[i], tile_j0[i + 1]), at most 128, degree-0 ones
+    included. ``source`` holds the omega, degree and coef the pack was made
+    from and ``versions`` their version counters then: ``fmbe_phi`` raises
+    if it is given other ones, or if they changed since."""
+    rows: torch.Tensor       # (n_tiles * 128, d) bf16
+    tile_j0: torch.Tensor    # (n_tiles + 1,) int32
+    start: torch.Tensor      # (P,) int32, -1 for degree 0
+    degree: torch.Tensor     # (P,) int32, at most max_degree
+    coef: torch.Tensor       # (P,) f32
+    source: Tuple[torch.Tensor, ...]
+    versions: Tuple[int, ...]
+
+
+def pack_layout(degree: List[int], max_degree: int
+                ) -> Tuple[List[int], List[int], int]:
+    """Where ``fmbe_pack`` puts each feature's rows: (start (P,), -1 for
+    degree 0; tile_j0 (n_tiles + 1,); n_tiles). Features are placed in
+    order; one that would cross a 128-column tile starts the next tile, as
+    does the feature after a tile's 128th (the kernel's 32 lanes take 4 of
+    a tile's features each). A degree-0 feature belongs to the tile of the
+    next free column."""
+    start, tile = [], []
+    pos = 0
+    cur, n_cur = 0, 0                   # current tile and its features
+    for g in degree:
+        g = max(min(int(g), max_degree), 0)
+        t = pos // PACK_TILE
+        if (t == cur and n_cur == PACK_TILE) or (
+                g > 0 and (pos + g - 1) // PACK_TILE != t):
+            t += 1                      # the tile is full, or g would cross
+            pos = t * PACK_TILE
+        if t != cur:
+            cur, n_cur = t, 0
+        n_cur += 1
+        tile.append(t)
+        start.append(pos if g > 0 else -1)
+        pos += g
+    n_tiles = max([1, -(-pos // PACK_TILE)] + [t + 1 for t in tile[-1:]])
+    tile_j0, j = [0], 0
+    for i in range(1, n_tiles):
+        while j < len(tile) and tile[j] < i:
+            j += 1
+        tile_j0.append(j)
+    tile_j0.append(len(degree))
+    return start, tile_j0, n_tiles
+
+
+def fmbe_pack(omega, degree, coef) -> FmbePack:
+    """Gathers the live rows (j, m < degree_j) of omega (P, M, d) into the
+    bf16 layout of ``pack_layout``, once per feature map. Reads ``degree``
+    to the host (build time, never in a decode step). Raises if a live row
+    is not exact in bf16 (the kernel would round it)."""
+    _, m, d = omega.shape
+    if not 1 <= m <= MAX_DEGREE:
+        raise ValueError(f"fmbe_pack: max_degree {m} outside [1, "
+                         f"{MAX_DEGREE}]")
+    deg = degree.clamp(0, m).to(torch.int32)
+    start, tile_j0, n_tiles = pack_layout(deg.tolist(), m)
+    dev = omega.device
+    start_t = torch.tensor(start, dtype=torch.int32, device=dev)
+    live = torch.arange(m, device=dev)[None, :] < deg[:, None].long()
+    src = omega[live]                                   # (n_live, d) j, m order
+    cols = (start_t[:, None].long() + torch.arange(m, device=dev))[live]
+    packed = src.to(torch.bfloat16)
+    if not torch.equal(packed.float(), src.float()):
+        raise ValueError("fmbe_pack: a live omega row is not exact in bf16 "
+                         "(the tensor-core kernel needs +-1 projections)")
+    rows = torch.zeros((n_tiles * PACK_TILE, d), dtype=torch.bfloat16,
+                       device=dev)
+    rows[cols] = packed
+    return FmbePack(rows=rows,
+                    tile_j0=torch.tensor(tile_j0, dtype=torch.int32,
+                                         device=dev),
+                    start=start_t, degree=deg,
+                    coef=coef.float().contiguous(),
+                    source=(omega, degree, coef),
+                    versions=(omega._version, degree._version,
+                              coef._version))
+
+
+def _reads_pack(x) -> bool:
+    """Whether ``fmbe_phi`` runs rows like x on the tensor-core kernel,
+    which reads a pack: bf16 on the GPU."""
+    return x.is_cuda and x.dtype == torch.bfloat16
+
+
+def pack_if_needed(omega, degree, coef, x) -> Optional[FmbePack]:
+    """The map's ``fmbe_pack`` where ``fmbe_phi`` reads one for rows like
+    x, else None."""
+    return fmbe_pack(omega, degree, coef) if _reads_pack(x) else None
+
+
+def _check_pack(pack: FmbePack, omega, degree, coef) -> None:
+    same = all(s.data_ptr() == t.data_ptr() and s.shape == t.shape
+               and s.stride() == t.stride() and s.dtype == t.dtype
+               and t._version == v
+               for s, t, v in zip(pack.source, (omega, degree, coef),
+                                  pack.versions))
+    _check(same, "the pack was made from another omega, degree or coef, "
+           "or they changed since", "fmbe_phi")
 
 
 def fmbe_phi_plain(omega, degree, coef, x):
@@ -45,6 +163,22 @@ def fmbe_z_plain(omega, degree, coef, lam, x):
     return (phi * lam.float()).sum(-1)
 
 
+def fmbe_phi_pack_plain(pack: FmbePack, x):
+    """Plain PyTorch version of the tensor-core ``fmbe_phi``: the
+    projections as one f32 product with the packed rows, then each
+    feature's columns multiplied in m order, then coef."""
+    proj = x.float() @ pack.rows.float().T                   # (Q, n_cols)
+    prod = torch.ones((x.shape[0], pack.start.shape[0]),
+                      dtype=torch.float32, device=x.device)
+    for m in range(MAX_DEGREE):
+        use = pack.degree > m
+        if not bool(use.any()):
+            break
+        col = torch.where(use, pack.start + m, 0).long()
+        prod = torch.where(use[None, :], prod * proj[:, col], prod)
+    return prod * pack.coef
+
+
 def _check(cond: bool, msg: str, name: str) -> None:
     if not cond:
         raise ValueError(f"{name}: {msg}")
@@ -56,9 +190,11 @@ def _check_inputs(name, omega, degree, coef, x, extra=()):
     _check(all(t.device == dev for t in tensors) and dev.type == "cuda",
            "every input must be on one GPU", name)
     _check(omega.dtype == torch.float32 and coef.dtype == torch.float32
-           and degree.dtype == torch.int32 and x.dtype == torch.bfloat16,
-           f"kernel takes f32 omega/coef, int32 degree and bf16 x, got "
-           f"{omega.dtype}, {coef.dtype}, {degree.dtype}, {x.dtype}", name)
+           and degree.dtype == torch.int32
+           and x.dtype in _build.KERNEL_DTYPES,
+           f"kernel takes f32 omega/coef, int32 degree and bf16 or f32 x, "
+           f"got {omega.dtype}, {coef.dtype}, {degree.dtype}, {x.dtype}",
+           name)
     _check(omega.dim() == 3 and x.dim() == 2, "shapes", name)
     p, m, d = omega.shape
     q = x.shape[0]
@@ -76,16 +212,67 @@ def _check_inputs(name, omega, degree, coef, x, extra=()):
     return q, p, m, d
 
 
-def fmbe_phi(omega, degree, coef, x):
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _phi_tensor_cores(pack: FmbePack, x):
+    """The tensor-core kernel (``csrc/fmbe_phi_wgmma.cu``): x (Q, d) bf16
+    on the GPU against the pack of its map. Returns (Q, P) f32."""
+    dev = x.device
+    tensors = (x, pack.rows, pack.start, pack.tile_j0, pack.degree,
+               pack.coef)
+    _check(all(t.device == dev for t in tensors),
+           "x and the pack must be on one GPU", "fmbe_phi")
+    q, d = x.shape
+    n_cols, p = pack.rows.shape[0], pack.start.shape[0]
+    n_tiles = n_cols // PACK_TILE
+    _check(pack.rows.dtype == torch.bfloat16 and pack.rows.shape[1] == d
+           and n_cols == n_tiles * PACK_TILE
+           and pack.tile_j0.shape == (n_tiles + 1,),
+           f"pack rows {tuple(pack.rows.shape)} {pack.rows.dtype} for x "
+           f"{tuple(x.shape)}", "fmbe_phi")
+    _check(pack.rows.is_contiguous() and pack.rows.data_ptr() % 16 == 0,
+           "pack rows not contiguous and 16-byte aligned", "fmbe_phi")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = min(sms, -(-q // PACK_TILE) * n_tiles)
+    lib = _build.load("fmbe_phi_wgmma")
+    out = torch.empty((q, p), dtype=torch.float32, device=dev)
+    ptr = ctypes.c_void_p
+    err = lib.fmbe_phi_wgmma_launch(
+        *[ptr(t.data_ptr()) for t in tensors], q, p, d, n_tiles, grid,
+        ptr(out.data_ptr()), _stream(dev))
+    _build.check("fmbe_phi_wgmma", err)
+    return out
+
+
+@_build.counted
+def fmbe_phi(omega, degree, coef, x, *, pack: Optional[FmbePack] = None):
     """phi(x) without the (Q, P, max_degree) projection tensor.
 
       omega  (P, M, d) f32 +-1   degree (P,) int32   coef (P,) f32
-      x      (Q, d)
+      x      (Q, d) bf16 or f32
+      pack   ``fmbe_pack(omega, degree, coef)`` of these very tensors, made
+             once per feature map (``pack_if_needed``) and read by the
+             tensor-core kernel; a bf16 call on the GPU without it packs the
+             map itself
 
-    Returns (Q, P) f32."""
+    Returns (Q, P) f32. On the GPU, bf16 x runs the tensor-core kernel and
+    counts as a "bf16" launch, f32 x the CUDA-core kernel
+    (``csrc/fmbe_phi.cu``, "f32"). On CPU tensors: ``fmbe_phi_pack_plain``
+    given a pack, else ``fmbe_phi_plain``."""
+    if pack is not None:
+        _check_pack(pack, omega, degree, coef)
     if all(t.device.type == "cpu" for t in (omega, degree, coef, x)):
+        if pack is not None:
+            return fmbe_phi_pack_plain(pack, x)
         return fmbe_phi_plain(omega, degree, coef, x)
     q, p, m, d = _check_inputs("fmbe_phi", omega, degree, coef, x)
+    if _reads_pack(x):
+        out = _phi_tensor_cores(
+            pack if pack is not None else fmbe_pack(omega, degree, coef), x)
+        _build.count(fmbe_phi, 0)
+        return out
     _check(-(-q // QUERY_TILE) <= 65535, f"Q={q}: chunk the rows",
            "fmbe_phi")
     lib = _build.load("fmbe_phi")
@@ -93,28 +280,26 @@ def fmbe_phi(omega, degree, coef, x):
     ptr = ctypes.c_void_p
     err = lib.fmbe_phi_launch(
         *[ptr(t.data_ptr()) for t in (omega, degree, coef, x)], q, p, m, d,
-        ptr(out.data_ptr()),
-        ptr(torch.cuda.current_stream(x.device).cuda_stream))
+        ptr(out.data_ptr()), _stream(x.device))
     _build.check("fmbe_phi", err)
-    fmbe_phi.launches += 1
+    _build.count(fmbe_phi, 1)
     return out
 
 
-fmbe_phi.launches = 0
-
-
+@_build.counted
 def fmbe_z(omega, degree, coef, lam, x):
     """Fused decode estimate z(x) = phi(x) . lambda, (Q,) signed f32.
 
     ``lam`` is (P,), one shared sketch sum (the global-Z path), or (Q, P),
     a per-query lambda (the block-partitioned complement path,
-    ``core.feature_maps.fmbe_tail_z``)."""
+    ``core.feature_maps.fmbe_tail_z``). x is bf16 or f32."""
     if all(t.device.type == "cpu" for t in (omega, degree, coef, lam, x)):
         return fmbe_z_plain(omega, degree, coef, lam, x)
     q, p, m, d = _check_inputs("fmbe_z", omega, degree, coef, x, (lam,))
     _check(lam.dtype == torch.float32 and lam.shape in ((p,), (q, p)),
            f"lam must be f32 (P,) or (Q, P), got {lam.dtype} "
            f"{tuple(lam.shape)}", "fmbe_z")
+    is_f32 = _build.KERNEL_DTYPES[x.dtype]
     lib = _build.load("fmbe_z")
     n_part = -(-p // Z_FEATURES_PER_CTA)
     part = torch.empty((q, n_part), dtype=torch.float32, device=x.device)
@@ -123,11 +308,7 @@ def fmbe_z(omega, degree, coef, lam, x):
     err = lib.fmbe_z_launch(
         *[ptr(t.data_ptr()) for t in (omega, degree, coef, lam)],
         p if lam.dim() == 2 else 0, ptr(x.data_ptr()), q, p, m, d, n_part,
-        ptr(part.data_ptr()), ptr(z.data_ptr()),
-        ptr(torch.cuda.current_stream(x.device).cuda_stream))
+        ptr(part.data_ptr()), ptr(z.data_ptr()), is_f32, _stream(x.device))
     _build.check("fmbe_z", err)
-    fmbe_z.launches += 1
+    _build.count(fmbe_z, is_f32)
     return z
-
-
-fmbe_z.launches = 0

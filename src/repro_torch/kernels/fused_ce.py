@@ -2,19 +2,22 @@
 ``repro.kernels.fused_ce``): the training-time form of the normaliser,
 computed without writing the [T, V] logits to device memory.
 
-``fused_ce_fwd`` and ``fused_ce_bwd`` launch the CUDA kernels in
-``csrc/fused_ce_fwd.cu`` and ``csrc/fused_ce_bwd.cu`` on CUDA tensors and
-run ``fused_ce_fwd_plain`` / ``fused_ce_bwd_plain`` on CPU tensors. Both
-keep the TPU kernels' contract: scores accumulate in f32, a label outside
-[0, V) leaves the label score at NEG (so its nll is about 1e30, not NaN),
-and the backward rounds its coefficient ``coef = (g_nll + g_lse) p -
-g_nll onehot`` to the inputs' dtype before both products, accumulating dh
-and dW in f32.
+``fused_ce_fwd`` and ``fused_ce_bwd`` launch CUDA kernels on CUDA tensors
+and run ``fused_ce_fwd_plain`` / ``fused_ce_bwd_plain`` on CPU tensors. On
+the GPU they dispatch on the inputs' dtype, with no other route: bf16 runs
+the tensor-core pair in ``csrc/fused_ce_fwd.cu`` and ``csrc/fused_ce_bwd.cu``,
+f32 the CUDA-core pair in ``csrc/fused_ce_f32.cu``. Both keep the TPU
+kernels' contract: scores accumulate in f32, a label outside [0, V) leaves
+the label score at NEG (so its nll is about 1e30, not NaN), and the
+backward rounds its coefficient ``coef = (g_nll + g_lse) p - g_nll
+onehot`` to the inputs' dtype before both products (a no-op at f32),
+accumulating dh and dW in f32.
 
-The backward kernel walks the vocabulary in chunks of ``C`` columns
+Both backward kernels walk the vocabulary in chunks of ``C`` columns
 (``bwd_schedule``): the chunk's coefficient is computed once into a
-(T, C) bf16 scratch buffer, then feeds the chunk's dW rows and adds to dh.
-``fused_ce_bwd_chunked_plain`` is that decomposition in plain PyTorch.
+(T, C) scratch buffer of the inputs' dtype, then feeds the chunk's dW rows
+and adds to dh. ``fused_ce_bwd_chunked_plain`` is that decomposition in
+plain PyTorch.
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ NEG = -1e30
 BM = 128             # rows of an output tile
 BN = 128             # columns of an output tile
 BK = 64              # depth of a pipeline stage
-SCRATCH_BYTES = 32 << 20   # the backward's (T, C) bf16 coefficient buffer
+SCRATCH_BYTES = 32 << 20   # the backward's (T, C) coefficient buffer
+F32_TILE = 128       # forward and coefficient tiles of csrc/fused_ce_f32.cu
 
 
 def fused_ce_fwd_plain(h: torch.Tensor, w: torch.Tensor,
@@ -84,7 +88,7 @@ def fused_ce_bwd_chunked_plain(h, w, labels, lse, g_nll, g_lse, *,
     t, d = h.shape
     v = w.shape[0]
     if chunk is None:
-        chunk = bwd_schedule(t, v)["chunk"]
+        chunk = bwd_schedule(t, v, h.dtype)["chunk"]
     hf = h.float()
     lab = labels.long()
     gn = (g_nll + g_lse).float()[:, None]
@@ -154,14 +158,24 @@ def grad_order(t: int, d: int, valid: int, sms: int,
     return tuple(p for ids in lists for p in ids), tuple(start), loads
 
 
-def bwd_schedule(t: int, v: int) -> Dict[str, int]:
+def bwd_schedule(t: int, v: int, dtype=torch.bfloat16) -> Dict[str, int]:
     """The backward kernel's chunks: ``chunk`` vocab columns each, a
-    multiple of 128, the largest whose (T, C) bf16 scratch stays within
-    SCRATCH_BYTES, at least 128."""
-    fit = SCRATCH_BYTES // (2 * t) // BN * BN
-    chunk = min(max(BN, fit), -(-v // BN) * BN)
+    multiple of the kernel's 128-column tile, the largest whose (T, C)
+    scratch of ``dtype`` stays within SCRATCH_BYTES, at least one tile."""
+    tile = F32_TILE if dtype == torch.float32 else BN
+    size = torch.finfo(dtype).bits // 8
+    fit = SCRATCH_BYTES // (size * t) // tile * tile
+    chunk = min(max(tile, fit), -(-v // tile) * tile)
     return dict(chunk=chunk, n_chunks=-(-v // chunk),
-                scratch_bytes=2 * t * chunk)
+                scratch_bytes=size * t * chunk)
+
+
+def fwd_schedule_f32(t: int, v: int, sms: int) -> Dict[str, int]:
+    """The f32 forward kernel's grid: (vocab split, 128-token tile) CTAs,
+    about two a SM, each split ``per`` 128-column vocab tiles."""
+    n_tt, n_vt = -(-t // F32_TILE), -(-v // F32_TILE)
+    per = -(-n_vt // max(1, min(n_vt, -(-2 * sms // n_tt))))
+    return dict(n_split=-(-n_vt // per), per=per)
 
 
 @functools.lru_cache(maxsize=16)
@@ -179,79 +193,91 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"fused_ce: {msg}")
 
 
-def _check_inputs(h, w, labels, *vectors):
+def _check_inputs(h, w, labels, *vectors) -> int:
+    """Checks the inputs; returns the kernels' f32 flag (1: the f32 pair,
+    0: the bf16 pair)."""
     _check(h.is_cuda and w.is_cuda and h.device == w.device,
            f"h on {h.device} and w on {w.device}: both must be on one GPU")
-    _check(h.dtype == torch.bfloat16 and w.dtype == torch.bfloat16,
-           f"kernel takes bf16, got h {h.dtype} and w {w.dtype}")
+    f32 = _build.f32_flag("fused_ce", h=h, w=w)
     _check(h.dim() == 2 and w.dim() == 2 and h.shape[1] == w.shape[1],
            f"shapes h {tuple(h.shape)} w {tuple(w.shape)}")
     _check(h.is_contiguous() and w.is_contiguous(), "inputs not contiguous")
     t, d = h.shape
     _check(t >= 1 and w.shape[0] >= 1, "empty input")
-    _check(d % 32 == 0 and h.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
-           f"d={d}: rows must be a multiple of 32 wide and 16-byte aligned")
+    width = 4 if f32 else 32
+    _check(d % width == 0 and h.data_ptr() % 16 == 0
+           and w.data_ptr() % 16 == 0,
+           f"d={d}: rows must be a multiple of {width} wide and 16-byte "
+           f"aligned")
     for x in (labels,) + vectors:
         _check(x.device == h.device and tuple(x.shape) == (t,),
                f"per-token input of shape {tuple(x.shape)} on {x.device}, "
                f"want ({t},) on {h.device}")
+    return f32
 
 
 def _sms(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+@_build.counted
 def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h (T, d), w (V, d), labels (T,) -> (nll (T,) f32, lse (T,) f32).
 
-    CUDA tensors launch the kernel (bf16 inputs, f32 accumulation) on the
-    current stream; CPU tensors run ``fused_ce_fwd_plain``."""
+    CUDA tensors launch a kernel (h and w both bf16: tensor cores; both
+    f32: CUDA cores; f32 accumulation) on the current stream; CPU tensors
+    run ``fused_ce_fwd_plain``."""
     if h.device.type == "cpu" and w.device.type == "cpu":
         return fused_ce_fwd_plain(h, w, labels)
-    _check_inputs(h, w, labels)
+    is_f32 = _check_inputs(h, w, labels)
     t, d = h.shape
     v = w.shape[0]
     dev = h.device
     lab = labels.to(torch.int32).contiguous()
-    sch = fwd_schedule(t, v, _sms(dev))
     f32 = torch.float32
-    part = torch.empty((3, sch["n_part"], t), dtype=f32, device=dev)
     nll = torch.empty((t,), dtype=f32, device=dev)
     lse = torch.empty((t,), dtype=f32, device=dev)
-    lib = _build.load("fused_ce_fwd")
     p = ctypes.c_void_p
-    err = lib.fused_ce_fwd_launch(
-        p(h.data_ptr()), p(w.data_ptr()), p(lab.data_ptr()), t, v, d,
-        sch["n_split"], sch["per"], sch["grid"], p(part[0].data_ptr()),
-        p(part[1].data_ptr()), p(part[2].data_ptr()), p(nll.data_ptr()),
-        p(lse.data_ptr()), p(torch.cuda.current_stream(dev).cuda_stream))
-    _build.check("fused_ce_fwd", err)
-    fused_ce_fwd.launches += 1
+    stream = p(torch.cuda.current_stream(dev).cuda_stream)
+    if is_f32:
+        sch = fwd_schedule_f32(t, v, _sms(dev))
+        part = torch.empty((3, sch["n_split"], t), dtype=f32, device=dev)
+        err = _build.load("fused_ce_f32").fused_ce_f32_fwd_launch(
+            p(h.data_ptr()), p(w.data_ptr()), p(lab.data_ptr()), t, v, d,
+            sch["n_split"], sch["per"], p(part[0].data_ptr()),
+            p(part[1].data_ptr()), p(part[2].data_ptr()), p(nll.data_ptr()),
+            p(lse.data_ptr()), stream)
+        _build.check("fused_ce_f32_fwd", err)
+    else:
+        sch = fwd_schedule(t, v, _sms(dev))
+        part = torch.empty((3, sch["n_part"], t), dtype=f32, device=dev)
+        err = _build.load("fused_ce_fwd").fused_ce_fwd_launch(
+            p(h.data_ptr()), p(w.data_ptr()), p(lab.data_ptr()), t, v, d,
+            sch["n_split"], sch["per"], sch["grid"], p(part[0].data_ptr()),
+            p(part[1].data_ptr()), p(part[2].data_ptr()), p(nll.data_ptr()),
+            p(lse.data_ptr()), stream)
+        _build.check("fused_ce_fwd", err)
+    _build.count(fused_ce_fwd, is_f32)
     return nll, lse
 
 
-fused_ce_fwd.launches = 0
-
-
+@_build.counted
 def fused_ce_bwd(h, w, labels, lse, g_nll, g_lse, *, cast=True):
     """(dh (T, d), dw (V, d)) of ``g_nll . nll + g_lse . lse``, in h.dtype /
     w.dtype, or the f32 accumulators before that cast with ``cast=False``.
 
     CUDA tensors launch the kernels on the current stream, chunk by chunk
-    (``bwd_schedule``): the chunk's bf16 coefficient into a (T, C) scratch
-    buffer, then the chunk's dW rows (written once, in the output dtype)
-    and its share of dh, accumulated in f32 in chunk order; no float
-    atomics, so two calls are bit-equal. CPU tensors run
-    ``fused_ce_bwd_plain``."""
+    (``bwd_schedule``): the chunk's coefficient (bf16 or f32, as the
+    inputs) into a (T, C) scratch buffer, then the chunk's dW rows
+    (written once, in the output dtype) and its share of dh, accumulated in
+    f32 in chunk order; no float atomics, so two calls are bit-equal. CPU
+    tensors run ``fused_ce_bwd_plain``."""
     if h.device.type == "cpu" and w.device.type == "cpu":
         return fused_ce_bwd_plain(h, w, labels, lse, g_nll, g_lse, cast=cast)
     out = bwd_launch(h, w, labels, lse, g_nll, g_lse, cast=cast)
-    fused_ce_bwd.launches += 1
+    _build.count(fused_ce_bwd, int(h.dtype == torch.float32))
     return out
-
-
-fused_ce_bwd.launches = 0
 
 
 def bwd_launch(h, w, labels, lse, g_nll, g_lse, *, cast=True,
@@ -259,8 +285,9 @@ def bwd_launch(h, w, labels, lse, g_nll, g_lse, *, cast=True,
     """``fused_ce_bwd``'s kernels on CUDA tensors, without its launch
     count. ``longest_first=False`` deals the dh and dW items round-robin
     instead (``grad_order``), for timing the two deals against each other;
-    the results are the same bits either way."""
-    _check_inputs(h, w, labels, lse, g_nll, g_lse)
+    the results are the same bits either way. f32 inputs run the CUDA-core
+    pair, which has one deal."""
+    is_f32 = _check_inputs(h, w, labels, lse, g_nll, g_lse)
     t, d = h.shape
     v = w.shape[0]
     dev = h.device
@@ -269,7 +296,18 @@ def bwd_launch(h, w, labels, lse, g_nll, g_lse, *, cast=True,
     lse32 = lse.to(f32).contiguous()
     gn = (g_nll.to(f32) + g_lse.to(f32)).contiguous()
     go = g_nll.to(f32).contiguous()
-    sch = bwd_schedule(t, v)
+    sch = bwd_schedule(t, v, h.dtype)
+    if is_f32:
+        scratch = torch.empty((t, sch["chunk"]), dtype=f32, device=dev)
+        dh = torch.empty((t, d), dtype=f32, device=dev)
+        dw = torch.empty((v, d), dtype=f32, device=dev)
+        p = ctypes.c_void_p
+        err = _build.load("fused_ce_f32").fused_ce_f32_bwd_launch(
+            *[p(x.data_ptr()) for x in (h, w, lab, lse32, gn, go)], t, v, d,
+            sch["chunk"], p(scratch.data_ptr()), p(dh.data_ptr()),
+            p(dw.data_ptr()), p(torch.cuda.current_stream(dev).cuda_stream))
+        _build.check("fused_ce_f32_bwd", err)
+        return dh, dw
     sms = _sms(dev)
     scratch = torch.empty((t, sch["chunk"]), dtype=torch.bfloat16, device=dev)
     dh32 = torch.empty((t, d), dtype=f32, device=dev)

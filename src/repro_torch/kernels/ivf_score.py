@@ -42,6 +42,7 @@ def ivf_score_plain(w_blocks, h, block_ids):
                         w_blocks[block_ids.long()].float())
 
 
+@_build.counted
 def ivf_score(w_blocks, h, block_ids):
     """Per-query gather-score of probed blocks.
 
@@ -57,9 +58,7 @@ def ivf_score(w_blocks, h, block_ids):
     dev = h.device
     _check(all(t.device == dev for t in args) and dev.type == "cuda",
            "every input must be on one GPU", "ivf_score")
-    _check(w_blocks.dtype == torch.bfloat16 and h.dtype == torch.bfloat16,
-           f"kernel takes bf16 rows and queries, got {w_blocks.dtype}, "
-           f"{h.dtype}", "ivf_score")
+    is_f32 = _build.f32_flag("ivf_score", w_blocks=w_blocks, h=h)
     _check(block_ids.dtype == torch.int32, "block_ids must be int32",
            "ivf_score")
     nb, br, d = w_blocks.shape
@@ -77,13 +76,11 @@ def ivf_score(w_blocks, h, block_ids):
     p = ctypes.c_void_p
     err = lib.ivf_score_launch(
         *[p(t.data_ptr()) for t in args], q, n_probe, nb, br, d,
-        p(out.data_ptr()), p(torch.cuda.current_stream(dev).cuda_stream))
+        p(out.data_ptr()), is_f32,
+        p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check("ivf_score", err)
-    ivf_score.launches += 1
+    _build.count(ivf_score, is_f32)
     return out
-
-
-ivf_score.launches = 0
 
 
 def union_scores_plain(w_blocks, h, head_ids, head_live):
@@ -96,6 +93,7 @@ def union_scores_plain(w_blocks, h, head_ids, head_live):
                        torch.zeros_like(scores))
 
 
+@_build.counted
 def union_scores(w_blocks, h, head_ids, head_live):
     """Scores of a deduplicated block union for a whole query batch.
 
@@ -114,9 +112,7 @@ def union_scores(w_blocks, h, head_ids, head_live):
     dev = h.device
     _check(all(t.device == dev for t in args) and dev.type == "cuda",
            "every input must be on one GPU", "union_scores")
-    _check(w_blocks.dtype == torch.bfloat16 and h.dtype == torch.bfloat16,
-           f"kernel takes bf16 rows and queries, got {w_blocks.dtype}, "
-           f"{h.dtype}", "union_scores")
+    is_f32 = _build.f32_flag("union_scores", w_blocks=w_blocks, h=h)
     _check(head_ids.dtype == torch.int32 and head_live.dtype == torch.int32,
            "head_ids and head_live must be int32", "union_scores")
     nb, br, d = w_blocks.shape
@@ -136,13 +132,11 @@ def union_scores(w_blocks, h, head_ids, head_live):
     p = ctypes.c_void_p
     err = lib.union_scores_launch(
         *[p(t.data_ptr()) for t in args], q, u, br, d, grid_x,
-        p(out.data_ptr()), p(torch.cuda.current_stream(dev).cuda_stream))
+        p(out.data_ptr()), is_f32,
+        p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check("union_scores", err)
-    union_scores.launches += 1
+    _build.count(union_scores, is_f32)
     return out
-
-
-union_scores.launches = 0
 
 
 def ivf_decode_plain(w_blocks, h, head_ids, head_live, head_member, row_logw,
@@ -168,6 +162,7 @@ def ivf_decode_plain(w_blocks, h, head_ids, head_live, head_member, row_logw,
     return head_lse, tail_lse, topv, topi
 
 
+@_build.counted
 def ivf_decode(w_blocks, h, head_ids, head_live, head_member, row_logw,
                tail_rows, tail_accept, *, k: int = 1):
     """Fused batched MIMPS decode.
@@ -192,10 +187,8 @@ def ivf_decode(w_blocks, h, head_ids, head_live, head_member, row_logw,
     dev = h.device
     _check(all(t.device == dev for t in args) and dev.type == "cuda",
            "every input must be on one GPU")
-    _check(w_blocks.dtype == torch.bfloat16 and h.dtype == torch.bfloat16
-           and tail_rows.dtype == torch.bfloat16,
-           f"kernel takes bf16 rows and queries, got {w_blocks.dtype}, "
-           f"{h.dtype}, {tail_rows.dtype}")
+    is_f32 = _build.f32_flag("ivf_decode", w_blocks=w_blocks, h=h,
+                          tail_rows=tail_rows)
     _check(head_ids.dtype == torch.int32 and head_live.dtype == torch.int32
            and row_logw.dtype == torch.float32
            and head_member.dtype == torch.bool
@@ -234,10 +227,7 @@ def ivf_decode(w_blocks, h, head_ids, head_live, head_member, row_logw,
         p(part[0].data_ptr()), p(part[1].data_ptr()), p(part_v.data_ptr()),
         p(part_i.data_ptr()), p(part[2].data_ptr()), p(part[3].data_ptr()),
         p(head_lse.data_ptr()), p(tail_lse.data_ptr()), p(topv.data_ptr()),
-        p(topi.data_ptr()), p(stream))
+        p(topi.data_ptr()), is_f32, p(stream))
     _build.check("ivf_decode", err)
-    ivf_decode.launches += 1
+    _build.count(ivf_decode, is_f32)
     return head_lse, tail_lse, topv, topi
-
-
-ivf_decode.launches = 0

@@ -3,9 +3,9 @@
 
 ``lsh_probe`` launches the CUDA kernel in ``csrc/lsh_probe.cu`` on CUDA
 tensors and runs ``lsh_probe_plain`` on CPU tensors. Both take the index's
-own tables and read every candidate and tail row by id from the bf16 output
-embedding ``w`` (no staged ``w[rows]`` copy, which at the dense fallback
-would be the whole vocabulary in f32). The contract is the TPU kernel's:
+own tables and read every candidate and tail row by id from the output
+embedding ``w`` (bf16 or f32, as the queries; no staged ``w[rows]`` copy,
+which at the dense fallback would be the whole vocabulary in f32). The contract is the TPU kernel's:
 
 * query codes are made from ``h`` and ``proj`` (the hyperplanes' trailing
   MIPS column is dropped: queries hash with that coordinate 0);
@@ -85,6 +85,7 @@ def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+@_build.counted
 def lsh_query_codes(h: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     """The kernel's query codes: h (Q, d), proj (L, K, d+1) f32 -> (Q, L)
     int32. On CUDA tensors this launches the code stage of ``lsh_probe``
@@ -98,23 +99,21 @@ def lsh_query_codes(h: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     lib = _build.load("lsh_probe")
     qcodes = torch.empty((q, ltab), dtype=torch.int32, device=h.device)
     p = ctypes.c_void_p
+    is_f32 = _build.KERNEL_DTYPES[h.dtype]
     err = lib.lsh_codes_launch(p(h.data_ptr()), p(proj.data_ptr()), q, d,
-                               ltab, kbits, p(qcodes.data_ptr()),
+                               ltab, kbits, p(qcodes.data_ptr()), is_f32,
                                _stream(h.device))
     _build.check("lsh_codes", err)
-    lsh_query_codes.launches += 1
+    _build.count(lsh_query_codes, is_f32)
     return qcodes
-
-
-lsh_query_codes.launches = 0
 
 
 def _check_codes_inputs(h, proj, name):
     _check(h.is_cuda and proj.device == h.device,
            "h and proj must be on one GPU", name)
-    _check(h.dtype == torch.bfloat16 and proj.dtype == torch.float32,
-           f"kernel takes bf16 h and f32 proj, got {h.dtype}, {proj.dtype}",
-           name)
+    _check(h.dtype in _build.KERNEL_DTYPES and proj.dtype == torch.float32,
+           f"kernel takes bf16 or f32 h and f32 proj, got {h.dtype}, "
+           f"{proj.dtype}", name)
     _check(h.dim() == 2 and proj.dim() == 3
            and proj.shape[2] == h.shape[1] + 1, "shapes", name)
     _check(h.is_contiguous() and proj.is_contiguous(),
@@ -126,11 +125,12 @@ def _check_codes_inputs(h, proj, name):
     _check(h.shape[0] >= 1, "empty input", name)
 
 
+@_build.counted
 def lsh_probe(w, h, proj, cand_rows, cand_live, codes, slot_of_row,
               tail_ids, tail_accept, tail_bias, *, k: int = 1):
     """Fused LSH probe-and-decode over a candidate set read by id.
 
-      w           (V, d)        output embedding (bf16 on the GPU)
+      w           (V, d)        output embedding (bf16 or f32, as h)
       h           (Q, d)        query batch
       proj        (L, K, d+1)   the index's hyperplanes, f32
       cand_rows   (C,) int32    row id per candidate column (the trimmed
@@ -153,7 +153,7 @@ def lsh_probe(w, h, proj, cand_rows, cand_live, codes, slot_of_row,
     _check(all(t.device == dev for t in args) and dev.type == "cuda",
            "every input must be on one GPU")
     _check_codes_inputs(h, proj, "lsh_probe")
-    _check(w.dtype == torch.bfloat16, f"kernel takes bf16 rows, got {w.dtype}")
+    is_f32 = _build.f32_flag("lsh_probe", w=w, h=h)
     _check(all(t.dtype == torch.int32
                for t in (cand_rows, cand_live, codes, slot_of_row, tail_ids))
            and tail_accept.dtype == torch.bool
@@ -194,10 +194,7 @@ def lsh_probe(w, h, proj, cand_rows, cand_live, codes, slot_of_row,
         p(part[1].data_ptr()), p(part_v.data_ptr()), p(part_i.data_ptr()),
         p(part[2].data_ptr()), p(part[3].data_ptr()), p(head_lse.data_ptr()),
         p(tail_lse.data_ptr()), p(topv.data_ptr()), p(topi.data_ptr()),
-        _stream(dev))
+        is_f32, _stream(dev))
     _build.check("lsh_probe", err)
-    lsh_probe.launches += 1
+    _build.count(lsh_probe, is_f32)
     return head_lse, tail_lse, topv, topi, counts
-
-
-lsh_probe.launches = 0

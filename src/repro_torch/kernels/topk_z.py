@@ -60,17 +60,18 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"topk_z: {msg}")
 
 
+@_build.counted
 def topk_z(h: torch.Tensor, w: torch.Tensor, k: int):
     """h (Q, d), w (V, d) -> (lse (Q,), topv (Q, k), topi (Q, k)).
 
-    CUDA tensors launch the kernel (bf16 inputs, f32 accumulation) on the
-    current stream; CPU tensors run ``topk_z_plain``."""
+    CUDA tensors launch the kernel (bf16 or f32 inputs, both of one dtype;
+    f32 accumulation) on the current stream; CPU tensors run
+    ``topk_z_plain``."""
     if h.device.type == "cpu" and w.device.type == "cpu":
         return topk_z_plain(h, w, k)
     _check(h.is_cuda and w.is_cuda and h.device == w.device,
            f"h on {h.device} and w on {w.device}: both must be on one GPU")
-    _check(h.dtype == torch.bfloat16 and w.dtype == torch.bfloat16,
-           f"kernel takes bf16, got h {h.dtype} and w {w.dtype}")
+    is_f32 = _build.f32_flag("topk_z", h=h, w=w)
     _check(h.dim() == 2 and w.dim() == 2 and h.shape[1] == w.shape[1],
            f"shapes h {tuple(h.shape)} w {tuple(w.shape)}")
     _check(h.is_contiguous() and w.is_contiguous(), "inputs not contiguous")
@@ -100,10 +101,7 @@ def topk_z(h: torch.Tensor, w: torch.Tensor, k: int):
         p(h.data_ptr()), p(w.data_ptr()), q, v, d, k, grid_x,
         p(part_m.data_ptr()), p(part_s.data_ptr()), p(part_v.data_ptr()),
         p(part_i.data_ptr()), p(lse.data_ptr()), p(topv.data_ptr()),
-        p(topi.data_ptr()), p(stream))
+        p(topi.data_ptr()), is_f32, p(stream))
     _build.check("topk_z", err)
-    topk_z.launches += 1
+    _build.count(topk_z, is_f32)
     return lse, topv, topi
-
-
-topk_z.launches = 0

@@ -4,7 +4,12 @@ counts that are not a multiple of the 8-query tile, k above 8 (the 32-entry
 top-k lists), a single live union slot and a full union, a query with no
 member slot and one with no accepted tail sample, feature counts that are
 not a multiple of the feature tile, features of degree 0 and of degree 8.
-bf16 inputs; LSEs and scores to 1e-3. FMBE sums are signed and cancel, so
+Every kernel runs with bf16 and with f32 rows and queries (the f32
+instantiations accumulate in f32 as the bf16 ones do); LSEs and scores to
+1e-3. The tensor-core ``fmbe_phi`` (bf16 x) also runs at pack layouts
+with degree-8 features ending at a column-tile boundary and pushed past
+one, and column tiles of degree-0 features only, must give equal bits
+over two calls and refuses a pack made from other tensors. FMBE sums are signed and cancel, so
 z is held to 1e-4 of sum_j |phi_j lambda_j| and phi to 1e-4 of its own
 scale |coef_j| * max(|x|_2, 1) ** degree_j (plus |phi|). The fused CE
 kernels run at token counts and vocabularies that are not multiples of
@@ -26,6 +31,12 @@ boundary rounds one bf16 step (at most 2**-7 relative) apart. dh and dW
 element dominated by one term can reach, and on average over the elements
 to GRAD_MEAN = 2**-10, which a missing or misplaced tile would exceed.
 
+The f32 fused CE pair (``csrc/fused_ce_f32.cu``) rounds nothing: its dh
+and dW are held to F32_GRAD_REL = 1e-4 of the sum of their terms'
+magnitudes per element and F32_GRAD_MEAN = 1e-5 on average (f32 scores,
+exp and sums in another order than the plain version's; about 1e-6 is
+expected), 78x tighter than the bf16 pair's limit.
+
 These tests need a GPU and skip without one. On the GPU machine, which has
 no JAX, run them without the repository's conftest:
 
@@ -34,8 +45,9 @@ no JAX, run them without the repository's conftest:
 import pytest
 import torch
 
-from repro_torch.kernels.fmbe import (fmbe_phi, fmbe_phi_plain, fmbe_z,
-                                     fmbe_z_plain)
+from repro_torch.kernels.fmbe import (PACK_TILE, fmbe_pack, fmbe_phi,
+                                     fmbe_phi_plain, fmbe_z, fmbe_z_plain,
+                                     pack_layout)
 from repro_torch.kernels.fused_ce import (bwd_launch, bwd_schedule, ce_coef,
                                          fused_ce_bwd, fused_ce_bwd_plain,
                                          fused_ce_fwd, fused_ce_fwd_plain)
@@ -51,7 +63,10 @@ pytestmark = pytest.mark.cuda
 TOL = 1e-3
 GRAD_REL = 2 ** -7 + 1e-5
 GRAD_MEAN = 2 ** -10
+F32_GRAD_REL = 1e-4
+F32_GRAD_MEAN = 1e-5
 D = 2560
+DTYPES = [torch.bfloat16, torch.float32]
 
 
 @pytest.fixture(scope="module")
@@ -69,21 +84,34 @@ def _close_lse(got, want):
 
 
 @pytest.fixture(scope="module")
-def head(gen):
+def head_bf16(gen):
     w = (torch.randn(151936, D, generator=gen, device="cuda") * 0.02
          ).to(torch.bfloat16)
     w[100] = w[90000]                                   # an exact tie
     return w
 
 
+def _launched(fn, dtype, before, n=1):
+    """``fn`` launched its kernel ``n`` times more, at ``dtype``."""
+    key = "f32" if dtype == torch.float32 else "bf16"
+    assert fn.launches == before[0] + n
+    assert fn.by_variant[key] == before[1][key] + n
+
+
+def _counts(fn):
+    return fn.launches, dict(fn.by_variant)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("q,k", [(8, 8), (5, 1), (16, 12), (3, 8), (9, 32)])
-def test_topk_z_matches_plain(gen, head, q, k):
-    h = torch.randn(q, D, generator=gen, device="cuda").to(torch.bfloat16)
-    h[0] = (head[90000].float() * 40).to(torch.bfloat16)   # tie on top
-    before = topk_z.launches
+def test_topk_z_matches_plain(gen, head_bf16, q, k, dtype):
+    head = head_bf16.to(dtype)
+    h = torch.randn(q, D, generator=gen, device="cuda").to(dtype)
+    h[0] = (head[90000].float() * 40).to(dtype)         # tie on top
+    before = _counts(topk_z)
     lse, tv, ti = topk_z(h, head, k)
     torch.cuda.synchronize()
-    assert topk_z.launches == before + 1
+    _launched(topk_z, dtype, before)
     p_lse, p_v, p_i = topk_z_plain(h, head, k)
     _close_lse(lse, p_lse)
     assert (tv - p_v).abs().max().item() <= TOL
@@ -91,13 +119,14 @@ def test_topk_z_matches_plain(gen, head, q, k):
     assert ti[0, :2].tolist() == [100, 90000][:k]      # lowest id first
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("q,k,live", [(8, 8, 40), (5, 1, 7), (16, 12, 100),
                                       (3, 8, 1)])
-def test_ivf_decode_matches_plain(gen, q, k, live):
+def test_ivf_decode_matches_plain(gen, q, k, live, dtype):
     nb, br, l = 300, 512, 1000
     wb = (torch.randn(nb, br, D, generator=gen, device="cuda") * 0.02
-          ).to(torch.bfloat16)
-    h = torch.randn(q, D, generator=gen, device="cuda").to(torch.bfloat16)
+          ).to(dtype)
+    h = torch.randn(q, D, generator=gen, device="cuda").to(dtype)
     cap = min(q * 16, nb)
     ids = torch.sort(torch.randperm(nb, generator=gen, device="cuda")[:live]
                      ).values
@@ -108,16 +137,16 @@ def test_ivf_decode_matches_plain(gen, q, k, live):
     valid = torch.rand(nb, br, generator=gen, device="cuda") < 0.9
     row_logw = torch.where(valid, 0.0, -1e30).float()
     tail = (torch.randn(l, D, generator=gen, device="cuda") * 0.02
-            ).to(torch.bfloat16)
+            ).to(dtype)
     accept = torch.rand(q, l, generator=gen, device="cuda") < 0.8
     accept[0] = False                                   # no survivor
     args = (wb, h, head_ids.contiguous(),
             torch.tensor(live, dtype=torch.int32, device="cuda"), member,
             row_logw, tail, accept)
-    before = ivf_decode.launches
+    before = _counts(ivf_decode)
     hl, tl, tv, ti = ivf_decode(*args, k=k)
     torch.cuda.synchronize()
-    assert ivf_decode.launches == before + 1
+    _launched(ivf_decode, dtype, before)
     p_hl, p_tl, p_v, p_i = ivf_decode_plain(*args, k=k)
     _close_lse(hl, p_hl)
     _close_lse(tl, p_tl)
@@ -126,24 +155,25 @@ def test_ivf_decode_matches_plain(gen, q, k, live):
     assert torch.equal(ti, p_i)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("q,live,cap", [(8, 23, 128), (5, 1, 80),
                                         (13, 128, 128), (3, 2, 48)])
-def test_union_scores_matches_plain(gen, q, live, cap):
+def test_union_scores_matches_plain(gen, q, live, cap, dtype):
     """Live slots equal the plain scores to 1e-3; pad slots are exactly 0
     although the output starts as uninitialised memory."""
     nb, br = 300, 512
     wb = (torch.randn(nb, br, D, generator=gen, device="cuda") * 0.02
-          ).to(torch.bfloat16)
-    h = torch.randn(q, D, generator=gen, device="cuda").to(torch.bfloat16)
+          ).to(dtype)
+    h = torch.randn(q, D, generator=gen, device="cuda").to(dtype)
     ids = torch.sort(torch.randperm(nb, generator=gen, device="cuda")[:live]
                      ).values
     head_ids = torch.cat([ids, ids[-1:].expand(cap - live)]).to(torch.int32)
     head_live = torch.tensor(live, dtype=torch.int32, device="cuda")
     torch.full((q, cap, br), float("nan"), device="cuda")   # dirty the pool
-    before = union_scores.launches
+    before = _counts(union_scores)
     got = union_scores(wb, h, head_ids.contiguous(), head_live)
     torch.cuda.synchronize()
-    assert union_scores.launches == before + 1
+    _launched(union_scores, dtype, before)
     want = union_scores_plain(wb, h, head_ids, head_live)
     assert got.shape == (q, cap, br)
     assert (got[:, :live] - want[:, :live]).abs().max().item() <= TOL
@@ -166,6 +196,7 @@ def _codes_agree(got, want, proj, h):
     assert (rel[flips.bool()] <= 1e-5).all()
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("q,d,c_kind,live_kind,l,tail_kind,k", [
     (1, D, "plan", "all", 1000, "sampled", 1),
     (13, D, "one", "all", 1000, "sampled", 8),
@@ -175,15 +206,14 @@ def _codes_agree(got, want, proj, h):
     (7, 200, "plan", "plan", 64, "sampled", 8),
 ])
 def test_lsh_probe_matches_plain(gen, q, d, c_kind, live_kind, l, tail_kind,
-                                 k):
+                                 k, dtype):
     """Against the plain version at edge shapes: LSEs to 1e-3, counts
     exactly, top ids where the gap exceeds 1e-3, counts > 0 equal to the
     plan's membership, two calls bit-equal."""
     v = 20000
-    w = (torch.randn(v, d, generator=gen, device="cuda") * 0.02
-         ).to(torch.bfloat16)
+    w = (torch.randn(v, d, generator=gen, device="cuda") * 0.02).to(dtype)
     idx = tlsh.build_lsh_device(w, generator=gen, device="cuda")
-    h = torch.randn(q, d, generator=gen, device="cuda").to(torch.bfloat16)
+    h = torch.randn(q, d, generator=gen, device="cuda").to(dtype)
     plan = tlsh.lsh_plan(idx, h, l, generator=gen)
     rows, live = plan.cand_rows, int(plan.cand_live)
     if c_kind == "one":
@@ -204,11 +234,11 @@ def test_lsh_probe_matches_plain(gen, q, d, c_kind, live_kind, l, tail_kind,
                                                   device="cuda"),
             idx.codes, idx.slot_of_row, plan.tail_ids, accept.contiguous(),
             plan.tail_bias.contiguous())
-    before = lsh_probe.launches
+    before = _counts(lsh_probe)
     out = lsh_probe(*args, k=k)
     again = lsh_probe(*args, k=k)
     torch.cuda.synchronize()
-    assert lsh_probe.launches == before + 2
+    _launched(lsh_probe, dtype, before, 2)
     for a, b in zip(out, again):
         assert torch.equal(a, b)
     hl, tl, tv, ti, cnt = out
@@ -237,19 +267,20 @@ def test_lsh_probe_matches_plain(gen, q, d, c_kind, live_kind, l, tail_kind,
                 assert ti[qq, j] == p_i1[qq, j]
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("q,p,br", [(8, 16, 512), (1, 1, 512), (3, 5, 100),
                                     (4, 2, 37)])
-def test_ivf_score_matches_plain(gen, q, p, br):
+def test_ivf_score_matches_plain(gen, q, p, br, dtype):
     nb = 50
     wb = (torch.randn(nb, br, D, generator=gen, device="cuda") * 0.02
-          ).to(torch.bfloat16)
-    h = torch.randn(q, D, generator=gen, device="cuda").to(torch.bfloat16)
+          ).to(dtype)
+    h = torch.randn(q, D, generator=gen, device="cuda").to(dtype)
     ids = torch.randint(0, nb, (q, p), generator=gen, device="cuda",
                         dtype=torch.int32)
-    before = ivf_score.launches
+    before = _counts(ivf_score)
     got = ivf_score(wb, h, ids)
     torch.cuda.synchronize()
-    assert ivf_score.launches == before + 1
+    _launched(ivf_score, dtype, before)
     assert got.shape == (q, p, br)
     assert (got - ivf_score_plain(wb, h, ids)).abs().max().item() <= TOL
 
@@ -273,37 +304,108 @@ def _phi_scale(omega, degree, coef, x):
     return coef.abs()[None, :] * norm[:, None] ** degree[None, :].float()
 
 
-@pytest.mark.parametrize("q,p", [(8, 4096), (5, 1000), (13, 70),
-                                 (8192, 4096)])
-def test_fmbe_phi_matches_plain(gen, q, p):
-    omega, degree, coef = _feature_map(gen, p)
-    x = (torch.randn(q, D, generator=gen, device="cuda") * 0.02
-         ).to(torch.bfloat16)
-    before = fmbe_phi.launches
-    got = fmbe_phi(omega, degree, coef, x)
+def _check_phi(omega, degree, coef, x, pack=None):
+    """fmbe_phi against its plain version, two calls bit-equal, one launch
+    a call at x's dtype; returns phi."""
+    q, p = x.shape[0], omega.shape[0]
+    before = _counts(fmbe_phi)
+    got = fmbe_phi(omega, degree, coef, x, pack=pack)
+    again = fmbe_phi(omega, degree, coef, x, pack=pack)
     torch.cuda.synchronize()
-    assert fmbe_phi.launches == before + 1
+    _launched(fmbe_phi, x.dtype, before, 2)
+    assert torch.equal(got, again)                      # bit-reproducible
     want = fmbe_phi_plain(omega, degree, coef, x)
     assert got.shape == (q, p)
-    assert torch.equal(got[:, 0], coef[0].expand(q))    # degree 0: coef
+    zero = degree == 0
+    assert torch.equal(got[:, zero], coef[zero].expand(q, -1))  # phi = coef
     tol = 1e-4 * (want.abs() + _phi_scale(omega, degree, coef, x))
     assert ((got - want).abs() <= tol).all()
+    return got
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("q,p", [(8, 4096), (5, 1000), (13, 70),
+                                 (8192, 4096), (131, 1000)])
+def test_fmbe_phi_matches_plain(gen, q, p, dtype):
+    """bf16 x runs the tensor-core kernel, f32 x the CUDA-core one."""
+    omega, degree, coef = _feature_map(gen, p)
+    x = (torch.randn(q, D, generator=gen, device="cuda") * 0.02).to(dtype)
+    _check_phi(omega, degree, coef, x)
+
+
+def _pinned_map(gen, degrees, d=D):
+    deg = torch.tensor(degrees, dtype=torch.int32, device="cuda")
+    p = deg.shape[0]
+    omega = (2 * torch.randint(0, 2, (p, 8, d), generator=gen,
+                               device="cuda") - 1).float()
+    coef = torch.rand(p, generator=gen, device="cuda") * 0.01 + 1e-3
+    return omega, deg, coef
+
+
+@pytest.mark.parametrize("q", [8, 131])
+@pytest.mark.parametrize("case", ["tile_edge", "zero_tile", "odd"])
+def test_fmbe_phi_pack_layouts(gen, case, q):
+    """The tensor-core kernel at pack layouts the FMBE draws rarely give
+    (its epilogue unit is a warp's 8 rows of one 128-column tile):
+    degree-8 features ending and starting at a tile boundary, and one that
+    would cross the next boundary pushed past it ("tile_edge"); a
+    column tile holding only degree-0 features, 128 of them, the most a
+    tile takes ("zero_tile"); P off 128
+    with every degree ("odd")."""
+    if case == "tile_edge":
+        degrees = [8] * 31 + [3, 8, 2, 0, 8]
+    elif case == "zero_tile":
+        degrees = [8] * 16 + [0] * 300
+    else:
+        degrees = [m % 9 for m in range(1000)]
+    start, tile_j0, n_tiles = pack_layout(degrees, 8)
+    if case == "tile_edge":
+        assert start[15] == PACK_TILE - 8 and start[16] == PACK_TILE
+        assert start[31:] == [2 * PACK_TILE - 8, 2 * PACK_TILE,
+                              2 * PACK_TILE + 8, -1, 2 * PACK_TILE + 10]
+    if case == "zero_tile":
+        assert n_tiles == 4 and tile_j0 == [0, 16, 144, 272, 316]
+    omega, degree, coef = _pinned_map(gen, degrees)
+    x = (torch.randn(q, D, generator=gen, device="cuda") * 0.02
+         ).to(torch.bfloat16)
+    pack = fmbe_pack(omega, degree, coef)
+    assert pack.rows.shape[0] == n_tiles * PACK_TILE
+    _check_phi(omega, degree, coef, x, pack)
+
+
+def test_fmbe_phi_refuses_a_pack_of_other_tensors(gen):
+    """The tensor-core kernel reads the pack's rows, degree and coef, so a
+    pack made from another coef, another map of the same P, or an omega
+    changed since raises instead of returning that map's phi."""
+    omega, degree, coef = _feature_map(gen, 300)
+    x = (torch.randn(8, D, generator=gen, device="cuda") * 0.02
+         ).to(torch.bfloat16)
+    pack = fmbe_pack(omega, degree, coef)
+    before = _counts(fmbe_phi)
+    for args in ((omega, degree, coef * 2), _feature_map(gen, 300)):
+        with pytest.raises(ValueError, match="another omega, degree or coef"):
+            fmbe_phi(*args, x, pack=pack)
+    omega[0, 0].neg_()
+    with pytest.raises(ValueError, match="another omega, degree or coef"):
+        fmbe_phi(omega, degree, coef, x, pack=pack)
+    assert _counts(fmbe_phi) == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shared", [True, False])
 @pytest.mark.parametrize("q,p", [(8, 4096), (5, 1000), (13, 70)])
-def test_fmbe_z_matches_plain(gen, q, p, shared):
+def test_fmbe_z_matches_plain(gen, q, p, shared, dtype):
     """x at the final norm's scale (|x|_2 about 50): products of up to 8
     projections reach about 1e13 before coef."""
     omega, degree, coef = _feature_map(gen, p)
-    x = torch.randn(q, D, generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn(q, D, generator=gen, device="cuda").to(dtype)
     lam = torch.randn((p,) if shared else (q, p), generator=gen,
                       device="cuda")
-    before = fmbe_z.launches
+    before = _counts(fmbe_z)
     got = fmbe_z(omega, degree, coef, lam, x)
     again = fmbe_z(omega, degree, coef, lam, x)
     torch.cuda.synchronize()
-    assert fmbe_z.launches == before + 2
+    _launched(fmbe_z, dtype, before, 2)
     assert torch.equal(got, again)                      # bit-reproducible
     want = fmbe_z_plain(omega, degree, coef, lam, x)
     scale = (fmbe_phi_plain(omega, degree, coef, x) * lam).abs().sum(-1)
@@ -311,12 +413,12 @@ def test_fmbe_z_matches_plain(gen, q, p, shared):
     assert ((got - want).abs() <= 1e-4 * scale + 1e-6).all()
 
 
-def _ce_inputs(gen, t, v, d):
+def _ce_inputs(gen, t, v, d, dtype=torch.bfloat16):
     """h at the final norm's scale, logits about N(0, 4), labels at V - 1
     and 0 first."""
-    h = torch.randn(t, d, generator=gen, device="cuda").to(torch.bfloat16)
+    h = torch.randn(t, d, generator=gen, device="cuda").to(dtype)
     w = (torch.randn(v, d, generator=gen, device="cuda") * 2 / d ** 0.5
-         ).to(torch.bfloat16)
+         ).to(dtype)
     labels = torch.randint(0, v, (t,), generator=gen, device="cuda",
                            dtype=torch.int32)
     labels[0] = v - 1
@@ -324,17 +426,17 @@ def _ce_inputs(gen, t, v, d):
     return h, w, labels
 
 
-def _within_terms(name, got, want, terms):
-    """|got - want| / sum |terms|: at most GRAD_REL, GRAD_MEAN on average
+def _within_terms(name, got, want, terms, rel=GRAD_REL, mean_rel=GRAD_MEAN):
+    """|got - want| / sum |terms|: at most ``rel``, ``mean_rel`` on average
     (an element with no terms must match exactly)."""
     ratio = (got - want).abs() / terms.clamp(min=1e-30)
     worst, mean = ratio.max().item(), ratio.mean().item()
-    assert worst <= GRAD_REL and mean <= GRAD_MEAN, (name, worst, mean)
+    assert worst <= rel and mean <= mean_rel, (name, worst, mean)
 
 
-def _check_fused_ce(gen, t, v, d, selfnorm):
-    h, w, labels = _ce_inputs(gen, t, v, d)
-    before = (fused_ce_fwd.launches, fused_ce_bwd.launches)
+def _check_fused_ce(gen, t, v, d, selfnorm, dtype=torch.bfloat16):
+    h, w, labels = _ce_inputs(gen, t, v, d, dtype)
+    before = (_counts(fused_ce_fwd), _counts(fused_ce_bwd))
     nll, lse = fused_ce_fwd(h, w, labels)
     nll2, lse2 = fused_ce_fwd(h, w, labels)
     torch.cuda.synchronize()
@@ -349,18 +451,20 @@ def _check_fused_ce(gen, t, v, d, selfnorm):
     dh2, dw2 = fused_ce_bwd(h, w, labels, lse, g_nll, g_lse, cast=False)
     torch.cuda.synchronize()
     assert torch.equal(dh, dh2) and torch.equal(dw, dw2)   # no atomics
-    assert (fused_ce_fwd.launches, fused_ce_bwd.launches) == \
-        (before[0] + 2, before[1] + 2)
+    _launched(fused_ce_fwd, dtype, before[0], 2)
+    _launched(fused_ce_bwd, dtype, before[1], 2)
     p_dh, p_dw = fused_ce_bwd_plain(h, w, labels, lse, g_nll, g_lse,
                                     cast=False)
     coef = ce_coef(h, w, labels, lse, g_nll, g_lse).abs()
     assert dh.shape == (t, d) and dw.shape == (v, d)
-    _within_terms("dh", dh, p_dh, coef @ w.float().abs())
-    _within_terms("dw", dw, p_dw, coef.T @ h.float().abs())
+    limits = ((F32_GRAD_REL, F32_GRAD_MEAN) if dtype == torch.float32
+              else (GRAD_REL, GRAD_MEAN))
+    _within_terms("dh", dh, p_dh, coef @ w.float().abs(), *limits)
+    _within_terms("dw", dw, p_dw, coef.T @ h.float().abs(), *limits)
     cdh, cdw = fused_ce_bwd(h, w, labels, lse, g_nll, g_lse)
-    assert cdh.dtype == torch.bfloat16 and cdw.dtype == torch.bfloat16
-    assert torch.equal(cdh, dh.to(torch.bfloat16))
-    assert torch.equal(cdw, dw.to(torch.bfloat16))
+    assert cdh.dtype == dtype and cdw.dtype == dtype
+    assert torch.equal(cdh, dh.to(dtype))
+    assert torch.equal(cdw, dw.to(dtype))
 
 
 @pytest.mark.parametrize("selfnorm", [False, True])
@@ -385,6 +489,16 @@ def test_fused_ce_crosses_chunk_edges(gen, t, v, d):
     _check_fused_ce(gen, t, v, d, True)
 
 
+@pytest.mark.parametrize("selfnorm", [False, True])
+@pytest.mark.parametrize("t,v,d", [(129, 1000, 64), (129, 151936 - 5, D),
+                                   (1024, 151936, D), (37, 1000, D)])
+def test_fused_ce_f32_matches_plain(gen, t, v, d, selfnorm):
+    """The f32 pair (CUDA cores): T 129 leaves a one-row token tile, V
+    1000 and 151931 ragged vocab tiles and a ragged last chunk, labels at 0
+    and V - 1; dh and dW to F32_GRAD_REL of the sum of their terms."""
+    _check_fused_ce(gen, t, v, d, selfnorm, torch.float32)
+
+
 @pytest.mark.parametrize("t,v,d", [(129, 1000, 64), (1024, 40000, D)])
 def test_fused_ce_bwd_deals_agree(gen, t, v, d):
     """The dh and dW items dealt round-robin give the same bits as
@@ -407,35 +521,55 @@ def test_fused_ce_bwd_deals_agree(gen, t, v, d):
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    """f32 and bf16 are both taken; mixed dtypes, and dtypes no kernel
+    has, raise a ValueError naming each input's dtype."""
     h = torch.randn(4, D, generator=gen, device="cuda")
     w = torch.randn(64, D, generator=gen, device="cuda")
-    with pytest.raises(ValueError, match="bf16"):
-        topk_z(h, w, 4)                                 # float32
+    with pytest.raises(ValueError, match="h torch.float32, w torch.bfloat16"):
+        topk_z(h, w.bfloat16(), 4)                      # mixed
+    with pytest.raises(ValueError, match="float16"):
+        topk_z(h.half(), w.half(), 4)
     with pytest.raises(ValueError, match="k="):
         topk_z(h.bfloat16(), w.bfloat16(), 33)
     omega = torch.ones(16, 9, D, device="cuda")
     degree = torch.zeros(16, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="max_degree"):
         fmbe_phi(omega, degree, torch.ones(16, device="cuda"), h.bfloat16())
-    with pytest.raises(ValueError, match="bf16"):
+    with pytest.raises(ValueError, match="bf16 or f32 x"):
         fmbe_z(omega[:, :8].contiguous(), degree,
                torch.ones(16, device="cuda"), torch.ones(16, device="cuda"),
-               h)                                       # float32 x
+               h.half())                                # float16 x
+    with pytest.raises(ValueError, match="not exact in bf16"):
+        fmbe_phi(omega[:, :8] * 0.3, degree + 1,
+                 torch.ones(16, device="cuda"), h.bfloat16())
     with pytest.raises(ValueError, match="int32"):
         union_scores(w.bfloat16().reshape(1, 64, D), h.bfloat16(),
                      torch.zeros(1, dtype=torch.int64, device="cuda"),
                      torch.ones((), dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="w_blocks torch.float32"):
+        union_scores(w.reshape(1, 64, D), h.bfloat16(),
+                     torch.zeros(1, dtype=torch.int32, device="cuda"),
+                     torch.ones((), dtype=torch.int32, device="cuda"))
     labels = torch.zeros(4, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="bf16"):
-        fused_ce_fwd(h, w, labels)                      # float32
+    with pytest.raises(ValueError, match="h torch.bfloat16, w torch.float32"):
+        fused_ce_fwd(h.bfloat16(), w, labels)           # mixed
     with pytest.raises(ValueError, match="multiple of 32"):
         fused_ce_fwd(h[:, :48].bfloat16().contiguous(),
                      w[:, :48].bfloat16().contiguous(), labels)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_ce_fwd(h[:, :46].contiguous(), w[:, :46].contiguous(), labels)
     with pytest.raises(ValueError, match="per-token"):
         fused_ce_fwd(h.bfloat16(), w.bfloat16(), labels[:3])
     with pytest.raises(ValueError, match="int32"):
         ivf_score(w.bfloat16().reshape(2, 32, D), h.bfloat16(),
                   torch.zeros((4, 1), dtype=torch.int64, device="cuda"))
+    with pytest.raises(ValueError, match="tail_rows torch.bfloat16"):
+        ivf_decode(w.reshape(2, 32, D), h,
+                   torch.zeros(1, dtype=torch.int32, device="cuda"),
+                   torch.ones((), dtype=torch.int32, device="cuda"),
+                   torch.ones((4, 1), dtype=torch.bool, device="cuda"),
+                   torch.zeros((2, 32), device="cuda"), w[:8].bfloat16(),
+                   torch.ones((4, 8), dtype=torch.bool, device="cuda"))
     proj = torch.randn(2, 4, D + 1, generator=gen, device="cuda")
     ids = torch.zeros(8, dtype=torch.int32, device="cuda")
     codes = torch.zeros((64, 2), dtype=torch.int32, device="cuda")
@@ -443,8 +577,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(gen):
                 codes, codes, ids, torch.ones((4, 8), dtype=torch.bool,
                                               device="cuda"),
                 torch.zeros(8, device="cuda"))
-    with pytest.raises(ValueError, match="bf16"):
-        lsh_probe(w.bfloat16(), h, proj, *lsh_args)         # float32 h
+    with pytest.raises(ValueError, match="w torch.bfloat16, h torch.float32"):
+        lsh_probe(w.bfloat16(), h, proj, *lsh_args)     # mixed
     with pytest.raises(ValueError, match="K="):
         lsh_probe(w.bfloat16(), h.bfloat16(),
                   torch.randn(2, 25, D + 1, device="cuda"), *lsh_args)
