@@ -69,8 +69,10 @@ GPU.
    decode step through ``generate`` with the launch counts at 0; each
    kernel of its path must launch, and only at f32 (``by_variant``). Every
    kernel is held to its plain version at f32 at the path's shapes under
-   the limits above (the f32 CE pair's dh and dW to 1e-4 of the sum of
-   their terms, 1e-5 on average: nothing is rounded to bf16), then 2
+   the limits above (the f32 CE backward's dh and dW to 1e-4 of the sum
+   of their terms, 1e-5 on average: it runs on the tensor cores on three
+   exact bf16 planes of each f32 operand, and nothing is rounded to bf16;
+   its split kernel equals ``split_planes`` bit for bit), then 2
    ``fused_ce`` train steps launch one f32 CE kernel of each kind a step.
 
 Prints the kernel record as one JSON line before the last (each kernel at
@@ -1479,16 +1481,27 @@ def fmbe_phi_f32(torch, card, fstate, index, deg_sum):
 
 
 def ce_f32_phase(torch, card, h, w, lab):
-    """The f32 fused CE pair (CUDA cores) against its plain versions on the
-    f32 model's hidden states: nll and lse to 1e-3, dh and dW (f32) to
+    """The f32 fused CE kernels against their plain versions on the f32
+    model's hidden states: nll and lse to 1e-3, dh and dW (f32) to
     F32_GRAD_REL of the sum of their terms' magnitudes per element and
-    F32_GRAD_MEAN on average, two calls bit-equal; times both beside their
-    bounds (f32 rate), plain versions and library calls. Returns the two
-    records."""
+    F32_GRAD_MEAN on average, against ``fused_ce_bwd_plain`` and against
+    ``fused_ce_bwd_chunked_plain`` (the backward's three-plane chunked
+    decomposition), and in three token slices (the route of T above
+    F32_MAX_DEPTH), two calls bit-equal; the backward's split kernel equal
+    to ``split_planes`` bit for bit on h and on the last (ragged) chunk of
+    w. Times the forward (CUDA cores) beside its f32-rate bound, the
+    backward (bf16 tensor cores on three planes) beside its bound at the
+    bf16 rate for the 36 T V d operations it issues and the f32-rate bound
+    of its 6 T V d of f32 work, the split kernel alone, plain versions and
+    library calls (cuBLAS in full f32). Returns the two records."""
     from repro_torch.configs import TrainConfig
-    from repro_torch.kernels.fused_ce import (ce_coef, fused_ce_bwd,
+    from repro_torch.kernels.fused_ce import (PAIRS, bwd_launch,
+                                             bwd_schedule, ce_coef,
+                                             fused_ce_bwd,
+                                             fused_ce_bwd_chunked_plain,
                                              fused_ce_bwd_plain, fused_ce_fwd,
-                                             fused_ce_fwd_plain)
+                                             fused_ce_fwd_plain,
+                                             planes_launch, split_planes)
     t, d = h.shape
     v = w.shape[0]
     nll, lse = fused_ce_fwd(h, w, lab)
@@ -1500,6 +1513,22 @@ def ce_f32_phase(torch, card, h, w, lab):
     f_err = max((nll - p_nll).abs().max().item(),
                 (lse - p_lse).abs().max().item())
     check(f_err <= TOL, f"fused_ce_fwd[f32]: nll/lse differ by {f_err}")
+    # the split kernel: h, and the last chunk of w (rows past V are zeros)
+    sch = bwd_schedule(t, v, torch.float32)
+    c, c0 = sch["chunk"], (sch["n_chunks"] - 1) * sch["chunk"]
+    for name, x, rows in (("h", h, t), ("w chunk", w[c0:], c)):
+        got = planes_launch(x, rows)
+        torch.cuda.synchronize()
+        want = torch.zeros_like(got)
+        for q, plane in enumerate(split_planes(x)):
+            want[q, :x.shape[0], :d] = plane
+        check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+              f"fused_ce_bwd[f32]: split kernel planes of {name} differ from "
+              f"split_planes")
+        del got, want
+    log(f"fused_ce_bwd[f32] split kernel: planes of h ({t} rows) and of the "
+        f"last chunk of w ({v - c0} rows into {c}) equal split_planes bit "
+        f"for bit")
     g_nll = torch.full((t,), 1.0 / t, device=h.device)
     g_lse = 2 * TrainConfig().selfnorm_alpha * lse / t
     bargs = (h, w, lab, lse, g_nll, g_lse)
@@ -1509,18 +1538,38 @@ def ce_f32_phase(torch, card, h, w, lab):
     check(torch.equal(dh, dh2) and torch.equal(dw, dw2),
           "fused_ce_bwd[f32] is not bit-reproducible")
     del dh2, dw2
-    p_dh, p_dw = fused_ce_bwd_plain(*bargs)
     coef = ce_coef(*bargs).abs()
-    dh_err = compare_terms("fused_ce_bwd[f32] dh", dh, p_dh, coef @ w.abs(),
+    dh_terms, dw_terms = coef @ w.abs(), coef.T @ h.abs()
+    del coef
+    p_dh, p_dw = fused_ce_bwd_plain(*bargs)
+    dh_err = compare_terms("fused_ce_bwd[f32] dh", dh, p_dh, dh_terms,
                            F32_GRAD_REL, F32_GRAD_MEAN)
-    dw_err = compare_terms("fused_ce_bwd[f32] dw", dw, p_dw,
-                           coef.T @ h.abs(), F32_GRAD_REL, F32_GRAD_MEAN)
-    del coef, p_dh, p_dw, dh, dw
+    dw_err = compare_terms("fused_ce_bwd[f32] dw", dw, p_dw, dw_terms,
+                           F32_GRAD_REL, F32_GRAD_MEAN)
+    # the route of T > F32_MAX_DEPTH: token slices whose dW add up in f32,
+    # here three slices of T / 3 (launches not counted)
+    s_dh, s_dw = bwd_launch(*bargs, depth=-(-t // 3))
+    sdh_err = compare_terms("fused_ce_bwd[f32] dh in 3 token slices", s_dh,
+                            p_dh, dh_terms, F32_GRAD_REL, F32_GRAD_MEAN)
+    sdw_err = compare_terms("fused_ce_bwd[f32] dw in 3 token slices", s_dw,
+                            p_dw, dw_terms, F32_GRAD_REL, F32_GRAD_MEAN)
+    log(f"fused_ce_bwd[f32] in 3 token slices: dh max {sdh_err[1]:.3e} "
+        f"(mean {sdh_err[2]:.3e}), dW max {sdw_err[1]:.3e} (mean "
+        f"{sdw_err[2]:.3e}) of sum |terms| against the plain version")
+    del p_dh, p_dw, s_dh, s_dw
+    c_dh, c_dw = fused_ce_bwd_chunked_plain(*bargs)
+    cdh_err = compare_terms("fused_ce_bwd[f32] dh vs chunked plain", dh, c_dh,
+                            dh_terms, F32_GRAD_REL, F32_GRAD_MEAN)
+    cdw_err = compare_terms("fused_ce_bwd[f32] dw vs chunked plain", dw, c_dw,
+                            dw_terms, F32_GRAD_REL, F32_GRAD_MEAN)
+    del c_dh, c_dw, dh_terms, dw_terms, dh, dw
     torch.cuda.empty_cache()
     fwd_bytes = t * d * 4 + v * d * 4 + t * 4 + 2 * t * 4
     fwd_bound, fwd_by = bound_ms(fwd_bytes, 0, f32_ops=2 * t * v * d)
     bwd_bytes = 2 * (t * d * 4 + v * d * 4) + 4 * t * 4
-    bwd_bound, bwd_by = bound_ms(bwd_bytes, 0, f32_ops=6 * t * v * d)
+    n_issued = 6 * len(PAIRS) * t * v * d       # bf16 operations issued
+    bwd_bound, bwd_by = bound_ms(bwd_bytes, n_issued)
+    core_bound, _ = bound_ms(bwd_bytes, 0, f32_ops=6 * t * v * d)
     gn = g_nll + g_lse
 
     def library_fwd():
@@ -1542,31 +1591,58 @@ def ce_f32_phase(torch, card, h, w, lab):
                                 reps=5),
                bound_ms=fwd_bound, bound_by=fwd_by,
                library_ms=time_ms(torch, library_fwd, reps=5))
+    split_h = time_ms(torch, lambda: planes_launch(h), reps=10)
+    split_chunk = time_ms(torch, lambda: planes_launch(w[:c], c), reps=10)
     bwd = dict(name="fused_ce_bwd[f32]", route="cuda",
-               source="src/repro_torch/kernels/csrc/fused_ce_f32.cu",
+               source="src/repro_torch/kernels/csrc/fused_ce_bwd.cu",
                replaces="src/repro/kernels/fused_ce.py:169",
                max_abs_err=max(dh_err[0], dw_err[0]),
                max_err_over_sum_terms=max(dh_err[1], dw_err[1]),
-               ms=time_ms(torch, lambda: fused_ce_bwd(*bargs), reps=3),
+               ms=time_ms(torch, lambda: fused_ce_bwd(*bargs), reps=5),
                plain_ms=time_ms(torch, lambda: fused_ce_bwd_plain(*bargs),
                                 reps=3),
                bound_ms=bwd_bound, bound_by=bwd_by,
+               f32_core_bound_ms=core_bound,
+               split_ms=split_h + sch["n_chunks"] * split_chunk,
+               split_h_ms=split_h, split_chunk_ms=split_chunk,
                library_ms=time_ms(torch, library_bwd, reps=3))
+    bwd["tflops_f32_work"] = 6 * t * v * d / bwd["ms"] / 1e9
+    bwd["tflops_issued"] = n_issued / bwd["ms"] / 1e9
     log(f"fused_ce_fwd[f32]: T {t} V {v} d {d}: nll/lse err {f_err:.2e}, "
         f"two calls bit-equal; kernel {fwd['ms']:.4f} ms "
         f"({2 * t * v * d / fwd['ms'] / 1e9:.1f} TFLOP/s), plain "
         f"{fwd['plain_ms']:.4f} ms, library {fwd['library_ms']:.4f} ms, "
         f"bound {fwd_bound:.4f} ms ({fwd_by}, f32 rate "
         f"{F32_FLOPS / 1e12:.0f} TFLOP/s) [{card}]")
-    log(f"fused_ce_bwd[f32]: T {t} V {v} d {d}, g_lse = 2 alpha lse / T: dh "
-        f"err {dh_err[0]:.2e} (max {dh_err[1]:.3e}, mean {dh_err[2]:.3e} of "
-        f"sum |terms|), dW err {dw_err[0]:.2e} (max {dw_err[1]:.3e}, mean "
-        f"{dw_err[2]:.3e}), two calls bit-equal; kernel {bwd['ms']:.4f} ms "
-        f"({6 * t * v * d / bwd['ms'] / 1e9:.1f} TFLOP/s), plain "
+    log(f"fused_ce_bwd[f32]: T {t} V {v} d {d}, g_lse = 2 alpha lse / T, "
+        f"chunk C {c} ({sch['n_chunks']} chunks), three bf16 planes, "
+        f"{len(PAIRS)} plane pairs: dh err {dh_err[0]:.2e} (max "
+        f"{dh_err[1]:.3e}, mean {dh_err[2]:.3e} of sum |terms|), dW err "
+        f"{dw_err[0]:.2e} (max {dw_err[1]:.3e}, mean {dw_err[2]:.3e}); "
+        f"against the chunked plane decomposition dh max {cdh_err[1]:.3e} "
+        f"(mean {cdh_err[2]:.3e}), dW max {cdw_err[1]:.3e} (mean "
+        f"{cdw_err[2]:.3e}); two calls bit-equal; kernel {bwd['ms']:.4f} ms "
+        f"({bwd['tflops_f32_work']:.1f} TFLOP/s of f32 work, "
+        f"{bwd['tflops_issued']:.1f} TFLOP/s of bf16 issued), split "
+        f"{bwd['split_ms']:.4f} ms a call (h {split_h:.4f} + "
+        f"{sch['n_chunks']} x chunk {split_chunk:.4f}), plain "
         f"{bwd['plain_ms']:.4f} ms, library {bwd['library_ms']:.4f} ms, "
-        f"bound {bwd_bound:.4f} ms ({bwd_by}) [{card}]")
-    for line in ptxas_report(_build_log("fused_ce_f32")):
-        log(f"  ptxas fused_ce_f32: {line}")
+        f"bound {bwd_bound:.4f} ms ({bwd_by}, {n_issued / 1e12:.3f} TFLOP "
+        f"bf16 at {BF16_FLOPS / 1e12:.0f} TFLOP/s; f32-core bound "
+        f"{core_bound:.4f} ms) [{card}]")
+    # the backward's device time by kernel: split, coefficient, gradients
+    reps = 2
+    _, busy, dev_top, _ = profile_step(
+        torch, lambda: [fused_ce_bwd(*bargs) for _ in range(reps)])
+    for name, calls, ms in dev_top:
+        name = name.replace("(anonymous namespace)::", "").split("(")[0]
+        log(f"  launch {name[-40:]:40s} {calls / reps:4.0f} a call, "
+            f"{ms / reps:.4f} ms a call [{card}]")
+    log(f"  fused_ce_bwd[f32]: device busy {busy / reps:.4f} ms a call "
+        f"[{card}]")
+    for name in ("fused_ce_f32", "fused_ce_bwd"):
+        for line in ptxas_report(_build_log(name)):
+            log(f"  ptxas {name}: {line}")
     return {"fused_ce_fwd": fwd, "fused_ce_bwd": bwd}
 
 

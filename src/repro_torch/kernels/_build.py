@@ -25,7 +25,8 @@ SOURCES = ("topk_z", "ivf_decode", "union_scores", "fmbe_phi",
 # C entry points ``<entry>_launch`` of a source, where they are not just
 # its own ``<name>_launch``
 ENTRIES = {"lsh_probe": ("lsh_probe", "lsh_codes"),
-           "fused_ce_f32": ("fused_ce_f32_fwd", "fused_ce_f32_bwd")}
+           "fused_ce_bwd": ("fused_ce_bwd", "ce_split"),
+           "fused_ce_f32": ("fused_ce_f32_fwd",)}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -55,15 +56,16 @@ SIGNATURES = {
     # h, w, labels, T, V, d, n_split, per, grid, part_m, part_s, part_p,
     # nll, lse, stream
     "fused_ce_fwd": [_P] * 3 + [_I] * 6 + [_P] * 6,
-    # h, w, labels, lse, gn, go, T, V, d, C, grid, cast, order_full,
-    # start_full, grid_full, order_last, start_last, grid_last, scratch,
-    # dh32, dh, dw, stream
-    "fused_ce_bwd": [_P] * 6 + [_I] * 6 + [_P, _P, _I] * 2 + [_P] * 5,
+    # h, w, labels, lse, gn, go, T, V, d, C, grid, cast, dw_add,
+    # order_full, start_full, grid_full, order_last, start_last, grid_last,
+    # scratch, dh32, dh, dw, h_planes, w_planes, f32, stream
+    "fused_ce_bwd": [_P] * 6 + [_I] * 7 + [_P, _P, _I] * 2 + [_P] * 6
+                    + [_I, _P],
+    # x, R, d, rows, dp, planes, stream
+    "ce_split": [_P] + [_I] * 4 + [_P] * 2,
     # h, w, labels, T, V, d, n_split, grid, part_m, part_s, part_p, nll,
     # lse, stream
     "fused_ce_f32_fwd": [_P] * 3 + [_I] * 5 + [_P] * 6,
-    # h, w, labels, lse, gn, go, T, V, d, C, scratch, dh, dw, stream
-    "fused_ce_f32_bwd": [_P] * 6 + [_I] * 4 + [_P] * 4,
     # h, proj, Q, d, L, K, qcodes, f32, stream
     "lsh_codes": [_P] * 2 + [_I] * 4 + [_P, _I, _P],
     # w, h, proj, cand_rows, cand_live, codes, slot_of_row, tail_ids,

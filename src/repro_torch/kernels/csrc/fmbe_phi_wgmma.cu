@@ -107,6 +107,7 @@ struct PhiJob {
                       uint32_t sb) const {
     mma_stage<false, false>(acc, sa, sb);
   }
+  __device__ void after_stage(const PhiItem&, int, float (&)[2][64]) const {}
   __device__ void init(NoState&) const {}
   __device__ void after(const PhiItem&, NoState&, int) const {}
 

@@ -1,6 +1,6 @@
 // Streaming softmax cross-entropy, backward: dh (T, d) and dW (V, d) of
 // g_nll . nll + g_lse . lse, recomputing the scores instead of reading
-// (T, V) logits.
+// (T, V) logits, for bf16 and for f32 h and W.
 //
 // Replaces the TPU kernel src/repro/kernels/fused_ce.py::fused_ce_bwd
 // (_bwd_kernel): one sequential (token tile, vocab tile) grid whose score
@@ -9,38 +9,72 @@
 //
 // With p = exp(s - lse) and coef = (g_nll + g_lse) p - g_nll onehot(label):
 //   dh = coef W,   dW = coef^T h.
-// coef is rounded to bf16 before both products, as the TPU kernel does; the
-// products accumulate in f32.
+// bf16 (P = 1 plane): coef is rounded to bf16 before both products, as the
+// TPU kernel does; the products accumulate in f32.
+// f32 (P = 3 planes): each f32 operand x is split exactly into three bf16
+// planes, x = x0 + x1 + x2 with x0 = bf16(x), x1 = bf16(x - x0), x2 =
+// bf16(x - x0 - x1) (fused_ce.py::split_planes), and each product sums the
+// six plane pairs (i, j) with i + j <= 2, whose dropped terms are of order
+// 2**-24 of |a||b|: an f32-accurate product on the bf16 tensor cores,
+// coef not rounded, as the f32 reference computes it. (TF32 wgmma would
+// read both operands K-major only, and dh reads W, dW coef and h
+// MN-major; bf16 wgmma reads them in place.) Each product runs the pairs
+// one after another over all of K, smallest terms first and (0, 0) last
+// (fused_ce.py::PAIRS), so that the small sums are not added into a large
+// accumulator K times over. The tensor cores' f32 sums lose low bits at
+// each 16-deep step with a bias that grows with the depth of one sum, so
+// at f32 no sum is more than 8192 deep (fused_ce.py::F32_MAX_DEPTH): a
+// chunk has at most 8192 columns (dh's depth), and the wrapper launches
+// the kernels once for each slice of at most 8192 tokens (dW's depth),
+// each slice adding its dW to the earlier slices' in f32 (dw_add).
 //
-// Bound on this card: operations. Three products of 2*T*V*d each (qwen1.5-4b
-// at T = 1024: 2.4e12, about 2.4 ms at the bf16 tensor-core rate).
+// Bound on this card: operations. bf16: three products of 2*T*V*d each
+// (qwen1.5-4b at T = 1024: 2.4e12, about 2.4 ms at the bf16 tensor-core
+// rate). f32: six times that, 36*T*V*d bf16 operations (14.3e12, about
+// 14.5 ms), against 6*T*V*d at the f32 rate outside the tensor cores
+// (35.7 ms).
 //
 // Design: the scores are computed once per (token, vocab) pair. The
 // vocabulary is walked in chunks of C columns (the wrapper's schedule: C is
-// the largest multiple of 128 with T x C x 2 bytes <= 32 MB, 16384 at
-// T = 1024), and for each chunk, in order:
+// the largest multiple of 128 with P x T x C x 2 bytes <= 32 MiB and, at
+// f32, C <= 8192: 16384 at T = 1024 in bf16, 5376 in f32; T is the token
+// slice's at f32), and for each chunk, in order:
+//  (s) f32 only, ce_split: the chunk's rows of W into (3, C, dp) planes,
+//      dp = d rounded up to 64, zeros past d and past the chunk's rows
+//      (h is split likewise once a call, into (3, T, dp)). Zeros stand
+//      where a TMA box reaches past the data inside the buffer, so d need
+//      only be a multiple of 4, as the f32 contract has it.
 //  (a) ce_coef: S = h W[chunk]^T on the Hopper mainloop (hopper_gemm.cuh,
-//      both operands K-major); the epilogue turns the accumulator registers
-//      into coef, rounds it to bf16 and writes it to a (T, C) scratch buffer
-//      (zeros past V), which stays in L2 for (b) and (c).
+//      both operands K-major; at f32 the (0, 0) pass's sums promoted
+//      every two stages into an f32 sum in shared memory, see promote);
+//      the epilogue turns the accumulator registers into coef and writes
+//      it to a (P, T, C) scratch buffer, rounded to bf16 or split into
+//      planes (zeros past V), which stays in L2 for (b) and (c).
 //  (b)+(c) ce_grad, one persistent launch over two kinds of 128 x 128 items:
 //      dh items, dh += coef W[chunk] (A = scratch K-major, B = W MN-major,
 //      K = C), accumulated in f32 over the chunks in chunk order into one
 //      (T, d) buffer (the f32 output with cast = 0); the last chunk's items
 //      write dh in bf16 with cast; and dW items, dW[chunk] = coef^T h (both
 //      operands MN-major, K = T), whose rows are complete and written once,
-//      in bf16 (cast) or f32. The items differ in length (a dh item has C of
-//      depth, a dW item T: 256 and 16 stages at T = 1024), and the 160 dh
-//      items of T = 1024 do not fill 132 SMs evenly alone, so the wrapper
-//      deals them to the CTAs longest first, each to the least loaded CTA,
-//      and passes each CTA's list.
+//      in bf16 (cast) or f32 (added to, in a token slice after the
+//      first). The items differ in length (a dh item has C of depth, a dW
+//      item T: 256 and 16 stages at T = 1024 in bf16, six times C and T at
+//      f32), and the 160 dh items of T = 1024 do not fill
+//      132 SMs evenly alone, so the wrapper deals them to the CTAs longest
+//      first, each to the least loaded CTA, and passes each CTA's list
+//      (the same lists at f32, where every item is six times longer).
+// Every plane has a TMA map of its own, so a box that reaches past T, past
+// a plane's last row, reads TMA's zeros and never the next plane's rows.
 // Every output element has one owner and a fixed order of sums, with no
 // float atomics, so two calls are bit-equal.
 // Resources (hopper_gemm.cuh): 128 x 128 tiles, 6 stages of 32 KB (about
-// 193 KB of shared memory, one CTA of 384 threads per SM), 232 registers a
-// consumer thread. Memory beside the outputs: the scratch, T x C x 2 bytes
-// (32 MB at T = 1024), and with cast a T x d x 4 byte f32 dh (10.5 MB at
-// T = 1024), never O(T V).
+// 193 KB of shared memory, one CTA of 384 threads per SM; ce_coef at f32 5
+// stages and the 64 KB f32 sum, 225 KB), 232 registers a consumer thread.
+// Memory beside the outputs: the scratch, P x T x C x 2 bytes (33.6 MB
+// at T = 1024 in bf16, 33.0 MB in f32), a T x d x 4 byte f32 dh with cast
+// (10.5 MB at T = 1024; at f32 it is the output), and at f32 the planes of
+// h and of a chunk of W, 6 x T x dp and 6 x C x dp bytes (15.7 MB and 82.6
+// MB at T = 1024, d = 2560): O(T C + C d + T d), never O(T V) or O(V d).
 #include <algorithm>
 
 #include "hopper_gemm.cuh"
@@ -49,15 +83,169 @@ using namespace hgemm;
 
 namespace {
 
+// ---- the planes of an f32 operand -------------------------------------------
+
+// The three pairs of order 2**-16 of |a||b|, then (0, 1), (1, 0), (0, 0):
+// the plane of A and of B of pass q are nibble q of PAIR_A and PAIR_B
+// (fused_ce.py::PAIRS). A file that includes this one may define other
+// pairs first (tools/ce_f32_pairs.cu).
+#ifndef CE_PASSES3
+#define CE_PASSES3 6
+#define CE_PAIR_A 0x010201
+#define CE_PAIR_B 0x001021
+#endif
+constexpr int PASSES3 = CE_PASSES3;
+constexpr uint32_t PAIR_A = CE_PAIR_A;
+constexpr uint32_t PAIR_B = CE_PAIR_B;
+
+template <int P>
+__host__ __device__ constexpr int passes() {
+  static_assert(P == 1 || P == 3, "one plane (bf16) or three (f32)");
+  return P == 1 ? 1 : PASSES3;
+}
+
+// x0 + x1 + x2 == x exactly for finite x; a zero residual keeps x's sign.
+__device__ __forceinline__ void split3(float x, bf16& x0, bf16& x1, bf16& x2) {
+  const float zero = copysignf(0.f, x);
+  x0 = __float2bfloat16_rn(x);
+  float r = x - __bfloat162float(x0);
+  r = r == 0.f ? zero : r;
+  x1 = __float2bfloat16_rn(r);
+  r -= __bfloat162float(x1);
+  x2 = __float2bfloat16_rn(r == 0.f ? zero : r);
+}
+
+// out (3, rows, dp) = the planes of x (valid rows of d floats, d a
+// multiple of 4), zeros past valid rows and past d. One thread a group of
+// 4 columns: one float4 read, one 8-byte store a plane.
+__global__ void __launch_bounds__(256)
+ce_split(const float* __restrict__ x, int valid, int d, int rows, int dp,
+         bf16* __restrict__ out) {
+  const size_t plane = (size_t)rows * dp;
+  const int groups = dp / 4;
+  const size_t n = (size_t)rows * groups;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int r = (int)(i / groups), c = (int)(i % groups) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < valid && c < d)
+      v = __ldg(reinterpret_cast<const float4*>(x + (size_t)r * d + c));
+    __align__(8) bf16 p[3][4];
+    split3(v.x, p[0][0], p[1][0], p[2][0]);
+    split3(v.y, p[0][1], p[1][1], p[2][1]);
+    split3(v.z, p[0][2], p[1][2], p[2][2]);
+    split3(v.w, p[0][3], p[1][3], p[2][3]);
+    bf16* dst = out + (size_t)r * dp + c;
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      *reinterpret_cast<uint2*>(dst + q * plane) =
+          *reinterpret_cast<const uint2*>(p[q]);
+  }
+}
+
+int split_grid(size_t groups) {
+  return (int)std::min<size_t>((groups + 255) / 256, 132 * 16);
+}
+
 struct Chunk {
   int T, V, d;
   int C;             // scratch columns (row stride)
   int c0;            // first vocab row of the chunk
+  int w0;            // the chunk's first row in W's maps: c0, or 0 in planes
   int valid;         // vocab rows in the chunk, <= C
   int n_tt;          // token tiles
 };
 
+// Stage k of an item of `nks` K slices: its slice and the planes of A and
+// B it reads. One plane: slice k of planes 0.
+template <int P>
+__device__ __forceinline__ void stage_of(int k, int nks, int& ks, int& pa,
+                                         int& pb) {
+  if constexpr (P == 1) {
+    ks = k;
+    pa = pb = 0;
+  } else {
+    const int q = k / nks;
+    ks = k - q * nks;
+    pa = (PAIR_A >> (4 * q)) & 15;
+    pb = (PAIR_B >> (4 * q)) & 15;
+  }
+}
+
 // ---- (a) the coefficient --------------------------------------------------
+
+// The tensor cores' f32 sums lose low bits at each 16-deep step, relative
+// to the magnitude of the sum so far, and a score feeds exp, so its error
+// is the coefficient's relative error. Summed over all of d, the scores
+// of logits about N(0, 16) left dh and dW 5e-5 of their terms off on
+// average (tools/ce_f32_pairs.py). So at P = 3 the scores' (0, 0) pass,
+// the one at full magnitude, sums PROMOTE stages (128 deep) at a time on
+// the tensor cores from zero and adds each such sum to an f32 sum in
+// shared memory, rounded to nearest, in order. The consumers' mainloops
+// run one at a time, so one sum buffer serves both: 128 threads x 128
+// floats, beside a ring of COEF3_STAGES stages. A file that includes this
+// one may define another PROMOTE first (0: one sum over all of d).
+#ifndef CE_COEF3_PROMOTE
+#define CE_COEF3_PROMOTE 2
+#endif
+constexpr int PROMOTE = CE_COEF3_PROMOTE;
+constexpr int COEF3_STAGES = 5;
+constexpr int SUMS_BYTES = 128 * 128 * 4;
+
+template <int P>
+constexpr size_t coef_smem_bytes() {
+  return P == 1 ? SMEM_BYTES
+                : (size_t)COEF3_STAGES * STAGE_BYTES + SUMS_BYTES + 1024;
+}
+
+__device__ __forceinline__ float4 lds4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts4(uint32_t a, float x, float y, float z,
+                                     float w) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "f"(x), "f"(y), "f"(z), "f"(w)
+               : "memory");
+}
+
+// sum = acc (first), sum += acc, or acc += sum (last); acc = 0 but after
+// the last. Thread t keeps acc[h][4 j .. 4 j + 3] at group 16 h + j, 16
+// bytes at sums + (group x 128 + t) x 16: a warp's accesses are
+// contiguous.
+__device__ __forceinline__ void promote(float (&acc)[2][64], bool first,
+                                        bool last) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sums = ((smem_u32(smem_raw) + 1023u) & ~1023u) +
+                        COEF3_STAGES * STAGE_BYTES +
+                        (threadIdx.x & 127) * 16;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float* a = &acc[h][4 * j];
+      const uint32_t at = sums + (16 * h + j) * 2048;
+      if (first) {
+        sts4(at, a[0], a[1], a[2], a[3]);
+      } else {
+        const float4 y = lds4(at);
+        if (last) {
+          a[0] += y.x;
+          a[1] += y.y;
+          a[2] += y.z;
+          a[3] += y.w;
+          continue;
+        }
+        sts4(at, y.x + a[0], y.y + a[1], y.z + a[2], y.w + a[3]);
+      }
+      a[0] = a[1] = a[2] = a[3] = 0.f;
+    }
+}
 
 struct CoefArgs {
   Chunk ch;
@@ -65,19 +253,21 @@ struct CoefArgs {
   const float* lse;
   const float* gn;   // g_nll + g_lse
   const float* go;   // g_nll
-  bf16* coef;        // (T, C)
+  bf16* coef;        // (P, T, C)
 };
 
 struct TileItem {
-  int nk;
+  int nk;            // stages: passes x nks
+  int nks;           // K slices
   int m0, n0;
 };
 
 struct NoState {};
 
+template <int P>
 struct CoefJob {
-  const CUtensorMap* mh;
-  const CUtensorMap* mw;
+  const CUtensorMap* mh;     // h, or its planes, K-major boxes
+  const CUtensorMap* mw;     // W, or the chunk's planes, K-major boxes
   CoefArgs a;
   int n_items;
   using State = NoState;
@@ -86,21 +276,40 @@ struct CoefJob {
   __device__ bool valid(int p) const { return p < n_items; }
   __device__ void advance(int& p) const { p += gridDim.x; }
   __device__ TileItem item(int p) const {
-    return {(a.ch.d + BK - 1) / BK, (p % a.ch.n_tt) * BM, (p / a.ch.n_tt) * BN};
+    const int nks = (a.ch.d + BK - 1) / BK;
+    return {passes<P>() * nks, nks, (p % a.ch.n_tt) * BM,
+            (p / a.ch.n_tt) * BN};
   }
   __device__ void load(const TileItem& it, int k, uint32_t sa, uint32_t sb,
                        uint64_t* bar) const {
-    load_slice(mh, false, sa, bar, it.m0, k * BK);
-    load_slice(mw, false, sb, bar, a.ch.c0 + it.n0, k * BK);
+    int ks, pa, pb;
+    stage_of<P>(k, it.nks, ks, pa, pb);
+    load_slice(mh + pa, false, sa, bar, it.m0, ks * BK);
+    load_slice(mw + pb, false, sb, bar, a.ch.w0 + it.n0, ks * BK);
   }
   __device__ void mma(const TileItem&, float (&acc)[2][64], uint32_t sa,
                       uint32_t sb) const {
     mma_stage<false, false>(acc, sa, sb);
   }
+  // P = 3: the (0, 0) pass, the last, promoted every PROMOTE stages
+  __device__ void after_stage(const TileItem& it, int k,
+                              float (&acc)[2][64]) const {
+    if constexpr (P == 3 && PROMOTE > 0) {
+      const int r = k - (it.nk - it.nks);        // stage in the pass
+      const bool last = k == it.nk - 1;
+      if (r < 0 || ((r + 1) % PROMOTE != 0 && !last)) return;
+      const bool first = r < PROMOTE;
+      if (first && last) return;                 // one sum: nothing to add
+      wg_wait<0>();
+      fence_acc(acc);
+      promote(acc, first, last);
+    }
+  }
   __device__ void init(NoState&) const {}
   __device__ void after(const TileItem&, NoState&, int) const {}
   __device__ void epilogue(const TileItem& it, float (&acc)[2][64],
                            NoState&) const {
+    const size_t plane = (size_t)a.ch.T * a.ch.C;
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -122,17 +331,34 @@ struct CoefJob {
                              (col + c == lab ? o : 0.f)
                        : 0.f;
           }
-          *reinterpret_cast<__nv_bfloat162*>(out + col) =
-              __floats2bfloat162_rn(v[0], v[1]);
+          if constexpr (P == 1) {
+            *reinterpret_cast<__nv_bfloat162*>(out + col) =
+                __floats2bfloat162_rn(v[0], v[1]);
+          } else {
+            __nv_bfloat162 q[3];
+            split3(v[0], q[0].x, q[1].x, q[2].x);
+            split3(v[1], q[0].y, q[1].y, q[2].y);
+#pragma unroll
+            for (int pl = 0; pl < 3; ++pl)
+              *reinterpret_cast<__nv_bfloat162*>(out + pl * plane + col) =
+                  q[pl];
+          }
         }
       }
   }
 };
 
+template <int P>
+struct CoefMaps {
+  CUtensorMap h[P];
+  CUtensorMap w[P];
+};
+
+template <int P>
 __global__ void __launch_bounds__(THREADS, 1)
-ce_coef(const __grid_constant__ CUtensorMap mh,
-        const __grid_constant__ CUtensorMap mw, CoefArgs a, int n_items) {
-  run(CoefJob{&mh, &mw, a, n_items});
+ce_coef(const __grid_constant__ CoefMaps<P> m, CoefArgs a, int n_items) {
+  run<CoefJob<P>, P == 1 ? STAGES : COEF3_STAGES>(
+      CoefJob<P>{m.h, m.w, a, n_items});
 }
 
 // ---- (b) dW and (c) dh ----------------------------------------------------
@@ -143,22 +369,30 @@ struct GradArgs {
   int first;         // first chunk: dh32 is written, not added to
   int last;          // last chunk: with cast, dh goes out in bf16
   int cast;          // 1: dh (last chunk) and dW in bf16, 0: f32
+  int dw_add;        // f32: dW rows are added to, not written
   float* dh32;       // (T, d) f32 sum over the chunks so far
   bf16* dh;          // (T, d) bf16 output with cast
   void* dw;          // (V, d)
 };
 
 struct GradItem {
-  int nk;
+  int nk;            // stages: passes x nks
+  int nks;           // K slices
   int m0, n0;
   bool dh;           // a dh item, else a dW item
 };
 
+template <int P>
+struct GradMaps {
+  CUtensorMap c_k[P];    // coef (T, C) planes, K-major boxes
+  CUtensorMap c_mn[P];   // coef (T, C) planes, MN-major boxes
+  CUtensorMap w_mn[P];   // W (V, d), or the chunk's planes, MN-major boxes
+  CUtensorMap h_mn[P];   // h (T, d), or its planes, MN-major boxes
+};
+
+template <int P>
 struct GradJob {
-  const CUtensorMap* mc_k;   // coef (T, C), K-major boxes
-  const CUtensorMap* mc_mn;  // coef (T, C), MN-major boxes
-  const CUtensorMap* mw_mn;  // W (V, d), MN-major boxes
-  const CUtensorMap* mh_mn;  // h (T, d), MN-major boxes
+  const GradMaps<P>* m;
   GradArgs a;
   int n_dh;                  // item ids: dh items, then dW items
   const int* order;          // item ids, CTA by CTA
@@ -175,23 +409,26 @@ struct GradJob {
     if (it.dh) {
       it.m0 = (p % a.ch.n_tt) * BM;
       it.n0 = (p / a.ch.n_tt) * BN;
-      it.nk = (a.ch.valid + BK - 1) / BK;
+      it.nks = (a.ch.valid + BK - 1) / BK;
     } else {
       const int q = p - n_dh;
       it.n0 = (q % a.n_dt) * BN;
       it.m0 = (q / a.n_dt) * BM;
-      it.nk = (a.ch.T + BK - 1) / BK;
+      it.nks = (a.ch.T + BK - 1) / BK;
     }
+    it.nk = passes<P>() * it.nks;
     return it;
   }
   __device__ void load(const GradItem& it, int k, uint32_t sa, uint32_t sb,
                        uint64_t* bar) const {
+    int ks, pa, pb;
+    stage_of<P>(k, it.nks, ks, pa, pb);
     if (it.dh) {
-      load_slice(mc_k, false, sa, bar, it.m0, k * BK);
-      load_slice(mw_mn, true, sb, bar, it.n0, a.ch.c0 + k * BK);
+      load_slice(&m->c_k[pa], false, sa, bar, it.m0, ks * BK);
+      load_slice(&m->w_mn[pb], true, sb, bar, it.n0, a.ch.w0 + ks * BK);
     } else {
-      load_slice(mc_mn, true, sa, bar, it.m0, k * BK);
-      load_slice(mh_mn, true, sb, bar, it.n0, k * BK);
+      load_slice(&m->c_mn[pa], true, sa, bar, it.m0, ks * BK);
+      load_slice(&m->h_mn[pb], true, sb, bar, it.n0, ks * BK);
     }
   }
   __device__ void mma(const GradItem& it, float (&acc)[2][64], uint32_t sa,
@@ -201,6 +438,7 @@ struct GradJob {
     else
       mma_stage<true, true>(acc, sa, sb);
   }
+  __device__ void after_stage(const GradItem&, int, float (&)[2][64]) const {}
   __device__ void init(NoState&) const {}
   __device__ void after(const GradItem&, NoState&, int) const {}
   __device__ void epilogue(const GradItem& it, float (&acc)[2][64],
@@ -237,12 +475,25 @@ struct GradJob {
         } else {
           if (r >= a.ch.valid) continue;
           const size_t off = (size_t)(a.ch.c0 + r) * d;
+          float2 old[16];
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int col = it.n0 + acc_col(j);
+            old[j] = P == 3 && a.dw_add && col < d
+                         ? *reinterpret_cast<const float2*>(
+                               static_cast<const float*>(a.dw) + off + col)
+                         : make_float2(0.f, 0.f);
+          }
 #pragma unroll
           for (int j = 0; j < 16; ++j) {
             const int col = it.n0 + acc_col(j);
             if (col >= d) continue;
-            const float x = acc[h][4 * j + 2 * e];
-            const float y = acc[h][4 * j + 2 * e + 1];
+            float x = acc[h][4 * j + 2 * e];
+            float y = acc[h][4 * j + 2 * e + 1];
+            if (P == 3 && a.dw_add) {
+              x += old[j].x;
+              y += old[j].y;
+            }
             if (a.cast)
               *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.dw) +
                                                  off + col) =
@@ -256,13 +507,115 @@ struct GradJob {
   }
 };
 
+template <int P>
 __global__ void __launch_bounds__(THREADS, 1)
-ce_grad(const __grid_constant__ CUtensorMap mc_k,
-        const __grid_constant__ CUtensorMap mc_mn,
-        const __grid_constant__ CUtensorMap mw_mn,
-        const __grid_constant__ CUtensorMap mh_mn, GradArgs a, int n_dh,
+ce_grad(const __grid_constant__ GradMaps<P> m, GradArgs a, int n_dh,
         const int* order, const int* start) {
-  run(GradJob{&mc_k, &mc_mn, &mw_mn, &mh_mn, a, n_dh, order, start});
+  run(GradJob<P>{&m, a, n_dh, order, start});
+}
+
+struct Launch {
+  const void *h, *w, *labels, *lse, *gn, *go;
+  int T, V, d, C, grid, cast, dw_add;
+  const void *order_full, *start_full, *order_last, *start_last;
+  int grid_full, grid_last;
+  void *scratch, *dh32, *dh, *dw, *h_planes, *w_planes;
+  cudaStream_t st;
+};
+
+// The maps of P planes of a (rows, inner) bf16 matrix, `stride` elements
+// apart.
+template <int P>
+int plane_maps(CUtensorMap* maps, const void* base, uint64_t inner,
+               uint64_t rows, bool mn) {
+  for (int q = 0; q < P; ++q)
+    if (make_map(&maps[q], static_cast<const bf16*>(base) + q * inner * rows,
+                 inner, rows, mn))
+      return ERR_TENSOR_MAP;
+  return 0;
+}
+
+template <int P>
+int launch(const Launch& L) {
+  // P = 1 reads h and W in place; P = 3 their planes, dp columns wide
+  const int dp = P == 1 ? L.d : (L.d + BK - 1) / BK * BK;
+  const void* h = P == 1 ? L.h : L.h_planes;
+  const void* w = P == 1 ? L.w : L.w_planes;
+  const int w_rows = P == 1 ? L.V : L.C;
+  CoefMaps<P> cm;
+  GradMaps<P> gm;
+  if (plane_maps<P>(cm.h, h, dp, L.T, false) ||
+      plane_maps<P>(cm.w, w, dp, w_rows, false) ||
+      plane_maps<P>(gm.c_k, L.scratch, L.C, L.T, false) ||
+      plane_maps<P>(gm.c_mn, L.scratch, L.C, L.T, true) ||
+      plane_maps<P>(gm.w_mn, w, dp, w_rows, true) ||
+      plane_maps<P>(gm.h_mn, h, dp, L.T, true))
+    return ERR_TENSOR_MAP;
+  cudaError_t err = cudaFuncSetAttribute(
+      ce_coef<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)coef_smem_bytes<P>());
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(ce_grad<P>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  if (P == 3) {
+    ce_split<<<split_grid((size_t)L.T * dp / 4), 256, 0, L.st>>>(
+        static_cast<const float*>(L.h), L.T, L.d, L.T, dp,
+        static_cast<bf16*>(L.h_planes));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int n_tt = (L.T + BM - 1) / BM;
+  const int n_dt = (L.d + BN - 1) / BN;
+  for (int c0 = 0; c0 < L.V; c0 += L.C) {
+    Chunk ch;
+    ch.T = L.T;
+    ch.V = L.V;
+    ch.d = L.d;
+    ch.C = L.C;
+    ch.c0 = c0;
+    ch.w0 = P == 1 ? c0 : 0;
+    ch.valid = std::min(L.C, L.V - c0);
+    ch.n_tt = n_tt;
+    if (P == 3) {
+      ce_split<<<split_grid((size_t)L.C * dp / 4), 256, 0, L.st>>>(
+          static_cast<const float*>(L.w) + (size_t)c0 * L.d, ch.valid, L.d,
+          L.C, dp, static_cast<bf16*>(L.w_planes));
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    CoefArgs ca;
+    ca.ch = ch;
+    ca.labels = static_cast<const int*>(L.labels);
+    ca.lse = static_cast<const float*>(L.lse);
+    ca.gn = static_cast<const float*>(L.gn);
+    ca.go = static_cast<const float*>(L.go);
+    ca.coef = static_cast<bf16*>(L.scratch);
+    const int n_coef = n_tt * ((ch.valid + BN - 1) / BN);
+    ce_coef<P><<<std::min(L.grid, n_coef), THREADS, coef_smem_bytes<P>(),
+                 L.st>>>(cm, ca, n_coef);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    GradArgs ga;
+    ga.ch = ch;
+    ga.n_dt = n_dt;
+    ga.first = c0 == 0;
+    ga.last = c0 + L.C >= L.V;
+    ga.cast = L.cast;
+    ga.dw_add = L.dw_add;
+    ga.dh32 = static_cast<float*>(L.dh32);
+    ga.dh = static_cast<bf16*>(L.dh);
+    ga.dw = L.dw;
+    ce_grad<P><<<ga.last ? L.grid_last : L.grid_full, THREADS, SMEM_BYTES,
+                 L.st>>>(
+        gm, ga, n_tt * n_dt,
+        static_cast<const int*>(ga.last ? L.order_last : L.order_full),
+        static_cast<const int*>(ga.last ? L.start_last : L.start_full));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -270,70 +623,33 @@ ce_grad(const __grid_constant__ CUtensorMap mc_k,
 // Schedule from the wrapper (fused_ce.py::bwd_schedule): chunk columns C,
 // grid CTAs for ce_coef; ce_grad's item lists (fused_ce.py::grad_order) for
 // a full chunk and for the last chunk, each over its own grid of CTAs.
-// scratch: (T, C) bf16; dh32: (T, d) f32, the dh output itself with
+// scratch: (P, T, C) bf16; dh32: (T, d) f32, the dh output itself with
 // cast = 0; dh: (T, d) bf16 with cast != 0 (unused otherwise); dw: (V, d),
-// bf16 with cast != 0, else f32.
-extern "C" int fused_ce_bwd_launch(const void* h, const void* w,
-                                   const void* labels, const void* lse,
-                                   const void* gn, const void* go, int T,
-                                   int V, int d, int C, int grid, int cast,
-                                   const void* order_full,
-                                   const void* start_full, int grid_full,
-                                   const void* order_last,
-                                   const void* start_last, int grid_last,
-                                   void* scratch, void* dh32, void* dh,
-                                   void* dw, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  CUtensorMap mh_k, mw_k, mc_k, mc_mn, mw_mn, mh_mn;
-  if (make_map(&mh_k, h, d, T, false) || make_map(&mw_k, w, d, V, false) ||
-      make_map(&mc_k, scratch, C, T, false) ||
-      make_map(&mc_mn, scratch, C, T, true) ||
-      make_map(&mw_mn, w, d, V, true) || make_map(&mh_mn, h, d, T, true))
-    return ERR_TENSOR_MAP;
-  cudaError_t err = cudaFuncSetAttribute(
-      ce_coef, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      ce_grad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const int n_tt = (T + BM - 1) / BM;
-  const int n_dt = (d + BN - 1) / BN;
-  for (int c0 = 0; c0 < V; c0 += C) {
-    Chunk ch;
-    ch.T = T;
-    ch.V = V;
-    ch.d = d;
-    ch.C = C;
-    ch.c0 = c0;
-    ch.valid = std::min(C, V - c0);
-    ch.n_tt = n_tt;
-    CoefArgs ca;
-    ca.ch = ch;
-    ca.labels = static_cast<const int*>(labels);
-    ca.lse = static_cast<const float*>(lse);
-    ca.gn = static_cast<const float*>(gn);
-    ca.go = static_cast<const float*>(go);
-    ca.coef = static_cast<bf16*>(scratch);
-    const int n_coef = n_tt * ((ch.valid + BN - 1) / BN);
-    ce_coef<<<std::min(grid, n_coef), THREADS, SMEM_BYTES, st>>>(mh_k, mw_k, ca,
-                                                           n_coef);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    GradArgs ga;
-    ga.ch = ch;
-    ga.n_dt = n_dt;
-    ga.first = c0 == 0;
-    ga.last = c0 + C >= V;
-    ga.cast = cast;
-    ga.dh32 = static_cast<float*>(dh32);
-    ga.dh = static_cast<bf16*>(dh);
-    ga.dw = dw;
-    ce_grad<<<ga.last ? grid_last : grid_full, THREADS, SMEM_BYTES, st>>>(
-        mc_k, mc_mn, mw_mn, mh_mn, ga, n_tt * n_dt,
-        static_cast<const int*>(ga.last ? order_last : order_full),
-        static_cast<const int*>(ga.last ? start_last : start_full));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+// bf16 with cast != 0, else f32. f32 != 0: h and w are f32 (cast must be
+// 0), h_planes (3, T, dp) and w_planes (3, C, dp) bf16 buffers, dp = d
+// rounded up to 64, and dw_add != 0 adds dW to the f32 dw given (the
+// wrapper's token slices); f32 = 0: h and w are bf16, the plane buffers
+// unused, dw_add 0.
+extern "C" int fused_ce_bwd_launch(
+    const void* h, const void* w, const void* labels, const void* lse,
+    const void* gn, const void* go, int T, int V, int d, int C, int grid,
+    int cast, int dw_add, const void* order_full, const void* start_full,
+    int grid_full, const void* order_last, const void* start_last,
+    int grid_last, void* scratch, void* dh32, void* dh, void* dw,
+    void* h_planes, void* w_planes, int f32, void* stream) {
+  const Launch L{h, w, labels, lse, gn, go, T, V, d, C, grid, cast, dw_add,
+                 order_full, start_full, order_last, start_last, grid_full,
+                 grid_last, scratch, dh32, dh, dw, h_planes, w_planes,
+                 static_cast<cudaStream_t>(stream)};
+  return f32 ? launch<3>(L) : launch<1>(L);
+}
+
+// The split alone (fused_ce.py::planes_launch): out (3, rows, dp) bf16 =
+// the planes of x (R rows of d f32), zeros past R and d.
+extern "C" int ce_split_launch(const void* x, int R, int d, int rows, int dp,
+                               void* out, void* stream) {
+  ce_split<<<split_grid((size_t)rows * dp / 4), 256, 0,
+             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), R, d, rows, dp, static_cast<bf16*>(out));
+  return (int)cudaGetLastError();
 }

@@ -1,119 +1,77 @@
-// Streaming softmax cross-entropy at f32, forward and backward, on the CUDA
-// cores: per token the LSE over the vocabulary and the label's score, and
-// dh (T, d), dW (V, d) of g_nll . nll + g_lse . lse, without writing the
-// (T, V) logits.
+// Streaming softmax cross-entropy at f32, forward, on the CUDA cores: per
+// token the LSE over the vocabulary and the label's score, without writing
+// the (T, V) logits.
 //
-// Replaces the TPU kernels src/repro/kernels/fused_ce.py::fused_ce_fwd and
-// fused_ce_bwd (_fwd_kernel, _bwd_kernel) for f32 h and W; bf16 runs on the
-// tensor cores (fused_ce_fwd.cu, fused_ce_bwd.cu). Those read W and h
-// MN-major for dh = coef W and dW = coef^T h, which wgmma does only for
-// 16-bit types, so a tensor-float-32 wgmma could not run these products in
-// place; and TF32 would round h and W, which the f32 reference does not.
+// Replaces the TPU kernel src/repro/kernels/fused_ce.py::fused_ce_fwd
+// (_fwd_kernel) for f32 h and W; bf16 runs on the tensor cores
+// (fused_ce_fwd.cu). The f32 backward runs on the tensor cores too, on
+// exact bf16 planes of its operands (fused_ce_bwd.cu).
 //
 // Bound on this card: operations, at the f32 rate outside the tensor
-// cores. qwen1.5-4b at T = 1024: 2 T V d = 0.80 TFLOP forward, about 12 ms
-// at 67 TFLOP/s, and three times that backward.
+// cores. qwen1.5-4b at T = 1024: 2 T V d = 0.80 TFLOP, about 12 ms at 67
+// TFLOP/s.
 //
-// Design: one register-tiled FFMA product, gemm_tile<TILE>: TILE x TILE
-// output tiles of 256 threads (16 x 16), a (TILE/16) x (TILE/16) micro-tile
-// each, in two halves 64 rows (columns) apart so that a thread reads its
-// rows and columns of a step as float4s without bank conflicts. Slices of
-// 1024 / TILE along K are staged in shared memory with m (or n)
-// contiguous; each thread loads one float4 of each operand a slice, the
-// next slice's into registers while the current one is multiplied. Either
-// operand is read K-major (K contiguous in memory) or MN-major, in place.
-// TILE is 128 (8 x 8 a thread) where the grid has many tiles and 64 for
-// dh, whose T x d output has only 160 tiles of 128 at T 1024.
-//  forward: CTAs (vocab split, token tile) walk their split's vocab tiles
-//    in order with an online (m, s, label score) per token; the 16 threads
-//    of a row share its max by shuffles. Each CTA writes one partial per
-//    token, merged over the splits in a fixed order.
-//  backward: the vocabulary is walked in chunks of C columns (the wrapper's
-//    schedule: (T, C) f32 <= 32 MB). For each chunk in order: coef =
-//    (g_nll + g_lse) softmax - g_nll onehot(label) into a (T, C) f32
-//    scratch (no rounding: at f32 the reference's coef.astype(w.dtype) is
-//    exact); dW[chunk] = coef^T h, its rows written once; dh (+)= coef
-//    W[chunk], one owner per element, chunks in order. No float atomics,
-//    so two calls are bit-equal.
+// Design: one register-tiled FFMA product, gemm_tile: BIG x BIG (128 x
+// 128) output tiles of 256 threads (16 x 16), an 8 x 8 micro-tile each, in
+// two halves 64 rows (columns) apart so that a thread reads its rows and
+// columns of a step as float4s without bank conflicts. Slices of 8 along
+// K are staged in shared memory with m (or n) contiguous; each thread
+// loads one float4 of each operand a slice (K-major: K contiguous in
+// memory), the next slice's into registers while the current one is
+// multiplied. CTAs (vocab split, token tile) walk their split's vocab
+// tiles in order with an online (m, s, label score) per token; the 16
+// threads of a row share its max by shuffles. Each CTA writes one partial
+// per token, merged over the splits in a fixed order, so two calls are
+// bit-equal.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BIG = 128;      // output tile of the forward, coef and dW
-constexpr int SMALL = 64;     // output tile of dh
+constexpr int BIG = 128;      // output tile
+constexpr int TK = 1024 / BIG;  // depth of a slice: one float4 a thread
+constexpr int MT = BIG / 16;    // outputs a thread, each way
 constexpr int PAD = 4;        // keeps float4 alignment, spreads banks
 constexpr int THREADS = 256;  // 16 x 16 threads
 constexpr float NEG = -1e30f;
 
-template <int TILE>
-struct Tiles {
-  static constexpr int TK = 1024 / TILE;   // depth of a slice: one float4
-  static constexpr int MT = TILE / 16;     // outputs a thread, each way
-  using Slice = float[TK][TILE + PAD];
-};
+using Slice = float[TK][BIG + PAD];
 
-// X(r, k) of an operand with `rows` rows and depth K: X[r * ld + k]
-// (K-major) or X[k * ld + r] (MN-major). Rows and depths past the edge
-// read as 0.
+// X(r, k) = X[r * ld + k] of a K-major operand with `rows` rows and depth
+// K. Rows and depths past the edge read as 0.
 struct Operand {
   const float* p;
   int rows, K, ld;
-  bool mn;
 };
 
-// This thread's float4 of the slice rows [r0, r0 + TILE) x depths
-// [k0, k0 + TK) of op: 4 rows of one depth (MN-major) or 4 depths of one
-// row (K-major).
-template <int TILE>
+// This thread's float4 of the slice rows [r0, r0 + BIG) x depths
+// [k0, k0 + TK) of op: 4 depths of one row.
 __device__ __forceinline__ float4 fetch(const Operand& op, int r0, int k0) {
-  constexpr int TK = Tiles<TILE>::TK;
   const int t = threadIdx.x;
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (op.mn) {
-    const int gk = k0 + t / (TILE / 4), gr = r0 + (t % (TILE / 4)) * 4;
-    if (gk < op.K) {
-      const float* src = op.p + (size_t)gk * op.ld + gr;
-      if (gr + 3 < op.rows) {
-        v = __ldg(reinterpret_cast<const float4*>(src));
-      } else {
-        v.x = gr < op.rows ? src[0] : 0.f;
-        v.y = gr + 1 < op.rows ? src[1] : 0.f;
-        v.z = gr + 2 < op.rows ? src[2] : 0.f;
-      }
-    }
-  } else {
-    const int gr = r0 + t / (TK / 4), gk = k0 + (t % (TK / 4)) * 4;
-    if (gr < op.rows) {
-      const float* src = op.p + (size_t)gr * op.ld + gk;
-      if (gk + 3 < op.K) {
-        v = __ldg(reinterpret_cast<const float4*>(src));
-      } else {
-        v.x = gk < op.K ? src[0] : 0.f;
-        v.y = gk + 1 < op.K ? src[1] : 0.f;
-        v.z = gk + 2 < op.K ? src[2] : 0.f;
-      }
+  const int gr = r0 + t / (TK / 4), gk = k0 + (t % (TK / 4)) * 4;
+  if (gr < op.rows) {
+    const float* src = op.p + (size_t)gr * op.ld + gk;
+    if (gk + 3 < op.K) {
+      v = __ldg(reinterpret_cast<const float4*>(src));
+    } else {
+      v.x = gk < op.K ? src[0] : 0.f;
+      v.y = gk + 1 < op.K ? src[1] : 0.f;
+      v.z = gk + 2 < op.K ? src[2] : 0.f;
     }
   }
   return v;
 }
 
-// Stores this thread's float4 of fetch<TILE> into the slice, s[k][r].
-template <int TILE>
-__device__ __forceinline__ void put(bool mn, float4 v,
-                                    typename Tiles<TILE>::Slice& s) {
-  constexpr int TK = Tiles<TILE>::TK;
+// Stores this thread's float4 of fetch into the slice, s[k][r].
+__device__ __forceinline__ void put(float4 v, Slice& s) {
   const int t = threadIdx.x;
-  if (mn) {
-    *reinterpret_cast<float4*>(&s[t / (TILE / 4)][(t % (TILE / 4)) * 4]) = v;
-  } else {
-    const int r = t / (TK / 4), k = (t % (TK / 4)) * 4;
-    s[k][r] = v.x;
-    s[k + 1][r] = v.y;
-    s[k + 2][r] = v.z;
-    s[k + 3][r] = v.w;
-  }
+  const int r = t / (TK / 4), k = (t % (TK / 4)) * 4;
+  s[k][r] = v.x;
+  s[k + 1][r] = v.y;
+  s[k + 2][r] = v.z;
+  s[k + 3][r] = v.w;
 }
 
 // The tile row (or column) of this thread's i-th output along one way, for
@@ -124,25 +82,23 @@ __device__ __forceinline__ int at(int i, int c) {
 
 // acc[i][j] = sum_k A(m0 + at(i, ty), k) B(n0 + at(j, tx), k), k ascending,
 // with ty = threadIdx.x / 16, tx = threadIdx.x % 16.
-template <int TILE>
-__device__ __forceinline__ void gemm_tile(
-    const Operand& A, const Operand& B, int m0, int n0,
-    float (&acc)[Tiles<TILE>::MT][Tiles<TILE>::MT],
-    typename Tiles<TILE>::Slice& sa, typename Tiles<TILE>::Slice& sb) {
-  constexpr int TK = Tiles<TILE>::TK, MT = Tiles<TILE>::MT;
+__device__ __forceinline__ void gemm_tile(const Operand& A, const Operand& B,
+                                          int m0, int n0,
+                                          float (&acc)[MT][MT], Slice& sa,
+                                          Slice& sb) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < MT; ++j) acc[i][j] = 0.f;
-  float4 ra = fetch<TILE>(A, m0, 0), rb = fetch<TILE>(B, n0, 0);
+  float4 ra = fetch(A, m0, 0), rb = fetch(B, n0, 0);
   for (int k0 = 0; k0 < A.K; k0 += TK) {
-    put<TILE>(A.mn, ra, sa);
-    put<TILE>(B.mn, rb, sb);
+    put(ra, sa);
+    put(rb, sb);
     __syncthreads();
     if (k0 + TK < A.K) {               // the next slice, during this one
-      ra = fetch<TILE>(A, m0, k0 + TK);
-      rb = fetch<TILE>(B, n0, k0 + TK);
+      ra = fetch(A, m0, k0 + TK);
+      rb = fetch(B, n0, k0 + TK);
     }
 #pragma unroll
     for (int k = 0; k < TK; ++k) {
@@ -190,12 +146,11 @@ ce_f32_fwd_partial(const float* __restrict__ h, const float* __restrict__ w,
                    const int* __restrict__ labels, int T, int V, int d,
                    int per, float* __restrict__ part_m,
                    float* __restrict__ part_s, float* __restrict__ part_p) {
-  constexpr int MT = Tiles<BIG>::MT;
-  __shared__ __align__(16) Tiles<BIG>::Slice sa;
-  __shared__ __align__(16) Tiles<BIG>::Slice sb;
+  __shared__ __align__(16) Slice sa;
+  __shared__ __align__(16) Slice sb;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int m0 = blockIdx.y * BIG;
-  const Operand A{h, T, d, d, false}, B{w, V, d, d, false};
+  const Operand A{h, T, d, d}, B{w, V, d, d};
   int lab[MT];
   float m[MT], s[MT], p[MT];
 #pragma unroll
@@ -210,7 +165,7 @@ ce_f32_fwd_partial(const float* __restrict__ h, const float* __restrict__ w,
   const int vt1 = min(n_vt, (int)(blockIdx.x + 1) * per);
   for (int vt = blockIdx.x * per; vt < vt1; ++vt) {
     float acc[MT][MT];
-    gemm_tile<BIG>(A, B, m0, vt * BIG, acc, sa, sb);
+    gemm_tile(A, B, m0, vt * BIG, acc, sa, sb);
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
       float mx = -INFINITY;
@@ -268,94 +223,6 @@ __global__ void ce_f32_fwd_merge(int T, int n_split,
   nll[t] = l - p;
 }
 
-// ---- backward -------------------------------------------------------------------
-
-// coef of the chunk's columns [c0, c0 + valid) into scratch (T, C);
-// grid (column tiles of the chunk, token tiles).
-__global__ void __launch_bounds__(THREADS)
-ce_f32_coef(const float* __restrict__ h, const float* __restrict__ w,
-            const int* __restrict__ labels, const float* __restrict__ lse,
-            const float* __restrict__ gn, const float* __restrict__ go,
-            int T, int d, int C, int c0, int valid,
-            float* __restrict__ coef) {
-  constexpr int MT = Tiles<BIG>::MT;
-  __shared__ __align__(16) Tiles<BIG>::Slice sa;
-  __shared__ __align__(16) Tiles<BIG>::Slice sb;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int m0 = blockIdx.y * BIG, n0 = blockIdx.x * BIG;
-  const Operand A{h, T, d, d, false};
-  const Operand B{w + (size_t)c0 * d, valid, d, d, false};
-  float acc[MT][MT];
-  gemm_tile<BIG>(A, B, m0, n0, acc, sa, sb);
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int row = m0 + at(i, ty);
-    if (row >= T) continue;
-    const int lab = labels[row];
-    const float l = lse[row], g = gn[row], o = go[row];
-#pragma unroll
-    for (int j = 0; j < MT; ++j) {
-      const int col = n0 + at(j, tx);
-      if (col >= valid) continue;
-      float x = expf(acc[i][j] - l) * g;
-      if (c0 + col == lab) x -= o;
-      coef[(size_t)row * C + col] = x;
-    }
-  }
-}
-
-// dW[c0 + c, j] = sum_t coef[t, c] h[t, j]; grid (d tiles, column tiles).
-__global__ void __launch_bounds__(THREADS)
-ce_f32_dw(const float* __restrict__ coef, const float* __restrict__ h,
-          int T, int d, int C, int c0, int valid, float* __restrict__ dw) {
-  constexpr int MT = Tiles<BIG>::MT;
-  __shared__ __align__(16) Tiles<BIG>::Slice sa;
-  __shared__ __align__(16) Tiles<BIG>::Slice sb;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int m0 = blockIdx.y * BIG, n0 = blockIdx.x * BIG;
-  const Operand A{coef, valid, T, C, true}, B{h, d, T, d, true};
-  float acc[MT][MT];
-  gemm_tile<BIG>(A, B, m0, n0, acc, sa, sb);
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int r = m0 + at(i, ty);
-    if (r >= valid) continue;
-#pragma unroll
-    for (int j = 0; j < MT; ++j) {
-      const int col = n0 + at(j, tx);
-      if (col < d) dw[(size_t)(c0 + r) * d + col] = acc[i][j];
-    }
-  }
-}
-
-// dh[t, j] (+)= sum_c coef[t, c] W[c0 + c, j]; grid (d tiles, token tiles).
-__global__ void __launch_bounds__(THREADS)
-ce_f32_dh(const float* __restrict__ coef, const float* __restrict__ w,
-          int T, int d, int C, int c0, int valid, int first,
-          float* __restrict__ dh) {
-  constexpr int MT = Tiles<SMALL>::MT;
-  __shared__ __align__(16) Tiles<SMALL>::Slice sa;
-  __shared__ __align__(16) Tiles<SMALL>::Slice sb;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int m0 = blockIdx.y * SMALL, n0 = blockIdx.x * SMALL;
-  const Operand A{coef, T, valid, C, false};
-  const Operand B{w + (size_t)c0 * d, d, valid, d, true};
-  float acc[MT][MT];
-  gemm_tile<SMALL>(A, B, m0, n0, acc, sa, sb);
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int row = m0 + at(i, ty);
-    if (row >= T) continue;
-#pragma unroll
-    for (int j = 0; j < MT; ++j) {
-      const int col = n0 + at(j, tx);
-      if (col >= d) continue;
-      float* dst = dh + (size_t)row * d + col;
-      *dst = first ? acc[i][j] : *dst + acc[i][j];
-    }
-  }
-}
-
 }  // namespace
 
 // part_m / part_s / part_p: (n_split, T) f32 each; per: vocab tiles of 128
@@ -380,37 +247,4 @@ extern "C" int fused_ce_f32_fwd_launch(const void* h, const void* w,
       static_cast<const float*>(part_s), static_cast<const float*>(part_p),
       static_cast<float*>(nll), static_cast<float*>(lse));
   return (int)cudaGetLastError();
-}
-
-// gn = g_nll + g_lse, go = g_nll; scratch (T, C) f32, C a multiple of 128.
-extern "C" int fused_ce_f32_bwd_launch(const void* h, const void* w,
-                                       const void* labels, const void* lse,
-                                       const void* gn, const void* go, int T,
-                                       int V, int d, int C, void* scratch,
-                                       void* dh, void* dw, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  auto hf = static_cast<const float*>(h);
-  auto wf = static_cast<const float*>(w);
-  auto cf = static_cast<float*>(scratch);
-  const int n_tt = (T + BIG - 1) / BIG, n_dt = (d + BIG - 1) / BIG;
-  const dim3 dh_grid((d + SMALL - 1) / SMALL, (T + SMALL - 1) / SMALL);
-  for (int c0 = 0; c0 < V; c0 += C) {
-    const int valid = V - c0 < C ? V - c0 : C;
-    const int n_ct = (valid + BIG - 1) / BIG;
-    ce_f32_coef<<<dim3(n_ct, n_tt), THREADS, 0, st>>>(
-        hf, wf, static_cast<const int*>(labels),
-        static_cast<const float*>(lse), static_cast<const float*>(gn),
-        static_cast<const float*>(go), T, d, C, c0, valid, cf);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    ce_f32_dw<<<dim3(n_dt, n_ct), THREADS, 0, st>>>(
-        cf, hf, T, d, C, c0, valid, static_cast<float*>(dw));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    ce_f32_dh<<<dh_grid, THREADS, 0, st>>>(cf, wf, T, d, C, c0, valid,
-                                           c0 == 0, static_cast<float*>(dh));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
 }

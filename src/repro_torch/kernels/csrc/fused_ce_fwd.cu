@@ -99,6 +99,7 @@ struct FwdJob {
                       uint32_t sb) const {
     mma_stage<false, false>(acc, sa, sb);
   }
+  __device__ void after_stage(const FwdItem&, int, float (&)[2][64]) const {}
   __device__ void init(FwdState& st) const {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {

@@ -25,7 +25,8 @@
 // the transpose bits, so nothing is transposed in memory. TMA fills reads
 // past the tensor's edge with zeros, so ragged T, V and d need no padding.
 //
-// Shared memory: STAGES x 32 KB (+1 KB for alignment), one CTA per SM.
+// Shared memory: STAGES x 32 KB (+1 KB for alignment), one CTA per SM; a
+// Job may take a shallower ring and shared memory of its own beside it.
 #pragma once
 
 #include <cuda.h>
@@ -258,19 +259,23 @@ __device__ __forceinline__ void order_wait(int wg) {
 //   Item item(Cursor) has `nk`, the number of K stages of the item (>= 1);
 //   load(item, k, sa, sb, bar) issues stage k's TMA loads;
 //   mma(item, acc, sa, sb) runs one stage (mma_stage with its layouts);
+//   after_stage(item, k, acc) runs once stage k has been issued and the
+//     stage before it handed back (stage k's wgmma may still run);
 //   init(State&), epilogue(item, acc, State&) and after(item, State&, wg)
 //     run in the consumers: the epilogue on the consumer's own items, and
 //     `after` on every item of the walk.
-template <class Job>
+// NST is the depth of the ring (STAGES unless the Job needs shared memory
+// of its own beside it, past NST x STAGE_BYTES from the aligned base).
+template <class Job, int NST = STAGES>
 __device__ __forceinline__ void run(const Job& job) {
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[STAGES];
-  __shared__ __align__(8) uint64_t empty[STAGES];
+  __shared__ __align__(8) uint64_t full[NST];
+  __shared__ __align__(8) uint64_t empty[NST];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < NST; ++s) {
       bar_init(&full[s], 1);
       bar_init(&empty[s], 4);          // lane 0 of each consumer warp
     }
@@ -284,8 +289,8 @@ __device__ __forceinline__ void run(const Job& job) {
       for (auto c = job.begin(); job.valid(c); job.advance(c)) {
         const auto item = job.item(c);
         for (int k = 0; k < item.nk; ++k, ++it) {
-          const int s = it % STAGES;
-          bar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          const int s = it % NST;
+          bar_wait(&empty[s], ((it / NST) & 1) ^ 1);
           bar_expect_tx(&full[s], STAGE_BYTES);
           const uint32_t sa = base + s * STAGE_BYTES;
           job.load(item, k, sa, sa + TILE_BYTES, &full[s]);
@@ -315,22 +320,23 @@ __device__ __forceinline__ void run(const Job& job) {
           for (int r = 0; r < 64; ++r) acc[h][r] = 0.f;
         for (int k = 0; k < item.nk; ++k) {
           const uint32_t u = it + k;
-          const int s = u % STAGES;
-          bar_wait(&full[s], (u / STAGES) & 1);
+          const int s = u % NST;
+          bar_wait(&full[s], (u / NST) & 1);
           const uint32_t sa = base + s * STAGE_BYTES;
           job.mma(item, acc, sa, sa + TILE_BYTES);
           wg_wait<1>();                  // the previous stage's group is done
           if (k > 0) {
             __syncwarp();
-            if ((threadIdx.x & 31) == 0) bar_arrive(&empty[(u - 1) % STAGES]);
+            if ((threadIdx.x & 31) == 0) bar_arrive(&empty[(u - 1) % NST]);
           }
+          job.after_stage(item, k, acc);
         }
         if (job.valid(next)) order_signal(wg);
         wg_wait<0>();
         fence_acc(acc);
         __syncwarp();
         if ((threadIdx.x & 31) == 0)
-          bar_arrive(&empty[(it + item.nk - 1) % STAGES]);
+          bar_arrive(&empty[(it + item.nk - 1) % NST]);
         job.epilogue(item, acc, st);
       }
       it += item.nk;

@@ -31,11 +31,20 @@ boundary rounds one bf16 step (at most 2**-7 relative) apart. dh and dW
 element dominated by one term can reach, and on average over the elements
 to GRAD_MEAN = 2**-10, which a missing or misplaced tile would exceed.
 
-The f32 fused CE pair (``csrc/fused_ce_f32.cu``) rounds nothing: its dh
-and dW are held to F32_GRAD_REL = 1e-4 of the sum of their terms'
-magnitudes per element and F32_GRAD_MEAN = 1e-5 on average (f32 scores,
-exp and sums in another order than the plain version's; about 1e-6 is
-expected), 78x tighter than the bf16 pair's limit.
+The f32 fused CE kernels round nothing: the forward (``csrc/fused_ce_f32.cu``)
+runs on the CUDA cores, and the backward on the tensor cores on exact bf16
+planes of its f32 operands (``split_planes``, whose six largest pair
+products drop terms of order 2**-24). Its dh and dW are held to
+F32_GRAD_REL = 1e-4 of the sum of their terms' magnitudes per element and
+F32_GRAD_MEAN = 1e-5 on average (f32 scores, exp and sums in another order
+than the plain version's; about 1e-6 is expected), 78x tighter than the
+bf16 pair's limit, at widths d that are a multiple of 4 but not of 32, and
+across the f32 chunk's edges, and at T 4096 and 16384, where the f32
+backward runs in token slices of at most F32_MAX_DEPTH tokens whose dW
+add up in f32 (also at small slices, through ``bwd_launch(depth=)``), and
+against float64 at logits up to about N(0, 64). The
+split kernel gives ``split_planes``'s bits, zeros past the rows and
+columns it is given.
 
 These tests need a GPU and skip without one. On the GPU machine, which has
 no JAX, run them without the repository's conftest:
@@ -50,7 +59,8 @@ from repro_torch.kernels.fmbe import (PACK_TILE, fmbe_pack, fmbe_phi,
                                      pack_layout)
 from repro_torch.kernels.fused_ce import (bwd_launch, bwd_schedule, ce_coef,
                                          fused_ce_bwd, fused_ce_bwd_plain,
-                                         fused_ce_fwd, fused_ce_fwd_plain)
+                                         fused_ce_fwd, fused_ce_fwd_plain,
+                                         planes_launch, split_planes)
 from repro_torch.core import lsh as tlsh
 from repro_torch.kernels.ivf_score import (ivf_decode, ivf_decode_plain,
                                           ivf_score, ivf_score_plain,
@@ -475,28 +485,114 @@ def test_fused_ce_matches_plain(gen, t, v, d, selfnorm):
     _check_fused_ce(gen, t, v, d, selfnorm)
 
 
-def _chunk(t):
-    return bwd_schedule(t, 151936)["chunk"]
+def _chunk(t, dtype=torch.bfloat16):
+    return bwd_schedule(t, 151936, dtype)["chunk"]
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [64, D])
-@pytest.mark.parametrize("t,v", [(129, _chunk(129) + 1),
-                                 (1024, _chunk(1024) + 1),
-                                 (1024, 3 * _chunk(1024) - 5)])
-def test_fused_ce_crosses_chunk_edges(gen, t, v, d):
+@pytest.mark.parametrize("t,v", [(129, "C+1"), (1024, "C+1"),
+                                 (1024, "3C-5")])
+def test_fused_ce_crosses_chunk_edges(gen, t, v, d, dtype):
     """V = C + 1 leaves a one-column last chunk (and a 1-row vocab tile);
-    3 C - 5 a ragged one; T = 129 a one-row token tile."""
-    _check_fused_ce(gen, t, v, d, True)
+    3 C - 5 a ragged one; T = 129 a one-row token tile. C is the chunk of
+    the dtype (16384 columns at T 1024 in bf16, 5376 in f32)."""
+    c = _chunk(t, dtype)
+    _check_fused_ce(gen, t, c + 1 if v == "C+1" else 3 * c - 5, d, True,
+                    dtype)
 
 
 @pytest.mark.parametrize("selfnorm", [False, True])
 @pytest.mark.parametrize("t,v,d", [(129, 1000, 64), (129, 151936 - 5, D),
-                                   (1024, 151936, D), (37, 1000, D)])
+                                   (1024, 151936, D), (37, 1000, D),
+                                   (129, 1000, 100), (37, 151936 - 5, 100),
+                                   (1024, 40000, 4), (4096, 151936, D),
+                                   (16384, 32768, D)])
 def test_fused_ce_f32_matches_plain(gen, t, v, d, selfnorm):
-    """The f32 pair (CUDA cores): T 129 leaves a one-row token tile, V
-    1000 and 151931 ragged vocab tiles and a ragged last chunk, labels at 0
-    and V - 1; dh and dW to F32_GRAD_REL of the sum of their terms."""
+    """The f32 kernels (backward on three bf16 planes): T 129 leaves a
+    one-row token tile, V 1000 and 151931 ragged vocab tiles and a ragged
+    last chunk, d 100 and 4 a multiple of 4 but not of 32 (zeros in the
+    planes past d), labels at 0 and V - 1; T 4096 is one train_4k sequence
+    (dW's sums F32_MAX_DEPTH / 2 deep), T 16384 two token slices; dh and dW
+    to F32_GRAD_REL of the sum of their terms."""
     _check_fused_ce(gen, t, v, d, selfnorm, torch.float32)
+
+
+@pytest.mark.parametrize("scale", [1, 2, 4])
+def test_fused_ce_f32_matches_float64(gen, scale):
+    """The f32 backward against float64 at logits about N(0, 4), N(0, 16)
+    and N(0, 64) (W scaled by 1, 2 and 4; T 1024, V 40000, d 2560): dh and
+    dW to F32_GRAD_REL of the sum of their terms, F32_GRAD_MEAN on average.
+    A score's error is its coefficient's relative error, so large logits
+    test how the scores are summed. The plain f32 version itself leaves the
+    mean limit at the largest scale, so the kernel is held to float64."""
+    t = 1024
+    h, w, labels = _ce_inputs(gen, t, 40000, D, torch.float32)
+    w = w * scale
+    lse = fused_ce_fwd(h, w, labels)[1]
+    g_nll = torch.full((t,), 1.0 / t, device="cuda")
+    g_lse = 0.2 * lse / t
+    dh, dw = fused_ce_bwd(h, w, labels, lse, g_nll, g_lse)
+    h64, w64 = h.double(), w.double()
+    coef = torch.exp(h64 @ w64.T - lse.double()[:, None]) \
+        * (g_nll + g_lse).double()[:, None]
+    coef[torch.arange(t, device="cuda"), labels.long()] -= g_nll.double()
+    want_dh, want_dw = coef @ w64, coef.T @ h64
+    coef.abs_()
+    _within_terms("dh", dh.double(), want_dh, coef @ w64.abs(),
+                  F32_GRAD_REL, F32_GRAD_MEAN)
+    _within_terms("dw", dw.double(), want_dw, coef.T @ h64.abs(),
+                  F32_GRAD_REL, F32_GRAD_MEAN)
+
+
+@pytest.mark.parametrize("t,v,d,depth", [(1024, 5000, 100, 400),
+                                         (129, 1000, 64, 64)])
+def test_fused_ce_f32_token_slices(gen, t, v, d, depth):
+    """The f32 backward in token slices of at most ``depth`` tokens (three
+    of 342, 342 and 340; three of 43), each adding its dW to the earlier
+    ones': bit-equal over two calls, dh and dW to F32_GRAD_REL of the sum
+    of their terms of the plain version, and no launch counted."""
+    h, w, labels = _ce_inputs(gen, t, v, d, torch.float32)
+    lse = fused_ce_fwd(h, w, labels)[1]
+    g_nll = torch.full((t,), 1.0 / t, device="cuda")
+    args = (h, w, labels, lse, g_nll, 0.2 * lse / t)
+    before = fused_ce_bwd.launches
+    dh, dw = bwd_launch(*args, depth=depth)
+    dh2, dw2 = bwd_launch(*args, depth=depth)
+    torch.cuda.synchronize()
+    assert fused_ce_bwd.launches == before
+    assert torch.equal(dh, dh2) and torch.equal(dw, dw2)
+    p_dh, p_dw = fused_ce_bwd_plain(*args)
+    coef = ce_coef(*args).abs()
+    _within_terms("dh", dh, p_dh, coef @ w.abs(), F32_GRAD_REL,
+                  F32_GRAD_MEAN)
+    _within_terms("dw", dw, p_dw, coef.T @ h.abs(), F32_GRAD_REL,
+                  F32_GRAD_MEAN)
+
+
+@pytest.mark.parametrize("r,d,rows", [(1024, D, 1024), (5376, D, 5376),
+                                      (1, 4, 64), (129, 100, 200),
+                                      (37, 2564, 37)])
+def test_split_kernel_matches_split_planes(gen, r, d, rows):
+    """The backward's split kernel on values whose magnitudes spread over
+    2**-30 .. 2**30, with +0 and -0: the planes are ``split_planes``'s bit
+    for bit, zeros past the R given rows and past d (to whole 64-column
+    boxes), and sum back to x exactly."""
+    mag = torch.exp2(torch.randint(-30, 31, (r, d), generator=gen,
+                                   device="cuda").float())
+    x = torch.randn(r, d, generator=gen, device="cuda") * mag
+    x.view(-1)[:2] = torch.tensor([0.0, -0.0], device="cuda")
+    got = planes_launch(x, rows)
+    torch.cuda.synchronize()
+    dp = -(-d // 64) * 64
+    assert got.shape == (3, rows, dp) and got.dtype == torch.bfloat16
+    want = torch.zeros_like(got)
+    for q, plane in enumerate(split_planes(x)):
+        want[q, :r, :d] = plane
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    back = (got[0, :r, :d].float() + got[1, :r, :d].float()) \
+        + got[2, :r, :d].float()
+    assert torch.equal(back.view(torch.int32), x.view(torch.int32))
 
 
 @pytest.mark.parametrize("t,v,d", [(129, 1000, 64), (1024, 40000, D)])
@@ -558,6 +654,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(gen):
                      w[:, :48].bfloat16().contiguous(), labels)
     with pytest.raises(ValueError, match="multiple of 4"):
         fused_ce_fwd(h[:, :46].contiguous(), w[:, :46].contiguous(), labels)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        planes_launch(h[:, :46].contiguous())
     with pytest.raises(ValueError, match="per-token"):
         fused_ce_fwd(h.bfloat16(), w.bfloat16(), labels[:3])
     with pytest.raises(ValueError, match="int32"):

@@ -16,6 +16,15 @@ final cast. The chunked decomposition of the CUDA backward
 their own, so its f32 scores differ from the full product's in the last
 bits, and it is held to the same bounds, and to 2**-10 of the sum of the
 terms' magnitudes on average.
+
+At f32 the CUDA backward runs on the bf16 tensor cores on three exact
+bf16 planes of each f32 operand (``split_planes``), summing the six plane
+pairs whose terms are of order 2**-16 or larger (``plane_product``): the
+split is exact bit for bit, the dropped pairs are of order 2**-24 of the
+terms, so the six-pair product in float64 lies within 1e-8 of the sum of
+its terms' magnitudes of the float64 product, and the chunked plane
+decomposition, in token slices too (``token_slices``), is held to the f32
+bounds above.
 """
 import jax
 import jax.numpy as jnp
@@ -26,13 +35,16 @@ import torch
 from repro.kernels import fused_ce as jfce
 from repro.kernels import ops as jops
 from repro_torch.interop import to_tensor
-from repro_torch.kernels.fused_ce import (BK, BM, BN, SCRATCH_BYTES,
+from repro_torch.kernels.fused_ce import (BK, BM, BN, F32_MAX_DEPTH, PAIRS,
+                                         SCRATCH_BYTES,
                                          bwd_schedule, ce_coef,
                                          fused_ce_bwd,
                                          fused_ce_bwd_chunked_plain,
                                          fused_ce_bwd_plain, fused_ce_fwd,
                                          fused_ce_fwd_plain, fwd_schedule,
-                                         grad_items, grad_order)
+                                         grad_items, grad_order,
+                                         plane_product, split_planes,
+                                         token_slices)
 from repro_torch.kernels.ops import fused_ce_ref, fused_cross_entropy
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
@@ -313,3 +325,132 @@ def test_chunked_backward_default_chunk_and_sentinel_labels():
         for g, x in zip(got, want):
             np.testing.assert_allclose(g.numpy(), x.numpy(), rtol=0,
                                        atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(1,), (7, 13), (129, 100), (3, 5, 37)])
+def test_split_planes_is_exact(shape):
+    """x0 + x1 + x2 == x bit for bit (summed in f32 in that order) over
+    magnitudes 2**-60 .. 2**60, +0 and -0 included, at ragged shapes; each
+    plane is bf16 and each is at most half a bf16 step of the one before."""
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    n = int(np.prod(shape))
+    vals = (rng.standard_normal(n) * np.exp2(rng.integers(-60, 61, n))
+            ).astype(np.float32)
+    vals[: min(n, 2)] = np.array([0.0, -0.0], np.float32)[: min(n, 2)]
+    x = torch.from_numpy(vals.reshape(shape))
+    x0, x1, x2 = split_planes(x)
+    assert all(p.dtype == torch.bfloat16 and p.shape == x.shape
+               for p in (x0, x1, x2))
+    back = (x0.float() + x1.float()) + x2.float()
+    assert torch.equal(back.view(torch.int32), x.view(torch.int32))
+    assert torch.equal(x0.float(), x.to(torch.bfloat16).float())
+    assert (x1.float().abs() <= 2.0 ** -8 * x0.float().abs()).all()
+    assert (x2.float().abs() <= 2.0 ** -8 * x1.float().abs()).all()
+    # a value exact in bf16 has zero residual planes with its sign
+    neg_zero = split_planes(torch.tensor([-0.0, -1.5, 2.0]))
+    assert torch.equal(torch.signbit(neg_zero[1].float()),
+                       torch.tensor([True, True, False]))
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 2560, 96), (37, 100, 129),
+                                   (1, 4, 1)])
+def test_plane_product_matches_float64(m, k, n):
+    """The six pairs of ``PAIRS`` (all pairs i + j <= 2, each once) summed
+    in float64 lie within 1e-8 of the sum of the terms' magnitudes of the
+    float64 product of the f32 operands, h-like by W-like (std 0.02)."""
+    assert sorted(PAIRS) == sorted((i, j) for i in range(3)
+                                   for j in range(3) if i + j <= 2)
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal((k, n)) * 0.02
+                          ).astype(np.float32))
+    want = a.double() @ b.double()
+    terms = a.double().abs() @ b.double().abs()
+    pa, pb = split_planes(a), split_planes(b)
+    got = sum(pa[i].double() @ pb[j].double() for i, j in PAIRS)
+    assert ((got - want).abs() <= 1e-8 * terms).all()
+    # in f32 sums it stays an f32-accurate product
+    got32 = plane_product(pa, pb)
+    assert got32.dtype == torch.float32
+    assert ((got32.double() - want).abs() <= 1e-6 * terms + 1e-30).all()
+
+
+@pytest.mark.parametrize("t,v,d,chunk,depth", [(37, 300, 100, 128, None),
+                                               (129, 257, 100, None, None),
+                                               (8, 1000, 4, 256, None),
+                                               (150, 300, 8, 128, 64)])
+def test_plane_backward_matches_pallas_f32(t, v, d, chunk, depth):
+    """The f32 backward's decomposition as the CUDA kernel computes it (h
+    and each chunk of w split into planes, scores, dh and dW as six-pair
+    plane products, the coefficient split unrounded; d a multiple of 4 but
+    not of 32; with ``depth``, token slices whose dW adds to the earlier
+    ones') against the Pallas kernel (interpret mode) within the f32
+    tolerance, with a selfnorm cotangent."""
+    h, w, labels, g_nll, g_lse = _inputs(t, v, d, "float32", seed=t * v)
+    rel = DTYPES["float32"][2]
+    th, tw, tl, tgn, tgl = _torch(h, w, labels, g_nll, g_lse)
+    lse = fused_ce_fwd_plain(th, tw, tl)[1]
+    dh, dw = fused_ce_bwd_chunked_plain(th, tw, tl, lse, tgn, tgl,
+                                        chunk=chunk, depth=depth)
+    assert dh.dtype == torch.float32 and dw.dtype == torch.float32
+    j_lse = jfce.fused_ce_fwd(jnp.asarray(h), jnp.asarray(w),
+                              jnp.asarray(labels))[1]
+    j_dh, j_dw = jfce.fused_ce_bwd(jnp.asarray(h), jnp.asarray(w),
+                                   jnp.asarray(labels), j_lse,
+                                   jnp.asarray(g_nll), jnp.asarray(g_lse))
+    coef = ce_coef(th, tw, tl, lse, tgn, tgl).abs()
+    _within_terms_mean(dh, j_dh, coef @ tw.abs(), rel)
+    _within_terms_mean(dw, j_dw, coef.T @ th.abs(), rel)
+
+
+@pytest.mark.parametrize("t,v", [(1, 151936), (37, 151936), (129, 151936),
+                                 (1024, 151936), (1024, 1000),
+                                 (4096, 151936), (200000, 1000)])
+def test_bwd_schedule_f32(t, v):
+    """At f32 the coefficient scratch holds three bf16 planes, 6 bytes an
+    element: every vocab column falls in exactly one chunk, chunks are
+    whole 128-column tiles of at most F32_MAX_DEPTH columns (dh's depth in
+    one tensor-core sum), and the (3, T, C) scratch stays within 32 MB
+    wherever a 128-column chunk fits (C = 5376 at T = 1024)."""
+    s = bwd_schedule(t, v, torch.float32)
+    c = s["chunk"]
+    assert c % BN == 0 and BN <= c <= F32_MAX_DEPTH
+    assert len(range(0, v, c)) == s["n_chunks"]
+    cover = np.zeros(v, np.int64)
+    for c0 in range(0, v, c):
+        cover[c0:c0 + c] += 1
+    assert (cover == 1).all()
+    assert s["scratch_bytes"] == 6 * t * c
+    if 6 * t * BN <= SCRATCH_BYTES:
+        assert s["scratch_bytes"] <= SCRATCH_BYTES
+        # the largest such chunk, unless one chunk covers V or the cap
+        assert (6 * t * (c + BN) > SCRATCH_BYTES
+                or c >= -(-v // BN) * BN or c == F32_MAX_DEPTH)
+    if (t, v) == (1024, 151936):
+        assert (c, s["n_chunks"]) == (5376, 29)
+    if t <= 512 and v > F32_MAX_DEPTH:
+        assert c == F32_MAX_DEPTH
+    last = v - (s["n_chunks"] - 1) * c
+    assert 0 < last <= c
+
+
+@pytest.mark.parametrize("t", [1, 1024, 8192, 8193, 20000, 200000])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_token_slices(t, dtype):
+    """The backward's token slices cover every token once, in order: all of
+    T in one slice at bf16; at f32 as few slices as keep each within
+    F32_MAX_DEPTH tokens (dW's depth in one tensor-core sum), the same size
+    but for a shorter last one."""
+    s = token_slices(t, dtype)
+    assert s[0][0] == 0 and s[-1][1] == t
+    assert all(a[1] == b[0] for a, b in zip(s, s[1:]))
+    if dtype == torch.bfloat16:
+        assert s == [(0, t)]
+        return
+    sizes = [t1 - t0 for t0, t1 in s]
+    assert len(s) == -(-t // F32_MAX_DEPTH)
+    assert max(sizes) <= F32_MAX_DEPTH and min(sizes) >= 1
+    assert all(n == sizes[0] for n in sizes[:-1]) and sizes[-1] <= sizes[0]
+    small = token_slices(t, dtype, depth=64)
+    assert len(small) == -(-t // 64) and small[-1][1] == t
+    assert all(0 < t1 - t0 <= 64 for t0, t1 in small)

@@ -48,6 +48,7 @@ struct PingPong {
                       uint32_t sb) const {
     mma_stage<AMN, BMN>(acc, sa, sb);
   }
+  __device__ void after_stage(const Item&, int, float (&)[2][64]) const {}
   __device__ void init(NoState&) const {}
   __device__ void after(const Item&, NoState&, int) const {}
   __device__ void epilogue(const Item&, float (&acc)[2][64], NoState&) const {
