@@ -69,11 +69,16 @@ GPU.
    decode step through ``generate`` with the launch counts at 0; each
    kernel of its path must launch, and only at f32 (``by_variant``). Every
    kernel is held to its plain version at f32 at the path's shapes under
-   the limits above (the f32 CE backward's dh and dW to 1e-4 of the sum
-   of their terms, 1e-5 on average: it runs on the tensor cores on three
-   exact bf16 planes of each f32 operand, and nothing is rounded to bf16;
-   its split kernel equals ``split_planes`` bit for bit), then 2
-   ``fused_ce`` train steps launch one f32 CE kernel of each kind a step.
+   the limits above. The f32 CE pair and ``fmbe_phi`` run on the tensor
+   cores on three exact bf16 planes of each f32 operand (omega's +-1 rows
+   are exact as they are), and nothing is rounded to bf16: the CE
+   backward's dh and dW to 1e-4 of the sum of their terms, 1e-5 on
+   average; the CE forward's nll and lse to 1e-3 of its plain version and
+   of its plane decomposition and to 1e-5 of 1 + |value| from float64;
+   ``fmbe_phi`` to its plain version and to its plane decomposition; each
+   kernel's split of its operands equal to ``split_planes`` bit for bit.
+   Then 2 ``fused_ce`` train steps launch one f32 CE kernel of each kind a
+   step.
 
 Prints the kernel record as one JSON line before the last (each kernel at
 bf16, then at f32 as ``<name>[f32]``), and as the last line ``{"ok": true,
@@ -111,6 +116,7 @@ F32_STEPS = 2
 # the f32 CE pair rounds nothing: f32 scores, exp and sums in another order
 F32_GRAD_REL = 1e-4            # of sum |terms|, per element
 F32_GRAD_MEAN = 1e-5           # of sum |terms|, on average
+F32_FWD_REL = 1e-5             # f32 nll and lse to float64, of 1 + |value|
 SERVE_METHODS = ("exact", "mimps", "topk", "mince", "fmbe", "selfnorm",
                  "lsh")
 PATH_KERNELS = {"exact": ("topk_z",), "mimps": ("ivf_decode",),
@@ -1442,65 +1448,150 @@ def f32_phase(torch, card, kernels):
 
 
 def fmbe_phi_f32(torch, card, fstate, index, deg_sum):
-    """``fmbe_phi`` at f32 (the CUDA-core kernel) on the f32 build's first
-    chunk. Returns the record."""
-    from repro_torch.kernels.fmbe import fmbe_phi, fmbe_phi_plain
+    """``fmbe_phi`` at f32 (the tensor-core kernel on three exact bf16
+    planes of x) on the f32 build's first chunk: against ``fmbe_phi_plain``
+    (the limit), against ``fmbe_phi_planes_plain`` (the kernel's
+    decomposition, the same limit) and against float64 (logged, beside the
+    plain version's own error), two calls bit-equal, its split of x equal to
+    ``split_planes`` bit for bit. Times it beside its bound for the bf16
+    operations it issues and the f32-core bound, the plain version, the
+    product alone in full f32 (``torch.matmul(x, pack.rows.float().T)``,
+    the yardstick as at bf16) and the whole sketch (``build_fmbe_blocks``,
+    host clock). Returns the record."""
+    from repro_torch.core.feature_maps import build_fmbe_blocks
+    from repro_torch.kernels.fmbe import (fmbe_pack, fmbe_phi,
+                                         fmbe_phi_planes_plain,
+                                         fmbe_phi_plain, phi_launch)
+    from repro_torch.kernels.fused_ce import split_planes
     fm = fstate.fm
     nbc, d = PHI_CHUNK_BLOCKS, index.v_blocks.shape[-1]
     x = index.v_blocks[:nbc].reshape(-1, d)
     rows, n_feat = x.shape[0], fm.omega.shape[0]
+    pack = fmbe_pack(fm.omega, fm.degree, fm.coef)
     pargs = (fm.omega, fm.degree, fm.coef, x)
-    phi = fmbe_phi(*pargs)
-    again = fmbe_phi(*pargs)
+    phi = fmbe_phi(*pargs, pack=pack)
+    again = fmbe_phi(*pargs, pack=pack)
     torch.cuda.synchronize()
     check(torch.equal(phi, again), "fmbe_phi[f32] is not bit-reproducible")
-    p_phi = fmbe_phi_plain(*pargs)
+    del again
+    # the split of x: planes of the chunk's rows, zeros past d
+    _, planes = phi_launch(pack, x)
+    torch.cuda.synchronize()
+    for q, plane in enumerate(split_planes(x)):
+        check(torch.equal(planes[q, :, :d].view(torch.int16),
+                          plane.view(torch.int16))
+              and not planes[q, :, d:].any(),
+              f"fmbe_phi[f32]: split plane {q} of x differs from "
+              f"split_planes")
+    del planes
     norm = x.norm(dim=-1).clamp(min=1.0)
     scale = fm.coef.abs()[None, :] * norm[:, None] ** fm.degree[None, :]
-    perr = (phi - p_phi).abs()
-    ratio = (perr / (FMBE_REL * (p_phi.abs() + scale))).max().item()
-    check(ratio <= 1.0, f"fmbe_phi[f32]: error {perr.max().item():.3e} is "
-          f"{ratio:.3f} of the tolerance")
-    del phi, again, p_phi
-    n_bytes = deg_sum * d * 4 + n_feat * 8 + rows * d * 4 + rows * n_feat * 4
-    bound, by = bound_ms(n_bytes, 0, f32_ops=2 * rows * deg_sum * d)
+    ratios = {}
+    for name, want in (("plain", fmbe_phi_plain(*pargs)),
+                       ("planes", fmbe_phi_planes_plain(pack, x))):
+        err = (phi - want).abs()
+        ratios[name] = (err / (FMBE_REL * (want.abs() + scale))).max().item()
+        check(ratios[name] <= 1.0, f"fmbe_phi[f32] vs {name}: error "
+              f"{err.max().item():.3e} is {ratios[name]:.3f} of the "
+              f"tolerance")
+        if name == "plain":
+            p_phi, max_err = want, err.max().item()
+        del err, want
+    # float64 from the same f32 rows: the kernel's and the plain version's
+    proj64 = x.double() @ pack.rows.double().T
+    want = torch.ones_like(phi, dtype=torch.float64)
+    for m in range(fm.omega.shape[1]):
+        use = pack.degree > m
+        col = torch.where(use, pack.start + m, 0).long()
+        want = torch.where(use[None, :], want * proj64[:, col], want)
+    want = want * pack.coef.double()
+    size = FMBE_REL * (want.abs() + scale.double())
+    r64 = {name: ((got.double() - want).abs() / size).max().item()
+           for name, got in (("kernel", phi), ("plain", p_phi))}
+    del proj64, want, size, phi, p_phi
+    n_bytes = deg_sum * d * 2 + n_feat * 8 + rows * d * 4 + rows * n_feat * 4
+    macs = rows * deg_sum * d
+    bound, by = bound_ms(n_bytes, 3 * 2 * macs)
+    core_bound, _ = bound_ms(n_bytes, 0, f32_ops=2 * macs)
     rec = dict(name="fmbe_phi[f32]", route="cuda",
-               source="src/repro_torch/kernels/csrc/fmbe_phi.cu",
+               source="src/repro_torch/kernels/csrc/fmbe_phi_wgmma.cu",
                replaces="src/repro/kernels/fmbe.py:89",
-               max_abs_err=perr.max().item(), max_err_over_tol=ratio,
-               ms=time_ms(torch, lambda: fmbe_phi(*pargs), reps=5),
+               max_abs_err=max_err, max_err_over_tol=ratios["plain"],
+               planes_plain_err_over_tol=ratios["planes"],
+               float64_err_over_tol=r64["kernel"],
+               plain_float64_err_over_tol=r64["plain"],
+               ms=time_ms(torch, lambda: fmbe_phi(*pargs, pack=pack)),
                plain_ms=time_ms(torch, lambda: fmbe_phi_plain(*pargs),
                                 reps=5),
-               bound_ms=bound, bound_by=by, library_ms=None)
-    log(f"fmbe_phi[f32]: {rows} rows x P {n_feat}, f32 x on the CUDA cores: "
-        f"max abs err {rec['max_abs_err']:.3e} = {ratio:.4f} of the "
-        f"tolerance, two calls bit-equal; kernel {rec['ms']:.4f} ms, plain "
-        f"{rec['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}, at the f32 "
-        f"rate, {n_bytes / 1e6:.1f} MB) [{card}]")
+               bound_ms=bound, bound_by=by, f32_core_bound_ms=core_bound,
+               library_ms=time_ms(torch, lambda: torch.matmul(
+                   x, pack.rows.float().T)),
+               library_call="torch.matmul(x, pack.rows.float().T), f32 "
+               "without TF32: the projections alone, not phi")
+    rec["sketch_ms"] = wall_ms(torch, lambda: build_fmbe_blocks(
+        fm, index.v_blocks, index.valid, pack=pack), reps=3)
+    log(f"fmbe_phi[f32]: {rows} rows x P {n_feat}, f32 x as three bf16 "
+        f"planes on the tensor cores: max abs err {max_err:.3e} = "
+        f"{ratios['plain']:.4f} of the tolerance against the plain version, "
+        f"{ratios['planes']:.4f} against the plane decomposition; against "
+        f"float64 {r64['kernel']:.4g} of the tolerance (plain f32 "
+        f"{r64['plain']:.4g}); two calls bit-equal, split of x equal to "
+        f"split_planes; kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f} ms, torch.matmul(x, pack.T) in f32 "
+        f"{rec['library_ms']:.4f} ms (yardstick, no phi), bound "
+        f"{bound:.4f} ms ({by}, {3 * 2 * macs / 1e12:.3f} TFLOP of bf16 "
+        f"issued), f32-core bound {core_bound:.4f} ms; the whole sketch "
+        f"(build_fmbe_blocks, host clock) {rec['sketch_ms']:.3f} ms "
+        f"[{card}]")
     return rec
+
+
+def forward64(torch, h, w, lab, block=256):
+    """nll and lse in float64 from f32 h and w, a block of tokens at a
+    time; a label outside [0, V) leaves the label score at NEG."""
+    w64 = w.double()
+    v = w.shape[0]
+    lse = torch.empty(h.shape[0], dtype=torch.float64, device=h.device)
+    picked = torch.full_like(lse, -1e30)
+    for t0 in range(0, h.shape[0], block):
+        s = slice(t0, t0 + block)
+        logits = h[s].double() @ w64.T
+        lse[s] = torch.logsumexp(logits, -1)
+        ok = (lab[s] >= 0) & (lab[s] < v)
+        got = logits.gather(1, lab[s].long().clamp(0, v - 1)[:, None])[:, 0]
+        picked[s] = torch.where(ok, got, picked[s])
+        del logits
+    return lse - picked, lse
 
 
 def ce_f32_phase(torch, card, h, w, lab):
     """The f32 fused CE kernels against their plain versions on the f32
-    model's hidden states: nll and lse to 1e-3, dh and dW (f32) to
+    model's hidden states: nll and lse to 1e-3 (against
+    ``fused_ce_fwd_plain`` and against ``fused_ce_fwd_planes_plain``, the
+    forward's three-plane decomposition) and to F32_FWD_REL of 1 + |value|
+    against float64 (the plain f32 version's error logged beside), the
+    forward's split of h and w equal to ``split_planes`` bit for bit, dh
+    and dW (f32) to
     F32_GRAD_REL of the sum of their terms' magnitudes per element and
     F32_GRAD_MEAN on average, against ``fused_ce_bwd_plain`` and against
     ``fused_ce_bwd_chunked_plain`` (the backward's three-plane chunked
     decomposition), and in three token slices (the route of T above
     F32_MAX_DEPTH), two calls bit-equal; the backward's split kernel equal
     to ``split_planes`` bit for bit on h and on the last (ragged) chunk of
-    w. Times the forward (CUDA cores) beside its f32-rate bound, the
-    backward (bf16 tensor cores on three planes) beside its bound at the
-    bf16 rate for the 36 T V d operations it issues and the f32-rate bound
-    of its 6 T V d of f32 work, the split kernel alone, plain versions and
-    library calls (cuBLAS in full f32). Returns the two records."""
+    w. Times the forward beside its bound at the bf16 rate for the 12 T V d
+    operations it issues and the f32-rate bound of its 2 T V d of f32 work,
+    and the backward beside its bound for the 36 T V d operations it issues
+    and the f32-rate bound of its 6 T V d, the backward's split kernel
+    alone, plain versions and library calls (cuBLAS in full f32); profiles
+    both by kernel. Returns the two records."""
     from repro_torch.configs import TrainConfig
     from repro_torch.kernels.fused_ce import (PAIRS, bwd_launch,
                                              bwd_schedule, ce_coef,
                                              fused_ce_bwd,
                                              fused_ce_bwd_chunked_plain,
                                              fused_ce_bwd_plain, fused_ce_fwd,
-                                             fused_ce_fwd_plain,
+                                             fused_ce_fwd_planes_plain,
+                                             fused_ce_fwd_plain, fwd_launch,
                                              planes_launch, split_planes)
     t, d = h.shape
     v = w.shape[0]
@@ -1509,11 +1600,49 @@ def ce_f32_phase(torch, card, h, w, lab):
     torch.cuda.synchronize()
     check(torch.equal(nll, nll2) and torch.equal(lse, lse2),
           "fused_ce_fwd[f32] is not bit-reproducible")
-    p_nll, p_lse = fused_ce_fwd_plain(h, w, lab)
-    f_err = max((nll - p_nll).abs().max().item(),
-                (lse - p_lse).abs().max().item())
-    check(f_err <= TOL, f"fused_ce_fwd[f32]: nll/lse differ by {f_err}")
-    # the split kernel: h, and the last chunk of w (rows past V are zeros)
+    del nll2, lse2
+    f_errs = {}
+    for name, plain in (("plain", fused_ce_fwd_plain),
+                        ("planes", fused_ce_fwd_planes_plain)):
+        p_nll, p_lse = plain(h, w, lab)
+        f_errs[name] = max((nll - p_nll).abs().max().item(),
+                           (lse - p_lse).abs().max().item())
+        check(f_errs[name] <= TOL, f"fused_ce_fwd[f32]: nll/lse differ from "
+              f"the {name} version by {f_errs[name]}")
+        if name == "plain":
+            plain_out = (p_nll, p_lse)
+        del p_nll, p_lse
+        torch.cuda.empty_cache()
+    f_err = f_errs["plain"]
+    want = forward64(torch, h, w, lab)
+    f64 = {}
+    for name, got in (("kernel", (nll, lse)), ("plain", plain_out)):
+        f64[name] = max(((g.double() - x).abs() / (1 + x.abs())).max().item()
+                        for g, x in zip(got, want))
+    check(f64["kernel"] <= F32_FWD_REL, f"fused_ce_fwd[f32]: nll/lse "
+          f"{f64['kernel']:.3e} of 1 + |value| from float64, allowed "
+          f"{F32_FWD_REL}")
+    del want, plain_out
+    # the forward's split: h and all of w, as split_planes gives them
+    _, _, fwd_planes = fwd_launch(h, w, lab)
+    torch.cuda.synchronize()
+    for name, x, got in (("h", h, fwd_planes[0]), ("w", w, fwd_planes[1])):
+        for q, plane in enumerate(split_planes(x)):
+            check(torch.equal(got[q, :, :d].view(torch.int16),
+                              plane.view(torch.int16))
+                  and not got[q, :, d:].any(),
+                  f"fused_ce_fwd[f32]: split plane {q} of {name} differs "
+                  f"from split_planes")
+            del plane
+    del fwd_planes
+    torch.cuda.empty_cache()
+    log(f"fused_ce_fwd[f32]: nll/lse {f_errs['plain']:.3e} from the plain "
+        f"version, {f_errs['planes']:.3e} from the plane decomposition; "
+        f"{f64['kernel']:.3e} of 1 + |value| from float64 (plain f32 "
+        f"{f64['plain']:.3e}); its split planes of h and w equal "
+        f"split_planes bit for bit")
+    # the backward's split kernel: h, and the last chunk of w (rows past V
+    # are zeros)
     sch = bwd_schedule(t, v, torch.float32)
     c, c0 = sch["chunk"], (sch["n_chunks"] - 1) * sch["chunk"]
     for name, x, rows in (("h", h, t), ("w chunk", w[c0:], c)):
@@ -1565,7 +1694,9 @@ def ce_f32_phase(torch, card, h, w, lab):
     del c_dh, c_dw, dh_terms, dw_terms, dh, dw
     torch.cuda.empty_cache()
     fwd_bytes = t * d * 4 + v * d * 4 + t * 4 + 2 * t * 4
-    fwd_bound, fwd_by = bound_ms(fwd_bytes, 0, f32_ops=2 * t * v * d)
+    fwd_issued = len(PAIRS) * 2 * t * v * d     # bf16 operations issued
+    fwd_bound, fwd_by = bound_ms(fwd_bytes, fwd_issued)
+    fwd_core, _ = bound_ms(fwd_bytes, 0, f32_ops=2 * t * v * d)
     bwd_bytes = 2 * (t * d * 4 + v * d * 4) + 4 * t * 4
     n_issued = 6 * len(PAIRS) * t * v * d       # bf16 operations issued
     bwd_bound, bwd_by = bound_ms(bwd_bytes, n_issued)
@@ -1583,14 +1714,19 @@ def ce_f32_phase(torch, card, h, w, lab):
         return coef_ @ w, coef_.T @ h
 
     fwd = dict(name="fused_ce_fwd[f32]", route="cuda",
-               source="src/repro_torch/kernels/csrc/fused_ce_f32.cu",
+               source="src/repro_torch/kernels/csrc/fused_ce_fwd.cu",
                replaces="src/repro/kernels/fused_ce.py:128",
-               max_abs_err=f_err,
+               max_abs_err=f_err, planes_plain_err=f_errs["planes"],
+               float64_err_rel=f64["kernel"],
+               plain_float64_err_rel=f64["plain"],
                ms=time_ms(torch, lambda: fused_ce_fwd(h, w, lab), reps=5),
                plain_ms=time_ms(torch, lambda: fused_ce_fwd_plain(h, w, lab),
                                 reps=5),
                bound_ms=fwd_bound, bound_by=fwd_by,
+               f32_core_bound_ms=fwd_core,
                library_ms=time_ms(torch, library_fwd, reps=5))
+    fwd["tflops_f32_work"] = 2 * t * v * d / fwd["ms"] / 1e9
+    fwd["tflops_issued"] = fwd_issued / fwd["ms"] / 1e9
     split_h = time_ms(torch, lambda: planes_launch(h), reps=10)
     split_chunk = time_ms(torch, lambda: planes_launch(w[:c], c), reps=10)
     bwd = dict(name="fused_ce_bwd[f32]", route="cuda",
@@ -1608,12 +1744,15 @@ def ce_f32_phase(torch, card, h, w, lab):
                library_ms=time_ms(torch, library_bwd, reps=3))
     bwd["tflops_f32_work"] = 6 * t * v * d / bwd["ms"] / 1e9
     bwd["tflops_issued"] = n_issued / bwd["ms"] / 1e9
-    log(f"fused_ce_fwd[f32]: T {t} V {v} d {d}: nll/lse err {f_err:.2e}, "
-        f"two calls bit-equal; kernel {fwd['ms']:.4f} ms "
-        f"({2 * t * v * d / fwd['ms'] / 1e9:.1f} TFLOP/s), plain "
+    log(f"fused_ce_fwd[f32]: T {t} V {v} d {d}, three bf16 planes, "
+        f"{len(PAIRS)} plane pairs: nll/lse err {f_err:.2e}, two calls "
+        f"bit-equal; kernel {fwd['ms']:.4f} ms "
+        f"({fwd['tflops_f32_work']:.1f} TFLOP/s of f32 work, "
+        f"{fwd['tflops_issued']:.1f} TFLOP/s of bf16 issued), plain "
         f"{fwd['plain_ms']:.4f} ms, library {fwd['library_ms']:.4f} ms, "
-        f"bound {fwd_bound:.4f} ms ({fwd_by}, f32 rate "
-        f"{F32_FLOPS / 1e12:.0f} TFLOP/s) [{card}]")
+        f"bound {fwd_bound:.4f} ms ({fwd_by}, {fwd_issued / 1e12:.3f} TFLOP "
+        f"bf16 at {BF16_FLOPS / 1e12:.0f} TFLOP/s; f32-core bound "
+        f"{fwd_core:.4f} ms at {F32_FLOPS / 1e12:.0f} TFLOP/s) [{card}]")
     log(f"fused_ce_bwd[f32]: T {t} V {v} d {d}, g_lse = 2 alpha lse / T, "
         f"chunk C {c} ({sch['n_chunks']} chunks), three bf16 planes, "
         f"{len(PAIRS)} plane pairs: dh err {dh_err[0]:.2e} (max "
@@ -1630,17 +1769,20 @@ def ce_f32_phase(torch, card, h, w, lab):
         f"bound {bwd_bound:.4f} ms ({bwd_by}, {n_issued / 1e12:.3f} TFLOP "
         f"bf16 at {BF16_FLOPS / 1e12:.0f} TFLOP/s; f32-core bound "
         f"{core_bound:.4f} ms) [{card}]")
-    # the backward's device time by kernel: split, coefficient, gradients
+    # device time by kernel: the forward's split, partial and merge; the
+    # backward's split, coefficient and gradients
     reps = 2
-    _, busy, dev_top, _ = profile_step(
-        torch, lambda: [fused_ce_bwd(*bargs) for _ in range(reps)])
-    for name, calls, ms in dev_top:
-        name = name.replace("(anonymous namespace)::", "").split("(")[0]
-        log(f"  launch {name[-40:]:40s} {calls / reps:4.0f} a call, "
-            f"{ms / reps:.4f} ms a call [{card}]")
-    log(f"  fused_ce_bwd[f32]: device busy {busy / reps:.4f} ms a call "
-        f"[{card}]")
-    for name in ("fused_ce_f32", "fused_ce_bwd"):
+    for name, fn in (("fused_ce_fwd[f32]", lambda: fused_ce_fwd(h, w, lab)),
+                     ("fused_ce_bwd[f32]", lambda: fused_ce_bwd(*bargs))):
+        _, busy, dev_top, _ = profile_step(
+            torch, lambda fn=fn: [fn() for _ in range(reps)])
+        for kernel, calls, ms in dev_top:
+            kernel = kernel.replace("(anonymous namespace)::", "").split(
+                "(")[0]
+            log(f"  launch {kernel[-40:]:40s} {calls / reps:4.0f} a call, "
+                f"{ms / reps:.4f} ms a call [{card}]")
+        log(f"  {name}: device busy {busy / reps:.4f} ms a call [{card}]")
+    for name in ("fused_ce_fwd", "fused_ce_bwd"):
         for line in ptxas_report(_build_log(name)):
             log(f"  ptxas {name}: {line}")
     return {"fused_ce_fwd": fwd, "fused_ce_bwd": bwd}

@@ -19,14 +19,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("topk_z", "ivf_decode", "union_scores", "fmbe_phi",
-           "fmbe_phi_wgmma", "fmbe_z", "fused_ce_fwd", "fused_ce_bwd",
-           "fused_ce_f32", "lsh_probe", "ivf_score")
+SOURCES = ("topk_z", "ivf_decode", "union_scores", "fmbe_phi_wgmma",
+           "fmbe_z", "fused_ce_fwd", "fused_ce_bwd", "lsh_probe",
+           "ivf_score")
 # C entry points ``<entry>_launch`` of a source, where they are not just
 # its own ``<name>_launch``
 ENTRIES = {"lsh_probe": ("lsh_probe", "lsh_codes"),
-           "fused_ce_bwd": ("fused_ce_bwd", "ce_split"),
-           "fused_ce_f32": ("fused_ce_f32_fwd",)}
+           "fused_ce_bwd": ("fused_ce_bwd", "ce_split")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -45,17 +44,15 @@ SIGNATURES = {
     "ivf_decode": [_P] * 8 + [_I] * 7 + [_P] * 10 + [_I, _P],
     # w_blocks, h, head_ids, head_live, Q, U, br, d, grid_x, out, f32, stream
     "union_scores": [_P] * 4 + [_I] * 5 + [_P, _I, _P],
-    # omega, degree, coef, x (f32), Q, P, M, d, out, stream
-    "fmbe_phi": [_P] * 4 + [_I] * 4 + [_P] * 2,
     # x, pack, start, tile_j0, degree, coef, Q, P, d, n_tiles, grid, out,
-    # stream
-    "fmbe_phi_wgmma": [_P] * 6 + [_I] * 5 + [_P] * 2,
+    # x_planes, f32, stream
+    "fmbe_phi_wgmma": [_P] * 6 + [_I] * 5 + [_P] * 2 + [_I, _P],
     # omega, degree, coef, lam, lam_stride, x, Q, P, M, d, n_part, part, z,
     # f32, stream
     "fmbe_z": [_P] * 4 + [_I, _P] + [_I] * 5 + [_P] * 2 + [_I, _P],
     # h, w, labels, T, V, d, n_split, per, grid, part_m, part_s, part_p,
-    # nll, lse, stream
-    "fused_ce_fwd": [_P] * 3 + [_I] * 6 + [_P] * 6,
+    # nll, lse, h_planes, w_planes, f32, stream
+    "fused_ce_fwd": [_P] * 3 + [_I] * 6 + [_P] * 7 + [_I, _P],
     # h, w, labels, lse, gn, go, T, V, d, C, grid, cast, dw_add,
     # order_full, start_full, grid_full, order_last, start_last, grid_last,
     # scratch, dh32, dh, dw, h_planes, w_planes, f32, stream
@@ -63,9 +60,6 @@ SIGNATURES = {
                     + [_I, _P],
     # x, R, d, rows, dp, planes, stream
     "ce_split": [_P] + [_I] * 4 + [_P] * 2,
-    # h, w, labels, T, V, d, n_split, grid, part_m, part_s, part_p, nll,
-    # lse, stream
-    "fused_ce_f32_fwd": [_P] * 3 + [_I] * 5 + [_P] * 6,
     # h, proj, Q, d, L, K, qcodes, f32, stream
     "lsh_codes": [_P] * 2 + [_I] * 4 + [_P, _I, _P],
     # w, h, proj, cand_rows, cand_live, codes, slot_of_row, tail_ids,

@@ -1,16 +1,29 @@
-// Kar-Karnick feature matrix phi(x) (Q, P) of bf16 queries on the tensor
-// cores:  phi_j(x) = coef_j * prod_{m < degree_j} (omega_{j,m} . x).
+// Kar-Karnick feature matrix phi(x) (Q, P) of bf16 or f32 queries on the
+// tensor cores:  phi_j(x) = coef_j * prod_{m < degree_j} (omega_{j,m} . x).
 //
 // Replaces the TPU kernel src/repro/kernels/fmbe.py::fmbe_phi
-// (_fmbe_phi_kernel) for bf16 x; f32 x runs fmbe_phi.cu. It is the
-// build-time kernel of FMBE: the serving build feeds the output embedding
-// through it in chunks of 16 IVF blocks (8192 rows) to form the per-block
-// sketch sums.
+// (_fmbe_phi_kernel). It is the build-time kernel of FMBE: the serving
+// build feeds the output embedding through it in chunks of 16 IVF blocks
+// (8192 rows) to form the per-block sketch sums.
+//
+// bf16 x (one plane) is A as it is. f32 x (three planes): ce_split first
+// splits x into (3, Q, dp) exact bf16 planes (ce_planes.cuh; dp = d
+// rounded up to 64, zeros past d), and an item runs the passes (x2, omega),
+// (x1, omega), (x0, omega), smallest first. The omega rows are +-1, exact
+// in bf16, so every product is exact (x0 + x1 + x2 == x): the only error
+// is the tensor cores' f32 sums over d, as in the bf16 kernel.
+// FMBE_PHI3_PROMOTE > 0 adds the (x0, omega) pass to an f32 sum in shared
+// memory every that many stages, on a ring of PROMOTE_STAGES (4) beside the
+// 64 KB sums (ce_planes.cuh). tools/fmbe_phi_promote.py measures it: on the
+// f32 build's chunk and on that chunk x8, phi without it stays 10x closer
+// to float64 than the plain f32 version, and it costs half a millisecond a
+// chunk, so the kernel does not promote (0).
 //
 // Bound on this card: operations. At a chunk of 8192 rows, P = 4096
 // features of mean degree 0.98 and d 2560 the live projections are 84.3 G
-// multiply-adds, about 0.17 ms at the bf16 tensor-core rate; the 134 MB of
-// phi written and the 65 MB read take about 0.06 ms.
+// multiply-adds, about 0.17 ms at the bf16 tensor-core rate (three times
+// that at f32, 0.51 ms); the 134 MB of phi written and the 65 MB read (f32
+// x: 84 MB, and the planes 126 MB written and read) take about 0.06 ms.
 //
 // Design: the projections are one GEMM. The live rows (j, m < degree_j) of
 // omega are +-1, so exact in bf16, and the wrapper gathers them once per
@@ -46,11 +59,26 @@
 // this kernel beside its product alone and other item orders. Every output
 // element has one writer and the sums a fixed order, so two calls are
 // bit-equal.
-#include "hopper_gemm.cuh"
+#include "ce_planes.cuh"
 
 using namespace hgemm;
 
 namespace {
+
+#ifndef FMBE_PHI3_PROMOTE
+#define FMBE_PHI3_PROMOTE 0
+#endif
+constexpr int PHI3_PROMOTE = FMBE_PHI3_PROMOTE;
+constexpr int PROMOTE_STAGES = 4;      // the ring beside the sums
+// the ring of P planes of x: the mainloop's, or a shallower one beside the
+// sums, which end where the 6-stage ring would (the staging stays put)
+template <int P>
+__host__ __device__ constexpr int phi_stages() {
+  return P == 3 && PHI3_PROMOTE > 0 ? PROMOTE_STAGES : STAGES;
+}
+static_assert(PROMOTE_STAGES * STAGE_BYTES + SUMS_BYTES ==
+                  STAGES * STAGE_BYTES,
+              "the sums take the place of two stages");
 
 // staging: the raw projections of 8 rows of BN columns a consumer warp,
 // each row padded by 4 floats so that the quads' rows fall in other banks
@@ -73,15 +101,17 @@ struct PhiArgs {
 };
 
 struct PhiItem {
-  int nk;
+  int nk;            // stages: planes x nks
+  int nks;           // K slices
   int m0, nt;
 };
 
 struct NoState {};
 
+template <int P>
 struct PhiJob {
-  const CUtensorMap* mx;
-  const CUtensorMap* mp;
+  const CUtensorMap* mx;     // x, or its planes, K-major boxes
+  const CUtensorMap* mp;     // the pack, K-major boxes
   PhiArgs a;
   using State = NoState;
 
@@ -93,21 +123,30 @@ struct PhiJob {
     const int g = u / per_group, r = u - g * per_group;
     const int rows = min(GROUP_M, a.n_mt - g * GROUP_M);
     PhiItem it;
-    it.nk = (a.d + BK - 1) / BK;
+    it.nks = (a.d + BK - 1) / BK;
+    it.nk = P * it.nks;
     it.m0 = (g * GROUP_M + r % rows) * BM;
     it.nt = r / rows;
     return it;
   }
+  // stage k: slice k % nks of plane P - 1 - k / nks (smallest first)
   __device__ void load(const PhiItem& it, int k, uint32_t sa, uint32_t sb,
                        uint64_t* bar) const {
-    load_slice(mx, false, sa, bar, it.m0, k * BK);
-    load_slice(mp, false, sb, bar, it.nt * BN, k * BK);
+    const int q = k / it.nks, ks = k - q * it.nks;
+    load_slice(mx + (P - 1 - q), false, sa, bar, it.m0, ks * BK);
+    load_slice(mp, false, sb, bar, it.nt * BN, ks * BK);
   }
   __device__ void mma(const PhiItem&, float (&acc)[2][64], uint32_t sa,
                       uint32_t sb) const {
     mma_stage<false, false>(acc, sa, sb);
   }
-  __device__ void after_stage(const PhiItem&, int, float (&)[2][64]) const {}
+  // P = 3: the (x0, omega) pass, the last, promoted every PHI3_PROMOTE
+  // stages
+  __device__ void after_stage(const PhiItem& it, int k,
+                              float (&acc)[2][64]) const {
+    promote_stage<P == 3 ? PHI3_PROMOTE : 0>(
+        k, it.nk, it.nks, acc, PROMOTE_STAGES * STAGE_BYTES);
+  }
   __device__ void init(NoState&) const {}
   __device__ void after(const PhiItem&, NoState&, int) const {}
 
@@ -165,29 +204,51 @@ struct PhiJob {
   }
 };
 
+template <int P>
+struct PhiMaps {
+  CUtensorMap x[P];
+  CUtensorMap pack;
+};
+
+template <int P>
 __global__ void __launch_bounds__(THREADS, 1)
-fmbe_phi_wgmma_kernel(const __grid_constant__ CUtensorMap mx,
-                      const __grid_constant__ CUtensorMap mp, PhiArgs a) {
-  run(PhiJob{&mx, &mp, a});
+fmbe_phi_wgmma_kernel(const __grid_constant__ PhiMaps<P> m, PhiArgs a) {
+  run<PhiJob<P>, phi_stages<P>()>(PhiJob<P>{m.x, &m.pack, a});
+}
+
+template <int P>
+int launch(const void* x, const void* pack, int n_tiles, const PhiArgs& a,
+           int grid, void* x_planes, cudaStream_t st) {
+  // P = 1 reads x in place; P = 3 its planes, dp columns wide
+  const int dp = P == 1 ? a.d : planes_width(a.d);
+  if (P == 3) {
+    const int e = split_launch(static_cast<const float*>(x), a.Q, a.d, a.Q,
+                               dp, static_cast<bf16*>(x_planes), st);
+    if (e) return e;
+  }
+  PhiMaps<P> m;
+  if (plane_maps<P>(m.x, P == 1 ? x : x_planes, dp, a.Q, false) ||
+      make_map(&m.pack, pack, a.d, (uint64_t)n_tiles * BN, false))
+    return ERR_TENSOR_MAP;
+  cudaError_t err = cudaFuncSetAttribute(
+      fmbe_phi_wgmma_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)PHI_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  fmbe_phi_wgmma_kernel<P><<<grid, THREADS, PHI_SMEM_BYTES, st>>>(m, a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (Q, d) bf16; pack (n_tiles * 128, d) bf16; grid: persistent CTAs.
+// x (Q, d) bf16, or f32 with f32 != 0 and x_planes a (3, Q, dp) bf16
+// buffer, dp = d rounded up to 64; pack (n_tiles * 128, d) bf16; grid:
+// persistent CTAs.
 extern "C" int fmbe_phi_wgmma_launch(const void* x, const void* pack,
                                      const void* start,
                                      const void* tile_j0, const void* degree,
                                      const void* coef, int Q, int P, int d,
                                      int n_tiles, int grid, void* out,
-                                     void* stream) {
-  CUtensorMap mx, mp;
-  if (make_map(&mx, x, d, Q, false) ||
-      make_map(&mp, pack, d, (uint64_t)n_tiles * BN, false))
-    return ERR_TENSOR_MAP;
-  cudaError_t err = cudaFuncSetAttribute(
-      fmbe_phi_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)PHI_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
+                                     void* x_planes, int f32, void* stream) {
   PhiArgs a;
   a.start = static_cast<const int*>(start);
   a.tile_j0 = static_cast<const int*>(tile_j0);
@@ -199,7 +260,7 @@ extern "C" int fmbe_phi_wgmma_launch(const void* x, const void* pack,
   a.d = d;
   a.n_mt = (Q + BM - 1) / BM;
   a.n_nt = n_tiles;
-  fmbe_phi_wgmma_kernel<<<grid, THREADS, PHI_SMEM_BYTES,
-                          static_cast<cudaStream_t>(stream)>>>(mx, mp, a);
-  return (int)cudaGetLastError();
+  auto st = static_cast<cudaStream_t>(stream);
+  return f32 ? launch<3>(x, pack, n_tiles, a, grid, x_planes, st)
+             : launch<1>(x, pack, n_tiles, a, grid, x_planes, st);
 }

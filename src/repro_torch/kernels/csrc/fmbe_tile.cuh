@@ -1,6 +1,6 @@
-// The feature tile shared by fmbe_phi.cu and fmbe_z.cu: Kar-Karnick
-// features phi_j(x) = coef_j * prod_{m < degree_j} (omega_{j,m} . x) of a
-// tile of QT queries for FP consecutive features.
+// The feature tile of fmbe_z.cu: Kar-Karnick features phi_j(x) = coef_j *
+// prod_{m < degree_j} (omega_{j,m} . x) of a tile of QT queries for FP
+// consecutive features.
 //
 // The TPU kernels (src/repro/kernels/fmbe.py::_phi_tile) built a feature
 // tile as max_degree full (block_q, d) x (d, block_p) matmuls and

@@ -11,17 +11,12 @@
 //   dh = coef W,   dW = coef^T h.
 // bf16 (P = 1 plane): coef is rounded to bf16 before both products, as the
 // TPU kernel does; the products accumulate in f32.
-// f32 (P = 3 planes): each f32 operand x is split exactly into three bf16
-// planes, x = x0 + x1 + x2 with x0 = bf16(x), x1 = bf16(x - x0), x2 =
-// bf16(x - x0 - x1) (fused_ce.py::split_planes), and each product sums the
-// six plane pairs (i, j) with i + j <= 2, whose dropped terms are of order
-// 2**-24 of |a||b|: an f32-accurate product on the bf16 tensor cores,
-// coef not rounded, as the f32 reference computes it. (TF32 wgmma would
-// read both operands K-major only, and dh reads W, dW coef and h
-// MN-major; bf16 wgmma reads them in place.) Each product runs the pairs
-// one after another over all of K, smallest terms first and (0, 0) last
-// (fused_ce.py::PAIRS), so that the small sums are not added into a large
-// accumulator K times over. The tensor cores' f32 sums lose low bits at
+// f32 (P = 3 planes): each f32 operand is split exactly into three bf16
+// planes and each product sums six plane pairs, smallest first
+// (ce_planes.cuh): an f32-accurate product on the bf16 tensor cores, coef
+// not rounded, as the f32 reference computes it. (TF32 wgmma would read
+// both operands K-major only, and dh reads W, dW coef and h MN-major; bf16
+// wgmma reads them in place.) The tensor cores' f32 sums lose low bits at
 // each 16-deep step with a bias that grows with the depth of one sum, so
 // at f32 no sum is more than 8192 deep (fused_ce.py::F32_MAX_DEPTH): a
 // chunk has at most 8192 columns (dh's depth), and the wrapper launches
@@ -46,7 +41,7 @@
 //      only be a multiple of 4, as the f32 contract has it.
 //  (a) ce_coef: S = h W[chunk]^T on the Hopper mainloop (hopper_gemm.cuh,
 //      both operands K-major; at f32 the (0, 0) pass's sums promoted
-//      every two stages into an f32 sum in shared memory, see promote);
+//      every two stages into an f32 sum in shared memory, ce_planes.cuh);
 //      the epilogue turns the accumulator registers into coef and writes
 //      it to a (P, T, C) scratch buffer, rounded to bf16 or split into
 //      planes (zeros past V), which stays in L2 for (b) and (c).
@@ -77,75 +72,11 @@
 // MB at T = 1024, d = 2560): O(T C + C d + T d), never O(T V) or O(V d).
 #include <algorithm>
 
-#include "hopper_gemm.cuh"
+#include "ce_planes.cuh"
 
 using namespace hgemm;
 
 namespace {
-
-// ---- the planes of an f32 operand -------------------------------------------
-
-// The three pairs of order 2**-16 of |a||b|, then (0, 1), (1, 0), (0, 0):
-// the plane of A and of B of pass q are nibble q of PAIR_A and PAIR_B
-// (fused_ce.py::PAIRS). A file that includes this one may define other
-// pairs first (tools/ce_f32_pairs.cu).
-#ifndef CE_PASSES3
-#define CE_PASSES3 6
-#define CE_PAIR_A 0x010201
-#define CE_PAIR_B 0x001021
-#endif
-constexpr int PASSES3 = CE_PASSES3;
-constexpr uint32_t PAIR_A = CE_PAIR_A;
-constexpr uint32_t PAIR_B = CE_PAIR_B;
-
-template <int P>
-__host__ __device__ constexpr int passes() {
-  static_assert(P == 1 || P == 3, "one plane (bf16) or three (f32)");
-  return P == 1 ? 1 : PASSES3;
-}
-
-// x0 + x1 + x2 == x exactly for finite x; a zero residual keeps x's sign.
-__device__ __forceinline__ void split3(float x, bf16& x0, bf16& x1, bf16& x2) {
-  const float zero = copysignf(0.f, x);
-  x0 = __float2bfloat16_rn(x);
-  float r = x - __bfloat162float(x0);
-  r = r == 0.f ? zero : r;
-  x1 = __float2bfloat16_rn(r);
-  r -= __bfloat162float(x1);
-  x2 = __float2bfloat16_rn(r == 0.f ? zero : r);
-}
-
-// out (3, rows, dp) = the planes of x (valid rows of d floats, d a
-// multiple of 4), zeros past valid rows and past d. One thread a group of
-// 4 columns: one float4 read, one 8-byte store a plane.
-__global__ void __launch_bounds__(256)
-ce_split(const float* __restrict__ x, int valid, int d, int rows, int dp,
-         bf16* __restrict__ out) {
-  const size_t plane = (size_t)rows * dp;
-  const int groups = dp / 4;
-  const size_t n = (size_t)rows * groups;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int r = (int)(i / groups), c = (int)(i % groups) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid && c < d)
-      v = __ldg(reinterpret_cast<const float4*>(x + (size_t)r * d + c));
-    __align__(8) bf16 p[3][4];
-    split3(v.x, p[0][0], p[1][0], p[2][0]);
-    split3(v.y, p[0][1], p[1][1], p[2][1]);
-    split3(v.z, p[0][2], p[1][2], p[2][2]);
-    split3(v.w, p[0][3], p[1][3], p[2][3]);
-    bf16* dst = out + (size_t)r * dp + c;
-#pragma unroll
-    for (int q = 0; q < 3; ++q)
-      *reinterpret_cast<uint2*>(dst + q * plane) =
-          *reinterpret_cast<const uint2*>(p[q]);
-  }
-}
-
-int split_grid(size_t groups) {
-  return (int)std::min<size_t>((groups + 255) / 256, 132 * 16);
-}
 
 struct Chunk {
   int T, V, d;
@@ -155,97 +86,6 @@ struct Chunk {
   int valid;         // vocab rows in the chunk, <= C
   int n_tt;          // token tiles
 };
-
-// Stage k of an item of `nks` K slices: its slice and the planes of A and
-// B it reads. One plane: slice k of planes 0.
-template <int P>
-__device__ __forceinline__ void stage_of(int k, int nks, int& ks, int& pa,
-                                         int& pb) {
-  if constexpr (P == 1) {
-    ks = k;
-    pa = pb = 0;
-  } else {
-    const int q = k / nks;
-    ks = k - q * nks;
-    pa = (PAIR_A >> (4 * q)) & 15;
-    pb = (PAIR_B >> (4 * q)) & 15;
-  }
-}
-
-// ---- (a) the coefficient --------------------------------------------------
-
-// The tensor cores' f32 sums lose low bits at each 16-deep step, relative
-// to the magnitude of the sum so far, and a score feeds exp, so its error
-// is the coefficient's relative error. Summed over all of d, the scores
-// of logits about N(0, 16) left dh and dW 5e-5 of their terms off on
-// average (tools/ce_f32_pairs.py). So at P = 3 the scores' (0, 0) pass,
-// the one at full magnitude, sums PROMOTE stages (128 deep) at a time on
-// the tensor cores from zero and adds each such sum to an f32 sum in
-// shared memory, rounded to nearest, in order. The consumers' mainloops
-// run one at a time, so one sum buffer serves both: 128 threads x 128
-// floats, beside a ring of COEF3_STAGES stages. A file that includes this
-// one may define another PROMOTE first (0: one sum over all of d).
-#ifndef CE_COEF3_PROMOTE
-#define CE_COEF3_PROMOTE 2
-#endif
-constexpr int PROMOTE = CE_COEF3_PROMOTE;
-constexpr int COEF3_STAGES = 5;
-constexpr int SUMS_BYTES = 128 * 128 * 4;
-
-template <int P>
-constexpr size_t coef_smem_bytes() {
-  return P == 1 ? SMEM_BYTES
-                : (size_t)COEF3_STAGES * STAGE_BYTES + SUMS_BYTES + 1024;
-}
-
-__device__ __forceinline__ float4 lds4(uint32_t a) {
-  float4 v;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(a)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void sts4(uint32_t a, float x, float y, float z,
-                                     float w) {
-  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
-               "f"(x), "f"(y), "f"(z), "f"(w)
-               : "memory");
-}
-
-// sum = acc (first), sum += acc, or acc += sum (last); acc = 0 but after
-// the last. Thread t keeps acc[h][4 j .. 4 j + 3] at group 16 h + j, 16
-// bytes at sums + (group x 128 + t) x 16: a warp's accesses are
-// contiguous.
-__device__ __forceinline__ void promote(float (&acc)[2][64], bool first,
-                                        bool last) {
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t sums = ((smem_u32(smem_raw) + 1023u) & ~1023u) +
-                        COEF3_STAGES * STAGE_BYTES +
-                        (threadIdx.x & 127) * 16;
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      float* a = &acc[h][4 * j];
-      const uint32_t at = sums + (16 * h + j) * 2048;
-      if (first) {
-        sts4(at, a[0], a[1], a[2], a[3]);
-      } else {
-        const float4 y = lds4(at);
-        if (last) {
-          a[0] += y.x;
-          a[1] += y.y;
-          a[2] += y.z;
-          a[3] += y.w;
-          continue;
-        }
-        sts4(at, y.x + a[0], y.y + a[1], y.z + a[2], y.w + a[3]);
-      }
-      a[0] = a[1] = a[2] = a[3] = 0.f;
-    }
-}
 
 struct CoefArgs {
   Chunk ch;
@@ -294,16 +134,8 @@ struct CoefJob {
   // P = 3: the (0, 0) pass, the last, promoted every PROMOTE stages
   __device__ void after_stage(const TileItem& it, int k,
                               float (&acc)[2][64]) const {
-    if constexpr (P == 3 && PROMOTE > 0) {
-      const int r = k - (it.nk - it.nks);        // stage in the pass
-      const bool last = k == it.nk - 1;
-      if (r < 0 || ((r + 1) % PROMOTE != 0 && !last)) return;
-      const bool first = r < PROMOTE;
-      if (first && last) return;                 // one sum: nothing to add
-      wg_wait<0>();
-      fence_acc(acc);
-      promote(acc, first, last);
-    }
+    promote_stage<P == 3 ? PROMOTE : 0>(k, it.nk, it.nks, acc,
+                                        COEF3_STAGES * STAGE_BYTES);
   }
   __device__ void init(NoState&) const {}
   __device__ void after(const TileItem&, NoState&, int) const {}
@@ -523,22 +355,10 @@ struct Launch {
   cudaStream_t st;
 };
 
-// The maps of P planes of a (rows, inner) bf16 matrix, `stride` elements
-// apart.
-template <int P>
-int plane_maps(CUtensorMap* maps, const void* base, uint64_t inner,
-               uint64_t rows, bool mn) {
-  for (int q = 0; q < P; ++q)
-    if (make_map(&maps[q], static_cast<const bf16*>(base) + q * inner * rows,
-                 inner, rows, mn))
-      return ERR_TENSOR_MAP;
-  return 0;
-}
-
 template <int P>
 int launch(const Launch& L) {
   // P = 1 reads h and W in place; P = 3 their planes, dp columns wide
-  const int dp = P == 1 ? L.d : (L.d + BK - 1) / BK * BK;
+  const int dp = P == 1 ? L.d : planes_width(L.d);
   const void* h = P == 1 ? L.h : L.h_planes;
   const void* w = P == 1 ? L.w : L.w_planes;
   const int w_rows = P == 1 ? L.V : L.C;
@@ -553,18 +373,16 @@ int launch(const Launch& L) {
     return ERR_TENSOR_MAP;
   cudaError_t err = cudaFuncSetAttribute(
       ce_coef<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)coef_smem_bytes<P>());
+      (int)scores_smem_bytes<P>());
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(ce_grad<P>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   if (P == 3) {
-    ce_split<<<split_grid((size_t)L.T * dp / 4), 256, 0, L.st>>>(
-        static_cast<const float*>(L.h), L.T, L.d, L.T, dp,
-        static_cast<bf16*>(L.h_planes));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    const int e = split_launch(static_cast<const float*>(L.h), L.T, L.d, L.T,
+                               dp, static_cast<bf16*>(L.h_planes), L.st);
+    if (e) return e;
   }
   const int n_tt = (L.T + BM - 1) / BM;
   const int n_dt = (L.d + BN - 1) / BN;
@@ -579,11 +397,11 @@ int launch(const Launch& L) {
     ch.valid = std::min(L.C, L.V - c0);
     ch.n_tt = n_tt;
     if (P == 3) {
-      ce_split<<<split_grid((size_t)L.C * dp / 4), 256, 0, L.st>>>(
-          static_cast<const float*>(L.w) + (size_t)c0 * L.d, ch.valid, L.d,
-          L.C, dp, static_cast<bf16*>(L.w_planes));
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
+      const int e = split_launch(static_cast<const float*>(L.w) +
+                                     (size_t)c0 * L.d,
+                                 ch.valid, L.d, L.C, dp,
+                                 static_cast<bf16*>(L.w_planes), L.st);
+      if (e) return e;
     }
     CoefArgs ca;
     ca.ch = ch;
@@ -593,7 +411,7 @@ int launch(const Launch& L) {
     ca.go = static_cast<const float*>(L.go);
     ca.coef = static_cast<bf16*>(L.scratch);
     const int n_coef = n_tt * ((ch.valid + BN - 1) / BN);
-    ce_coef<P><<<std::min(L.grid, n_coef), THREADS, coef_smem_bytes<P>(),
+    ce_coef<P><<<std::min(L.grid, n_coef), THREADS, scores_smem_bytes<P>(),
                  L.st>>>(cm, ca, n_coef);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -648,8 +466,7 @@ extern "C" int fused_ce_bwd_launch(
 // the planes of x (R rows of d f32), zeros past R and d.
 extern "C" int ce_split_launch(const void* x, int R, int d, int rows, int dp,
                                void* out, void* stream) {
-  ce_split<<<split_grid((size_t)rows * dp / 4), 256, 0,
-             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), R, d, rows, dp, static_cast<bf16*>(out));
-  return (int)cudaGetLastError();
+  return split_launch(static_cast<const float*>(x), R, d, rows, dp,
+                      static_cast<bf16*>(out),
+                      static_cast<cudaStream_t>(stream));
 }

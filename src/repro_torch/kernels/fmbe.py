@@ -12,12 +12,16 @@ with ``m < degree_j``; the plain versions, like the TPU kernels, compute
 all ``max_degree`` and multiply by 1 past the degree, which gives the same
 result.
 
-``fmbe_phi`` has two kernels. For bf16 ``x`` the projections are one GEMM
-on the tensor cores (``csrc/fmbe_phi_wgmma.cu``): the live rows of omega,
-which are +-1 and so exact in bf16, are gathered once per feature map into
-a bf16 matrix (``fmbe_pack``), and the epilogue multiplies each feature's
-columns. For f32 ``x`` it runs the CUDA-core design (``csrc/fmbe_phi.cu``,
-as ``fmbe_z``: ``csrc/fmbe_z.cu``; both share ``csrc/fmbe_tile.cuh``).
+``fmbe_phi`` runs its projections as one GEMM on the tensor cores
+(``csrc/fmbe_phi_wgmma.cu``): the live rows of omega, which are +-1 and so
+exact in bf16, are gathered once per feature map into a bf16 matrix
+(``fmbe_pack``), and the epilogue multiplies each feature's columns. bf16
+``x`` is read as it is; f32 ``x`` is split into three exact bf16 planes
+(``fused_ce.split_planes``), each run against the pack, smallest first, so
+every product is exact and only the f32 sums round
+(``fmbe_phi_planes_plain`` is that decomposition in plain PyTorch).
+``fmbe_z`` (``csrc/fmbe_z.cu``, on ``csrc/fmbe_tile.cuh``) dots only the
+live omega rows on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -27,10 +31,10 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
+from .fused_ce import planes_width, split_planes
 
 MAX_DEGREE = 8              # fmbe_tile.cuh's MMAX
 Z_FEATURES_PER_CTA = 16     # fmbe_z.cu's FP
-QUERY_TILE = 8              # streaming.cuh's QT
 PACK_TILE = 128             # columns of an output tile (hopper_gemm.cuh BN)
 
 
@@ -124,8 +128,8 @@ def fmbe_pack(omega, degree, coef) -> FmbePack:
 
 def _reads_pack(x) -> bool:
     """Whether ``fmbe_phi`` runs rows like x on the tensor-core kernel,
-    which reads a pack: bf16 on the GPU."""
-    return x.is_cuda and x.dtype == torch.bfloat16
+    which reads a pack: bf16 or f32 on the GPU."""
+    return x.is_cuda and x.dtype in _build.KERNEL_DTYPES
 
 
 def pack_if_needed(omega, degree, coef, x) -> Optional[FmbePack]:
@@ -167,9 +171,26 @@ def fmbe_phi_pack_plain(pack: FmbePack, x):
     """Plain PyTorch version of the tensor-core ``fmbe_phi``: the
     projections as one f32 product with the packed rows, then each
     feature's columns multiplied in m order, then coef."""
-    proj = x.float() @ pack.rows.float().T                   # (Q, n_cols)
-    prod = torch.ones((x.shape[0], pack.start.shape[0]),
-                      dtype=torch.float32, device=x.device)
+    return _feature_products(pack, x.float() @ pack.rows.float().T)
+
+
+def fmbe_phi_planes_plain(pack: FmbePack, x):
+    """The f32 kernel's decomposition in plain PyTorch: the projections as
+    three f32 products of ``split_planes(x)`` with the packed rows, added
+    smallest plane first, then ``fmbe_phi_pack_plain``'s feature products.
+    For tests and ``chip_smoke.py``, never on the main path."""
+    rows = pack.rows.float().T
+    proj = None
+    for plane in reversed(split_planes(x)):
+        term = plane.float() @ rows
+        proj = term if proj is None else proj + term
+    return _feature_products(pack, proj)
+
+
+def _feature_products(pack: FmbePack, proj):
+    """phi from the (Q, n_cols) f32 projections on the pack's columns."""
+    prod = torch.ones((proj.shape[0], pack.start.shape[0]),
+                      dtype=torch.float32, device=proj.device)
     for m in range(MAX_DEGREE):
         use = pack.degree > m
         if not bool(use.any()):
@@ -216,9 +237,14 @@ def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def _phi_tensor_cores(pack: FmbePack, x):
-    """The tensor-core kernel (``csrc/fmbe_phi_wgmma.cu``): x (Q, d) bf16
-    on the GPU against the pack of its map. Returns (Q, P) f32."""
+def phi_launch(pack: FmbePack, x, *, lib=None):
+    """``fmbe_phi``'s kernel (``csrc/fmbe_phi_wgmma.cu``) on x (Q, d) bf16
+    or f32 on the GPU against the pack of its map, without its launch
+    count: (phi (Q, P) f32, planes). f32 x is first split by the
+    ``ce_split`` kernel into (3, Q, dp) bf16 planes, dp = d rounded up to
+    64 columns; ``planes`` is that buffer, for holding the split to
+    ``split_planes``, and None at bf16. ``lib`` is the built library to
+    launch (default: the package's), for tools."""
     dev = x.device
     tensors = (x, pack.rows, pack.start, pack.tile_j0, pack.degree,
                pack.coef)
@@ -236,14 +262,18 @@ def _phi_tensor_cores(pack: FmbePack, x):
            "pack rows not contiguous and 16-byte aligned", "fmbe_phi")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grid = min(sms, -(-q // PACK_TILE) * n_tiles)
-    lib = _build.load("fmbe_phi_wgmma")
+    is_f32 = _build.KERNEL_DTYPES[x.dtype]
+    planes = (torch.empty((3, q, planes_width(d)), dtype=torch.bfloat16,
+                          device=dev) if is_f32 else None)
+    lib = _build.load("fmbe_phi_wgmma") if lib is None else lib
     out = torch.empty((q, p), dtype=torch.float32, device=dev)
     ptr = ctypes.c_void_p
     err = lib.fmbe_phi_wgmma_launch(
         *[ptr(t.data_ptr()) for t in tensors], q, p, d, n_tiles, grid,
-        ptr(out.data_ptr()), _stream(dev))
+        ptr(out.data_ptr()), ptr(planes.data_ptr() if is_f32 else None),
+        is_f32, _stream(dev))
     _build.check("fmbe_phi_wgmma", err)
-    return out
+    return out, planes
 
 
 @_build.counted
@@ -254,35 +284,24 @@ def fmbe_phi(omega, degree, coef, x, *, pack: Optional[FmbePack] = None):
       x      (Q, d) bf16 or f32
       pack   ``fmbe_pack(omega, degree, coef)`` of these very tensors, made
              once per feature map (``pack_if_needed``) and read by the
-             tensor-core kernel; a bf16 call on the GPU without it packs the
-             map itself
+             tensor-core kernel; a call on the GPU without it packs the map
+             itself
 
-    Returns (Q, P) f32. On the GPU, bf16 x runs the tensor-core kernel and
-    counts as a "bf16" launch, f32 x the CUDA-core kernel
-    (``csrc/fmbe_phi.cu``, "f32"). On CPU tensors: ``fmbe_phi_pack_plain``
-    given a pack, else ``fmbe_phi_plain``."""
+    Returns (Q, P) f32. On the GPU, x runs the tensor-core kernel
+    (``csrc/fmbe_phi_wgmma.cu``): bf16 as it is, counted as a "bf16"
+    launch, f32 as three exact bf16 planes, counted as "f32". On CPU
+    tensors: ``fmbe_phi_pack_plain`` given a pack, else
+    ``fmbe_phi_plain``."""
     if pack is not None:
         _check_pack(pack, omega, degree, coef)
     if all(t.device.type == "cpu" for t in (omega, degree, coef, x)):
         if pack is not None:
             return fmbe_phi_pack_plain(pack, x)
         return fmbe_phi_plain(omega, degree, coef, x)
-    q, p, m, d = _check_inputs("fmbe_phi", omega, degree, coef, x)
-    if _reads_pack(x):
-        out = _phi_tensor_cores(
-            pack if pack is not None else fmbe_pack(omega, degree, coef), x)
-        _build.count(fmbe_phi, 0)
-        return out
-    _check(-(-q // QUERY_TILE) <= 65535, f"Q={q}: chunk the rows",
-           "fmbe_phi")
-    lib = _build.load("fmbe_phi")
-    out = torch.empty((q, p), dtype=torch.float32, device=x.device)
-    ptr = ctypes.c_void_p
-    err = lib.fmbe_phi_launch(
-        *[ptr(t.data_ptr()) for t in (omega, degree, coef, x)], q, p, m, d,
-        ptr(out.data_ptr()), _stream(x.device))
-    _build.check("fmbe_phi", err)
-    _build.count(fmbe_phi, 1)
+    _check_inputs("fmbe_phi", omega, degree, coef, x)
+    out, _ = phi_launch(
+        pack if pack is not None else fmbe_pack(omega, degree, coef), x)
+    _build.count(fmbe_phi, _build.KERNEL_DTYPES[x.dtype])
     return out
 
 

@@ -5,12 +5,14 @@ computed without writing the [T, V] logits to device memory.
 ``fused_ce_fwd`` and ``fused_ce_bwd`` launch CUDA kernels on CUDA tensors
 and run ``fused_ce_fwd_plain`` / ``fused_ce_bwd_plain`` on CPU tensors. On
 the GPU they dispatch on the inputs' dtype, with no other route. The
-forward runs ``csrc/fused_ce_fwd.cu`` (bf16, tensor cores) or
-``csrc/fused_ce_f32.cu`` (f32, CUDA cores). The backward runs
-``csrc/fused_ce_bwd.cu`` on the tensor cores at both dtypes: bf16 operands
-as they are, f32 ones as three exact bf16 planes each (``split_planes``),
-whose six largest plane products (``PAIRS``) sum to an f32-accurate
-product. Both keep the TPU kernels' contract: scores accumulate in f32, a
+forward runs ``csrc/fused_ce_fwd.cu`` and the backward
+``csrc/fused_ce_bwd.cu``, both on the tensor cores at both dtypes: bf16
+operands as they are, f32 ones as three exact bf16 planes each
+(``split_planes``), whose six largest plane products (``PAIRS``) sum to an
+f32-accurate product (``fused_ce_fwd_planes_plain`` is the forward's
+decomposition in plain PyTorch). At f32 no tensor-core sum is deeper than
+``F32_MAX_DEPTH``, so d is at most that. Both keep the TPU kernels'
+contract: scores accumulate in f32, a
 label outside [0, V) leaves the label score at NEG (so its nll is about
 1e30, not NaN), and the backward rounds its coefficient ``coef = (g_nll +
 g_lse) p - g_nll onehot`` to the inputs' dtype before both products (a
@@ -48,7 +50,6 @@ SCRATCH_BYTES = 32 << 20   # the backward's (planes, T, C) coefficient buffer
 # 16-deep step with a bias that grows with K (on the card: dh's mean error
 # about 4e-10 of its terms a column of K)
 F32_MAX_DEPTH = 8192
-F32_TILE = 128       # forward tiles of csrc/fused_ce_f32.cu
 # bf16 planes of an operand of the backward, by input dtype
 PLANES = {torch.bfloat16: 1, torch.float32: 3}
 # the plane pairs (i, j) of a three-plane product, in the kernel's order:
@@ -61,9 +62,25 @@ def fused_ce_fwd_plain(h: torch.Tensor, w: torch.Tensor,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: h (T, d), w (V, d), labels (T,) -> (nll (T,),
     lse (T,)), both f32, from the full f32 logits."""
-    logits = h.float() @ w.float().T
+    return _nll_lse(h.float() @ w.float().T, labels)
+
+
+def fused_ce_fwd_planes_plain(h: torch.Tensor, w: torch.Tensor,
+                              labels: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 forward kernel's decomposition in plain PyTorch: the logits
+    as ``plane_product`` of ``split_planes`` of h and of w, then the LSE and
+    the label's score as in ``fused_ce_fwd_plain``. For tests and
+    ``chip_smoke.py``, never on the main path."""
+    return _nll_lse(plane_product(split_planes(h),
+                                  [x.T for x in split_planes(w)]), labels)
+
+
+def _nll_lse(logits, labels):
+    """(nll, lse) of f32 (T, V) logits; a label outside [0, V) leaves the
+    label score at NEG."""
     lse = torch.logsumexp(logits, dim=-1)
-    v = w.shape[0]
+    v = logits.shape[1]
     lab = labels.long()
     ok = (lab >= 0) & (lab < v)
     picked = torch.gather(logits, 1, lab.clamp(0, v - 1)[:, None])[:, 0]
@@ -260,14 +277,6 @@ def bwd_schedule(t: int, v: int, dtype=torch.bfloat16) -> Dict[str, int]:
                 scratch_bytes=size * t * chunk)
 
 
-def fwd_schedule_f32(t: int, v: int, sms: int) -> Dict[str, int]:
-    """The f32 forward kernel's grid: (vocab split, 128-token tile) CTAs,
-    about two a SM, each split ``per`` 128-column vocab tiles."""
-    n_tt, n_vt = -(-t // F32_TILE), -(-v // F32_TILE)
-    per = -(-n_vt // max(1, min(n_vt, -(-2 * sms // n_tt))))
-    return dict(n_split=-(-n_vt // per), per=per)
-
-
 @functools.lru_cache(maxsize=16)
 def _device_order(t, d, valid, sms, longest_first, dev):
     """``grad_order``'s lists as int32 tensors on ``dev``, with the CTA
@@ -299,6 +308,9 @@ def _check_inputs(h, w, labels, *vectors) -> int:
            and w.data_ptr() % 16 == 0,
            f"d={d}: rows must be a multiple of {width} wide and 16-byte "
            f"aligned")
+    _check(not f32 or d <= F32_MAX_DEPTH,
+           f"f32 d={d} exceeds F32_MAX_DEPTH={F32_MAX_DEPTH}, the deepest "
+           f"tensor-core sum the f32 scores take")
     for x in (labels,) + vectors:
         _check(x.device == h.device and tuple(x.shape) == (t,),
                f"per-token input of shape {tuple(x.shape)} on {x.device}, "
@@ -315,11 +327,23 @@ def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h (T, d), w (V, d), labels (T,) -> (nll (T,) f32, lse (T,) f32).
 
-    CUDA tensors launch a kernel (h and w both bf16: tensor cores; both
-    f32: CUDA cores; f32 accumulation) on the current stream; CPU tensors
-    run ``fused_ce_fwd_plain``."""
+    CUDA tensors launch the kernels on the current stream (h and w both
+    bf16, or both f32 and then as three bf16 planes each; f32
+    accumulation); CPU tensors run ``fused_ce_fwd_plain``."""
     if h.device.type == "cpu" and w.device.type == "cpu":
         return fused_ce_fwd_plain(h, w, labels)
+    nll, lse, _ = fwd_launch(h, w, labels)
+    _build.count(fused_ce_fwd, int(h.dtype == torch.float32))
+    return nll, lse
+
+
+def fwd_launch(h, w, labels, *, lib=None):
+    """``fused_ce_fwd``'s kernels on CUDA tensors, without its launch
+    count: (nll, lse, planes). f32 inputs are first split by the ``ce_split``
+    kernel into (3, T, dp) planes of h and (3, V, dp) planes of w, dp = d
+    rounded up to 64 columns; ``planes`` is that pair, for holding the split
+    to ``split_planes``, and None at bf16. ``lib`` is the built library to
+    launch (default: the package's ``csrc/fused_ce_fwd.cu``), for tools."""
     is_f32 = _check_inputs(h, w, labels)
     t, d = h.shape
     v = w.shape[0]
@@ -328,28 +352,24 @@ def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
     f32 = torch.float32
     nll = torch.empty((t,), dtype=f32, device=dev)
     lse = torch.empty((t,), dtype=f32, device=dev)
+    sch = fwd_schedule(t, v, _sms(dev))
+    part = torch.empty((3, sch["n_part"], t), dtype=f32, device=dev)
     p = ctypes.c_void_p
-    stream = p(torch.cuda.current_stream(dev).cuda_stream)
+    planes, ptrs = None, [p(None)] * 2
     if is_f32:
-        sch = fwd_schedule_f32(t, v, _sms(dev))
-        part = torch.empty((3, sch["n_split"], t), dtype=f32, device=dev)
-        err = _build.load("fused_ce_f32").fused_ce_f32_fwd_launch(
-            p(h.data_ptr()), p(w.data_ptr()), p(lab.data_ptr()), t, v, d,
-            sch["n_split"], sch["per"], p(part[0].data_ptr()),
-            p(part[1].data_ptr()), p(part[2].data_ptr()), p(nll.data_ptr()),
-            p(lse.data_ptr()), stream)
-        _build.check("fused_ce_f32_fwd", err)
-    else:
-        sch = fwd_schedule(t, v, _sms(dev))
-        part = torch.empty((3, sch["n_part"], t), dtype=f32, device=dev)
-        err = _build.load("fused_ce_fwd").fused_ce_fwd_launch(
-            p(h.data_ptr()), p(w.data_ptr()), p(lab.data_ptr()), t, v, d,
-            sch["n_split"], sch["per"], sch["grid"], p(part[0].data_ptr()),
-            p(part[1].data_ptr()), p(part[2].data_ptr()), p(nll.data_ptr()),
-            p(lse.data_ptr()), stream)
-        _build.check("fused_ce_fwd", err)
-    _build.count(fused_ce_fwd, is_f32)
-    return nll, lse
+        dp = planes_width(d)
+        planes = tuple(torch.empty((3, n, dp), dtype=torch.bfloat16,
+                                   device=dev) for n in (t, v))
+        ptrs = [p(x.data_ptr()) for x in planes]
+    lib = _build.load("fused_ce_fwd") if lib is None else lib
+    err = lib.fused_ce_fwd_launch(
+        p(h.data_ptr()), p(w.data_ptr()), p(lab.data_ptr()), t, v, d,
+        sch["n_split"], sch["per"], sch["grid"], p(part[0].data_ptr()),
+        p(part[1].data_ptr()), p(part[2].data_ptr()), p(nll.data_ptr()),
+        p(lse.data_ptr()), *ptrs, int(is_f32),
+        p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check("fused_ce_fwd", err)
+    return nll, lse, planes
 
 
 @_build.counted
@@ -371,7 +391,7 @@ def fused_ce_bwd(h, w, labels, lse, g_nll, g_lse, *, cast=True):
     return out
 
 
-def _planes_width(d: int) -> int:
+def planes_width(d: int) -> int:
     """Columns of a plane: d rounded up to whole 64-column TMA boxes."""
     return -(-d // BK) * BK
 
@@ -427,7 +447,7 @@ def _launch_slice(lib, h, w, lab, lse32, gn, go, dh32, dh, dw, cast, dw_add,
     scratch = torch.empty((PLANES[h.dtype], t, sch["chunk"]), dtype=bf16,
                           device=dev)
     if is_f32:
-        dp = _planes_width(d)
+        dp = planes_width(d)
         h_planes = torch.empty((3, t, dp), dtype=bf16, device=dev)
         w_planes = torch.empty((3, sch["chunk"], dp), dtype=bf16, device=dev)
     last = v - (sch["n_chunks"] - 1) * sch["chunk"]
@@ -460,7 +480,7 @@ def planes_launch(x: torch.Tensor, rows: int = None) -> torch.Tensor:
            f"split: want a contiguous 16-byte aligned CUDA f32 (R, d), d a "
            f"multiple of 4, rows >= R; got {x.dtype} {tuple(x.shape)} on "
            f"{x.device}, rows {rows}")
-    dp = _planes_width(d)
+    dp = planes_width(d)
     out = torch.empty((3, rows, dp), dtype=torch.bfloat16, device=x.device)
     err = _build.load("fused_ce_bwd").ce_split_launch(
         ctypes.c_void_p(x.data_ptr()), r, d, rows, dp,

@@ -31,10 +31,12 @@ boundary rounds one bf16 step (at most 2**-7 relative) apart. dh and dW
 element dominated by one term can reach, and on average over the elements
 to GRAD_MEAN = 2**-10, which a missing or misplaced tile would exceed.
 
-The f32 fused CE kernels round nothing: the forward (``csrc/fused_ce_f32.cu``)
-runs on the CUDA cores, and the backward on the tensor cores on exact bf16
-planes of its f32 operands (``split_planes``, whose six largest pair
-products drop terms of order 2**-24). Its dh and dW are held to
+The f32 fused CE kernels round nothing: both run on the tensor cores on
+exact bf16 planes of their f32 operands (``split_planes``, whose six
+largest pair products drop terms of order 2**-24). The forward's nll and
+lse are held to 1e-3 of the plain version and to 1e-5 of 1 + |value| from
+float64 at logits up to about N(0, 64), and refuse d past F32_MAX_DEPTH
+(the depth of their one sum). The backward's dh and dW are held to
 F32_GRAD_REL = 1e-4 of the sum of their terms' magnitudes per element and
 F32_GRAD_MEAN = 1e-5 on average (f32 scores, exp and sums in another order
 than the plain version's; about 1e-6 is expected), 78x tighter than the
@@ -44,7 +46,12 @@ backward runs in token slices of at most F32_MAX_DEPTH tokens whose dW
 add up in f32 (also at small slices, through ``bwd_launch(depth=)``), and
 against float64 at logits up to about N(0, 64). The
 split kernel gives ``split_planes``'s bits, zeros past the rows and
-columns it is given.
+columns it is given, in the backward's library and in the forward's (the
+planes the forward read). f32 ``fmbe_phi`` runs the tensor-core kernel on
+three exact bf16 planes of x against the +-1 pack: it is held to the plain
+version, to its plane decomposition (``fmbe_phi_planes_plain``) and to
+float64 under the same phi tolerance, and its planes of x are
+``split_planes``'s.
 
 These tests need a GPU and skip without one. On the GPU machine, which has
 no JAX, run them without the repository's conftest:
@@ -55,11 +62,14 @@ import pytest
 import torch
 
 from repro_torch.kernels.fmbe import (PACK_TILE, fmbe_pack, fmbe_phi,
-                                     fmbe_phi_plain, fmbe_z, fmbe_z_plain,
-                                     pack_layout)
-from repro_torch.kernels.fused_ce import (bwd_launch, bwd_schedule, ce_coef,
-                                         fused_ce_bwd, fused_ce_bwd_plain,
-                                         fused_ce_fwd, fused_ce_fwd_plain,
+                                     fmbe_phi_planes_plain, fmbe_phi_plain,
+                                     fmbe_z, fmbe_z_plain, pack_layout,
+                                     phi_launch)
+from repro_torch.kernels.fused_ce import (F32_MAX_DEPTH, bwd_launch,
+                                         bwd_schedule, ce_coef, fused_ce_bwd,
+                                         fused_ce_bwd_plain, fused_ce_fwd,
+                                         fused_ce_fwd_planes_plain,
+                                         fused_ce_fwd_plain, fwd_launch,
                                          planes_launch, split_planes)
 from repro_torch.core import lsh as tlsh
 from repro_torch.kernels.ivf_score import (ivf_decode, ivf_decode_plain,
@@ -337,10 +347,46 @@ def _check_phi(omega, degree, coef, x, pack=None):
 @pytest.mark.parametrize("q,p", [(8, 4096), (5, 1000), (13, 70),
                                  (8192, 4096), (131, 1000)])
 def test_fmbe_phi_matches_plain(gen, q, p, dtype):
-    """bf16 x runs the tensor-core kernel, f32 x the CUDA-core one."""
+    """Both dtypes run the tensor-core kernel: bf16 x as it is, f32 x as
+    three exact bf16 planes against the same +-1 pack."""
     omega, degree, coef = _feature_map(gen, p)
     x = (torch.randn(q, D, generator=gen, device="cuda") * 0.02).to(dtype)
     _check_phi(omega, degree, coef, x)
+
+
+def _phi64(pack, x):
+    """phi in float64 from f32 x and the pack's rows."""
+    proj = x.double() @ pack.rows.double().T
+    prod = torch.ones((x.shape[0], pack.start.shape[0]), dtype=torch.float64,
+                      device=x.device)
+    for m in range(8):
+        use = pack.degree > m
+        col = torch.where(use, pack.start + m, 0).long()
+        prod = torch.where(use[None, :], prod * proj[:, col], prod)
+    return prod * pack.coef.double()
+
+
+@pytest.mark.parametrize("q,p,d,x_std", [(8192, 4096, D, 0.02),
+                                         (131, 1000, 104, 1.0)])
+def test_fmbe_phi_f32_matches_planes_plain_and_float64(gen, q, p, d, x_std):
+    """f32 x at the build's chunk, and at rows off the tile with d off the
+    64-column box (zeros in the planes past d): phi within the phi
+    tolerance of ``fmbe_phi_planes_plain`` and of float64, and the split of
+    x equal to ``split_planes`` bit for bit, zeros past d."""
+    omega, degree, coef = _feature_map(gen, p, d=d)
+    x = torch.randn(q, d, generator=gen, device="cuda") * x_std
+    pack = fmbe_pack(omega, degree, coef)
+    got, planes = phi_launch(pack, x)
+    torch.cuda.synchronize()
+    assert planes.shape == (3, q, -(-d // 64) * 64)
+    for i, plane in enumerate(split_planes(x)):
+        assert torch.equal(planes[i, :, :d].view(torch.int16),
+                           plane.view(torch.int16))
+    assert not planes[:, :, d:].any()
+    tol = 1e-4 * _phi_scale(omega, degree, coef, x)
+    for want in (fmbe_phi_planes_plain(pack, x), _phi64(pack, x)):
+        assert ((got.double() - want).abs()
+                <= tol + 1e-4 * want.abs()).all()
 
 
 def _pinned_map(gen, degrees, d=D):
@@ -545,6 +591,56 @@ def test_fused_ce_f32_matches_float64(gen, scale):
                   F32_GRAD_REL, F32_GRAD_MEAN)
 
 
+@pytest.mark.parametrize("scale", [1, 2, 4])
+def test_fused_ce_fwd_f32_matches_float64(gen, scale):
+    """The f32 forward against float64 at logits about N(0, 4), N(0, 16)
+    and N(0, 64) (W scaled by 1, 2 and 4; T 1024, V 40000, d 2560): nll and
+    lse within 1e-5 of 1 + |value|. Its scores feed exp, so their error is
+    the LSE's; the plain f32 version's error is printed beside."""
+    t = 1024
+    h, w, labels = _ce_inputs(gen, t, 40000, D, torch.float32)
+    w = w * scale
+    got = fused_ce_fwd(h, w, labels)
+    logits = h.double() @ w.double().T
+    lse = torch.logsumexp(logits, -1)
+    want = (lse - logits.gather(1, labels.long()[:, None])[:, 0], lse)
+    del logits
+
+    def err(out):
+        return max(((g.double() - x).abs() / (1 + x.abs())).max().item()
+                   for g, x in zip(out, want))
+    kernel, plain = err(got), err(fused_ce_fwd_plain(h, w, labels))
+    print(f"scale {scale}: kernel {kernel:.3e}, plain f32 {plain:.3e} of "
+          f"1 + |value| from float64")
+    assert kernel <= 1e-5, (kernel, plain)
+    p_nll, p_lse = fused_ce_fwd_planes_plain(h, w, labels)
+    assert (got[0] - p_nll).abs().max().item() <= TOL
+    assert (got[1] - p_lse).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("t,v,d", [(1024, 40000, D), (37, 1001, 100),
+                                   (1, 130, 4)])
+def test_fused_ce_fwd_split_matches_split_planes(gen, t, v, d):
+    """The planes the f32 forward read (its own ``ce_split``, h into
+    (3, T, dp) and w into (3, V, dp)) are ``split_planes``'s bit for bit,
+    zeros past d, and the call counts no launch."""
+    h, w, labels = _ce_inputs(gen, t, v, d, torch.float32)
+    before = _counts(fused_ce_fwd)
+    nll, lse, planes = fwd_launch(h, w, labels)
+    torch.cuda.synchronize()
+    assert _counts(fused_ce_fwd) == before
+    dp = -(-d // 64) * 64
+    for x, got in zip((h, w), planes):
+        assert got.shape == (3, x.shape[0], dp)
+        for q, plane in enumerate(split_planes(x)):
+            assert torch.equal(got[q, :, :d].view(torch.int16),
+                               plane.view(torch.int16))
+        assert not got[:, :, d:].any()
+    assert torch.equal(nll, fused_ce_fwd(h, w, labels)[0])
+    if d % 32 == 0:                                     # bf16 reads no planes
+        assert fwd_launch(h.bfloat16(), w.bfloat16(), labels)[2] is None
+
+
 @pytest.mark.parametrize("t,v,d,depth", [(1024, 5000, 100, 400),
                                          (129, 1000, 64, 64)])
 def test_fused_ce_f32_token_slices(gen, t, v, d, depth):
@@ -654,6 +750,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(gen):
                      w[:, :48].bfloat16().contiguous(), labels)
     with pytest.raises(ValueError, match="multiple of 4"):
         fused_ce_fwd(h[:, :46].contiguous(), w[:, :46].contiguous(), labels)
+    deep = F32_MAX_DEPTH + 32                           # f32 only
+    with pytest.raises(ValueError, match=f"d={deep} exceeds F32_MAX_DEPTH="
+                                         f"{F32_MAX_DEPTH}"):
+        fused_ce_fwd(torch.ones(4, deep, device="cuda"),
+                     torch.ones(64, deep, device="cuda"), labels)
+    fused_ce_fwd(torch.ones(4, deep, device="cuda").bfloat16(),
+                 torch.ones(64, deep, device="cuda").bfloat16(), labels)
     with pytest.raises(ValueError, match="multiple of 4"):
         planes_launch(h[:, :46].contiguous())
     with pytest.raises(ValueError, match="per-token"):

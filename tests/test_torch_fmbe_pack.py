@@ -10,7 +10,9 @@ most 128 features each, tile [0, P) in order. The plain evaluation from
 the pack equals ``fmbe_phi_plain`` bit for bit and the Pallas kernel in
 interpret mode to
 1e-4 of each feature's scale |coef_j| * max(|x|_2, 1) ** degree_j, on the
-same numpy inputs; ``build_fmbe_blocks`` and ``build_fmbe`` give the same
+same numpy inputs, and so does the f32 kernel's decomposition
+(``fmbe_phi_planes_plain``: three exact bf16 planes of x against the pack,
+smallest first); ``build_fmbe_blocks`` and ``build_fmbe`` give the same
 sums with a pack as without one, and ``fmbe_phi`` refuses a pack made from
 other tensors."""
 import jax
@@ -30,7 +32,8 @@ from repro_torch.core import feature_maps as tfm
 from repro_torch.interop import feature_map_from_numpy
 from repro_torch.kernels.fmbe import (PACK_TILE, fmbe_pack,
                                      fmbe_phi, fmbe_phi_pack_plain,
-                                     fmbe_phi_plain, pack_layout)
+                                     fmbe_phi_planes_plain, fmbe_phi_plain,
+                                     pack_layout)
 
 REL = 1e-4
 
@@ -157,6 +160,34 @@ def test_pack_plain_matches_plain_and_pallas(q, p, d, max_degree):
     scale = (np.abs(np.asarray(fm.coef))[None, :]
              * norm[:, None] ** np.asarray(fm.degree, np.float64)[None, :])
     assert (np.abs(got.numpy() - want) <= REL * (np.abs(want) + scale)).all()
+
+
+@pytest.mark.parametrize("q,p,d,max_degree,x_std", [(5, 200, 32, 8, 0.5),
+                                                    (8, 128, 16, 4, 0.5),
+                                                    (3, 70, 40, 6, 2.0)])
+def test_planes_plain_matches_plain_and_pallas(q, p, d, max_degree, x_std):
+    """The f32 kernel's decomposition (x split into three bf16 planes, each
+    against the packed +-1 rows, smallest first, summed in f32) against
+    ``fmbe_phi_plain`` and the Pallas kernel in interpret mode, within 1e-4
+    of |phi| + |coef_j| * max(|x|_2, 1) ** degree_j."""
+    fm = jfm.make_feature_map(jax.random.PRNGKey(q * p), d, p,
+                              max_degree=max_degree)
+    tmap = feature_map_from_numpy(np.asarray(fm.omega),
+                                  np.asarray(fm.degree),
+                                  np.asarray(fm.coef), fm.p, device="cpu")
+    x = (x_std * np.random.default_rng(q + d).standard_normal((q, d))
+         ).astype(np.float32)
+    pack = fmbe_pack(tmap.omega, tmap.degree, tmap.coef)
+    got = fmbe_phi_planes_plain(pack, torch.from_numpy(x)).numpy()
+    norm = np.maximum(np.linalg.norm(x, axis=-1), 1.0)
+    scale = (np.abs(np.asarray(fm.coef))[None, :]
+             * norm[:, None] ** np.asarray(fm.degree, np.float64)[None, :])
+    plain = fmbe_phi_plain(tmap.omega, tmap.degree, tmap.coef,
+                           torch.from_numpy(x)).numpy()
+    pallas = np.asarray(jax_fmbe_phi(fm.omega, fm.degree, fm.coef,
+                                     jnp.asarray(x)))
+    for want in (plain, pallas):
+        assert (np.abs(got - want) <= REL * (np.abs(want) + scale)).all()
 
 
 def test_wrapper_takes_the_pack_plain_on_cpu():

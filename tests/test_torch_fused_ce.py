@@ -24,7 +24,10 @@ split is exact bit for bit, the dropped pairs are of order 2**-24 of the
 terms, so the six-pair product in float64 lies within 1e-8 of the sum of
 its terms' magnitudes of the float64 product, and the chunked plane
 decomposition, in token slices too (``token_slices``), is held to the f32
-bounds above.
+bounds above. The f32 forward runs the same planes
+(``fused_ce_fwd_planes_plain``): its nll and lse hold to 1e-5 of 1 +
+|value| from float64, and to 1e-4 of the Pallas kernel's, at logits about
+N(0, 4) and N(0, 64).
 """
 import jax
 import jax.numpy as jnp
@@ -41,6 +44,7 @@ from repro_torch.kernels.fused_ce import (BK, BM, BN, F32_MAX_DEPTH, PAIRS,
                                          fused_ce_bwd,
                                          fused_ce_bwd_chunked_plain,
                                          fused_ce_bwd_plain, fused_ce_fwd,
+                                         fused_ce_fwd_planes_plain,
                                          fused_ce_fwd_plain, fwd_schedule,
                                          grad_items, grad_order,
                                          plane_product, split_planes,
@@ -401,6 +405,41 @@ def test_plane_backward_matches_pallas_f32(t, v, d, chunk, depth):
     coef = ce_coef(th, tw, tl, lse, tgn, tgl).abs()
     _within_terms_mean(dh, j_dh, coef @ tw.abs(), rel)
     _within_terms_mean(dw, j_dw, coef.T @ th.abs(), rel)
+
+
+@pytest.mark.parametrize("logit_std", [2, 8])
+@pytest.mark.parametrize("t,v,d", [(37, 1000, 100), (8, 300, 4),
+                                   (64, 129, 100)])
+def test_plane_forward_matches_pallas_and_float64(t, v, d, logit_std):
+    """The f32 forward's decomposition as the CUDA kernel computes it (h and
+    w split into planes, the scores as six-pair plane products, then the
+    LSE and the label's score) at ragged V, d of 4 and 100, labels at V - 1,
+    0, V and -1 (the last two outside [0, V): nll about 1e30), logits about
+    N(0, 4) and N(0, 64): nll and lse within 1e-5 of 1 + |value| of float64
+    and within 1e-4 of the Pallas kernel (interpret mode)."""
+    h, w, labels, _, _ = _inputs(t, v, d, "float32", seed=t + v + d)
+    w = (w * (logit_std / 2)).astype(np.float32)
+    labels[2], labels[3] = v, -1
+    th, tw, tl = _torch(h, w, labels)
+    nll, lse = fused_ce_fwd_planes_plain(th, tw, tl)
+    assert nll.dtype == torch.float32 and lse.dtype == torch.float32
+    logits = th.double() @ tw.double().T
+    want_lse = torch.logsumexp(logits, -1)
+    lab = tl.long()
+    ok = (lab >= 0) & (lab < v)
+    picked = logits.gather(1, lab.clamp(0, v - 1)[:, None])[:, 0]
+    want_nll = want_lse - torch.where(ok, picked, torch.full_like(picked,
+                                                                  -1e30))
+    for got, want in ((nll, want_nll), (lse, want_lse)):
+        assert ((got.double() - want).abs()
+                <= 1e-5 * (1 + want.abs())).all()
+    assert nll[2] > 1e29 and nll[3] > 1e29
+    j_nll, j_lse = jfce.fused_ce_fwd(jnp.asarray(h), jnp.asarray(w),
+                                     jnp.asarray(labels))
+    np.testing.assert_allclose(nll.numpy(), np.asarray(j_nll), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), rtol=0,
+                               atol=1e-4)
 
 
 @pytest.mark.parametrize("t,v", [(1, 151936), (37, 151936), (129, 151936),

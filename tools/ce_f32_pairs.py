@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Accuracy and time of the f32 fused cross-entropy backward on one GPU, by
-the number of plane pairs a product, by how its scores are summed, and by
-the depth of dW's sums.
+"""Accuracy and time of the f32 fused cross-entropy kernels on one GPU: the
+backward by the number of plane pairs a product, by how its scores are
+summed, and by the depth of dW's sums; the forward by how its scores are
+summed.
 
     python3 tools/ce_f32_pairs.py       # from the repository root
 
@@ -37,6 +38,14 @@ Part 2, depth: the kernel (six pairs) on logits_std2 inputs at T 1024 ..
 tokens and, up to T 16384, as one slice (``depth`` = T), so that dW's
 error is read against the depth of its sums.
 
+Part 3, the forward (``csrc/fused_ce_fwd.cu`` at three planes, which
+promotes its scores' (0, 0) pass as the backward does): nll and lse
+against float64 on the four inputs of part 1, as the largest and the mean
+|error| / (1 + |value|) beside chip_smoke.py's limit (1e-5), for the
+kernel (promoted every 2 stages) and its builds promoted every stage and
+not at all (``csrc/fused_ce_fwd.cu`` with ``-DCE_COEF3_PROMOTE``), each
+timed, beside the plain version in f32 (``fused_ce_fwd_plain``).
+
 Prints one line a measurement and the card's name and power limit, and
 writes all of it to ``chiprun_out/ce_f32_pairs.json``.
 """
@@ -66,6 +75,10 @@ VARIANTS = (
      ["-DCE_PASSES3=3", "-DCE_PAIR_A=0x010", "-DCE_PAIR_B=0x001"]),
 )
 UNSLICED_MAX = 16384
+FWD_LIMIT = 1e-5                   # chip_smoke.py F32_FWD_REL
+# the forward's builds: name, -DCE_COEF3_PROMOTE (None: the package's)
+FWD_VARIANTS = (("promoted every 2 stages", None),
+                ("promoted every stage", 1), ("not promoted", 0))
 
 
 def median_ms(torch, fn, runs=5, calls=3):
@@ -136,6 +149,54 @@ def errors(got, want, terms):
     return ratio.max().item(), ratio.mean().item()
 
 
+def forward64(torch, h, w, labels, block=256):
+    """nll and lse in float64 from the f32 inputs."""
+    w64 = w.double()
+    lse = torch.empty(h.shape[0], dtype=torch.float64, device=h.device)
+    picked = torch.empty_like(lse)
+    for t0 in range(0, h.shape[0], block):
+        logits = h[t0:t0 + block].double() @ w64.T
+        lse[t0:t0 + block] = torch.logsumexp(logits, -1)
+        picked[t0:t0 + block] = logits.gather(
+            1, labels[t0:t0 + block].long()[:, None])[:, 0]
+        del logits
+    return lse - picked, lse
+
+
+def fwd_errors(got, want):
+    """The largest and the mean |got - want| / (1 + |want|) over nll and
+    lse."""
+    out = []
+    for g, x in zip(got, want):
+        ratio = (g.double() - x).abs() / (1 + x.abs())
+        out += [ratio.max().item(), ratio.mean().item()]
+    return out
+
+
+def build(_build, name, source, flags, entry):
+    """Starts ``nvcc`` on ``source`` with ``flags`` into build/tools/; returns
+    a function that waits for it and loads the library, with ``entry``'s
+    signature."""
+    out_dir = ROOT / "build" / "tools"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"lib{name}.so"
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(so),
+         str(source)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+    def wait():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {name} failed:\n{out}")
+        lib = ctypes.CDLL(str(so))
+        fn = getattr(lib, f"{entry}_launch")
+        fn.argtypes = _build.SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+        return lib
+    return wait
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -144,35 +205,35 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.fused_ce import (F32_MAX_DEPTH, bwd_launch,
                                              fused_ce_bwd_plain,
-                                             fused_ce_fwd, token_slices)
+                                             fused_ce_fwd, fused_ce_fwd_plain,
+                                             fwd_launch, token_slices)
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    out_dir = ROOT / "build" / "tools"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, flags) in enumerate(VARIANTS[1:], 1):
-        so = out_dir / f"libce_f32_variant{i}.so"
-        procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(so),
-             str(ROOT / "tools" / "ce_f32_pairs.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    waits = {name: build(_build, f"ce_f32_variant{i}",
+                         ROOT / "tools" / "ce_f32_pairs.cu", flags,
+                         "fused_ce_bwd")
+             for i, (name, flags) in enumerate(VARIANTS[1:], 1)}
+    fwd_waits = {name: build(_build, f"ce_f32_fwd_promote{every}",
+                             ROOT / "src" / "repro_torch" / "kernels" /
+                             "csrc" / "fused_ce_fwd.cu",
+                             [f"-DCE_COEF3_PROMOTE={every}"], "fused_ce_fwd")
+                 for name, every in FWD_VARIANTS[1:]}
     libs = {VARIANTS[0][0]: _build.load("fused_ce_bwd")}
-    for name, (so, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            print(f"nvcc {name} failed:\n{out}")
-            return 1
-        lib = ctypes.CDLL(str(so))
-        lib.fused_ce_bwd_launch.argtypes = _build.SIGNATURES["fused_ce_bwd"]
-        lib.fused_ce_bwd_launch.restype = ctypes.c_int
-        libs[name] = lib
+    fwd_libs = {FWD_VARIANTS[0][0]: _build.load("fused_ce_fwd")}
+    try:
+        libs.update({name: wait() for name, wait in waits.items()})
+        fwd_libs.update({name: wait() for name, wait in fwd_waits.items()})
+    except RuntimeError as e:
+        print(e)
+        return 1
     print(f"card: {card}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     report = {"card": card, "shape": [T, V, D], "limits": LIMITS,
-              "variants": [], "depth": []}
+              "fwd_limit": FWD_LIMIT, "variants": [], "depth": [],
+              "forward": []}
 
     def grads(h, w, labels):
         lse = fused_ce_fwd(h, w, labels)[1]
@@ -234,6 +295,30 @@ def main() -> int:
                   flush=True)
             del dh, dw
         del ref, h, w
+        torch.cuda.empty_cache()
+    for kind in ("logits_std2", "logits_std4", "logits_std8", "snapped"):
+        h, w, labels = inputs(torch, gen, T, V, D, kind)
+        want = forward64(torch, h, w, labels)
+        runs = [("plain f32", lambda: fused_ce_fwd_plain(h, w, labels))]
+        runs += [(name, lambda lib=lib: fwd_launch(h, w, labels, lib=lib)[:2])
+                 for name, lib in fwd_libs.items()]
+        for name, fn in runs:
+            got = fn()
+            row = dict(input=kind, variant=name)
+            (row["nll_max"], row["nll_mean"], row["lse_max"],
+             row["lse_mean"]) = fwd_errors(got, want)
+            if name != "plain f32":
+                row["ms"] = median_ms(torch, fn)
+            row["within_limit"] = max(row["nll_max"],
+                                      row["lse_max"]) <= FWD_LIMIT
+            report["forward"].append(row)
+            print(f"forward {kind} {name}: {row.get('ms', float('nan')):.4f}"
+                  f" ms, lse max {row['lse_max']:.4g} mean "
+                  f"{row['lse_mean']:.4g}, nll max {row['nll_max']:.4g} "
+                  f"mean {row['nll_mean']:.4g} of 1 + |value|, within "
+                  f"{FWD_LIMIT}: {row['within_limit']}", flush=True)
+            del got
+        del h, w, want
         torch.cuda.empty_cache()
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

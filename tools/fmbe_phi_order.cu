@@ -11,20 +11,20 @@
 namespace {
 
 template <int G, bool EPI>
-struct OrderJob : PhiJob {
+struct OrderJob : PhiJob<1> {
   __device__ PhiItem item(int u) const {
     const int per_group = G * a.n_nt;
     const int g = u / per_group, r = u - g * per_group;
     const int rows = min(G, a.n_mt - g * G);
     PhiItem it;
-    it.nk = (a.d + BK - 1) / BK;
+    it.nks = it.nk = (a.d + BK - 1) / BK;
     it.m0 = (g * G + r % rows) * BM;
     it.nt = r / rows;
     return it;
   }
   __device__ void epilogue(const PhiItem& it, float (&acc)[2][64],
                            NoState& st) const {
-    if (EPI) PhiJob::epilogue(it, acc, st);
+    if (EPI) PhiJob<1>::epilogue(it, acc, st);
   }
 };
 

@@ -1,0 +1,202 @@
+#!/usr/bin/env python3
+"""Two checkouts of the repository on one GPU, in turns: the bits and times
+of the bf16 kernels of the fused cross-entropy and of ``fmbe_phi``, and the
+f32 route's times.
+
+    python3 tools/tree_compare.py OTHER       # from the repository root
+
+OTHER is the root of another checkout (for example the parent commit,
+unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
+Each run is a process of its own that imports ``repro_torch`` from one
+checkout and builds its kernels there; the runs go OTHER, this, this,
+OTHER. Every run makes the same inputs from seed 0:
+  - the fused CE pair at the training shape of ``chip_smoke.py`` (T 1024
+    tokens, qwen1.5-4b's V 151936 and d 2560): h ~ N(0, 1) and W drawn as
+    ``Model.init`` draws the head (N(0, 1/V)), labels uniform;
+    ``fused_ce_fwd`` and ``fused_ce_bwd`` (the cotangents of the mean nll
+    and of a selfnorm penalty, dh and dW both cast to bf16 and not) at bf16
+    and, timed only, at f32;
+  - ``fmbe_phi`` on the FMBE build's chunk (16 blocks of 512 rows of W)
+    against a map of 4096 features (``make_feature_map``, seed 0) and its
+    pack, at bf16 and, timed only, at f32, and the whole f32 sketch of the
+    build's 474 blocks (``build_fmbe_blocks``, host clock; W's rows, then
+    masked padding);
+  - the f32 train step of ``chip_smoke.py``'s f32 phase (qwen1.5-4b at 4
+    layers, B 4 x S 256, ``fused_ce``), three steps on the host clock.
+Each bf16 output is fingerprinted (SHA-256 of its bytes). A kernel time is
+the median of 20 calls timed with CUDA events after 3 to warm up. Prints
+each measurement's four values in run order with the card's name and power
+limit, whether each fingerprint is the same in all four runs, and writes
+all of it to ``chiprun_out/tree_compare.json``.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+T, V, D = 1024, 151936, 2560
+BLOCKS, BLOCK_ROWS, CHUNK_BLOCKS = 474, 512, 16
+N_FEATURES = 4096
+
+
+def events_ms(torch, fn, reps=20, warm=3):
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def wall_ms(torch, fn, reps=3):
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def digest(*tensors):
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def one(root: Path) -> dict:
+    """The measurements of one checkout, imported from ``root``."""
+    sys.path.insert(0, str(root / "src"))
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.core.feature_maps import (build_fmbe_blocks,
+                                               make_feature_map)
+    from repro_torch.data import DataIterator, SyntheticCorpus
+    from repro_torch.kernels.fmbe import fmbe_pack, fmbe_phi, pack_if_needed
+    from repro_torch.kernels.fused_ce import fused_ce_bwd, fused_ce_fwd
+    from repro_torch.models import Model
+    from repro_torch.train import init_train_state, make_train_step
+    assert Path(fused_ce_fwd.__code__.co_filename).is_relative_to(root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h32 = torch.randn(T, D, generator=gen, device=dev)
+    w32 = torch.randn(V, D, generator=gen, device=dev) * V ** -0.5
+    labels = torch.randint(0, V, (T,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    fm = make_feature_map(gen, D, N_FEATURES, device=dev)
+    pack = fmbe_pack(fm.omega, fm.degree, fm.coef)
+    out = {"bits": {}, "ms": {}}
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "[f32]")):
+        h, w = h32.to(dtype), w32.to(dtype)
+        nll, lse = fused_ce_fwd(h, w, labels)
+        g_nll = torch.full((T,), 1.0 / T, device=dev)
+        bargs = (h, w, labels, lse, g_nll, 0.2 * lse / T)
+        x = w[:CHUNK_BLOCKS * BLOCK_ROWS]
+        if dtype == torch.bfloat16:
+            out["bits"]["fused_ce_fwd"] = digest(nll, lse)
+            out["bits"]["fused_ce_bwd cast"] = digest(*fused_ce_bwd(*bargs))
+            out["bits"]["fused_ce_bwd f32 sums"] = digest(
+                *fused_ce_bwd(*bargs, cast=False))
+            out["bits"]["fmbe_phi"] = digest(fmbe_phi(
+                fm.omega, fm.degree, fm.coef, x, pack=pack))
+        out["ms"][f"fused_ce_fwd{tag}"] = events_ms(
+            torch, lambda: fused_ce_fwd(h, w, labels))
+        out["ms"][f"fused_ce_bwd{tag}"] = events_ms(
+            torch, lambda: fused_ce_bwd(*bargs), reps=10)
+        p = pack if dtype == torch.bfloat16 else pack_if_needed(
+            fm.omega, fm.degree, fm.coef, x)
+        out["ms"][f"fmbe_phi{tag}"] = events_ms(
+            torch, lambda: fmbe_phi(fm.omega, fm.degree, fm.coef, x, pack=p))
+        del h, w, nll, lse, bargs, x
+        torch.cuda.empty_cache()
+    # the build's 474 blocks hold V rows and cluster padding: W's rows in
+    # order, then its first rows again as masked padding
+    slot = torch.arange(BLOCKS * BLOCK_ROWS, device=dev)
+    blocks = w32[slot % V].reshape(BLOCKS, BLOCK_ROWS, D)
+    valid = (slot < V).reshape(BLOCKS, BLOCK_ROWS)
+    p = pack_if_needed(fm.omega, fm.degree, fm.coef, blocks)
+    out["ms"]["f32 sketch (build_fmbe_blocks, host clock)"] = wall_ms(
+        torch, lambda: build_fmbe_blocks(fm, blocks, valid, pack=p))
+    del h32, w32, blocks, valid, slot
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("qwen1.5-4b"), dtype="float32",
+                              n_layers=4)
+    model = Model(cfg)
+    state = init_train_state(model, TrainConfig(), seed=0, device=dev)
+    it = DataIterator(SyntheticCorpus(cfg.vocab, seed=0), 4, 256)
+    tokens, lab = (torch.from_numpy(a).to(dev) for a in next(it))
+    step = make_train_step(model, TrainConfig(loss="fused_ce",
+                                              warmup_steps=1))
+    steps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, {"tokens": tokens, "labels": lab})
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    out["ms"]["f32 fused_ce train step (host clock, 3 steps)"] = steps
+    return out
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--one"]:
+        print(json.dumps(one(Path(sys.argv[2]).resolve())))
+        return 0
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    other = Path(sys.argv[1]).resolve()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    order = [("other", other), ("this", ROOT), ("this", ROOT),
+             ("other", other)]
+    runs = []
+    for name, root in order:
+        res = subprocess.run([sys.executable, __file__, "--one", str(root)],
+                             capture_output=True, text=True)
+        if res.returncode:
+            print(f"tree_compare: the {name} run failed:\n{res.stdout}"
+                  f"{res.stderr}", file=sys.stderr)
+            return 1
+        runs.append(dict(json.loads(res.stdout.strip().splitlines()[-1]),
+                         tree=name))
+    print(f"card: {card}; runs: {' '.join(n for n, _ in order)}")
+    for key in runs[0]["bits"]:
+        values = [r["bits"][key] for r in runs]
+        print(f"  bits {key}: {values}, all the same: "
+              f"{len(set(values)) == 1}")
+    for key in runs[0]["ms"]:
+        print(f"  ms {key}: {[r['ms'][key] for r in runs]}")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "tree_compare.json").write_text(json.dumps(
+        {"card": card, "other": str(other), "runs": runs}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
