@@ -71,6 +71,9 @@ SIGNATURES = {
     "ivf_score": [_P] * 3 + [_I] * 5 + [_P, _I, _P],
 }
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}   # -> the f32 flag
+# CTAs per SM of the gathered-row kernels' persistent grid
+# (``csrc/gather_stream.cuh``, whose GS_CTAS sizes their shared memory)
+STREAM_CTAS_PER_SM = 1
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}       # name -> nvcc's -Xptxas -v report
@@ -141,6 +144,13 @@ def load(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     _LIBS[name] = lib
     return lib
+
+
+def stream_grid(dev: torch.device) -> int:
+    """The persistent grid of ``union_scores`` and ``lsh_probe``: every SM,
+    ``STREAM_CTAS_PER_SM`` CTAs each."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * STREAM_CTAS_PER_SM
 
 
 def check(name: str, err: int) -> None:

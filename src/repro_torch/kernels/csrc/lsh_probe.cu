@@ -10,35 +10,63 @@
 // written out; the top-k ids are original row ids.
 //
 // Bound on this card: bytes. The kernel reads each live candidate's row of w
-// once, by id (bf16 or f32, as the queries), plus l tail rows, the candidates' codes and slots and
-// writes the (Q, C) counts (qwen1.5-4b, trimmed union: up to 38016 rows of
-// 2560, about 195 MB plus 5.1 MB of tail rows, about 0.06 ms at 3.35 TB/s;
-// the dense fallback reads all 151936 rows, about 0.24 ms), and does 2*Q
-// flops per element read.
+// once, by id (bf16 or f32, as the queries), plus l tail rows, the
+// candidates' codes and slots and writes the (Q, C) counts (qwen1.5-4b,
+// trimmed union: up to 38016 rows of 2560, about 195 MB plus 5.1 MB of tail
+// rows, about 0.06 ms at 3.35 TB/s; the dense fallback reads all 151936
+// rows, about 0.24 ms), and does 2*Q flops per element read.
 //
 // Design: three launches on the caller's stream. (1) lsh_codes: one CTA per
 // (query, table), one warp per hyperplane: an f32 dot product over d on the
 // CUDA cores (h, bf16 or f32, is exact in f32; no tensor cores, so no
-// TF32), the
-// sign bits packed with integer shifts. The TPU kernel made the codes in
-// every query tile's first grid step with two matmuls; here every probe CTA
-// would redo 64 dot products of length d, so they are made once. (2) The
-// probe, as ivf_decode.cu: every 32-column group of the candidate table and
-// of the tail is one unit of work spread over every warp of 2 CTAs per SM.
-// There is no staged copy of the candidates' rows (the TPU kernel's VMEM
-// slabs): a warp loads its columns' ids and reads those rows of w, their
-// codes and slots straight from device memory. Columns at or past
-// cand_live, read from the device, load nothing and get count 0, so the
-// host never synchronises on the plan. Each warp keeps partial (m, s,
-// top-k) of the head and (m, s) of the tail, the CTA folds its warps'. (3)
+// TF32), the sign bits packed with integer shifts. The TPU kernel made the
+// codes in every query tile's first grid step with two matmuls; here every
+// probe CTA would redo 64 dot products of length d, so they are made once.
+// (2) The probe, on the gathered-row pipeline of gather_stream.cuh: each
+// CTA of a persistent grid takes an equal share of the l tail samples and
+// then of the live candidates (min(cand_live, C), read from the device),
+// so the tail's acceptance flags and biases of its first stage are read
+// while that stage's rows are in flight. Beside each candidate's row the
+// producer copies its id and its L codes and L slots. Before a stage is
+// released, the consumer threads count collisions, one (row, query) pair a
+// thread, from those words and the query codes in shared memory, and
+// write the counts. After the warps' partial scores meet, each consumer
+// warp adds the stage's rows (a lane a row) to its queries' per-lane
+// (m, s) of the head and of the tail, and hands the rows that enter a
+// query's top-k to the lane that holds it; at the end the lanes' (m, s)
+// fold, in a fixed tree, into the CTA's partial. Columns at or past
+// cand_live load nothing and get count 0 (16-byte stores spread over
+// every CTA), so the host never synchronises on the plan. (3)
 // merge_partials (streaming.cuh) combines the CTAs' partials in a fixed
 // order. The tail bias is added per sample instead of the TPU kernel's
-// staged extra coordinate.
+// staged extra coordinate. The probe is launched as a programmatic
+// dependent of lsh_codes (GS_PDL, measured faster by tools/stream_tiles.py):
+// its row stream starts while the codes are made, and its consumers wait
+// for them (griddepcontrol.wait) before the first count.
+#include "gather_stream.cuh"
 #include "streaming.cuh"
 
-using namespace streaming;
+using gstream::copy_word;
+using gstream::FULL;
+using gstream::Layout;
+using gstream::layout;
+using gstream::QT;
+using gstream::run;
+using gstream::score;
+using gstream::Stage;
+using gstream::threads;
+using gstream::Tile;
+using gstream::zero_words;
+using streaming::better;
+using streaming::merge_partials;
+using streaming::MERGE_THREADS;
+using streaming::NEG;
+using streaming::TopK;
+using streaming::write_topk;
 
-constexpr int MAX_TABLES = 64;
+#ifndef GS_PDL
+#define GS_PDL 1        // launch the probe as a programmatic dependent
+#endif
 
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -51,11 +79,15 @@ __global__ void lsh_codes_kernel(const T* __restrict__ h,
                                  const float* __restrict__ proj, int d,
                                  int L, int K, int* __restrict__ qcodes) {
   __shared__ int bits[32];
+#if GS_PDL
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+#endif
   const int q = blockIdx.x, t = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float* p = proj + ((size_t)t * K + warp) * (d + 1);
   const T* hq = h + (size_t)q * d;
   float s = 0.f;
+#pragma unroll 32                      // loads in flight; the same sums
   for (int j = lane; j < d; j += 32) s += to_f32(hq[j]) * p[j];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -79,109 +111,226 @@ static cudaError_t launch_codes(const T* h, const float* proj, int Q, int d,
 }
 
 template <class T, int KMAX>
-__global__ void __launch_bounds__(THREADS, KMAX <= 8 ? 2 : 1)
-lsh_probe_partial(const T* __restrict__ w, const T* __restrict__ h,
-                  const int* __restrict__ qcodes,
-                  const int* __restrict__ cand_rows,
-                  const int* __restrict__ cand_live,
-                  const int* __restrict__ codes,
-                  const int* __restrict__ slot_of_row,
-                  const int* __restrict__ tail_ids,
-                  const bool* __restrict__ accept,
-                  const float* __restrict__ tail_bias, int Q, int C, int d,
-                  int L, int NT, int* __restrict__ counts,
-                  float* __restrict__ part_hm, float* __restrict__ part_hs,
-                  float* __restrict__ part_v, int* __restrict__ part_i,
-                  float* __restrict__ part_tm, float* __restrict__ part_ts,
-                  int k) {
-  extern __shared__ __align__(16) float hs[];
-  __shared__ int qc[QT * MAX_TABLES];
-  const int q0 = blockIdx.y * QT;
-  for (int i = threadIdx.x; i < QT * L; i += blockDim.x) {
-    const int qq = q0 + i / L;
-    qc[i] = qq < Q ? qcodes[(size_t)qq * L + i % L] : -1;
-  }
-  load_query_tile(h, Q, d, q0, hs);          // ends in __syncthreads
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int qg = q0 + lane;
-  const bool owner = lane < QT && qg < Q;
-  const int live = min(*cand_live, C);
-  const int head_groups = (C + GROUP - 1) / GROUP;
-  const int n_groups = head_groups + (NT + GROUP - 1) / GROUP;
-  const int* my_qc = qc + (owner ? lane : 0) * L;
-  float hm = NEG, hsum = 0.f, tm = NEG, tsum = 0.f;
+struct ProbeJob {
+  const T* w;
+  const int* cand_rows;
+  const int* cand_live;
+  const int* codes;
+  const int* slot_of_row;
+  const int* tail_ids;
+  const bool* accept;
+  const float* tail_bias;
+  const int* qcodes;
+  int C, d, L, NT, k;
+  int* counts;
+  float *part_hm, *part_hs, *part_v, *part_tm, *part_ts;
+  int* part_i;
+  int side_bytes, extra_bytes;
+  uint8_t* own = nullptr;              // this Job's shared memory (run sets it)
+  // live candidates; this CTA's tail samples [tl, tl + nt) (its rows
+  // 0 .. nt - 1) and candidates [hl, ...) (its rows from nt on)
+  int live = 0, tl = 0, nt = 0, hl = 0;
+
+  static constexpr int ROWS = Tile<T>::ROWS, CW = Tile<T>::WARPS;
+  static constexpr int UQ = (QT + CW - 1) / CW;   // queries a warp folds
+  // query warp + CW u: lane r's (m, s) of the head and the tail over the
+  // rows it took, and, in lane u, the top-k (see post)
+  float hm[UQ], hs[UQ], tm[UQ], ts[UQ];
   TopK<KMAX> top;
-  top.init();
-  for (int g = blockIdx.x; g < n_groups; g += gridDim.x) {
-    const T* rows[R];
-    float acc[R][QT];
-    if (g < head_groups) {
-      const int j0 = g * GROUP + warp * R;
-      if (j0 >= live) {                        // dead columns: count 0
-        if (owner) {
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-            if (j0 + r < C) counts[(size_t)qg * C + j0 + r] = 0;
-        }
-        continue;
-      }
-      int ids[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        ids[r] = (j0 + r < live) ? cand_rows[j0 + r] : -1;
-        rows[r] = ids[r] >= 0 ? w + (size_t)ids[r] * d : nullptr;
-      }
-      score_rows(rows, hs, d, lane, acc);
-      if (owner) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          if (j0 + r >= C) continue;
-          int cnt = 0;
-          if (ids[r] >= 0) {
-            const int* rc = codes + (size_t)ids[r] * L;
-            const int* rs = slot_of_row + (size_t)ids[r] * L;
-            for (int t = 0; t < L; ++t)
-              cnt += (rc[t] == my_qc[t] && rs[t] >= 0) ? 1 : 0;
-          }
-          counts[(size_t)qg * C + j0 + r] = cnt;
-          if (cnt > 0) {
-            const float x = pick(acc[r], lane);
-            online_add(hm, hsum, x);
-            top.insert(x, ids[r]);
-          }
-        }
-      }
-    } else {
-      const int j0 = (g - head_groups) * GROUP + warp * R;
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        rows[r] = (j0 + r < NT) ? w + (size_t)tail_ids[j0 + r] * d : nullptr;
-      score_rows(rows, hs, d, lane, acc);
-      if (owner) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          if (rows[r] == nullptr || !accept[(size_t)qg * NT + j0 + r])
-            continue;
-          online_add(tm, tsum, pick(acc[r], lane) + tail_bias[j0 + r]);
-        }
-      }
+  float kv[UQ];                        // lane u's k-th best, in every lane
+  int ki[UQ];
+
+  struct Src {
+    int id;
+  };
+
+  // this Job's shared memory: query codes [QT][L], then per partial
+  // buffer a flag (count or acceptance) per (row, query) and an id or a
+  // bias a row
+  __host__ __device__ static int extra(int L) {
+    return QT * L * 4 + 2 * ROWS * (QT + 1) * 4;
+  }
+  __device__ int* qc() const { return reinterpret_cast<int*>(own); }
+  __device__ int* flags(int buf) const {
+    return qc() + QT * L + buf * ROWS * (QT + 1);
+  }
+
+  // an equal share of the tail samples, then of the live candidates
+  __device__ int rows() {
+    const int n = *cand_live;
+    live = n < 0 ? 0 : (n < C ? n : C);
+    const long long b = blockIdx.x, g = gridDim.x;
+    tl = (int)(NT * b / g);
+    nt = (int)(NT * (b + 1) / g) - tl;
+    hl = (int)(live * b / g);
+    return nt + (int)(live * (b + 1) / g) - hl;
+  }
+  __device__ Src src(int i) const {
+    return {i < nt ? tail_ids[tl + i] : cand_rows[hl + i - nt]};
+  }
+  __device__ const T* ptr(const Src& s) const {
+    return w + (size_t)s.id * d;
+  }
+  // a candidate's id, L codes and L slots; nothing beside a tail sample
+  __device__ void side(const Src& s, int i, uint32_t dst) const {
+    if (i < nt) return;
+    copy_word(dst, cand_rows + hl + i - nt);
+    const int* rc = codes + (size_t)s.id * L;
+    const int* rs = slot_of_row + (size_t)s.id * L;
+    for (int t = 0; t < L; ++t) {
+      copy_word(dst + 4 + 4 * t, rc + t);
+      copy_word(dst + 4 + 4 * (L + t), rs + t);
     }
   }
-  __shared__ float sm[WARPS][QT], ss[WARPS][QT];
-  __shared__ float sv[WARPS][QT][KMAX];
-  __shared__ int si[WARPS][QT][KMAX];
-  cta_lse(hm, hsum, warp, lane, sm, ss);
-  cta_topk(top, warp, lane, sv, si);
-  __syncthreads();                          // sm/ss are reused for the tail
-  cta_lse(tm, tsum, warp, lane, sm, ss);
-  if (warp == 0 && owner) {
-    const size_t idx = (size_t)qg * gridDim.x + blockIdx.x;
-    part_hm[idx] = hm;
-    part_hs[idx] = hsum;
-    part_tm[idx] = tm;
-    part_ts[idx] = tsum;
-    write_topk(top, k, part_v, part_i, idx * k);
+
+  // a tail sample's acceptance by query q and its bias, into buffer buf
+  __device__ void tail_flags(int buf, int r, int q, int q0, int i) const {
+    int* f = flags(buf);
+    f[r * QT + q] = accept[(size_t)(q0 + q) * NT + tl + i] ? 1 : 0;
+    if (q == 0) reinterpret_cast<float*>(f)[ROWS * QT + r] = tail_bias[tl + i];
   }
+
+  __device__ void start(int t, int q0, int nq) {
+    constexpr int CT = CW * 32;
+    const long long idx = (long long)blockIdx.x * CT + t;
+    const long long stride = (long long)gridDim.x * CT;
+    for (int q = 0; q < nq; ++q)                    // dead columns: count 0
+      zero_words(reinterpret_cast<uint32_t*>(counts + (size_t)(q0 + q) * C +
+                                             live),
+                 C - live, idx, stride);
+    // the first stage's tail samples, while its rows are in flight
+    for (int p = t; p < ROWS * QT; p += CT) {
+      const int r = p % ROWS, q = p / ROWS;
+      if (r < nt && q < nq) tail_flags(0, r, q, q0, r);
+    }
+#pragma unroll
+    for (int u = 0; u < UQ; ++u) {
+      hm[u] = NEG;
+      hs[u] = 0.f;
+      tm[u] = NEG;
+      ts[u] = 0.f;
+      kv[u] = NEG;                     // TopK's filler
+      ki[u] = 0;
+    }
+    top.init();
+#if GS_PDL
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+#endif
+    int* qcs = qc();
+    for (int i = t; i < QT * L; i += CT) {
+      const int q = i / L;
+      qcs[i] = q < nq ? qcodes[(size_t)(q0 + q) * L + i % L] : -1;
+    }
+  }
+
+  // collisions of the stage's candidates, acceptance and bias of its later
+  // tail samples: one (row, query) pair a thread, rows of a query adjacent
+  __device__ void pre(const Stage& st, int t, int q0, int nq) const {
+    int* f = flags(st.buf);
+    const int* qcs = qc();
+    for (int p = t; p < ROWS * QT; p += CW * 32) {
+      const int r = p % ROWS, q = p / ROWS, i = st.j0 + r;
+      if (r >= st.n || q >= nq) continue;
+      if (i < nt) {
+        if (st.j0 > 0) tail_flags(st.buf, r, q, q0, i);
+        continue;
+      }
+      const int* sw = reinterpret_cast<const int*>(st.side + r * side_bytes);
+      const int* mq = qcs + q * L;
+      int cnt = 0;
+#pragma unroll 4
+      for (int tb = 0; tb < L; ++tb)
+        cnt += (int)(sw[1 + tb] == mq[tb]) & (int)(sw[1 + L + tb] >= 0);
+      counts[(size_t)(q0 + q) * C + hl + i - nt] = cnt;
+      f[r * QT + q] = cnt;
+      if (q == 0) f[ROWS * QT + r] = sw[0];         // the candidate's id
+    }
+  }
+
+  // query q = warp + CW u is folded by consumer warp q % CW, a lane a row:
+  // each lane adds its row to its own (m, s), and the rows that beat the
+  // k-th best of lane u's top-k (every lane keeps a copy) go to lane u in
+  // row order
+  __device__ void post(const Stage& st, int t, int q0, int nq) {
+    static_assert(ROWS <= 32, "a lane a row");
+    const int warp = t / 32, lane = t % 32;
+    const int* f = flags(st.buf);
+    const bool mine = lane < st.n;
+    const bool tail = st.j0 + lane < nt;
+    const int id = mine ? f[ROWS * QT + lane] : 0;
+    const float bias =
+        mine ? reinterpret_cast<const float*>(f)[ROWS * QT + lane] : 0.f;
+#pragma unroll
+    for (int u = 0; u < UQ; ++u) {
+      const int q = warp + CW * u;
+      if (q >= nq) break;
+      const bool in = mine && f[lane * QT + q] != 0;
+      if (!__any_sync(FULL, in)) continue;
+      const float x = in ? score<T>(st, lane, q) : NEG;
+      if (in && tail) add(tm[u], ts[u], x + bias);
+      if (in && !tail) add(hm[u], hs[u], x);
+      unsigned enter =
+          __ballot_sync(FULL, in && !tail && better(x, id, kv[u], ki[u]));
+      if (enter == 0u) continue;
+      do {
+        const int r = __ffs(enter) - 1;
+        enter &= enter - 1;
+        const float rx = __shfl_sync(FULL, x, r);
+        const int rid = __shfl_sync(FULL, id, r);
+        if (lane == u) top.insert(rx, rid);
+      } while (enter);
+      kv[u] = __shfl_sync(FULL, top.v[KMAX - 1], u);
+      ki[u] = __shfl_sync(FULL, top.i[KMAX - 1], u);
+    }
+  }
+
+  // (m, s) += x with one exp: exp(-|x - m|) scales whichever side is lower
+  static __device__ void add(float& m, float& s, float x) {
+    const float e = expf(-fabsf(x - m));
+    s = x > m ? s * e + 1.f : s + e;
+    m = fmaxf(m, x);
+  }
+
+  // (m, s) += (m2, s2), either possibly empty (s == 0)
+  static __device__ void merge(float& m, float& s, float m2, float s2) {
+    if (s2 <= 0.f) return;
+    const float mn = fmaxf(m, m2);
+    s = s * expf(m - mn) + s2 * expf(m2 - mn);
+    m = mn;
+  }
+
+  // the lanes' (m, s) folded in a fixed tree; lane u writes query q's
+  // partial
+  __device__ void finish(int t, int q0, int nq) {
+    const int warp = t / 32, lane = t % 32;
+#pragma unroll
+    for (int u = 0; u < UQ; ++u) {
+      const int q = warp + CW * u;
+      if (q >= nq) break;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float m2 = __shfl_xor_sync(FULL, hm[u], o);
+        const float s2 = __shfl_xor_sync(FULL, hs[u], o);
+        const float n2 = __shfl_xor_sync(FULL, tm[u], o);
+        const float t2 = __shfl_xor_sync(FULL, ts[u], o);
+        merge(hm[u], hs[u], m2, s2);
+        merge(tm[u], ts[u], n2, t2);
+      }
+      if (lane != u) continue;
+      const size_t idx = (size_t)(q0 + q) * gridDim.x + blockIdx.x;
+      part_hm[idx] = hm[u];
+      part_hs[idx] = hs[u];
+      part_tm[idx] = tm[u];
+      part_ts[idx] = ts[u];
+      write_topk(top, k, part_v, part_i, idx * k);
+    }
+  }
+};
+
+template <class T, int KMAX>
+__global__ void __launch_bounds__((Tile<T>::WARPS + 1) * 32, GS_CTAS)
+lsh_probe_partial(ProbeJob<T, KMAX> job, const T* __restrict__ h, int Q) {
+  run<T>(job, h, Q, job.d);
 }
 
 template <class T, int KMAX>
@@ -193,19 +342,29 @@ static cudaError_t launch_probe(
     int grid_x, int* qcodes, int* counts, float* phm, float* phs, float* pv,
     int* pi, float* ptm, float* pts, float* head_lse, float* tail_lse,
     float* topv, int* topi, cudaStream_t stream) {
+  using Job = ProbeJob<T, KMAX>;
+  Job job{w, cand_rows, cand_live, codes, slot_of_row, tail_ids, accept,
+          tail_bias, qcodes, C, d, L, NT, k, counts, phm, phs, pv, ptm,
+          pts, pi, 4 + 8 * L, Job::extra(L)};
+  const Layout m = layout<T>(d, job.side_bytes, job.extra_bytes);
+  if (m.nst < 1) return cudaErrorInvalidValue;    // d too wide for the ring
   cudaError_t err = launch_codes(h, proj, Q, d, L, K, qcodes, stream);
   if (err != cudaSuccess) return err;
-  const size_t smem = (size_t)QT * d * sizeof(float);
   err = cudaFuncSetAttribute(lsh_probe_partial<T, KMAX>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             m.total);
   if (err != cudaSuccess) return err;
-  dim3 grid(grid_x, (Q + QT - 1) / QT);
-  lsh_probe_partial<T, KMAX><<<grid, THREADS, smem, stream>>>(
-      w, h, qcodes, cand_rows, cand_live, codes, slot_of_row, tail_ids,
-      accept, tail_bias, Q, C, d, L, NT, counts, phm, phs, pv, pi, ptm, pts,
-      k);
-  err = cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid_x, (Q + QT - 1) / QT);
+  cfg.blockDim = dim3(threads<T>());
+  cfg.dynamicSmemBytes = m.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = GS_PDL ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, lsh_probe_partial<T, KMAX>, job, h, Q);
   if (err != cudaSuccess) return err;
   merge_partials<KMAX><<<Q, MERGE_THREADS, 0, stream>>>(
       grid_x, k, phm, phs, pv, pi, ptm, pts, head_lse, tail_lse, topv, topi);

@@ -13,60 +13,80 @@
 // about 19 us at 3.35 TB/s; about twice that in f32) and does 2*Q flops per
 // element read. Rows and queries are both bf16 or both f32.
 //
-// Design: as ivf_decode.cu. The TPU grid walked the union slots in order
-// for one query tile with scalar-prefetched block ids; here every 32-row
-// group of every union slot is one unit of work, spread over every warp of
-// 2 CTAs per SM. Each CTA stages its 8-query tile in shared memory as f32
-// and reads head_live and the block id of its slot from device memory
-// itself, so the host never synchronises on the plan. A group of a pad slot
-// loads nothing and writes zeros, so the output needs no separate fill.
+// Design: the gathered-row pipeline of gather_stream.cuh. The TPU grid
+// walked the union slots in order for one query tile with scalar-prefetched
+// block ids; here the live rows (head_live x br, read from the device) are
+// split into equal contiguous ranges over a persistent grid, and each
+// CTA's producer warp copies its rows, block id by block id, into the ring.
+// Pad slots load nothing: every consumer thread of every CTA writes their
+// zeros with 16-byte stores first, so the output needs no separate fill.
 // There is no reduction across CTAs: every output element is written by
-// exactly one warp.
-#include "streaming.cuh"
+// exactly one thread.
+#include "gather_stream.cuh"
 
-using namespace streaming;
+using namespace gstream;
 
 template <class T>
-__global__ void __launch_bounds__(THREADS, 2)
-union_scores_kernel(const T* __restrict__ wb, const T* __restrict__ h,
-                    const int* __restrict__ head_ids,
-                    const int* __restrict__ head_live, int Q, int U, int br,
-                    int d, float* __restrict__ out) {
-  extern __shared__ __align__(16) float hs[];
-  const int q0 = blockIdx.y * QT;
-  load_query_tile(h, Q, d, q0, hs);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int qg = q0 + lane;
-  const bool owner = lane < QT && qg < Q;
-  const int live = *head_live;
-  const int per_slot = (br + GROUP - 1) / GROUP;
-  const int n_groups = U * per_slot;
-  for (int g = blockIdx.x; g < n_groups; g += gridDim.x) {
-    const int slot = g / per_slot;
-    const int row0 = (g - slot * per_slot) * GROUP + warp * R;
-    float* dst = out + ((size_t)qg * U + slot) * br;
-    if (slot >= live) {                        // pad slot: zeros, no load
-      if (owner) {
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-          if (row0 + r < br) dst[row0 + r] = 0.f;
-      }
-      continue;
-    }
-    const int blk = head_ids[slot];
-    const T* rows[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      rows[r] = (row0 + r < br) ? wb + ((size_t)blk * br + row0 + r) * d
-                                : nullptr;
-    float acc[R][QT];
-    score_rows(rows, hs, d, lane, acc);
-    if (owner) {
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        if (rows[r] != nullptr) dst[row0 + r] = pick(acc[r], lane);
+struct UnionJob {
+  const T* wb;
+  const int* head_ids;
+  const int* head_live;
+  int U, br, d;
+  float* out;
+  int side_bytes = 0, extra_bytes = 0;
+  uint8_t* own = nullptr;              // unused: no shared memory of its own
+  int live = 0, lo = 0;                // live slots; the CTA's first row
+
+  struct Src {
+    int id, row;                       // block id and row in the block
+  };
+
+  // rows [lo, hi) of the live slots' head_live x br
+  __device__ int rows() {
+    const int n = *head_live;
+    live = n < 0 ? 0 : (n < U ? n : U);
+    const long long all = (long long)live * br;
+    lo = (int)(all * blockIdx.x / gridDim.x);
+    return (int)(all * (blockIdx.x + 1) / gridDim.x) - lo;
+  }
+  __device__ Src src(int i) const {
+    const int j = lo + i, slot = j / br;
+    return {head_ids[slot], j - slot * br};
+  }
+  __device__ const T* ptr(const Src& s) const {
+    return wb + ((size_t)s.id * br + s.row) * d;
+  }
+  __device__ void side(const Src&, int, uint32_t) const {}
+
+  // pad slots [live, U) of each query: zeros over every CTA
+  __device__ void start(int t, int q0, int nq) const {
+    constexpr int CT = Tile<T>::WARPS * 32;
+    const long long idx = (long long)blockIdx.x * CT + t;
+    const long long stride = (long long)gridDim.x * CT;
+    for (int q = 0; q < nq; ++q)
+      zero_words(reinterpret_cast<uint32_t*>(
+                     out + ((size_t)(q0 + q) * U + live) * br),
+                 (long long)(U - live) * br, idx, stride);
+  }
+  __device__ void pre(const Stage&, int, int, int) const {}
+  // one (query, row) score a thread, rows of a query on adjacent threads
+  __device__ void post(const Stage& st, int t, int q0, int nq) const {
+    constexpr int ROWS = Tile<T>::ROWS;
+    for (int p = t; p < ROWS * QT; p += Tile<T>::WARPS * 32) {
+      const int r = p % ROWS, q = p / ROWS;
+      if (r >= st.n || q >= nq) continue;
+      const int j = lo + st.j0 + r, slot = j / br;
+      out[((size_t)(q0 + q) * U + slot) * br + (j - slot * br)] =
+          score<T>(st, r, q);
     }
   }
+  __device__ void finish(int, int, int) const {}
+};
+
+template <class T>
+__global__ void __launch_bounds__((Tile<T>::WARPS + 1) * 32, GS_CTAS)
+union_scores_kernel(UnionJob<T> job, const T* __restrict__ h, int Q) {
+  run<T>(job, h, Q, job.d);
 }
 
 template <class T>
@@ -74,16 +94,19 @@ static cudaError_t launch(const void* w_blocks, const void* h,
                           const void* head_ids, const void* head_live, int Q,
                           int U, int br, int d, int grid_x, void* out,
                           cudaStream_t stream) {
-  const size_t smem = (size_t)QT * d * sizeof(float);
+  UnionJob<T> job{static_cast<const T*>(w_blocks),
+                  static_cast<const int*>(head_ids),
+                  static_cast<const int*>(head_live), U, br, d,
+                  static_cast<float*>(out)};
+  const Layout m = layout<T>(d, job.side_bytes, job.extra_bytes);
+  if (m.nst < 1) return cudaErrorInvalidValue;    // d too wide for the ring
   cudaError_t err = cudaFuncSetAttribute(
       union_scores_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      m.total);
   if (err != cudaSuccess) return err;
   dim3 grid(grid_x, (Q + QT - 1) / QT);
-  union_scores_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(w_blocks), static_cast<const T*>(h),
-      static_cast<const int*>(head_ids), static_cast<const int*>(head_live),
-      Q, U, br, d, static_cast<float*>(out));
+  union_scores_kernel<T><<<grid, threads<T>(), m.total, stream>>>(
+      job, static_cast<const T*>(h), Q);
   return cudaGetLastError();
 }
 
@@ -97,6 +120,6 @@ extern "C" int union_scores_launch(const void* w_blocks, const void* h,
   if (f32)
     return (int)launch<float>(w_blocks, h, head_ids, head_live, Q, U, br, d,
                               grid_x, out, st);
-  return (int)launch<__nv_bfloat16>(w_blocks, h, head_ids, head_live, Q, U,
-                                    br, d, grid_x, out, st);
+  return (int)launch<bf16>(w_blocks, h, head_ids, head_live, Q, U, br, d,
+                           grid_x, out, st);
 }

@@ -109,6 +109,18 @@ def union_scores(w_blocks, h, head_ids, head_live):
     args = (w_blocks, h, head_ids, head_live)
     if all(t.device.type == "cpu" for t in args):
         return union_scores_plain(*args)
+    out = union_launch(*args)
+    _build.count(union_scores, _build.KERNEL_DTYPES[h.dtype])
+    return out
+
+
+def union_launch(w_blocks, h, head_ids, head_live, *, lib=None,
+                 grid_x=None):
+    """``union_scores``'s kernel on CUDA tensors, without its launch count.
+    ``lib`` is the built library to call (default: the package's build of
+    ``csrc/union_scores.cu``) and ``grid_x`` its grid (default:
+    ``_build.stream_grid``); both are for timing variant builds."""
+    args = (w_blocks, h, head_ids, head_live)
     dev = h.device
     _check(all(t.device == dev for t in args) and dev.type == "cuda",
            "every input must be on one GPU", "union_scores")
@@ -125,9 +137,8 @@ def union_scores(w_blocks, h, head_ids, head_live):
     _check(d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (w_blocks, h)),
            "rows must be 16-byte aligned (d % 8 == 0)", "union_scores")
     _check(q >= 1 and u >= 1, "empty input", "union_scores")
-    lib = _build.load("union_scores")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid_x = max(1, min(2 * sms, u * -(-br // 32)))    # 32-row groups
+    lib = _build.load("union_scores") if lib is None else lib
+    grid_x = _build.stream_grid(dev) if grid_x is None else grid_x
     out = torch.empty((q, u, br), dtype=torch.float32, device=dev)
     p = ctypes.c_void_p
     err = lib.union_scores_launch(
@@ -135,7 +146,6 @@ def union_scores(w_blocks, h, head_ids, head_live):
         p(out.data_ptr()), is_f32,
         p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check("union_scores", err)
-    _build.count(union_scores, is_f32)
     return out
 
 

@@ -149,6 +149,20 @@ def lsh_probe(w, h, proj, cand_rows, cand_live, codes, slot_of_row,
             tail_accept, tail_bias)
     if all(t.device.type == "cpu" for t in args):
         return lsh_probe_plain(*args, k=k)
+    out = probe_launch(*args, k=k)
+    _build.count(lsh_probe, _build.KERNEL_DTYPES[h.dtype])
+    return out
+
+
+def probe_launch(w, h, proj, cand_rows, cand_live, codes, slot_of_row,
+                 tail_ids, tail_accept, tail_bias, *, k: int = 1, lib=None,
+                 grid_x=None):
+    """``lsh_probe``'s kernels on CUDA tensors, without its launch count.
+    ``lib`` is the built library to call (default: the package's build of
+    ``csrc/lsh_probe.cu``) and ``grid_x`` its probe's grid (default:
+    ``_build.stream_grid``); both are for timing variant builds."""
+    args = (w, h, proj, cand_rows, cand_live, codes, slot_of_row, tail_ids,
+            tail_accept, tail_bias)
     dev = h.device
     _check(all(t.device == dev for t in args) and dev.type == "cuda",
            "every input must be on one GPU")
@@ -173,10 +187,8 @@ def lsh_probe(w, h, proj, cand_rows, cand_live, codes, slot_of_row,
            "rows must be 16-byte aligned (d % 8 == 0)")
     _check(1 <= k <= MAX_K, f"k={k} outside [1, {MAX_K}]")
     _check(c >= 1 and l >= 1, "empty input")
-    lib = _build.load("lsh_probe")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    groups = -(-c // 32) + -(-l // 32)               # 32-row groups
-    grid_x = max(1, min(2 * sms, groups))
+    lib = _build.load("lsh_probe") if lib is None else lib
+    grid_x = _build.stream_grid(dev) if grid_x is None else grid_x
     f32, i32 = torch.float32, torch.int32
     qcodes = torch.empty((q, ltab), dtype=i32, device=dev)
     counts = torch.empty((q, c), dtype=i32, device=dev)
@@ -196,5 +208,4 @@ def lsh_probe(w, h, proj, cand_rows, cand_live, codes, slot_of_row,
         p(tail_lse.data_ptr()), p(topv.data_ptr()), p(topi.data_ptr()),
         is_f32, _stream(dev))
     _build.check("lsh_probe", err)
-    _build.count(lsh_probe, is_f32)
     return head_lse, tail_lse, topv, topi, counts

@@ -14,10 +14,15 @@ z is held to 1e-4 of sum_j |phi_j lambda_j| and phi to 1e-4 of its own
 scale |coef_j| * max(|x|_2, 1) ** degree_j (plus |phi|). The fused CE
 kernels run at token counts and vocabularies that are not multiples of
 their 128 x 128 tiles or of the backward's vocab chunk (T 129, V = C + 1), with labels at 0 and V - 1 and with and without a selfnorm
-cotangent; nll and lse to 1e-3. The LSH probe runs at one query and at
-query counts off the tile, one candidate and a count off the 32-column
-group, no live candidate and all live, the dense fallback over every row,
-one tail sample and none accepted, k of 1 and 8, and d off 128; its counts
+cotangent; nll and lse to 1e-3. ``union_scores`` runs with no live slot and
+with every slot live, at block heights 64 and 131 (live rows that split
+unevenly over the grid) and at rows too wide for a full stage (bf16 d
+8192, f32 d 6144), two calls bit-equal. The LSH probe runs at one query
+and at query counts off the tile, one candidate and a count off the
+32-column group, no live candidate and all live, candidates ending inside
+a stage, tail samples only, the dense fallback over every row, one tail
+sample (dense and trimmed) and none accepted, k of 1 and 8, d off 128
+and d 6144; its counts
 equal the plain version's exactly and its membership the plan's, and its
 query codes equal ``hash_codes`` except where a projection lies within
 1e-5 of 0 relative to |h| |proj row|. ``ivf_score`` runs at one probe, one
@@ -176,26 +181,60 @@ def test_ivf_decode_matches_plain(gen, q, k, live, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("q,live,cap", [(8, 23, 128), (5, 1, 80),
-                                        (13, 128, 128), (3, 2, 48)])
-def test_union_scores_matches_plain(gen, q, live, cap, dtype):
+@pytest.mark.parametrize("q,live,cap,br", [
+    (8, 23, 128, 512), (5, 1, 80, 512), (13, 128, 128, 512), (3, 2, 48, 512),
+    (4, 0, 48, 512),              # no live slot: every slot a pad
+    (8, 128, 128, 512),           # every slot live at the main path's Q
+    (5, 3, 16, 131),              # 393 live rows: uneven shares under a stage
+    (8, 23, 128, 64),
+])
+def test_union_scores_matches_plain(gen, q, live, cap, br, dtype):
     """Live slots equal the plain scores to 1e-3; pad slots are exactly 0
-    although the output starts as uninitialised memory."""
-    nb, br = 300, 512
+    although the output starts as uninitialised memory; two calls give the
+    same bits."""
+    nb = 300
     wb = (torch.randn(nb, br, D, generator=gen, device="cuda") * 0.02
           ).to(dtype)
     h = torch.randn(q, D, generator=gen, device="cuda").to(dtype)
     ids = torch.sort(torch.randperm(nb, generator=gen, device="cuda")[:live]
                      ).values
-    head_ids = torch.cat([ids, ids[-1:].expand(cap - live)]).to(torch.int32)
+    last = ids[-1:] if live else torch.zeros(1, dtype=ids.dtype,
+                                             device="cuda")
+    head_ids = torch.cat([ids, last.expand(cap - live)]).to(torch.int32)
     head_live = torch.tensor(live, dtype=torch.int32, device="cuda")
     torch.full((q, cap, br), float("nan"), device="cuda")   # dirty the pool
     before = _counts(union_scores)
     got = union_scores(wb, h, head_ids.contiguous(), head_live)
+    torch.full((q, cap, br), float("nan"), device="cuda")
+    again = union_scores(wb, h, head_ids.contiguous(), head_live)
     torch.cuda.synchronize()
-    _launched(union_scores, dtype, before)
+    _launched(union_scores, dtype, before, 2)
     want = union_scores_plain(wb, h, head_ids, head_live)
     assert got.shape == (q, cap, br)
+    assert torch.equal(got, again)
+    if live:
+        assert (got[:, :live] - want[:, :live]).abs().max().item() <= TOL
+    assert (got[:, live:] == 0).all()
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 5120),
+                                     (torch.bfloat16, 8192),
+                                     (torch.float32, 6144)])
+def test_union_scores_wide_rows(gen, dtype, d):
+    """Rows too wide for two stages of the full stage height: the ring takes
+    fewer rows a stage (at f32 d 6144 one stage of one row), with the same
+    contract and two calls bit-equal."""
+    nb, br, q, live, cap = 40, 64, 5, 3, 8
+    wb = (torch.randn(nb, br, d, generator=gen, device="cuda") * 0.02
+          ).to(dtype)
+    h = torch.randn(q, d, generator=gen, device="cuda").to(dtype)
+    ids = torch.tensor([2, 17, 39, 39, 39, 39, 39, 39], dtype=torch.int32,
+                       device="cuda")
+    head_live = torch.tensor(live, dtype=torch.int32, device="cuda")
+    got = union_scores(wb, h, ids, head_live)
+    again = union_scores(wb, h, ids, head_live)
+    want = union_scores_plain(wb, h, ids, head_live)
+    assert torch.equal(got, again)
     assert (got[:, :live] - want[:, :live]).abs().max().item() <= TOL
     assert (got[:, live:] == 0).all()
 
@@ -224,6 +263,10 @@ def _codes_agree(got, want, proj, h):
     (5, D, "dense", "all", 1, "sampled", 8),
     (9, D, "plan", "plan", 1000, "none", 1),
     (7, 200, "plan", "plan", 64, "sampled", 8),
+    (8, D, "plan", "mid", 1000, "sampled", 8),    # head ends inside a stage
+    (6, D, "plan", "none", 1000, "sampled", 4),   # tail rows only
+    (5, D, "plan", "plan", 1, "sampled", 8),      # one tail sample, trimmed
+    (3, 6144, "plan", "plan", 64, "sampled", 8),  # rows too wide for 16
 ])
 def test_lsh_probe_matches_plain(gen, q, d, c_kind, live_kind, l, tail_kind,
                                  k, dtype):
@@ -247,6 +290,8 @@ def test_lsh_probe_matches_plain(gen, q, d, c_kind, live_kind, l, tail_kind,
         live = rows.shape[0]
     elif live_kind == "none":
         live = 0
+    elif live_kind == "mid":
+        live = min(rows.shape[0], 1005)
     accept = plan.tail_accept
     if tail_kind == "none":
         accept = torch.zeros_like(accept)

@@ -14,7 +14,8 @@ from repro.kernels.ivf_score import union_scores as jax_union_scores
 from repro.kernels.ref import topk_z_ref
 from repro.kernels.topk_z import topk_z as jax_topk_z
 from repro_torch.kernels.ivf_score import (ivf_decode, ivf_decode_plain,
-                                          union_scores, union_scores_plain)
+                                          union_launch, union_scores,
+                                          union_scores_plain)
 from repro_torch.kernels.topk_z import NEG, topk_z, topk_z_plain
 
 ATOL = 1e-4
@@ -214,3 +215,10 @@ class TestUnionScoresPlain:
         torch.testing.assert_close(union_scores(*args),
                                    union_scores_plain(*args), rtol=0, atol=0)
         assert union_scores.launches == before
+
+    def test_launch_refuses_cpu_tensors(self):
+        """The kernel's launch function takes CUDA tensors only: the CPU
+        path is the wrapper's plain version, never a launch."""
+        args = [_t(a) for a in _ivf_inputs(3)[:4]]
+        with pytest.raises(ValueError, match="one GPU"):
+            union_launch(*args)

@@ -29,7 +29,8 @@ from repro_torch.interop import lsh_from_numpy
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.ivf_score import ivf_score, ivf_score_plain
 from repro_torch.kernels.lsh_probe import (hash_codes, lsh_probe,
-                                          lsh_probe_plain, lsh_query_codes)
+                                          lsh_probe_plain, lsh_query_codes,
+                                          probe_launch)
 from repro_torch.kernels.topk_z import NEG
 
 ATOL = 1e-4
@@ -334,6 +335,15 @@ class TestProbe:
         _assert_lse(to.tail_lse.numpy(), np.asarray(jo.tail_lse))
         _assert_top(to.top_score, to.top_id, jo.top_score, jo.top_id)
         np.testing.assert_array_equal(to.k_eff.numpy(), np.asarray(jo.k_eff))
+
+    def test_launch_refuses_cpu_tensors(self, data):
+        """The probe's launch function takes CUDA tensors only: the CPU
+        path is the wrapper's plain version, never a launch."""
+        w, h = data
+        j = _j_index(w, n_bits=4, n_tables=8, bucket_cap=64)
+        _, targs = _probe_inputs(w, h, j, "plan", jnp.float32)
+        with pytest.raises(ValueError, match="one GPU"):
+            probe_launch(*targs, k=4)
 
     def test_decode_needs_a_tail_sample(self, data):
         w, h = data

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Two checkouts of the repository on one GPU, in turns: the bits and times
-of the bf16 kernels of the fused cross-entropy and of ``fmbe_phi``, and the
-f32 route's times.
+of the bf16 kernels of the fused cross-entropy and of ``fmbe_phi``, the f32
+route's times, and the bits and times of the decode kernels at both dtypes.
 
     python3 tools/tree_compare.py OTHER       # from the repository root
 
@@ -21,10 +21,23 @@ OTHER. Every run makes the same inputs from seed 0:
     pack, at bf16 and, timed only, at f32, and the whole f32 sketch of the
     build's 474 blocks (``build_fmbe_blocks``, host clock; W's rows, then
     masked padding);
+  - the decode kernels at bf16 and at f32, on the first 8 rows of that h
+    and rows of that W: ``topk_z`` (k 8) over all of W; ``union_scores``
+    over 23 live blocks of a 128-slot union of 474 blocks of 512 rows
+    (drawn from W; the bf16 main path's union) and over 31 (the f32
+    phase's), ``ivf_decode`` on the 23-block union (random membership,
+    1000 tail rows, random acceptance, k 8) and ``ivf_score`` on 16 random
+    blocks a query; ``fmbe_z`` with that map and a random per-query lambda;
+    ``lsh_probe`` (k 8, l 1000) on the trimmed union of an 8 x 8-bit index
+    of W and on the dense fallback;
   - the f32 train step of ``chip_smoke.py``'s f32 phase (qwen1.5-4b at 4
     layers, B 4 x S 256, ``fused_ce``), three steps on the host clock.
-Each bf16 output is fingerprinted (SHA-256 of its bytes). A kernel time is
-the median of 20 calls timed with CUDA events after 3 to warm up. Prints
+Each bf16 output, and each decode kernel's output at both dtypes, is
+fingerprinted (SHA-256 of its bytes), but for ``lsh_probe``: its index and
+plan are not bit-equal from one process to the next (two runs of one tree
+gave other bits), so it is timed only. A CE or ``fmbe_phi`` time is the
+median of 20 calls timed with CUDA events after 3 to warm up; a decode
+kernel's is the median of 20 replays of a CUDA graph of one call. Prints
 each measurement's four values in run order with the card's name and power
 limit, whether each fingerprint is the same in all four runs, and writes
 all of it to ``chiprun_out/tree_compare.json``.
@@ -71,6 +84,82 @@ def wall_ms(torch, fn, reps=3):
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(out)
+
+
+def graph_ms(torch, fn, reps=20, warm=3):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warm):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return events_ms(torch, graph.replay, reps, warm=0)
+
+
+def decode_kernels(torch, out, h32, w32, fm):
+    """Bits and graph times of the decode kernels at both dtypes."""
+    from repro_torch.core import lsh as tlsh
+    from repro_torch.kernels.fmbe import fmbe_z
+    from repro_torch.kernels.ivf_score import (ivf_decode, ivf_score,
+                                              union_scores)
+    from repro_torch.kernels.lsh_probe import lsh_probe
+    from repro_torch.kernels.topk_z import topk_z
+    dev = h32.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, nb, br, cap, live, n_tail = 8, 8, 474, 512, 128, 23, 1000
+    blocks = torch.randint(0, V, (nb * br,), generator=gen, device=dev)
+    ids = torch.sort(torch.randperm(nb, generator=gen, device=dev)[:31]
+                     ).values
+    head_ids = torch.cat([ids[:live], ids[live - 1:live].expand(cap - live)]
+                         ).to(torch.int32)
+    head_live = torch.tensor(live, dtype=torch.int32, device=dev)
+    ids31 = torch.cat([ids, ids[-1:].expand(cap - 31)]).to(torch.int32)
+    live31 = torch.tensor(31, dtype=torch.int32, device=dev)
+    member = torch.rand(q, cap, generator=gen, device=dev) < 0.3
+    row_logw = torch.zeros(nb, br, device=dev)
+    tail = torch.randint(0, V, (n_tail,), generator=gen, device=dev)
+    accept = torch.rand(q, n_tail, generator=gen, device=dev) < 0.9
+    probes = torch.randint(0, nb, (q, 16), generator=gen, device=dev,
+                           dtype=torch.int32)
+    lam = torch.randn(q, fm.omega.shape[0], generator=gen, device=dev)
+    idx = tlsh.build_lsh_device(w32, generator=gen, device=dev)
+    plan = tlsh.lsh_plan(idx, h32[:q], n_tail, generator=gen)
+    if int(plan.cand_live) > plan.cand_rows.shape[0]:
+        plan = tlsh.lsh_plan(idx, h32[:q], n_tail, tail_ids=plan.tail_ids,
+                             cand_cap=int(plan.cand_live))
+    trimmed = (plan.cand_rows, plan.cand_live)
+    dense = (torch.arange(V, dtype=torch.int32, device=dev),
+             torch.tensor(V, dtype=torch.int32, device=dev))
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "[f32]")):
+        h, w = h32[:q].to(dtype), w32.to(dtype)
+        wb = w[blocks].reshape(nb, br, D)
+        tail_rows = w[tail]
+        runs = {
+            "topk_z": lambda: topk_z(h, w, k),
+            "union_scores": lambda: union_scores(wb, h, head_ids, head_live),
+            "union_scores 31 blocks": lambda: union_scores(wb, h, ids31,
+                                                           live31),
+            "ivf_decode": lambda: ivf_decode(
+                wb, h, head_ids, head_live, member, row_logw, tail_rows,
+                accept, k=k),
+            "ivf_score": lambda: ivf_score(wb, h, probes),
+            "fmbe_z": lambda: fmbe_z(fm.omega, fm.degree, fm.coef, lam, h),
+        }
+        for label, (rows, col) in (("trimmed", trimmed), ("dense", dense)):
+            runs[f"lsh_probe {label}"] = lambda rows=rows, col=col: lsh_probe(
+                w, h, idx.proj, rows, col, idx.codes, idx.slot_of_row,
+                plan.tail_ids, plan.tail_accept, plan.tail_bias, k=k)
+        for name, fn in runs.items():
+            res = fn()
+            if not name.startswith("lsh_probe"):
+                out["bits"][f"{name}{tag}"] = digest(
+                    *(res if isinstance(res, tuple) else (res,)))
+            out["ms"][f"{name}{tag}"] = graph_ms(torch, fn)
+        del h, w, wb, tail_rows, runs
+        torch.cuda.empty_cache()
 
 
 def digest(*tensors):
@@ -131,6 +220,7 @@ def one(root: Path) -> dict:
             torch, lambda: fmbe_phi(fm.omega, fm.degree, fm.coef, x, pack=p))
         del h, w, nll, lse, bargs, x
         torch.cuda.empty_cache()
+    decode_kernels(torch, out, h32, w32, fm)
     # the build's 474 blocks hold V rows and cluster padding: W's rows in
     # order, then its first rows again as masked padding
     slot = torch.arange(BLOCKS * BLOCK_ROWS, device=dev)
