@@ -167,6 +167,30 @@ def time_ms(torch, fn, reps=20, warm=3):
     return _median_events(torch, graph.replay, reps)
 
 
+def graph10_ms(torch, fn, reps=20, warm=3):
+    """Device time of one call of ``fn`` in a CUDA graph of ten calls
+    (median of ``reps`` replays, divided by ten): the one-call replay less
+    most of a graph's own cost (``floor_ms``)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warm):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(10):
+            fn()
+    return _median_events(torch, graph.replay, reps) / 10
+
+
+def floor_ms(torch):
+    """The one-call replay of a graph of one one-element kernel: what a
+    replay costs before any work."""
+    one = torch.zeros(1, device="cuda")
+    return time_ms(torch, lambda: one.add_(1.0))
+
+
 def flushed_ms(torch, fn, reps=20):
     """Device time of ``fn`` with the L2 cache flushed before each call: a
     CUDA graph of a 64 MB write and then ``fn``, less a graph of the write
@@ -333,6 +357,7 @@ def serve(torch, card, kernels):
     from repro_torch.configs import get_config
     from repro_torch.core.decode import make_plan
     from repro_torch.kernels import _build
+    from repro_torch.kernels import fmbe as kfmbe
     from repro_torch.kernels.fmbe import fmbe_phi
     from repro_torch.models import Model
     from repro_torch.serve import Engine, generate
@@ -431,6 +456,9 @@ def serve(torch, card, kernels):
         f"{h.float().norm(dim=-1).mean().item():.2f}")
 
     # -- 3. kernels against their plain versions -----------------------------
+    floor = floor_ms(torch)
+    log(f"graph floor: a CUDA graph of one one-element kernel replays in "
+        f"{floor:.4f} ms [{card}]")
     tz = topk_z_phase(torch, card, h, w, k)
     plan = make_plan(index, h, pc.n_probe, pc.l, generator=gen)
     ivf = ivf_decode_phase(torch, card, index, h, plan, pc, k)
@@ -505,6 +533,15 @@ def serve(torch, card, kernels):
             lsh_unions.append(out.head_live)
             return out
 
+    # every fmbe_pack call from here on: a decode must never pack (it reads
+    # degree to the host); the fmbe build made the pack the decode reads
+    real_pack = kfmbe.fmbe_pack
+    packs = []
+
+    def counting_pack(*args, **kwargs):
+        packs.append(1)
+        return real_pack(*args, **kwargs)
+
     for method, needs in path_kernels.items():
         eng = engines[method]
         generate(eng, prompt[:, :2], 2)                  # warm-up
@@ -512,10 +549,16 @@ def serve(torch, card, kernels):
             eng.backend = RecordingLsh()
         torch.cuda.synchronize()
         reset_counts()
+        kfmbe.fmbe_pack = counting_pack
         t0 = time.time()
-        out, aux = generate(eng, prompt, NEW, return_aux=True)
-        torch.cuda.synchronize()
+        try:
+            out, aux = generate(eng, prompt, NEW, return_aux=True)
+            torch.cuda.synchronize()
+        finally:
+            kfmbe.fmbe_pack = real_pack
         secs = time.time() - t0
+        check(not packs, f"{method}: the serving run called fmbe_pack "
+              f"{len(packs)} times")
         counts = read_counts()
         check(out.shape == (N_REQ, NEW), f"{method}: tokens {out.shape}")
         check(bool(((out >= 0) & (out < cfg.vocab)).all()),
@@ -531,7 +574,7 @@ def serve(torch, card, kernels):
         log(f"serve {method}: {N_REQ} requests x ({PROMPT} prompt + {NEW} "
             f"new) in {secs:.3f} s, {N_REQ * NEW / secs:.1f} new tokens/s, "
             f"{secs / (PROMPT + NEW - 1) * 1e3:.2f} ms/step, launches "
-            f"{counts} [{card}]")
+            f"{counts}, fmbe_pack calls {len(packs)} [{card}]")
     unions = [int(u) for u in lsh_unions]
     cap = lsp["trimmed_capacity"]
     check(len(unions) == PROMPT + NEW - 1, f"lsh: {len(unions)} steps "
@@ -542,6 +585,8 @@ def serve(torch, card, kernels):
         f"{sum(u > cap for u in unions)}")
     for rec in (tz, ivf, uni, fph, fz, lsp, ivs):
         rec["launches"] = totals[rec["name"]]
+    for rec in (tz, ivf, uni, fz, lsp, ivs):       # the decode kernels
+        rec["floor_ms"] = floor
     for method in ("mimps", "topk", "mince", "fmbe", "selfnorm", "lsh"):
         for ref in ("exact", "mimps"):
             share = (served[method]["tokens"] == served[ref]["tokens"]
@@ -596,7 +641,8 @@ def topk_z_phase(torch, card, h, w, k, tag=""):
               ms=time_ms(torch, lambda: topk_z(h, w, k)),
               plain_ms=time_ms(torch, lambda: topk_z_plain(h, w, k)),
               bound_ms=tz_bound, bound_by=tz_by,
-              library_ms=time_ms(torch, library_topk_z))
+              library_ms=time_ms(torch, library_topk_z),
+              graph10_ms=graph10_ms(torch, lambda: topk_z(h, w, k)))
     tz_eager = eager_ms(torch, lambda: topk_z(h, w, k))
     log(f"topk_z{tag}: Q {q} V {v} d {d} k {k} {h.dtype}: lse err "
         f"{err:.2e}, top-k err {err_v:.2e}, {n_ids} ids checked; kernel "
@@ -607,18 +653,26 @@ def topk_z_phase(torch, card, h, w, k, tag=""):
 
 
 def ivf_decode_phase(torch, card, index, h, plan, pc, k, tag=""):
-    """``ivf_decode`` against its plain version on the mimps plan of h.
-    Returns the record, named with ``tag``."""
+    """``ivf_decode`` against its plain version on the mimps plan of h, two
+    calls bit-equal; times it as one call, as ten calls in one graph and
+    with the L2 cache flushed before each call, beside its byte bound, the
+    plain version and a composed library yardstick (``einsum`` over the
+    gathered union blocks and the tail rows, masked ``logsumexp``,
+    ``topk``). Returns the record, named with ``tag``."""
     from repro_torch.core.decode import _tail_rows
     from repro_torch.kernels.ivf_score import ivf_decode, ivf_decode_plain
     q, d = h.shape
     es = h.element_size()
     row_logw = torch.where(index.valid, 0.0, -1e30).float()
+    tail_rows = _tail_rows(index, plan)
     args = (index.v_blocks, h, plan.head_ids, plan.head_live,
-            plan.head_member, row_logw, _tail_rows(index, plan),
-            plan.tail_accept)
-    hl, tl, iv, ii = ivf_decode(*args, k=k)
+            plan.head_member, row_logw, tail_rows, plan.tail_accept)
+    out = ivf_decode(*args, k=k)
+    again = ivf_decode(*args, k=k)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, again)),
+          f"ivf_decode{tag}: two calls differ in their bits")
+    hl, tl, iv, ii = out
     p_hl, p_tl, p_v, p_i = ivf_decode_plain(*args, k=k + 1)
     err = max(compare_lse(f"ivf_decode{tag} head_lse", hl, p_hl),
               compare_lse(f"ivf_decode{tag} tail_lse", tl, p_tl))
@@ -628,20 +682,44 @@ def ivf_decode_phase(torch, card, index, h, plan, pc, k, tag=""):
     iv_bytes = (live * br * d * es + l * d * es + q * d * es + cap * 4
                 + q * cap + live * br * 4 + q * l + q * (8 + 8 * k))
     iv_bound, iv_by = bound_ms(iv_bytes, 2 * q * (live * br + l) * d)
+    ids = plan.head_ids.long()
+    keep = (plan.head_member & (torch.arange(cap, device=h.device)
+                                < plan.head_live)[None, :])[:, :, None]
+
+    def library_ivf_decode():
+        s = torch.einsum("qd,ubd->qub", h, index.v_blocks[ids]).float()
+        eff = torch.where(keep, s + row_logw[ids][None],
+                          torch.full_like(s, -1e30)).reshape(q, -1)
+        ts = torch.matmul(h, tail_rows.T).float()
+        return (torch.logsumexp(eff, -1), torch.topk(eff, k),
+                torch.logsumexp(torch.where(plan.tail_accept, ts,
+                                            torch.full_like(ts, -1e30)), -1))
+
+    call = lambda: ivf_decode(*args, k=k)                   # noqa: E731
     ivf = dict(name=f"ivf_decode{tag}", route="cuda",
                source="src/repro_torch/kernels/csrc/ivf_decode.cu",
                replaces="src/repro/kernels/ivf_score.py:226",
                max_abs_err=max(err, err_v),
-               ms=time_ms(torch, lambda: ivf_decode(*args, k=k)),
+               ms=time_ms(torch, call),
                plain_ms=time_ms(torch, lambda: ivf_decode_plain(*args, k=k)),
-               bound_ms=iv_bound, bound_by=iv_by, library_ms=None)
-    iv_eager = eager_ms(torch, lambda: ivf_decode(*args, k=k))
+               bound_ms=iv_bound, bound_by=iv_by,
+               library_ms=time_ms(torch, library_ivf_decode),
+               library_call="einsum over w_blocks[head_ids] and the tail "
+               "rows, masked logsumexp, topk",
+               graph10_ms=graph10_ms(torch, call),
+               l2_flushed_ms=flushed_ms(torch, call),
+               by_kernel_ms=kernel_split(torch, call))
+    iv_eager = eager_ms(torch, call)
     log(f"ivf_decode{tag}: Q {q} union {live} live of {cap} slots x {br} "
         f"rows, l {l}, {h.dtype}: lse err {err:.2e}, top-k err "
-        f"{err_v:.2e}, {n_ids} ids checked; kernel {ivf['ms']:.4f} ms "
-        f"(eager call {iv_eager:.4f} ms), plain {ivf['plain_ms']:.4f} ms, "
-        f"bound {iv_bound:.4f} ms ({iv_by}, {iv_bytes / 1e6:.1f} MB) "
-        f"[{card}]")
+        f"{err_v:.2e}, {n_ids} ids checked, two calls bit-equal; kernel "
+        f"{ivf['ms']:.4f} ms ({share(iv_bound, ivf['ms'])} of the bound; "
+        f"ten calls in one graph {ivf['graph10_ms']:.4f} ms a call, L2 "
+        f"flushed before each call {ivf['l2_flushed_ms']:.4f} ms, eager "
+        f"call {iv_eager:.4f} ms), plain {ivf['plain_ms']:.4f} ms, library "
+        f"yardstick {ivf['library_ms']:.4f} ms, bound {iv_bound:.4f} ms "
+        f"({iv_by}, {iv_bytes / 1e6:.1f} MB); device ms a call by kernel "
+        f"(torch.profiler) {ivf['by_kernel_ms']} [{card}]")
     return ivf
 
 
@@ -685,6 +763,7 @@ def union_scores_phase(torch, card, index, h, plan, tag=""):
                plain_ms=time_ms(torch, lambda: union_scores_plain(*uargs)),
                bound_ms=us_bound, bound_by=us_by,
                library_ms=time_ms(torch, library_union_scores),
+               graph10_ms=graph10_ms(torch, lambda: union_scores(*uargs)),
                warm_ms=warm, l2_flushed_ms=cold,
                ms_is_l2_flushed=warm < us_bound)
     us_eager = eager_ms(torch, lambda: union_scores(*uargs))
@@ -702,40 +781,88 @@ def union_scores_phase(torch, card, index, h, plan, tag=""):
 
 
 def fmbe_z_phase(torch, card, fm, fstate, h, plan, deg_sum, tag=""):
-    """``fmbe_z`` on the decode's per-query complement lambda. Returns the
-    record, named with ``tag``."""
-    from repro_torch.kernels.fmbe import fmbe_phi_plain, fmbe_z, fmbe_z_plain
+    """``fmbe_z`` (the tensor-core kernel on the build's pack,
+    ``FMBEState.pack``) on the decode's per-query complement lambda,
+    against its plain version and the pack's decomposition (f32: its
+    planes), two calls bit-equal; times it as one call, as ten calls in
+    one graph and with the L2 cache flushed before each call, beside the
+    byte bound of the pack it reads and that of the f32 omega rows the
+    CUDA-core kernel read before, the plain version and a composed library
+    yardstick (``torch.matmul(x, pack.rows.T)``, the feature products, a
+    matvec with lambda). Returns the record, named with ``tag``."""
+    from repro_torch.kernels.fmbe import (PACK_TILE, fmbe_phi_plain, fmbe_z,
+                                          fmbe_z_pack_plain,
+                                          fmbe_z_planes_plain, fmbe_z_plain)
     q, d = h.shape
     es = h.element_size()
     n_feat, max_deg, _ = fm.omega.shape
+    pack = fstate.pack
+    check(pack is not None, f"fmbe_z{tag}: the fmbe build kept no pack")
     lam_rest = (fstate.lambda_tilde[None, :] -
                 fstate.lambda_blocks[plan.block_ids.long()].sum(1))
-    zargs = (fm.omega, fm.degree, fm.coef, lam_rest.contiguous(), h)
-    z = fmbe_z(*zargs)
-    z_again = fmbe_z(*zargs)
+    lam_rest = lam_rest.contiguous()
+    zargs = (fm.omega, fm.degree, fm.coef, lam_rest, h)
+    call = lambda: fmbe_z(*zargs, pack=pack)                # noqa: E731
+    z = call()
+    z_again = call()
     torch.cuda.synchronize()
     check(torch.equal(z, z_again), f"fmbe_z{tag} is not bit-reproducible")
     check(bool(torch.isfinite(z).all()), f"fmbe_z{tag} not finite")
-    phi_h = fmbe_phi_plain(fm.omega, fm.degree, fm.coef, h)
+    terms = fmbe_phi_plain(fm.omega, fm.degree, fm.coef, h) * lam_rest
     err, ratio = compare_signed_sum(f"fmbe_z{tag}", z, fmbe_z_plain(*zargs),
-                                    phi_h * lam_rest)
-    fz_bytes = (deg_sum * d * 4 + n_feat * 8 + q * n_feat * 4 + q * d * es
-                + q * 4)
-    fz_bound, fz_by = bound_ms(fz_bytes, 2 * q * deg_sum * d)
+                                    terms)
+    decomposition = (fmbe_z_planes_plain if h.dtype == torch.float32
+                     else fmbe_z_pack_plain)
+    d_err, d_ratio = compare_signed_sum(
+        f"fmbe_z{tag} against its decomposition", z,
+        decomposition(pack, lam_rest, h), terms)
+    n_cols = pack.rows.shape[0]
+    side = q * n_feat * 4 + q * d * es + q * 4
+    fz_bytes = (n_cols * d * 2 + n_feat * 12 + (n_cols // PACK_TILE + 1) * 4
+                + side)
+    planes = 3 if h.dtype == torch.float32 else 1
+    fz_bound, fz_by = bound_ms(fz_bytes, 2 * q * n_cols * d * planes)
+    omega_bytes = deg_sum * d * 4 + n_feat * 8 + side
+    omega_bound, _ = bound_ms(omega_bytes, 2 * q * deg_sum * d)
+    rows = pack.rows if h.dtype == torch.bfloat16 else pack.rows.float()
+    m_idx = torch.arange(max_deg, device=h.device)[:, None]
+    use = pack.degree[None, :] > m_idx                        # (M, P)
+    col = torch.where(use, pack.start[None, :] + m_idx, 0).long()
+
+    def library_fmbe_z():
+        proj = torch.matmul(h, rows.T).float()
+        factors = torch.where(use[None], proj[:, col], 1.0)   # (Q, M, P)
+        return (factors.prod(1) * pack.coef * lam_rest).sum(-1)
+
     fz = dict(name=f"fmbe_z{tag}", route="cuda",
               source="src/repro_torch/kernels/csrc/fmbe_z.cu",
               replaces="src/repro/kernels/fmbe.py:121",
-              max_abs_err=err, max_err_over_tol=ratio,
-              ms=time_ms(torch, lambda: fmbe_z(*zargs)),
+              max_abs_err=max(err, d_err), max_err_over_tol=max(ratio,
+                                                                 d_ratio),
+              ms=time_ms(torch, call),
               plain_ms=time_ms(torch, lambda: fmbe_z_plain(*zargs)),
-              bound_ms=fz_bound, bound_by=fz_by, library_ms=None)
-    fz_eager = eager_ms(torch, lambda: fmbe_z(*zargs))
+              bound_ms=fz_bound, bound_by=fz_by,
+              library_ms=time_ms(torch, library_fmbe_z),
+              library_call="torch.matmul(x, pack.rows.T), the feature "
+              "products, a matvec with lambda",
+              graph10_ms=graph10_ms(torch, call),
+              l2_flushed_ms=flushed_ms(torch, call),
+              bound_f32_omega_ms=omega_bound, pack_columns=n_cols,
+              by_kernel_ms=kernel_split(torch, call))
+    fz_eager = eager_ms(torch, call)
     log(f"fmbe_z{tag}: Q {q} P {n_feat} max degree {max_deg} (sum of "
-        f"degrees {deg_sum}), per-query lambda, {h.dtype}: max abs err "
-        f"{err:.3e} = {ratio:.4f} of the tolerance, |z| up to "
-        f"{z.abs().max().item():.3e}; kernel {fz['ms']:.4f} ms (eager call "
-        f"{fz_eager:.4f} ms), plain {fz['plain_ms']:.4f} ms, bound "
-        f"{fz_bound:.4f} ms ({fz_by}, {fz_bytes / 1e6:.1f} MB) [{card}]")
+        f"degrees {deg_sum}), pack {n_cols} columns, per-query lambda, "
+        f"{h.dtype}: max abs err {err:.3e} = {ratio:.4f} of the tolerance "
+        f"(against the pack's decomposition {d_ratio:.4f}), |z| up to "
+        f"{z.abs().max().item():.3e}, two calls bit-equal; kernel "
+        f"{fz['ms']:.4f} ms ({share(fz_bound, fz['ms'])} of the pack's "
+        f"bound; ten calls in one graph {fz['graph10_ms']:.4f} ms a call, "
+        f"L2 flushed before each call {fz['l2_flushed_ms']:.4f} ms, eager "
+        f"call {fz_eager:.4f} ms), plain {fz['plain_ms']:.4f} ms, library "
+        f"yardstick {fz['library_ms']:.4f} ms, bound {fz_bound:.4f} ms "
+        f"({fz_by}, the pack's {fz_bytes / 1e6:.1f} MB; the f32 omega "
+        f"rows' {omega_bytes / 1e6:.1f} MB: {omega_bound:.4f} ms); device ms "
+        f"a call by kernel (torch.profiler) {fz['by_kernel_ms']} [{card}]")
     return fz
 
 
@@ -915,6 +1042,8 @@ def lsh_probe_phase(torch, card, lidx, w, h, pc, k, gen, tag=""):
                                     reps=10),
                    bound_ms=bound, bound_by=by,
                    library_ms=time_ms(torch, library, reps=10),
+                   graph10_ms=graph10_ms(torch,
+                                         lambda: lsh_probe(*args, k=k)),
                    max_abs_err=max(err, err_v))
         eager = eager_ms(torch, lambda: lsh_probe(*args, k=k))
         log(f"lsh_probe {label}: Q {q} C {c} columns, {n_live} live, "
@@ -974,7 +1103,8 @@ def ivf_score_phase(torch, card, kernels, index, h, plan, tag=""):
                                 reps=10),
                bound_ms=bound, bound_by=by,
                library_ms=time_ms(torch, lambda: torch.einsum(
-                   "qd,qpbd->qpb", h, index.v_blocks[ids])))
+                   "qd,qpbd->qpb", h, index.v_blocks[ids])),
+               graph10_ms=graph10_ms(torch, lambda: ivf_score(*args)))
     _build.reset_counts(kernels.values())
     scores = ivf_block_scores(*args)
     torch.cuda.synchronize()
@@ -1017,6 +1147,29 @@ def ptxas_report(text):
             out.append(line.split("'")[1] if "'" in line else line)
         elif "registers" in line or "spill" in line:
             out.append("  " + line.replace("ptxas info    : ", ""))
+    return out
+
+
+def kernel_split(torch, fn, reps=20):
+    """Device milliseconds a call of ``fn`` spends in each kernel (mean of
+    ``reps`` eager calls under torch.profiler), by kernel name. A kernel
+    launched as a programmatic dependent starts while the one before it
+    runs, and its time includes that wait."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].removeprefix("void ")[:60]
+            out[name] = out.get(name, 0.0) + (e.self_device_time_total
+                                              / 1e3 / reps)
     return out
 
 
@@ -1354,6 +1507,7 @@ def f32_phase(torch, card, kernels):
         f"{time.time() - t0:.1f} s")
     totals = {name: 0 for name in kernels}
     records = {}
+    floor = floor_ms(torch)
     gen = torch.Generator(device=dev).manual_seed(3)
     prompt = torch.randint(0, cfg.vocab, (N_REQ, 1), generator=gen,
                            device=dev)
@@ -1476,6 +1630,8 @@ def f32_phase(torch, card, kernels):
     for name in kernels:
         rec = records[name]
         rec["launches"] = totals[name]
+        if "graph10_ms" in rec:                   # a decode kernel
+            rec["floor_ms"] = floor
         out.append(rec)
     return out
 

@@ -19,6 +19,7 @@ from . import lsh as _lsh
 from . import mips as _mips
 from .decode import (DecodeOut, exact_topk_decode, fmbe_decode, mimps_decode,
                      mince_decode, selfnorm_decode, topk_head_decode)
+from ..kernels.fmbe import pack_if_needed
 from .feature_maps import (FeatureMap, FMBEState, build_fmbe,
                            build_fmbe_blocks, fmbe_z_batch, make_feature_map)
 
@@ -178,10 +179,11 @@ class FmbeBackend(EstimatorBackend):
         state.index = _build_index(cfg, state.w, generator=generator,
                                    assign=assign, device=device)
         if state.index is not None:
+            pack = pack_if_needed(fm.omega, fm.degree, fm.coef, state.w)
             lam_b = build_fmbe_blocks(fm, state.index.v_blocks,
-                                      state.index.valid)
+                                      state.index.valid, pack=pack)
             state.fmbe = FMBEState(fm=fm, lambda_tilde=lam_b.sum(0),
-                                   lambda_blocks=lam_b)
+                                   lambda_blocks=lam_b, pack=pack)
         else:
             state.fmbe = build_fmbe(fm, state.w)
         return state

@@ -15,7 +15,9 @@ decode asks the sketch only for the complement of the probed head,
 The builds compute phi through ``kernels.fmbe.fmbe_phi`` (a CUDA kernel on
 a GPU tensor, its plain version on a CPU tensor). Where that kernel reads
 the feature map's live rows packed (``kernels.fmbe.pack_if_needed``), each
-build packs once and passes the pack to all its chunks.
+build packs once and passes the pack to all its chunks; the state keeps it
+(``FMBEState.pack``) for ``kernels.fmbe.fmbe_z``, which reads the same pack
+at decode (packing reads ``degree`` to the host, so a decode never packs).
 ``apply_feature_map`` is the plain reference the
 ``use_kernel=False`` branches take.
 """
@@ -41,6 +43,7 @@ class FMBEState(NamedTuple):
     fm: FeatureMap
     lambda_tilde: torch.Tensor                    # (P,) = sum_i phi(v_i)
     lambda_blocks: Optional[torch.Tensor] = None  # (nb, P) per-block sums
+    pack: Optional[FmbePack] = None               # fm's fmbe_pack, if read
 
 
 def make_feature_map(generator: torch.Generator, d: int, n_features: int,
@@ -87,7 +90,7 @@ def build_fmbe(fm: FeatureMap, v: torch.Tensor, chunk: int = 2048,
     for r0 in range(0, v.shape[0], chunk):
         lam += fmbe_phi(fm.omega, fm.degree, fm.coef,
                         v[r0:r0 + chunk].contiguous(), pack=pack).sum(0)
-    return FMBEState(fm=fm, lambda_tilde=lam)
+    return FMBEState(fm=fm, lambda_tilde=lam, pack=pack)
 
 
 def build_fmbe_blocks(fm: FeatureMap, v_blocks: torch.Tensor,
@@ -125,7 +128,8 @@ def fmbe_tail_z(state: FMBEState, x: torch.Tensor,
                 state.lambda_blocks[probed_blocks.long()].sum(1))  # (Q, P)
     fm = state.fm
     if use_kernel:
-        return fmbe_z(fm.omega, fm.degree, fm.coef, lam_rest, x)
+        return fmbe_z(fm.omega, fm.degree, fm.coef, lam_rest, x,
+                      pack=state.pack)
     return (apply_feature_map(fm, x) * lam_rest).sum(-1)
 
 
@@ -142,5 +146,6 @@ def fmbe_z_batch(state: FMBEState, x: torch.Tensor,
     ``kernels.fmbe.fmbe_z`` or the reference feature map."""
     fm = state.fm
     if use_kernel:
-        return fmbe_z(fm.omega, fm.degree, fm.coef, state.lambda_tilde, x)
+        return fmbe_z(fm.omega, fm.degree, fm.coef, state.lambda_tilde, x,
+                      pack=state.pack)
     return apply_feature_map(fm, x) @ state.lambda_tilde

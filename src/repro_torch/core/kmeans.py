@@ -11,6 +11,9 @@ from typing import Tuple
 
 import torch
 
+# rows a block of segment_sums adds at a time
+_SEGMENT_ROWS = 64
+
 
 def _assign(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Nearest-centroid assignment by squared Euclidean distance."""
@@ -19,17 +22,47 @@ def _assign(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.argmin(d2, dim=-1).to(torch.int32)
 
 
+def segment_sums(x: torch.Tensor, seg: torch.Tensor,
+                 n_seg: int) -> torch.Tensor:
+    """Sums (n_seg, d) f32 of the rows of x (N, d) by segment id seg (N,),
+    added in an order fixed by seg alone: each segment's rows, in row
+    order, are laid into blocks of ``_SEGMENT_ROWS`` (zero-padded) and
+    each block summed, and the blocks' sums go round again until a segment
+    holds one block. ``index_add_`` adds with atomics on CUDA, in an order
+    that changes from run to run."""
+    dev = x.device
+    seg = seg.long()
+    n_rows = torch.bincount(seg, minlength=n_seg)
+    rows = x.float()
+    while True:
+        n_blk = (n_rows + _SEGMENT_ROWS - 1) // _SEGMENT_ROWS
+        if int(n_blk.max()) <= 1 and rows.shape[0] == int(n_blk.sum()):
+            break                        # one row a segment: the sums
+        order = torch.argsort(seg, stable=True)
+        rank = torch.empty_like(order)
+        rank[order] = (torch.arange(seg.shape[0], device=dev)
+                       - (torch.cumsum(n_rows, 0) - n_rows)[seg[order]])
+        first = torch.cumsum(n_blk, 0) - n_blk          # a segment's block
+        slot = (first[seg] * _SEGMENT_ROWS + rank)
+        buf = rows.new_zeros((int(n_blk.sum()) * _SEGMENT_ROWS,
+                              rows.shape[1]))
+        buf[slot] = rows
+        rows = buf.view(-1, _SEGMENT_ROWS, rows.shape[1]).sum(1)
+        seg = torch.repeat_interleave(torch.arange(n_seg, device=dev), n_blk)
+        n_rows = n_blk
+    out = rows.new_zeros((n_seg, rows.shape[1]))
+    out[seg] = rows
+    return out
+
+
 def centroids_from_assign(x: torch.Tensor, assign: torch.Tensor,
                           n_clusters: int
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(centroids (C, d) f32, counts (C,) f32) of an assignment. Empty
-    clusters get a zero centroid (``kmeans_step`` repairs them)."""
-    idx = assign.long()
-    sums = torch.zeros((n_clusters, x.shape[1]), dtype=torch.float32,
-                       device=x.device).index_add_(0, idx, x.float())
-    counts = torch.zeros((n_clusters,), dtype=torch.float32,
-                         device=x.device).index_add_(
-        0, idx, torch.ones(x.shape[:1], dtype=torch.float32, device=x.device))
+    """(centroids (C, d) f32, counts (C,) f32) of an assignment, the same
+    bits in every process (``segment_sums``). Empty clusters get a zero
+    centroid (``kmeans_step`` repairs them)."""
+    sums = segment_sums(x, assign, n_clusters)
+    counts = torch.bincount(assign.long(), minlength=n_clusters).float()
     return sums / torch.clamp(counts, min=1.0)[:, None], counts
 
 

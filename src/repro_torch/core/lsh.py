@@ -36,6 +36,8 @@ from .estimators import NEG_INF, combine_head_tail_lse
 # Q*V*L ceiling under which lsh_plan computes collisions by broadcast code
 # compare instead of bucket scatter (the JAX package's threshold).
 _BCAST_COLLIDE_LIMIT = 1 << 25
+# row width of fixed_order_cumsum's two-level scan
+_SCAN_WIDTH = 1024
 
 
 class LSHIndex(NamedTuple):
@@ -286,10 +288,31 @@ def _tail_log_probs(index: LSHIndex) -> torch.Tensor:
             - math.log(2.0))
 
 
+def fixed_order_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums of a 1-D float tensor, added in an order fixed
+    by its length: rows of ``_SCAN_WIDTH`` are scanned each on its own,
+    then their totals are scanned the same way and added to the rows after
+    them. ``torch.cumsum`` of a 1-D CUDA tensor is one device-wide scan
+    whose blocks take their predecessors' sums as these become ready, so
+    its float bits change from run to run; a scan along the last dimension
+    of a tensor of two rows or more runs each row in one block, in a fixed
+    order (a zero row pads a single one)."""
+    n = x.shape[0]
+    rows = -(-n // _SCAN_WIDTH)
+    buf = x.new_zeros((max(rows, 2), _SCAN_WIDTH))
+    buf.view(-1)[:n] = x
+    part = torch.cumsum(buf, 1)
+    if rows > 1:
+        part[1:rows] += fixed_order_cumsum(part[:rows - 1, -1])[:, None]
+    return part.view(-1)[:n]
+
+
 def inverse_cdf_sample(logp: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Row ids drawn from exp(logp) (V,) by inverse CDF for uniforms u in
-    [0, 1): the first row whose running mass reaches u * total."""
-    cdf = torch.cumsum(torch.exp(logp), 0)
+    [0, 1): the first row whose running mass reaches u * total. The mass
+    is summed by ``fixed_order_cumsum``, so every process draws the same
+    rows."""
+    cdf = fixed_order_cumsum(torch.exp(logp))
     ids = torch.searchsorted(cdf, u * cdf[-1])
     return torch.clamp(ids, 0, logp.shape[0] - 1).to(torch.int32)
 

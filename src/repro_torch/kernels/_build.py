@@ -47,9 +47,9 @@ SIGNATURES = {
     # x, pack, start, tile_j0, degree, coef, Q, P, d, n_tiles, grid, out,
     # x_planes, f32, stream
     "fmbe_phi_wgmma": [_P] * 6 + [_I] * 5 + [_P] * 2 + [_I, _P],
-    # omega, degree, coef, lam, lam_stride, x, Q, P, M, d, n_part, part, z,
-    # f32, stream
-    "fmbe_z": [_P] * 4 + [_I, _P] + [_I] * 5 + [_P] * 2 + [_I, _P],
+    # x, pack, tile_j0, start, degree, coef, lam, lam_stride, Q, P, d,
+    # n_tiles, grid_x, proj, z, x_planes, f32, stream
+    "fmbe_z": [_P] * 7 + [_I] * 6 + [_P] * 3 + [_I, _P],
     # h, w, labels, T, V, d, n_split, per, grid, part_m, part_s, part_p,
     # nll, lse, h_planes, w_planes, f32, stream
     "fused_ce_fwd": [_P] * 3 + [_I] * 6 + [_P] * 7 + [_I, _P],
@@ -147,8 +147,8 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def stream_grid(dev: torch.device) -> int:
-    """The persistent grid of ``union_scores`` and ``lsh_probe``: every SM,
-    ``STREAM_CTAS_PER_SM`` CTAs each."""
+    """The persistent grid of ``union_scores``, ``ivf_decode`` and
+    ``lsh_probe``: every SM, ``STREAM_CTAS_PER_SM`` CTAs each."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return sms * STREAM_CTAS_PER_SM
 

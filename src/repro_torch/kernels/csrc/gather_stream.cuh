@@ -1,10 +1,11 @@
 // A Hopper pipeline that scores rows gathered by id against an 8-query tile
-// (union_scores.cu, lsh_probe.cu).
+// (union_scores.cu, ivf_decode.cu, lsh_probe.cu, fmbe_z.cu).
 //
-// Both kernels read rows of an output embedding by id (the blocks of a
-// probe union, or the candidates and tail samples of an LSH probe) and dot
-// each with a small tile of decode queries. They are bound by the bytes of
-// those rows. The design keeps many bytes in flight and spends few
+// These kernels read rows by id (the blocks of a probe union and the tail
+// rows of a MIMPS plan, the candidates and tail samples of an LSH probe, or
+// the packed +-1 projection rows of an FMBE feature map) and dot each with
+// a small tile of decode queries. They are bound by the bytes of those
+// rows. The design keeps many bytes in flight and spends few
 // instructions per byte:
 //
 // * Work split. A persistent grid (one CTA per SM; GS_CTAS) over the
@@ -27,7 +28,10 @@
 //   d 2560, 2 stages of 16 rows in bf16 (164 KB) and 2 of 4 in f32.
 // * bf16. The consumer warps split the depth of each stage: each runs
 //   mma.sync m16n8k16 (rows as A from ldmatrix, the 8 queries as B; N = 8
-//   is the query tile) over its share of d, with f32 accumulators. wgmma
+//   is the query tile) over its share of d, with f32 accumulators. f32
+//   queries against bf16 rows (fmbe_z.cu) come as NP = 3 exact bf16 planes
+//   in the query tile, each plane's sums taken alone and added, smallest
+//   first. wgmma
 //   does not fit: its smallest tile is 64 rows a warpgroup, and it needs its
 //   shared operand in the core-matrix layout, which a row-contiguous bulk
 //   copy does not give (TMA cannot gather rows by id). The query tile stays
@@ -39,6 +43,9 @@
 //   memory; after a named barrier of the consumers the Job's `post` sums the
 //   warps' partials in warp order. The partial buffers alternate between
 //   stages, so one barrier a stage suffices.
+//
+// LaneFold (at the end) is the per-query online logsumexp and top-k that
+// ivf_decode.cu and lsh_probe.cu fold their scores into.
 //
 // A Job supplies (see union_scores.cu and lsh_probe.cu):
 //   int rows()                     this CTA's share of the live rows (read
@@ -59,6 +66,7 @@
 #include <cstdio>
 
 #include "hopper_gemm.cuh"
+#include "streaming.cuh"
 
 namespace gstream {
 
@@ -136,24 +144,24 @@ __host__ __device__ constexpr int align_up(int x, int a) {
 }
 
 // Byte offsets in dynamic shared memory, the same on the host and the
-// device: the query tile, the partial sums (two buffers), the Job's own
-// bytes, the mbarriers, then the ring of `nst` stages of `rows` rows (rows,
-// then each row's side words). A stage holds ROWS rows, or fewer where two
-// stages of ROWS do not fit (wide rows). nst == 0 means the tile and one
-// stage of one row do not fit.
+// device: the query tile (NP planes of QT rows), the partial sums (two
+// buffers), the Job's own bytes, the mbarriers, then the ring of `nst`
+// stages of `rows` rows (rows, then each row's side words). A stage holds
+// ROWS rows, or fewer where two stages of ROWS do not fit (wide rows).
+// nst == 0 means the tile and one stage of one row do not fit.
 struct Layout {
   int row_bytes, pitch, rows, stage_bytes, nst;
   int red_off, job_off, bar_off, ring_off, total;
 };
 
-template <class T>
+template <class T, int NP = 1>
 __host__ __device__ inline Layout layout(int d, int side_bytes,
                                          int extra_bytes) {
   using Tl = Tile<T>;
   Layout m;
   m.row_bytes = d * (int)sizeof(T);
   m.pitch = m.row_bytes + (((m.row_bytes / 16) & 1) ? 32 : 16);
-  m.red_off = QT * m.pitch;
+  m.red_off = NP * QT * m.pitch;
   m.job_off = m.red_off + 2 * Tl::WARPS * Tl::ROWS * QT * 4;
   m.bar_off = align_up(m.job_off + extra_bytes, 16);
   m.ring_off = align_up(m.bar_off + (2 * Tl::MAX_STAGES + 1) * 8, 128);
@@ -262,8 +270,11 @@ __device__ __forceinline__ void load_step(uint32_t a_addr, uint32_t b_addr,
 // This warp's partial sums over its share of d of the stage's `rows` rows
 // (at `sp`; at most ROWS) against the queries (at `qp`), written to `red`
 // [ROWS][QT]. bf16: ceil(d / 16) steps of 16 split evenly over the warps; a
-// step past d reads the zero padding of rows and queries.
-template <int ROWS, int WARPS>
+// step past d reads the zero padding of rows and queries. With NP query
+// planes (three exact bf16 planes of f32 queries, plane p at rows p * QT
+// of the tile) each plane's sums are taken alone and added, last plane
+// (the smallest) first.
+template <int ROWS, int WARPS, int NP = 1>
 __device__ __forceinline__ void partial(const bf16*, const uint8_t* sp,
                                         const uint8_t* qp, int pitch, int d,
                                         int rows, int warp, int lane,
@@ -277,29 +288,35 @@ __device__ __forceinline__ void partial(const bf16*, const uint8_t* sp,
   const uint32_t a_addr =
       sa + (a_row < rows ? a_row : rows - 1) * pitch +
       (ROWS > 8 ? (lane >> 4) : ((lane >> 3) & 1)) * 16;
-  const uint32_t b_addr = qa + (lane & 7) * pitch + ((lane >> 3) & 1) * 16;
-  float c[4][4] = {};
-  uint32_t a[4][4], b[4][2];
-  int k = k0;
+  float c0[4];
+#pragma unroll
+  for (int p = NP - 1; p >= 0; --p) {
+    const uint32_t b_addr =
+        qa + (p * QT + (lane & 7)) * pitch + ((lane >> 3) & 1) * 16;
+    float c[4][4] = {};
+    uint32_t a[4][4], b[4][2];
+    int k = k0;
 #pragma unroll 1
-  for (; k + 3 < k1; k += 4) {         // four chains of dependent mma
+    for (; k + 3 < k1; k += 4) {       // four chains of dependent mma
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      load_step<ROWS>(a_addr + (k + e) * 32, b_addr + (k + e) * 32, a[e],
-                      b[e][0], b[e][1]);
+      for (int e = 0; e < 4; ++e)
+        load_step<ROWS>(a_addr + (k + e) * 32, b_addr + (k + e) * 32, a[e],
+                        b[e][0], b[e][1]);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) mma16816(c[e], a[e], b[e][0], b[e][1]);
-  }
+      for (int e = 0; e < 4; ++e) mma16816(c[e], a[e], b[e][0], b[e][1]);
+    }
 #pragma unroll 1
-  for (; k < k1; ++k) {
-    load_step<ROWS>(a_addr + k * 32, b_addr + k * 32, a[0], b[0][0],
-                    b[0][1]);
-    mma16816(c[0], a[0], b[0][0], b[0][1]);
-  }
+    for (; k < k1; ++k) {
+      load_step<ROWS>(a_addr + k * 32, b_addr + k * 32, a[0], b[0][0],
+                      b[0][1]);
+      mma16816(c[0], a[0], b[0][0], b[0][1]);
+    }
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    c[0][i] = (c[0][i] + c[1][i]) + (c[2][i] + c[3][i]);
-  float* c0 = c[0];
+    for (int i = 0; i < 4; ++i) {
+      const float x = (c[0][i] + c[1][i]) + (c[2][i] + c[3][i]);
+      c0[i] = p == NP - 1 ? x : c0[i] + x;
+    }
+  }
   const int g = lane >> 2, t = 2 * (lane & 3);
   if (g < rows) {
     red[g * QT + t] = c0[0];
@@ -333,11 +350,12 @@ __device__ __forceinline__ void fold(float* v, int lane) {
 // f32: the warps take 512-byte column groups of the stage in turn, each
 // lane 16 bytes of every row and query; a butterfly over the lanes then
 // leaves one (row, query) sum in each lane.
-template <int ROWS, int WARPS>
+template <int ROWS, int WARPS, int NP = 1>
 __device__ __forceinline__ void partial(const float*, const uint8_t* sp,
                                         const uint8_t* qp, int pitch, int d,
                                         int rows, int warp, int lane,
                                         float* red) {
+  static_assert(NP == 1, "f32 queries are read as they are");
   constexpr int N = ROWS * QT;
   float v[N];
 #pragma unroll
@@ -416,15 +434,16 @@ struct Phases {
   }
 };
 
-template <class T, class Job>
+// `h` holds NP planes of (Q, d) queries, `plane` elements apart.
+template <class T, class Job, int NP = 1>
 __device__ __forceinline__ void run(Job& job, const T* __restrict__ h, int Q,
-                                    int d) {
+                                    int d, size_t plane = 0) {
   using Tl = Tile<T>;
   constexpr int ROWS = Tl::ROWS, WARPS = Tl::WARPS;
   extern __shared__ __align__(128) uint8_t smem[];
   Phases ph;
   ph.begin();
-  const Layout m = layout<T>(d, job.side_bytes, job.extra_bytes);
+  const Layout m = layout<T, NP>(d, job.side_bytes, job.extra_bytes);
   job.own = smem + m.job_off;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + m.bar_off);
   uint64_t* empty = full + Tl::MAX_STAGES;
@@ -437,7 +456,7 @@ __device__ __forceinline__ void run(Job& job, const T* __restrict__ h, int Q,
   // zeros past every row of the ring and of the query tile, and in the
   // rows of absent queries
   const int R = m.rows;                // rows a stage
-  for (int i = threadIdx.x; i < (m.nst * R + QT) * pad_words;
+  for (int i = threadIdx.x; i < (m.nst * R + NP * QT) * pad_words;
        i += blockDim.x) {
     const int row = i / pad_words, w = i - row * pad_words;
     const int s = row / R, r = row - s * R;
@@ -446,10 +465,12 @@ __device__ __forceinline__ void run(Job& job, const T* __restrict__ h, int Q,
                      : smem + (row - m.nst * R) * m.pitch;
     reinterpret_cast<uint32_t*>(p + m.row_bytes)[w] = 0u;
   }
-  for (int i = threadIdx.x; i < (QT - nq) * (m.row_bytes / 4);
-       i += blockDim.x)
-    reinterpret_cast<uint32_t*>(smem + nq * m.pitch)[
-        i / (m.row_bytes / 4) * (m.pitch / 4) + i % (m.row_bytes / 4)] = 0u;
+  for (int i = threadIdx.x; i < NP * (QT - nq) * (m.row_bytes / 4);
+       i += blockDim.x) {
+    const int a = i / (m.row_bytes / 4), pl = a / (QT - nq);
+    reinterpret_cast<uint32_t*>(smem + (pl * QT + nq) * m.pitch)[
+        (a - pl * (QT - nq)) * (m.pitch / 4) + i % (m.row_bytes / 4)] = 0u;
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < m.nst; ++s) {
       bar_init(&full[s], 1);
@@ -461,11 +482,13 @@ __device__ __forceinline__ void run(Job& job, const T* __restrict__ h, int Q,
   __syncthreads();
 
   if (warp == WARPS) {                 // the queries, before the row count
-    if (lane == 0) bar_expect_tx(qbar, nq * m.row_bytes);
+    if (lane == 0) bar_expect_tx(qbar, NP * nq * m.row_bytes);
     __syncwarp();
-    if (lane < nq)
-      bulk_copy(smem_u32(smem + lane * m.pitch), h + (size_t)(q0 + lane) * d,
-                m.row_bytes, qbar);
+    if (lane < NP * nq) {
+      const int pl = lane / nq, q = lane - pl * nq;
+      bulk_copy(smem_u32(smem + (pl * QT + q) * m.pitch),
+                h + pl * plane + (size_t)(q0 + q) * d, m.row_bytes, qbar);
+    }
   }
   const int cnt = job.rows();          // this CTA's rows, 0 .. cnt - 1
   const int n_st = (cnt + R - 1) / R;
@@ -537,7 +560,7 @@ __device__ __forceinline__ void run(Job& job, const T* __restrict__ h, int Q,
     bar_wait(&full[s], (i / m.nst) & 1);
     ph.mark(1);
     if (GS_DIAG != 1) {
-      partial<ROWS, WARPS>(h, smem + m.ring_off + s * m.stage_bytes, smem,
+      partial<ROWS, WARPS, NP>(h, smem + m.ring_off + s * m.stage_bytes, smem,
                            m.pitch, d, R, warp, lane, red + warp * ROWS * QT);
       ph.mark(2);
       job.pre(st, threadIdx.x, q0, nq);
@@ -560,5 +583,100 @@ __device__ __forceinline__ void run(Job& job, const T* __restrict__ h, int Q,
                ph.clk[5],
            (long long)(hgemm::global_ns() - ph.entry));
 }
+
+// ---- per-lane online logsumexp and top-k (lsh_probe.cu, ivf_decode.cu) ----
+
+// A Job whose consumer warp folds query q = warp + CW u of the tile, one
+// lane a row of the stage: each lane adds its row to its own (m, s) of the
+// head and of the tail, and the rows that beat the k-th best of lane u's
+// top-k (every lane keeps a copy of that entry) go to lane u in row order,
+// by ballot. At the end the lanes' (m, s) fold in a fixed tree and lane u
+// writes query q's partial for merge_partials (streaming.cuh). Every sum
+// runs in an order fixed by the rows' order, so two calls are bit-equal.
+template <class T, int KMAX>
+struct LaneFold {
+  static constexpr int CW = Tile<T>::WARPS;
+  static constexpr int UQ = (QT + CW - 1) / CW;   // queries a warp folds
+  float hm[UQ], hs[UQ], tm[UQ], ts[UQ];
+  streaming::TopK<KMAX> top;
+  float kv[UQ];                        // lane u's k-th best, in every lane
+  int ki[UQ];
+
+  __device__ void init() {
+#pragma unroll
+    for (int u = 0; u < UQ; ++u) {
+      hm[u] = streaming::NEG;
+      hs[u] = 0.f;
+      tm[u] = streaming::NEG;
+      ts[u] = 0.f;
+      kv[u] = streaming::NEG;          // TopK's filler
+      ki[u] = 0;
+    }
+    top.init();
+  }
+
+  // (m, s) += x with one exp: exp(-|x - m|) scales whichever side is lower
+  static __device__ void add(float& m, float& s, float x) {
+    const float e = expf(-fabsf(x - m));
+    s = x > m ? s * e + 1.f : s + e;
+    m = fmaxf(m, x);
+  }
+
+  // (m, s) += (m2, s2), either possibly empty (s == 0)
+  static __device__ void merge(float& m, float& s, float m2, float s2) {
+    if (s2 <= 0.f) return;
+    const float mn = fmaxf(m, m2);
+    s = s * expf(m - mn) + s2 * expf(m2 - mn);
+    m = mn;
+  }
+
+  // this lane's row for query slot u: counted if `in`, into the tail if
+  // `tail` (value x) or else into the head and its top-k (value x, id)
+  __device__ void row(int u, int lane, bool in, bool tail, float x, int id) {
+    if (in && tail) add(tm[u], ts[u], x);
+    if (in && !tail) add(hm[u], hs[u], x);
+    unsigned enter = __ballot_sync(
+        FULL, in && !tail && streaming::better(x, id, kv[u], ki[u]));
+    if (enter == 0u) return;
+    do {
+      const int r = __ffs(enter) - 1;
+      enter &= enter - 1;
+      const float rx = __shfl_sync(FULL, x, r);
+      const int rid = __shfl_sync(FULL, id, r);
+      if (lane == u) top.insert(rx, rid);
+    } while (enter);
+    kv[u] = __shfl_sync(FULL, top.v[KMAX - 1], u);
+    ki[u] = __shfl_sync(FULL, top.i[KMAX - 1], u);
+  }
+
+  // the lanes' (m, s) folded in a fixed tree; lane u writes query q's
+  // partial (index (query, CTA); top-k (query, CTA, k))
+  __device__ void finish(int t, int q0, int nq, int k, float* part_hm,
+                         float* part_hs, float* part_tm, float* part_ts,
+                         float* part_v, int* part_i) {
+    const int warp = t / 32, lane = t % 32;
+#pragma unroll
+    for (int u = 0; u < UQ; ++u) {
+      const int q = warp + CW * u;
+      if (q >= nq) break;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float m2 = __shfl_xor_sync(FULL, hm[u], o);
+        const float s2 = __shfl_xor_sync(FULL, hs[u], o);
+        const float n2 = __shfl_xor_sync(FULL, tm[u], o);
+        const float t2 = __shfl_xor_sync(FULL, ts[u], o);
+        merge(hm[u], hs[u], m2, s2);
+        merge(tm[u], ts[u], n2, t2);
+      }
+      if (lane != u) continue;
+      const size_t idx = (size_t)(q0 + q) * gridDim.x + blockIdx.x;
+      part_hm[idx] = hm[u];
+      part_hs[idx] = hs[u];
+      part_tm[idx] = tm[u];
+      part_ts[idx] = ts[u];
+      streaming::write_topk(top, k, part_v, part_i, idx * k);
+    }
+  }
+};
 
 }  // namespace gstream

@@ -49,6 +49,7 @@
 using gstream::copy_word;
 using gstream::FULL;
 using gstream::Layout;
+using gstream::LaneFold;
 using gstream::layout;
 using gstream::QT;
 using gstream::run;
@@ -57,12 +58,9 @@ using gstream::Stage;
 using gstream::threads;
 using gstream::Tile;
 using gstream::zero_words;
-using streaming::better;
 using streaming::merge_partials;
 using streaming::MERGE_THREADS;
 using streaming::NEG;
-using streaming::TopK;
-using streaming::write_topk;
 
 #ifndef GS_PDL
 #define GS_PDL 1        // launch the probe as a programmatic dependent
@@ -132,13 +130,8 @@ struct ProbeJob {
   int live = 0, tl = 0, nt = 0, hl = 0;
 
   static constexpr int ROWS = Tile<T>::ROWS, CW = Tile<T>::WARPS;
-  static constexpr int UQ = (QT + CW - 1) / CW;   // queries a warp folds
-  // query warp + CW u: lane r's (m, s) of the head and the tail over the
-  // rows it took, and, in lane u, the top-k (see post)
-  float hm[UQ], hs[UQ], tm[UQ], ts[UQ];
-  TopK<KMAX> top;
-  float kv[UQ];                        // lane u's k-th best, in every lane
-  int ki[UQ];
+  using Fold = LaneFold<T, KMAX>;
+  Fold fold;                           // query warp + CW u, lane a row
 
   struct Src {
     int id;
@@ -203,16 +196,7 @@ struct ProbeJob {
       const int r = p % ROWS, q = p / ROWS;
       if (r < nt && q < nq) tail_flags(0, r, q, q0, r);
     }
-#pragma unroll
-    for (int u = 0; u < UQ; ++u) {
-      hm[u] = NEG;
-      hs[u] = 0.f;
-      tm[u] = NEG;
-      ts[u] = 0.f;
-      kv[u] = NEG;                     // TopK's filler
-      ki[u] = 0;
-    }
-    top.init();
+    fold.init();
 #if GS_PDL
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
 #endif
@@ -247,10 +231,8 @@ struct ProbeJob {
     }
   }
 
-  // query q = warp + CW u is folded by consumer warp q % CW, a lane a row:
-  // each lane adds its row to its own (m, s), and the rows that beat the
-  // k-th best of lane u's top-k (every lane keeps a copy) go to lane u in
-  // row order
+  // query q = warp + CW u is folded by consumer warp q % CW, a lane a row
+  // (LaneFold); a tail sample's score takes its bias
   __device__ void post(const Stage& st, int t, int q0, int nq) {
     static_assert(ROWS <= 32, "a lane a row");
     const int warp = t / 32, lane = t % 32;
@@ -261,69 +243,19 @@ struct ProbeJob {
     const float bias =
         mine ? reinterpret_cast<const float*>(f)[ROWS * QT + lane] : 0.f;
 #pragma unroll
-    for (int u = 0; u < UQ; ++u) {
+    for (int u = 0; u < Fold::UQ; ++u) {
       const int q = warp + CW * u;
       if (q >= nq) break;
       const bool in = mine && f[lane * QT + q] != 0;
       if (!__any_sync(FULL, in)) continue;
       const float x = in ? score<T>(st, lane, q) : NEG;
-      if (in && tail) add(tm[u], ts[u], x + bias);
-      if (in && !tail) add(hm[u], hs[u], x);
-      unsigned enter =
-          __ballot_sync(FULL, in && !tail && better(x, id, kv[u], ki[u]));
-      if (enter == 0u) continue;
-      do {
-        const int r = __ffs(enter) - 1;
-        enter &= enter - 1;
-        const float rx = __shfl_sync(FULL, x, r);
-        const int rid = __shfl_sync(FULL, id, r);
-        if (lane == u) top.insert(rx, rid);
-      } while (enter);
-      kv[u] = __shfl_sync(FULL, top.v[KMAX - 1], u);
-      ki[u] = __shfl_sync(FULL, top.i[KMAX - 1], u);
+      fold.row(u, lane, in, tail, tail ? x + bias : x, id);
     }
   }
 
-  // (m, s) += x with one exp: exp(-|x - m|) scales whichever side is lower
-  static __device__ void add(float& m, float& s, float x) {
-    const float e = expf(-fabsf(x - m));
-    s = x > m ? s * e + 1.f : s + e;
-    m = fmaxf(m, x);
-  }
-
-  // (m, s) += (m2, s2), either possibly empty (s == 0)
-  static __device__ void merge(float& m, float& s, float m2, float s2) {
-    if (s2 <= 0.f) return;
-    const float mn = fmaxf(m, m2);
-    s = s * expf(m - mn) + s2 * expf(m2 - mn);
-    m = mn;
-  }
-
-  // the lanes' (m, s) folded in a fixed tree; lane u writes query q's
-  // partial
   __device__ void finish(int t, int q0, int nq) {
-    const int warp = t / 32, lane = t % 32;
-#pragma unroll
-    for (int u = 0; u < UQ; ++u) {
-      const int q = warp + CW * u;
-      if (q >= nq) break;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float m2 = __shfl_xor_sync(FULL, hm[u], o);
-        const float s2 = __shfl_xor_sync(FULL, hs[u], o);
-        const float n2 = __shfl_xor_sync(FULL, tm[u], o);
-        const float t2 = __shfl_xor_sync(FULL, ts[u], o);
-        merge(hm[u], hs[u], m2, s2);
-        merge(tm[u], ts[u], n2, t2);
-      }
-      if (lane != u) continue;
-      const size_t idx = (size_t)(q0 + q) * gridDim.x + blockIdx.x;
-      part_hm[idx] = hm[u];
-      part_hs[idx] = hs[u];
-      part_tm[idx] = tm[u];
-      part_ts[idx] = ts[u];
-      write_topk(top, k, part_v, part_i, idx * k);
-    }
+    fold.finish(t, q0, nq, k, part_hm, part_hs, part_tm, part_ts, part_v,
+                part_i);
   }
 };
 

@@ -1,12 +1,13 @@
-// Shared pieces of the streaming-score kernels (topk_z.cu, ivf_decode.cu;
-// union_scores.cu and fmbe_tile.cuh use the query tile and the row dots).
+// Shared pieces of the streaming-score kernels (topk_z.cu; ivf_score.cu
+// uses the row loads, and the gathered-row kernels of gather_stream.cuh the
+// top-k list and merge_partials).
 //
 // Rows and queries are bf16 or f32 (the template parameter T of the loaders;
 // each kernel is instantiated for both). An f32 row is read as two 16-byte
 // loads per 8 elements instead of one; accumulation is f32 either way.
 //
-// Both kernels stream rows of an output embedding past a small tile of
-// decode queries held in shared memory, and fold each row's scores into a
+// topk_z streams rows of an output embedding past a small tile of decode
+// queries held in shared memory, and folds each row's scores into a
 // per-query online logsumexp and a running top-k. The TPU kernels ran that
 // fold as one sequential grid per query tile; here the rows are split over
 // every warp of every CTA, each warp keeps its own partial (m, s, top-k),
@@ -274,6 +275,9 @@ merge_partials(int P, int k, const float* __restrict__ hm,
   __shared__ float red[MERGE_THREADS / 32];
   __shared__ float sv[MERGE_THREADS * KMAX];
   __shared__ int si[MERGE_THREADS * KMAX];
+  // launched as a programmatic dependent (ivf_decode.cu), the partials
+  // are complete and visible past this; otherwise it returns at once
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int q = blockIdx.x, t = threadIdx.x;
   const size_t row = (size_t)q * P;
   float l = merge_lse(hm + row, hs + row, P, red);

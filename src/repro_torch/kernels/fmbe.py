@@ -20,8 +20,13 @@ exact in bf16, are gathered once per feature map into a bf16 matrix
 (``fused_ce.split_planes``), each run against the pack, smallest first, so
 every product is exact and only the f32 sums round
 (``fmbe_phi_planes_plain`` is that decomposition in plain PyTorch).
-``fmbe_z`` (``csrc/fmbe_z.cu``, on ``csrc/fmbe_tile.cuh``) dots only the
-live omega rows on the CUDA cores.
+``fmbe_z`` (``csrc/fmbe_z.cu``) reads the same pack on the tensor cores
+through the gathered-row pipeline (``csrc/gather_stream.cuh``): the
+projections of every pack column, bf16 ``x`` as it is and f32 ``x`` as its
+three planes, smallest first; then each feature's columns multiplied, times
+coef and lambda, and summed in a fixed order (``fmbe_z_pack_plain`` and
+``fmbe_z_planes_plain`` are its decompositions). A decode passes the
+map's pack (``FMBEState.pack``): ``fmbe_pack`` reads ``degree`` to the host.
 """
 from __future__ import annotations
 
@@ -33,8 +38,7 @@ import torch
 from . import _build
 from .fused_ce import planes_width, split_planes
 
-MAX_DEGREE = 8              # fmbe_tile.cuh's MMAX
-Z_FEATURES_PER_CTA = 16     # fmbe_z.cu's FP
+MAX_DEGREE = 8              # the kernels' MMAX: factors a feature multiplies
 PACK_TILE = 128             # columns of an output tile (hopper_gemm.cuh BN)
 
 
@@ -138,14 +142,15 @@ def pack_if_needed(omega, degree, coef, x) -> Optional[FmbePack]:
     return fmbe_pack(omega, degree, coef) if _reads_pack(x) else None
 
 
-def _check_pack(pack: FmbePack, omega, degree, coef) -> None:
+def _check_pack(pack: FmbePack, omega, degree, coef,
+                name: str = "fmbe_phi") -> None:
     same = all(s.data_ptr() == t.data_ptr() and s.shape == t.shape
                and s.stride() == t.stride() and s.dtype == t.dtype
                and t._version == v
                for s, t, v in zip(pack.source, (omega, degree, coef),
                                   pack.versions))
     _check(same, "the pack was made from another omega, degree or coef, "
-           "or they changed since", "fmbe_phi")
+           "or they changed since", name)
 
 
 def fmbe_phi_plain(omega, degree, coef, x):
@@ -172,6 +177,19 @@ def fmbe_phi_pack_plain(pack: FmbePack, x):
     projections as one f32 product with the packed rows, then each
     feature's columns multiplied in m order, then coef."""
     return _feature_products(pack, x.float() @ pack.rows.float().T)
+
+
+def fmbe_z_pack_plain(pack: FmbePack, lam, x):
+    """Plain PyTorch version of the tensor-core ``fmbe_z``: phi from the
+    pack (``fmbe_phi_pack_plain``) times lambda, summed."""
+    return (fmbe_phi_pack_plain(pack, x) * lam.float()).sum(-1)
+
+
+def fmbe_z_planes_plain(pack: FmbePack, lam, x):
+    """The f32 ``fmbe_z`` kernel's decomposition: phi from the three planes
+    of x (``fmbe_phi_planes_plain``) times lambda, summed. For tests and
+    ``chip_smoke.py``, never on the main path."""
+    return (fmbe_phi_planes_plain(pack, x) * lam.float()).sum(-1)
 
 
 def fmbe_phi_planes_plain(pack: FmbePack, x):
@@ -237,6 +255,25 @@ def _stream(dev):
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def _check_pack_rows(pack: FmbePack, x, name: str) -> int:
+    """n_tiles of a pack whose rows x (Q, d) can be scored against."""
+    dev = x.device
+    tensors = (pack.rows, pack.start, pack.tile_j0, pack.degree, pack.coef)
+    _check(all(t.device == dev for t in tensors),
+           "x and the pack must be on one GPU", name)
+    d = x.shape[1]
+    n_cols = pack.rows.shape[0]
+    n_tiles = n_cols // PACK_TILE
+    _check(pack.rows.dtype == torch.bfloat16 and pack.rows.shape[1] == d
+           and n_cols == n_tiles * PACK_TILE
+           and pack.tile_j0.shape == (n_tiles + 1,),
+           f"pack rows {tuple(pack.rows.shape)} {pack.rows.dtype} for x "
+           f"{tuple(x.shape)}", name)
+    _check(pack.rows.is_contiguous() and pack.rows.data_ptr() % 16 == 0,
+           "pack rows not contiguous and 16-byte aligned", name)
+    return n_tiles
+
+
 def phi_launch(pack: FmbePack, x, *, lib=None):
     """``fmbe_phi``'s kernel (``csrc/fmbe_phi_wgmma.cu``) on x (Q, d) bf16
     or f32 on the GPU against the pack of its map, without its launch
@@ -246,20 +283,9 @@ def phi_launch(pack: FmbePack, x, *, lib=None):
     ``split_planes``, and None at bf16. ``lib`` is the built library to
     launch (default: the package's), for tools."""
     dev = x.device
-    tensors = (x, pack.rows, pack.start, pack.tile_j0, pack.degree,
-               pack.coef)
-    _check(all(t.device == dev for t in tensors),
-           "x and the pack must be on one GPU", "fmbe_phi")
+    n_tiles = _check_pack_rows(pack, x, "fmbe_phi")
     q, d = x.shape
-    n_cols, p = pack.rows.shape[0], pack.start.shape[0]
-    n_tiles = n_cols // PACK_TILE
-    _check(pack.rows.dtype == torch.bfloat16 and pack.rows.shape[1] == d
-           and n_cols == n_tiles * PACK_TILE
-           and pack.tile_j0.shape == (n_tiles + 1,),
-           f"pack rows {tuple(pack.rows.shape)} {pack.rows.dtype} for x "
-           f"{tuple(x.shape)}", "fmbe_phi")
-    _check(pack.rows.is_contiguous() and pack.rows.data_ptr() % 16 == 0,
-           "pack rows not contiguous and 16-byte aligned", "fmbe_phi")
+    p = pack.start.shape[0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grid = min(sms, -(-q // PACK_TILE) * n_tiles)
     is_f32 = _build.KERNEL_DTYPES[x.dtype]
@@ -269,7 +295,9 @@ def phi_launch(pack: FmbePack, x, *, lib=None):
     out = torch.empty((q, p), dtype=torch.float32, device=dev)
     ptr = ctypes.c_void_p
     err = lib.fmbe_phi_wgmma_launch(
-        *[ptr(t.data_ptr()) for t in tensors], q, p, d, n_tiles, grid,
+        *[ptr(t.data_ptr()) for t in (x, pack.rows, pack.start,
+                                      pack.tile_j0, pack.degree, pack.coef)],
+        q, p, d, n_tiles, grid,
         ptr(out.data_ptr()), ptr(planes.data_ptr() if is_f32 else None),
         is_f32, _stream(dev))
     _build.check("fmbe_phi_wgmma", err)
@@ -306,28 +334,47 @@ def fmbe_phi(omega, degree, coef, x, *, pack: Optional[FmbePack] = None):
 
 
 @_build.counted
-def fmbe_z(omega, degree, coef, lam, x):
+def fmbe_z(omega, degree, coef, lam, x, *, pack: Optional[FmbePack] = None):
     """Fused decode estimate z(x) = phi(x) . lambda, (Q,) signed f32.
 
     ``lam`` is (P,), one shared sketch sum (the global-Z path), or (Q, P),
     a per-query lambda (the block-partitioned complement path,
-    ``core.feature_maps.fmbe_tail_z``). x is bf16 or f32."""
+    ``core.feature_maps.fmbe_tail_z``). x is bf16 or f32. ``pack`` is
+    ``fmbe_pack(omega, degree, coef)`` of these very tensors, made once per
+    feature map and read by the kernel; a call on the GPU without it packs
+    the map itself, which reads ``degree`` to the host (never in a decode
+    step). On the GPU, bf16 x is counted as a "bf16" launch and f32 x
+    (three planes) as "f32". On CPU tensors: ``fmbe_z_pack_plain`` given a
+    pack, else ``fmbe_z_plain``."""
+    if pack is not None:
+        _check_pack(pack, omega, degree, coef, "fmbe_z")
     if all(t.device.type == "cpu" for t in (omega, degree, coef, lam, x)):
+        if pack is not None:
+            return fmbe_z_pack_plain(pack, lam, x)
         return fmbe_z_plain(omega, degree, coef, lam, x)
-    q, p, m, d = _check_inputs("fmbe_z", omega, degree, coef, x, (lam,))
+    q, p, _, d = _check_inputs("fmbe_z", omega, degree, coef, x, (lam,))
     _check(lam.dtype == torch.float32 and lam.shape in ((p,), (q, p)),
            f"lam must be f32 (P,) or (Q, P), got {lam.dtype} "
            f"{tuple(lam.shape)}", "fmbe_z")
+    if pack is None:
+        pack = fmbe_pack(omega, degree, coef)
+    n_tiles = _check_pack_rows(pack, x, "fmbe_z")
+    dev = x.device
     is_f32 = _build.KERNEL_DTYPES[x.dtype]
-    lib = _build.load("fmbe_z")
-    n_part = -(-p // Z_FEATURES_PER_CTA)
-    part = torch.empty((q, n_part), dtype=torch.float32, device=x.device)
-    z = torch.empty((q,), dtype=torch.float32, device=x.device)
+    # f32 x: the (3, Q, d) bf16 planes that the kernel splits it into
+    planes = (torch.empty((3, q, d), dtype=torch.bfloat16, device=dev)
+              if is_f32 else None)
+    proj = torch.empty((q, n_tiles * PACK_TILE), dtype=torch.float32,
+                       device=dev)
+    z = torch.empty((q,), dtype=torch.float32, device=dev)
     ptr = ctypes.c_void_p
-    err = lib.fmbe_z_launch(
-        *[ptr(t.data_ptr()) for t in (omega, degree, coef, lam)],
-        p if lam.dim() == 2 else 0, ptr(x.data_ptr()), q, p, m, d, n_part,
-        ptr(part.data_ptr()), ptr(z.data_ptr()), is_f32, _stream(x.device))
+    err = _build.load("fmbe_z").fmbe_z_launch(
+        *[ptr(t.data_ptr()) for t in (x, pack.rows, pack.tile_j0,
+                                      pack.start, pack.degree, pack.coef,
+                                      lam)],
+        p if lam.dim() == 2 else 0, q, p, d, n_tiles,
+        _build.stream_grid(dev), ptr(proj.data_ptr()), ptr(z.data_ptr()),
+        ptr(planes.data_ptr() if is_f32 else None), is_f32, _stream(dev))
     _build.check("fmbe_z", err)
     _build.count(fmbe_z, is_f32)
     return z

@@ -218,14 +218,11 @@ def ivf_decode(w_blocks, h, head_ids, head_live, head_member, row_logw,
     _check(1 <= k <= MAX_K, f"k={k} outside [1, {MAX_K}]")
     _check(q >= 1 and u >= 1 and l >= 1, "empty input")
     lib = _build.load("ivf_decode")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    groups = u * -(-br // 32) + -(-l // 32)          # 32-row groups
-    grid_x = max(1, min(2 * sms, groups))
-    n_part = grid_x                                  # one per CTA
+    grid_x = _build.stream_grid(dev)                 # one partial a CTA
     f32, i32 = torch.float32, torch.int32
-    part = [torch.empty((q, n_part), dtype=f32, device=dev) for _ in range(4)]
-    part_v = torch.empty((q, n_part, k), dtype=f32, device=dev)
-    part_i = torch.empty((q, n_part, k), dtype=i32, device=dev)
+    part = [torch.empty((q, grid_x), dtype=f32, device=dev) for _ in range(4)]
+    part_v = torch.empty((q, grid_x, k), dtype=f32, device=dev)
+    part_i = torch.empty((q, grid_x, k), dtype=i32, device=dev)
     head_lse = torch.empty((q,), dtype=f32, device=dev)
     tail_lse = torch.empty((q,), dtype=f32, device=dev)
     topv = torch.empty((q, k), dtype=f32, device=dev)

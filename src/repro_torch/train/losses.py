@@ -10,7 +10,8 @@
 
 ``nce``, ``sampled`` and the estimator-backed losses (``mimps_ce``,
 ``mince_ce``, ``lsh_ce``) are not ported yet and raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``NotImplementedError`` naming the JAX function that has no counterpart
+here.
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ def _flatten_head(model, params, hidden, labels):
     """Returns (h2d (T, d), w (V, d), lab (T,)) for a single-stream head."""
     if model.cfg.n_codebooks:
         raise NotImplementedError(
-            "codebook heads are not ported (ROADMAP A15)")
+            "codebook heads are not ported: the codebook branch of "
+            "repro.train.losses._flatten_head")
     return (hidden.reshape(-1, hidden.shape[-1]), model.head_matrix(params),
             labels.reshape(-1))
 
@@ -88,10 +90,11 @@ def loss_selfnorm(model, params, batch, key, train_cfg, *,
         "selfnorm_penalty": penalty}
 
 
-def _not_ported(name: str, item: str) -> Callable:
+def _not_ported(name: str) -> Callable:
     def loss(*args, **kwargs):
         raise NotImplementedError(
-            f"loss {name!r} is not ported to repro_torch yet (ROADMAP {item})")
+            f"loss {name!r} is not ported to repro_torch yet, not ported: "
+            f"repro.train.losses.loss_{name}")
     loss.__name__ = f"loss_{name}"
     return loss
 
@@ -100,11 +103,11 @@ LOSSES: Dict[str, Callable] = {
     "fused_ce": loss_fused_ce,
     "ce": loss_ce,
     "selfnorm": loss_selfnorm,
-    "nce": _not_ported("nce", "A12"),
-    "sampled": _not_ported("sampled", "A12"),
-    "mimps_ce": _not_ported("mimps_ce", "A12"),
-    "mince_ce": _not_ported("mince_ce", "A12"),
-    "lsh_ce": _not_ported("lsh_ce", "A11, A12"),
+    "nce": _not_ported("nce"),
+    "sampled": _not_ported("sampled"),
+    "mimps_ce": _not_ported("mimps_ce"),
+    "mince_ce": _not_ported("mince_ce"),
+    "lsh_ce": _not_ported("lsh_ce"),
 }
 
 # losses whose forward/backward go through a device-resident retrieval index

@@ -7,7 +7,7 @@ takes gradients with ``torch.autograd.grad`` and updates the parameters in
 place. The JAX key split becomes a ``torch.Generator`` carried in
 ``TrainState.rng`` and handed to the loss. Estimator-backed losses (their
 IVF/LSH index in ``TrainState.index``, the index refresh) are not ported
-yet (ROADMAP A12).
+yet.
 """
 from __future__ import annotations
 
@@ -95,7 +95,7 @@ def init_train_state(model, train_cfg: TrainConfig, seed: int,
     if train_cfg.loss in ESTIMATOR_LOSSES:
         raise NotImplementedError(
             f"loss {train_cfg.loss!r} needs a retrieval index in TrainState, "
-            f"which is not ported yet (ROADMAP A12)")
+            f"not ported: the index of repro.train.train_loop.TrainState")
     dev = resolve_device(device)
     params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
     return TrainState(params=params, opt=init_opt_state(params),
@@ -118,7 +118,9 @@ def make_train_step(model, train_cfg: TrainConfig, *, backend: str = "xla"):
     loss_name = train_cfg.loss
     if loss_name in ESTIMATOR_LOSSES:
         raise NotImplementedError(
-            f"loss {loss_name!r} is not ported yet (ROADMAP A12)")
+            f"loss {loss_name!r} is not ported yet, not ported: "
+            f"repro.train.losses.loss_{loss_name} and "
+            f"repro.train.train_loop.make_index_refresh")
     loss_fn = get_loss(loss_name)
     kwargs = {"backend": backend} if loss_name in ("fused_ce",
                                                     "selfnorm") else {}

@@ -9,12 +9,23 @@ instantiations accumulate in f32 as the bf16 ones do); LSEs and scores to
 1e-3. The tensor-core ``fmbe_phi`` (bf16 x) also runs at pack layouts
 with degree-8 features ending at a column-tile boundary and pushed past
 one, and column tiles of degree-0 features only, must give equal bits
-over two calls and refuses a pack made from other tensors. FMBE sums are signed and cancel, so
+over two calls and refuses a pack made from other tensors. The tensor-core
+``fmbe_z`` reads that pack at both dtypes (f32 x as three planes), with
+lambda shared and per query, P off the 16-feature and 128-column tiles,
+features of degree 0 and 8, two calls bit-equal, and refuses a pack of
+other tensors. FMBE sums are signed and cancel, so
 z is held to 1e-4 of sum_j |phi_j lambda_j| and phi to 1e-4 of its own
-scale |coef_j| * max(|x|_2, 1) ** degree_j (plus |phi|). The fused CE
+scale |coef_j| * max(|x|_2, 1) ** degree_j (plus |phi|); f32 z is held
+to float64 and to its planes decomposition, not to the plain version,
+whose own f32 products reach that tolerance at these inputs. The fused CE
 kernels run at token counts and vocabularies that are not multiples of
 their 128 x 128 tiles or of the backward's vocab chunk (T 129, V = C + 1), with labels at 0 and V - 1 and with and without a selfnorm
-cotangent; nll and lse to 1e-3. ``union_scores`` runs with no live slot and
+cotangent; nll and lse to 1e-3. ``ivf_decode`` runs with no live slot
+(tail rows only), at block heights 64 and 131 (heads ending inside a
+stage; every CTA's first stage holds tail and head rows), with a few tail
+rows a CTA, k 1, 8, 12 and 32, a query with no member slot and one with no
+accepted tail sample (-inf LSEs), two calls bit-equal. ``union_scores``
+runs with no live slot and
 with every slot live, at block heights 64 and 131 (live rows that split
 unevenly over the grid) and at rows too wide for a full stage (bf16 d
 8192, f32 d 6144), two calls bit-equal. The LSH probe runs at one query
@@ -58,18 +69,27 @@ version, to its plane decomposition (``fmbe_phi_planes_plain``) and to
 float64 under the same phi tolerance, and its planes of x are
 ``split_planes``'s.
 
+A two-process test fingerprints every stage of the lsh path
+(``tools/stage_fingerprints.py --lsh-only``) and requires the same
+SHA-256 in both processes.
+
 These tests need a GPU and skip without one. On the GPU machine, which has
 no JAX, run them without the repository's conftest:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda_kernels.py
 """
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
 from repro_torch.kernels.fmbe import (PACK_TILE, fmbe_pack, fmbe_phi,
                                      fmbe_phi_planes_plain, fmbe_phi_plain,
-                                     fmbe_z, fmbe_z_plain, pack_layout,
-                                     phi_launch)
+                                     fmbe_z, fmbe_z_pack_plain,
+                                     fmbe_z_planes_plain, fmbe_z_plain,
+                                     pack_layout, phi_launch)
 from repro_torch.kernels.fused_ce import (F32_MAX_DEPTH, bwd_launch,
                                          bwd_schedule, ce_coef, fused_ce_bwd,
                                          fused_ce_bwd_plain, fused_ce_fwd,
@@ -145,17 +165,31 @@ def test_topk_z_matches_plain(gen, head_bf16, q, k, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("q,k,live", [(8, 8, 40), (5, 1, 7), (16, 12, 100),
-                                      (3, 8, 1)])
-def test_ivf_decode_matches_plain(gen, q, k, live, dtype):
-    nb, br, l = 300, 512, 1000
+@pytest.mark.parametrize("q,k,live,br,l", [
+    (8, 8, 40, 512, 1000), (5, 1, 7, 512, 1000), (16, 12, 100, 512, 1000),
+    (3, 8, 1, 512, 1000),
+    (8, 8, 23, 512, 1000),        # the main path's plan
+    (8, 32, 23, 512, 1000),       # k 32: the 32-entry lists
+    (4, 8, 0, 512, 1000),         # head_live 0: tail rows only
+    (8, 8, 23, 64, 1000),         # br 64: heads end inside stages
+    (5, 8, 9, 131, 77),           # odd rows a block, a few tail rows a CTA
+])
+def test_ivf_decode_matches_plain(gen, q, k, live, br, l, dtype):
+    """Against the plain version: LSEs to 1e-3, top-k values to 1e-3 and
+    ids equal (fillers (NEG, 0) included), a query with no member slot and
+    one with no accepted tail sample at -inf, two calls bit-equal. Each CTA
+    takes its share of the tail rows first, so a stage holds tail and head
+    rows, and its share of the head rows ends inside a block."""
+    nb = 300
     wb = (torch.randn(nb, br, D, generator=gen, device="cuda") * 0.02
           ).to(dtype)
     h = torch.randn(q, D, generator=gen, device="cuda").to(dtype)
     cap = min(q * 16, nb)
     ids = torch.sort(torch.randperm(nb, generator=gen, device="cuda")[:live]
                      ).values
-    head_ids = torch.cat([ids, ids[-1:].expand(cap - live)]).to(torch.int32)
+    last = ids[-1:] if live else torch.zeros(1, dtype=ids.dtype,
+                                             device="cuda")
+    head_ids = torch.cat([ids, last.expand(cap - live)]).to(torch.int32)
     member = torch.rand(q, cap, generator=gen, device="cuda") < 0.3
     member[0, 0] = True                                 # a real head ...
     member[-1] = False                                  # ... and an empty one
@@ -169,13 +203,20 @@ def test_ivf_decode_matches_plain(gen, q, k, live, dtype):
             torch.tensor(live, dtype=torch.int32, device="cuda"), member,
             row_logw, tail, accept)
     before = _counts(ivf_decode)
-    hl, tl, tv, ti = ivf_decode(*args, k=k)
+    out = ivf_decode(*args, k=k)
+    again = ivf_decode(*args, k=k)
     torch.cuda.synchronize()
-    _launched(ivf_decode, dtype, before)
+    _launched(ivf_decode, dtype, before, 2)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    hl, tl, tv, ti = out
     p_hl, p_tl, p_v, p_i = ivf_decode_plain(*args, k=k)
     _close_lse(hl, p_hl)
     _close_lse(tl, p_tl)
     assert torch.isneginf(tl[0]) and torch.isneginf(hl[-1])
+    if live == 0:
+        assert torch.isneginf(hl).all() and (tv == NEG).all()
+        assert not ti.any()
     assert (tv - p_v).abs().max().item() <= TOL
     assert torch.equal(ti, p_i)
 
@@ -494,24 +535,59 @@ def test_fmbe_phi_refuses_a_pack_of_other_tensors(gen):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shared", [True, False])
-@pytest.mark.parametrize("q,p", [(8, 4096), (5, 1000), (13, 70)])
+@pytest.mark.parametrize("q,p", [(8, 4096), (5, 1000), (13, 70), (1, 4096)])
 def test_fmbe_z_matches_plain(gen, q, p, shared, dtype):
-    """x at the final norm's scale (|x|_2 about 50): products of up to 8
-    projections reach about 1e13 before coef."""
+    """The tensor-core kernel on the map's pack, with and without the pack
+    passed: x at the final norm's scale (|x|_2 about 50): products of up
+    to 8 projections reach about 1e13 before coef. P not a multiple of 16
+    or of the 128-column tile, features of degree 0 and 8, lambda shared
+    and per query; z to 1e-4 of sum_j |phi_j lambda_j| (+1e-6) of float64
+    and of the pack's decomposition (f32: of its planes), and at bf16 of
+    the plain version, two calls bit-equal. At f32 the plain version's
+    own f32 products are held to nothing here: at this scale their error
+    reaches the tolerance (0.23 of it against float64 where the kernel's
+    is 0.09, tools/fmbe_z_error.py), so float64 takes its place."""
     omega, degree, coef = _feature_map(gen, p)
+    pack = fmbe_pack(omega, degree, coef)
     x = torch.randn(q, D, generator=gen, device="cuda").to(dtype)
     lam = torch.randn((p,) if shared else (q, p), generator=gen,
                       device="cuda")
     before = _counts(fmbe_z)
-    got = fmbe_z(omega, degree, coef, lam, x)
-    again = fmbe_z(omega, degree, coef, lam, x)
+    got = fmbe_z(omega, degree, coef, lam, x, pack=pack)
+    again = fmbe_z(omega, degree, coef, lam, x, pack=pack)
+    unpacked = fmbe_z(omega, degree, coef, lam, x)
     torch.cuda.synchronize()
-    _launched(fmbe_z, dtype, before, 2)
+    _launched(fmbe_z, dtype, before, 3)
     assert torch.equal(got, again)                      # bit-reproducible
-    want = fmbe_z_plain(omega, degree, coef, lam, x)
+    assert torch.equal(got, unpacked)
     scale = (fmbe_phi_plain(omega, degree, coef, x) * lam).abs().sum(-1)
     assert torch.isfinite(got).all()
-    assert ((got - want).abs() <= 1e-4 * scale + 1e-6).all()
+    wants = [_z64(pack, lam, x)]
+    if dtype == torch.float32:
+        wants.append(fmbe_z_planes_plain(pack, lam, x))
+    else:
+        wants += [fmbe_z_pack_plain(pack, lam, x),
+                  fmbe_z_plain(omega, degree, coef, lam, x)]
+    for want in wants:
+        assert ((got.double() - want.double()).abs()
+                <= 1e-4 * scale + 1e-6).all()
+
+
+def _z64(pack, lam, x):
+    """z in float64 from x and the pack's rows."""
+    return (_phi64(pack, x) * lam.double()).sum(-1)
+
+
+def test_fmbe_z_refuses_a_pack_of_other_tensors(gen):
+    omega, degree, coef = _feature_map(gen, 300)
+    pack = fmbe_pack(omega, degree, coef)
+    x = torch.randn(4, D, generator=gen, device="cuda").bfloat16()
+    lam = torch.randn(300, generator=gen, device="cuda")
+    before = _counts(fmbe_z)
+    with pytest.raises(ValueError, match="fmbe_z: the pack was made from "
+                                         "another omega"):
+        fmbe_z(omega, degree, coef * 2, lam, x, pack=pack)
+    assert _counts(fmbe_z) == before
 
 
 def _ce_inputs(gen, t, v, d, dtype=torch.bfloat16):
@@ -828,3 +904,19 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(gen):
     with pytest.raises(ValueError, match="K="):
         lsh_probe(w.bfloat16(), h.bfloat16(),
                   torch.randn(2, 25, D + 1, device="cuda"), *lsh_args)
+
+
+def test_lsh_path_is_bit_equal_across_processes(gen):
+    """Two processes of this tree, given the same seeds, give the same
+    SHA-256 for every stage of the lsh path: the hidden states, the
+    hyperplanes, scales, codes and tables, the query codes, the tail
+    proposal's running mass and draw, the plan and ``lsh_probe``'s outputs,
+    from the trunk's hidden states and from injected ones
+    (``tools/stage_fingerprints.py --lsh-only``; it exits 1 if a stage
+    differs)."""
+    tool = Path(__file__).resolve().parents[1] / "tools" / \
+        "stage_fingerprints.py"
+    res = subprocess.run([sys.executable, str(tool), "--lsh-only"],
+                         capture_output=True, text=True, timeout=900)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "first stage of the path that differs: None" in res.stdout

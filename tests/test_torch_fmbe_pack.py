@@ -14,7 +14,12 @@ same numpy inputs, and so does the f32 kernel's decomposition
 (``fmbe_phi_planes_plain``: three exact bf16 planes of x against the pack,
 smallest first); ``build_fmbe_blocks`` and ``build_fmbe`` give the same
 sums with a pack as without one, and ``fmbe_phi`` refuses a pack made from
-other tensors."""
+other tensors. The tensor-core ``fmbe_z`` reads the same pack: its plain
+evaluation (``fmbe_z_pack_plain``) and the f32 kernel's decomposition
+(``fmbe_z_planes_plain``) are held to the Pallas ``fmbe_z`` in interpret
+mode, and so is the decode's route through ``FMBEState.pack``
+(``fmbe_tail_z``, ``fmbe_z_batch``), to 1e-4 of the sum of the magnitudes
+of the terms (plus 1e-6): FMBE sums are signed and cancel."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,11 +33,14 @@ except ImportError:                      # pragma: no cover
 
 from repro.core import feature_maps as jfm
 from repro.kernels.fmbe import fmbe_phi as jax_fmbe_phi
+from repro.kernels.fmbe import fmbe_z as jax_fmbe_z
 from repro_torch.core import feature_maps as tfm
 from repro_torch.interop import feature_map_from_numpy
 from repro_torch.kernels.fmbe import (PACK_TILE, fmbe_pack,
                                      fmbe_phi, fmbe_phi_pack_plain,
                                      fmbe_phi_planes_plain, fmbe_phi_plain,
+                                     fmbe_z, fmbe_z_pack_plain,
+                                     fmbe_z_planes_plain, fmbe_z_plain,
                                      pack_layout)
 
 REL = 1e-4
@@ -244,3 +252,114 @@ def test_build_fmbe_blocks_same_with_and_without_pack(chunk_blocks):
     torch.testing.assert_close(
         tfm.build_fmbe(fm, flat, chunk=32, pack=pack).lambda_tilde,
         tfm.build_fmbe(fm, flat, chunk=32).lambda_tilde, rtol=0, atol=0)
+
+
+def _jax_map(seed, d, p, max_degree=8):
+    """A JAX feature map and the port's copy of it."""
+    fm = jfm.make_feature_map(jax.random.PRNGKey(seed), d, p,
+                              max_degree=max_degree)
+    return fm, feature_map_from_numpy(np.asarray(fm.omega),
+                                      np.asarray(fm.degree),
+                                      np.asarray(fm.coef), fm.p,
+                                      device="cpu")
+
+
+def _assert_sum(got, want, terms):
+    """|got - want| <= 1e-4 * sum |terms| + 1e-6 along the last axis."""
+    scale = np.abs(np.asarray(terms, np.float64)).sum(-1)
+    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert (err <= REL * scale + 1e-6).all(), (err, scale)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("q,p,d,max_degree,x_std", [(5, 200, 32, 8, 1.0),
+                                                    (8, 256, 16, 4, 0.5),
+                                                    (3, 70, 40, 6, 2.0)])
+def test_z_pack_plain_matches_pallas(q, p, d, max_degree, x_std, shared):
+    """``fmbe_z_pack_plain`` and the f32 kernel's planes decomposition
+    against the Pallas ``fmbe_z`` (interpret mode) on the JAX map, with
+    lambda shared (P,) and per query (Q, P); P not a multiple of 16 or of
+    the 128-column tile, degree-0 features among them."""
+    fm, tmap = _jax_map(q * p + d, d, p, max_degree)
+    assert (tmap.degree == 0).any()
+    rng = np.random.default_rng(q + p)
+    x = (x_std * rng.standard_normal((q, d))).astype(np.float32)
+    lam = rng.standard_normal((p,) if shared else (q, p)).astype(np.float32)
+    pack = fmbe_pack(tmap.omega, tmap.degree, tmap.coef)
+    want = jax_fmbe_z(fm.omega, fm.degree, fm.coef, jnp.asarray(lam),
+                      jnp.asarray(x))
+    terms = np.asarray(jfm.apply_feature_map(fm, jnp.asarray(x))) * lam
+    for got in (fmbe_z_pack_plain(pack, torch.from_numpy(lam),
+                                  torch.from_numpy(x)),
+                fmbe_z_planes_plain(pack, torch.from_numpy(lam),
+                                    torch.from_numpy(x))):
+        assert got.shape == (q,) and got.dtype == torch.float32
+        _assert_sum(got.numpy(), want, terms)
+
+
+def test_z_wrapper_takes_the_pack_plain_on_cpu():
+    """``fmbe_z(..., pack=)`` on CPU tensors is ``fmbe_z_pack_plain`` and
+    launches nothing; a pack of other tensors is refused, as by
+    ``fmbe_phi``."""
+    omega, degree, coef = _map(7, 90, 16)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((4, 16)).astype(np.float32))
+    lam = torch.from_numpy(rng.standard_normal((4, 90)).astype(np.float32))
+    pack = fmbe_pack(omega, degree, coef)
+    before = (fmbe_z.launches, dict(fmbe_z.by_variant))
+    torch.testing.assert_close(fmbe_z(omega, degree, coef, lam, x, pack=pack),
+                               fmbe_z_pack_plain(pack, lam, x), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(fmbe_z(omega, degree, coef, lam, x),
+                               fmbe_z_plain(omega, degree, coef, lam, x),
+                               rtol=0, atol=0)
+    assert (fmbe_z.launches, fmbe_z.by_variant) == before
+    with pytest.raises(ValueError, match="fmbe_z: the pack was made from "
+                                         "another omega"):
+        fmbe_z(omega, degree, coef * 2, lam, x, pack=pack)
+
+
+@pytest.mark.parametrize("q", [5, 8])
+def test_state_pack_route_matches_pallas(q):
+    """The decode's route: an ``FMBEState`` carrying the map's pack feeds
+    ``fmbe_tail_z`` (per-query complement lambda) and ``fmbe_z_batch``
+    (the global lambda) through ``fmbe_z(..., pack=)``, held to the JAX
+    module's Pallas route on the same sketch."""
+    d, p, nb, br = 24, 96, 5, 16
+    rng = np.random.default_rng(q)
+    v_blocks = (0.3 * rng.standard_normal((nb, br, d))).astype(np.float32)
+    valid = rng.random((nb, br)) < 0.8
+    fm, tmap = _jax_map(q, d, p)
+    lam_b = jfm.build_fmbe_blocks(fm, jnp.asarray(v_blocks),
+                                  jnp.asarray(valid))
+    j = jfm.FMBEState(fm=fm, lambda_tilde=lam_b.sum(0), lambda_blocks=lam_b)
+    pack = fmbe_pack(tmap.omega, tmap.degree, tmap.coef)
+    t = tfm.FMBEState(fm=tmap,
+                      lambda_tilde=torch.from_numpy(
+                          np.array(j.lambda_tilde)),
+                      lambda_blocks=torch.from_numpy(
+                          np.array(j.lambda_blocks)), pack=pack)
+    x = (0.4 * rng.standard_normal((q, d))).astype(np.float32)
+    probed = rng.integers(0, nb, (q, 2)).astype(np.int32)
+    phi = np.asarray(jfm.apply_feature_map(fm, jnp.asarray(x)))
+    rest = (np.asarray(j.lambda_tilde)[None]
+            - np.asarray(j.lambda_blocks)[probed].sum(1))
+    _assert_sum(tfm.fmbe_tail_z(t, torch.from_numpy(x),
+                                torch.from_numpy(probed)),
+                jfm.fmbe_tail_z(j, jnp.asarray(x), jnp.asarray(probed),
+                                use_pallas=True), phi * rest)
+    _assert_sum(tfm.fmbe_z_batch(t, torch.from_numpy(x)),
+                jfm.fmbe_z_batch(j, jnp.asarray(x), use_pallas=True),
+                phi * np.asarray(j.lambda_tilde))
+
+
+def test_builds_keep_the_pack():
+    """``build_fmbe`` keeps the pack it was given in its state (None when
+    it was given none and ``fmbe_phi`` reads none, as on the CPU)."""
+    omega, degree, coef = _map(8, 64, 16)
+    fm = tfm.FeatureMap(omega=omega, degree=degree, coef=coef, p=2.0)
+    pack = fmbe_pack(omega, degree, coef)
+    v = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (40, 16)).astype(np.float32))
+    assert tfm.build_fmbe(fm, v, pack=pack).pack is pack
+    assert tfm.build_fmbe(fm, v).pack is None

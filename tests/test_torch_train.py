@@ -231,13 +231,18 @@ def test_unported_losses_raise():
     _, tcfg = _cfgs()
     tm = Model(tcfg)
     for name in ("nce", "sampled", "mimps_ce", "mince_ce", "lsh_ce"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match=f"not ported: repro.train.losses."
+                                 f"loss_{name}"):
             losses.get_loss(name)(tm, {}, {}, None, TrainConfig())
     for name in losses.ESTIMATOR_LOSSES:
         tc = TrainConfig(loss=name)
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        with pytest.raises(NotImplementedError,
+                           match="not ported: the index of repro.train"):
             train_loop.init_train_state(tm, tc, 0, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        with pytest.raises(NotImplementedError,
+                           match=f"not ported: repro.train.losses."
+                                 f"loss_{name}"):
             train_loop.make_train_step(tm, tc)
 
 

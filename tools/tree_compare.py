@@ -28,14 +28,20 @@ OTHER. Every run makes the same inputs from seed 0:
     phase's), ``ivf_decode`` on the 23-block union (random membership,
     1000 tail rows, random acceptance, k 8) and ``ivf_score`` on 16 random
     blocks a query; ``fmbe_z`` with that map and a random per-query lambda;
-    ``lsh_probe`` (k 8, l 1000) on the trimmed union of an 8 x 8-bit index
-    of W and on the dense fallback;
+    ``lsh_probe`` (k 8, l 1000 tail samples drawn uniformly from seed 1)
+    on the trimmed union of an 8 x 8-bit index of W and on the dense
+    fallback;
   - the f32 train step of ``chip_smoke.py``'s f32 phase (qwen1.5-4b at 4
     layers, B 4 x S 256, ``fused_ce``), three steps on the host clock.
 Each bf16 output, and each decode kernel's output at both dtypes, is
-fingerprinted (SHA-256 of its bytes), but for ``lsh_probe``: its index and
-plan are not bit-equal from one process to the next (two runs of one tree
-gave other bits), so it is timed only. A CE or ``fmbe_phi`` time is the
+fingerprinted (SHA-256 of its bytes) and must be the same in all four
+runs, but for the kernels in ``REDESIGNED`` (the ones the change redesigned:
+``ivf_decode`` and ``fmbe_z``): their bits change by design, so
+each run holds them to their plain versions instead (LSEs and top-k values
+to 1e-3, top ids where the neighbouring scores are more than 1e-3 apart,
+signed FMBE sums to 1e-4 of the sum of their terms' magnitudes, + 1e-6),
+and their fingerprints must agree within each tree. A CE or ``fmbe_phi``
+time is the
 median of 20 calls timed with CUDA events after 3 to warm up; a decode
 kernel's is the median of 20 replays of a CUDA graph of one call. Prints
 each measurement's four values in run order with the card's name and power
@@ -56,6 +62,8 @@ ROOT = Path(__file__).resolve().parents[1]
 T, V, D = 1024, 151936, 2560
 BLOCKS, BLOCK_ROWS, CHUNK_BLOCKS = 474, 512, 16
 N_FEATURES = 4096
+# the decode kernels whose bits this change alters by design
+REDESIGNED = ("ivf_decode", "fmbe_z")
 
 
 def events_ms(torch, fn, reps=20, warm=3):
@@ -99,12 +107,48 @@ def graph_ms(torch, fn, reps=20, warm=3):
     return events_ms(torch, graph.replay, reps, warm=0)
 
 
-def decode_kernels(torch, out, h32, w32, fm):
+def held(torch, name, res, plain, terms=None):
+    """The largest error of a redesigned kernel's output ``res`` against
+    its plain version's ``plain`` under the limits above; raises past
+    them."""
+    if name.startswith("fmbe_z"):
+        err = (res.double() - plain.double()).abs()
+        tol = 1e-4 * terms.double().abs().sum(-1) + 1e-6
+        ratio = (err / tol).max().item()
+        if ratio > 1.0:
+            raise RuntimeError(f"{name}: {ratio:.3f} of its tolerance")
+        return err.max().item()
+    hl, tl, tv, ti = res
+    p_hl, p_tl, p_v, p_i = plain
+    worst = 0.0
+    for got, want in ((hl, p_hl), (tl, p_tl)):
+        if not torch.equal(got.isneginf(), want.isneginf()):
+            raise RuntimeError(f"{name}: -inf pattern differs")
+        fin = ~want.isneginf()
+        if fin.any():
+            worst = max(worst, (got[fin] - want[fin]).abs().max().item())
+    k = tv.shape[1]
+    worst = max(worst, (tv - p_v[:, :k]).abs().max().item())
+    if worst > 1e-3:
+        raise RuntimeError(f"{name}: off its plain version by {worst}")
+    gap_up = torch.cat([torch.full_like(p_v[:, :1], float("inf")),
+                        p_v[:, :k - 1] - p_v[:, 1:k]], 1)
+    gap_down = p_v[:, :k] - p_v[:, 1:k + 1]
+    sure = (gap_up > 1e-3) & (gap_down > 1e-3)
+    if not torch.equal(ti[sure], p_i[:, :k][sure]):
+        raise RuntimeError(f"{name}: top ids differ where the gaps exceed "
+                           f"1e-3")
+    return worst
+
+
+def decode_kernels(torch, out, h32, w32, fm, pack):
     """Bits and graph times of the decode kernels at both dtypes."""
+    import inspect
+
     from repro_torch.core import lsh as tlsh
-    from repro_torch.kernels.fmbe import fmbe_z
-    from repro_torch.kernels.ivf_score import (ivf_decode, ivf_score,
-                                              union_scores)
+    from repro_torch.kernels.fmbe import fmbe_phi_plain, fmbe_z, fmbe_z_plain
+    from repro_torch.kernels.ivf_score import (ivf_decode, ivf_decode_plain,
+                                              ivf_score, union_scores)
     from repro_torch.kernels.lsh_probe import lsh_probe
     from repro_torch.kernels.topk_z import topk_z
     dev = h32.device
@@ -126,10 +170,14 @@ def decode_kernels(torch, out, h32, w32, fm):
                            dtype=torch.int32)
     lam = torch.randn(q, fm.omega.shape[0], generator=gen, device=dev)
     idx = tlsh.build_lsh_device(w32, generator=gen, device=dev)
-    plan = tlsh.lsh_plan(idx, h32[:q], n_tail, generator=gen)
+    lsh_tail = torch.randint(0, V, (n_tail,), generator=gen, device=dev)
+    plan = tlsh.lsh_plan(idx, h32[:q], n_tail, tail_ids=lsh_tail)
     if int(plan.cand_live) > plan.cand_rows.shape[0]:
-        plan = tlsh.lsh_plan(idx, h32[:q], n_tail, tail_ids=plan.tail_ids,
+        plan = tlsh.lsh_plan(idx, h32[:q], n_tail, tail_ids=lsh_tail,
                              cand_cap=int(plan.cand_live))
+    # a tree whose fmbe_z reads the map's pack is given it
+    zpack = ({"pack": pack}
+             if "pack" in inspect.signature(fmbe_z).parameters else {})
     trimmed = (plan.cand_rows, plan.cand_live)
     dense = (torch.arange(V, dtype=torch.int32, device=dev),
              torch.tensor(V, dtype=torch.int32, device=dev))
@@ -146,17 +194,31 @@ def decode_kernels(torch, out, h32, w32, fm):
                 wb, h, head_ids, head_live, member, row_logw, tail_rows,
                 accept, k=k),
             "ivf_score": lambda: ivf_score(wb, h, probes),
-            "fmbe_z": lambda: fmbe_z(fm.omega, fm.degree, fm.coef, lam, h),
+            "fmbe_z": lambda: fmbe_z(fm.omega, fm.degree, fm.coef, lam, h,
+                                     **zpack),
         }
         for label, (rows, col) in (("trimmed", trimmed), ("dense", dense)):
             runs[f"lsh_probe {label}"] = lambda rows=rows, col=col: lsh_probe(
                 w, h, idx.proj, rows, col, idx.codes, idx.slot_of_row,
                 plan.tail_ids, plan.tail_accept, plan.tail_bias, k=k)
+        plains = {
+            "ivf_decode": lambda: ivf_decode_plain(
+                wb, h, head_ids, head_live, member, row_logw, tail_rows,
+                accept, k=k + 1),
+            "fmbe_z": lambda: fmbe_z_plain(fm.omega, fm.degree, fm.coef,
+                                           lam, h),
+        }
         for name, fn in runs.items():
             res = fn()
-            if not name.startswith("lsh_probe"):
-                out["bits"][f"{name}{tag}"] = digest(
-                    *(res if isinstance(res, tuple) else (res,)))
+            bits = digest(*(res if isinstance(res, tuple) else (res,)))
+            if name in REDESIGNED:
+                terms = (fmbe_phi_plain(fm.omega, fm.degree, fm.coef, h)
+                         * lam if name == "fmbe_z" else None)
+                out["held"][f"{name}{tag}"] = held(
+                    torch, name, res, plains[name](), terms)
+                out["redesigned_bits"][f"{name}{tag}"] = bits
+            else:
+                out["bits"][f"{name}{tag}"] = bits
             out["ms"][f"{name}{tag}"] = graph_ms(torch, fn)
         del h, w, wb, tail_rows, runs
         torch.cuda.empty_cache()
@@ -173,7 +235,8 @@ def digest(*tensors):
 
 
 def one(root: Path) -> dict:
-    """The measurements of one checkout, imported from ``root``."""
+    """The measurements of one checkout, imported from ``root``; the
+    kernels in ``REDESIGNED`` are held to their plain versions."""
     sys.path.insert(0, str(root / "src"))
     import dataclasses
 
@@ -196,7 +259,7 @@ def one(root: Path) -> dict:
                            dtype=torch.int32)
     fm = make_feature_map(gen, D, N_FEATURES, device=dev)
     pack = fmbe_pack(fm.omega, fm.degree, fm.coef)
-    out = {"bits": {}, "ms": {}}
+    out = {"bits": {}, "ms": {}, "held": {}, "redesigned_bits": {}}
     for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "[f32]")):
         h, w = h32.to(dtype), w32.to(dtype)
         nll, lse = fused_ce_fwd(h, w, labels)
@@ -220,7 +283,7 @@ def one(root: Path) -> dict:
             torch, lambda: fmbe_phi(fm.omega, fm.degree, fm.coef, x, pack=p))
         del h, w, nll, lse, bargs, x
         torch.cuda.empty_cache()
-    decode_kernels(torch, out, h32, w32, fm)
+    decode_kernels(torch, out, h32, w32, fm, pack)
     # the build's 474 blocks hold V rows and cluster padding: W's rows in
     # order, then its first rows again as masked padding
     slot = torch.arange(BLOCKS * BLOCK_ROWS, device=dev)
@@ -275,17 +338,26 @@ def main() -> int:
         runs.append(dict(json.loads(res.stdout.strip().splitlines()[-1]),
                          tree=name))
     print(f"card: {card}; runs: {' '.join(n for n, _ in order)}")
+    same_all = True
     for key in runs[0]["bits"]:
         values = [r["bits"][key] for r in runs]
+        same_all &= len(set(values)) == 1
         print(f"  bits {key}: {values}, all the same: "
               f"{len(set(values)) == 1}")
+    for key in runs[0]["redesigned_bits"]:
+        values = [r["redesigned_bits"][key] for r in runs]
+        within = values[0] == values[3] and values[1] == values[2]
+        same_all &= within
+        print(f"  redesigned {key}: bits {values}, the same within each "
+              f"tree: {within}; max error against its plain version "
+              f"{[r['held'][key] for r in runs]}")
     for key in runs[0]["ms"]:
         print(f"  ms {key}: {[r['ms'][key] for r in runs]}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "tree_compare.json").write_text(json.dumps(
         {"card": card, "other": str(other), "runs": runs}, indent=1))
-    return 0
+    return 0 if same_all else 1
 
 
 if __name__ == "__main__":
