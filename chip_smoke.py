@@ -28,9 +28,10 @@ GPU.
    kernel's share of the bound and its GB/s for ``union_scores`` and
    ``lsh_probe`` (``union_scores`` also with the L2 cache flushed before
    each call, a time its record takes if the warm one beats the bound).
-   ``ivf_score`` runs on the mimps plan's probe ids and is then driven
-   through its entry point ``ops.ivf_block_scores`` with the launch counts
-   at 0.
+   ``ivf_score`` runs on the mimps plan's probe ids (two calls bit-equal,
+   the rows its kernels copy equal to its bound's distinct blocks, timed
+   as ``ivf_decode`` is, by kernel too) and is then driven through its
+   entry point ``ops.ivf_block_scores`` with the launch counts at 0.
 4. Holds the estimators against each other on the same hidden states and
    tail draws: ``mimps`` within 0.05 of the exact log Z, ``mince`` equal to
    ``mimps`` to 1e-3, ``topk`` at most the exact log Z (+1e-3) with
@@ -1074,37 +1075,58 @@ def lsh_probe_phase(torch, card, lidx, w, h, pc, k, gen, tag=""):
 
 def ivf_score_phase(torch, card, kernels, index, h, plan, tag=""):
     """``ivf_score`` against its plain version on the mimps plan's (Q, p)
-    probe ids, then its main path: the entry point
+    probe ids, two calls bit-equal; times it as one call, as ten calls in
+    one graph, with the L2 cache flushed before each call and by kernel
+    (the prologue and the scores), beside its byte bound (each query tile's
+    distinct blocks read once), the plain version and a library call; holds
+    the rows its producers copy (the prologue's live counts x br rows) to
+    the bound's. Then its main path: the entry point
     ``ops.ivf_block_scores``, driven once with the launch counts at 0.
     Returns the kernel's record with the path's launches under
     ``path_launches``."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ivf_score import ivf_score, ivf_score_plain
+    from repro_torch.kernels.ivf_score import (QT, ivf_score,
+                                              ivf_score_plain, score_launch)
     from repro_torch.kernels.ops import ivf_block_scores
     nb, br, d = index.v_blocks.shape
     q, p = plan.block_ids.shape
     es = h.element_size()
     args = (index.v_blocks, h, plan.block_ids)
     got = ivf_score(*args)
+    again = ivf_score(*args)
     torch.cuda.synchronize()
     check(got.shape == (q, p, br), f"ivf_score shape {tuple(got.shape)}")
+    check(torch.equal(got, again),
+          f"ivf_score{tag}: two calls differ in their bits")
     err = (got - ivf_score_plain(*args)).abs().max().item()
-    check(err <= TOL, f"ivf_score: scores differ by {err}")
-    unique = int(torch.unique(plan.block_ids).numel())
-    n_bytes = unique * br * d * es + q * d * es + q * p * 4 + q * p * br * 4
+    check(err <= TOL, f"ivf_score{tag}: scores differ by {err}")
+    # each query tile's distinct blocks, read once
+    distinct = sum(int(torch.unique(plan.block_ids[t:t + QT]).numel())
+                   for t in range(0, q, QT))
+    block_bytes = distinct * br * d * es
+    n_bytes = block_bytes + q * d * es + q * p * 4 + q * p * br * 4
     bound, by = bound_ms(n_bytes, 2 * q * p * br * d)
+    live = score_launch(*args)[2]
+    copied = int(live.sum()) * br * d * es
+    check(copied == block_bytes, f"ivf_score{tag}: its producers copy "
+          f"{copied} bytes of rows, the bound's distinct blocks are "
+          f"{block_bytes}")
     ids = plan.block_ids.long()
+    call = lambda: ivf_score(*args)                     # noqa: E731
     rec = dict(name=f"ivf_score{tag}", route="cuda",
                source="src/repro_torch/kernels/csrc/ivf_score.cu",
                replaces="src/repro/kernels/ivf_score.py:62",
                max_abs_err=err,
-               ms=time_ms(torch, lambda: ivf_score(*args)),
+               ms=time_ms(torch, call),
                plain_ms=time_ms(torch, lambda: ivf_score_plain(*args),
                                 reps=10),
                bound_ms=bound, bound_by=by,
                library_ms=time_ms(torch, lambda: torch.einsum(
                    "qd,qpbd->qpb", h, index.v_blocks[ids])),
-               graph10_ms=graph10_ms(torch, lambda: ivf_score(*args)))
+               graph10_ms=graph10_ms(torch, call),
+               l2_flushed_ms=flushed_ms(torch, call),
+               by_kernel_ms=kernel_split(torch, call),
+               copied_row_bytes=copied, bound_bytes=n_bytes)
     _build.reset_counts(kernels.values())
     scores = ivf_block_scores(*args)
     torch.cuda.synchronize()
@@ -1115,13 +1137,20 @@ def ivf_score_phase(torch, card, kernels, index, h, plan, tag=""):
           "ivf_score")
     rec["path_launches"] = counts["ivf_score"]
     log(f"ivf_score{tag}: Q {q} x p {p} probes of {br} x {d} blocks "
-        f"({unique} unique of {nb}), {h.dtype}: err {err:.2e}; kernel "
-        f"{rec['ms']:.4f} ms, plain "
-        f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms "
-        f"(einsum over the gathered blocks), bound {bound:.4f} ms ({by}, "
-        f"{n_bytes / 1e6:.1f} MB with each unique block read once; "
-        f"{q * p * br * d * es / 1e6:.1f} MB without deduplication); "
-        f"ops.ivf_block_scores launches {counts} [{card}]")
+        f"({distinct} distinct a query tile, summed over "
+        f"{-(-q // QT)} tiles, of {nb}), {h.dtype}: err {err:.2e}, two "
+        f"calls bit-equal; kernel {rec['ms']:.4f} ms "
+        f"({share(bound, rec['ms'])} of the bound; ten calls in one graph "
+        f"{rec['graph10_ms']:.4f} ms a call, "
+        f"{share(bound, rec['graph10_ms'])}; L2 flushed before each call "
+        f"{rec['l2_flushed_ms']:.4f} ms), plain {rec['plain_ms']:.4f} ms, "
+        f"library {rec['library_ms']:.4f} ms (einsum over the gathered "
+        f"blocks), bound {bound:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB); "
+        f"rows copied {copied / 1e6:.1f} MB, the bound's distinct blocks "
+        f"{block_bytes / 1e6:.1f} MB, {q * p * br * d * es / 1e6:.1f} MB "
+        f"without deduplication; device ms a call by kernel "
+        f"(torch.profiler) {rec['by_kernel_ms']}; ops.ivf_block_scores "
+        f"launches {counts} [{card}]")
     return rec
 
 

@@ -67,8 +67,9 @@ SIGNATURES = {
     # part_hm, part_hs, part_v, part_i, part_tm, part_ts, head_lse,
     # tail_lse, topv, topi, f32, stream
     "lsh_probe": [_P] * 10 + [_I] * 8 + [_P] * 12 + [_I, _P],
-    # w_blocks, h, block_ids, Q, P, nb, br, d, out, f32, stream
-    "ivf_score": [_P] * 3 + [_I] * 5 + [_P, _I, _P],
+    # w_blocks, h, block_ids, Q, P, nb, br, d, U, W, grid_x, union_ids,
+    # union_live, masks, out, f32, stream
+    "ivf_score": [_P] * 3 + [_I] * 8 + [_P] * 4 + [_I, _P],
 }
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}   # -> the f32 flag
 # CTAs per SM of the gathered-row kernels' persistent grid
@@ -147,8 +148,8 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def stream_grid(dev: torch.device) -> int:
-    """The persistent grid of ``union_scores``, ``ivf_decode`` and
-    ``lsh_probe``: every SM, ``STREAM_CTAS_PER_SM`` CTAs each."""
+    """The persistent grid of ``union_scores``, ``ivf_score``, ``ivf_decode``
+    and ``lsh_probe``: every SM, ``STREAM_CTAS_PER_SM`` CTAs each."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return sms * STREAM_CTAS_PER_SM
 

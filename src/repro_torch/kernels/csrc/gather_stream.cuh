@@ -1,5 +1,5 @@
 // A Hopper pipeline that scores rows gathered by id against an 8-query tile
-// (union_scores.cu, ivf_decode.cu, lsh_probe.cu, fmbe_z.cu).
+// (union_scores.cu, ivf_score.cu, ivf_decode.cu, lsh_probe.cu, fmbe_z.cu).
 //
 // These kernels read rows by id (the blocks of a probe union and the tail
 // rows of a MIMPS plan, the candidates and tail samples of an LSH probe, or
@@ -45,9 +45,11 @@
 //   stages, so one barrier a stage suffices.
 //
 // LaneFold (at the end) is the per-query online logsumexp and top-k that
-// ivf_decode.cu and lsh_probe.cu fold their scores into.
+// ivf_decode.cu and lsh_probe.cu fold their scores into; UnionJob the rows
+// of a deduplicated block union that union_scores.cu and ivf_score.cu
+// score.
 //
-// A Job supplies (see union_scores.cu and lsh_probe.cu):
+// A Job supplies (see UnionJob at the end and lsh_probe.cu):
 //   int rows()                     this CTA's share of the live rows (read
 //                                  from the device), numbered from 0
 //   Src src(int j)                 its row j's source (producer; loads its
@@ -677,6 +679,66 @@ struct LaneFold {
       streaming::write_topk(top, k, part_v, part_i, idx * k);
     }
   }
+};
+
+// ---- the rows of a deduplicated block union (union_scores.cu, ivf_score.cu)
+
+// A Job over the live slots of a sorted block union: each CTA takes an
+// equal, contiguous share of the live slots' live x br rows and copies
+// them, block id by block id. `Out` writes the scores: its start(job, t,
+// q0, nq) runs before the first stage, its post(job, st, t, q0, nq) after
+// each stage's partials meet. With Out::PER_TILE each query tile has a
+// union of its own (tile y's U slots at head_ids + y * U, its live count
+// at head_live[y]), written by the kernel this one is a programmatic
+// dependent of, so rows() waits for that kernel first; otherwise every
+// tile reads the one union.
+template <class T, class Out>
+struct UnionJob {
+  using Elem = T;
+  const T* wb;
+  const int* head_ids;
+  const int* head_live;
+  int U, br, d;
+  Out out;
+  int side_bytes = 0, extra_bytes = 0;
+  uint8_t* own = nullptr;              // unused: no shared memory of its own
+  const int* ids = nullptr;            // this tile's union
+  int live = 0, lo = 0;                // live slots; the CTA's first row
+
+  struct Src {
+    int id, row;                       // block id and row in the block
+  };
+
+  // rows [lo, hi) of the live slots' live x br
+  __device__ int rows() {
+    int tile = 0;
+    if constexpr (Out::PER_TILE) {
+      asm volatile("griddepcontrol.wait;\n" ::: "memory");
+      tile = blockIdx.y;
+    }
+    ids = head_ids + (size_t)tile * U;
+    const int n = head_live[tile];
+    live = n < 0 ? 0 : (n < U ? n : U);
+    const long long all = (long long)live * br;
+    lo = (int)(all * blockIdx.x / gridDim.x);
+    return (int)(all * (blockIdx.x + 1) / gridDim.x) - lo;
+  }
+  __device__ Src src(int i) const {
+    const int j = lo + i, slot = j / br;
+    return {ids[slot], j - slot * br};
+  }
+  __device__ const T* ptr(const Src& s) const {
+    return wb + ((size_t)s.id * br + s.row) * d;
+  }
+  __device__ void side(const Src&, int, uint32_t) const {}
+  __device__ void start(int t, int q0, int nq) const {
+    out.start(*this, t, q0, nq);
+  }
+  __device__ void pre(const Stage&, int, int, int) const {}
+  __device__ void post(const Stage& st, int t, int q0, int nq) const {
+    out.post(*this, st, t, q0, nq);
+  }
+  __device__ void finish(int, int, int) const {}
 };
 
 }  // namespace gstream

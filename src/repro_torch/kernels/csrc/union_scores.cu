@@ -13,11 +13,12 @@
 // about 19 us at 3.35 TB/s; about twice that in f32) and does 2*Q flops per
 // element read. Rows and queries are both bf16 or both f32.
 //
-// Design: the gathered-row pipeline of gather_stream.cuh. The TPU grid
-// walked the union slots in order for one query tile with scalar-prefetched
-// block ids; here the live rows (head_live x br, read from the device) are
-// split into equal contiguous ranges over a persistent grid, and each
-// CTA's producer warp copies its rows, block id by block id, into the ring.
+// Design: the gathered-row pipeline of gather_stream.cuh, as its UnionJob
+// (which ivf_score.cu runs too). The TPU grid walked the union slots in
+// order for one query tile with scalar-prefetched block ids; here the live
+// rows (head_live x br, read from the device) are split into equal
+// contiguous ranges over a persistent grid, and each CTA's producer warp
+// copies its rows, block id by block id, into the ring.
 // Pad slots load nothing: every consumer thread of every CTA writes their
 // zeros with 16-byte stores first, so the output needs no separate fill.
 // There is no reduction across CTAs: every output element is written by
@@ -26,66 +27,43 @@
 
 using namespace gstream;
 
-template <class T>
-struct UnionJob {
-  const T* wb;
-  const int* head_ids;
-  const int* head_live;
-  int U, br, d;
+// union_scores' epilogue: out[q, s, r] for the live slots, zeros at the
+// pad slots
+struct SlotScores {
+  static constexpr bool PER_TILE = false;    // one union for every tile
   float* out;
-  int side_bytes = 0, extra_bytes = 0;
-  uint8_t* own = nullptr;              // unused: no shared memory of its own
-  int live = 0, lo = 0;                // live slots; the CTA's first row
-
-  struct Src {
-    int id, row;                       // block id and row in the block
-  };
-
-  // rows [lo, hi) of the live slots' head_live x br
-  __device__ int rows() {
-    const int n = *head_live;
-    live = n < 0 ? 0 : (n < U ? n : U);
-    const long long all = (long long)live * br;
-    lo = (int)(all * blockIdx.x / gridDim.x);
-    return (int)(all * (blockIdx.x + 1) / gridDim.x) - lo;
-  }
-  __device__ Src src(int i) const {
-    const int j = lo + i, slot = j / br;
-    return {head_ids[slot], j - slot * br};
-  }
-  __device__ const T* ptr(const Src& s) const {
-    return wb + ((size_t)s.id * br + s.row) * d;
-  }
-  __device__ void side(const Src&, int, uint32_t) const {}
 
   // pad slots [live, U) of each query: zeros over every CTA
-  __device__ void start(int t, int q0, int nq) const {
-    constexpr int CT = Tile<T>::WARPS * 32;
+  template <class Job>
+  __device__ void start(const Job& j, int t, int q0, int nq) const {
+    constexpr int CT = Tile<typename Job::Elem>::WARPS * 32;
     const long long idx = (long long)blockIdx.x * CT + t;
     const long long stride = (long long)gridDim.x * CT;
     for (int q = 0; q < nq; ++q)
       zero_words(reinterpret_cast<uint32_t*>(
-                     out + ((size_t)(q0 + q) * U + live) * br),
-                 (long long)(U - live) * br, idx, stride);
+                     out + ((size_t)(q0 + q) * j.U + j.live) * j.br),
+                 (long long)(j.U - j.live) * j.br, idx, stride);
   }
-  __device__ void pre(const Stage&, int, int, int) const {}
   // one (query, row) score a thread, rows of a query on adjacent threads
-  __device__ void post(const Stage& st, int t, int q0, int nq) const {
+  template <class Job>
+  __device__ void post(const Job& j, const Stage& st, int t, int q0,
+                       int nq) const {
+    using T = typename Job::Elem;
     constexpr int ROWS = Tile<T>::ROWS;
     for (int p = t; p < ROWS * QT; p += Tile<T>::WARPS * 32) {
       const int r = p % ROWS, q = p / ROWS;
       if (r >= st.n || q >= nq) continue;
-      const int j = lo + st.j0 + r, slot = j / br;
-      out[((size_t)(q0 + q) * U + slot) * br + (j - slot * br)] =
+      const int jr = j.lo + st.j0 + r, slot = jr / j.br;
+      out[((size_t)(q0 + q) * j.U + slot) * j.br + (jr - slot * j.br)] =
           score<T>(st, r, q);
     }
   }
-  __device__ void finish(int, int, int) const {}
 };
 
 template <class T>
 __global__ void __launch_bounds__((Tile<T>::WARPS + 1) * 32, GS_CTAS)
-union_scores_kernel(UnionJob<T> job, const T* __restrict__ h, int Q) {
+union_scores_kernel(UnionJob<T, SlotScores> job, const T* __restrict__ h,
+                    int Q) {
   run<T>(job, h, Q, job.d);
 }
 
@@ -94,10 +72,10 @@ static cudaError_t launch(const void* w_blocks, const void* h,
                           const void* head_ids, const void* head_live, int Q,
                           int U, int br, int d, int grid_x, void* out,
                           cudaStream_t stream) {
-  UnionJob<T> job{static_cast<const T*>(w_blocks),
-                  static_cast<const int*>(head_ids),
-                  static_cast<const int*>(head_live), U, br, d,
-                  static_cast<float*>(out)};
+  UnionJob<T, SlotScores> job{static_cast<const T*>(w_blocks),
+                              static_cast<const int*>(head_ids),
+                              static_cast<const int*>(head_live), U, br, d,
+                              SlotScores{static_cast<float*>(out)}};
   const Layout m = layout<T>(d, job.side_bytes, job.extra_bytes);
   if (m.nst < 1) return cudaErrorInvalidValue;    // d too wide for the ring
   cudaError_t err = cudaFuncSetAttribute(

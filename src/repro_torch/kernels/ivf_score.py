@@ -4,8 +4,9 @@
 Each wrapper launches its CUDA kernel (``csrc/ivf_score.cu``,
 ``csrc/union_scores.cu``, ``csrc/ivf_decode.cu``) on CUDA tensors and runs
 its plain version on CPU tensors. ``ivf_score`` writes every probed
-block's scores per query. For the other two the contract is the TPU
-kernels': union slots at or past
+block's scores per query, deduplicating each query tile's probes on the
+device first (``tile_unions_plain`` is that step's plain version). For the
+other two the contract is the TPU kernels': union slots at or past
 ``head_live`` are skipped (``union_scores`` writes zeros there), cluster-pad
 rows carry ``row_logw = NEG``, a score counts only where it is above NEG/2,
 an empty head or tail gives a genuine ``-inf`` LSE, and the top-k is taken
@@ -20,6 +21,9 @@ import torch
 
 from . import _build
 from .topk_z import MAX_K, NEG, select_topk
+
+QT = 8                   # queries a CTA scores (gather_stream.cuh's QT)
+MAX_BLOCKS = 1 << 19     # ivf_score's blocks: its prologue's bitmap, 128 KB
 
 
 def _masked_lse(eff: torch.Tensor) -> torch.Tensor:
@@ -42,6 +46,73 @@ def ivf_score_plain(w_blocks, h, block_ids):
                         w_blocks[block_ids.long()].float())
 
 
+def tile_unions_plain(block_ids, nb: int):
+    """Plain version of ``ivf_score``'s prologue, which deduplicates the
+    probes of each tile of ``QT`` queries. Per tile: the sorted union of its
+    ids in [0, nb) in U = min(QT * p, nb) slots (pad slots repeat the last
+    id; 0 if there is none), its live count, and for each slot and query of
+    the tile the probe slots that name the block, as W = ceil(p / 32) int32
+    words (bit j % 32 of word j // 32 for probe slot j; 0 at pad slots and
+    absent queries).
+
+    Returns (ids (T, U) int32, live (T,) int32, masks (T, U, QT, W) int32),
+    T = ceil(Q / QT)."""
+    q, p = block_ids.shape
+    n_tiles, u, words = -(-q // QT), min(QT * p, nb), -(-p // 32)
+    dev = block_ids.device
+    ids = torch.zeros((n_tiles, u), dtype=torch.int32, device=dev)
+    live = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
+    masks = torch.zeros((n_tiles, u, QT, words), dtype=torch.int64,
+                        device=dev)
+    for t in range(n_tiles):
+        tb = block_ids[t * QT:(t + 1) * QT].long()
+        ok = (tb >= 0) & (tb < nb)
+        uniq = torch.unique(tb[ok])                         # sorted
+        n = uniq.numel()
+        live[t] = n
+        if n == 0:
+            continue
+        ids[t, :n] = uniq.to(torch.int32)
+        ids[t, n:] = int(uniq[-1])
+        qi, pi = torch.nonzero(ok, as_tuple=True)
+        slot = torch.searchsorted(uniq, tb[qi, pi])
+        masks[t].index_put_((slot, qi, pi // 32), torch.bitwise_left_shift(
+            torch.ones_like(pi), pi % 32), accumulate=True)   # distinct bits
+    masks = torch.where(masks >= 2 ** 31, masks - 2 ** 32, masks)
+    return ids, live, masks.to(torch.int32)
+
+
+def scatter_tiles(tile_scores, masks, q: int, p: int):
+    """``ivf_score``'s (q, p, br) output from each tile's union scores
+    ``tile_scores`` (a list of (nq, U, br) f32, one a tile) and
+    ``tile_unions_plain``'s masks: out[q, j] = the score of query q's slot
+    whose mask holds probe slot j, and NaN rows where no mask holds it (an
+    id outside [0, nb))."""
+    br = tile_scores[0].shape[-1]
+    out = torch.full((q, p, br), float("nan"), device=masks.device)
+    shifts = torch.arange(32, device=masks.device)
+    for t, scores in enumerate(tile_scores):
+        nq = scores.shape[0]
+        m = masks[t, :, :nq].long()                         # (U, nq, W)
+        bits = (m[..., None] >> shifts) & 1
+        slot, qi, j = torch.nonzero(
+            bits.reshape(*m.shape[:2], -1)[..., :p], as_tuple=True)
+        out[t * QT + qi, j] = scores[qi, slot]
+    return out
+
+
+def ivf_score_tiles_plain(w_blocks, h, block_ids):
+    """``ivf_score`` as its kernels decompose it, in plain PyTorch: each
+    tile's union (``tile_unions_plain``) scored once against the tile
+    (``union_scores_plain``), each score written to every probe slot of its
+    query's mask (``scatter_tiles``); NaN rows at ids outside [0, nb)."""
+    nb = w_blocks.shape[0]
+    ids, live, masks = tile_unions_plain(block_ids, nb)
+    scores = [union_scores_plain(w_blocks, h[t * QT:(t + 1) * QT], ids[t],
+                                 live[t]) for t in range(ids.shape[0])]
+    return scatter_tiles(scores, masks, *block_ids.shape)
+
+
 @_build.counted
 def ivf_score(w_blocks, h, block_ids):
     """Per-query gather-score of probed blocks.
@@ -51,10 +122,22 @@ def ivf_score(w_blocks, h, block_ids):
       block_ids (Q, p) int32 probed block of each query; an id outside
                              [0, nb) gives NaN scores on the GPU
 
-    Returns scores (Q, p, br) f32."""
+    Returns scores (Q, p, br) f32. On the GPU each tile of ``QT`` queries
+    reads each block its queries probe once (``score_launch``)."""
     args = (w_blocks, h, block_ids)
     if all(t.device.type == "cpu" for t in args):
         return ivf_score_plain(*args)
+    out = score_launch(*args)[0]
+    _build.count(ivf_score, _build.KERNEL_DTYPES[h.dtype])
+    return out
+
+
+def score_launch(w_blocks, h, block_ids):
+    """``ivf_score``'s kernels on CUDA tensors, without its launch count:
+    the prologue, which writes ``tile_unions_plain``'s three tensors on the
+    device, and the scores it feeds. Returns (scores (Q, p, br) f32, ids,
+    live, masks), the last three as ``tile_unions_plain`` gives them."""
+    args = (w_blocks, h, block_ids)
     dev = h.device
     _check(all(t.device == dev for t in args) and dev.type == "cuda",
            "every input must be on one GPU", "ivf_score")
@@ -71,16 +154,23 @@ def ivf_score(w_blocks, h, block_ids):
            "rows must be 16-byte aligned (d % 8 == 0)", "ivf_score")
     n_probe = block_ids.shape[1]
     _check(q >= 1 and n_probe >= 1 and br >= 1, "empty input", "ivf_score")
+    _check(nb <= MAX_BLOCKS, f"nb={nb} exceeds MAX_BLOCKS={MAX_BLOCKS} "
+           "(the prologue's bitmap of the blocks)", "ivf_score")
     lib = _build.load("ivf_score")
+    n_tiles, u, words = -(-q // QT), min(QT * n_probe, nb), -(-n_probe // 32)
+    i32 = torch.int32
+    ids = torch.empty((n_tiles, u), dtype=i32, device=dev)
+    live = torch.empty((n_tiles,), dtype=i32, device=dev)
+    masks = torch.empty((n_tiles, u, QT, words), dtype=i32, device=dev)
     out = torch.empty((q, n_probe, br), dtype=torch.float32, device=dev)
     p = ctypes.c_void_p
     err = lib.ivf_score_launch(
-        *[p(t.data_ptr()) for t in args], q, n_probe, nb, br, d,
-        p(out.data_ptr()), is_f32,
+        *[p(t.data_ptr()) for t in args], q, n_probe, nb, br, d, u, words,
+        _build.stream_grid(dev), p(ids.data_ptr()), p(live.data_ptr()),
+        p(masks.data_ptr()), p(out.data_ptr()), is_f32,
         p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check("ivf_score", err)
-    _build.count(ivf_score, is_f32)
-    return out
+    return out, ids, live, masks
 
 
 def union_scores_plain(w_blocks, h, head_ids, head_live):

@@ -1,6 +1,7 @@
 """Public wrappers around the kernels (counterpart of
 ``repro.kernels.ops``): the fused cross-entropy as a differentiable
-function and its full-logits oracle, and the probed-block scores."""
+function and its full-logits oracle, and the probed-block scores and
+their oracle."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -52,3 +53,7 @@ def ivf_block_scores(w_blocks: torch.Tensor, h: torch.Tensor,
                      block_ids: torch.Tensor) -> torch.Tensor:
     """(Q, p, block_rows) f32 scores for the probed blocks only."""
     return _ivf.ivf_score(w_blocks, h, block_ids)
+
+
+# re-exported oracle for benches and tests
+ivf_score_ref = _ivf.ivf_score_plain

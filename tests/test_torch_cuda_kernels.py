@@ -37,11 +37,17 @@ and d 6144; its counts
 equal the plain version's exactly and its membership the plan's, and its
 query codes equal ``hash_codes`` except where a projection lies within
 1e-5 of 0 relative to |h| |proj row|. ``ivf_score`` runs at one probe, one
-query and block heights off 32. Both the kernel and the plain version
-round the backward's coefficient to bf16 before the products, from f32
-scores summed in another order (on the tensor cores, about 1e-4 apart at
-d = 2560), so a coefficient whose two f32 values straddle a bf16 rounding
-boundary rounds one bf16 step (at most 2**-7 relative) apart. dh and dW
+query, 20 queries (three tiles, the last of 4), 40 probes (two mask
+words), block heights off 32 (37 and 100 end inside a stage), a block
+probed twice by one query, every query on one block, no block shared, ids
+out of range (NaN rows) and every id out of range (no live slot); its
+prologue's unions and masks equal ``tile_unions_plain``, two calls are
+bit-equal, and each score equals ``union_scores``' bit for bit. Both the
+fused CE kernel and the plain version round the backward's coefficient to
+bf16 before the products, from f32 scores summed in another order (on the
+tensor cores, about 1e-4 apart at d = 2560), so a coefficient whose two
+f32 values straddle a bf16 rounding boundary rounds one bf16 step (at
+most 2**-7 relative) apart. dh and dW
 (f32, before the cast) are therefore held per element to GRAD_REL = 2**-7
 (+ 1e-5 for the f32 sums) of the sum of their terms' magnitudes, which an
 element dominated by one term can reach, and on average over the elements
@@ -97,9 +103,12 @@ from repro_torch.kernels.fused_ce import (F32_MAX_DEPTH, bwd_launch,
                                          fused_ce_fwd_plain, fwd_launch,
                                          planes_launch, split_planes)
 from repro_torch.core import lsh as tlsh
-from repro_torch.kernels.ivf_score import (ivf_decode, ivf_decode_plain,
+from repro_torch.kernels.ivf_score import (MAX_BLOCKS, QT, ivf_decode,
+                                          ivf_decode_plain,
                                           ivf_score, ivf_score_plain,
-                                          union_scores, union_scores_plain)
+                                          scatter_tiles, score_launch,
+                                          tile_unions_plain, union_scores,
+                                          union_scores_plain)
 from repro_torch.kernels.lsh_probe import (hash_codes, lsh_probe,
                                           lsh_probe_plain, lsh_query_codes)
 from repro_torch.kernels.topk_z import NEG, topk_z, topk_z_plain
@@ -374,21 +383,62 @@ def test_lsh_probe_matches_plain(gen, q, d, c_kind, live_kind, l, tail_kind,
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("q,p,br", [(8, 16, 512), (1, 1, 512), (3, 5, 100),
-                                    (4, 2, 37)])
-def test_ivf_score_matches_plain(gen, q, p, br, dtype):
+@pytest.mark.parametrize("q,p,br,kind", [
+    (8, 16, 512, "random"), (1, 1, 512, "random"), (3, 5, 100, "random"),
+    (4, 2, 37, "random"),
+    (20, 40, 512, "random"),     # three tiles, the last of 4; two mask words
+    (8, 16, 37, "dup"),          # a block twice in one query
+    (20, 16, 100, "one"),        # every query probes one block
+    (8, 6, 512, "distinct"),     # no block shared
+    (9, 16, 64, "bad"),          # ids -1 and nb among valid ones
+    (8, 4, 64, "none"),          # every id out of range: live count 0
+])
+def test_ivf_score_matches_plain(gen, q, p, br, kind, dtype):
+    """Valid rows to 1e-3 of the plain version and NaN rows at ids outside
+    [0, nb); the prologue's unions, live counts and masks equal to
+    ``tile_unions_plain``; two calls bit-equal; each score equal bit for
+    bit to ``union_scores``' for its block and query tile; one launch a
+    call at the input's dtype."""
     nb = 50
     wb = (torch.randn(nb, br, D, generator=gen, device="cuda") * 0.02
           ).to(dtype)
     h = torch.randn(q, D, generator=gen, device="cuda").to(dtype)
     ids = torch.randint(0, nb, (q, p), generator=gen, device="cuda",
                         dtype=torch.int32)
+    if kind == "dup":
+        ids[:, 1::2] = ids[:, 0:p - 1:2]
+    elif kind == "one":
+        ids.fill_(int(ids[0, 0]))
+    elif kind == "distinct":
+        ids = torch.randperm(nb, generator=gen, device="cuda")[:q * p
+                                                               ].reshape(q, p)
+        ids = ids.to(torch.int32).contiguous()
+    elif kind == "bad":
+        ids[0, 0], ids[q - 1, p - 1], ids[4, 3] = -1, nb, -7
+    elif kind == "none":
+        ids.fill_(-1)
+        ids[::2] = nb
     before = _counts(ivf_score)
     got = ivf_score(wb, h, ids)
+    again = ivf_score(wb, h, ids)
     torch.cuda.synchronize()
-    _launched(ivf_score, dtype, before)
+    _launched(ivf_score, dtype, before, 2)
     assert got.shape == (q, p, br)
-    assert (got - ivf_score_plain(wb, h, ids)).abs().max().item() <= TOL
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    valid = (ids >= 0) & (ids < nb)
+    assert got[~valid].isnan().all() and not got[valid].isnan().any()
+    plain = ivf_score_plain(wb, h, torch.where(valid, ids, 0))
+    if valid.any():
+        assert (got[valid] - plain[valid]).abs().max().item() <= TOL
+    _, uids, live, masks = score_launch(wb, h, ids)
+    for a, b in zip((uids, live, masks), tile_unions_plain(ids, nb)):
+        assert torch.equal(a, b)
+    if kind == "none":
+        assert not live.any()
+    scores = [union_scores(wb, h[t * QT:(t + 1) * QT], uids[t], live[t])
+              for t in range(uids.shape[0])]
+    via = scatter_tiles(scores, masks, q, p)
+    assert torch.equal(got[valid], via[valid])
 
 
 def _feature_map(gen, p, m=8, d=D):
@@ -885,6 +935,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(gen):
     with pytest.raises(ValueError, match="int32"):
         ivf_score(w.bfloat16().reshape(2, 32, D), h.bfloat16(),
                   torch.zeros((4, 1), dtype=torch.int64, device="cuda"))
+    with pytest.raises(ValueError, match="MAX_BLOCKS"):
+        ivf_score(torch.zeros((MAX_BLOCKS + 1, 1, 8), dtype=torch.bfloat16,
+                              device="cuda"),
+                  h[:, :8].bfloat16().contiguous(),
+                  torch.zeros((4, 1), dtype=torch.int32, device="cuda"))
     with pytest.raises(ValueError, match="tail_rows torch.bfloat16"):
         ivf_decode(w.reshape(2, 32, D), h,
                    torch.zeros(1, dtype=torch.int32, device="cuda"),

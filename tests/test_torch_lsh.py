@@ -27,7 +27,9 @@ from repro_torch.core import backends as tback
 from repro_torch.core import lsh as tlsh
 from repro_torch.interop import lsh_from_numpy
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.ivf_score import ivf_score, ivf_score_plain
+from repro_torch.kernels.ivf_score import (QT, ivf_score, ivf_score_plain,
+                                          ivf_score_tiles_plain,
+                                          tile_unions_plain)
 from repro_torch.kernels.lsh_probe import (hash_codes, lsh_probe,
                                           lsh_probe_plain, lsh_query_codes,
                                           probe_launch)
@@ -453,16 +455,103 @@ class TestBackend:
         assert backend.embedding_floats(small, cfg, Q) == 63 * D + Q * D
 
 
-@pytest.mark.parametrize("q,p,br,nb", [(8, 16, 128, 40), (1, 1, 50, 3),
-                                       (5, 3, 37, 9)])
-def test_ivf_block_scores_match_jax(q, p, br, nb):
+def _probe_ids(rng, q, p, nb, kind):
+    """(q, p) int32 probe ids: uniform draws ("random"), each query's odd
+    slots repeating its even ones ("dup"), every query on one block
+    ("one"), or all distinct ("distinct", nb >= q * p)."""
+    if kind == "distinct":
+        return rng.permutation(nb)[:q * p].reshape(q, p).astype(np.int32)
+    if kind == "one":
+        return np.full((q, p), rng.integers(0, nb), dtype=np.int32)
+    ids = rng.integers(0, nb, (q, p)).astype(np.int32)
+    if kind == "dup":
+        ids[:, 1::2] = ids[:, 0:p - 1:2]
+    return ids
+
+
+@pytest.mark.parametrize("q,p,br,nb,kind", [
+    pytest.param(8, 16, 128, 40, "random", id="8-16-128-40"),
+    pytest.param(1, 1, 50, 3, "random", id="1-1-50-3"),
+    pytest.param(5, 3, 37, 9, "random", id="5-3-37-9"),
+    (20, 40, 16, 60, "random"),       # three tiles, the last of 4 queries
+    (8, 16, 16, 40, "dup"),           # a block twice in one query
+    (20, 16, 16, 30, "one"),          # every query probes one block
+    (8, 16, 16, 200, "distinct"),     # no block shared
+    (1, 40, 8, 50, "dup"),            # one query, two mask words
+])
+def test_ivf_block_scores_match_jax(q, p, br, nb, kind):
+    """The port's probed-block scores, the plain one and the per-tile
+    decomposition its kernels compute (each tile's union of probes scored
+    once, scattered through the probe masks), against the JAX kernel (in
+    interpret mode) and its reference, to 1e-5."""
     rng = np.random.default_rng(q * 100 + p)
     w_blocks = rng.standard_normal((nb, br, D)).astype(np.float32)
     h = rng.standard_normal((q, D)).astype(np.float32)
-    ids = rng.integers(0, nb, (q, p)).astype(np.int32)
+    ids = _probe_ids(rng, q, p, nb, kind)
     want = np.asarray(jops.ivf_block_scores(jnp.asarray(w_blocks),
                                             jnp.asarray(h), jnp.asarray(ids)))
-    for fn in (ivf_score_plain, ivf_score, tops.ivf_block_scores):
+    ref = np.asarray(jops.ivf_score_ref(jnp.asarray(w_blocks),
+                                        jnp.asarray(h), jnp.asarray(ids)))
+    np.testing.assert_allclose(ref, want, atol=1e-5)
+    for fn in (ivf_score_plain, ivf_score, tops.ivf_block_scores,
+               tops.ivf_score_ref, ivf_score_tiles_plain):
         got = fn(_t(w_blocks), _t(h), _t(ids))
         assert got.shape == (q, p, br) and got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    # the per-tile unions: sorted, deduplicated, each probe in one mask bit
+    uids, live, masks = tile_unions_plain(_t(ids), nb)
+    n_tiles = -(-q // QT)
+    assert uids.shape == (n_tiles, min(QT * p, nb))
+    assert live.shape == (n_tiles,)
+    assert masks.shape == (n_tiles, uids.shape[1], QT, -(-p // 32))
+    for t in range(n_tiles):
+        tile = ids[t * QT:(t + 1) * QT]
+        n = int(live[t])
+        np.testing.assert_array_equal(uids[t, :n].numpy(), np.unique(tile))
+        assert (uids[t, n:] == uids[t, n - 1]).all()
+        bits = (masks[t].long()[..., None] >> torch.arange(32)) & 1
+        bits = bits.reshape(*masks.shape[1:3], -1)          # (U, QT, 32 W)
+        assert (bits.sum(0)[:tile.shape[0], :p] == 1).all()
+        assert not bits[n:].any() and not bits[:, tile.shape[0]:].any()
+        assert not bits[:, :, p:].any()
+        for qq, j in np.ndindex(*tile.shape):
+            assert uids[t, bits[:, qq, j].argmax()] == tile[qq, j]
+
+
+def test_ops_ivf_score_ref_reexports_the_plain_version():
+    """``ops.ivf_score_ref`` is ``ivf_score_plain``, as the JAX package's
+    ``ops.ivf_score_ref`` is its reference, and the two agree."""
+    assert tops.ivf_score_ref is ivf_score_plain
+    rng = np.random.default_rng(3)
+    w_blocks = rng.standard_normal((6, 9, D)).astype(np.float32)
+    h = rng.standard_normal((3, D)).astype(np.float32)
+    ids = rng.integers(0, 6, (3, 4)).astype(np.int32)
+    want = np.asarray(jops.ivf_score_ref(jnp.asarray(w_blocks),
+                                         jnp.asarray(h), jnp.asarray(ids)))
+    got = tops.ivf_score_ref(_t(w_blocks), _t(h), _t(ids))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def test_tile_unions_skip_out_of_range_ids():
+    """Ids outside [0, nb) take no union slot and no mask bit, and their
+    rows of the per-tile decomposition are NaN; a tile with no valid id has
+    live count 0."""
+    rng = np.random.default_rng(7)
+    nb, br = 12, 8
+    w_blocks = _t(rng.standard_normal((nb, br, D)).astype(np.float32))
+    h = _t(rng.standard_normal((12, D)).astype(np.float32))
+    ids = rng.integers(0, nb, (12, 5)).astype(np.int32)
+    ids[0, 1], ids[3, 4] = -1, nb
+    ids[8:] = -1                                        # the second tile
+    uids, live, masks = tile_unions_plain(_t(ids), nb)
+    assert int(live[1]) == 0 and not masks[1].any() and not uids[1].any()
+    valid = (ids >= 0) & (ids < nb)
+    np.testing.assert_array_equal(uids[0, :int(live[0])].numpy(),
+                                  np.unique(ids[:8][valid[:8]]))
+    n_bits = ((masks[0].long()[..., None] >> torch.arange(32)) & 1).sum()
+    assert n_bits == valid[:8].sum()
+    got = ivf_score_tiles_plain(w_blocks, h, _t(ids))
+    bad = torch.from_numpy(~valid)
+    assert got[bad].isnan().all() and not got[~bad].isnan().any()
+    want = ivf_score_plain(w_blocks, h, _t(np.where(valid, ids, 0)))
+    torch.testing.assert_close(got[~bad], want[~bad], atol=1e-5, rtol=0)

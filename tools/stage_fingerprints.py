@@ -26,9 +26,10 @@ generator). It then fingerprints, in this order:
     one 1-D scan (what the plan used before ``fixed_order_cumsum``);
 and, without ``--lsh-only``: the mimps engine's k-means index (every
 field, the assignment included), k-means sums by ``segment_sums`` and by
-``index_add_`` on that assignment, the mimps plan and ``ivf_decode``'s
-outputs, and the fmbe engine's feature map, pack, block sketch sums and
-``fmbe_z`` (on the state's pack) on the plan's complement.
+``index_add_`` on that assignment, the mimps plan, ``ivf_decode``'s
+outputs and ``ivf_score``'s on the plan's probes, and the fmbe engine's
+feature map, pack, block sketch sums and ``fmbe_z`` (on the state's pack)
+on the plan's complement.
 Prints each stage's digests and whether they agree, the card's name and
 power limit, and writes all of it to
 ``chiprun_out/stage_fingerprints.json``. Exits 1 if a stage of the
@@ -98,7 +99,7 @@ def one(lsh_only: bool) -> dict:
     from repro_torch.core.decode import _tail_rows, make_plan
     from repro_torch.core.kmeans import segment_sums
     from repro_torch.kernels.fmbe import fmbe_z
-    from repro_torch.kernels.ivf_score import ivf_decode
+    from repro_torch.kernels.ivf_score import ivf_decode, ivf_score
     from repro_torch.models import Model
     from repro_torch.serve import Engine
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -151,6 +152,7 @@ def one(lsh_only: bool) -> dict:
     out["ivf_decode"] = digest(*ivf_decode(
         index.v_blocks, h, plan.head_ids, plan.head_live, plan.head_member,
         row_logw, _tail_rows(index, plan), plan.tail_accept, k=K))
+    out["ivf_score"] = digest(ivf_score(index.v_blocks, h, plan.block_ids))
     assign = index.assign
     del eng
     eng = Engine(Model(with_method("fmbe")), params, 4, seed=1,

@@ -27,7 +27,9 @@ OTHER. Every run makes the same inputs from seed 0:
     (drawn from W; the bf16 main path's union) and over 31 (the f32
     phase's), ``ivf_decode`` on the 23-block union (random membership,
     1000 tail rows, random acceptance, k 8) and ``ivf_score`` on 16 random
-    blocks a query; ``fmbe_z`` with that map and a random per-query lambda;
+    blocks a query and on 16 of the 23-block union a query (blocks shared
+    between queries, as on the main path); ``fmbe_z`` with that map and a
+    random per-query lambda;
     ``lsh_probe`` (k 8, l 1000 tail samples drawn uniformly from seed 1)
     on the trimmed union of an 8 x 8-bit index of W and on the dense
     fallback;
@@ -36,11 +38,11 @@ OTHER. Every run makes the same inputs from seed 0:
 Each bf16 output, and each decode kernel's output at both dtypes, is
 fingerprinted (SHA-256 of its bytes) and must be the same in all four
 runs, but for the kernels in ``REDESIGNED`` (the ones the change redesigned:
-``ivf_decode`` and ``fmbe_z``): their bits change by design, so
-each run holds them to their plain versions instead (LSEs and top-k values
-to 1e-3, top ids where the neighbouring scores are more than 1e-3 apart,
-signed FMBE sums to 1e-4 of the sum of their terms' magnitudes, + 1e-6),
-and their fingerprints must agree within each tree. A CE or ``fmbe_phi``
+``ivf_score``): their bits change by design, so each run holds them to
+their plain versions instead (scores, LSEs and top-k values to 1e-3, top
+ids where the neighbouring scores are more than 1e-3 apart, signed FMBE
+sums to 1e-4 of the sum of their terms' magnitudes, + 1e-6), and their
+fingerprints must agree within each tree. A CE or ``fmbe_phi``
 time is the
 median of 20 calls timed with CUDA events after 3 to warm up; a decode
 kernel's is the median of 20 replays of a CUDA graph of one call. Prints
@@ -63,7 +65,7 @@ T, V, D = 1024, 151936, 2560
 BLOCKS, BLOCK_ROWS, CHUNK_BLOCKS = 474, 512, 16
 N_FEATURES = 4096
 # the decode kernels whose bits this change alters by design
-REDESIGNED = ("ivf_decode", "fmbe_z")
+REDESIGNED = ("ivf_score",)
 
 
 def events_ms(torch, fn, reps=20, warm=3):
@@ -118,6 +120,11 @@ def held(torch, name, res, plain, terms=None):
         if ratio > 1.0:
             raise RuntimeError(f"{name}: {ratio:.3f} of its tolerance")
         return err.max().item()
+    if name == "ivf_score":
+        worst = (res - plain).abs().max().item()
+        if worst > 1e-3:
+            raise RuntimeError(f"{name}: off its plain version by {worst}")
+        return worst
     hl, tl, tv, ti = res
     p_hl, p_tl, p_v, p_i = plain
     worst = 0.0
@@ -148,7 +155,8 @@ def decode_kernels(torch, out, h32, w32, fm, pack):
     from repro_torch.core import lsh as tlsh
     from repro_torch.kernels.fmbe import fmbe_phi_plain, fmbe_z, fmbe_z_plain
     from repro_torch.kernels.ivf_score import (ivf_decode, ivf_decode_plain,
-                                              ivf_score, union_scores)
+                                              ivf_score, ivf_score_plain,
+                                              union_scores)
     from repro_torch.kernels.lsh_probe import lsh_probe
     from repro_torch.kernels.topk_z import topk_z
     dev = h32.device
@@ -168,6 +176,12 @@ def decode_kernels(torch, out, h32, w32, fm, pack):
     accept = torch.rand(q, n_tail, generator=gen, device=dev) < 0.9
     probes = torch.randint(0, nb, (q, 16), generator=gen, device=dev,
                            dtype=torch.int32)
+    # 16 probes a query among the 23-block union, so queries share blocks
+    # as the main path's mimps plan does (its own generator: the other
+    # inputs stay as they were)
+    shared = head_ids[torch.randint(0, live, (q, 16), device=dev,
+                                    generator=torch.Generator(device=dev)
+                                    .manual_seed(2))]
     lam = torch.randn(q, fm.omega.shape[0], generator=gen, device=dev)
     idx = tlsh.build_lsh_device(w32, generator=gen, device=dev)
     lsh_tail = torch.randint(0, V, (n_tail,), generator=gen, device=dev)
@@ -194,6 +208,7 @@ def decode_kernels(torch, out, h32, w32, fm, pack):
                 wb, h, head_ids, head_live, member, row_logw, tail_rows,
                 accept, k=k),
             "ivf_score": lambda: ivf_score(wb, h, probes),
+            "ivf_score 23 blocks": lambda: ivf_score(wb, h, shared),
             "fmbe_z": lambda: fmbe_z(fm.omega, fm.degree, fm.coef, lam, h,
                                      **zpack),
         }
@@ -207,15 +222,18 @@ def decode_kernels(torch, out, h32, w32, fm, pack):
                 accept, k=k + 1),
             "fmbe_z": lambda: fmbe_z_plain(fm.omega, fm.degree, fm.coef,
                                            lam, h),
+            "ivf_score": lambda: ivf_score_plain(wb, h, probes),
+            "ivf_score 23 blocks": lambda: ivf_score_plain(wb, h, shared),
         }
         for name, fn in runs.items():
             res = fn()
             bits = digest(*(res if isinstance(res, tuple) else (res,)))
-            if name in REDESIGNED:
+            kernel = name.split()[0]
+            if kernel in REDESIGNED:
                 terms = (fmbe_phi_plain(fm.omega, fm.degree, fm.coef, h)
-                         * lam if name == "fmbe_z" else None)
+                         * lam if kernel == "fmbe_z" else None)
                 out["held"][f"{name}{tag}"] = held(
-                    torch, name, res, plains[name](), terms)
+                    torch, kernel, res, plains[name](), terms)
                 out["redesigned_bits"][f"{name}{tag}"] = bits
             else:
                 out["bits"][f"{name}{tag}"] = bits
