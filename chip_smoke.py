@@ -41,8 +41,24 @@ GPU.
 5. Serves the model through ``generate`` with each estimator: 8 requests,
    prompt 16, 16 new tokens, greedy. Each run starts with every kernel's
    launch count at 0 and must launch the kernels of its path; the lsh run
-   logs its candidate union per step against the trimmed capacity. The
-   serving engines and parameters are then freed.
+   logs its candidate union per step against the trimmed capacity.
+5b. The lifecycle phase (``lifecycle``), on the same parameters: a mimps
+   engine with the fixed-capacity index (``device_index=True``: 553
+   blocks at qwen1.5-4b) and the health guard on serves the same traffic,
+   its tokens and log Z bit-equal to the unguarded run's; with NaN rows
+   installed in its index every query of every step is flagged and the
+   tokens and log Z are the exact engine's; ``shadow_exact_log_z`` is
+   bit-equal to the exact tier's log Z; ``swap_index`` to a new head keeps
+   every state shape and serves a fresh engine's tokens; a two-block
+   permutation is caught by ``verify_and_restore`` and the restored index
+   and tokens are bit-equal to the clean ones; topk, mince and fmbe serve
+   through ``tier_state`` on the shared index. Each run of the path starts
+   with the launch counts at 0 and must launch ``ivf_decode``,
+   ``union_scores``, ``fmbe_phi``, ``fmbe_z`` and the gated ``topk_z``.
+   Times the fixed-capacity build, the swap, the restore and the digest,
+   the gated ``topk_z`` with no query and with every query flagged, and a
+   guarded against an unguarded output layer. The serving engines and
+   parameters are then freed.
 6. Builds the training state of the same model (``init_train_state``:
    bf16 parameters, f32 AdamW moments) and holds the fused CE kernels
    against their plain versions on the forward's hidden states of one
@@ -86,7 +102,8 @@ GPU.
    step.
 
 Prints the kernel record as one JSON line before the last (each kernel at
-bf16, then at f32 as ``<name>[f32]``), and as the last line ``{"ok": true,
+bf16, the gated ``topk_z`` as ``topk_z[gated]``, then each at f32 as
+``<name>[f32]``), and as the last line ``{"ok": true,
 "device": {...}}``. Any failure exits non-zero.
 """
 from __future__ import annotations
@@ -351,10 +368,10 @@ def main() -> int:
 
 
 def serve(torch, card, kernels):
-    """Phases 2-5: the serving engines, the seven serving kernels against
-    their plain versions, the estimators, serving and the step split.
-    Returns the seven kernel records; every serving tensor is freed on
-    return."""
+    """Phases 2-5b: the serving engines, the seven serving kernels against
+    their plain versions, the estimators, serving, the step split and the
+    lifecycle phase. Returns the eight kernel records (the gated
+    ``topk_z`` last); every serving tensor is freed on return."""
     from repro_torch.configs import get_config
     from repro_torch.core.decode import make_plan
     from repro_torch.kernels import _build
@@ -613,7 +630,313 @@ def serve(torch, card, kernels):
     log(f"step part lsh output: wall {wall_ms(torch, lsh_out):.3f} ms, "
         f"events around an eager call {eager_ms(torch, lsh_out):.3f} ms "
         f"[{card}]")
-    return [tz, ivf, uni, fph, fz, lsp, ivs]
+    records = [tz, ivf, uni, fph, fz, lsp, ivs]
+    del engines, exact_eng, cache, fstate, fm, lidx, index, plan
+    torch.cuda.empty_cache()
+    gated, life = lifecycle(torch, card, kernels, params, cfg, floor)
+    for rec in records:
+        rec["launches"] += life[rec["name"]]
+    return records + [gated]
+
+
+def lifecycle(torch, card, kernels, params, cfg, floor):
+    """Phase 6: the fixed-capacity index lifecycle at full width (bf16),
+    with its hard checks. A mimps engine with ``device_index=True`` and
+    ``health_guard=True`` serves 8 requests (prompt 16, 16 new tokens): its
+    tokens and log Z must equal the unguarded run's bit for bit. With NaN
+    rows installed in its index every query of every step must be flagged
+    and the tokens and log Z must be the exact engine's. ``swap_index`` to a
+    new head (the old one plus seeded noise; trunk shared) must keep every
+    state shape and serve a fresh ``device_index`` engine's tokens on the
+    new params. Two live blocks swapped must be caught by
+    ``verify_and_restore``, the restored tensors and the tokens after it
+    equal to the clean ones bit for bit. ``shadow_exact_log_z`` must equal
+    the exact tier's log Z bit for bit. Then topk, mince and fmbe serve
+    through ``tier_state`` on the shared index. Every run reseeds the
+    engines' decode generators (the same tail draws); each run of the path
+    starts with the launch counts at 0. Times the build, swap, restore and
+    digest, the gated ``topk_z`` with no query and with every query
+    flagged, and a guarded against an unguarded output layer (CUDA graph
+    replay, which also shows the guard makes no host read). Returns the
+    gated ``topk_z`` record and the path's launches by kernel."""
+    from repro_torch.core import mips
+    from repro_torch.core.backends import shadow_exact_log_z
+    from repro_torch.core.decode import apply_health_guard
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.topk_z import NEG, topk_z, topk_z_plain
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, generate
+    from repro_torch.serve import engine as engine_mod
+
+    dev = torch.device("cuda")
+    pc = cfg.partition
+    k = pc.sample_k
+    max_len = PROMPT + NEW
+    seed = 5
+    gen = torch.Generator(device=dev).manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab, (N_REQ, PROMPT), generator=gen,
+                           device=dev)
+    w = params["lm_head"]
+    path = {name: 0 for name in kernels}
+    path_gated = [0]
+
+    def counted(fn):
+        """``fn()`` as a part of the path: its launches are the path's."""
+        torch.cuda.synchronize()
+        _build.reset_counts(kernels.values())
+        res = fn()
+        torch.cuda.synchronize()
+        for name, kfn in kernels.items():
+            path[name] += kfn.launches
+        path_gated[0] += kernels["topk_z"].gated
+        return res
+
+    flags_log = []
+    real_guard = engine_mod.apply_health_guard
+
+    def recording_guard(*args, **kwargs):
+        out, flags = real_guard(*args, **kwargs)
+        flags_log.append(flags)
+        return out, flags
+
+    def serve_run(eng, label, *, on_path=True, tier=None):
+        eng.generator.manual_seed(seed)
+        flags_log.clear()
+        t0 = time.time()
+        fn = lambda: generate(eng, prompt, NEW, return_aux=True, tier=tier)
+        out, aux = counted(fn) if on_path else fn()
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        check(out.shape == (N_REQ, NEW), f"lifecycle {label}: tokens "
+              f"{out.shape}")
+        check(bool(torch.isfinite(aux["log_z"]).all()),
+              f"lifecycle {label}: log_z not finite")
+        flagged = [int((f > 0).sum()) for f in flags_log]
+        log(f"lifecycle {label}: {N_REQ * NEW / secs:.1f} new tokens/s, "
+            f"flagged queries per step {flagged if any(flagged) else 0} "
+            f"[{card}]")
+        return out, aux, flagged
+
+    engine_mod.apply_health_guard = recording_guard
+    try:
+        # -- the fixed-capacity build, alone and in the engine ----------------
+        v, d = w.shape
+        nb = mips.ivf_capacity_blocks(v, pc.block_rows, pc.n_clusters)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        alone = mips.build_ivf_device(
+            w, block_rows=pc.block_rows, n_clusters=pc.n_clusters,
+            generator=torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        live = int(alone.valid.any(-1).sum())
+        del alone
+        t0 = time.time()
+        eng = Engine(Model(cfg), params, max_len, seed=seed,
+                     device_index=True, health_guard=True)
+        torch.cuda.synchronize()
+        engine_s = time.time() - t0
+        idx = eng.index
+        check(idx.n_blocks == nb, f"capacity index has {idx.n_blocks} "
+              f"blocks, want {nb}")
+        check(int(idx.valid.any(-1).sum()) == live, "the engine's build "
+              "differs from build_ivf_device's")
+        log(f"lifecycle: build_ivf_device {nb} blocks ({live} live) of "
+            f"{pc.block_rows} rows, {idx.v_blocks.numel() * 2 / 1e9:.3f} GB, "
+            f"{build_s:.3f} s; engine build {engine_s:.3f} s; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+
+        # -- guarded healthy run against the unguarded one ---------------------
+        toks, aux, flagged = serve_run(eng, "mimps guarded")
+        check(not any(flagged), f"a healthy run flagged {flagged}")
+        eng.health_guard = False
+        u_toks, u_aux, _ = serve_run(eng, "mimps unguarded", on_path=False)
+        eng.health_guard = True
+        for name in ("log_z", "log_prob"):
+            check(torch.equal(aux[name], u_aux[name]),
+                  f"guarded {name} differs from the unguarded run's")
+        check(torch.equal(toks, u_toks), "guarded tokens differ from the "
+              "unguarded run's")
+
+        # -- a poisoned index: every step flagged, the exact engine's tokens --
+        clean = eng.state
+        poisoned = idx._replace(v_blocks=torch.full_like(idx.v_blocks,
+                                                         float("nan")))
+        eng._install_state(dataclasses.replace(clean, index=poisoned))
+        p_toks, p_aux, flagged = serve_run(eng, "mimps poisoned index")
+        check(len(flagged) == PROMPT + NEW - 1 and
+              all(f == N_REQ for f in flagged),
+              f"poisoned run flagged {flagged} queries per step, want every "
+              f"query of every step")
+        eng._install_state(clean)
+        del poisoned
+        exact = Engine(Model(dataclasses.replace(
+            cfg, partition=dataclasses.replace(pc, method="exact"))),
+            params, max_len, seed=seed)
+        e_toks, e_aux, _ = serve_run(exact, "exact", on_path=False)
+        check(torch.equal(p_toks, e_toks), "poisoned guarded tokens differ "
+              "from the exact engine's")
+        check(torch.equal(p_aux["log_z"], e_aux["log_z"]), "poisoned guarded "
+              "log_z differs from the exact engine's")
+
+        # -- the shadow oracle against the exact tier --------------------------
+        cache = exact.model.init_decode_state(N_REQ, max_len, dev)
+        h = exact.model.decode_step(params, cache, prompt[:, 0], 0)
+        shadow = counted(lambda: shadow_exact_log_z(eng.state, h, k=k))
+        ex_out = exact.backend.decode(exact.state, h, pc, k=k)
+        check(torch.equal(shadow, ex_out.log_z), "shadow_exact_log_z differs "
+              "from the exact tier's log_z")
+
+        # -- output layer, guarded against unguarded (graph replay) -----------
+        tail_idx = torch.randint(0, v, (pc.l,), generator=gen, device=dev)
+
+        def unguarded_out():
+            return eng.backend.decode(eng.state, h, pc, k=k,
+                                      tail_idx=tail_idx)
+
+        def guarded_out():
+            return real_guard(unguarded_out(), eng.state.w, h, k)
+
+        g_out, g_flags = guarded_out()
+        check(not g_flags.any(), "the timed step is not healthy")
+        for a, b in zip(g_out[:6], unguarded_out()[:6]):
+            check(torch.equal(a, b), "guarded step differs from unguarded")
+        ms_u, ms_g = time_ms(torch, unguarded_out), time_ms(torch,
+                                                            guarded_out)
+        log(f"lifecycle: mimps output layer device time, unguarded "
+            f"{ms_u:.4f} ms, guarded {ms_g:.4f} ms (+{ms_g - ms_u:.4f}; "
+            f"both captured in a CUDA graph) [{card}]")
+
+        # -- swap to a new head ------------------------------------------------
+        noise = torch.randn(w.shape, generator=gen, device=dev,
+                            dtype=w.dtype)
+        new_params = dict(params, lm_head=w + 0.005 * noise)
+        del noise
+        before = engine_mod._shapes(eng.state)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        eng.swap_index(new_params)
+        torch.cuda.synchronize()
+        swap_s = time.time() - t0
+        check(engine_mod._shapes(eng.state) == before,
+              "swap_index changed a state shape")
+        s_toks, s_aux, _ = serve_run(eng, "mimps after swap")
+        fresh = Engine(Model(cfg), new_params, max_len, seed=seed,
+                       device_index=True, health_guard=True)
+        for a, b in zip(fresh.index, eng.index):
+            check(a == b if isinstance(a, int) else torch.equal(a, b),
+                  "the swapped index differs from a fresh build's")
+        f_toks, f_aux, _ = serve_run(fresh, "fresh engine on the new head",
+                                     on_path=False)
+        del fresh
+        check(torch.equal(s_toks, f_toks), "swapped tokens differ from a "
+              "fresh engine's")
+        check(torch.equal(s_aux["log_z"], f_aux["log_z"]), "swapped log_z "
+              "differs from a fresh engine's")
+        changed = (s_toks != toks).float().mean().item()
+
+        # -- a two-block permutation, verify and restore -----------------------
+        idx = eng.index
+        clean_t = [t.clone() for t in idx if isinstance(t, torch.Tensor)]
+        live_ids = torch.nonzero(idx.valid.any(-1))[:, 0].tolist()
+        a_blk, b_blk = live_ids[0], live_ids[1]
+        vb = idx.v_blocks.clone()
+        vb[[a_blk, b_blk]] = vb[[b_blk, a_blk]]
+        eng._install_state(dataclasses.replace(
+            eng.state, index=idx._replace(v_blocks=vb)))
+        del vb, idx
+        torch.cuda.synchronize()
+        t0 = time.time()
+        restored = eng.verify_and_restore()
+        torch.cuda.synchronize()
+        verify_s = time.time() - t0
+        check(restored, "verify_and_restore missed a two-block permutation")
+        for a, b in zip((t for t in eng.index
+                         if isinstance(t, torch.Tensor)), clean_t):
+            check(torch.equal(a, b), "the restored index differs from the "
+                  "clean one")
+        del clean_t
+        r_toks, r_aux, _ = serve_run(eng, "mimps after restore")
+        check(torch.equal(r_toks, s_toks) and
+              torch.equal(r_aux["log_z"], s_aux["log_z"]),
+              "tokens after the restore differ from the fault-free run's")
+        check(not eng.verify_and_restore(), "a clean index failed its digest")
+        t0 = time.time()
+        dig = engine_mod._digest(eng.index.v_blocks)
+        digest_s = time.time() - t0
+        check(engine_mod._digest(eng.index.v_blocks) == dig,
+              "the digest differs between two calls")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        eng.restore_index()
+        torch.cuda.synchronize()
+        restore_s = time.time() - t0
+        log(f"lifecycle: swap_index {swap_s:.3f} s ({changed:.4f} of the "
+            f"greedy tokens changed), verify_and_restore on a two-block "
+            f"permutation of blocks {a_blk} and {b_blk} {verify_s:.3f} s, "
+            f"restore_index {restore_s:.3f} s, digest {digest_s * 1e3:.2f} "
+            f"ms ({dig[0]!r}, {dig[1]!r}), {eng.index_restores} restores "
+            f"[{card}]")
+
+        # -- degradation tiers on the shared index -----------------------------
+        for tier in ("topk", "mince", "fmbe"):
+            t0 = time.time()
+            st = counted(lambda: eng.tier_state(tier))
+            tier_s = time.time() - t0
+            check(st.index is eng.index, f"the {tier} tier does not share "
+                  f"the engine's index")
+            log(f"lifecycle: {tier} tier state {tier_s:.3f} s")
+            serve_run(eng, f"tier {tier}", tier=tier)
+    finally:
+        engine_mod.apply_health_guard = real_guard
+
+    for name in ("ivf_decode", "union_scores", "fmbe_phi", "fmbe_z",
+                 "topk_z"):
+        check(path[name] > 0, f"lifecycle: the path never launched {name}")
+    check(path_gated[0] > 0, "lifecycle: the guard never launched the "
+          "gated topk_z")
+    path["topk_z"] -= path_gated[0]            # the gated ones: their record
+    log(f"lifecycle path launches {path}, gated topk_z {path_gated[0]}")
+
+    # -- the gated topk_z against the ungated kernel and the plain version ---
+    i32 = dict(dtype=torch.int32, device=dev)
+    none, every = torch.zeros(N_REQ, **i32), torch.ones(N_REQ, **i32)
+    full = topk_z(h, w, k)
+    on = topk_z(h, w, k, rows=every)
+    off = topk_z(h, w, k, rows=none)
+    torch.cuda.synchronize()
+    for a, b in zip(on, full):
+        check(torch.equal(a, b), "gated topk_z with every query flagged "
+              "differs from the ungated kernel's bits")
+    check(bool(torch.isneginf(off[0]).all() and (off[1] == NEG).all()
+               and not off[2].any()), "gated topk_z with no query flagged "
+          "did not write the filler")
+    p_lse, p_v, p_i = topk_z_plain(h, w, k + 1)
+    err = compare_lse("topk_z[gated] lse", on[0], p_lse)
+    err_v, _ = compare_topk("topk_z[gated]", on[1], on[2], p_v, p_i)
+    q = N_REQ
+    out_bytes = q * 4 + q * 4 + q * k * 8       # rows read; lse, top-k out
+    g_bound, g_by = bound_ms(out_bytes, 0)
+    rec = dict(name="topk_z[gated]", route="cuda",
+               source="src/repro_torch/kernels/csrc/topk_z.cu",
+               replaces="src/repro/kernels/topk_z.py:82",
+               launches=path_gated[0], max_abs_err=max(err, err_v),
+               ms=time_ms(torch, lambda: topk_z(h, w, k, rows=none)),
+               plain_ms=time_ms(torch, lambda: topk_z_plain(h, w, k, none)),
+               bound_ms=g_bound, bound_by=g_by, library_ms=None,
+               graph10_ms=graph10_ms(torch,
+                                     lambda: topk_z(h, w, k, rows=none)),
+               floor_ms=floor,
+               all_flagged_ms=time_ms(torch,
+                                      lambda: topk_z(h, w, k, rows=every)),
+               ungated_ms=time_ms(torch, lambda: topk_z(h, w, k)))
+    log(f"topk_z[gated]: Q {q} k {k}: no query flagged {rec['ms']:.4f} ms "
+        f"(ten {rec['graph10_ms']:.4f}; graph floor {floor:.4f}, bound "
+        f"{g_bound:.6f} ms for {out_bytes} B); every query flagged "
+        f"{rec['all_flagged_ms']:.4f} ms against ungated "
+        f"{rec['ungated_ms']:.4f} ms (bit-equal); lse err {err:.2e} "
+        f"[{card}]")
+    return rec, path
 
 
 def topk_z_phase(torch, card, h, w, k, tag=""):

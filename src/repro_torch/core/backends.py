@@ -3,8 +3,10 @@ port carries ``exact``, ``selfnorm``, ``mimps``, ``mince``, ``topk``,
 ``fmbe`` and ``lsh``).
 
 A backend has two obligations: ``build`` derives its retrieval state from
-the output embedding ``w (V, d)`` once, and ``decode`` runs one batched
-decode step returning the uniform ``DecodeOut``.
+the output embedding ``w (V, d)`` once (``refresh`` rebuilds it from a new
+one), and ``decode`` runs one batched decode step returning the uniform
+``DecodeOut``. Backends also own their byte accounting
+(``embedding_floats`` / ``floats_bound``).
 """
 from __future__ import annotations
 
@@ -36,15 +38,35 @@ class BackendState:
 def _build_index(cfg: PartitionConfig, w: torch.Tensor, *,
                  generator: Optional[torch.Generator] = None,
                  assign: Optional[torch.Tensor] = None,
-                 device="cuda") -> Optional[_mips.IVFIndex]:
+                 device="cuda", device_index: bool = False,
+                 block_multiple: int = 1) -> Optional[_mips.IVFIndex]:
     """Block-IVF over the output embedding; skipped for vocabularies below
-    4 blocks (the exact pass is already cheaper than a probe there)."""
-    if w.shape[0] >= 4 * cfg.block_rows:
-        return _mips.build_ivf(w, block_rows=cfg.block_rows,
-                               n_clusters=cfg.n_clusters,
-                               generator=generator, assign=assign,
-                               device=device)
-    return None
+    4 blocks (the exact pass is already cheaper than a probe there).
+    ``device_index=True`` packs into the fixed capacity
+    (``mips.build_ivf_device``), whose shapes depend only on (V,
+    block_rows, n_clusters). ``block_multiple`` pads the block axis with
+    dead blocks (``mips.pad_ivf_blocks``) here, before anything indexed by
+    block id is derived from it."""
+    if w.shape[0] < 4 * cfg.block_rows:
+        return None
+    build = _mips.build_ivf_device if device_index else _mips.build_ivf
+    index = build(w, block_rows=cfg.block_rows, n_clusters=cfg.n_clusters,
+                  generator=generator, assign=assign, device=device)
+    if block_multiple > 1:
+        index = _mips.pad_ivf_blocks(index, block_multiple)
+    return index
+
+
+def _head_floats(state: BackendState, cfg: PartitionConfig, q: int,
+                 u: Optional[int]) -> int:
+    """Centroid scan + deduplicated head blocks + query rows."""
+    idx = state.index
+    d = state.w.shape[1]
+    if idx is None:
+        return state.w.shape[0] * d + q * d
+    if u is None:
+        u = min(q * cfg.n_probe, idx.n_blocks)
+    return idx.n_blocks * d + u * idx.block_rows * d + q * d
 
 
 class EstimatorBackend:
@@ -55,12 +77,33 @@ class EstimatorBackend:
               assign: Optional[torch.Tensor] = None,
               feature_map: Optional[FeatureMap] = None,
               lsh_proj: Optional[torch.Tensor] = None,
-              device="cuda") -> BackendState:
+              device="cuda", device_index: bool = False,
+              block_multiple: int = 1) -> BackendState:
         """``assign`` (V,) injects the k-means assignment of an index build,
         ``feature_map`` the FMBE feature map and ``lsh_proj`` the LSH
         hyperplanes (parity with state built elsewhere); ``generator`` draws
-        them otherwise."""
+        them otherwise. ``device_index=True`` selects the fixed-capacity
+        index build; ``block_multiple`` pads its block axis."""
         return BackendState(w=w.to(resolve_device(device)))
+
+    def refresh(self, state: BackendState, cfg: PartitionConfig,
+                w: torch.Tensor, *,
+                generator: Optional[torch.Generator] = None,
+                assign: Optional[torch.Tensor] = None,
+                feature_map: Optional[FeatureMap] = None,
+                lsh_proj: Optional[torch.Tensor] = None,
+                device="cuda", device_index: bool = True,
+                block_multiple: int = 1) -> BackendState:
+        """The retrieval state rebuilt from a new embedding ``w`` (the
+        ``Engine.swap_index`` entry point). With ``device_index=True`` every
+        tensor of the result has the shape and dtype of a same-config
+        ``build``'s, so whatever took the old state's tensors can take the
+        new one's."""
+        del state
+        return self.build(cfg, w, generator=generator, assign=assign,
+                          feature_map=feature_map, lsh_proj=lsh_proj,
+                          device=device, device_index=device_index,
+                          block_multiple=block_multiple)
 
     def decode(self, state: BackendState, h: torch.Tensor,
                cfg: PartitionConfig, *, k: int = 1, use_kernel: bool = True,
@@ -68,6 +111,19 @@ class EstimatorBackend:
                tail_idx: Optional[torch.Tensor] = None,
                active: Optional[torch.Tensor] = None) -> DecodeOut:
         raise NotImplementedError
+
+    def embedding_floats(self, state: BackendState, cfg: PartitionConfig,
+                         q: int, u: Optional[int] = None) -> int:
+        """Embedding floats one decode step of ``q`` queries touches (``u``:
+        the measured deduplicated probed blocks, where they apply)."""
+        v, d = state.w.shape
+        return v * d + q * d
+
+    def floats_bound(self, state: BackendState, cfg: PartitionConfig,
+                     q: int) -> int:
+        """The ceiling ``embedding_floats`` is held to (worst-case u =
+        min(Q * n_probe, n_blocks))."""
+        return self.embedding_floats(state, cfg, q)
 
 
 BACKENDS: Dict[str, EstimatorBackend] = {}
@@ -112,11 +168,21 @@ class _IndexedBackend(EstimatorBackend):
     """A backend whose state is the block-IVF index."""
 
     def build(self, cfg, w, *, generator=None, assign=None, feature_map=None,
-              lsh_proj=None, device="cuda"):
+              lsh_proj=None, device="cuda", device_index=False,
+              block_multiple=1):
         state = super().build(cfg, w, device=device)
         state.index = _build_index(cfg, state.w, generator=generator,
-                                   assign=assign, device=device)
+                                   assign=assign, device=device,
+                                   device_index=device_index,
+                                   block_multiple=block_multiple)
         return state
+
+    def embedding_floats(self, state, cfg, q, u=None):
+        """Centroids, the deduplicated head blocks, the shared tail rows
+        and the queries."""
+        base = _head_floats(state, cfg, q, u)
+        d = state.w.shape[1]
+        return base + (cfg.l * d if state.index is not None else 0)
 
 
 @register_backend
@@ -128,7 +194,8 @@ class MimpsBackend(_IndexedBackend):
         if state.index is None:
             return exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel)
         return mimps_decode(state.index, h, n_probe=cfg.n_probe, l=cfg.l,
-                            k=k, use_kernel=use_kernel, generator=generator,
+                            k=k, use_kernel=use_kernel,
+                            head_cap=cfg.head_cap, generator=generator,
                             tail_idx=tail_idx, active=active)
 
 
@@ -143,8 +210,8 @@ class MinceBackend(_IndexedBackend):
         return mince_decode(state.index, h, n_probe=cfg.n_probe, l=cfg.l,
                             k=k, iters=cfg.mince_iters,
                             solver=cfg.mince_solver, use_kernel=use_kernel,
-                            generator=generator, tail_idx=tail_idx,
-                            active=active)
+                            head_cap=cfg.head_cap, generator=generator,
+                            tail_idx=tail_idx, active=active)
 
 
 @register_backend
@@ -158,7 +225,11 @@ class TopkBackend(_IndexedBackend):
         if state.index is None:
             return exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel)
         return topk_head_decode(state.index, h, n_probe=cfg.n_probe, k=k,
-                                use_kernel=use_kernel, active=active)
+                                use_kernel=use_kernel, head_cap=cfg.head_cap,
+                                active=active)
+
+    def embedding_floats(self, state, cfg, q, u=None):
+        return _head_floats(state, cfg, q, u)
 
 
 @register_backend
@@ -166,7 +237,8 @@ class FmbeBackend(EstimatorBackend):
     method = "fmbe"
 
     def build(self, cfg, w, *, generator=None, assign=None, feature_map=None,
-              lsh_proj=None, device="cuda"):
+              lsh_proj=None, device="cuda", device_index=False,
+              block_multiple=1):
         """The feature map (drawn first, or injected), the index, and the
         per-block sketch sums, whose sum is lambda_tilde: one phi pass over
         the embedding. Without an index, the global sketch alone."""
@@ -177,13 +249,11 @@ class FmbeBackend(EstimatorBackend):
                                   max_degree=cfg.fmbe_max_degree,
                                   p=cfg.fmbe_p, device=state.w.device)
         state.index = _build_index(cfg, state.w, generator=generator,
-                                   assign=assign, device=device)
+                                   assign=assign, device=device,
+                                   device_index=device_index,
+                                   block_multiple=block_multiple)
         if state.index is not None:
-            pack = pack_if_needed(fm.omega, fm.degree, fm.coef, state.w)
-            lam_b = build_fmbe_blocks(fm, state.index.v_blocks,
-                                      state.index.valid, pack=pack)
-            state.fmbe = FMBEState(fm=fm, lambda_tilde=lam_b.sum(0),
-                                   lambda_blocks=lam_b, pack=pack)
+            state.fmbe = fmbe_block_state(fm, state.index, state.w)
         else:
             state.fmbe = build_fmbe(fm, state.w)
         return state
@@ -195,7 +265,18 @@ class FmbeBackend(EstimatorBackend):
             z = fmbe_z_batch(state.fmbe, h, use_kernel)
             return out._replace(log_z=torch.log(torch.clamp(z, min=1e-30)))
         return fmbe_decode(state.fmbe, state.index, h, n_probe=cfg.n_probe,
-                           k=k, use_kernel=use_kernel, active=active)
+                           k=k, use_kernel=use_kernel, head_cap=cfg.head_cap,
+                           active=active)
+
+    def embedding_floats(self, state, cfg, q, u=None):
+        """The feature sketch (omega and lambda), the candidate head and the
+        per-query probed-block lambda gather of the tail hybrid."""
+        fm = state.fmbe.fm
+        p_feat, max_deg, d = fm.omega.shape
+        lam_gather = (q * cfg.n_probe * p_feat
+                      if state.fmbe.lambda_blocks is not None else 0)
+        return (p_feat * max_deg * d + p_feat + lam_gather +
+                _head_floats(state, cfg, q, u))
 
 
 @register_backend
@@ -207,9 +288,11 @@ class LshBackend(EstimatorBackend):
     method = "lsh"
 
     def build(self, cfg, w, *, generator=None, assign=None, feature_map=None,
-              lsh_proj=None, device="cuda"):
+              lsh_proj=None, device="cuda", device_index=False,
+              block_multiple=1):
         """The index, skipped below 4 rows per bucket (the exact pass is
-        cheaper there)."""
+        cheaper there); its build is shape-stable whatever
+        ``device_index``."""
         state = super().build(cfg, w, device=device)
         if state.w.shape[0] >= 4 * (1 << cfg.lsh_bits):
             state.lsh = _lsh.build_lsh_device(
@@ -239,3 +322,43 @@ class LshBackend(EstimatorBackend):
         if u is None:        # worst case: every probed bucket slot unique
             u = min(q * lsh.n_tables * lsh.bucket_cap, v)
         return lsh.n_tables * lsh.n_bits * d + u * d + cfg.l * d + q * d
+
+
+def fmbe_block_state(fm: FeatureMap, index: _mips.IVFIndex,
+                     w: torch.Tensor) -> FMBEState:
+    """The block-partitioned sketch of ``fm`` over ``index``: the pack (if
+    ``fmbe_phi`` reads one), one phi pass giving the per-block lambdas, and
+    lambda_tilde, their sum."""
+    pack = pack_if_needed(fm.omega, fm.degree, fm.coef, w)
+    lam_b = build_fmbe_blocks(fm, index.v_blocks, index.valid, pack=pack)
+    return FMBEState(fm=fm, lambda_tilde=lam_b.sum(0), lambda_blocks=lam_b,
+                     pack=pack)
+
+
+def verify_decode(backend: EstimatorBackend, state: BackendState,
+                  h: torch.Tensor, cfg: PartitionConfig, *, k: int = 1,
+                  active: Optional[torch.Tensor] = None,
+                  use_kernel: bool = True,
+                  generator: Optional[torch.Generator] = None,
+                  tail_idx: Optional[torch.Tensor] = None) -> DecodeOut:
+    """k-position verification in one decode: the (S, k_pos, d) stack of
+    drafted hidden states is flattened lane-major to (S * k_pos, d) and
+    decoded by the backend; ``active`` is per lane (S,) and expanded to
+    rows. Every probe path computes candidates per query, so each row's
+    output is what a separate one-position step would give. Leaves come
+    back flat; callers reshape to (S, k_pos, ...)."""
+    s_lanes, kpos, d = h.shape
+    hf = h.reshape(s_lanes * kpos, d)
+    act = None if active is None else torch.repeat_interleave(active, kpos)
+    return backend.decode(state, hf, cfg, k=k, use_kernel=use_kernel,
+                          generator=generator, tail_idx=tail_idx, active=act)
+
+
+def shadow_exact_log_z(state: BackendState, h: torch.Tensor, *, k: int = 1,
+                       use_kernel: bool = True) -> torch.Tensor:
+    """Ground-truth log Z for the shadow-telemetry oracle: the ``exact``
+    backend's log Z reproduced term for term, through the same
+    ``exact_topk_decode`` route (``topk_z`` at ``k`` on the card), so the
+    exact tier's shadow error is zero bit for bit. Every state carries the
+    dense ``w``."""
+    return exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel).log_z

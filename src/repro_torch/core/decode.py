@@ -16,6 +16,12 @@ the feature sketch (``fmbe_z``, CUDA kernel) and plans no tail.
 
 Tail samples come from a ``torch.Generator`` or are injected as ``tail_idx``
 (the tests inject the JAX package's ``randint`` draws).
+
+The plain branches (``use_kernel=False``, the CPU reference) trim the union
+to ``head_cap`` slots when the measured union fits (``_with_trimmed_head``,
+one host read of its size); the kernel branches read the live count on the
+device and never trim. ``apply_health_guard`` routes unhealthy queries to
+the exact pass (the gated ``topk_z``) without a host read.
 """
 from __future__ import annotations
 
@@ -112,6 +118,46 @@ def make_plan(index: _mips.IVFIndex, h: torch.Tensor, n_probe: int, l: int,
                       n_accept=accept.sum(-1))
 
 
+def head_row_table(index: _mips.IVFIndex, head_ids: torch.Tensor,
+                   member: torch.Tensor):
+    """Original-row view of a (possibly trimmed) union slice: (head_rows
+    (U*br,) row ids with pads clamped to 0, head_mask (Q, U*br) =
+    membership and slot validity). With ``tail_row_ids`` it scores a plan
+    against a live weight matrix: the index routes, ``w[head_rows]`` and
+    ``w[tail_ids]`` supply the rows."""
+    rid = index.row_id[head_ids.long()]                    # (U, br), -1 pad
+    head_rows = torch.clamp(rid, min=0).reshape(-1)
+    head_mask = (member[:, :, None] & (rid >= 0)[None]
+                 ).reshape(member.shape[0], -1)
+    return head_rows, head_mask
+
+
+def tail_row_ids(index: _mips.IVFIndex, plan: DecodePlan) -> torch.Tensor:
+    """Original row id of every shared tail sample, (l,)."""
+    br = index.v_blocks.shape[1]
+    return index.row_id.reshape(-1)[plan.tail_blocks.long() * br +
+                                    plan.tail_rows.long()]
+
+
+def _resolve_head_cap(head_cap: int, n_probe: int, capacity: int) -> int:
+    """0 = auto: the probe width plus headroom for partial overlap."""
+    if head_cap <= 0:
+        head_cap = max(n_probe + max(4, n_probe // 2), 8)
+    return min(head_cap, capacity)
+
+
+def _with_trimmed_head(plan: DecodePlan, head_cap: int, branch_fn):
+    """``branch_fn(head_ids, member)`` on the first ``head_cap`` union slots
+    when the measured union fits, else on the full capacity (the same math;
+    an overflow costs time, not correctness). Reads the union size to the
+    host: the plain branches only."""
+    capacity = plan.head_ids.shape[0]
+    if head_cap >= capacity or int(plan.head_live) > head_cap:
+        return branch_fn(plan.head_ids, plan.head_member)
+    return branch_fn(plan.head_ids[:head_cap],
+                     plan.head_member[:, :head_cap])
+
+
 def _tail_rows(index: _mips.IVFIndex, plan: DecodePlan) -> torch.Tensor:
     """Shared tail rows gathered once into a dense (l, d) staging buffer."""
     flat = index.v_blocks.reshape(-1, index.v_blocks.shape[-1])
@@ -146,6 +192,7 @@ def _head_scores_plain(index: _mips.IVFIndex, h: torch.Tensor, head_ids,
 
 def mimps_decode(index: _mips.IVFIndex, h: torch.Tensor, *, n_probe: int,
                  l: int, k: int = 1, use_kernel: bool = True,
+                 head_cap: int = 0,
                  generator: Optional[torch.Generator] = None,
                  tail_idx: Optional[torch.Tensor] = None,
                  active: Optional[torch.Tensor] = None) -> DecodeOut:
@@ -154,7 +201,8 @@ def mimps_decode(index: _mips.IVFIndex, h: torch.Tensor, *, n_probe: int,
     ``use_kernel=True`` goes through ``kernels.ivf_score.ivf_decode`` (the
     CUDA kernel on a GPU tensor, its plain version on a CPU tensor);
     ``use_kernel=False`` is the reference branch of the JAX package's XLA
-    path (one gather, one matmul over head and tail rows)."""
+    path (one gather, one matmul over head and tail rows), on the union
+    trimmed to ``head_cap`` slots (0 = auto) when it fits."""
     plan = make_plan(index, h, n_probe, l, generator=generator,
                      tail_idx=tail_idx, active=active)
     tail_rows_g = _tail_rows(index, plan)
@@ -164,12 +212,17 @@ def mimps_decode(index: _mips.IVFIndex, h: torch.Tensor, *, n_probe: int,
             index.v_blocks, h, plan.head_ids, plan.head_live,
             plan.head_member, row_logw, tail_rows_g, plan.tail_accept, k=k)
     else:
-        scores, mask, ts, slot = _head_scores_plain(
-            index, h, plan.head_ids, plan.head_member, tail_rows_g)
-        eff = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-        head_lse = torch.logsumexp(eff, -1)
-        topv, topi = select_topk(eff, slot, k)
-        tail_lse = _masked_tail_lse(ts, plan.tail_accept)
+        def branch(ids, member):
+            scores, mask, ts, slot = _head_scores_plain(
+                index, h, ids, member, tail_rows_g)
+            eff = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+            topv, topi = select_topk(eff, slot, k)
+            return (torch.logsumexp(eff, -1), topv, topi,
+                    _masked_tail_lse(ts, plan.tail_accept))
+
+        cap = _resolve_head_cap(head_cap, n_probe, plan.head_ids.shape[0])
+        head_lse, topv, topi, tail_lse = _with_trimmed_head(plan, cap,
+                                                            branch)
     log_z = combine_head_tail_lse(
         head_lse, tail_lse, (index.n - plan.k_eff).float(),
         plan.n_accept.float())
@@ -204,22 +257,28 @@ def _head_topk(index: _mips.IVFIndex, head_ids: torch.Tensor,
 
 def _scored_head(index: _mips.IVFIndex, h: torch.Tensor, plan: DecodePlan,
                  k: int, use_kernel: bool,
-                 tail_rows: Optional[torch.Tensor] = None):
+                 tail_rows: Optional[torch.Tensor] = None,
+                 head_cap: int = 0):
     """Head LSE and top-k of the plan's union, plus the (Q, l) f32 scores
     of ``tail_rows`` when given: the union through ``union_head_scores``
     and the tail by one matmul, or (plain branch) head and tail rows in one
-    gather and one matmul."""
+    gather and one matmul over the union trimmed to ``head_cap`` slots
+    (0 = auto) when it fits."""
     q, d = h.shape
     if use_kernel:
         scores, mask = union_head_scores(index, h, plan)
         scores, mask = scores.reshape(q, -1), mask.reshape(q, -1)
         ts = None if tail_rows is None else h.float() @ tail_rows.float().T
-    else:
-        rows = tail_rows if tail_rows is not None else h.new_zeros((0, d))
-        scores, mask, ts, _ = _head_scores_plain(
-            index, h, plan.head_ids, plan.head_member, rows)
-    head_lse, topv, topi = _head_topk(index, plan.head_ids, scores, mask, k)
-    return head_lse, topv, topi, ts
+        return _head_topk(index, plan.head_ids, scores, mask, k) + (ts,)
+    rows = tail_rows if tail_rows is not None else h.new_zeros((0, d))
+
+    def branch(ids, member):
+        scores, mask, ts, _ = _head_scores_plain(index, h, ids, member, rows)
+        return _head_topk(index, ids, scores, mask, k) + (ts,)
+
+    cap = _resolve_head_cap(head_cap, plan.block_ids.shape[1],
+                            plan.head_ids.shape[0])
+    return _with_trimmed_head(plan, cap, branch)
 
 
 def _probe_out(index: _mips.IVFIndex, plan: DecodePlan, log_z, head_lse,
@@ -232,19 +291,21 @@ def _probe_out(index: _mips.IVFIndex, plan: DecodePlan, log_z, head_lse,
 
 def topk_head_decode(index: _mips.IVFIndex, h: torch.Tensor, *,
                      n_probe: int, k: int = 1, use_kernel: bool = True,
+                     head_cap: int = 0,
                      active: Optional[torch.Tensor] = None) -> DecodeOut:
     """Head-only decode (Eq. 4 at the output layer), the cheapest serving
     tier: the MIMPS probe plan and candidates with no tail, so log Ẑ is the
     probed head's LSE, a deterministic underestimate of log Z."""
     plan = make_plan(index, h, n_probe, 0, active=active)
-    head_lse, topv, topi, _ = _scored_head(index, h, plan, k, use_kernel)
+    head_lse, topv, topi, _ = _scored_head(index, h, plan, k, use_kernel,
+                                           head_cap=head_cap)
     no_tail = torch.full_like(head_lse, float("-inf"))
     return _probe_out(index, plan, head_lse, head_lse, no_tail, topv, topi)
 
 
 def mince_decode(index: _mips.IVFIndex, h: torch.Tensor, *, n_probe: int,
                  l: int, k: int = 1, iters: int = 2, solver: str = "halley",
-                 use_kernel: bool = True,
+                 use_kernel: bool = True, head_cap: int = 0,
                  generator: Optional[torch.Generator] = None,
                  tail_idx: Optional[torch.Tensor] = None,
                  active: Optional[torch.Tensor] = None) -> DecodeOut:
@@ -264,7 +325,8 @@ def mince_decode(index: _mips.IVFIndex, h: torch.Tensor, *, n_probe: int,
     plan = make_plan(index, h, n_probe, l, generator=generator,
                      tail_idx=tail_idx, active=active)
     head_lse, topv, topi, ts = _scored_head(
-        index, h, plan, k, use_kernel, tail_rows=_tail_rows(index, plan))
+        index, h, plan, k, use_kernel, tail_rows=_tail_rows(index, plan),
+        head_cap=head_cap)
     tail_lse = _masked_tail_lse(ts, plan.tail_accept)
     k_eff = plan.k_eff.float()
     n_acc = plan.n_accept.float()
@@ -280,6 +342,7 @@ def mince_decode(index: _mips.IVFIndex, h: torch.Tensor, *, n_probe: int,
 
 def fmbe_decode(state: FMBEState, index: _mips.IVFIndex, h: torch.Tensor,
                 *, n_probe: int, k: int = 1, use_kernel: bool = True,
+                head_cap: int = 0,
                 active: Optional[torch.Tensor] = None) -> DecodeOut:
     """Batched FMBE decode: the probed head scored exactly, the feature
     sketch estimating only the complement mass (``fmbe_tail_z``):
@@ -289,7 +352,8 @@ def fmbe_decode(state: FMBEState, index: _mips.IVFIndex, h: torch.Tensor,
     With no per-block table the global sketch estimates all of Z. The
     estimate is deterministic given the feature map; no tail is planned."""
     plan = make_plan(index, h, n_probe, 0, active=active)
-    head_lse, topv, topi, _ = _scored_head(index, h, plan, k, use_kernel)
+    head_lse, topv, topi, _ = _scored_head(index, h, plan, k, use_kernel,
+                                           head_cap=head_cap)
     if state.lambda_blocks is not None:
         z_tail = fmbe_tail_z(state, h, plan.block_ids, use_kernel)
         log_z = torch.logaddexp(head_lse,
@@ -327,3 +391,58 @@ def selfnorm_decode(w: torch.Tensor, h: torch.Tensor, *, k: int = 1,
     (log Ẑ == 0; the model was trained with the selfnorm penalty)."""
     out = exact_topk_decode(w, h, k=k, use_kernel=use_kernel)
     return out._replace(log_z=torch.zeros_like(out.log_z))
+
+
+# ---------------------------------------------------------------------------
+# Estimator health guard: no NaN reaches sampling
+# ---------------------------------------------------------------------------
+
+HEALTH_NONFINITE_Z = 1      # log Ẑ is NaN/Inf (corrupt rows, fault injection)
+HEALTH_EMPTY_HEAD = 2       # the probe union covered no real row
+HEALTH_NONFINITE_SCORE = 4  # a retrieved candidate score is NaN/Inf
+
+
+def health_flags(out: DecodeOut) -> torch.Tensor:
+    """Per-query health bitmask (Q,) int32: a non-finite log Ẑ, an empty
+    probe head (k_eff == 0) or a non-finite candidate score.
+    ``tail_lse == -inf`` (no surviving sample) is not flagged."""
+    bad_z = ~torch.isfinite(out.log_z)
+    empty = out.k_eff == 0
+    bad_s = (~torch.isfinite(out.top_score)).any(-1)
+    return (bad_z.int() * HEALTH_NONFINITE_Z + empty.int() * HEALTH_EMPTY_HEAD
+            + bad_s.int() * HEALTH_NONFINITE_SCORE).to(torch.int32)
+
+
+def apply_health_guard(out: DecodeOut, w: torch.Tensor, h: torch.Tensor,
+                       k: int, active: Optional[torch.Tensor] = None, *,
+                       use_kernel: bool = True):
+    """Route unhealthy queries through the exact pass (the Eq. 2 fallback).
+
+    Returns ``(guarded DecodeOut, flags (Q,) int32)``. The flags stay on the
+    device: the exact pass is ``topk_z`` gated by them (``rows=flags``),
+    which scores only the flagged queries, and its results are spliced into
+    the flagged rows with ``torch.where``. No host read, so the guard can
+    sit in every step (and in a captured graph); a healthy batch costs one
+    gated launch that exits at once, and its outputs are the unguarded
+    decode's, bit for bit. ``active`` (Q,) bool keeps padded lanes out of
+    the check. ``use_kernel=False`` scores every row with the reference
+    exact decode instead."""
+    flags = health_flags(out)
+    if active is not None:
+        flags = torch.where(active, flags, torch.zeros_like(flags))
+    bad = flags > 0
+    if use_kernel:
+        lse, topv, topi = topk_z(h, w, k, rows=flags)
+    else:
+        ex = exact_topk_decode(w, h, k=k, use_kernel=False)
+        lse, topv, topi = ex.log_z, ex.top_score, ex.top_id
+    row = bad[:, None]
+    return DecodeOut(
+        log_z=torch.where(bad, lse, out.log_z),
+        top_score=torch.where(row, topv, out.top_score),
+        top_id=torch.where(row, topi.to(out.top_id.dtype), out.top_id),
+        head_lse=torch.where(bad, lse, out.head_lse),
+        tail_lse=torch.where(bad, torch.full_like(out.tail_lse,
+                                                  float("-inf")),
+                             out.tail_lse),
+        k_eff=out.k_eff, head_live=out.head_live), flags

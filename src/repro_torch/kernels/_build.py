@@ -35,9 +35,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # for bf16.
 SIGNATURES = {
     # h, w, Q, V, d, k, grid_x, part_m, part_s, part_v, part_i,
-    # lse, topv, topi, f32, stream
-    "topk_z": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-               _P],
+    # lse, topv, topi, rows, f32, stream
+    "topk_z": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+               _I, _P],
     # w_blocks, h, head_ids, head_live, head_member, row_logw, tail_rows,
     # tail_accept, Q, U, br, d, L, k, grid_x, part_hm, part_hs, part_v,
     # part_i, part_tm, part_ts, head_lse, tail_lse, topv, topi, f32, stream
@@ -172,19 +172,24 @@ def f32_flag(name: str, **tensors) -> int:
 
 def counted(fn):
     """Gives a kernel wrapper its launch counts: ``fn.launches``, the total,
-    and ``fn.by_variant``, launches by input dtype ("bf16" or "f32")."""
+    ``fn.by_variant``, launches by input dtype ("bf16" or "f32"), and
+    ``fn.gated``, the launches among them with a per-query gate
+    (``topk_z(..., rows=)``)."""
     fn.launches = 0
     fn.by_variant = {"bf16": 0, "f32": 0}
+    fn.gated = 0
     return fn
 
 
-def count(fn, f32: int) -> None:
+def count(fn, f32: int, gated: bool = False) -> None:
     """One launch of ``fn``'s kernel at the dtype given by ``f32``."""
     fn.launches += 1
     fn.by_variant["f32" if f32 else "bf16"] += 1
+    fn.gated += int(gated)
 
 
 def reset_counts(fns) -> None:
     for fn in fns:
         fn.launches = 0
         fn.by_variant = {"bf16": 0, "f32": 0}
+        fn.gated = 0

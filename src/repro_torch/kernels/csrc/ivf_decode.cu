@@ -28,7 +28,8 @@
 // hands the rows that enter a query's top-k to the lane that holds it
 // (gather_stream.cuh's LaneFold, as lsh_probe.cu does). A head row counts
 // where the query is a member of its slot and its score plus row_logw is
-// above NEG/2 (cluster-pad rows carry NEG); a tail row where its sample is
+// not at or below NEG/2 (cluster-pad rows carry NEG; a NaN score counts, so
+// the LSE is NaN, as the reference's); a tail row where its sample is
 // accepted. (2) merge_partials (streaming.cuh) combines the CTAs' partials
 // in a fixed order; it is launched as a programmatic dependent of (1), so
 // its launch overlaps (1). Every sum runs in a fixed order, so two calls
@@ -166,7 +167,7 @@ struct DecodeJob {
       float x = in ? score<T>(st, lane, q) : NEG;
       if (!tail) {
         x += lw;
-        in = in && x > NEG * 0.5f;
+        in = in && !(x <= NEG * 0.5f);   // a NaN row counts: NaN LSE
       }
       fold.row(u, lane, in, tail, x, id);
     }
@@ -225,7 +226,8 @@ static cudaError_t launch(
                             static_cast<const int*>(pi),
                             static_cast<const float*>(ptm),
                             static_cast<const float*>(pts), head_lse,
-                            tail_lse, topv, topi);
+                            tail_lse, topv, topi,
+                            static_cast<const int*>(nullptr));
 }
 
 template <class T>

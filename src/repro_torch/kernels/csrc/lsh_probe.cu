@@ -299,7 +299,8 @@ static cudaError_t launch_probe(
   err = cudaLaunchKernelEx(&cfg, lsh_probe_partial<T, KMAX>, job, h, Q);
   if (err != cudaSuccess) return err;
   merge_partials<KMAX><<<Q, MERGE_THREADS, 0, stream>>>(
-      grid_x, k, phm, phs, pv, pi, ptm, pts, head_lse, tail_lse, topv, topi);
+      grid_x, k, phm, phs, pv, pi, ptm, pts, head_lse, tail_lse, topv, topi,
+      nullptr);
   return cudaGetLastError();
 }
 

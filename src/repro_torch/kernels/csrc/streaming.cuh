@@ -183,12 +183,15 @@ __device__ __forceinline__ void cta_lse(float& m, float& s, int warp,
   __syncthreads();
   if (warp == 0 && lane < QT) {
     float mx = NEG, sum = 0.f;
-    for (int w = 0; w < WARPS; ++w)
+    bool nan = false;
+    for (int w = 0; w < WARPS; ++w) {
+      nan |= isnan(ss[w][lane]);
       if (ss[w][lane] > 0.f) mx = fmaxf(mx, sm[w][lane]);
+    }
     for (int w = 0; w < WARPS; ++w)
       if (ss[w][lane] > 0.f) sum += ss[w][lane] * expf(sm[w][lane] - mx);
     m = mx;
-    s = sum;
+    s = nan ? NAN : sum;                 // a NaN score poisons the query
   }
 }
 
@@ -248,22 +251,29 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
 }
 
 // LSE of one query's P partials (m, s): m + log(sum s exp(m_p - m)), with
-// -inf when every partial is empty.
+// -inf when every partial is empty and NaN when a partial is NaN (a NaN
+// score, as the reference's logsumexp gives: the health guard reads it).
 __device__ __forceinline__ float merge_lse(const float* pm, const float* ps,
                                            int P, float* red) {
-  float mx = NEG;
-  for (int p = threadIdx.x; p < P; p += MERGE_THREADS)
+  float mx = NEG, nan = 0.f;
+  for (int p = threadIdx.x; p < P; p += MERGE_THREADS) {
+    if (isnan(ps[p])) nan = 1.f;
     if (ps[p] > 0.f) mx = fmaxf(mx, pm[p]);
+  }
   mx = block_max(mx, red);
+  nan = block_max(nan, red);
   float s = 0.f;
   for (int p = threadIdx.x; p < P; p += MERGE_THREADS)
     if (ps[p] > 0.f) s += ps[p] * expf(pm[p] - mx);
   s = block_sum(s, red);
+  if (nan > 0.f) return NAN;
   return s > 0.f ? mx + logf(s) : -INFINITY;
 }
 
 // One CTA per query: head LSE, optional tail LSE, and the top-k of all
-// partial lists (tree merge of per-thread lists in shared memory).
+// partial lists (tree merge of per-thread lists in shared memory). With a
+// gate `rows` (Q,), a query whose entry is 0 has no partials and gets the
+// filler: LSEs -inf, top-k (NEG, 0).
 template <int KMAX>
 __global__ void __launch_bounds__(MERGE_THREADS)
 merge_partials(int P, int k, const float* __restrict__ hm,
@@ -271,7 +281,7 @@ merge_partials(int P, int k, const float* __restrict__ hm,
                const int* __restrict__ pi, const float* __restrict__ tm,
                const float* __restrict__ ts, float* __restrict__ lse,
                float* __restrict__ tail_lse, float* __restrict__ topv,
-               int* __restrict__ topi) {
+               int* __restrict__ topi, const int* __restrict__ rows) {
   __shared__ float red[MERGE_THREADS / 32];
   __shared__ float sv[MERGE_THREADS * KMAX];
   __shared__ int si[MERGE_THREADS * KMAX];
@@ -279,6 +289,17 @@ merge_partials(int P, int k, const float* __restrict__ hm,
   // are complete and visible past this; otherwise it returns at once
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int q = blockIdx.x, t = threadIdx.x;
+  if (rows != nullptr && rows[q] == 0) {
+    if (t == 0) {
+      lse[q] = -INFINITY;
+      if (tm != nullptr) tail_lse[q] = -INFINITY;
+    }
+    if (t < k) {
+      topv[(size_t)q * k + t] = NEG;
+      topi[(size_t)q * k + t] = 0;
+    }
+    return;
+  }
   const size_t row = (size_t)q * P;
   float l = merge_lse(hm + row, hs + row, P, red);
   if (t == 0) lse[q] = l;

@@ -18,6 +18,14 @@
 // merge_partials (streaming.cuh) reduces the CTAs' partials of each query.
 // Each query tile of QT queries is one grid row, so W is streamed once per
 // tile.
+//
+// The gate: with `rows` (Q,) given, only the queries whose entry is nonzero
+// are scored (the health guard passes its flags). A CTA whose QT queries
+// are all unflagged returns before it loads them, and the merge writes the
+// filler -- lse -inf, top-k (NEG, 0) -- for every unflagged query, so a
+// healthy batch costs two launches that exit at once. A flagged query's
+// partials and merge are the ungated kernel's, bit for bit. rows ==
+// nullptr scores every query.
 #include "streaming.cuh"
 
 using namespace streaming;
@@ -27,9 +35,15 @@ __global__ void __launch_bounds__(THREADS, KMAX <= 8 ? 2 : 1)
 topk_z_partial(const T* __restrict__ h, const T* __restrict__ w, int Q,
                int V, int d,
                int k, float* __restrict__ part_m, float* __restrict__ part_s,
-               float* __restrict__ part_v, int* __restrict__ part_i) {
+               float* __restrict__ part_v, int* __restrict__ part_i,
+               const int* __restrict__ rows) {
   extern __shared__ float hs[];
   const int q0 = blockIdx.y * QT;
+  if (rows != nullptr) {
+    bool any = false;
+    for (int j = 0; j < QT && q0 + j < Q; ++j) any |= rows[q0 + j] != 0;
+    if (!any) return;                    // the whole CTA: no sync reached
+  }
   load_query_tile(h, Q, d, q0, hs);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool owner = lane < QT && q0 + lane < Q;
@@ -73,7 +87,7 @@ static cudaError_t launch(const T* h, const T* w, int Q, int V, int d, int k,
                           int grid_x,
                           float* part_m, float* part_s, float* part_v,
                           int* part_i, float* lse, float* topv, int* topi,
-                          cudaStream_t stream) {
+                          const int* rows, cudaStream_t stream) {
   const size_t smem = (size_t)QT * d * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       topk_z_partial<T, KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -81,12 +95,12 @@ static cudaError_t launch(const T* h, const T* w, int Q, int V, int d, int k,
   if (err != cudaSuccess) return err;
   dim3 grid(grid_x, (Q + QT - 1) / QT);
   topk_z_partial<T, KMAX><<<grid, THREADS, smem, stream>>>(
-      h, w, Q, V, d, k, part_m, part_s, part_v, part_i);
+      h, w, Q, V, d, k, part_m, part_s, part_v, part_i, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   merge_partials<KMAX><<<Q, MERGE_THREADS, 0, stream>>>(
       grid_x, k, part_m, part_s, part_v, part_i, nullptr, nullptr,
-      lse, nullptr, topv, topi);
+      lse, nullptr, topv, topi, rows);
   return cudaGetLastError();
 }
 
@@ -94,7 +108,7 @@ template <class T>
 static cudaError_t dispatch(const void* h, const void* w, int Q, int V, int d,
                             int k, int grid_x, void* part_m, void* part_s,
                             void* part_v, void* part_i, void* lse, void* topv,
-                            void* topi, cudaStream_t st) {
+                            void* topi, const void* rows, cudaStream_t st) {
   auto hb = static_cast<const T*>(h);
   auto wb = static_cast<const T*>(w);
   auto pm = static_cast<float*>(part_m);
@@ -104,24 +118,26 @@ static cudaError_t dispatch(const void* h, const void* w, int Q, int V, int d,
   auto l = static_cast<float*>(lse);
   auto tv = static_cast<float*>(topv);
   auto ti = static_cast<int*>(topi);
+  auto r = static_cast<const int*>(rows);
   if (k <= 8)
     return launch<T, 8>(hb, wb, Q, V, d, k, grid_x, pm, ps, pv, pi, l, tv,
-                        ti, st);
+                        ti, r, st);
   return launch<T, 32>(hb, wb, Q, V, d, k, grid_x, pm, ps, pv, pi, l, tv, ti,
-                       st);
+                       r, st);
 }
 
-// f32: 1 if h and w are f32, 0 if bf16.
+// rows: the gate (Q,) int32, or nullptr for every query. f32: 1 if h and w
+// are f32, 0 if bf16.
 extern "C" int topk_z_launch(const void* h, const void* w, int Q, int V,
                              int d, int k, int grid_x, void* part_m,
                              void* part_s, void* part_v, void* part_i,
-                             void* lse, void* topv, void* topi, int f32,
-                             void* stream) {
+                             void* lse, void* topv, void* topi,
+                             const void* rows, int f32, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (f32)
     return (int)dispatch<float>(h, w, Q, V, d, k, grid_x, part_m, part_s,
-                                part_v, part_i, lse, topv, topi, st);
+                                part_v, part_i, lse, topv, topi, rows, st);
   return (int)dispatch<__nv_bfloat16>(h, w, Q, V, d, k, grid_x, part_m,
                                       part_s, part_v, part_i, lse, topv,
-                                      topi, st);
+                                      topi, rows, st);
 }

@@ -27,11 +27,14 @@ MAX_BLOCKS = 1 << 19     # ivf_score's blocks: its prologue's bitmap, 128 KB
 
 
 def _masked_lse(eff: torch.Tensor) -> torch.Tensor:
-    """m + log(s) over entries above NEG/2: -inf where there are none."""
+    """m + log(s) over entries above NEG/2: -inf where there are none, NaN
+    where an entry is NaN (as the kernels' merge gives it)."""
     ok = eff > NEG * 0.5
     m = torch.where(ok, eff, torch.full_like(eff, NEG)).amax(-1, keepdim=True)
     s = torch.where(ok, torch.exp(eff - m), torch.zeros_like(eff)).sum(-1)
-    return m[:, 0] + torch.log(s)
+    lse = m[:, 0] + torch.log(s)
+    return torch.where(eff.isnan().any(-1), torch.full_like(lse, float("nan")),
+                       lse)
 
 
 def _check(cond: bool, msg: str, name: str = "ivf_decode") -> None:

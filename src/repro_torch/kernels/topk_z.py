@@ -4,12 +4,16 @@
 ``topk_z`` launches the CUDA kernel in ``csrc/topk_z.cu`` on CUDA tensors
 and runs ``topk_z_plain`` on CPU tensors. Both keep the TPU kernel's rule:
 among equal scores the lowest vocab id wins, and when fewer than k real
-candidates exist the missing entries are ``(NEG, 0)``.
+candidates exist the missing entries are ``(NEG, 0)``. Both take an
+optional gate ``rows (Q,)``: only the queries whose entry is nonzero are
+scored, and the others get the filler (lse -inf, top-k ``(NEG, 0)``); the
+health guard passes its flags, so a healthy batch costs one launch that
+exits at once.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,13 +46,20 @@ def select_topk(scores: torch.Tensor, ids: torch.Tensor,
     return topv, topi
 
 
-def topk_z_plain(h: torch.Tensor, w: torch.Tensor, k: int):
+def topk_z_plain(h: torch.Tensor, w: torch.Tensor, k: int,
+                 rows: Optional[torch.Tensor] = None):
     """Plain PyTorch version: h (Q, d), w (V, d) -> (lse (Q,) f32,
-    topv (Q, k) f32, topi (Q, k) int32), scores accumulated in f32."""
+    topv (Q, k) f32, topi (Q, k) int32), scores accumulated in f32; the
+    filler in the queries whose ``rows`` entry is 0."""
     logits = h.float() @ w.float().T
     lse = torch.logsumexp(logits, dim=-1)
     ids = torch.arange(w.shape[0], device=h.device)
     topv, topi = select_topk(logits, ids, k)
+    if rows is not None:
+        on = rows.to(h.device) != 0
+        lse = torch.where(on, lse, torch.full_like(lse, float("-inf")))
+        topv = torch.where(on[:, None], topv, torch.full_like(topv, NEG))
+        topi = torch.where(on[:, None], topi, torch.zeros_like(topi))
     return lse, topv, topi
 
 
@@ -61,14 +72,19 @@ def _check(cond: bool, msg: str) -> None:
 
 
 @_build.counted
-def topk_z(h: torch.Tensor, w: torch.Tensor, k: int):
-    """h (Q, d), w (V, d) -> (lse (Q,), topv (Q, k), topi (Q, k)).
+def topk_z(h: torch.Tensor, w: torch.Tensor, k: int, *,
+           rows: Optional[torch.Tensor] = None):
+    """h (Q, d), w (V, d) -> (lse (Q,), topv (Q, k), topi (Q, k)); with
+    ``rows (Q,)`` int32 only the queries whose entry is nonzero, the filler
+    in the others.
 
     CUDA tensors launch the kernel (bf16 or f32 inputs, both of one dtype;
-    f32 accumulation) on the current stream; CPU tensors run
-    ``topk_z_plain``."""
+    f32 accumulation) on the current stream, reading ``rows`` on the device
+    (no host read, so a gated call can be captured in a CUDA graph); CPU
+    tensors run ``topk_z_plain``. A gated launch counts in ``topk_z.gated``
+    as well."""
     if h.device.type == "cpu" and w.device.type == "cpu":
-        return topk_z_plain(h, w, k)
+        return topk_z_plain(h, w, k, rows)
     _check(h.is_cuda and w.is_cuda and h.device == w.device,
            f"h on {h.device} and w on {w.device}: both must be on one GPU")
     is_f32 = _build.f32_flag("topk_z", h=h, w=w)
@@ -81,6 +97,10 @@ def topk_z(h: torch.Tensor, w: torch.Tensor, k: int):
            "rows must be 16-byte aligned (d % 8 == 0)")
     _check(1 <= k <= MAX_K, f"k={k} outside [1, {MAX_K}]")
     _check(q >= 1 and v >= 1, "empty input")
+    if rows is not None:
+        _check(rows.device == h.device and rows.dtype == torch.int32
+               and rows.shape == (q,) and rows.is_contiguous(),
+               f"rows must be a contiguous ({q},) int32 tensor on {h.device}")
     lib = _build.load("topk_z")
     dev = h.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -101,7 +121,8 @@ def topk_z(h: torch.Tensor, w: torch.Tensor, k: int):
         p(h.data_ptr()), p(w.data_ptr()), q, v, d, k, grid_x,
         p(part_m.data_ptr()), p(part_s.data_ptr()), p(part_v.data_ptr()),
         p(part_i.data_ptr()), p(lse.data_ptr()), p(topv.data_ptr()),
-        p(topi.data_ptr()), is_f32, p(stream))
+        p(topi.data_ptr()), p(None if rows is None else rows.data_ptr()),
+        is_f32, p(stream))
     _build.check("topk_z", err)
-    _build.count(topk_z, is_f32)
+    _build.count(topk_z, is_f32, gated=rows is not None)
     return lse, topv, topi

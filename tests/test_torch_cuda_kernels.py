@@ -975,3 +975,135 @@ def test_lsh_path_is_bit_equal_across_processes(gen):
                          capture_output=True, text=True, timeout=900)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "first stage of the path that differs: None" in res.stdout
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("q,k", [(8, 8), (13, 12), (3, 1)])
+def test_topk_z_gate(gen, head_bf16, q, k, dtype):
+    """``rows``: every query flagged gives the ungated call's bits, none
+    flagged the filler (lse -inf, (NEG, 0)) in every output, a mix each
+    flagged query's ungated bits and the filler elsewhere (a query tile
+    with no flagged query returns at once); each gated call counts once
+    in ``topk_z.gated``."""
+    head = head_bf16.to(dtype)
+    h = torch.randn(q, D, generator=gen, device="cuda").to(dtype)
+    full = topk_z(h, head, k)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    mixed = torch.zeros(q, **i32)
+    mixed[-1] = 4                                       # the last tile only
+    mixed[0] = 1
+    before, gated = _counts(topk_z), topk_z.gated
+    for rows in (torch.ones(q, **i32), torch.zeros(q, **i32), mixed):
+        got = topk_z(h, head, k, rows=rows)
+        torch.cuda.synchronize()
+        on = rows != 0
+        for a, b in zip(got, full):
+            assert torch.equal(a[on], b[on])
+        assert torch.isneginf(got[0][~on]).all()
+        assert (got[1][~on] == NEG).all() and not got[2][~on].any()
+        plain = topk_z_plain(h, head, k, rows)
+        _close_lse(got[0], plain[0])
+    _launched(topk_z, dtype, before, 3)
+    assert topk_z.gated == gated + 3
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernels_propagate_a_nan_row(gen, dtype):
+    """A NaN row gives NaN LSEs, as the plain versions (and the reference's
+    logsumexp) give them, so the health guard sees it: ``topk_z`` for
+    every query, ``ivf_decode`` for the queries whose head holds the row,
+    finite LSEs elsewhere."""
+    w = (torch.randn(4096, D, generator=gen, device="cuda") * 0.02).to(dtype)
+    w[1234] = float("nan")
+    h = torch.randn(8, D, generator=gen, device="cuda").to(dtype)
+    lse, _, _ = topk_z(h, w, 4)
+    assert torch.isnan(lse).all()
+    wb = w.reshape(16, 256, D)
+    head_ids = torch.arange(16, dtype=torch.int32, device="cuda")
+    member = torch.zeros(8, 16, dtype=torch.bool, device="cuda")
+    member[:4, 4] = True                                # holds row 1234
+    member[4:, 7] = True
+    row_logw = torch.zeros(16, 256, device="cuda")
+    tail = (torch.randn(64, D, generator=gen, device="cuda") * 0.02
+            ).to(dtype)
+    accept = torch.ones(8, 64, dtype=torch.bool, device="cuda")
+    args = (wb, h, head_ids, torch.tensor(16, dtype=torch.int32,
+                                          device="cuda"),
+            member, row_logw, tail, accept)
+    for hl, tl, _, _ in (ivf_decode(*args, k=4), ivf_decode_plain(*args,
+                                                                  k=4)):
+        assert torch.isnan(hl[:4]).all() and torch.isfinite(hl[4:]).all()
+        assert torch.isfinite(tl).all()
+
+
+def _capacity_plan(gen, dtype):
+    """A fixed-capacity index of 12000 rows in 24 + 8 blocks of 512 (its
+    last blocks dead) and a plan that probes every block, so each query's
+    union holds the dead blocks."""
+    from repro_torch.core import decode as tdec
+    from repro_torch.core import mips as tmips
+    w = (torch.randn(12000, D, generator=gen, device="cuda") * 0.02).to(dtype)
+    index = tmips.build_ivf_device(w, block_rows=512, n_clusters=8,
+                                   kmeans_iters=2, generator=gen)
+    live = int(index.valid.any(-1).sum())
+    assert live < index.n_blocks == tmips.ivf_capacity_blocks(12000, 512, 8)
+    h = torch.randn(8, D, generator=gen, device="cuda").to(dtype)
+    plan = tdec.make_plan(index, h, index.n_blocks, 1000, generator=gen)
+    assert int(plan.head_live) == index.n_blocks      # dead blocks included
+    return index, h, plan, live
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_kernels_on_a_union_with_dead_blocks(gen, dtype):
+    """``ivf_decode``, ``union_scores`` and ``fmbe_z`` (lambda of the
+    complement of every probed block, dead ones included) against their
+    plain versions on the capacity index; dead blocks score 0 and are
+    masked, two calls bit-equal."""
+    from repro_torch.core import decode as tdec
+    from repro_torch.core.backends import fmbe_block_state
+    from repro_torch.core.feature_maps import make_feature_map
+    index, h, plan, live = _capacity_plan(gen, dtype)
+    rows = tdec._tail_rows(index, plan)
+    row_logw = torch.where(index.valid, 0.0, -1e30).float()
+    args = (index.v_blocks, h, plan.head_ids, plan.head_live,
+            plan.head_member, row_logw, rows, plan.tail_accept)
+    out, again = ivf_decode(*args, k=8), ivf_decode(*args, k=8)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    p_hl, p_tl, p_v, p_i = ivf_decode_plain(*args, k=8)
+    _close_lse(out[0], p_hl)
+    _close_lse(out[1], p_tl)
+    assert (out[2] - p_v).abs().max().item() <= TOL
+    assert torch.equal(out[3], p_i)
+    scores = union_scores(index.v_blocks, h, plan.head_ids, plan.head_live)
+    want = union_scores_plain(index.v_blocks, h, plan.head_ids,
+                              plan.head_live)
+    assert (scores - want).abs().max().item() <= TOL
+    dead = ~index.valid[plan.head_ids.long()].any(-1)
+    assert dead.sum() == index.n_blocks - live
+    assert (scores[:, dead] == 0).all()
+    fm = make_feature_map(gen, D, 512, device="cuda")
+    fstate = fmbe_block_state(fm, index, index.v_blocks.reshape(-1, D))
+    assert not fstate.lambda_blocks[~index.valid.any(-1)].any()
+    lam = (fstate.lambda_tilde[None] -
+           fstate.lambda_blocks[plan.block_ids.long()].sum(1))
+    z = fmbe_z(fm.omega, fm.degree, fm.coef, lam, h, pack=fstate.pack)
+    assert torch.equal(z, fmbe_z(fm.omega, fm.degree, fm.coef, lam, h,
+                                 pack=fstate.pack))
+    terms = (fmbe_phi_plain(fm.omega, fm.degree, fm.coef, h) * lam
+             ).abs().sum(-1)
+    assert ((z.double() - _z64(fstate.pack, lam, h)).abs()
+            <= 1e-4 * terms + 1e-6).all()
+
+
+def test_index_digest_is_deterministic(gen):
+    """The engine's digest over a 553-block-shaped bf16 index, narrowed to
+    d 256: equal over two calls, changed by swapping two blocks."""
+    from repro_torch.serve.engine import _digest
+    vb = (torch.randn(553, 512, 256, generator=gen, device="cuda")
+          ).bfloat16()
+    ref = _digest(vb)
+    assert _digest(vb) == ref
+    swapped = vb.clone()
+    swapped[[3, 9]] = swapped[[9, 3]]
+    assert _digest(swapped) != ref

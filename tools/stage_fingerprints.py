@@ -26,8 +26,10 @@ generator). It then fingerprints, in this order:
     one 1-D scan (what the plan used before ``fixed_order_cumsum``);
 and, without ``--lsh-only``: the mimps engine's k-means index (every
 field, the assignment included), k-means sums by ``segment_sums`` and by
-``index_add_`` on that assignment, the mimps plan, ``ivf_decode``'s
-outputs and ``ivf_score``'s on the plan's probes, and the fmbe engine's
+``index_add_`` on that assignment, the fixed-capacity index of a
+``device_index`` engine (every field) and its digest (``_index_digest``),
+the mimps plan, ``ivf_decode``'s outputs and ``ivf_score``'s on the plan's
+probes, ``topk_z`` gated to every other query, and the fmbe engine's
 feature map, pack, block sketch sums and ``fmbe_z`` (on the state's pack)
 on the plan's complement.
 Prints each stage's digests and whether they agree, the card's name and
@@ -101,7 +103,9 @@ def one(lsh_only: bool) -> dict:
     from repro_torch.kernels.fmbe import fmbe_z
     from repro_torch.kernels.ivf_score import ivf_decode, ivf_score
     from repro_torch.models import Model
+    from repro_torch.kernels.topk_z import topk_z
     from repro_torch.serve import Engine
+    from repro_torch.serve.engine import _index_digest
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     cfg = dataclasses.replace(get_config("qwen1.5-4b"), n_layers=LAYERS)
@@ -144,6 +148,17 @@ def one(lsh_only: bool) -> dict:
     out["k-means sums, index_add_"] = digest(
         torch.zeros((n_c, w.shape[1]), device=dev).index_add_(
             0, index.assign.long(), w.float()))
+    dev_eng = Engine(Model(cfg), params, 4, seed=1, device_index=True)
+    didx = dev_eng.index
+    out["capacity index (build_ivf_device, every field)"] = digest(
+        didx.v_blocks, didx.valid, didx.row_id, didx.slot_of_row,
+        didx.block_centroids, didx.block_radius, didx.assign)
+    out["capacity index digest (_index_digest)"] = digest(
+        *_index_digest(didx.v_blocks))
+    del dev_eng, didx
+    rows = (torch.arange(Q, device=dev) % 2).to(torch.int32)
+    out["topk_z gated to every other query"] = digest(
+        *topk_z(h, w, K, rows=rows))
     pc = cfg.partition
     plan = make_plan(index, h, pc.n_probe, pc.l, generator=torch.Generator(
         device=dev).manual_seed(5))
