@@ -39,9 +39,25 @@ GPU.
    LSE (``lsh`` draws its own tail; its gap to the exact log Z is
    recorded).
 5. Serves the model through ``generate`` with each estimator: 8 requests,
-   prompt 16, 16 new tokens, greedy. Each run starts with every kernel's
-   launch count at 0 and must launch the kernels of its path; the lsh run
-   logs its candidate union per step against the trimmed capacity.
+   prompt 16, 16 new tokens, greedy. Each engine's decode step is captured
+   in a CUDA graph first (timed), then ``generate`` replays it once a step,
+   starting with every kernel's launch count at 0: each kernel of the path
+   must launch once a replay or a whole multiple of it. The same requests
+   then go through ``host_loop=True`` from the same generator state: the
+   tokens, log_prob and log_z must be bit-equal. Logs wall ms/step and
+   tokens/s of both, and the captured step's device ms (graph replay).
+   mimps also runs at temperature 1.0 on the same graph, bit-equal to its
+   host loop. The lsh run logs its candidate union per step against the
+   trimmed capacity (at least one step on the trimmed branch), and an lsh
+   engine with ``head_cap`` 64 takes the dense branch on every step,
+   captured and bit-equal too. One captured mimps step with the lanes at
+   positions shifted by 0 to 3 must equal the same step taken eagerly bit
+   for bit (tokens, log_prob, log_z, KV cache). The step parts (trunk and
+   each output layer, lsh included) are timed as CUDA graphs; one replay
+   of the captured mimps step runs under ``torch.profiler`` (kernels a
+   step, time by kernel), and one eager trunk call by kind (projections,
+   attention, norms, RoPE, elementwise), its output bit-equal to the plain
+   trunk's.
 5b. The lifecycle phase (``lifecycle``), on the same parameters: a mimps
    engine with the fixed-capacity index (``device_index=True``: 553
    blocks at qwen1.5-4b) and the health guard on serves the same traffic,
@@ -52,7 +68,10 @@ GPU.
    every state shape and serves a fresh engine's tokens; a two-block
    permutation is caught by ``verify_and_restore`` and the restored index
    and tokens are bit-equal to the clean ones; topk, mince and fmbe serve
-   through ``tier_state`` on the shared index. Each run of the path starts
+   through ``tier_state`` on the shared index. Every run goes through the
+   captured ``generate`` and then the host loop (which records the guard's
+   flags of each step), bit-equal; the runs after the swap and after the
+   restore must each capture afresh. Each run of the path starts
    with the launch counts at 0 and must launch ``ivf_decode``,
    ``union_scores``, ``fmbe_phi``, ``fmbe_z`` and the gated ``topk_z``.
    Times the fixed-capacity build, the swap, the restore and the digest,
@@ -87,8 +106,9 @@ GPU.
 8. The f32 phase: the same model at full width in f32 with its depth cut
    to 4 layers (the one cut). Each estimator builds its engine (the f32
    fmbe build timed, its ``fmbe_phi`` launches all f32) and takes one
-   decode step through ``generate`` with the launch counts at 0; each
-   kernel of its path must launch, and only at f32 (``by_variant``). Every
+   decode step through the captured ``generate`` with the launch counts at
+   0, bit-equal to the host loop's; each kernel of its path must launch,
+   and only at f32 (``by_variant``). Every
    kernel is held to its plain version at f32 at the path's shapes under
    the limits above. The f32 CE pair and ``fmbe_phi`` run on the tensor
    cores on three exact bf16 planes of each f32 operand (omega's +-1 rows
@@ -109,6 +129,7 @@ bf16, the gated ``topk_z`` as ``topk_z[gated]``, then each at f32 as
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -125,6 +146,7 @@ TOL = 1e-3
 CODE_REL = 1e-5                # a code may flip where |proj| <= this * |h||p|
 FMBE_REL = 1e-4                # signed FMBE sums: of sum |terms|, + 1e-6
 N_REQ, PROMPT, NEW = 8, 16, 16
+SERVE_SEED = 11                # the decode generator's seed of a served pair
 PHI_CHUNK_BLOCKS = 16          # blocks per fmbe_phi launch in the build
 # fused CE backward: both versions round coef to bf16, so one coefficient
 # may round one bf16 step (<= 2**-7 relative) apart; + 1e-5 for f32 sums
@@ -307,6 +329,214 @@ def compare_signed_sum(name, got, want, terms):
     return err.max().item(), ratio
 
 
+def capture_runner(torch, eng, tier=None):
+    """Capture ``eng``'s decode step for N_REQ lanes ahead of ``generate``
+    (its warm-up step and the capture, as ``generate`` would on first use).
+    Returns (runner, wall seconds)."""
+    from repro_torch.serve import engine as engine_mod
+    torch.cuda.synchronize()
+    t0 = time.time()
+    run = engine_mod._graph_runner(eng, N_REQ, tier)
+    run.capture(eng)
+    torch.cuda.synchronize()
+    return run, time.time() - t0
+
+
+def served_pair(torch, eng, prompt, n, label, *, temperature=0.0,
+                tier=None, seed=SERVE_SEED, wrap=None, host_first=None):
+    """``generate`` through the captured step, then through the host loop
+    from the same generator state; the tokens, log_prob and log_z must be
+    bit-equal. ``wrap(fn)`` calls the captured run (the main path: a
+    launch count is read there); ``host_first`` runs before the host loop.
+    Returns ((tokens, aux, wall s) captured, (tokens, aux, wall s) host
+    loop)."""
+    from repro_torch.serve import generate
+    runs = []
+    for host_loop in (False, True):
+        def run():
+            eng.generator.manual_seed(seed)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out, aux = generate(eng, prompt, n, return_aux=True,
+                                temperature=temperature, tier=tier,
+                                host_loop=host_loop)
+            torch.cuda.synchronize()
+            return out, aux, time.time() - t0
+        if host_loop and host_first is not None:
+            host_first()
+        runs.append(wrap(run) if wrap is not None and not host_loop
+                    else run())
+    (a, a_aux, _), (b, b_aux, _) = runs
+    check(torch.equal(a, b), f"{label}: captured tokens differ from the "
+          f"host loop's")
+    for name in ("log_prob", "log_z"):
+        check(torch.equal(a_aux[name], b_aux[name]), f"{label}: captured "
+              f"{name} differs from the host loop's")
+    return runs
+
+
+def load_zero(torch, run, prompt, steps):
+    """Reset a captured step for ``steps`` replays of ``prompt`` (step 0,
+    zero draws, temperature 0): a replay past the runner's ``max_len``
+    buffers would index out of range."""
+    tails = (None if run.tails is None else
+             torch.zeros((steps, run.tails.shape[1]), dtype=torch.long,
+                         device=run.tails.device))
+    gumbel = torch.zeros((steps,) + tuple(run.gumbel.shape[1:]),
+                         device=run.gumbel.device)
+    run.load(prompt, tails, gumbel, 0.0)
+
+
+def replay_ms(torch, run, prompt, reps=10, rounds=3):
+    """Device milliseconds of one replay of a captured step: the median of
+    ``rounds`` x ``reps`` replays, each round from step 0 of ``prompt``
+    (CUDA events)."""
+    times = []
+    for _ in range(rounds):
+        load_zero(torch, run, prompt, reps)
+        times.append(_median_events(torch, run.graph.replay, reps))
+    return statistics.median(times)
+
+
+def per_lane_step(torch, eng, prompt, card):
+    """Lanes shifted by 0 to 3 positions replay 4 prompt tokens eagerly
+    (``Engine.decode_step`` on a (B,) position vector); the next step,
+    captured in a CUDA graph and replayed, must equal the same step taken
+    eagerly bit for bit: tokens, log_prob, log_z and the KV cache."""
+    from repro_torch.serve import ServeState
+    pc = eng.cfg.partition
+    b = prompt.shape[0]
+    dev = prompt.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    temp = torch.zeros((), dtype=torch.float32, device=dev)
+    gumbel = torch.zeros((b, pc.sample_k), device=dev)
+    pos0 = (torch.arange(b, device=dev) % 4).to(torch.int32)
+    state = ServeState(cache=eng.model.init_decode_state(b, eng.max_len, dev),
+                       pos=pos0, last_token=prompt[:, 0])
+    for t in range(4):
+        tail = eng.backend.draw_tail(eng.state, pc, gen)
+        state = dataclasses.replace(state, last_token=prompt[:, t])
+        _, state = eng.decode_step(state, temp, tail_idx=tail, gumbel=gumbel)
+    tail = eng.backend.draw_tail(eng.state, pc, gen)
+    state = dataclasses.replace(state, last_token=prompt[:, 4])
+    eager_cache = {name: t.clone() for name, t in state.cache.items()}
+    want, _ = eng.decode_step(dataclasses.replace(state, cache=eager_cache),
+                              temp, tail_idx=tail, gumbel=gumbel)
+
+    def step():
+        return eng.decode_step(state, temp, tail_idx=tail, gumbel=gumbel)[0]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()             # writes the same KV at the same slots
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    for name in ("token", "log_prob", "log_z", "overflow"):
+        check(torch.equal(got[name], want[name]), f"per-lane positions: "
+              f"the captured step's {name} differs from the eager step's")
+    for name in eager_cache:
+        check(torch.equal(state.cache[name], eager_cache[name]),
+              f"per-lane positions: the captured step's KV {name} differs")
+    log(f"per-lane positions {state.pos.tolist()}: one captured "
+        f"{eng.backend.method} step bit-equal to the eager step (tokens, "
+        f"log_prob, log_z, KV cache) [{card}]")
+
+
+# where a decode trunk op runs, by the port function that calls it
+TRUNK_KINDS = {"rmsnorm": "norms", "apply_rope": "RoPE",
+               "rope_frequencies": "RoPE", "_project_qkv": "projections",
+               "_dyn_update": "attention", "decode_position": "position",
+               "embed": "embedding", "tblock_decode": "elementwise",
+               "mlp": "elementwise", "decode_self_attention": "attention"}
+
+
+def trunk_kinds(torch, fn):
+    """Device milliseconds of one eager call of the decode trunk ``fn`` by
+    kind: each torch call is put under a profiler range named by the port
+    function that makes it (``TRUNK_KINDS``; a matmul inside
+    ``decode_self_attention`` or ``mlp`` is a projection). Returns
+    ({kind: (device ms, kernels)}, the trunk's output)."""
+    from torch.autograd import DeviceType
+    from torch.overrides import TorchFunctionMode
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    class Kinds(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            f = sys._getframe(1)
+            while f is not None and "repro_torch" not in \
+                    f.f_code.co_filename:
+                f = f.f_back
+            where = f.f_code.co_name if f is not None else ""
+            kind = TRUNK_KINDS.get(where, "other")
+            if getattr(func, "__name__", "") in ("__matmul__", "matmul"):
+                kind = "projections"
+            with record_function(f"kind:{kind}"):
+                return func(*args, **(kwargs or {}))
+
+    def n_kernels(e):
+        return len(e.kernels) + sum(n_kernels(c) for c in e.cpu_children)
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with Kinds():
+            out = fn()
+        torch.cuda.synchronize()
+    kinds = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("kind:"):
+            ms, n = kinds.get(e.name[5:], (0.0, 0))
+            kinds[e.name[5:]] = (ms + e.device_time_total / 1e3,
+                                 n + n_kernels(e))
+    return kinds, out
+
+
+def step_breakdown(torch, run, eng, params, toks, pos, card):
+    """One replay of a captured bf16 decode step under torch.profiler (its
+    kernels and their device time), and one eager trunk call by kind
+    (``trunk_kinds``), its output bit-equal to the plain call's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    load_zero(torch, run, toks[:, None], 2)
+    run.graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run.graph.replay()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kern:
+        name = e.name.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].removeprefix("void ")[:50]
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    log(f"captured step profile (mimps, one replay): {len(kern)} kernels, "
+        f"{sum(ms for ms, _ in by_name.values()):.3f} ms of kernel time; "
+        f"top by time: "
+        + "; ".join(f"{n} {ms:.3f} ms x{c}" for n, (ms, c) in top)
+        + f" [{card}]")
+    cache = eng.model.init_decode_state(N_REQ, eng.max_len, toks.device)
+    want = eng.model.decode_step(params, cache, toks, pos)
+    kinds, got = trunk_kinds(torch, lambda: eng.model.decode_step(
+        params, cache, toks, pos))
+    check(torch.equal(got, want), "the trunk under the profiler's ranges "
+          "differs from the plain trunk")
+    total = sum(ms for ms, _ in kinds.values())
+    log(f"trunk by kind (eager, 40 layers, kernel time): {total:.3f} ms in "
+        f"{sum(n for _, n in kinds.values())} kernels; "
+        + "; ".join(f"{k} {ms:.3f} ms ({n} kernels)" for k, (ms, n) in
+                    sorted(kinds.items(), key=lambda kv: -kv[1][0]))
+        + f"; weight read bound "
+        f"{sum(t.numel() * t.element_size() for t in _leaves(params['blocks'])) / HBM_BYTES_PER_S * 1e3:.3f} ms [{card}]")
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -377,6 +607,7 @@ def serve(torch, card, kernels):
     from repro_torch.kernels import _build
     from repro_torch.kernels import fmbe as kfmbe
     from repro_torch.kernels.fmbe import fmbe_phi
+    from repro_torch.core.lsh import draw_tail_ids
     from repro_torch.models import Model
     from repro_torch.serve import Engine, generate
 
@@ -540,16 +771,7 @@ def serve(torch, card, kernels):
     totals = {name: 0 for name in kernels}
     totals["fmbe_phi"] = build_counts["fmbe_phi"]        # the fmbe build
     totals["ivf_score"] = ivs.pop("path_launches")    # ops.ivf_block_scores
-    lsh_unions = []
-
-    class RecordingLsh(type(engines["lsh"].backend)):
-        """The lsh backend, keeping each step's measured union (on the
-        device; read after the run)."""
-
-        def decode(self, *args, **kwargs):
-            out = super().decode(*args, **kwargs)
-            lsh_unions.append(out.head_live)
-            return out
+    lsh_backend = engines["lsh"].backend
 
     # every fmbe_pack call from here on: a decode must never pack (it reads
     # degree to the host); the fmbe build made the pack the decode reads
@@ -560,47 +782,117 @@ def serve(torch, card, kernels):
         packs.append(1)
         return real_pack(*args, **kwargs)
 
+    steps = PROMPT + NEW - 1
+    runners = {}
+    path_counts = {}
+
+    def path_run(fn):
+        """A captured run of the main path: the counts from 0, read
+        after."""
+        reset_counts()
+        res = fn()
+        path_counts.update(read_counts())
+        return res
+
     for method, needs in path_kernels.items():
         eng = engines[method]
-        generate(eng, prompt[:, :2], 2)                  # warm-up
-        if method == "lsh":
-            eng.backend = RecordingLsh()
-        torch.cuda.synchronize()
-        reset_counts()
+        run, capture_s = capture_runner(torch, eng)
+        runners[method] = run
         kfmbe.fmbe_pack = counting_pack
-        t0 = time.time()
         try:
-            out, aux = generate(eng, prompt, NEW, return_aux=True)
-            torch.cuda.synchronize()
+            (out, aux, secs), (_, _, host_secs) = served_pair(
+                torch, eng, prompt, NEW, f"serve {method}", wrap=path_run)
         finally:
             kfmbe.fmbe_pack = real_pack
-        secs = time.time() - t0
         check(not packs, f"{method}: the serving run called fmbe_pack "
               f"{len(packs)} times")
-        counts = read_counts()
+        counts = dict(path_counts)
         check(out.shape == (N_REQ, NEW), f"{method}: tokens {out.shape}")
         check(bool(((out >= 0) & (out < cfg.vocab)).all()),
               f"{method}: token out of range")
         check(bool(torch.isfinite(aux["log_z"]).all()),
               f"{method}: log_z not finite")
+        check(eng.captures == 1, f"{method}: {eng.captures} captures")
         for name in needs:
-            check(counts[name] > 0,
-                  f"{method}: the main path never launched {name}")
+            check(counts[name] > 0 and counts[name] % steps == 0,
+                  f"{method}: the main path launched {name} "
+                  f"{counts[name]} times in {steps} replays")
         for name in totals:
             totals[name] += counts[name]
+        dev_ms = replay_ms(torch, run, prompt)
         served[method] = dict(tokens=out.cpu(), counts=counts)
         log(f"serve {method}: {N_REQ} requests x ({PROMPT} prompt + {NEW} "
-            f"new) in {secs:.3f} s, {N_REQ * NEW / secs:.1f} new tokens/s, "
-            f"{secs / (PROMPT + NEW - 1) * 1e3:.2f} ms/step, launches "
-            f"{counts}, fmbe_pack calls {len(packs)} [{card}]")
-    unions = [int(u) for u in lsh_unions]
+            f"new), captured: {secs / steps * 1e3:.3f} ms/step wall, "
+            f"{N_REQ * NEW / secs:.1f} new tokens/s, replay device "
+            f"{dev_ms:.3f} ms/step, capture {capture_s:.3f} s; host loop: "
+            f"{host_secs / steps * 1e3:.3f} ms/step, "
+            f"{N_REQ * NEW / host_secs:.1f} new tokens/s; tokens, log_prob "
+            f"and log_z bit-equal; launches {counts}, fmbe_pack calls "
+            f"{len(packs)} [{card}]")
+
+    # mimps at temperature 1.0: one graph serves every temperature
+    eng = engines["mimps"]
+    (t_out, _, secs), (_, _, host_secs) = served_pair(
+        torch, eng, prompt, NEW, "serve mimps T=1.0", temperature=1.0)
+    check(eng.captures == 1, "mimps at temperature 1.0 captured again")
+    log(f"serve mimps at temperature 1.0: captured {secs / steps * 1e3:.3f} "
+        f"ms/step, host loop {host_secs / steps * 1e3:.3f} ms/step, "
+        f"bit-equal, {(t_out.cpu() != served['mimps']['tokens']).sum()} of "
+        f"{t_out.numel()} tokens differ from greedy [{card}]")
+
+    # the lsh branches, each captured and bit-equal to the eager loop; the
+    # eager loop records each step's union
     cap = lsp["trimmed_capacity"]
-    check(len(unions) == PROMPT + NEW - 1, f"lsh: {len(unions)} steps "
-          f"recorded")
+
+    def lsh_unions(eng, label):
+        unions = []
+
+        class RecordingLsh(type(lsh_backend)):
+            def decode(self, *args, **kwargs):
+                out = super().decode(*args, **kwargs)
+                unions.append(out.head_live)
+                return out
+
+        eng.backend = RecordingLsh()
+        try:
+            eng.generator.manual_seed(SERVE_SEED)
+            generate(eng, prompt, NEW, host_loop=True)
+        finally:
+            eng.backend = lsh_backend
+        unions = [int(u) for u in unions]
+        check(len(unions) == steps, f"{label}: {len(unions)} steps recorded")
+        return unions
+
+    unions = lsh_unions(engines["lsh"], "lsh")
+    n_trim = sum(u <= cap for u in unions)
+    check(n_trim > 0, "lsh: no step took the trimmed branch")
     log(f"serve lsh: candidate union per step (trimmed capacity {cap}): "
-        f"{unions}; trimmed branch on {sum(u <= cap for u in unions)} of "
-        f"{len(unions)} steps, dense fallback on "
-        f"{sum(u > cap for u in unions)}")
+        f"{unions}; trimmed branch on {n_trim} of {len(unions)} steps, "
+        f"dense fallback on {len(unions) - n_trim}")
+    dense_cap = 64
+    dense_eng = Engine(Model(dataclasses.replace(cfg, partition=
+                                                 dataclasses.replace(
+                                                     cfg.partition,
+                                                     method="lsh",
+                                                     head_cap=dense_cap))),
+                       params, max_len, seed=1, lsh_proj=lidx.proj)
+    run, capture_s = capture_runner(torch, dense_eng)
+    (_, d_aux, secs), (_, _, host_secs) = served_pair(
+        torch, dense_eng, prompt, NEW, "serve lsh dense", wrap=path_run)
+    check(path_counts["lsh_probe"] == steps,
+          f"lsh dense: {path_counts['lsh_probe']} lsh_probe launches")
+    totals["lsh_probe"] += path_counts["lsh_probe"]
+    d_unions = lsh_unions(dense_eng, "lsh dense")
+    check(all(u > dense_cap for u in d_unions), f"lsh with head_cap "
+          f"{dense_cap}: a step kept the trimmed branch ({d_unions})")
+    d_ms = replay_ms(torch, run, prompt)
+    log(f"serve lsh dense (head_cap {dense_cap}, every step's union "
+        f"{min(d_unions)}-{max(d_unions)} rows past it): captured "
+        f"{secs / steps * 1e3:.3f} ms/step, replay device {d_ms:.3f} "
+        f"ms/step, host loop {host_secs / steps * 1e3:.3f} ms/step, "
+        f"bit-equal [{card}]")
+    del dense_eng, run
+
     for rec in (tz, ivf, uni, fph, fz, lsp, ivs):
         rec["launches"] = totals[rec["name"]]
     for rec in (tz, ivf, uni, fz, lsp, ivs):       # the decode kernels
@@ -612,26 +904,29 @@ def serve(torch, card, kernels):
             log(f"share of {method} greedy tokens equal to {ref}'s: "
                 f"{share:.4f}")
 
+    # lanes at different positions: one captured step bit-equal to eager
+    per_lane_step(torch, engines["mimps"], prompt, card)
+
     # where a decode step's time goes: trunk vs output layer, host clock
     # (synchronised) beside device time (CUDA graph replay)
+    pos1 = torch.ones((), dtype=torch.int32, device=dev)
+    lsh_tail = draw_tail_ids(lidx, pc.l, gen)
     parts = [("trunk", lambda: exact_eng.model.decode_step(
-        params, cache, toks, 1))]
+        params, cache, toks, pos1))]
     parts += [(f"{m} output", lambda m=m: decode(m))
               for m in ("exact", "mimps", "topk", "mince", "fmbe",
                         "selfnorm")]
+    parts.append(("lsh output", lambda: engines["lsh"].backend.decode(
+        engines["lsh"].state, h, pc, k=k, tail_idx=lsh_tail)))
     for name, fn in parts:
         log(f"step part {name}: wall {wall_ms(torch, fn):.3f} ms, "
             f"device {time_ms(torch, fn):.3f} ms [{card}]")
-    # the lsh plan reads its union size back to the host (the branch), so
-    # it cannot be captured in a CUDA graph: events around eager calls
-    def lsh_out():
-        return decode("lsh")
-
-    log(f"step part lsh output: wall {wall_ms(torch, lsh_out):.3f} ms, "
-        f"events around an eager call {eager_ms(torch, lsh_out):.3f} ms "
-        f"[{card}]")
+    step_breakdown(torch, runners["mimps"], exact_eng, params, toks, pos1,
+                   card)
+    del runners
     records = [tz, ivf, uni, fph, fz, lsp, ivs]
     del engines, exact_eng, cache, fstate, fm, lidx, index, plan
+    gc.collect()
     torch.cuda.empty_cache()
     gated, life = lifecycle(torch, card, kernels, params, cfg, floor)
     for rec in records:
@@ -652,9 +947,12 @@ def lifecycle(torch, card, kernels, params, cfg, floor):
     ``verify_and_restore``, the restored tensors and the tokens after it
     equal to the clean ones bit for bit. ``shadow_exact_log_z`` must equal
     the exact tier's log Z bit for bit. Then topk, mince and fmbe serve
-    through ``tier_state`` on the shared index. Every run reseeds the
-    engines' decode generators (the same tail draws); each run of the path
-    starts with the launch counts at 0. Times the build, swap, restore and
+    through ``tier_state`` on the shared index. Every run goes through the
+    captured ``generate`` and then the host loop (which records the guard's
+    flags), bit-equal, each reseeding the engine's decode generator (the
+    same tail draws); the runs after the swap and after the restore must
+    each capture afresh. Each captured run of the path starts with the
+    launch counts at 0. Times the build, swap, restore and
     digest, the gated ``topk_z`` with no query and with every query
     flagged, and a guarded against an unguarded output layer (CUDA graph
     replay, which also shows the guard makes no host read). Returns the
@@ -665,7 +963,7 @@ def lifecycle(torch, card, kernels, params, cfg, floor):
     from repro_torch.kernels import _build
     from repro_torch.kernels.topk_z import NEG, topk_z, topk_z_plain
     from repro_torch.models import Model
-    from repro_torch.serve import Engine, generate
+    from repro_torch.serve import Engine
     from repro_torch.serve import engine as engine_mod
 
     dev = torch.device("cuda")
@@ -700,22 +998,27 @@ def lifecycle(torch, card, kernels, params, cfg, floor):
         return out, flags
 
     def serve_run(eng, label, *, on_path=True, tier=None):
-        eng.generator.manual_seed(seed)
-        flags_log.clear()
-        t0 = time.time()
-        fn = lambda: generate(eng, prompt, NEW, return_aux=True, tier=tier)
-        out, aux = counted(fn) if on_path else fn()
-        torch.cuda.synchronize()
-        secs = time.time() - t0
+        """``generate`` through the captured step (the path, when
+        ``on_path``), then the host loop, bit-equal; the host loop records
+        the guard's flags of every step."""
+        captures = eng.captures
+        (out, aux, secs), (_, _, host_secs) = served_pair(
+            torch, eng, prompt, NEW, f"lifecycle {label}", tier=tier,
+            seed=seed, wrap=counted if on_path else None,
+            host_first=flags_log.clear)
         check(out.shape == (N_REQ, NEW), f"lifecycle {label}: tokens "
               f"{out.shape}")
         check(bool(torch.isfinite(aux["log_z"]).all()),
               f"lifecycle {label}: log_z not finite")
         flagged = [int((f > 0).sum()) for f in flags_log]
-        log(f"lifecycle {label}: {N_REQ * NEW / secs:.1f} new tokens/s, "
-            f"flagged queries per step {flagged if any(flagged) else 0} "
-            f"[{card}]")
-        return out, aux, flagged
+        if eng.health_guard:
+            check(len(flagged) == PROMPT + NEW - 1, f"lifecycle {label}: "
+                  f"{len(flagged)} guarded steps recorded")
+        log(f"lifecycle {label}: captured {N_REQ * NEW / secs:.1f} new "
+            f"tokens/s, host loop {N_REQ * NEW / host_secs:.1f}, bit-equal, "
+            f"{eng.captures - captures} captures, flagged queries per step "
+            f"{flagged if any(flagged) else 0} [{card}]")
+        return out, aux, flagged, eng.captures - captures
 
     engine_mod.apply_health_guard = recording_guard
     try:
@@ -747,10 +1050,11 @@ def lifecycle(torch, card, kernels, params, cfg, floor):
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
 
         # -- guarded healthy run against the unguarded one ---------------------
-        toks, aux, flagged = serve_run(eng, "mimps guarded")
+        toks, aux, flagged, _ = serve_run(eng, "mimps guarded")
         check(not any(flagged), f"a healthy run flagged {flagged}")
         eng.health_guard = False
-        u_toks, u_aux, _ = serve_run(eng, "mimps unguarded", on_path=False)
+        u_toks, u_aux, _, _ = serve_run(eng, "mimps unguarded",
+                                        on_path=False)
         eng.health_guard = True
         for name in ("log_z", "log_prob"):
             check(torch.equal(aux[name], u_aux[name]),
@@ -763,7 +1067,7 @@ def lifecycle(torch, card, kernels, params, cfg, floor):
         poisoned = idx._replace(v_blocks=torch.full_like(idx.v_blocks,
                                                          float("nan")))
         eng._install_state(dataclasses.replace(clean, index=poisoned))
-        p_toks, p_aux, flagged = serve_run(eng, "mimps poisoned index")
+        p_toks, p_aux, flagged, _ = serve_run(eng, "mimps poisoned index")
         check(len(flagged) == PROMPT + NEW - 1 and
               all(f == N_REQ for f in flagged),
               f"poisoned run flagged {flagged} queries per step, want every "
@@ -773,7 +1077,7 @@ def lifecycle(torch, card, kernels, params, cfg, floor):
         exact = Engine(Model(dataclasses.replace(
             cfg, partition=dataclasses.replace(pc, method="exact"))),
             params, max_len, seed=seed)
-        e_toks, e_aux, _ = serve_run(exact, "exact", on_path=False)
+        e_toks, e_aux, _, _ = serve_run(exact, "exact", on_path=False)
         check(torch.equal(p_toks, e_toks), "poisoned guarded tokens differ "
               "from the exact engine's")
         check(torch.equal(p_aux["log_z"], e_aux["log_z"]), "poisoned guarded "
@@ -820,13 +1124,15 @@ def lifecycle(torch, card, kernels, params, cfg, floor):
         swap_s = time.time() - t0
         check(engine_mod._shapes(eng.state) == before,
               "swap_index changed a state shape")
-        s_toks, s_aux, _ = serve_run(eng, "mimps after swap")
+        s_toks, s_aux, _, s_caps = serve_run(eng, "mimps after swap")
+        check(s_caps == 1, f"the run after swap_index captured {s_caps} "
+              f"times, want once afresh")
         fresh = Engine(Model(cfg), new_params, max_len, seed=seed,
                        device_index=True, health_guard=True)
         for a, b in zip(fresh.index, eng.index):
             check(a == b if isinstance(a, int) else torch.equal(a, b),
                   "the swapped index differs from a fresh build's")
-        f_toks, f_aux, _ = serve_run(fresh, "fresh engine on the new head",
+        f_toks, f_aux, _, _ = serve_run(fresh, "fresh engine on the new head",
                                      on_path=False)
         del fresh
         check(torch.equal(s_toks, f_toks), "swapped tokens differ from a "
@@ -856,7 +1162,9 @@ def lifecycle(torch, card, kernels, params, cfg, floor):
             check(torch.equal(a, b), "the restored index differs from the "
                   "clean one")
         del clean_t
-        r_toks, r_aux, _ = serve_run(eng, "mimps after restore")
+        r_toks, r_aux, _, r_caps = serve_run(eng, "mimps after restore")
+        check(r_caps == 1, f"the run after the restore captured {r_caps} "
+              f"times, want once afresh")
         check(torch.equal(r_toks, s_toks) and
               torch.equal(r_aux["log_z"], s_aux["log_z"]),
               "tokens after the restore differ from the fault-free run's")
@@ -1277,8 +1585,8 @@ def lsh_probe_phase(torch, card, lidx, w, h, pc, k, gen, tag=""):
     the dense fallback that a small ``head_cap`` forces. Returns the
     kernel's record (the trimmed branch's numbers, the dense branch's under
     ``dense_*``)."""
-    from repro_torch.core.lsh import (_collide, _with_trimmed_cands,
-                                      lsh_plan, resolve_cand_cap)
+    from repro_torch.core.lsh import (_collide, device_cands, lsh_plan,
+                                      resolve_cand_cap)
     from repro_torch.kernels.lsh_probe import (lsh_probe, lsh_probe_plain,
                                                lsh_query_codes)
     q, d = h.shape
@@ -1310,8 +1618,12 @@ def lsh_probe_phase(torch, card, lidx, w, h, pc, k, gen, tag=""):
         f"{CODE_REL} of 0 relative)")
 
     def hold(label, plan_b):
-        rows, member, col_live = _with_trimmed_cands(plan_b,
-                                                     lambda *a: a)
+        # the main path's columns: width V, the branch chosen on the device
+        rows, col_live = device_cands(plan_b)
+        c = rows.shape[0]
+        n_live = min(int(col_live), c)
+        member = plan_b.occ_q[:, rows.long()] & \
+            (torch.arange(c, device=h.device) < n_live)[None, :]
         args = (w, h, lidx.proj, rows, col_live, lidx.codes,
                 lidx.slot_of_row, plan_b.tail_ids, plan_b.tail_accept,
                 plan_b.tail_bias)
@@ -1327,8 +1639,6 @@ def lsh_probe_phase(torch, card, lidx, w, h, pc, k, gen, tag=""):
         err_v, n_ids = compare_topk(f"lsh_probe {label}", tv, ti, p_v, p_i)
         check(torch.equal(cnt, p_cnt), f"lsh_probe {label}: counts differ "
               f"from the plain version's")
-        c = rows.shape[0]
-        n_live = min(int(col_live), c)
         # membership: the plan's, or for a query whose code flipped at a
         # projection within CODE_REL of 0, that of the kernel's codes
         want = member.clone()
@@ -1350,11 +1660,12 @@ def lsh_probe_phase(torch, card, lidx, w, h, pc, k, gen, tag=""):
                    + q * c * 4 + q * (8 + 8 * k))
         bound, by = bound_ms(n_bytes, 2 * q * (n_live + n_tail) * d,
                              f32_ops=2 * q * ltab * kbits * d)
-        ids, t_ids = rows.long(), plan_b.tail_ids.long()
+        ids, t_ids = rows[:n_live].long(), plan_b.tail_ids.long()
+        member_live = member[:, :n_live]
 
-        def library():
+        def library():             # over the live columns only
             s = torch.matmul(h, w[ids].T).float()
-            eff = torch.where(member, s, torch.full_like(s, -1e30))
+            eff = torch.where(member_live, s, torch.full_like(s, -1e30))
             ts = torch.matmul(h, w[t_ids].T).float() + plan_b.tail_bias
             tl_ = torch.logsumexp(torch.where(plan_b.tail_accept, ts,
                                               torch.full_like(ts, -1e30)), -1)
@@ -1382,6 +1693,16 @@ def lsh_probe_phase(torch, card, lidx, w, h, pc, k, gen, tag=""):
         return rec
 
     trimmed = hold(f"trimmed{tag}", plan)
+    # the trimmed union at its own width, as the host-chosen branch ran it
+    narrow = (w, h, lidx.proj, plan.cand_rows, plan.cand_live, lidx.codes,
+              lidx.slot_of_row, plan.tail_ids, plan.tail_accept,
+              plan.tail_bias)
+    trimmed["capacity_width_ms"] = time_ms(torch,
+                                           lambda: lsh_probe(*narrow, k=k))
+    log(f"lsh_probe trimmed{tag} at the capacity's width "
+        f"({plan.cand_rows.shape[0]} columns, as the host-chosen branch "
+        f"ran it): {trimmed['capacity_width_ms']:.4f} ms, at width V "
+        f"{trimmed['ms']:.4f} ms [{card}]")
     dense_plan = lsh_plan(lidx, h, pc.l, tail_ids=plan.tail_ids,
                           cand_cap=64)
     check(int(dense_plan.cand_live) > 64, "lsh: head_cap 64 kept the union")
@@ -1824,9 +2145,9 @@ def f32_phase(torch, card, kernels):
     """Phase 8: qwen1.5-4b at full width in f32 (d 2560, 20 heads of 128,
     d_ff 6912, vocab 151936), depth cut to F32_LAYERS, the one cut. Each
     serving method builds its engine (the fmbe build timed, its fmbe_phi
-    launches all f32) and takes one decode step through ``generate`` with
-    the launch counts at 0; each kernel of its path must launch, and only
-    at f32. Each kernel is held to its plain version at f32 at the path's
+    launches all f32) and takes one decode step through the captured
+    ``generate`` with the launch counts at 0, bit-equal to the host loop's;
+    each kernel of its path must launch, and only at f32. Each kernel is held to its plain version at f32 at the path's
     shapes, under the bf16 phases' limits. Then F32_STEPS ``fused_ce``
     train steps, one f32 launch of each CE kernel a step, and the f32 CE
     pair against its plain versions (nll/lse to 1e-3, dh and dW to
@@ -1839,7 +2160,7 @@ def f32_phase(torch, card, kernels):
     from repro_torch.kernels import _build
     from repro_torch.kernels.fmbe import fmbe_phi
     from repro_torch.models import Model
-    from repro_torch.serve import Engine, generate
+    from repro_torch.serve import Engine
     from repro_torch.train import init_train_state, make_train_step
 
     tag = "[f32]"
@@ -1890,12 +2211,19 @@ def f32_phase(torch, card, kernels):
             check(h.dtype == torch.float32, f"f32 trunk gave {h.dtype}")
             log(f"f32 hidden states: Q {h.shape[0]}, |h|_2 mean "
                 f"{h.norm(dim=-1).mean().item():.2f}")
-        _build.reset_counts(kernels.values())
-        t0 = time.time()
-        out, aux = generate(eng, prompt, 1, return_aux=True)
-        torch.cuda.synchronize()
-        secs = time.time() - t0
-        counts = {name: dict(fn.by_variant) for name, fn in kernels.items()}
+        path = {}
+
+        def path_run(fn):
+            _build.reset_counts(kernels.values())
+            res = fn()
+            path.update({name: (fn_.launches, dict(fn_.by_variant))
+                         for name, fn_ in kernels.items()})
+            return res
+
+        (out, aux, secs), (_, _, host_secs) = served_pair(
+            torch, eng, prompt, 1, f"f32 serve {method}", wrap=path_run)
+        check(eng.captures == 1, f"f32 {method}: {eng.captures} captures")
+        counts = {name: c for name, (_, c) in path.items()}
         check(out.shape == (N_REQ, 1), f"f32 {method}: tokens {out.shape}")
         check(bool(torch.isfinite(aux["log_z"]).all()),
               f"f32 {method}: log_z not finite")
@@ -1903,10 +2231,12 @@ def f32_phase(torch, card, kernels):
             check(counts[name]["f32"] > 0 and counts[name]["bf16"] == 0,
                   f"f32 {method}: {name} launched {counts[name]}, want f32 "
                   f"only")
-        for name, fn in kernels.items():
-            totals[name] += fn.launches + build[name]
-        log(f"f32 serve {method}: one decode step of {N_REQ} requests in "
-            f"{secs * 1e3:.1f} ms, log_z {aux['log_z'][:, 0].tolist()}, "
+        for name, (n, _) in path.items():
+            totals[name] += n + build[name]
+        log(f"f32 serve {method}: one decode step of {N_REQ} requests, "
+            f"captured (warm-up step, capture, replay) {secs * 1e3:.1f} ms, "
+            f"host loop {host_secs * 1e3:.1f} ms, bit-equal, log_z "
+            f"{aux['log_z'][:, 0].tolist()}, "
             f"launches by dtype "
             f"{ {n: c for n, c in counts.items() if c['f32'] or c['bf16']} } "
             f"[{card}]")
@@ -1941,6 +2271,7 @@ def f32_phase(torch, card, kernels):
             records["lsh_probe"] = lsh_probe_phase(
                 torch, card, eng.state.lsh, eng.state.w, h, pc, k, gen, tag)
         del eng
+        gc.collect()
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()

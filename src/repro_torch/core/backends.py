@@ -19,8 +19,9 @@ from .. import resolve_device
 from ..configs.base import PartitionConfig
 from . import lsh as _lsh
 from . import mips as _mips
-from .decode import (DecodeOut, exact_topk_decode, fmbe_decode, mimps_decode,
-                     mince_decode, selfnorm_decode, topk_head_decode)
+from .decode import (DecodeOut, draw_tail_idx, exact_topk_decode,
+                     fmbe_decode, mimps_decode, mince_decode,
+                     selfnorm_decode, topk_head_decode)
 from ..kernels.fmbe import pack_if_needed
 from .feature_maps import (FeatureMap, FMBEState, build_fmbe,
                            build_fmbe_blocks, fmbe_z_batch, make_feature_map)
@@ -112,6 +113,19 @@ class EstimatorBackend:
                active: Optional[torch.Tensor] = None) -> DecodeOut:
         raise NotImplementedError
 
+    def has_tail(self, state: BackendState) -> bool:
+        """Whether ``decode`` on this state samples a shared tail (and so
+        reads ``tail_idx`` or draws from ``generator``)."""
+        return False
+
+    def draw_tail(self, state: BackendState, cfg: PartitionConfig,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+        """The ``tail_idx`` that ``decode`` would draw from ``generator``
+        for one step, where ``has_tail``. Drawn ahead of the step, it lets
+        a captured step draw nothing."""
+        raise ValueError(f"{self.method}: this state samples no tail")
+
     def embedding_floats(self, state: BackendState, cfg: PartitionConfig,
                          q: int, u: Optional[int] = None) -> int:
         """Embedding floats one decode step of ``q`` queries touches (``u``:
@@ -166,6 +180,7 @@ class SelfnormBackend(EstimatorBackend):
 
 class _IndexedBackend(EstimatorBackend):
     """A backend whose state is the block-IVF index."""
+    samples_tail = True          # draws the plan's shared uniform tail
 
     def build(self, cfg, w, *, generator=None, assign=None, feature_map=None,
               lsh_proj=None, device="cuda", device_index=False,
@@ -176,6 +191,12 @@ class _IndexedBackend(EstimatorBackend):
                                    device_index=device_index,
                                    block_multiple=block_multiple)
         return state
+
+    def has_tail(self, state):
+        return self.samples_tail and state.index is not None
+
+    def draw_tail(self, state, cfg, generator=None):
+        return draw_tail_idx(state.index, cfg.l, generator)
 
     def embedding_floats(self, state, cfg, q, u=None):
         """Centroids, the deduplicated head blocks, the shared tail rows
@@ -219,6 +240,7 @@ class TopkBackend(_IndexedBackend):
     """Head-only retrieval: MIMPS's candidates, log Ẑ the probed head's LSE
     (no tail)."""
     method = "topk"
+    samples_tail = False
 
     def decode(self, state, h, cfg, *, k=1, use_kernel=True, generator=None,
                tail_idx=None, active=None):
@@ -310,6 +332,12 @@ class LshBackend(EstimatorBackend):
                                cand_cap=cfg.head_cap, use_kernel=use_kernel,
                                generator=generator, tail_ids=tail_idx,
                                active=active)
+
+    def has_tail(self, state):
+        return state.lsh is not None
+
+    def draw_tail(self, state, cfg, generator=None):
+        return _lsh.draw_tail_ids(state.lsh, cfg.l, generator)
 
     def embedding_floats(self, state, cfg, q, u=None):
         """Embedding floats one decode step of ``q`` queries touches:

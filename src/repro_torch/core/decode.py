@@ -76,6 +76,17 @@ def plan_heads(block_ids: torch.Tensor, capacity: int):
     return head_ids, member, n_unique
 
 
+def draw_tail_idx(index: _mips.IVFIndex, l: int,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """``l`` uniform tail row ids over the index's original rows, from
+    ``generator``. They do not depend on the hidden states, so a caller may
+    draw them ahead of the step (``serve.generate`` fills a buffer a
+    step)."""
+    return torch.randint(0, index.n, (l,), generator=generator,
+                         device=index.v_blocks.device)
+
+
 def plan_tail(index: _mips.IVFIndex, l: int, block_ids: torch.Tensor, *,
               generator: Optional[torch.Generator] = None,
               tail_idx: Optional[torch.Tensor] = None):
@@ -85,8 +96,7 @@ def plan_tail(index: _mips.IVFIndex, l: int, block_ids: torch.Tensor, *,
     from ``generator`` or given as ``tail_idx (l,)``."""
     dev = block_ids.device
     if tail_idx is None:
-        tail_idx = torch.randint(0, index.n, (l,), generator=generator,
-                                 device=dev)
+        tail_idx = draw_tail_idx(index, l, generator)
     slots = index.slot_of_row[torch.as_tensor(tail_idx, device=dev).long()]
     tb = torch.div(slots, index.block_rows, rounding_mode="floor") \
         .to(torch.int32)

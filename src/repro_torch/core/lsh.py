@@ -325,6 +325,19 @@ def resolve_cand_cap(cand_cap: int, index: LSHIndex, n: int) -> int:
     return min(cand_cap, n)
 
 
+def draw_tail_ids(index: LSHIndex, l: int,
+                  generator: Optional[torch.Generator] = None, *,
+                  logp: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plan's ``l`` shared tail row ids (int32), drawn from the
+    defensive-mixture proposal with uniforms from ``generator``. They depend
+    on the index and the draw only, so a caller may draw them ahead of the
+    step (``serve.generate`` fills a buffer a step)."""
+    if logp is None:
+        logp = _tail_log_probs(index)
+    u = torch.rand((max(l, 1),), generator=generator, device=logp.device)
+    return inverse_cdf_sample(logp, u)[:l]
+
+
 def lsh_plan(index: LSHIndex, h: torch.Tensor, l: int, *,
              generator: Optional[torch.Generator] = None,
              tail_ids: Optional[torch.Tensor] = None,
@@ -364,8 +377,7 @@ def lsh_plan(index: LSHIndex, h: torch.Tensor, l: int, *,
 
     logp_all = _tail_log_probs(index)
     if tail_ids is None:
-        u = torch.rand((max(l, 1),), generator=generator, device=dev)
-        tail_ids = inverse_cdf_sample(logp_all, u)[:l]
+        tail_ids = draw_tail_ids(index, l, generator, logp=logp_all)
     tail_ids = torch.as_tensor(tail_ids, device=dev).to(torch.int32)
     tail_bias = -(logp_all[tail_ids.long()] + math.log(float(n)))
     tail_accept = ~occ_q[:, tail_ids.long()]
@@ -383,7 +395,9 @@ def _with_trimmed_cands(plan: LshPlan, branch_fn):
     every vocabulary row with ``occ_q`` as the membership (identical math).
 
     The choice is made on the host: it reads ``cand_live`` back, one device
-    synchronisation per decode step whenever the capacity is below V."""
+    synchronisation per decode step whenever the capacity is below V. The
+    plain branch only; the kernel branch chooses on the device
+    (``device_cands``)."""
     capacity = plan.cand_rows.shape[0]
     n = plan.occ_q.shape[1]
     if capacity >= n or int(plan.cand_live) <= capacity:
@@ -392,6 +406,29 @@ def _with_trimmed_cands(plan: LshPlan, branch_fn):
     return branch_fn(torch.arange(n, dtype=torch.int32, device=dev),
                      plan.occ_q, torch.tensor(n, dtype=torch.int32,
                                               device=dev))
+
+
+def device_cands(plan: LshPlan):
+    """The candidate columns of ``lsh_probe`` with the trimmed-or-dense
+    choice of ``_with_trimmed_cands`` made on the device, as the JAX
+    package's ``lax.cond`` makes it: ``(rows (V,) int32, live () int32)``.
+    ``rows`` holds the compact union (zero past it) when the union fits its
+    static capacity, else every row id; ``live`` is the union's size, or V.
+    One launch at width V serves both branches, since the kernel reads only
+    the ``live`` leading columns and writes 0 counts past them; nothing is
+    read to the host, so the decode can be captured in a CUDA graph."""
+    capacity = plan.cand_rows.shape[0]
+    n = plan.occ_q.shape[1]
+    if capacity >= n:
+        return plan.cand_rows, plan.cand_live
+    dev = plan.occ_q.device
+    fits = plan.cand_live <= capacity
+    rows = torch.where(
+        fits, torch.nn.functional.pad(plan.cand_rows, (0, n - capacity)),
+        torch.arange(n, dtype=torch.int32, device=dev))
+    live = torch.where(fits, plan.cand_live,
+                       torch.full_like(plan.cand_live, n))
+    return rows, live
 
 
 # ---------------------------------------------------------------------------
@@ -409,19 +446,19 @@ def lsh_decode(index: LSHIndex, w: torch.Tensor, h: torch.Tensor, *, l: int,
     The index supplies routing only: candidate and tail rows are read from
     the live ``w``. ``use_kernel=True`` goes through
     ``kernels.lsh_probe.lsh_probe`` (the CUDA kernel on a GPU tensor, its
-    plain version on a CPU tensor); ``use_kernel=False`` is the reference
-    branch of the JAX package's XLA path (one gather, one matmul over head
-    and tail rows)."""
+    plain version on a CPU tensor), with the trimmed-or-dense choice made on
+    the device (``device_cands``: no host read); ``use_kernel=False`` is the
+    reference branch of the JAX package's XLA path (one gather, one matmul
+    over head and tail rows), which reads the union size to the host."""
     if l < 1:
         raise ValueError("lsh_decode needs at least one tail sample (l >= 1)")
     plan = lsh_plan(index, h, l, generator=generator, tail_ids=tail_ids,
                     active=active, cand_cap=cand_cap)
     if use_kernel:
-        def branch(rows, member, col_live):
-            del member           # the kernel recomputes membership
-            return lsh_probe(w, h, index.proj, rows, col_live, index.codes,
-                             index.slot_of_row, plan.tail_ids,
-                             plan.tail_accept, plan.tail_bias, k=k)[:4]
+        rows, live = device_cands(plan)
+        head_lse, tail_lse, topv, topi = lsh_probe(
+            w, h, index.proj, rows, live, index.codes, index.slot_of_row,
+            plan.tail_ids, plan.tail_accept, plan.tail_bias, k=k)[:4]
     else:
         tail_rows = w[plan.tail_ids.long()].float()
 
@@ -437,7 +474,7 @@ def lsh_decode(index: LSHIndex, w: torch.Tensor, h: torch.Tensor, *, l: int,
                 scores[:, c:] + plan.tail_bias[None, :], plan.tail_accept)
             return torch.logsumexp(eff, -1), tail_lse, topv, topi
 
-    head_lse, tail_lse, topv, topi = _with_trimmed_cands(plan, branch)
+        head_lse, tail_lse, topv, topi = _with_trimmed_cands(plan, branch)
     log_z = combine_head_tail_lse(head_lse, tail_lse,
                                   (index.n - plan.k_eff).float(),
                                   plan.n_accept)

@@ -170,6 +170,10 @@ def f32_flag(name: str, **tensors) -> int:
     return KERNEL_DTYPES[dtypes.pop()]
 
 
+# every wrapper given its counts by ``counted``
+COUNTED: list = []
+
+
 def counted(fn):
     """Gives a kernel wrapper its launch counts: ``fn.launches``, the total,
     ``fn.by_variant``, launches by input dtype ("bf16" or "f32"), and
@@ -178,6 +182,7 @@ def counted(fn):
     fn.launches = 0
     fn.by_variant = {"bf16": 0, "f32": 0}
     fn.gated = 0
+    COUNTED.append(fn)
     return fn
 
 
@@ -193,3 +198,40 @@ def reset_counts(fns) -> None:
         fn.launches = 0
         fn.by_variant = {"bf16": 0, "f32": 0}
         fn.gated = 0
+
+
+# A wrapper counts when it launches, in Python; a CUDA graph replays its
+# launches without running the wrapper. A graph's owner therefore takes the
+# counts its capture added (``snapshot`` before, ``counts_since`` after),
+# puts them back (``restore``: a capture launches nothing) and adds them
+# once a replay (``add_counts``).
+
+def snapshot() -> dict:
+    return {fn: (fn.launches, dict(fn.by_variant), fn.gated)
+            for fn in COUNTED}
+
+
+def restore(snap: dict) -> None:
+    for fn, (launches, by_variant, gated) in snap.items():
+        fn.launches, fn.by_variant, fn.gated = launches, dict(by_variant), \
+            gated
+
+
+def counts_since(snap: dict) -> dict:
+    """The launches each wrapper counted since ``snap``, as
+    ``{fn: (launches, by_variant, gated)}`` for the wrappers that moved."""
+    out = {}
+    for fn, (launches, by_variant, gated) in snap.items():
+        if fn.launches != launches:
+            out[fn] = (fn.launches - launches,
+                       {k: fn.by_variant[k] - by_variant[k]
+                        for k in by_variant}, fn.gated - gated)
+    return out
+
+
+def add_counts(delta: dict) -> None:
+    for fn, (launches, by_variant, gated) in delta.items():
+        fn.launches += launches
+        for k, n in by_variant.items():
+            fn.by_variant[k] += n
+        fn.gated += gated

@@ -1,7 +1,8 @@
 """Self-attention (counterpart of ``repro.models.attention``, without the
-cross-attention and lane-window paths): the chunked causal attention of
-training and prefill, and the cached decode step. GQA stays grouped: query
-heads are viewed as ``(n_kv, g, hd)`` and KV heads are never repeated."""
+cross-attention path): the chunked causal attention of training and
+prefill, the cached decode step at a shared or a per-lane position, and the
+lane-window KV ops of the prefix cache. GQA stays grouped: query heads are
+viewed as ``(n_kv, g, hd)`` and KV heads are never repeated."""
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional
@@ -90,32 +91,122 @@ def self_attention(p: Params, x: torch.Tensor, cfg, *, window: int = 0,
     return o.reshape(*x.shape[:-1], -1) @ p["wo"]
 
 
-def _dyn_update(buf: torch.Tensor, row: torch.Tensor, slot: int) -> None:
+class DecodePosition(NamedTuple):
+    """One decode step's position, made once a step and read by every
+    layer (``decode_position``)."""
+    pos: torch.Tensor    # 0-d or (B,) int: the absolute position
+    rope: torch.Tensor   # (1,) | (B, 1): positions for ``apply_rope``
+    slot: torch.Tensor   # 0-d or (B,) int64: the KV slot written
+    mask: torch.Tensor   # (S,) | (B, 1, 1, 1, S) bool: the slots attended
+
+
+def decode_position(pos: torch.Tensor, s_max: int,
+                    window: int = 0) -> DecodePosition:
+    """The device tensors a decode step derives from its position ``pos``
+    (0-d, shared by the batch, or (B,), one a lane) for a cache of
+    ``s_max`` slots: the ring slot ``pos % window`` of a sliding-window
+    cache, clamped into the cache as ``lax.dynamic_update_slice`` clamps,
+    and the mask of the ``min(pos + 1, s_max)`` valid slots. Nothing is
+    read to the host."""
+    per_lane = pos.dim() == 1
+    slot = (pos % window) if window else pos
+    slot = torch.clamp(slot.long(), 0, s_max - 1)
+    valid = torch.clamp(pos + 1, max=s_max)
+    kv_idx = torch.arange(s_max, device=pos.device)
+    if per_lane:
+        mask = (kv_idx[None, :] < valid[:, None])[:, None, None, None, :]
+    else:
+        mask = kv_idx < valid
+    return DecodePosition(pos=pos, rope=pos[:, None] if per_lane
+                          else pos[None], slot=slot, mask=mask)
+
+
+def _dyn_update(buf: torch.Tensor, row: torch.Tensor,
+                slot: torch.Tensor) -> None:
     """Write one token's KV (B, 1, n_kv, Dh) at ``slot`` of ``buf`` (B, S,
-    n_kv, Dh). In place, where the JAX package returns a new buffer: the
-    cache is the largest per-request state and is never read after the
+    n_kv, Dh): a 0-d int64 slot for the whole batch, or a (B,) slot vector,
+    one slot a lane. In place, where the JAX package returns a new buffer:
+    the cache is the largest per-request state and is never read after the
     write by anything but the next step."""
-    buf[:, slot:slot + 1] = row.to(buf.dtype)
+    row = row.to(buf.dtype)
+    if slot.dim() == 0:
+        buf.index_copy_(1, slot.view(1), row)
+    else:
+        lanes = torch.arange(buf.shape[0], device=buf.device)
+        buf.index_put_((lanes, slot), row[:, 0])
 
 
-def decode_self_attention(p: Params, x: torch.Tensor, cache: KVCache,
-                          pos: int, cfg, *, window: int = 0) -> torch.Tensor:
-    """Single-token decode at the absolute position ``pos`` shared by the
-    batch. x (B, 1, d) -> out (B, 1, d); ``cache`` is updated in place."""
+def decode_self_attention(p: Params, x: torch.Tensor, cache: KVCache, pos,
+                          cfg, *, window: int = 0) -> torch.Tensor:
+    """Single-token decode. x (B, 1, d) -> out (B, 1, d); ``cache`` is
+    updated in place. ``pos`` is the absolute position as an int tensor on
+    the device, 0-d (shared by the batch: ``generate``'s lock-step loop) or
+    (B,) (one a lane, each at its own depth), or the ``DecodePosition`` made
+    from it once a step. Nothing is read to the host, so the step can be
+    captured in a CUDA graph. For sliding-window layers the cache is a ring
+    buffer of length ``window``."""
+    if not isinstance(pos, DecodePosition):
+        pos = decode_position(pos, cache.k.shape[1], window)
     q, k, v = _project_qkv(p, x, x, cfg)             # q (B,1,Kv,G,Dh)
     b = x.shape[0]
-    qf = apply_rope(q.reshape(b, 1, -1, q.shape[-1]), pos, cfg.rope_theta)
+    qf = apply_rope(q.reshape(b, 1, -1, q.shape[-1]), pos.rope,
+                    cfg.rope_theta)
     q = qf.reshape(q.shape)
-    k = apply_rope(k, pos, cfg.rope_theta)
-    s_max = cache.k.shape[1]
-    slot = (pos % window) if window else pos
-    _dyn_update(cache.k, k, slot)
-    _dyn_update(cache.v, v, slot)
-    valid = min(pos + 1, s_max)
+    k = apply_rope(k, pos.rope, cfg.rope_theta)
+    _dyn_update(cache.k, k, pos.slot)
+    _dyn_update(cache.v, v, pos.slot)
     scale = cfg.resolved_head_dim ** -0.5
     s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), cache.k.float()) * scale
-    mask = torch.arange(s_max, device=x.device) < valid
-    s = torch.where(mask, s, torch.full_like(s, NEG))
+    s = torch.where(pos.mask, s, torch.full_like(s, NEG))
     a = torch.softmax(s, dim=-1).to(cache.v.dtype)
     o = torch.einsum("bkgqs,bskd->bqkgd", a, cache.v)
     return o.reshape(*x.shape[:-1], -1) @ p["wo"]
+
+
+# -- lane-window KV block ops (the prefix cache) ------------------------------
+#
+# Every k/v leaf keeps the lane batch at axis -4 and token positions at
+# axis -3 (the model's stacked layers add leading axes). The lane and the
+# start are int tensors on the device, so one captured graph serves every
+# (lane, offset) pair; the window's length is a Python int. Starts are
+# clamped so the window lies inside the leaf, as ``lax.dynamic_slice`` and
+# ``lax.dynamic_update_slice`` clamp them.
+
+
+def _lane_window_index(leaf: torch.Tensor, lane, start,
+                       length: int) -> torch.Tensor:
+    """Flat (lane, position) indices of the window into ``leaf`` viewed as
+    (*stack, lanes * positions, n_kv, Dh)."""
+    n_lanes, n_pos = leaf.shape[-4], leaf.shape[-3]
+    lane = torch.clamp(torch.as_tensor(lane, device=leaf.device).long(),
+                       0, n_lanes - 1)
+    start = torch.clamp(torch.as_tensor(start, device=leaf.device).long(),
+                        0, n_pos - length)
+    return lane * n_pos + start + torch.arange(length, device=leaf.device)
+
+
+def _flat_lanes(leaf: torch.Tensor) -> torch.Tensor:
+    return leaf.view(*leaf.shape[:-4], leaf.shape[-4] * leaf.shape[-3],
+                     *leaf.shape[-2:])
+
+
+def slice_lane_window(leaf: torch.Tensor, lane, start,
+                      length: int) -> torch.Tensor:
+    """Read ``length`` consecutive KV rows of one lane: leaf (*stack, S, L,
+    n_kv, Dh) -> (*stack, 1, length, n_kv, Dh), a copy."""
+    idx = _lane_window_index(leaf, lane, start, length)
+    rows = _flat_lanes(leaf).index_select(-3, idx)
+    return rows.view(*leaf.shape[:-4], 1, length, *leaf.shape[-2:])
+
+
+def write_lane_window(leaf: torch.Tensor, rows: torch.Tensor, lane,
+                      start) -> torch.Tensor:
+    """Multi-token append: write ``rows`` (*stack, 1, length, n_kv, Dh) into
+    one lane of ``leaf`` at positions [start, start + length), in place
+    (``_dyn_update`` widened to a window); returns ``leaf``."""
+    length = rows.shape[-3]
+    idx = _lane_window_index(leaf, lane, start, length)
+    src = rows.to(leaf.dtype).reshape(*leaf.shape[:-4], length,
+                                      *leaf.shape[-2:])
+    _flat_lanes(leaf).index_copy_(-3, idx, src)
+    return leaf

@@ -52,10 +52,12 @@ def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions, theta: float) -> torch.Tensor:
-    """x: (..., S, H, Dh). ``positions`` is a tensor broadcastable to
-    (..., S), as in the JAX package, or one absolute position as a Python
-    int (decode: no host-to-device copy per layer). Rotates the split
-    halves (not interleaved pairs) with f32 angles."""
+    """x: (..., S, H, Dh). ``positions`` is an int tensor broadcastable to
+    (..., S), as in the JAX package (a decode step passes its 0-d position
+    as (1,) or its per-lane (B,) positions as (B, 1), the JAX ``posv``), or
+    one absolute position as a Python int (training and prefill callers).
+    Rotates the split halves (not interleaved pairs) with f32 angles; a
+    Python int and the same position as a tensor give the same bits."""
     hd = x.shape[-1]
     freqs = rope_frequencies(hd, theta, x.device)              # (Dh/2,)
     if isinstance(positions, int):

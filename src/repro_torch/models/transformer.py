@@ -15,7 +15,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
-from .attention import KVCache, decode_self_attention, self_attention
+from .attention import (KVCache, decode_position, decode_self_attention,
+                        self_attention)
 from .layers import _dense_init, embed, mlp, rmsnorm
 
 Params = Dict[str, Any]
@@ -63,7 +64,9 @@ def tblock_fwd(p: Params, x, cfg, *, window=0) -> torch.Tensor:
     return x + mlp(p["ffn"], y, cfg.act)
 
 
-def tblock_decode(p: Params, x, cache: KVCache, pos: int, cfg, *, window=0):
+def tblock_decode(p: Params, x, cache: KVCache, pos, cfg, *, window=0):
+    """One dense block at one decode position: ``pos`` a 0-d or (B,) int
+    tensor, or its ``attention.DecodePosition``."""
     h = decode_self_attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
                               cache, pos, cfg, window=window)
     x = x + h
@@ -163,14 +166,20 @@ class Model:
                 "v": torch.zeros(shape, dtype=dt, device=device)}
 
     def decode_step(self, p: Params, state: Dict[str, torch.Tensor],
-                    token: torch.Tensor, pos: int) -> torch.Tensor:
+                    token: torch.Tensor, pos) -> torch.Tensor:
         """token (B,) at position ``pos`` -> hidden of that position (B, d).
-        ``state`` (the KV cache) is updated in place."""
+        ``pos`` is an int tensor on the device, 0-d (shared by the batch)
+        or (B,) (one a lane), or a Python int (copied to the device).
+        ``state`` (the KV cache) is updated in place; with a tensor
+        position nothing is read to the host."""
         cfg = self.cfg
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.tensor(pos, dtype=torch.int32, device=token.device)
+        dpos = decode_position(pos, state["k"].shape[2], cfg.sliding_window)
         x = embed(p["embed"], token[:, None])                  # (B, 1, d)
         for i in range(cfg.n_layers):
             cache = KVCache(k=state["k"][i], v=state["v"][i])
-            x = tblock_decode(_layer(p["blocks"], i), x, cache, pos, cfg,
+            x = tblock_decode(_layer(p["blocks"], i), x, cache, dpos, cfg,
                               window=cfg.sliding_window)
         h = rmsnorm(p["final_norm"], x, cfg.norm_eps)
         return h[:, 0]
