@@ -78,6 +78,21 @@ GPU.
    the gated ``topk_z`` with no query and with every query flagged, and a
    guarded against an unguarded output layer. The serving engines and
    parameters are then freed.
+5c. The estimators phase (``estimators``), on the same parameters and the
+   serving phase's 8 hidden states: ``PartitionLayer`` over qwen1.5-4b's
+   lm_head (151936 x 2560, bf16) for exact, mimps (with an index), nmimps,
+   uniform, mince, fmbe and selfnorm, its kernels (``topk_z``,
+   ``ivf_score``, ``fmbe_z``, and ``fmbe_phi`` in the fmbe build) against
+   ``use_kernel=False`` on the same injected draws: log Z within 1e-3,
+   ``top_candidates`` (k 8) ids equal wherever the neighbouring scores are
+   more than 1e-3 apart, two calls bit-equal, mimps within 0.05 of exact,
+   the fmbe sketch's signed sums within 1e-4 of the sum of their terms;
+   mince also with the paper's weighting. Each method's path starts with
+   the launch counts at 0 and must launch its kernels. Then the paper's
+   Fig. 1 and Tables 1-3 (``repro_torch.studies.paper_tables``) at the JAX
+   scripts' sizes (n 20000, d 64, 100 queries, seeds 0-2, FMBE with 16384
+   features), printed, their f32 kernels launched, and every ordering of
+   ``paper_tables.ORDERINGS`` required.
 6. Builds the training state of the same model (``init_train_state``:
    bf16 parameters, f32 AdamW moments) and holds the fused CE kernels
    against their plain versions on the forward's hidden states of one
@@ -582,11 +597,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    records = serve(torch, card, kernels)
+    records, study = serve(torch, card, kernels)
     torch.cuda.empty_cache()                    # the serving state is gone
     records += train(torch, card, kernels)
     torch.cuda.empty_cache()                    # the training state is gone
-    records += f32_phase(torch, card, kernels)
+    f32_records = f32_phase(torch, card, kernels)
+    for rec in f32_records:                     # the studies ran at f32
+        rec["launches"] += study[rec["name"].removesuffix("[f32]")]
+    records += f32_records
     line = {"kernels": records}
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps(line))
@@ -598,10 +616,11 @@ def main() -> int:
 
 
 def serve(torch, card, kernels):
-    """Phases 2-5b: the serving engines, the seven serving kernels against
-    their plain versions, the estimators, serving, the step split and the
-    lifecycle phase. Returns the eight kernel records (the gated
-    ``topk_z`` last); every serving tensor is freed on return."""
+    """Phases 2-5c: the serving engines, the seven serving kernels against
+    their plain versions, the estimators, serving, the step split, the
+    lifecycle phase and the estimators phase. Returns the eight kernel
+    records (the gated ``topk_z`` last) and the studies' f32 launches by
+    kernel; every serving tensor is freed on return."""
     from repro_torch.configs import get_config
     from repro_torch.core.decode import make_plan
     from repro_torch.kernels import _build
@@ -931,7 +950,157 @@ def serve(torch, card, kernels):
     gated, life = lifecycle(torch, card, kernels, params, cfg, floor)
     for rec in records:
         rec["launches"] += life[rec["name"]]
-    return records + [gated]
+    layer_counts, study_counts = estimators(torch, card, kernels, params,
+                                            cfg, h)
+    for rec in records:
+        rec["launches"] += layer_counts[rec["name"]]
+    return records + [gated], study_counts
+
+
+LAYER_METHODS = ("exact", "mimps", "nmimps", "uniform", "mince", "fmbe",
+                 "selfnorm")
+# the kernels each method's PartitionLayer path must launch (the build's
+# included): log_z, then top_candidates (topk_z, or ivf_score with an index)
+LAYER_KERNELS = {"exact": ("topk_z",), "mimps": ("ivf_score",),
+                 "fmbe": ("fmbe_phi", "fmbe_z", "topk_z")}
+LAYER_K = 8                    # top_candidates' k
+STUDY_KERNELS = ("topk_z", "fmbe_phi", "fmbe_z")
+
+
+def estimators(torch, card, kernels, params, cfg, h):
+    """Phase 5c: the paper's estimators on the serving phase's bf16
+    parameters. ``PartitionLayer`` at full width (qwen1.5-4b's lm_head, the
+    serving phase's 8 hidden states) for each method of LAYER_METHODS, with
+    the kernels against ``use_kernel=False`` on the same injected draws:
+    log Ẑ within 1e-3, ``top_candidates`` (k 8) with ids equal wherever the
+    neighbouring scores are more than 1e-3 apart, two calls bit-equal,
+    mimps within 0.05 of exact; MINCE also with the paper's weighting (the
+    oracle path, no kernel). Each method's build and first ``log_z`` +
+    ``top_candidates`` run from launch counts of 0: each kernel of
+    LAYER_KERNELS must launch. Logs build seconds and log_z ms (wall, a
+    synchronise, 8 queries) of both paths. Then the four studies of
+    ``repro_torch.studies.paper_tables`` at the JAX scripts' sizes (f32
+    data: ``topk_z``, ``fmbe_phi`` and ``fmbe_z`` must launch, at f32
+    only), their tables printed, every ordering of ``ORDERINGS`` required.
+    Returns the layer path's and the studies' launches by kernel."""
+    from repro_torch.core import estimators as est
+    from repro_torch.core.feature_maps import apply_feature_map, fmbe_z_batch
+    from repro_torch.core.partition_layer import PartitionLayer
+    from repro_torch.kernels import _build
+    from repro_torch.studies import paper_tables as pt
+
+    t_phase = time.time()
+    dev = h.device
+    pc = cfg.partition
+    w = params["lm_head"]
+    v_rows, q = w.shape[0], h.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = torch.randint(0, v_rows, (q, pc.l), generator=gen, device=dev)
+    ranks = torch.randint(0, v_rows - pc.k, (q, pc.l), generator=gen,
+                          device=dev)
+    draws = {"mimps": rows, "uniform": rows, "mince": ranks}
+    path = {name: 0 for name in kernels}
+
+    def reset():
+        torch.cuda.synchronize()
+        _build.reset_counts(kernels.values())
+
+    def read():
+        torch.cuda.synchronize()
+        return {name: fn.launches for name, fn in kernels.items()}
+
+    lz = {}
+    for method in LAYER_METHODS:
+        lcfg = dataclasses.replace(pc, method=method)
+        reset()
+        t0 = time.time()
+        layer = PartitionLayer.build(
+            lcfg, w, torch.Generator(device=dev).manual_seed(7), device=dev)
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        built = read()
+        reset()
+        got = layer.log_z(w, h, draws=draws.get(method))
+        tv, ti = layer.top_candidates(w, h, LAYER_K)
+        counts = read()
+        for name in kernels:
+            path[name] += built[name] + counts[name]
+        for name in LAYER_KERNELS.get(method, ("topk_z",)):
+            check(built[name] + counts[name] > 0, f"estimators {method}: "
+                  f"the PartitionLayer path launched no {name}")
+        plain = layer.log_z(w, h, draws=draws.get(method), use_kernel=False)
+        check(got.shape == (q,) and bool(torch.isfinite(got).all()),
+              f"estimators {method}: log_z {got}")
+        err = (got - plain).abs().max().item()
+        check(err <= TOL, f"estimators {method}: log_z with the kernels off "
+              f"the plain path by {err}")
+        check(torch.equal(got, layer.log_z(w, h, draws=draws.get(method))),
+              f"estimators {method}: two log_z calls differ")
+        pv, pi = layer.top_candidates(w, h, LAYER_K + 1, use_kernel=False)
+        _, n_ids = compare_topk(f"estimators {method} top_candidates", tv, ti,
+                                pv, pi)
+        tv2, ti2 = layer.top_candidates(w, h, LAYER_K)
+        check(torch.equal(tv, tv2) and torch.equal(ti, ti2),
+              f"estimators {method}: two top_candidates calls differ")
+        extra = ""
+        if method == "fmbe":        # the signed sums beside their cancellation
+            st = layer.fmbe_state
+            terms = apply_feature_map(st.fm, h) * st.lambda_tilde
+            zk = fmbe_z_batch(st, h, True)
+            zp = fmbe_z_batch(st, h, False)
+            _, ratio = compare_signed_sum("estimators fmbe z", zk, zp, terms)
+            extra = (f"; signed z {[f'{x:.4e}' for x in zp.tolist()]}, sum "
+                     f"|terms| {terms.abs().sum(-1).max().item():.4e}, z error "
+                     f"{ratio:.3f} of its limit")
+        ms = wall_ms(torch, lambda: layer.log_z(w, h, draws=draws.get(method)))
+        plain_ms = wall_ms(torch, lambda: layer.log_z(
+            w, h, draws=draws.get(method), use_kernel=False))
+        lz[method] = got
+        log(f"estimators {method}: build {build_s:.3f} s (index "
+            f"{layer.index is not None}, fmbe sketch "
+            f"{layer.fmbe_state is not None}); log_z for {q} queries "
+            f"{ms:.3f} ms wall, plain {plain_ms:.3f} ms; |kernels - plain| "
+            f"{err:.3e}; top_candidates k {LAYER_K}: {n_ids} ids checked; "
+            f"launches build {({n: c for n, c in built.items() if c})} "
+            f"log_z + top_candidates {({n: c for n, c in counts.items() if c})}"
+            f"{extra} [{card}]")
+        del layer
+    gap = (lz["mimps"] - lz["exact"]).abs().max().item()
+    check(gap < 0.05, f"estimators: mimps log_z off exact by {gap}")
+    paper = est.mince_log_z(w, h, pc.k, pc.l, weighting="paper",
+                            tail_pos=ranks)
+    check(bool(torch.isfinite(paper).all()) and torch.equal(
+        paper, est.mince_log_z(w, h, pc.k, pc.l, weighting="paper",
+                               tail_pos=ranks)),
+          "estimators: mince (paper weighting) not finite or not "
+          "bit-equal over two calls")
+    log("estimators: log Z - exact per method (max abs): "
+        + ", ".join(f"{m} {(x - lz['exact']).abs().max().item():.4e}"
+                    for m, x in lz.items())
+        + f", mince paper weighting "
+        f"{(paper - lz['exact']).abs().max().item():.4e} [{card}]")
+
+    # -- the paper's tables at the JAX scripts' sizes --------------------------
+    reset()
+    t0 = time.time()
+    res = pt.run(device=dev)
+    study_s = time.time() - t0
+    study = {name: dict(fn.by_variant) for name, fn in kernels.items()}
+    for name in STUDY_KERNELS:
+        check(study[name]["f32"] > 0 and study[name]["bf16"] == 0,
+              f"studies: {name} launched {study[name]}, want f32 only")
+    log(pt.format_tables(res))
+    for name in ("fig1", "table1", "table2", "table3"):
+        log(f"study {name}: {res[name]['seconds']:.3f} s wall [{card}]")
+    orderings = pt.check_orderings(res)
+    for name, ok in orderings.items():
+        log(f"ordering {'holds' if ok else 'BROKEN'}: {name}")
+    check(all(orderings.values()), f"studies: broken orderings "
+          f"{[n for n, ok in orderings.items() if not ok]}")
+    log(f"estimators phase: {time.time() - t_phase:.1f} s (the four studies "
+        f"{study_s:.1f} s), study launches "
+        f"{ {n: c['f32'] for n, c in study.items() if c['f32']} } [{card}]")
+    return path, {name: c["f32"] for name, c in study.items()}
 
 
 def lifecycle(torch, card, kernels, params, cfg, floor):

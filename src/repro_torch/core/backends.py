@@ -79,12 +79,17 @@ class EstimatorBackend:
               feature_map: Optional[FeatureMap] = None,
               lsh_proj: Optional[torch.Tensor] = None,
               device="cuda", device_index: bool = False,
-              block_multiple: int = 1) -> BackendState:
+              block_multiple: int = 1,
+              with_index: bool = True) -> BackendState:
         """``assign`` (V,) injects the k-means assignment of an index build,
         ``feature_map`` the FMBE feature map and ``lsh_proj`` the LSH
         hyperplanes (parity with state built elsewhere); ``generator`` draws
         them otherwise. ``device_index=True`` selects the fixed-capacity
-        index build; ``block_multiple`` pads its block axis."""
+        index build; ``block_multiple`` pads its block axis.
+        ``with_index=False`` builds no index (the IVF or the LSH one), for
+        callers that need only the estimate (the per-query accuracy
+        studies, ``PartitionLayer``); serving always builds it, since it
+        supplies the sampling candidates."""
         return BackendState(w=w.to(resolve_device(device)))
 
     def refresh(self, state: BackendState, cfg: PartitionConfig,
@@ -184,12 +189,13 @@ class _IndexedBackend(EstimatorBackend):
 
     def build(self, cfg, w, *, generator=None, assign=None, feature_map=None,
               lsh_proj=None, device="cuda", device_index=False,
-              block_multiple=1):
+              block_multiple=1, with_index=True):
         state = super().build(cfg, w, device=device)
-        state.index = _build_index(cfg, state.w, generator=generator,
-                                   assign=assign, device=device,
-                                   device_index=device_index,
-                                   block_multiple=block_multiple)
+        if with_index:
+            state.index = _build_index(cfg, state.w, generator=generator,
+                                       assign=assign, device=device,
+                                       device_index=device_index,
+                                       block_multiple=block_multiple)
         return state
 
     def has_tail(self, state):
@@ -260,20 +266,22 @@ class FmbeBackend(EstimatorBackend):
 
     def build(self, cfg, w, *, generator=None, assign=None, feature_map=None,
               lsh_proj=None, device="cuda", device_index=False,
-              block_multiple=1):
+              block_multiple=1, with_index=True):
         """The feature map (drawn first, or injected), the index, and the
         per-block sketch sums, whose sum is lambda_tilde: one phi pass over
-        the embedding. Without an index, the global sketch alone."""
+        the embedding. Without an index (``with_index=False``, or a
+        vocabulary under 4 blocks), the global sketch alone."""
         state = super().build(cfg, w, device=device)
         fm = feature_map
         if fm is None:
             fm = make_feature_map(generator, w.shape[-1], cfg.fmbe_features,
                                   max_degree=cfg.fmbe_max_degree,
                                   p=cfg.fmbe_p, device=state.w.device)
-        state.index = _build_index(cfg, state.w, generator=generator,
-                                   assign=assign, device=device,
-                                   device_index=device_index,
-                                   block_multiple=block_multiple)
+        if with_index:
+            state.index = _build_index(cfg, state.w, generator=generator,
+                                       assign=assign, device=device,
+                                       device_index=device_index,
+                                       block_multiple=block_multiple)
         if state.index is not None:
             state.fmbe = fmbe_block_state(fm, state.index, state.w)
         else:
@@ -311,12 +319,12 @@ class LshBackend(EstimatorBackend):
 
     def build(self, cfg, w, *, generator=None, assign=None, feature_map=None,
               lsh_proj=None, device="cuda", device_index=False,
-              block_multiple=1):
+              block_multiple=1, with_index=True):
         """The index, skipped below 4 rows per bucket (the exact pass is
         cheaper there); its build is shape-stable whatever
         ``device_index``."""
         state = super().build(cfg, w, device=device)
-        if state.w.shape[0] >= 4 * (1 << cfg.lsh_bits):
+        if with_index and state.w.shape[0] >= 4 * (1 << cfg.lsh_bits):
             state.lsh = _lsh.build_lsh_device(
                 state.w, n_bits=cfg.lsh_bits, n_tables=cfg.lsh_tables,
                 bucket_cap=cfg.lsh_bucket_cap, mips_scale=cfg.lsh_mips_scale,
