@@ -92,7 +92,14 @@ GPU.
    Fig. 1 and Tables 1-3 (``repro_torch.studies.paper_tables``) at the JAX
    scripts' sizes (n 20000, d 64, 100 queries, seeds 0-2, FMBE with 16384
    features), printed, their f32 kernels launched, and every ordering of
-   ``paper_tables.ORDERINGS`` required.
+   ``paper_tables.ORDERINGS`` required. Then the paper's Table 4
+   (``repro_torch.studies.table4_lbl``) at the JAX script's full size (an
+   LBL model, V 10000, d 100, trained 300 NCE steps; 500 held-out
+   contexts): its class vectors (d + 1 = 101 wide) and queries padded with
+   zero columns to 104 for ``topk_z`` (the exact log Z) and ``ivf_score``
+   (MIMPS over a 128-row block index), both launched at f32 only, held to
+   ``use_kernel=False`` within 1e-3, the padded plain path to the unpadded
+   one within T4_PAD_TOL, and MIMPS beating Z = 1 at every (n_probe, l).
 6. Builds the training state of the same model (``init_train_state``:
    bf16 parameters, f32 AdamW moments) and holds the fused CE kernels
    against their plain versions on the forward's hidden states of one
@@ -117,6 +124,31 @@ GPU.
    into forward, loss, backward and optimizer, and one under
    ``torch.profiler`` (device busy time, idle share, top kernels and host
    ops).
+
+7b. Estimator-backed training (``estimator_train``) of the same
+   full-width model on the same batch, each loss from a fresh
+   ``init_train_state`` (the previous state freed): mimps_ce (the 553-block
+   IVF index in ``TrainState.index``) and lsh_ce (8 tables of 8-bit codes):
+   at the first step's inputs the sparse CE's nll and log Z to 1e-5 of 1 +
+   |value| from a float64 evaluation of the same formula on the same plan
+   and operands, dh and dw before the cast to 1e-4 of the sum of their
+   terms' magnitudes (1e-5 on average) and after it to GRAD_REL, every dw
+   row outside head ∪ tail ∪ labels exactly 0, two calls bit-equal, and
+   for lsh_ce each row of each token in exactly one of head, tail
+   population and label term; then 4 steps, ``make_index_refresh`` between
+   steps 2 and 3 (the index's shapes kept, churn and drift finite), the
+   loss finite and falling; mimps_ce takes one more step split into parts
+   and 2 fused_ce steps for comparison. mince_ce, nce and sampled take 2
+   steps each (nce and sampled on one noise draw), finite and falling. The
+   estimator steps launch none of the nine kernels. Logs ms a step (wall
+   and CUDA events), tokens/s, peak memory, head_live, head_hit_rate and
+   k_eff a step, the refresh's seconds and the sparse CE's ms.
+7c. The checkpoint round trip (``checkpoint_round_trip``) on the reduced
+   qwen1.5-4b config, mimps_ce and lsh_ce: save after 2 steps, restore
+   (twice): every leaf, the index and the generator bit-equal to the
+   saved state; step 3 from the two restored copies, and, if they are
+   bit-equal, the uninterrupted step 3 equal to them bit for bit (else
+   where they first differ is logged).
 
 8. The f32 phase: the same model at full width in f32 with its depth cut
    to 4 layers (the one cut). Each estimator builds its engine (the f32
@@ -169,6 +201,7 @@ GRAD_REL = 2 ** -7 + 1e-5      # of sum |terms|, per element
 GRAD_MEAN = 2 ** -10           # of sum |terms|, on average
 TRAIN_B, TRAIN_S = 4, 256      # T = 1024 tokens a step
 FUSED_STEPS, SELFNORM_STEPS = 4, 2
+EST_STEPS = 4                  # mimps_ce and lsh_ce steps (a refresh after 2)
 # the f32 phase: qwen1.5-4b at full width, f32, depth cut to F32_LAYERS
 F32_LAYERS = 4
 F32_STEPS = 2
@@ -599,8 +632,12 @@ def main() -> int:
 
     records, study = serve(torch, card, kernels)
     torch.cuda.empty_cache()                    # the serving state is gone
-    records += train(torch, card, kernels)
+    ce_records = train(torch, card, kernels)
+    records += ce_records
     torch.cuda.empty_cache()                    # the training state is gone
+    estimator_train(torch, card, kernels, ce_records)
+    torch.cuda.empty_cache()
+    checkpoint_round_trip(torch, card)
     f32_records = f32_phase(torch, card, kernels)
     for rec in f32_records:                     # the studies ran at f32
         rec["launches"] += study[rec["name"].removesuffix("[f32]")]
@@ -965,6 +1002,10 @@ LAYER_KERNELS = {"exact": ("topk_z",), "mimps": ("ivf_score",),
                  "fmbe": ("fmbe_phi", "fmbe_z", "topk_z")}
 LAYER_K = 8                    # top_candidates' k
 STUDY_KERNELS = ("topk_z", "fmbe_phi", "fmbe_z")
+T4_KERNELS = ("topk_z", "ivf_score")
+# the padded and unpadded plain Table 4 paths sum the same f32 products
+# (zeros added): log Z equal to a few f32 ulps of |log Z| < 20
+T4_PAD_TOL = 1e-5
 
 
 def estimators(torch, card, kernels, params, cfg, h):
@@ -988,6 +1029,7 @@ def estimators(torch, card, kernels, params, cfg, h):
     from repro_torch.core.partition_layer import PartitionLayer
     from repro_torch.kernels import _build
     from repro_torch.studies import paper_tables as pt
+    from repro_torch.studies import table4_lbl as t4lbl
 
     t_phase = time.time()
     dev = h.device
@@ -1097,8 +1139,40 @@ def estimators(torch, card, kernels, params, cfg, h):
         log(f"ordering {'holds' if ok else 'BROKEN'}: {name}")
     check(all(orderings.values()), f"studies: broken orderings "
           f"{[n for n, ok in orderings.items() if not ok]}")
+
+    # -- the paper's Table 4 at the JAX script's full size ---------------------
+    reset()
+    t0 = time.time()
+    t4 = t4lbl.run(device=dev)
+    t4_s = time.time() - t0
+    t4_counts = {name: dict(fn.by_variant) for name, fn in kernels.items()}
+    for name in T4_KERNELS:
+        check(t4_counts[name]["f32"] > 0 and t4_counts[name]["bf16"] == 0,
+              f"table4: {name} launched {t4_counts[name]}, want f32 only")
+    for name, c in t4_counts.items():
+        study[name]["f32"] += c["f32"]
+    log(t4lbl.format_table(t4))
+    check(all(math.isfinite(r["abse_mips"]) for r in t4["rows"]),
+          f"table4: {t4['rows']}")
+    check(t4["kernel_max_abs_err"] <= TOL, f"table4: the kernels off "
+          f"use_kernel=False by {t4['kernel_max_abs_err']}")
+    check(t4["pad_max_abs_diff"] <= T4_PAD_TOL, f"table4: the padded plain "
+          f"path off the unpadded one by {t4['pad_max_abs_diff']}")
+    check(t4lbl.mimps_beats_z1(t4), "table4: MIMPS does not beat Z = 1 "
+          "(the JAX package's own run shows it at every pair)")
+    log(f"table4: V {t4['sizes']['vocab']} d {t4['sizes']['d']} + 1 padded "
+        f"to {t4['sizes']['padded_d']}, {t4['sizes']['n_blocks']} blocks of "
+        f"{t4['sizes']['block_rows']}, {t4['sizes']['steps']} NCE steps of "
+        f"batch {t4['sizes']['batch']} in {t4['train_seconds']:.3f} s "
+        f"({t4['train_us_per_step']:.1f} us/step), {t4['sizes']['n_test']} "
+        f"held-out contexts; kernels (topk_z, ivf_score) vs plain max |d log "
+        f"Z| {t4['kernel_max_abs_err']:.3e}; padded vs unpadded plain "
+        f"{t4['pad_max_abs_diff']:.3e} (bit-equal {t4['pad_bit_equal']}); "
+        f"MIMPS beats Z = 1 at every pair; launches "
+        f"{ {n: c['f32'] for n, c in t4_counts.items() if c['f32']} }; "
+        f"{t4_s:.1f} s [{card}]")
     log(f"estimators phase: {time.time() - t_phase:.1f} s (the four studies "
-        f"{study_s:.1f} s), study launches "
+        f"{study_s:.1f} s, Table 4 {t4_s:.1f} s), study launches "
         f"{ {n: c['f32'] for n, c in study.items() if c['f32']} } [{card}]")
     return path, {name: c["f32"] for name, c in study.items()}
 
@@ -2308,6 +2382,442 @@ def train(torch, card, kernels):
     fwd["launches"] = totals["fused_ce_fwd"]
     bwd["launches"] = totals["fused_ce_bwd"]
     return [fwd, bwd]
+
+
+def sparse_ce_float64(torch, h, w, sp, g_nll):
+    """The sparse CE of the plan ``sp`` evaluated in float64 from the same
+    operands, written apart from the port's code: (nll, log Z, dh, dw, and
+    the sums of |terms| of dh and dw), for the loss mean(nll) (cotangent
+    ``g_nll`` on nll, 0 on log Z). Only the head columns some token scores
+    enter (the others add 0); dw is summed by ``index_add_``, whose order
+    does not matter at float64."""
+    neg = float("-inf")
+    hd = h.double()
+    live = sp.head_mask.any(0)
+    rows = sp.head_rows[live].long()
+    mask = sp.head_mask[:, live]
+    wh = w[rows].double()
+    s = hd @ wh.T
+    head_lse = torch.logsumexp(torch.where(mask, s, neg), -1)
+    tails, labels = sp.tail_ids.long(), sp.labels.long()
+    wt, wl = w[tails].double(), w[labels].double()
+    bias = sp.tail_bias.double()
+    ts = hd @ wt.T + bias[None, :]
+    acc = sp.tail_accept
+    n_acc = (acc.double() * bias.exp()[None, :]).sum(-1)
+    ntt = sp.n_tail_total.double()
+    ok = (ntt > 0) & (n_acc > 0)
+    scale = torch.log(ntt.clamp(min=1e-300)) - torch.log(
+        n_acc.clamp(min=1e-300))
+    log_tail = torch.where(ok, torch.logsumexp(
+        torch.where(acc, ts, neg), -1) + scale, neg)
+    s_lab = (hd * wl).sum(-1)
+    log_z = torch.logsumexp(torch.stack(
+        [head_lse, log_tail, torch.where(sp.label_in_head, neg, s_lab)]), 0)
+    g = g_nll.double()
+    p = torch.where(mask, (s - log_z[:, None]).exp(), 0.0) * g[:, None]
+    del s
+    sigma = torch.where(ok, ntt / n_acc.clamp(min=1e-300), 0.0)
+    qc = torch.where(acc, (ts - log_z[:, None]).exp(), 0.0) \
+        * (sigma * g)[:, None]
+    lab = g * torch.where(sp.label_in_head, 0.0,
+                          (s_lab - log_z).exp()) - g
+    dh = p @ wh + qc @ wt + lab[:, None] * wl
+    dh_terms = (p.abs() @ wh.abs() + qc.abs() @ wt.abs()
+                + lab.abs()[:, None] * wl.abs())
+    del wh
+    dw = torch.zeros(w.shape, dtype=torch.float64, device=w.device)
+    dw_terms = torch.zeros_like(dw)
+    for ids, coef in ((rows, p), (tails, qc)):
+        dw.index_add_(0, ids, coef.T @ hd)
+        dw_terms.index_add_(0, ids, coef.abs().T @ hd.abs())
+    dw.index_add_(0, labels, lab[:, None] * hd)
+    dw_terms.index_add_(0, labels, lab.abs()[:, None] * hd.abs())
+    return log_z - s_lab, log_z, dh, dw, dh_terms, dw_terms
+
+
+def sparse_ce_checks(torch, name, h, w, sp, lsh_plan=None):
+    """The hard checks of the sparse CE at one step's inputs: nll and log Z
+    of the f32 path to F32_FWD_REL of 1 + |value| from float64; dh and dw
+    before the cast to F32_GRAD_REL of the sum of their terms (F32_GRAD_MEAN
+    on average), after it (bf16) to GRAD_REL; every dw row outside head ∪
+    tail ∪ labels exactly 0; two calls bit-equal (nll, log Z, dh, dw). For
+    lsh_ce also its invariant: each row of each token in exactly one of
+    head, tail population and label term. Returns a dict for the log."""
+    from repro_torch.train import losses as tl
+    t = h.shape[0]
+    g_nll = torch.full((t,), 1.0 / t, device=h.device)
+    g_lz = torch.zeros_like(g_nll)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    outs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        ev[0].record()
+        nll, lz, res = tl._sparse_ce_fwd(h, w, *sp)
+        ev[1].record()
+        dh, dw = tl._sparse_ce_bwd(res, g_nll, g_lz, cast=False)
+        ev[2].record()
+        torch.cuda.synchronize()
+        del res
+        outs.append((nll, lz, dh, dw))
+    fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    check(same, f"{name}: two sparse CE calls differ (nll, log Z, dh, dw)")
+    nll, lz, dh, dw = outs[0]
+    del outs
+    r_nll, r_lz, r_dh, r_dw, dh_terms, dw_terms = sparse_ce_float64(
+        torch, h, w, sp, g_nll)
+    fwd_err = max(((nll.double() - r_nll).abs() / (1 + r_nll.abs())).max()
+                  .item(), ((lz.double() - r_lz).abs()
+                            / (1 + r_lz.abs())).max().item())
+    check(fwd_err <= F32_FWD_REL, f"{name}: nll/log Z off float64 by "
+          f"{fwd_err:.3e} of 1 + |value|")
+    errs = {}
+    for what, got, want, terms in (("dh", dh, r_dh, dh_terms),
+                                   ("dw", dw, r_dw, dw_terms)):
+        errs[what] = compare_terms(f"{name} {what} (f32)", got.double(),
+                                   want, terms, F32_GRAD_REL, F32_GRAD_MEAN)
+        low = got.to(h.dtype if what == "dh" else w.dtype).double()
+        errs[what + " cast"] = compare_terms(
+            f"{name} {what} ({low.dtype})", low, want, terms, GRAD_REL,
+            GRAD_REL)
+    del r_dh, r_dw, dh_terms, dw_terms
+    allowed = torch.zeros(w.shape[0], dtype=torch.bool, device=w.device)
+    allowed[sp.head_rows[sp.head_mask.any(0)].long()] = True
+    allowed[sp.tail_ids.long()] = True
+    allowed[sp.labels.long()] = True
+    touched = dw.abs().sum(-1) > 0
+    check(not bool(touched[~allowed].any()), f"{name}: dw rows outside "
+          f"head, tail and labels are not 0")
+    out = {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "fwd_err": fwd_err,
+           "dh": errs["dh"][1], "dw": errs["dw"][1],
+           "dh_cast": errs["dh cast"][1], "dw_cast": errs["dw cast"][1],
+           "rows": int(touched.sum()), "allowed": int(allowed.sum()),
+           "head_cols": int(sp.head_mask.any(0).sum())}
+    if lsh_plan is not None:
+        ar = torch.arange(t, device=h.device)
+        labels = sp.labels.long()
+        occ = lsh_plan.occ_q
+        label_term = ~occ[ar, labels]
+        population = ~occ
+        population[ar, labels] = False
+        cols = sp.head_mask.any(0)           # live columns: distinct rows
+        scored = torch.zeros_like(occ)
+        scored[:, sp.head_rows[cols].long()] = sp.head_mask[:, cols]
+        parts = occ.to(torch.int8) + population.to(torch.int8)
+        parts[ar, labels] += label_term.to(torch.int8)
+        check(torch.equal(label_term, ~sp.label_in_head)
+              and torch.equal(sp.n_tail_total, population.sum(-1).float())
+              and bool((parts == 1).all())
+              and torch.equal(sp.tail_accept,
+                              population[:, sp.tail_ids.long()])
+              and torch.equal(scored, occ),
+              f"{name}: a row outside exactly one of head, tail population "
+              f"and label term")
+        out["lsh_head_rows_mean"] = occ.sum(-1).float().mean().item()
+    return out
+
+
+def estimator_train(torch, card, kernels, ce_records):
+    """Phase 7b: estimator-backed training of full-width qwen1.5-4b (bf16,
+    40 layers, remat full) on the training phase's batch (B 4 x S 256).
+    mimps_ce and lsh_ce: ``init_train_state`` builds the index (553-block
+    IVF; 8 x 8-bit LSH), the sparse CE is held at the first step's inputs
+    (``sparse_ce_checks``), then 4 steps on the repeated batch with one
+    ``make_index_refresh`` between steps 2 and 3 (shapes kept, churn and
+    drift finite), the loss finite and falling; mimps_ce then takes one
+    step split into parts and 2 fused_ce steps on the same state, for
+    comparison. mince_ce, nce and sampled take 2 steps each, finite and
+    falling (nce and sampled on one noise draw, so that their objective is
+    fixed). No step of an estimator loss launches one of the nine kernels
+    (the JAX package's estimator losses have none); the fused_ce steps
+    launch one CE kernel of each kind a step, counted into ``ce_records``.
+    Logs wall and CUDA-event ms a step, tokens/s, peak memory, head_live,
+    head_hit_rate, k_eff, the refresh's seconds and the loss part's ms."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import DataIterator, SyntheticCorpus
+    from repro_torch.kernels import _build
+    from repro_torch.models import Model
+    from repro_torch.train import (init_train_state, losses,
+                                   make_index_refresh, make_train_step)
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    cfg = get_config("qwen1.5-4b")
+    model = Model(cfg)
+    pc = cfg.partition
+    it = DataIterator(SyntheticCorpus(cfg.vocab, seed=0), TRAIN_B, TRAIN_S)
+    tokens, labels = (torch.from_numpy(a).to(dev) for a in next(it))
+    batch = {"tokens": tokens, "labels": labels}
+    t = tokens.numel()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def timed_step(step, state):
+        _build.reset_counts(kernels.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        state, metrics = step(state, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = {n: fn.launches for n, fn in kernels.items() if fn.launches}
+        return state, metrics, wall, ev[0].elapsed_time(ev[1]), counts
+
+    summary = {}
+    for loss_name, n_steps in (("mimps_ce", EST_STEPS), ("lsh_ce", EST_STEPS),
+                               ("mince_ce", 2), ("nce", 2), ("sampled", 2)):
+        tcfg = TrainConfig(loss=loss_name, warmup_steps=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        state = init_train_state(model, tcfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.time() - t0
+        if loss_name in ("mimps_ce", "lsh_ce"):
+            with torch.no_grad():
+                hidden, _ = model.forward(state.params, tokens)
+            h = hidden.reshape(-1, cfg.d_model)
+            w = model.head_matrix(state.params).detach()
+            lab = labels.reshape(-1)
+            gen = torch.Generator(device=dev).manual_seed(4)
+            t1 = time.perf_counter()
+            if loss_name == "lsh_ce":
+                sp, aux, plan = losses.lsh_estimator_plan(
+                    state.index, h, lab, gen, l=pc.l, cand_cap=pc.head_cap)
+            else:
+                (sp, aux), plan = losses.estimator_plan(
+                    state.index, h, lab, gen, n_probe=pc.n_probe, l=pc.l,
+                    head_cap=pc.head_cap), None
+            torch.cuda.synchronize()
+            plan_ms = (time.perf_counter() - t1) * 1e3
+            chk = sparse_ce_checks(torch, loss_name, h, w, sp, plan)
+            log(f"{loss_name} sparse CE at step 1's inputs: T {t}, head "
+                f"columns scored {chk['head_cols']} (union "
+                f"{int(aux['head_live'])}, k_eff mean "
+                f"{aux['k_eff'].item():.1f}), tail {pc.l}, dw rows touched "
+                f"{chk['rows']} of {chk['allowed']} allowed (head, tail, "
+                f"labels) of V {w.shape[0]}, the rest exactly 0; nll/log Z "
+                f"off float64 {chk['fwd_err']:.3e} of 1 + |value|; dh "
+                f"{chk['dh']:.3e}, dw {chk['dw']:.3e} of sum |terms| in "
+                f"f32 (bf16 after the cast: {chk['dh_cast']:.3e}, "
+                f"{chk['dw_cast']:.3e}); two calls bit-equal; plan "
+                f"{plan_ms:.2f} ms wall, forward {chk['fwd_ms']:.2f} ms, "
+                f"backward {chk['bwd_ms']:.2f} ms (CUDA events)"
+                + (f"; every row in exactly one of head, tail population, "
+                   f"label term (mean head rows a token "
+                   f"{chk['lsh_head_rows_mean']:.1f})"
+                   if plan is not None else "") + f" [{card}]")
+            del hidden, h, w, sp, plan
+            torch.cuda.empty_cache()
+        draw_source = None
+        if loss_name in ("nce", "sampled"):
+            # one noise draw for both steps, so the objective is fixed and
+            # its value on the repeated batch must fall
+            noise = torch.randint(0, cfg.vocab, (t, tcfg.nce_noise),
+                                  generator=torch.Generator(device=dev)
+                                  .manual_seed(5), device=dev)
+            draw_source = lambda s, i: noise  # noqa: E731
+        step = make_train_step(model, tcfg, draw_source=draw_source)
+        refresh = make_index_refresh(model, tcfg) \
+            if loss_name in ("mimps_ce", "lsh_ce") else None
+        vals, walls, devs = [], [], []
+        for i in range(n_steps):
+            if refresh is not None and i == 2:
+                shapes = [tuple(x.shape) if torch.is_tensor(x) else x
+                          for x in state.index]
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, rm = refresh(state)
+                torch.cuda.synchronize()
+                ref_s = time.perf_counter() - t1
+                check(shapes == [tuple(x.shape) if torch.is_tensor(x) else x
+                                 for x in state.index],
+                      f"{loss_name}: the refresh changed the index's shapes")
+                churn, drift = rm["churn"].item(), rm["drift"].item()
+                check(math.isfinite(churn) and math.isfinite(drift),
+                      f"{loss_name}: refresh churn {churn} drift {drift}")
+                log(f"{loss_name} refresh between steps 2 and 3: "
+                    f"{ref_s:.3f} s wall, churn {churn:.4f}, drift "
+                    f"{drift:.4e}, index shapes kept [{card}]")
+            state, m, wall, dms, counts = timed_step(step, state)
+            check(not counts, f"{loss_name} step {i} launched {counts}; the "
+                  f"estimator losses run no kernel of the nine")
+            loss = m["loss_total"].item()
+            check(math.isfinite(loss), f"{loss_name} step {i}: loss {loss}")
+            vals.append(loss)
+            walls.append(wall)
+            devs.append(dms)
+            extra = ""
+            if "head_live" in m:
+                extra = (f", head_live {int(m['head_live'])}, head_hit_rate "
+                         f"{m['head_hit_rate'].item():.4f}, k_eff "
+                         f"{m['k_eff'].item():.1f}")
+            log(f"train {loss_name} step {i}: loss {loss:.6f}, grad norm "
+                f"{m['grad_norm'].item():.4f}, {wall:.1f} ms wall, "
+                f"{dms:.1f} ms CUDA events, {t / wall * 1e3:.1f} tokens/s"
+                f"{extra} [{card}]")
+        check(vals[-1] < vals[0], f"{loss_name}: loss did not fall: {vals}")
+        peak = torch.cuda.max_memory_allocated()
+        summary[loss_name] = (statistics.median(walls[1:]),
+                              statistics.median(devs[1:]), peak)
+        log(f"train {loss_name}: {n_steps} steps of {t} tokens, init "
+            f"(parameters, moments{', index' if refresh else ''}) "
+            f"{init_s:.2f} s, steady {summary[loss_name][0]:.1f} ms wall / "
+            f"{summary[loss_name][1]:.1f} ms CUDA events a step (median of "
+            f"steps 2-{n_steps}), {t / summary[loss_name][0] * 1e3:.1f} "
+            f"tokens/s, peak {peak / 1e9:.2f} GB [{card}]")
+        if loss_name == "mimps_ce":
+            est_parts(torch, card, model, state, tcfg, batch)
+            fstep = make_train_step(model, TrainConfig(loss="fused_ce",
+                                                       warmup_steps=1))
+            fw = []
+            for i in range(2):
+                state, m, wall, dms, counts = timed_step(fstep, state)
+                check(counts == {"fused_ce_fwd": 1, "fused_ce_bwd": 1},
+                      f"fused_ce step {i} in the estimator phase launched "
+                      f"{counts}")
+                for rec in ce_records:
+                    rec["launches"] += 1
+                fw.append((wall, dms))
+            log(f"train fused_ce on the mimps_ce state (this phase's "
+                f"yardstick): {fw[-1][0]:.1f} ms wall, {fw[-1][1]:.1f} ms "
+                f"CUDA events, {t / fw[-1][0] * 1e3:.1f} tokens/s; mimps_ce "
+                f"{summary['mimps_ce'][0]:.1f} / {summary['mimps_ce'][1]:.1f} "
+                f"ms [{card}]")
+        del state, step, refresh
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"estimator training phase: {time.time() - t_phase:.1f} s [{card}]")
+
+
+def est_parts(torch, card, model, state, tcfg, batch):
+    """One mimps_ce step split into forward, loss (plan + sparse CE
+    forward), backward and optimizer: wall ms with a synchronise after each
+    part beside CUDA-event ms. The step's update is kept."""
+    from repro_torch.train import adamw_update, losses
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = model.cfg
+    pc = cfg.partition
+    leaves = tree_leaves(state.params)
+    for p in leaves:
+        p.requires_grad_(True)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    walls = []
+
+    def part(i, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events[i].record()
+        out = fn()
+        events[i + 1].record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    hidden, _ = part(0, lambda: model.forward(state.params, batch["tokens"]))
+    nll = part(1, lambda: losses.estimator_ce(
+        state.index, hidden.reshape(-1, cfg.d_model),
+        model.head_matrix(state.params), batch["labels"].reshape(-1),
+        state.rng, n_probe=pc.n_probe, l=pc.l, head_cap=pc.head_cap)[0])
+    loss = nll.mean()
+    grads = part(2, lambda: torch.autograd.grad(loss, leaves))
+    part(3, lambda: adamw_update(tcfg, state.params, grads, state.opt))
+    del grads, hidden, nll, loss
+    for i, name in enumerate(("forward", "loss", "backward", "optimizer")):
+        log(f"train mimps_ce step part {name}: wall {walls[i]:.3f} ms, "
+            f"device {events[i].elapsed_time(events[i + 1]):.3f} ms [{card}]")
+
+
+def checkpoint_round_trip(torch, card):
+    """Phase 7c: ``CheckpointManager`` on the card, on the reduced qwen1.5-4b
+    config (a full-width state is about 40 GB of disk a save), for mimps_ce
+    and lsh_ce: 2 steps, save (the index and the generator in the state),
+    restore: every leaf equal to the saved state bit for bit. Then step 3
+    from two restored copies: if the two are bit-equal (the step is
+    reproducible), step 3 of the uninterrupted run must equal them bit for
+    bit; if not, where they first differ is logged."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import TrainConfig, reduced_config
+    from repro_torch.data import DataIterator, SyntheticCorpus
+    from repro_torch.models import Model
+    from repro_torch.train import (CheckpointManager, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.checkpoint import _flatten, config_fingerprint
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    cfg = reduced_config("qwen1.5-4b")
+    model = Model(cfg)
+
+    def first_diff(a, b):
+        for k, x in _flatten(a).items():
+            y = _flatten(b)[k]
+            if isinstance(x, torch.Generator):
+                same = torch.equal(x.get_state(), y.get_state())
+            elif torch.is_tensor(x):
+                same = x.dtype == y.dtype and x.device == y.device and \
+                    torch.equal(x, y)
+            else:
+                same = type(x) is type(y) and x == y
+            if not same:
+                return k
+        return None
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build")
+    try:
+        for loss_name in ("mimps_ce", "lsh_ce"):
+            tcfg = TrainConfig(loss=loss_name, warmup_steps=1, lr=1e-3)
+            state = init_train_state(model, tcfg, seed=0, device=dev)
+            step = make_train_step(model, tcfg)
+            it = DataIterator(SyntheticCorpus(cfg.vocab, seed=0), 4, 32)
+            batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                        zip(("tokens", "labels"), next(it))}
+                       for _ in range(3)]
+            for b in batches[:2]:
+                state, _ = step(state, b)
+            mgr = CheckpointManager(f"{tmp}/{loss_name}", keep=2)
+            fp = config_fingerprint(cfg, tcfg)
+            t0 = time.perf_counter()
+            mgr.save(2, state, config=fp, data_state={"step": 2})
+            mgr.wait()
+            save_ms = (time.perf_counter() - t0) * 1e3
+            copies = []
+            for _ in range(2):
+                r, manifest = mgr.restore(None, like=state, config=fp)
+                diff = first_diff(state, r)
+                check(diff is None, f"checkpoint {loss_name}: restored {diff} "
+                      f"differs from the saved state")
+                copies.append(r)
+            a, ma = step(copies[0], batches[2])
+            b, mb = step(copies[1], batches[2])
+            torch.cuda.synchronize()
+            repro = first_diff(a, b)
+            u, mu = step(state, batches[2])
+            resumed = first_diff(u, a)
+            if repro is None:
+                check(resumed is None, f"checkpoint {loss_name}: step 3 after "
+                      f"the restore differs from the uninterrupted step 3 "
+                      f"first at {resumed}")
+                verdict = ("step 3 reproducible; after the restore bit-equal "
+                           "to the uninterrupted step 3")
+            else:
+                verdict = (f"step 3 not reproducible: two runs first differ "
+                           f"at {repro}; the restored run against the "
+                           f"uninterrupted one first at {resumed}, losses "
+                           f"{mu['loss_total'].item():.9f} / "
+                           f"{ma['loss_total'].item():.9f}")
+            log(f"checkpoint {loss_name} (reduced qwen1.5-4b: d "
+                f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.n_layers} layers; "
+                f"{len(manifest['keys'])} arrays, index "
+                f"{type(state.index).__name__}, generator on {dev}): save "
+                f"{save_ms:.1f} ms, restore bit-equal to the saved state "
+                f"(twice); {verdict} [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"checkpoint phase: {time.time() - t_phase:.1f} s [{card}]")
 
 
 def f32_phase(torch, card, kernels):

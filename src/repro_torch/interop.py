@@ -94,3 +94,10 @@ def lsh_from_numpy(proj, aug_scale, tail_scale, tail_logits, codes, buckets,
                     codes=to_tensor(codes, device).to(torch.int32),
                     buckets=to_tensor(buckets, device).to(torch.int32),
                     slot_of_row=to_tensor(slot_of_row, device).to(torch.int32))
+
+
+def lbl_params_from_numpy(r, c, b, device="cuda"):
+    """A JAX ``repro.models.lbl`` parameter dict's leaves (numpy ``r``
+    (vocab, d), ``c`` (context, d, d), ``b`` (vocab,)) as the port's."""
+    return {"r": to_tensor(r, device), "c": to_tensor(c, device),
+            "b": to_tensor(b, device)}

@@ -2,16 +2,18 @@
 (mu over the (k, l) grid), Table 2 (query noise) and Table 3 (retrieval
 errors), at the sizes and grids of the JAX package's
 ``benchmarks/fig1_cdf.py``, ``table1_grid.py``, ``table2_noise.py`` and
-``table3_retrieval.py`` run with ``--full``.
+``table3_retrieval.py`` run with ``--full``; the CLI adds Table 4
+(``table4_lbl``, the LBL model trained by NCE, MIMPS against Z = 1).
 
     python3 -m repro_torch.studies.paper_tables --out BENCH_torch_estimators.json
 
-runs all four on one GPU (scores, sorts, solves, the exact log Z through
+runs all five on one GPU (scores, sorts, solves, the exact log Z through
 ``topk_z``, the FMBE sketch through ``fmbe_phi`` and its estimate through
-``fmbe_z``), prints each table, writes mu and sigma of every cell, each
+``fmbe_z``, Table 4's MIMPS head through ``ivf_score``), prints each
+table, writes mu and sigma of every cell (Table 4: its rows), each
 table's wall seconds and the card's name and power limit, and exits 1 if
 one of ``ORDERINGS`` (the paper's orderings that the JAX package's own run
-shows) does not hold.
+shows) or Table 4's ordering does not hold.
 
 Each table function takes its data and, optionally, its draws: ``draws``
 maps ("uniform", l) to the (Q, l) row ids of ``uniform_log_z`` and
@@ -37,6 +39,7 @@ from .. import resolve_device
 from ..core import estimators as est
 from ..core.feature_maps import FeatureMap, build_fmbe, fmbe_z_batch, \
     make_feature_map
+from . import table4_lbl
 from .common import (make_embeddings, make_queries, neighbors_for_mass,
                      pct_abs_rel_error)
 
@@ -283,6 +286,10 @@ ORDERINGS = {
 }
 
 
+TABLE4_ORDERING = ("table4: MIMPS beats Z = 1 (%Better over 50, AbsE-MIPS "
+                   "under AbsE-NCE) at every (n_probe, l)")
+
+
 def check_orderings(results: dict) -> Dict[str, bool]:
     return {name: bool(fn(results)) for name, fn in ORDERINGS.items()}
 
@@ -332,11 +339,17 @@ def main(argv=None) -> int:
     # process's CUDA start-up (library loads, first launches)
     run(n=4096, n_queries=8, seeds=(0,), fmbe_features=512, device=dev)
     results = run(device=dev)
+    t0 = time.perf_counter()
+    results["table4"] = table4_lbl.run(device=dev)
+    results["table4"]["seconds"] = time.perf_counter() - t0
     results["card"] = card_line()
     results["device"] = torch.cuda.get_device_name(dev)
     results["orderings"] = check_orderings(results)
+    results["orderings"][TABLE4_ORDERING] = table4_lbl.mimps_beats_z1(
+        results["table4"])
     print(format_tables(results))
-    for name in ("fig1", "table1", "table2", "table3"):
+    print(table4_lbl.format_table(results["table4"]))
+    for name in ("fig1", "table1", "table2", "table3", "table4"):
         print(f"{name}: {results[name]['seconds']:.3f} s [{results['card']}]")
     for name, ok in results["orderings"].items():
         print(f"{'holds' if ok else 'BROKEN'}: {name}")

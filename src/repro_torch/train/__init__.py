@@ -1,12 +1,16 @@
-"""Training: streaming-CE losses, AdamW, and the train-step factory."""
+"""Training: the losses, AdamW, the train-step factory, the index refresh
+and checkpoints."""
 from .losses import ESTIMATOR_LOSSES, LOSSES, get_loss, streaming_ce
 from .optimizer import adamw_update, init_opt_state, lr_schedule
 from .train_loop import (TrainMetricState, TrainState, harvest_train_metrics,
                          init_train_metric_state, init_train_state,
+                         make_index_refresh, make_instrumented_step,
                          make_train_step, observe_train_step)
+from .checkpoint import CheckpointManager
 
 __all__ = ["ESTIMATOR_LOSSES", "LOSSES", "get_loss", "streaming_ce",
            "adamw_update", "init_opt_state", "lr_schedule",
            "TrainMetricState", "TrainState", "harvest_train_metrics",
-           "init_train_metric_state", "init_train_state", "make_train_step",
-           "observe_train_step"]
+           "init_train_metric_state", "init_train_state", "make_index_refresh",
+           "make_instrumented_step", "make_train_step", "observe_train_step",
+           "CheckpointManager"]

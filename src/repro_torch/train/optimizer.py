@@ -60,12 +60,31 @@ def lr_schedule(cfg: TrainConfig, step: int) -> float:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
+# elements of each f32 partial sum of squares in ``global_norm``
+_NORM_CHUNK = 4096
+
+
+def _sq_norm(g: torch.Tensor) -> torch.Tensor:
+    """Sum of squares of g in float64, from f32 norms of rows of
+    _NORM_CHUNK elements (one read of g, no float64 copy of it)."""
+    flat = g.reshape(-1)
+    m = flat.numel() - flat.numel() % _NORM_CHUNK
+    sq = torch.linalg.vector_norm(flat[:m].view(-1, _NORM_CHUNK), dim=-1,
+                                  dtype=torch.float32).double().square().sum()
+    if m < flat.numel():
+        sq = sq + torch.linalg.vector_norm(
+            flat[m:], dtype=torch.float32).double().square()
+    return sq
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf (a tree, or its leaves),
-    accumulated in f32."""
-    sq = [torch.linalg.vector_norm(g, dtype=torch.float32) ** 2
-          for g in _leaves_of(tree)]
-    return torch.sqrt(torch.stack(sq).sum())
+    returned in f32. Each leaf is summed in chunks (``_sq_norm``): one
+    f32 ``vector_norm`` of a whole leaf on the CPU was 1.6e-5 off on an
+    estimator loss's gradient and 4e-4 off on a dense (4096, 2560) one,
+    where the JAX package's f32 sum is exact to about 1e-7."""
+    return torch.sqrt(torch.stack([_sq_norm(g)
+                                   for g in _leaves_of(tree)]).sum()).float()
 
 
 @torch.no_grad()
