@@ -168,6 +168,37 @@ GPU.
    Then 2 ``fused_ce`` train steps launch one f32 CE kernel of each kind a
    step.
 
+9. The traffic phase (``traffic``), last, on the serving phase's
+   parameters made again from their seed (its ``torch.profiler`` sessions
+   slow the host-bound train steps run after them in the same process;
+   ``tools/traffic_train_order.py``): a mimps
+   engine with the fixed-capacity index and the guard behind one
+   ``Scheduler`` of 16 lanes (prompt cap 128, max_len 160), its step one
+   CUDA graph a tier. Parity: six staggered requests (prompts 5-120, 4-32
+   new tokens, greedy and sampled) give the tokens each gives alone in the
+   table and through its solo captured ``generate(generator=)`` (where
+   batch 1 differs, the first differing step and the trunk's batch-1 vs
+   batch-16 hidden states are logged and every request is held to
+   ``generate`` at batch 16, a sampled one with row 0 of generate's noise
+   injected). Traffic: 64 requests (prompts 16-128, 32 new
+   tokens) on Poisson arrivals at 0.25 a step: all complete, nothing is
+   captured again, ``ivf_decode`` launches once a step and the gated
+   ``topk_z`` twice; goodput, token-latency percentiles, first-token
+   latency, occupancy, step device and host ms, the dedup ratio and the
+   captures are logged beside the sequential captured ``generate`` over
+   the same requests. Overload: 48 requests at twice the rate, queue 16,
+   ladder watermarks 8/2: the tier walks mimps -> topk and back, every
+   shed has its reason, completions balance, one capture a tier. Faults:
+   a NaN lane contained, step faults retried, a permuted index restored
+   by the digest every 4 steps with one capture again, tokens unchanged.
+   A shared 64-token prefix (32 requests) through a 128-block pool of
+   16-token blocks, plain and drafted by topk and fmbe at spec_k 4, cold
+   and warm: tokens bit-identical to the plain scheduler without a pool.
+   Last, one eager step of a busy table (12 of 16 lanes) at mimps, at
+   topk, and drafted by topk and by fmbe: every ``ivf_decode``,
+   ``union_scores``, ``fmbe_z`` and gated ``topk_z`` call of the step
+   (Q 16, and 64 in a verify) made again and held to its plain version.
+
 Prints the kernel record as one JSON line before the last (each kernel at
 bf16, the gated ``topk_z`` as ``topk_z[gated]``, then each at f32 as
 ``<name>[f32]``), and as the last line ``{"ok": true,
@@ -641,6 +672,16 @@ def main() -> int:
     f32_records = f32_phase(torch, card, kernels)
     for rec in f32_records:                     # the studies ran at f32
         rec["launches"] += study[rec["name"].removesuffix("[f32]")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # traffic last: its torch.profiler sessions slow the host-bound train
+    # steps run after them in the same process
+    counts, n_gated, held = traffic_last(torch, card, kernels)
+    for rec in records:                         # bf16 records, by name
+        rec["launches"] += n_gated if rec["name"] == "topk_z[gated]" \
+            else counts.get(rec["name"], 0)
+        if rec["name"] in held:                 # the table's shapes too
+            rec["max_abs_err"] = max(rec["max_abs_err"], held[rec["name"]])
     records += f32_records
     line = {"kernels": records}
     log(f"total {time.time() - t_start:.1f} s")
@@ -992,6 +1033,573 @@ def serve(torch, card, kernels):
     for rec in records:
         rec["launches"] += layer_counts[rec["name"]]
     return records + [gated], study_counts
+
+
+# the traffic phase: full-width qwen1.5-4b behind the slot scheduler
+T_SLOTS, T_PROMPT_CAP, T_NEW = 16, 128, 32
+T_MAX_LEN = T_PROMPT_CAP + T_NEW
+T_PARITY = ((5, 32, 0.0), (40, 4, 0.5), (120, 16, 0.0), (17, 8, 0.7),
+            (77, 24, 0.0), (100, 12, 0.9))      # (prompt, new tokens, T)
+T_PARITY_AT = (0, 3, 7, 12, 20, 30)
+T_REQUESTS, T_RATE = 64, 0.25     # the traffic run: Poisson, numpy seed 0
+T_OVERLOAD = 48                   # at twice the rate
+T_PREFIX, T_PREFIX_REQ, T_PREFIX_NEW = 64, 32, 16
+T_SPEC_K = 4
+T_HELD_LANES, T_HELD_WARM = 12, 3    # the held steps' busy table
+
+
+def traffic_last(torch, card, kernels):
+    """Phase 9: the serving phase's full-width bf16 parameters made again
+    from the same seed, then ``traffic``; returns what it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    dev = torch.device("cuda")
+    cfg = get_config("qwen1.5-4b")
+    t0 = time.time()
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    log(f"traffic: the serving phase's parameters again (seed 0), "
+        f"{time.time() - t0:.1f} s [{card}]")
+    return traffic(torch, card, kernels, params, cfg)
+
+
+def traffic(torch, card, kernels, params, cfg):
+    """Phase 9: traffic serving (``repro_torch.serve.Scheduler`` and
+    ``Server``) at full width. A mimps engine with the fixed-capacity index
+    and the guard, and one scheduler of T_SLOTS lanes (prompt cap 128,
+    max_len 160), whose step is one CUDA graph a tier. Runs, each with the
+    launch counts from 0:
+
+    1. Parity: six requests (prompts 5-120, 4-32 new tokens, three greedy,
+       three at T 0.5-0.9 with their own seeds), admitted staggered: each
+       request's tokens equal the same request alone in the table, and its
+       solo captured ``generate(..., generator=<its seed>)``.
+    2. Traffic: 64 requests (prompts cycling 16, 32, 64, 128; 32 new
+       tokens; even ones greedy, odd ones at T 0.8), Poisson arrivals at
+       0.25 a step (numpy seed 0): every request completes, nothing is
+       captured again, ``ivf_decode`` launches once a step and the gated
+       ``topk_z`` twice (the guard and the shadow gate). Logged beside the
+       sequential captured ``generate`` over the same requests.
+    3. Overload: 48 requests at twice the rate with a bounded queue, a
+       default deadline and the ladder: the tier walks mimps -> topk and
+       back, every shed has its reason, completions balance submissions,
+       one capture a tier and none after.
+    4. Faults: a NaN lane (its neighbours bit-identical to the fault-free
+       run, the guard's flags counted), a step fault (retried, tokens
+       unchanged), a permuted index with a digest every 4 steps (restored,
+       every token unchanged, exactly one capture again, its seconds
+       logged).
+    5. A shared 64-token prefix with 1-4-token tails, 32 requests, through
+       a 128-block pool of 16-token blocks: plain, and drafted by topk and
+       by fmbe at spec_k 4, each on a cold and a warm pool, tokens
+       bit-identical to the plain scheduler without a pool.
+    6. The step's kernels at the table's shapes: on eager schedulers with
+       12 of 16 lanes live at staggered positions, one mimps step, one topk
+       step and one verify drafted by topk and by fmbe (``held_step``):
+       every ``ivf_decode``, ``union_scores``, ``fmbe_z`` and (gated)
+       ``topk_z`` call of the step made again and held to its plain
+       version (these launches are not counted).
+
+    Returns the path's launches by kernel, the gated ``topk_z``'s, and the
+    held calls' max abs err by kernel record name."""
+    import numpy as np
+
+    from repro_torch.configs import ServingConfig
+    from repro_torch.kernels import _build
+    from repro_torch.models import Model
+    from repro_torch.serve import (CorruptIndexFault, Engine,
+                                   NanLogitsFault, Request, Scheduler,
+                                   Server, StepFault, generate,
+                                   poisson_arrivals, trace_arrivals)
+
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    path = {name: 0 for name in kernels}
+    gated = [0]
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _build.reset_counts(kernels.values())
+        res = fn()
+        torch.cuda.synchronize()
+        counts = {name: kfn.launches for name, kfn in kernels.items()}
+        for name in kernels:
+            path[name] += counts[name]
+        gated[0] += kernels["topk_z"].gated
+        return res, counts, kernels["topk_z"].gated
+
+    t0 = time.time()
+    eng = Engine(Model(cfg), params, T_MAX_LEN, seed=7, device_index=True,
+                 health_guard=True, device=dev)
+    sched = Scheduler(eng, T_SLOTS, prompt_cap=T_PROMPT_CAP, seed=3)
+    torch.cuda.synchronize()
+    kv_gb = sum(t.numel() * t.element_size()
+                for t in sched.table.cache.values()) / 1e9
+    log(f"traffic: engine and a {T_SLOTS}-lane table ({kv_gb:.3f} GB of KV, "
+        f"max_len {T_MAX_LEN}) built in {time.time() - t0:.2f} s [{card}]")
+    vocab = cfg.vocab
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def prompt(n):
+        return torch.randint(0, vocab, (n,), generator=gen,
+                             device=dev).cpu().numpy()
+
+    def serve(reqs, at=None, server_cfg=None, s=None, rate=None):
+        s = sched if s is None else s
+        server = Server(s, server_cfg)
+        arrivals = (poisson_arrivals(reqs, rate, seed=0) if rate
+                    else trace_arrivals(reqs, at or [0] * len(reqs)))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rep = server.run(arrivals=arrivals)
+        torch.cuda.synchronize()
+        by_id = {c.request.req_id: c for c in rep.completions}
+        return rep, [by_id.get(r.req_id) for r in reqs], time.time() - t0
+
+    def copy(reqs):
+        return [Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens,
+                        seed=r.seed, temperature=r.temperature)
+                for r in reqs]
+
+    # -- 1. parity ---------------------------------------------------------
+    par = [Request(prompt=prompt(p), max_new_tokens=n, seed=100 + i,
+                   temperature=t)
+           for i, (p, n, t) in enumerate(T_PARITY)]
+    (rep, got, secs), counts, _ = counted(
+        lambda: serve(par, list(T_PARITY_AT)))
+    check(all(c is not None and c.error is None and
+              len(c.tokens) == r.max_new_tokens for r, c in zip(par, got)),
+          "traffic parity: a request did not complete")
+    check(sched.captures == 1, f"traffic parity: {sched.captures} captures")
+    check(counts["ivf_decode"] == rep.steps, f"traffic parity: ivf_decode "
+          f"launched {counts['ivf_decode']} times in {rep.steps} steps")
+    alone = []
+    for r in copy(par):
+        _, (c,), _ = serve([r])
+        alone.append(c.tokens)
+    check(alone == [c.tokens for c in got], "traffic parity: a request's "
+          "tokens in the busy table differ from its tokens alone in it")
+    solo = []
+    for r in par:
+        out = generate(eng, torch.as_tensor(r.prompt[None], device=dev),
+                       r.max_new_tokens, temperature=r.temperature,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           r.seed))
+        solo.append(out[0].tolist())
+    same = [a == c.tokens for a, c in zip(solo, got)]
+    if all(same):
+        log(f"traffic parity: {len(par)} requests (prompts "
+            f"{[p for p, _, _ in T_PARITY]}, staggered), tokens equal to "
+            f"each alone in the table and to its solo captured generate "
+            f"(batch 1), {rep.steps} steps, {secs:.2f} s [{card}]")
+    else:
+        batch1_vs_16(torch, eng, params, par, got, solo, same, card, serve)
+    # -- 2. traffic --------------------------------------------------------
+    lengths = (16, 32, 64, 128)
+    reqs = [Request(prompt=prompt(lengths[i % 4]), max_new_tokens=T_NEW,
+                    seed=1000 + i, temperature=0.0 if i % 2 == 0 else 0.8)
+            for i in range(T_REQUESTS)]
+    sched.shadow_every = 8
+    sched.reset_metrics()
+    caps = sched.captures
+    (rep, got, secs), counts, n_gated = counted(
+        lambda: serve(reqs, rate=T_RATE))
+    check(all(c is not None and c.error is None and len(c.tokens) == T_NEW
+              for c in got), "traffic: a request did not complete")
+    check(sched.captures == caps, f"traffic: {sched.captures - caps} "
+          f"captures after the warm-up run")
+    check(counts["ivf_decode"] == rep.steps, f"traffic: ivf_decode "
+          f"launched {counts['ivf_decode']} times in {rep.steps} steps")
+    check(n_gated == 2 * rep.steps, f"traffic: the gated topk_z launched "
+          f"{n_gated} times in {rep.steps} steps, want 2 a step")
+    m = sched.harvest_metrics()
+    ttft = [(c.first_token_time - c.admit_time) * 1e3 for c in got]
+    step_ms = graph_step_ms(torch, sched, params, card)
+    n_tok = sum(len(c.tokens) for c in got)
+    log(f"traffic: {T_REQUESTS} requests (prompts 16/32/64/128, {T_NEW} new "
+        f"tokens, half at T 0.8), Poisson {T_RATE}/step: {rep.summary()}; "
+        f"{n_tok} tokens in {secs:.2f} s wall ({n_tok / secs:.1f} tokens/s "
+        f"with set-up); first token after admission p50 "
+        f"{statistics.median(ttft):.2f} ms, max {max(ttft):.2f} ms, queue "
+        f"wait {rep.queue_wait_steps_mean:.2f} steps; a step's graph replay "
+        f"{step_ms:.3f} ms device; shadow mimps rel err "
+        f"{m['shadow_by_tier'].get('mimps')}; {counts['ivf_decode']} "
+        f"ivf_decode and {n_gated} gated topk_z launches; captures "
+        f"{sched.captures_by_tier} [{card}]")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    seq_tok = seq_steps = 0
+    for r in reqs:
+        out = generate(eng, torch.as_tensor(r.prompt[None], device=dev),
+                       r.max_new_tokens, temperature=r.temperature,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           r.seed))
+        seq_tok += out.shape[1]
+        seq_steps += len(r.prompt) + r.max_new_tokens - 1
+    torch.cuda.synchronize()
+    seq_s = time.time() - t0
+    log(f"traffic, sequential captured generate over the same requests: "
+        f"{seq_tok} tokens in {seq_s:.2f} s ({seq_tok / seq_s:.1f} tokens/s, "
+        f"{seq_s / seq_steps * 1e3:.3f} ms a step over {seq_steps} steps); "
+        f"the scheduler {rep.goodput_tok_s / (seq_tok / seq_s):.2f}x its "
+        f"goodput [{card}]")
+    # -- 3. overload -------------------------------------------------------
+    over = [Request(prompt=prompt(lengths[i % 4]), max_new_tokens=T_NEW,
+                    seed=3000 + i, temperature=0.0 if i % 2 == 0 else 0.8)
+            for i in range(T_OVERLOAD)]
+    ocfg = ServingConfig(max_queue=16, degrade_high=8, degrade_low=2,
+                         default_deadline=400)
+    (rep, got, secs), counts, _ = counted(
+        lambda: serve(over, server_cfg=ocfg, rate=2 * T_RATE))
+    tiers = [t for _, t in rep.tier_transitions]
+    check(tiers[:1] == ["topk"] and tiers[-1:] == ["mimps"],
+          f"overload: the ladder walked {rep.tier_transitions}")
+    check(len(rep.completions) == T_OVERLOAD and all(c is not None
+                                                     for c in got),
+          f"overload: {len(rep.completions)} completions for {T_OVERLOAD} "
+          f"submissions")
+    check(all(c.reason for c in got if c.error is not None),
+          "overload: a shed without its reason")
+    check(sched.captures_by_tier == {"mimps": 1, "topk": 1},
+          f"overload: captures {sched.captures_by_tier}")
+    check(counts["union_scores"] > 0, "overload: the topk rung never "
+          "launched union_scores")
+    log(f"overload: {T_OVERLOAD} requests at {2 * T_RATE}/step, queue 16, "
+        f"ladder 8/2: {rep.summary()}; tier path {rep.tier_transitions}; "
+        f"tokens by tier {rep.tokens_by_tier}; launches ivf_decode "
+        f"{counts['ivf_decode']}, union_scores {counts['union_scores']}; "
+        f"captures {sched.captures_by_tier}; {secs:.2f} s [{card}]")
+    # -- 4. faults ---------------------------------------------------------
+    base_reqs = [Request(prompt=prompt(16 + 8 * i), max_new_tokens=12,
+                         seed=5000 + i, temperature=0.0 if i % 2 else 0.7)
+                 for i in range(6)]
+    (_, base, _), _, _ = counted(lambda: serve(copy(base_reqs)))
+    base = [c.tokens for c in base]
+    caps = sched.captures
+    victim = copy(base_reqs)
+    sched.injector = NanLogitsFault([victim[2].req_id], steps=range(
+        sched.steps_done + 1, sched.steps_done + 40))
+    (rep, got, _), _, _ = counted(lambda: serve(victim))
+    check(all(c.tokens == b for i, (c, b) in enumerate(zip(got, base))
+              if i != 2), "faults: a NaN lane changed a neighbour's tokens")
+    check(len(got[2].tokens) == 12 and rep.health["flagged"] > 0,
+          f"faults: the NaN lane: {len(got[2].tokens)} tokens, health "
+          f"{rep.health}")
+    check(all(np.isfinite(c.log_zs).all() for c in got),
+          "faults: a non-finite log Z was emitted")
+    nan_health = rep.health
+    sched.injector = StepFault([sched.steps_done + 2, sched.steps_done + 5])
+    (rep, got, _), _, _ = counted(lambda: serve(copy(base_reqs)))
+    check(rep.step_faults == 2 and [c.tokens for c in got] == base,
+          f"faults: step faults {rep.step_faults}, tokens unchanged "
+          f"{[c.tokens for c in got] == base}")
+    at = (sched.steps_done // 4 + 2) * 4
+    sched.injector = CorruptIndexFault(at_step=at, mode="permute", n_blocks=2)
+    n_re = len(sched.recapture_log)
+    (rep, got, _), counts, _ = counted(lambda: serve(
+        copy(base_reqs), server_cfg=ServingConfig(verify_index_every=4)))
+    sched.injector = None
+    check(rep.index_restores == 1, f"faults: {rep.index_restores} restores")
+    check([c.tokens for c in got] == base, "faults: tokens after the "
+          "restore differ from the fault-free run's")
+    check(len(sched.recapture_log) == n_re + 1 and
+          sched.captures == caps + 1, f"faults: {sched.captures - caps} "
+          f"captures for one restore")
+    log(f"faults: NaN lane contained (neighbours bit-identical, health "
+        f"{nan_health}); 2 step faults retried, tokens unchanged; permuted "
+        f"index at step {at} restored by the digest every 4 steps, tokens "
+        f"unchanged, one capture again in "
+        f"{sched.recapture_log[-1][1] if sched.recapture_log else 0:.3f} "
+        f"s (JAX recompiles nothing across a swap: its states are traced "
+        f"arguments) [{card}]")
+    # -- 5. prefix pool and speculation ------------------------------------
+    shared = prompt(T_PREFIX)
+    pre = [Request(prompt=np.concatenate([shared, prompt(1 + i % 4)]),
+                   max_new_tokens=T_PREFIX_NEW, seed=7000 + i,
+                   temperature=0.0 if i % 2 == 0 else 0.8)
+           for i in range(T_PREFIX_REQ)]
+    (rep, got, secs), _, _ = counted(lambda: serve(copy(pre)))
+    want = [c.tokens for c in got]
+    log(f"prefix/spec: plain, no pool: {rep.steps} steps, "
+        f"{rep.goodput_tok_s:.1f} tokens/s, {secs:.2f} s [{card}]")
+    for draft in (None, "topk", "fmbe"):
+        kw = {} if draft is None else dict(spec_draft=draft,
+                                           spec_k=T_SPEC_K)
+        s = Scheduler(eng, T_SLOTS, prompt_cap=T_PROMPT_CAP, seed=3,
+                      prefix_cache_blocks=128, prefix_block_tokens=16, **kw)
+        for wave in ("cold", "warm"):
+            (rep, got, secs), counts, _ = counted(
+                lambda: serve(copy(pre), s=s))
+            label = f"prefix/spec {draft or 'plain'} {wave}"
+            check([c.tokens for c in got] == want, f"{label}: tokens differ "
+                  f"from the plain run without a pool")
+            if draft == "topk":
+                check(counts["union_scores"] > 0, f"{label}: the draft "
+                      f"never launched union_scores")
+            if draft == "fmbe":
+                check(counts["fmbe_z"] > 0, f"{label}: the draft never "
+                      f"launched fmbe_z")
+            check(counts["ivf_decode"] == rep.steps, f"{label}: ivf_decode "
+                  f"{counts['ivf_decode']} in {rep.steps} steps")
+            log(f"{label}: {rep.steps} steps, {rep.goodput_tok_s:.1f} "
+                f"tokens/s, step device {rep.step_device_ms_mean:.3f} ms + "
+                f"host {rep.step_host_ms_mean:.3f} ms, prefix {rep.prefix}, "
+                f"acceptance {rep.spec_acceptance:.3f} "
+                f"({rep.spec_accepted}/{rep.spec_proposed}), draft-flagged "
+                f"{rep.draft_flagged}, {secs:.2f} s [{card}]")
+        check(s.captures == 1, f"prefix/spec {draft}: {s.captures} captures")
+        del s
+        torch.cuda.empty_cache()
+    # -- 6. the step's kernels at the table's shapes -----------------------
+    held = {}
+    before = _build.snapshot()
+    for draft in (None, "topk", "fmbe"):
+        kw = {} if draft is None else dict(spec_draft=draft, spec_k=T_SPEC_K)
+        s = Scheduler(eng, T_SLOTS, prompt_cap=T_PROMPT_CAP, seed=3,
+                      eager=True, **kw)
+        busy = copy(reqs[:T_HELD_LANES])
+        for i, r in enumerate(busy):
+            s.admit(r)
+            if i == T_HELD_LANES // 2 - 1:
+                for _ in range(T_HELD_WARM):
+                    s.step()
+        for _ in range(T_HELD_WARM):
+            s.step()
+        tiers = ("mimps", "topk") if draft is None else ("mimps",)
+        for tier in tiers:
+            s.set_tier(tier)
+            label = f"held {tier} step" if draft is None else \
+                f"held {draft}-drafted verify"
+            for name, err in held_step(torch, s, busy[1], label,
+                                       card).items():
+                held[name] = max(held.get(name, 0.0), err)
+        s.drain()
+        del s
+        torch.cuda.empty_cache()
+    _build.restore(before)
+    for name in ("ivf_decode", "topk_z[gated]", "union_scores", "fmbe_z"):
+        check(name in held, f"traffic: no {name} call was held to its plain "
+              f"version at the table's shapes")
+    path["topk_z"] -= gated[0]
+    log(f"traffic path launches {path}, gated topk_z {gated[0]}; kernels "
+        f"held to their plain versions at the table's shapes, max abs err "
+        f"{held}; phase {time.time() - t_phase:.1f} s [{card}]")
+    return path, gated[0], held
+
+
+# the kernel wrappers a scheduler step calls, by the module that calls them
+STEP_KERNEL_SITES = (("repro_torch.core.decode", "ivf_decode"),
+                     ("repro_torch.core.decode", "union_scores"),
+                     ("repro_torch.core.decode", "topk_z"),
+                     ("repro_torch.core.backends", "topk_z"),
+                     ("repro_torch.core.feature_maps", "fmbe_z"))
+
+
+def held_step(torch, sched, victim, label, card):
+    """One step of the eager scheduler ``sched`` on its busy table, with
+    the kernel wrappers the step calls recording their arguments; a NaN
+    fault on ``victim``'s lane (the guard's gated ``topk_z`` scores it) and
+    the shadow oracle on (its gated ``topk_z`` scores every live lane).
+    Then each recorded call is made again through its wrapper and held to
+    its plain version on the same inputs: the hidden states, the tier's
+    state and the plan (the live lanes' probe union) of that step, at
+    Q = n_slots rows, or n_slots x spec_k in a speculative verify. Returns
+    the max abs err by kernel record name."""
+    import importlib
+
+    from repro_torch.serve import NanLogitsFault
+    calls, saved = [], []
+    for mod_name, fn_name in STEP_KERNEL_SITES:
+        mod = importlib.import_module(mod_name)
+        real = getattr(mod, fn_name)
+        saved.append((mod, fn_name, real))
+
+        def record(*args, _real=real, _name=fn_name, **kwargs):
+            calls.append((_name, _real, args, kwargs))
+            return _real(*args, **kwargs)
+        setattr(mod, fn_name, record)
+    sched.injector = NanLogitsFault([victim.req_id], [sched.steps_done])
+    sched.shadow_every = 1
+    try:
+        rec = sched.step()
+    finally:
+        for mod, fn_name, real in saved:
+            setattr(mod, fn_name, real)
+        sched.injector = None
+        sched.shadow_every = 0
+    torch.cuda.synchronize()
+    check(rec["health_flagged"] >= 1, f"{label}: the NaN lane was not "
+          f"flagged ({rec['health_flagged']})")
+    errs, notes = {}, []
+    for name, real, args, kwargs in calls:
+        key, err, note = hold_call(torch, f"{label} {name}", name, real,
+                                   args, kwargs)
+        errs[key] = max(errs.get(key, 0.0), err)
+        notes.append(note)
+    log(f"{label}: {rec['n_active']} of {sched.n_slots} lanes live, tier "
+        f"{rec['tier']}; each kernel call of the step made again and held "
+        f"to its plain version: " + "; ".join(notes) + f" [{card}]")
+    return errs
+
+
+def hold_call(torch, label, name, real, args, kwargs):
+    """One recorded kernel call made again through its wrapper ``real`` and
+    held to its plain version (the kernel phases' tolerances): (record
+    name, max abs err, a note for the log)."""
+    from repro_torch.kernels.fmbe import fmbe_phi_plain, fmbe_z_plain
+    from repro_torch.kernels.ivf_score import (ivf_decode_plain,
+                                              union_scores_plain)
+    from repro_torch.kernels.topk_z import topk_z_plain
+    if name == "ivf_decode":
+        k = kwargs["k"]
+        hl, tl, iv, ii = real(*args, k=k)
+        p_hl, p_tl, p_v, p_i = ivf_decode_plain(*args, k=k + 1)
+        err = max(compare_lse(f"{label} head_lse", hl, p_hl),
+                  compare_lse(f"{label} tail_lse", tl, p_tl))
+        err_v, n_ids = compare_topk(label, iv, ii, p_v, p_i)
+        live, cap = int(args[3]), args[2].shape[0]
+        return name, max(err, err_v), (
+            f"ivf_decode Q {args[1].shape[0]} union {live} live of {cap} "
+            f"slots, lse err {err:.2e}, top-k err {err_v:.2e} ({n_ids} ids)")
+    if name == "union_scores":
+        live = int(args[3])
+        us = real(*args)
+        p_us = union_scores_plain(*args)
+        err = (us[:, :live] - p_us[:, :live]).abs().max().item()
+        check(err <= TOL, f"{label}: live slots differ by {err}")
+        check(bool((us[:, live:] == 0).all()), f"{label}: pad slots not 0")
+        return name, err, (f"union_scores Q {us.shape[0]} union {live} live "
+                           f"of {us.shape[1]} slots, err {err:.2e}")
+    if name == "topk_z":
+        h, w, k = args
+        rows = kwargs.get("rows")
+        lse, tv, ti = real(h, w, k, rows=rows)
+        p_lse, p_v, p_i = topk_z_plain(h, w, k + 1, rows)
+        err = compare_lse(f"{label} lse", lse, p_lse)
+        err_v, n_ids = compare_topk(label, tv, ti, p_v, p_i)
+        on = h.shape[0] if rows is None else int((rows != 0).sum())
+        key = "topk_z" if rows is None else "topk_z[gated]"
+        return key, max(err, err_v), (
+            f"{key} Q {h.shape[0]} ({on} rows scored), lse err {err:.2e}, "
+            f"top-k err {err_v:.2e} ({n_ids} ids)")
+    omega, degree, coef, lam, x = args
+    z = real(*args, **kwargs)
+    terms = fmbe_phi_plain(omega, degree, coef, x) * lam
+    err, ratio = compare_signed_sum(label, z, fmbe_z_plain(*args), terms)
+    return name, err, (f"fmbe_z Q {x.shape[0]} lambda {tuple(lam.shape)}, "
+                       f"err {err:.3e} = {ratio:.4f} of the tolerance")
+
+
+def graph_step_ms(torch, sched, params, card):
+    """Device milliseconds of one replay of the scheduler's captured step
+    of its current tier, every lane idle (the step does every lane's work
+    whatever its state): CUDA events over 20 replays. Then one replay
+    under ``torch.profiler`` (kernels, time by kernel) and one eager
+    16-lane trunk call at positions 0-150 by kind (``trunk_kinds``), beside
+    the 8-lane ``generate`` step's of the serving phase."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    g = sched._graphs[sched.tier]
+    ms = _median_events(torch, g.graph.replay, 20)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g.graph.replay()
+        torch.cuda.synchronize()
+    sched.reset_metrics()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kern:
+        name = e.name.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].removeprefix("void ")[:50]
+        k_ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (k_ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"traffic step profile (mimps, 16 lanes, one replay): {len(kern)} "
+        f"kernels, {sum(v for v, _ in by_name.values()):.3f} ms of kernel "
+        f"time; top: " + "; ".join(f"{n} {v:.3f} ms x{c}"
+                                    for n, (v, c) in top) + f" [{card}]")
+    eng = sched.engine
+    dev = sched.device
+    cache = eng.model.init_decode_state(sched.n_slots, eng.max_len, dev)
+    toks = torch.zeros((sched.n_slots,), dtype=torch.long, device=dev)
+    pos = torch.arange(0, 160, 10, dtype=torch.int32, device=dev)
+    kinds, _ = trunk_kinds(torch, lambda: eng.model.decode_step(
+        params, cache, toks, pos))
+    del cache
+    log(f"traffic trunk by kind (eager, 16 lanes, KV of {eng.max_len}): "
+        f"{sum(v for v, _ in kinds.values()):.3f} ms in "
+        f"{sum(n for _, n in kinds.values())} kernels; "
+        + "; ".join(f"{k} {v:.3f} ms ({n})" for k, (v, n) in
+                    sorted(kinds.items(), key=lambda kv: -kv[1][0]))
+        + f" [{card}]")
+    return ms
+
+
+def batch1_vs_16(torch, eng, params, par, got, solo, same, card, serve):
+    """Where a request's batch-1 ``generate`` differs from its lane of the
+    16-lane table: log each request's first differing token, then feed the
+    first such request's tokens (its prompt, then the table's samples)
+    through the trunk at batch 1 and at batch 16 (the request in every
+    lane) and log the first position whose hidden states differ and by how
+    much (one GEMM shape against another). Then hold every request to
+    ``generate`` at batch 16 with the request in every lane: a sampled
+    request takes row 0 of the (16, sample_k) noise that generate draws a
+    step, drawn again from a second generator seeded alike and injected
+    through ``Request.gumbel``; the six run staggered in the table again
+    (``serve``, as in the parity run) and each must give row 0 of
+    generate's tokens."""
+    from repro_torch.serve import Request, generate
+    from repro_torch.serve.engine import _draw_gumbel
+    dev = torch.device("cuda")
+    first = [next((i for i, (a, b) in enumerate(zip(s, c.tokens))
+                   if a != b), None) for s, c in zip(solo, got)]
+    i = same.index(False)
+    seq = list(par[i].prompt) + got[i].tokens[:-1]
+    c1 = eng.model.init_decode_state(1, T_MAX_LEN, dev)
+    c16 = eng.model.init_decode_state(T_SLOTS, T_MAX_LEN, dev)
+    where, diff = None, 0.0
+    with torch.inference_mode():
+        for pos, t in enumerate(seq):
+            tok = torch.tensor([int(t)], device=dev)
+            h1 = eng.model.decode_step(params, c1, tok, pos)
+            h16 = eng.model.decode_step(params, c16, tok.expand(T_SLOTS),
+                                        pos)
+            diff = (h1.float() - h16[:1].float()).abs().max().item()
+            if diff > 0:
+                where = pos
+                break
+    del c1, c16
+    log(f"traffic parity: batch-1 generate differs from the table for "
+        f"{same.count(False)} of {len(same)} requests (first differing "
+        f"token {first}; each equals itself alone in the table); request "
+        f"{i}'s tokens through the trunk at batch 1 and batch 16: the "
+        f"hidden states first differ at position {where} (of "
+        f"{len(seq)}), by {diff:.3e} [{card}]")
+    k = eng.cfg.partition.sample_k
+    injected, want = [], []
+    for r in par:
+        total = len(r.prompt) + r.max_new_tokens - 1
+        gumbel = None
+        if r.temperature > 0:
+            g2 = torch.Generator(device=dev).manual_seed(r.seed)
+            gumbel = torch.stack([_draw_gumbel((T_SLOTS, k), g2, dev)[0]
+                                  for _ in range(total)]).cpu().numpy()
+        injected.append(Request(prompt=r.prompt,
+                                max_new_tokens=r.max_new_tokens,
+                                temperature=r.temperature, gumbel=gumbel))
+        out = generate(eng, torch.as_tensor(r.prompt[None], device=dev)
+                       .expand(T_SLOTS, -1), r.max_new_tokens,
+                       temperature=r.temperature,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           r.seed))
+        want.append(out[0].tolist())
+    _, got16, _ = serve(injected, list(T_PARITY_AT))
+    for r, c, w in zip(par, got16, want):
+        check(c is not None and c.tokens == w, f"traffic parity: a request "
+              f"at T {r.temperature} differs from generate at batch 16 "
+              f"too (row 0's noise injected)")
+    log(f"traffic parity: every request, greedy and sampled (row 0 of "
+        f"generate's batch-16 noise injected), staggered in the table, "
+        f"equals generate at batch 16 [{card}]")
 
 
 LAYER_METHODS = ("exact", "mimps", "nmimps", "uniform", "mince", "fmbe",

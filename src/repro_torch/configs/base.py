@@ -127,16 +127,11 @@ class ServingConfig:
     # reads the whole index (O(V d)), so this is a chaos-test / low-cadence
     # production knob, not a per-step default (0 = off).
     verify_index_every: int = 0
-    # admission lookahead (DESIGN.md SS16a): with the prefix cache on a
-    # mesh, the queue head may prefer the data replica that owns its cached
-    # blocks while that replica is full — strict FIFO would either stall
-    # admission or forfeit the hit. admit_window > 0 lets the server HOLD
-    # up to that many such requests per admission pass (first fit within
-    # the window admits instead), counting each hold in
-    # ``ServerReport.admit_skipped``. A held request is force-admitted
-    # anywhere (forfeiting its cache hit) after admit_hold holds or when
-    # its deadline is within admit_hold steps — bounded unfairness, no
-    # starvation. 0 = strict FIFO (the PR-6 behavior).
+    # admission lookahead: on a mesh with the prefix cache, the server may
+    # HOLD up to admit_window queued requests whose cached blocks live on a
+    # full data replica, force-admitting one after admit_hold holds. The
+    # port serves one replica, so its Server refuses admit_window > 0;
+    # 0 = strict FIFO.
     admit_window: int = 0
     admit_hold: int = 8
 

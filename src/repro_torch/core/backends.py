@@ -23,6 +23,7 @@ from .decode import (DecodeOut, draw_tail_idx, exact_topk_decode,
                      fmbe_decode, mimps_decode, mince_decode,
                      selfnorm_decode, topk_head_decode)
 from ..kernels.fmbe import pack_if_needed
+from ..kernels.topk_z import topk_z
 from .feature_maps import (FeatureMap, FMBEState, build_fmbe,
                            build_fmbe_blocks, fmbe_z_batch, make_feature_map)
 
@@ -385,16 +386,28 @@ def verify_decode(backend: EstimatorBackend, state: BackendState,
     back flat; callers reshape to (S, k_pos, ...)."""
     s_lanes, kpos, d = h.shape
     hf = h.reshape(s_lanes * kpos, d)
-    act = None if active is None else torch.repeat_interleave(active, kpos)
+    act = None if active is None else \
+        active[:, None].expand(-1, kpos).reshape(-1)
     return backend.decode(state, hf, cfg, k=k, use_kernel=use_kernel,
                           generator=generator, tail_idx=tail_idx, active=act)
 
 
 def shadow_exact_log_z(state: BackendState, h: torch.Tensor, *, k: int = 1,
-                       use_kernel: bool = True) -> torch.Tensor:
+                       use_kernel: bool = True,
+                       rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Ground-truth log Z for the shadow-telemetry oracle: the ``exact``
     backend's log Z reproduced term for term, through the same
     ``exact_topk_decode`` route (``topk_z`` at ``k`` on the card), so the
     exact tier's shadow error is zero bit for bit. Every state carries the
-    dense ``w``."""
-    return exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel).log_z
+    dense ``w``.
+
+    ``rows`` (Q,) int32 scores only the queries whose entry is nonzero (the
+    gated ``topk_z``, no host read) and gives -inf in the others: the
+    scheduler's shadow cadence, where JAX takes a ``lax.cond``. A gated
+    row's log Z is the ungated one's bit for bit."""
+    if rows is None:
+        return exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel).log_z
+    if use_kernel:
+        return topk_z(h, state.w, k, rows=rows)[0]
+    lse = exact_topk_decode(state.w, h, k=k, use_kernel=False).log_z
+    return torch.where(rows != 0, lse, torch.full_like(lse, float("-inf")))

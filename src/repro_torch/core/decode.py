@@ -114,8 +114,9 @@ def make_plan(index: _mips.IVFIndex, h: torch.Tensor, n_probe: int, l: int,
     rows adopt the first live row's probe set so they never grow U."""
     block_ids = _mips.probe_batch(index, h, n_probe)
     if active is not None:
-        donor = block_ids[torch.argmax(active.int())]     # first live row
-        block_ids = torch.where(active[:, None], block_ids, donor[None, :])
+        # the first live row, gathered on the device (no host read)
+        donor = block_ids.index_select(0, torch.argmax(active.int()).view(1))
+        block_ids = torch.where(active[:, None], block_ids, donor)
     capacity = min(h.shape[0] * n_probe, index.n_blocks)
     head_ids, member, n_unique = plan_heads(block_ids, capacity)
     tb, tr, accept = plan_tail(index, l, block_ids, generator=generator,

@@ -129,9 +129,11 @@ class Engine:
         pc = self.cfg.partition
         method = pc.method if pc.method in BACKENDS else "exact"
         self.backend = get_backend(method)
+        # the build's injected randomness, which a restore reuses
+        self._injected = dict(assign=index_assign, feature_map=feature_map,
+                              lsh_proj=lsh_proj)
         self.state = self._build(self.backend.build, params,
-                                 assign=index_assign, feature_map=feature_map,
-                                 lsh_proj=lsh_proj)
+                                 **self._injected)
         self.index = self.state.index
         # degradation-tier states, and the digests recorded at every build,
         # swap and restore
@@ -174,15 +176,18 @@ class Engine:
         the new one's. ``index_assign``/``feature_map``/``lsh_proj`` inject
         the new build's randomness (parity tests); the construction-time
         assignment belongs to the old head and is never reused."""
+        injected = dict(assign=index_assign, feature_map=feature_map,
+                        lsh_proj=lsh_proj)
         new_state = self._build(
             functools.partial(self.backend.refresh, self.state), params,
-            assign=index_assign, feature_map=feature_map, lsh_proj=lsh_proj)
+            **injected)
         if self.device_index and _shapes(new_state) != _shapes(self.state):
             raise ValueError(
                 "swap_index produced a retrieval state with different "
                 "shapes: the new head does not match the engine's (vocab, "
                 "d_model or partition config changed?)")
         self.params = params
+        self._injected = injected
         self._install(new_state)
 
     def _install(self, state: BackendState) -> None:
@@ -250,10 +255,12 @@ class Engine:
 
     def restore_index(self) -> None:
         """Rebuild the retrieval state from the current params with the
-        build's fresh generator: bit-identical to the original build (and
-        the decode generator untouched, so the tokens after a restore are
-        the fault-free run's)."""
-        self._install(self._build(self.backend.build, self.params))
+        build's fresh generator and the randomness the build was given
+        (``index_assign``, ``feature_map``, ``lsh_proj``): bit-identical to
+        the original build (and the decode generator untouched, so the
+        tokens after a restore are the fault-free run's)."""
+        self._install(self._build(self.backend.build, self.params,
+                                  **self._injected))
         self.index_restores += 1
 
     def _install_state(self, state: BackendState,
@@ -388,7 +395,8 @@ def _sample_candidates(out: DecodeOut, temperature: torch.Tensor,
 
 def _step_draws(engine: Engine, backend, state: BackendState, batch: int,
                 total: int, t_replay: int, temperature: float,
-                tail_source: Optional[Callable[[int], Any]]):
+                tail_source: Optional[Callable[[int], Any]],
+                generator: Optional[torch.Generator] = None):
     """The randomness of ``total`` decode steps, drawn ahead (the
     counterpart of the JAX engine's pre-split per-step keys): (tails
     (total, l) int64 or None where the decode samples no tail, gumbel
@@ -396,8 +404,11 @@ def _step_draws(engine: Engine, backend, state: BackendState, batch: int,
     its tail (from ``tail_source(step_id)``, ``step_id`` ``s`` for a replay
     step and ``10_000 + t`` for generation step ``t``, or from the engine's
     generator), then its noise: the order a step drawing its own would
-    take."""
+    take. ``generator`` draws the noise instead of the engine's (one
+    (batch, sample_k) call a step, as the slot scheduler draws a request's
+    noise at admission)."""
     pc = engine.cfg.partition
+    noise_gen = engine.generator if generator is None else generator
     dev = engine.device
     tails, noise = [], []
     has_tail = backend.has_tail(state)
@@ -410,7 +421,7 @@ def _step_draws(engine: Engine, backend, state: BackendState, batch: int,
                 tail = backend.draw_tail(state, pc, engine.generator)
             tails.append(tail.long())
         shape = (batch, pc.sample_k)
-        noise.append(_draw_gumbel(shape, engine.generator, dev)
+        noise.append(_draw_gumbel(shape, noise_gen, dev)
                      if temperature > 0.0 else
                      torch.zeros(shape, dtype=torch.float32, device=dev))
     return (torch.stack(tails) if has_tail else None), torch.stack(noise)
@@ -539,7 +550,8 @@ def generate(engine: Engine, prompt, n_tokens: int, *,
              temperature: float = 0.0,
              tail_source: Optional[Callable[[int], Any]] = None,
              return_aux: bool = False, tier: Optional[str] = None,
-             host_loop: bool = False):
+             host_loop: bool = False,
+             generator: Optional[torch.Generator] = None):
     """Generation loop; returns (B, n_tokens) token ids on the engine's
     device. The prompt is replayed through the decode cache one step per
     token, and the last replay step emits the first sample.
@@ -557,7 +569,11 @@ def generate(engine: Engine, prompt, n_tokens: int, *,
     ``10_000 + t`` for generation step ``t`` (the JAX engine's key
     schedule); without it the engine's generator draws them, ahead of the
     steps, as it draws the Gumbel noise at a temperature above 0. ``tier``
-    serves another method on the engine's ``tier_state``."""
+    serves another method on the engine's ``tier_state``. ``generator``
+    (the counterpart of the JAX ``generate``'s key) draws the Gumbel noise
+    instead of the engine's generator, so a request served by the slot
+    scheduler with the same seeded generator gives the same tokens; the
+    tails still come from ``tail_source`` or the engine's generator."""
     prompt = torch.as_tensor(prompt, device=engine.device).long()
     if prompt.shape[1] == 0:
         raise ValueError(
@@ -579,7 +595,8 @@ def generate(engine: Engine, prompt, n_tokens: int, *,
     batch, total = prompt.shape[0], t_replay + n_tokens - 1
     backend, state = engine._serving(tier)
     tails, gumbel = _step_draws(engine, backend, state, batch, total,
-                                t_replay, temperature, tail_source)
+                                t_replay, temperature, tail_source,
+                                generator)
     if host_loop:
         outs = _generate_host(engine, prompt, tails, gumbel, temperature,
                               tier)
