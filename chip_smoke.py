@@ -199,6 +199,23 @@ GPU.
    ``union_scores``, ``fmbe_z`` and gated ``topk_z`` call of the step
    (Q 16, and 64 in a verify) made again and held to its plain version.
 
+10. The MoE phase (``moe_last``), after every earlier phase's model,
+   index and graphs are freed: full-width deepseek-moe-16b (28 layers, d
+   2048, 64 routed experts of 1408 and 2 shared, top-6, vocab 102400,
+   bf16, seeded random weights; nothing cut), its peak memory after the
+   init and after the index build; a mimps engine at the config's
+   partition with the fixed-capacity index and the guard. The captured
+   ``generate`` (8 lanes, prompt 16, 16 new) at mimps and at the exact
+   tier, bit-equal to the host loop, each kernel once a step;
+   ``ops.ivf_block_scores`` at the MoE index's shapes and one mimps and
+   one exact step of a busy 16-lane table (``held_step``) held to their
+   plain versions; then the ``Server`` (32 Poisson requests on 16 lanes)
+   with observability off and with ``Observability`` (trace, snapshot,
+   shadow every 4 steps, harvest every 8, a scrape of ``/metrics``) in
+   turns off, on, on, off: tokens bit-identical, one capture each, the
+   trace, the snapshot and the scrape checked; the captured step's device
+   ms, profile and trunk by kind (experts apart).
+
 Prints the kernel record as one JSON line before the last (each kernel at
 bf16, the gated ``topk_z`` as ``topk_z[gated]``, then each at f32 as
 ``<name>[f32]``), and as the last line ``{"ok": true,
@@ -538,7 +555,9 @@ def trunk_kinds(torch, fn):
     """Device milliseconds of one eager call of the decode trunk ``fn`` by
     kind: each torch call is put under a profiler range named by the port
     function that makes it (``TRUNK_KINDS``; a matmul inside
-    ``decode_self_attention`` or ``mlp`` is a projection). Returns
+    ``decode_self_attention`` or ``mlp`` is a projection; inside
+    ``moe_block`` the matmuls (experts, shared experts, router) are "moe
+    matmuls" and every other op "moe other"). Returns
     ({kind: (device ms, kernels)}, the trunk's output)."""
     from torch.autograd import DeviceType
     from torch.overrides import TorchFunctionMode
@@ -552,8 +571,14 @@ def trunk_kinds(torch, fn):
                 f = f.f_back
             where = f.f_code.co_name if f is not None else ""
             kind = TRUNK_KINDS.get(where, "other")
+            in_moe = False
+            while f is not None and not in_moe:
+                in_moe = f.f_code.co_name == "moe_block"
+                f = f.f_back
             if getattr(func, "__name__", "") in ("__matmul__", "matmul"):
-                kind = "projections"
+                kind = "moe matmuls" if in_moe else "projections"
+            elif in_moe:
+                kind = "moe other"
             with record_function(f"kind:{kind}"):
                 return func(*args, **(kwargs or {}))
 
@@ -676,12 +701,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     # traffic last: its torch.profiler sessions slow the host-bound train
     # steps run after them in the same process
-    counts, n_gated, held = traffic_last(torch, card, kernels)
-    for rec in records:                         # bf16 records, by name
-        rec["launches"] += n_gated if rec["name"] == "topk_z[gated]" \
-            else counts.get(rec["name"], 0)
-        if rec["name"] in held:                 # the table's shapes too
-            rec["max_abs_err"] = max(rec["max_abs_err"], held[rec["name"]])
+    late = [traffic_last(torch, card, kernels)]
+    gc.collect()
+    torch.cuda.empty_cache()                    # the traffic state is gone
+    late.append(moe_last(torch, card, kernels))
+    for counts, n_gated, held in late:
+        for rec in records:                     # bf16 records, by name
+            rec["launches"] += n_gated if rec["name"] == "topk_z[gated]" \
+                else counts.get(rec["name"], 0)
+            if rec["name"] in held:             # these phases' shapes too
+                rec["max_abs_err"] = max(rec["max_abs_err"],
+                                         held[rec["name"]])
     records += f32_records
     line = {"kernels": records}
     log(f"total {time.time() - t_start:.1f} s")
@@ -1114,19 +1144,7 @@ def traffic(torch, card, kernels, params, cfg):
 
     dev = torch.device("cuda")
     t_phase = time.time()
-    path = {name: 0 for name in kernels}
-    gated = [0]
-
-    def counted(fn):
-        torch.cuda.synchronize()
-        _build.reset_counts(kernels.values())
-        res = fn()
-        torch.cuda.synchronize()
-        counts = {name: kfn.launches for name, kfn in kernels.items()}
-        for name in kernels:
-            path[name] += counts[name]
-        gated[0] += kernels["topk_z"].gated
-        return res, counts, kernels["topk_z"].gated
+    counted = PathCounts(torch, kernels)
 
     t0 = time.time()
     eng = Engine(Model(cfg), params, T_MAX_LEN, seed=7, device_index=True,
@@ -1380,11 +1398,63 @@ def traffic(torch, card, kernels, params, cfg):
     for name in ("ivf_decode", "topk_z[gated]", "union_scores", "fmbe_z"):
         check(name in held, f"traffic: no {name} call was held to its plain "
               f"version at the table's shapes")
-    path["topk_z"] -= gated[0]
-    log(f"traffic path launches {path}, gated topk_z {gated[0]}; kernels "
+    path, n_gated = counted.totals()
+    log(f"traffic path launches {path}, gated topk_z {n_gated}; kernels "
         f"held to their plain versions at the table's shapes, max abs err "
         f"{held}; phase {time.time() - t_phase:.1f} s [{card}]")
-    return path, gated[0], held
+    return path, n_gated, held
+
+
+def live_cuda_tensors(torch, min_bytes):
+    """(shape, dtype, bytes) of every CUDA tensor of at least ``min_bytes``
+    that the garbage collector reaches (memory a graph's pool or C++ alone
+    holds is not among them)."""
+    import warnings
+    out = []
+    with warnings.catch_warnings():     # isinstance on deprecated aliases
+        warnings.simplefilter("ignore")
+        for obj in gc.get_objects():
+            try:
+                if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                    n = obj.numel() * obj.element_size()
+                    if n >= min_bytes:
+                        out.append((tuple(obj.shape), obj.dtype, n))
+            except ReferenceError:      # a dead weak proxy
+                continue
+    return out
+
+
+class PathCounts:
+    """Launches of a phase's main-path runs by kernel: ``counted(fn)``
+    runs ``fn`` with every count at 0 and returns (its result, the counts
+    of that run, the gated ``topk_z`` launches of that run), adding them to
+    the phase's totals. ``topk_z``'s count includes its gated launches;
+    ``totals()`` gives them apart."""
+
+    def __init__(self, torch, kernels):
+        self.torch = torch
+        self.kernels = kernels
+        self.path = {name: 0 for name in kernels}
+        self.gated = 0
+
+    def __call__(self, fn):
+        from repro_torch.kernels import _build
+        self.torch.cuda.synchronize()
+        _build.reset_counts(self.kernels.values())
+        res = fn()
+        self.torch.cuda.synchronize()
+        counts = {name: kfn.launches for name, kfn in self.kernels.items()}
+        for name in self.kernels:
+            self.path[name] += counts[name]
+        gated = self.kernels["topk_z"].gated
+        self.gated += gated
+        return res, counts, gated
+
+    def totals(self):
+        """(launches by kernel, the gated ``topk_z`` apart; gated)."""
+        path = dict(self.path)
+        path["topk_z"] -= self.gated
+        return path, self.gated
 
 
 # the kernel wrappers a scheduler step calls, by the module that calls them
@@ -1490,13 +1560,14 @@ def hold_call(torch, label, name, real, args, kwargs):
                        f"err {err:.3e} = {ratio:.4f} of the tolerance")
 
 
-def graph_step_ms(torch, sched, params, card):
+def graph_step_ms(torch, sched, params, card, label="traffic"):
     """Device milliseconds of one replay of the scheduler's captured step
     of its current tier, every lane idle (the step does every lane's work
     whatever its state): CUDA events over 20 replays. Then one replay
-    under ``torch.profiler`` (kernels, time by kernel) and one eager
-    16-lane trunk call at positions 0-150 by kind (``trunk_kinds``), beside
-    the 8-lane ``generate`` step's of the serving phase."""
+    under ``torch.profiler`` (kernels, time by kernel) and one eager trunk
+    call of every lane at positions spread over max_len (0-150 at the
+    traffic phase's 16 lanes and max_len 160) by kind (``trunk_kinds``),
+    beside the trunk's weight bytes over the memory rate."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     g = sched._graphs[sched.tier]
@@ -1513,24 +1584,29 @@ def graph_step_ms(torch, sched, params, card):
         k_ms, n = by_name.get(name, (0.0, 0))
         by_name[name] = (k_ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    log(f"traffic step profile (mimps, 16 lanes, one replay): {len(kern)} "
-        f"kernels, {sum(v for v, _ in by_name.values()):.3f} ms of kernel "
-        f"time; top: " + "; ".join(f"{n} {v:.3f} ms x{c}"
-                                    for n, (v, c) in top) + f" [{card}]")
+    s = sched.n_slots
+    log(f"{label} step profile ({sched.tier}, {s} lanes, one replay): "
+        f"{len(kern)} kernels, {sum(v for v, _ in by_name.values()):.3f} ms "
+        f"of kernel time; top: " + "; ".join(f"{n} {v:.3f} ms x{c}"
+                                             for n, (v, c) in top)
+        + f" [{card}]")
     eng = sched.engine
     dev = sched.device
-    cache = eng.model.init_decode_state(sched.n_slots, eng.max_len, dev)
-    toks = torch.zeros((sched.n_slots,), dtype=torch.long, device=dev)
-    pos = torch.arange(0, 160, 10, dtype=torch.int32, device=dev)
+    cache = eng.model.init_decode_state(s, eng.max_len, dev)
+    toks = torch.zeros((s,), dtype=torch.long, device=dev)
+    pos = (torch.arange(s, device=dev) * (eng.max_len // s)).to(torch.int32)
     kinds, _ = trunk_kinds(torch, lambda: eng.model.decode_step(
         params, cache, toks, pos))
     del cache
-    log(f"traffic trunk by kind (eager, 16 lanes, KV of {eng.max_len}): "
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(params["blocks"]))
+    log(f"{label} trunk by kind (eager, {s} lanes, KV of {eng.max_len}): "
         f"{sum(v for v, _ in kinds.values()):.3f} ms in "
         f"{sum(n for _, n in kinds.values())} kernels; "
         + "; ".join(f"{k} {v:.3f} ms ({n})" for k, (v, n) in
                     sorted(kinds.items(), key=lambda kv: -kv[1][0]))
-        + f" [{card}]")
+        + f"; weight read bound {weight_bytes / 1e9:.3f} GB, "
+        f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms [{card}]")
     return ms
 
 
@@ -1600,6 +1676,303 @@ def batch1_vs_16(torch, eng, params, par, got, solo, same, card, serve):
     log(f"traffic parity: every request, greedy and sampled (row 0 of "
         f"generate's batch-16 noise injected), staggered in the table, "
         f"equals generate at batch 16 [{card}]")
+
+
+# the MoE phase: full-width deepseek-moe-16b through the captured generate
+# and the server with observability
+M_ARCH = "deepseek-moe-16b"
+M_SLOTS, M_PROMPT_CAP, M_NEW = 16, 64, 16
+M_MAX_LEN = M_PROMPT_CAP + M_NEW
+M_LENGTHS = (8, 16, 32, 64)       # prompts of the served requests, cycled
+M_REQUESTS, M_RATE = 32, 0.5      # Poisson arrivals, numpy seed 0
+M_HELD_LANES, M_HELD_WARM = 12, 3    # the held steps' busy table
+
+
+def moe_last(torch, card, kernels):
+    """Phase 10: full-width deepseek-moe-16b (28 layers, d 2048, 64 routed
+    experts of 1408 and 2 shared, top-6, vocab 102400, bf16, random weights
+    from seed 0; nothing cut) after every earlier phase's state is freed.
+    A mimps engine (the config's partition: k 1000, l 1000, n_probe 16,
+    blocks of 512, at fixed capacity) with the guard:
+
+    1. Peak memory after the init and after the index build.
+    2. The captured ``generate``, 8 lanes (prompt 16, 16 new, greedy) at
+       mimps and at the exact tier, each bit-equal to the host loop
+       (tokens, log_prob, log_z) and launching its kernels once a step
+       (mimps ``ivf_decode``, exact ``topk_z``; the guard's gated
+       ``topk_z``); ms a step, new tokens/s, the replay's device ms.
+    3. ``ops.ivf_block_scores`` on a mimps plan of 16 decode hidden states
+       (``ivf_score`` at d 2048), held to its plain version.
+    4. The step's kernels at the table's shapes: an eager scheduler of 16
+       lanes with 12 live, one mimps step and one exact step
+       (``held_step``), every kernel call held to its plain version.
+    5. The server: 32 requests (prompts 8-64, 16 new tokens, half at T
+       0.8), Poisson at 0.5 a step, on 16 lanes, on two schedulers whose
+       step a warm-up request captured: one with observability off, one
+       with ``Observability`` (a trace, a snapshot, shadow every 4 steps,
+       harvest every 8, ``metrics_port`` 0 and the exposition started on
+       an ephemeral port), in turns off, on, on, off: each pair's tokens
+       bit-identical, one capture each and none in the runs,
+       ``ivf_decode`` once a step and the gated ``topk_z`` twice; the
+       trace parses line by line, its request spans number the
+       completions, the snapshot's tiers with tokens are the tiers of its
+       device steps, its counters reconcile with the reports, the shadow
+       rel err is finite, and one scrape of ``/metrics`` on 127.0.0.1
+       holds ``repro_serving_tokens_total``. Then the captured step's
+       device ms, its profile and the trunk by kind
+       (``graph_step_ms``).
+
+    Returns what ``traffic`` returns: the path's launches, the gated
+    ``topk_z``'s, the held calls' max abs err by record name."""
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.decode import make_plan
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ivf_score import ivf_score_plain
+    from repro_torch.kernels.ops import ivf_block_scores
+    from repro_torch.models import Model
+    from repro_torch.obs import ObsConfig, Observability
+    from repro_torch.serve import (Engine, Request, Scheduler, Server,
+                                   poisson_arrivals, trace_arrivals)
+
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    counted = PathCounts(torch, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 1e9
+    big = sorted(live_cuda_tensors(torch, 64 << 20), key=lambda t: -t[2])
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(M_ARCH)
+    pc = cfg.partition
+    # -- 1. model and engine ------------------------------------------------
+    t0 = time.time()
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(n_params == cfg.param_count() + cfg.d_model, f"moe: {n_params} "
+          f"params, the config counts {cfg.param_count()} + final norm")
+    peak_init = torch.cuda.max_memory_allocated() / 1e9
+    m = cfg.moe
+    log(f"moe: {cfg.name} layers {cfg.n_layers} d {cfg.d_model} experts "
+        f"{m.n_experts} (top {m.top_k}, {m.n_shared} shared, d_ff "
+        f"{m.expert_d_ff}) vocab {cfg.vocab} {cfg.dtype}, "
+        f"{n_params / 1e9:.3f} B params, "
+        f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.3f}"
+        f" GB, init {init_s:.1f} s; {left:.3f} GB allocated before it (live "
+        f"tensors of 64 MB or more that Python reaches: "
+        f"{[(shape, str(dt), round(n / 1e9, 3)) for shape, dt, n in big]}), "
+        f"peak {peak_init:.3f} GB after it [{card}]")
+    t0 = time.time()
+    eng = Engine(Model(cfg), params, M_MAX_LEN, seed=7, device_index=True,
+                 health_guard=True, device=dev)
+    torch.cuda.synchronize()
+    index = eng.index
+    log(f"moe index: {index.n_blocks} blocks of {index.block_rows} rows "
+        f"(fixed capacity), build {time.time() - t0:.2f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB after it "
+        f"[{card}]")
+    # -- 2. the captured generate -------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab, (N_REQ, PROMPT), generator=gen,
+                           device=dev)
+    steps = PROMPT + NEW - 1
+    for tier, kernel in ((None, "ivf_decode"), ("exact", "topk_z")):
+        label = f"moe generate {tier or 'mimps'}"
+        run, cap_s = capture_runner(torch, eng, tier)
+        box = {}
+
+        def wrap(fn):
+            res, box["counts"], box["gated"] = counted(fn)
+            return res
+        (toks, _, secs), (_, _, h_secs) = served_pair(
+            torch, eng, prompt, NEW, label, tier=tier, wrap=wrap)
+        counts, n_gated = box["counts"], box["gated"]
+        ungated = counts[kernel] - (n_gated if kernel == "topk_z" else 0)
+        check(ungated == steps and n_gated == steps, f"{label}: {ungated} "
+              f"{kernel} and {n_gated} gated topk_z launches in {steps} "
+              f"steps, want one of each a step")
+        check(toks.shape == (N_REQ, NEW), f"{label}: tokens "
+              f"{tuple(toks.shape)}")
+        log(f"{label}: {N_REQ} requests, prompt {PROMPT}, {NEW} new, "
+            f"greedy: captured {secs / steps * 1e3:.3f} ms/step "
+            f"({N_REQ * NEW / secs:.1f} new tokens/s; capture {cap_s:.2f} "
+            f"s, replay {replay_ms(torch, run, prompt):.3f} ms device), "
+            f"host loop {h_secs / steps * 1e3:.3f} ms/step "
+            f"({N_REQ * NEW / h_secs:.1f} tokens/s), bit-equal (tokens, "
+            f"log_prob, log_z); launches {kernel} {ungated}, gated topk_z "
+            f"{n_gated} [{card}]")
+    # -- 3. ivf_score at the MoE index's shapes ------------------------------
+    cache = eng.model.init_decode_state(M_SLOTS, M_MAX_LEN, dev)
+    h = eng.model.decode_step(
+        params, cache, torch.randint(0, cfg.vocab, (M_SLOTS,), generator=gen,
+                                     device=dev), 0)
+    del cache
+    plan = make_plan(index, h, pc.n_probe, pc.l, generator=gen)
+    args = (index.v_blocks, h, plan.block_ids)
+    scores, counts, _ = counted(lambda: ivf_block_scores(*args))
+    err_is = (scores - ivf_score_plain(*args)).abs().max().item()
+    check(counts["ivf_score"] > 0 and err_is <= TOL, f"moe ivf_score: "
+          f"{counts['ivf_score']} launches, err {err_is}")
+    log(f"moe ivf_score: ops.ivf_block_scores, Q {M_SLOTS} x {pc.n_probe} "
+        f"probes of {index.block_rows} x {cfg.d_model}, err {err_is:.2e} "
+        f"[{card}]")
+    # -- 4. the step's kernels at the table's shapes -------------------------
+    rng = np.random.default_rng(0)
+
+    def requests(n, base):
+        return [Request(prompt=rng.integers(0, cfg.vocab,
+                                            M_LENGTHS[i % 4]),
+                        max_new_tokens=M_NEW, seed=base + i,
+                        temperature=0.0 if i % 2 == 0 else 0.8)
+                for i in range(n)]
+
+    held = {"ivf_score": err_is}
+    before = _build.snapshot()
+    s = Scheduler(eng, M_SLOTS, prompt_cap=M_PROMPT_CAP, seed=3,
+                  eager=True)
+    busy = requests(M_HELD_LANES, 500)
+    for i, r in enumerate(busy):
+        s.admit(r)
+        if i == M_HELD_LANES // 2 - 1:
+            for _ in range(M_HELD_WARM):
+                s.step()
+    for _ in range(M_HELD_WARM):
+        s.step()
+    for tier in ("mimps", "exact"):
+        s.set_tier(tier)
+        for name, err in held_step(torch, s, busy[1], f"moe held {tier} "
+                                   f"step", card).items():
+            held[name] = max(held.get(name, 0.0), err)
+    s.drain()
+    del s
+    _build.restore(before)
+    for name in ("ivf_decode", "topk_z", "topk_z[gated]"):
+        check(name in held, f"moe: no {name} call was held to its plain "
+              f"version at the table's shapes")
+    # -- 5. the server, observability off and on ----------------------------
+    reqs = requests(M_REQUESTS, 1000)
+    warm = Request(prompt=reqs[0].prompt, max_new_tokens=2)
+
+    def scheduler():
+        """A scheduler whose step one warm-up request has captured, its
+        metric state zeroed: both start from the same generator state."""
+        sched = Scheduler(eng, M_SLOTS, prompt_cap=M_PROMPT_CAP, seed=3)
+        Server(sched).run(arrivals=trace_arrivals([warm], [0]))
+        sched.reset_metrics()
+        return sched
+
+    def serve(sched, obs):
+        batch = [Request(prompt=r.prompt, max_new_tokens=r.max_new_tokens,
+                         seed=r.seed, temperature=r.temperature)
+                 for r in reqs]
+        caps = sched.captures
+        t0 = time.time()
+        (rep, counts, n_gated) = counted(lambda: Server(sched, obs=obs).run(
+            arrivals=poisson_arrivals(batch, M_RATE, seed=0)))
+        secs = time.time() - t0
+        by_id = {c.request.req_id: c for c in rep.completions}
+        got = [by_id.get(r.req_id) for r in batch]
+        label = f"moe server (observability {'on' if obs else 'off'})"
+        check(all(c is not None and c.error is None and
+                  len(c.tokens) == M_NEW for c in got),
+              f"{label}: a request did not complete")
+        check(sched.captures == caps, f"{label}: {sched.captures - caps} "
+              f"captures after the warm-up")
+        check(counts["ivf_decode"] == rep.steps and
+              n_gated == 2 * rep.steps, f"{label}: {counts['ivf_decode']} "
+              f"ivf_decode and {n_gated} gated topk_z launches in "
+              f"{rep.steps} steps, want 1 and 2 a step")
+        return rep, [c.tokens for c in got], secs
+
+    off_s, on_s = scheduler(), scheduler()
+    runs = {"off": [], "on": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, snap = Path(tmp) / "trace.jsonl", Path(tmp) / "snapshot.json"
+        obs = Observability(ObsConfig(
+            trace_path=str(trace), snapshot_path=str(snap), shadow_every=4,
+            harvest_every=8, metrics_port=0))
+        port = obs.registry.serve(0)
+        try:
+            # in turns: off, on, on, off (each pair on equal generator
+            # states, so its tokens must be equal)
+            for which in ("off", "on", "on", "off"):
+                runs[which].append(serve(off_s, None) if which == "off"
+                                   else serve(on_s, obs))
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                        timeout=10) as resp:
+                scrape = resp.read().decode()
+        finally:
+            obs.close()
+        events = []
+        for i, line in enumerate(trace.read_text().splitlines()):
+            try:
+                events.append(json.loads(line))
+            except json.JSONDecodeError as e:
+                raise SmokeError(f"moe trace line {i}: {e}") from e
+        harvest = json.loads(snap.read_text())["harvest"]
+    for i in (0, 1):
+        check(runs["on"][i][1] == runs["off"][i][1], f"moe server: run "
+              f"{i + 1} with observability on gave other tokens than off")
+    check(on_s.captures == off_s.captures == 1, f"moe server: "
+          f"{on_s.captures} captures with observability, {off_s.captures} "
+          f"without")
+    check(len(events) == obs.tracer.events_written, f"moe trace: "
+          f"{len(events)} lines for {obs.tracer.events_written} events")
+    on_reps = [rep for rep, _, _ in runs["on"]]
+    spans = sorted(e["args"]["req_id"] for e in events
+                   if e["ph"] == "X" and e["name"] == "request")
+    check(spans == sorted(c.request.req_id for rep in on_reps
+                          for c in rep.completions),
+          f"moe trace: {len(spans)} request spans for "
+          f"{sum(len(rep.completions) for rep in on_reps)} completions")
+    step_tiers = {e["name"].split(":", 1)[1] for e in events
+                  if e["ph"] == "X" and e["name"].startswith("device_step:")}
+    tok_tiers = {t for t, v in harvest["tokens_by_tier"].items() if v}
+    check(tok_tiers == step_tiers, f"moe snapshot tiers {tok_tiers}, trace "
+          f"tiers {step_tiers}")
+    n_tok = sum(len(t) for _, toks, _ in runs["on"] for t in toks)
+    n_steps = sum(rep.steps for rep in on_reps)
+    check(harvest["tokens_total"] == n_tok and harvest["steps"] == n_steps,
+          f"moe snapshot: {harvest['tokens_total']} tokens in "
+          f"{harvest['steps']} steps, the reports {n_tok} in {n_steps}")
+    shadow = harvest["shadow_by_tier"].get("mimps", {})
+    check(shadow.get("count", 0) > 0 and
+          math.isfinite(shadow["rel_err_mean"]), f"moe shadow: {shadow}")
+    series = [ln for ln in scrape.splitlines()
+              if ln.startswith("repro_serving_tokens_total ")]
+    check(len(series) == 1, "moe: /metrics holds no "
+          "repro_serving_tokens_total series")
+
+    def summary(which):
+        return "; ".join(
+            f"{rep.goodput_tok_s:.1f} tokens/s, step device "
+            f"{rep.step_device_ms_mean:.3f} ms + host "
+            f"{rep.step_host_ms_mean:.3f} ms, {secs:.2f} s wall"
+            for rep, _, secs in runs[which])
+    log(f"moe server: {M_REQUESTS} requests (prompts {M_LENGTHS}, {M_NEW} "
+        f"new, half at T 0.8), Poisson {M_RATE}/step, {M_SLOTS} lanes, the "
+        f"step captured by a warm-up request; in turns off, on, on, off: "
+        f"{on_reps[0].summary()}; observability off: {summary('off')}; on: "
+        f"{summary('on')}; tokens bit-identical, {on_s.captures} capture "
+        f"each; trace {len(events)} events, {len(spans)} request spans, "
+        f"tiers {sorted(step_tiers)}; snapshot {harvest['steps']} steps, "
+        f"tokens {harvest['tokens_by_tier']}, shadow mimps rel err mean "
+        f"{shadow['rel_err_mean']:.3e} max {shadow['rel_err_max']:.3e} over "
+        f"{shadow['count']} lane-steps; scrape: {series[0]} [{card}]")
+    sched = on_s
+    step_ms = graph_step_ms(torch, sched, params, card, label="moe")
+    log(f"moe step: the captured {M_SLOTS}-lane step replays in "
+        f"{step_ms:.3f} ms device [{card}]")
+    path, n_gated = counted.totals()
+    log(f"moe path launches {path}, gated topk_z {n_gated}; held max abs "
+        f"err {held}; phase {time.time() - t_phase:.1f} s [{card}]")
+    return path, n_gated, held
 
 
 LAYER_METHODS = ("exact", "mimps", "nmimps", "uniform", "mince", "fmbe",

@@ -32,16 +32,35 @@ def to_tensor(a, device="cuda") -> torch.Tensor:
 
 def params_from_numpy(tree: Mapping[str, Any], cfg, device="cuda"):
     """The JAX ``Model.init`` tree (leaves as numpy arrays) as the port's
-    parameter dict. ``cfg`` is checked against the tree's widths."""
+    parameter dict, every leaf in its own dtype (an MoE router stays f32,
+    bf16 leaves keep their bits). ``cfg`` is checked against the tree's
+    widths: ``wq``, and for an MoE tree the router and every expert
+    leaf against ``cfg.moe``."""
     out = {k: params_from_numpy(v, cfg, device) if isinstance(v, Mapping)
            else to_tensor(v, device) for k, v in tree.items()}
     if "blocks" in out:
-        wq = out["blocks"]["attn"]["wq"]
-        want = (cfg.n_layers, cfg.d_model,
-                cfg.n_heads * cfg.resolved_head_dim)
-        if tuple(wq.shape) != want:
-            raise ValueError(f"wq {tuple(wq.shape)} does not match the "
-                             f"config's {want}")
+        L, d = cfg.n_layers, cfg.d_model
+        want = {"wq": (L, d, cfg.n_heads * cfg.resolved_head_dim)}
+        got = {"wq": out["blocks"]["attn"]["wq"]}
+        ffn = out["blocks"]["ffn"]
+        if "experts" in ffn:
+            m = cfg.moe
+            if m is None:
+                raise ValueError("the tree holds MoE experts but the config "
+                                 f"{cfg.name!r} has no moe")
+            got["router"] = ffn["router"]
+            want["router"] = (L, d, m.n_experts)
+            for group, n in (("experts", m.n_experts),
+                             ("shared", m.n_shared)):
+                for name, leaf in ffn.get(group, {}).items():
+                    got[f"{group}.{name}"] = leaf
+                    want[f"{group}.{name}"] = (
+                        (L, n, m.expert_d_ff, d) if name == "down"
+                        else (L, n, d, m.expert_d_ff))
+        for name, leaf in got.items():
+            if tuple(leaf.shape) != want[name]:
+                raise ValueError(f"{name} {tuple(leaf.shape)} does not match "
+                                 f"the config's {want[name]}")
     return out
 
 

@@ -1,5 +1,5 @@
-"""Dense transformer: full-sequence forward (training) and cached decode
-(counterpart of ``repro.models.transformer``, dense family only).
+"""Transformer: full-sequence forward (training) and cached decode
+(counterpart of ``repro.models.transformer``; the dense and MoE families).
 
 Parameters keep the JAX package's pytree layout — a dict whose per-layer
 leaves are stacked on a leading layer axis — so ``interop.params_from_numpy``
@@ -18,6 +18,7 @@ from ..configs.base import ModelConfig
 from .attention import (KVCache, decode_position, decode_self_attention,
                         self_attention)
 from .layers import _dense_init, embed, mlp, rmsnorm
+from .moe import init_moe, moe_block
 
 Params = Dict[str, Any]
 
@@ -48,38 +49,55 @@ def _unbind(tree: Params) -> Params:
 ZERO_AUX = {"moe_balance": 0.0, "moe_zloss": 0.0, "moe_drop_frac": 0.0}
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.local_global_ratio or cfg.n_codebooks:
+def _add_aux(a: Dict, b: Dict) -> Dict:
+    out = dict(a)
+    for k, v in b.items():
+        out[k] = out.get(k, 0.0) + v
+    return out
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe") or cfg.local_global_ratio \
+            or cfg.n_codebooks:
         raise NotImplementedError(
-            f"the port serves the dense family only; {cfg.name!r} is "
-            f"family {cfg.family!r}")
+            f"the port serves the dense and moe families only; {cfg.name!r} "
+            f"is family {cfg.family!r} (repro.models.transformer's "
+            f"{cfg.family} plan is not ported)")
 
 
-def tblock_fwd(p: Params, x, cfg, *, window=0) -> torch.Tensor:
-    """One dense block over a full sequence x (B, S, d)."""
+def _ffn(p: Params, y, cfg, kind: str):
+    if kind == "moe":
+        return moe_block(p, y, cfg)
+    return mlp(p, y, cfg.act), ZERO_AUX
+
+
+def tblock_fwd(p: Params, x, cfg, *, kind="dense", window=0):
+    """One block over a full sequence x (B, S, d): (x, aux)."""
     h = self_attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
                        window=window)
     x = x + h
-    y = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["ffn"], y, cfg.act)
+    f, aux = _ffn(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, kind)
+    return x + f, aux
 
 
-def tblock_decode(p: Params, x, cache: KVCache, pos, cfg, *, window=0):
-    """One dense block at one decode position: ``pos`` a 0-d or (B,) int
+def tblock_decode(p: Params, x, cache: KVCache, pos, cfg, *, kind="dense",
+                  window=0):
+    """One block at one decode position: ``pos`` a 0-d or (B,) int
     tensor, or its ``attention.DecodePosition``."""
     h = decode_self_attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
                               cache, pos, cfg, window=window)
     x = x + h
-    y = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["ffn"], y, cfg.act)
+    f, _ = _ffn(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, kind)
+    return x + f
 
 
 class Model:
-    """Functional dense model for one ModelConfig."""
+    """Functional model for one ModelConfig of the dense or MoE family."""
 
     def __init__(self, cfg: ModelConfig):
-        _check_dense(cfg)
+        _check_family(cfg)
         self.cfg = cfg
+        self.kind = "moe" if cfg.family == "moe" else "dense"
 
     def init(self, gen: torch.Generator, device="cuda") -> Params:
         """Seeded random init at the config's widths, on ``device`` (the
@@ -103,12 +121,15 @@ class Model:
             for name, width in (("bq", nh), ("bk", nkv), ("bv", nkv)):
                 attn[name] = torch.zeros((L, width * hd), dtype=dt,
                                          device=dev)
-        ffn = {"down": dense((L, ff, d))}
-        if cfg.act == "sqrelu":
-            ffn["up"] = dense((L, d, ff))
+        if self.kind == "moe":
+            ffn = init_moe(gen, cfg, L, dt, dev)
         else:
-            ffn["gate"] = dense((L, d, ff))
-            ffn["up"] = dense((L, d, ff))
+            ffn = {"down": dense((L, ff, d))}
+            if cfg.act == "sqrelu":
+                ffn["up"] = dense((L, d, ff))
+            else:
+                ffn["gate"] = dense((L, d, ff))
+                ffn["up"] = dense((L, d, ff))
         p: Params = {
             "embed": {"table": dense((cfg.vocab, d), scale=1.0)},
             "final_norm": {"scale": ones(d)},
@@ -138,20 +159,25 @@ class Model:
         activations are recomputed in the backward, as under
         ``jax.checkpoint``."""
         if img is not None:
-            raise NotImplementedError("the port's dense family takes no image")
+            raise NotImplementedError(
+                "the port's families take no image (the vlm family's "
+                "cross_block_fwd is not ported)")
         cfg = self.cfg
         x = self.embed_tokens(p, tokens)
         remat = cfg.remat != "none"
         blocks = _unbind(p["blocks"])
+        aux = ZERO_AUX
         for i in range(cfg.n_layers):
             layer = _layer(blocks, i)
             if remat:
-                x = checkpoint(tblock_fwd, layer, x, cfg,
-                               window=cfg.sliding_window,
-                               use_reentrant=False)
+                x, a = checkpoint(tblock_fwd, layer, x, cfg, kind=self.kind,
+                                  window=cfg.sliding_window,
+                                  use_reentrant=False)
             else:
-                x = tblock_fwd(layer, x, cfg, window=cfg.sliding_window)
-        return rmsnorm(p["final_norm"], x, cfg.norm_eps), dict(ZERO_AUX)
+                x, a = tblock_fwd(layer, x, cfg, kind=self.kind,
+                                  window=cfg.sliding_window)
+            aux = _add_aux(aux, a)
+        return rmsnorm(p["final_norm"], x, cfg.norm_eps), aux
 
     def init_decode_state(self, batch: int, max_len: int,
                           device) -> Dict[str, torch.Tensor]:
@@ -180,6 +206,6 @@ class Model:
         for i in range(cfg.n_layers):
             cache = KVCache(k=state["k"][i], v=state["v"][i])
             x = tblock_decode(_layer(p["blocks"], i), x, cache, dpos, cfg,
-                              window=cfg.sliding_window)
+                              kind=self.kind, window=cfg.sliding_window)
         h = rmsnorm(p["final_norm"], x, cfg.norm_eps)
         return h[:, 0]

@@ -143,6 +143,9 @@ class Engine:
         # generate's captured steps, and how many were captured
         self._graph_runners: Dict[tuple, _GraphRunner] = {}
         self.captures = 0
+        # observability sink (obs.Observability.attach): index swaps and
+        # restores land in the trace as instants. None = off.
+        self.obs = None
         self._record_digest()
 
     # -- retrieval-state lifecycle ---------------------------------------------
@@ -189,6 +192,9 @@ class Engine:
         self.params = params
         self._injected = injected
         self._install(new_state)
+        if self.obs is not None:
+            self.obs.instant("index_swap",
+                             args={"method": self.backend.method})
 
     def _install(self, state: BackendState) -> None:
         """A freshly built state in place of the engine's: the tier states
@@ -262,6 +268,10 @@ class Engine:
         self._install(self._build(self.backend.build, self.params,
                                   **self._injected))
         self.index_restores += 1
+        if self.obs is not None:
+            self.obs.instant("index_restore",
+                             args={"method": self.backend.method,
+                                   "restores": self.index_restores})
 
     def _install_state(self, state: BackendState,
                        method: Optional[str] = None) -> None:

@@ -654,7 +654,12 @@ class Scheduler:
             t0 = time.perf_counter()
             g = self._graphs[tier] = self._capture(tier, deps)
             torch.cuda.synchronize(self.device)
-            self.recapture_log.append((tier, time.perf_counter() - t0))
+            secs = time.perf_counter() - t0
+            self.recapture_log.append((tier, secs))
+            if self.engine.obs is not None:
+                self.engine.obs.instant("recapture", args={
+                    "tier": tier, "seconds": secs,
+                    "captures": self.captures})
         elif g is None:
             g = self._graphs[tier] = self._capture(tier, deps)
         self._check_storage(g)

@@ -204,11 +204,6 @@ class Server:
 
     def __init__(self, scheduler: Scheduler,
                  cfg: Optional[ServingConfig] = None, obs=None):
-        if obs is not None:
-            raise NotImplementedError(
-                "the observability layer (repro.obs.Observability: harvest "
-                "cadence, span tracing, the registry) is not ported; pass "
-                "obs=None")
         if cfg is not None and cfg.admit_window:
             raise NotImplementedError(
                 "bounded look-ahead admission (admit_window > 0) holds a "
@@ -218,6 +213,12 @@ class Server:
         self.scheduler = scheduler
         self.cfg = cfg or ServingConfig()
         self.cfg.validate()
+        # optional observability layer (obs.Observability): harvest cadence,
+        # span tracing, shadow sampling. The captured steps are the same
+        # with or without it: obs only reads.
+        self.obs = obs
+        if obs is not None:
+            obs.attach(self)
         scheduler.verify_index_every = self.cfg.verify_index_every
         if not scheduler.steps_done:
             # policy reaches mechanism only before the first step: the
@@ -257,6 +258,8 @@ class Server:
             self._deadline_at[request.req_id] = self.step_i + int(ddl)
         self._queued_at[request.req_id] = float(self.step_i)
         self.queue.append(request)
+        if self.obs is not None:
+            self.obs.on_submit(self, request)
 
     def _reject(self, req: Request, reason: str, error: str,
                 queued_at: Optional[float] = None) -> None:
@@ -271,6 +274,8 @@ class Server:
                           admit_time=now, first_token_time=None,
                           done_time=now, error=error, reason=reason)
         self._rejected.append(comp)
+        if self.obs is not None:
+            self.obs.on_reject(self, req, reason)
         if req.on_complete is not None:
             req.on_complete(req, comp)
 
@@ -410,6 +415,8 @@ class Server:
                 t_end = now
             self.step_i += 1
             steps += 1
+            if self.obs is not None:
+                self.obs.on_step(self, rec)
             if on_step is not None:
                 on_step(self, rec)
         # flush: anything still queued or in-flight at exit (max_steps hit)
@@ -497,7 +504,7 @@ class Server:
                   if "wall_device_s" in r]
         host_ms = [r["wall_host_s"] * 1e3 for r in run_records
                    if "wall_host_s" in r]
-        return ServerReport(
+        report = ServerReport(
             completions=completions,
             wall_s=wall,
             steps=steps,
@@ -536,3 +543,6 @@ class Server:
                                      in sorted(spec_by_tier.items())},
             draft_flagged=draft_flagged,
             prefix=prefix_stats)
+        if self.obs is not None:
+            self.obs.on_done(self, report)
+        return report

@@ -1,7 +1,8 @@
 """Shared setup of the port's traffic-serving parity tests: the JAX serving
-tests' engine (qwen1.5-4b reduced, vocab 1024, mimps with 64-row blocks,
-n_probe 4, l 64, max_len 24; f32 on both sides so greedy tokens can be
-compared bit for bit) built in the JAX package, and the same engine in the
+tests' engine (qwen1.5-4b reduced, or another arch's reduced config,
+vocab 1024, mimps with 64-row blocks, n_probe 4, l 64, max_len 24; f32 on
+both sides so greedy tokens can be compared bit for bit) built in the JAX
+package, and the same engine in the
 port from its params (``interop.params_from_numpy``) and its k-means
 assignment. The JAX scheduler's draws are replayed into the port: the
 shared tail of step t (``fold_in(fold_in(key, 0xE57), t)``'s ``randint``)
@@ -26,17 +27,18 @@ MAX_LEN = 24
 VOCAB = 1024
 
 
-def cfg(reduced, **part):
-    c = reduced("qwen1.5-4b")
+def cfg(reduced, arch="qwen1.5-4b", **part):
+    c = reduced(arch)
     return dataclasses.replace(
         c, vocab=VOCAB, dtype="float32", partition=dataclasses.replace(
             c.partition, method="mimps", block_rows=64, n_probe=4, l=64,
             **part))
 
 
-def engines(seed: int = 42, **part):
+def engines(seed: int = 42, arch="qwen1.5-4b", **part):
     """(JAX engine, port engine) on the same params and index."""
-    jcfg, tcfg = cfg(j_reduced_config, **part), cfg(reduced_config, **part)
+    jcfg = cfg(j_reduced_config, arch, **part)
+    tcfg = cfg(reduced_config, arch, **part)
     jm = JModel(jcfg)
     jp = jm.init(jax.random.fold_in(jax.random.PRNGKey(0), seed))
     jeng = JEngine(jm, jp, max_len=MAX_LEN)

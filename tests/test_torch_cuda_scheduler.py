@@ -6,7 +6,8 @@ tokens, log_prob and log_z bit for bit, plain and speculative, with the
 prefix pool on. Admissions, temperatures, deadlines, the shadow cadence and
 a tier switch back capture nothing; ``swap_index`` makes the next step
 capture its tier once again; a table field rebound after the capture makes
-the step raise instead of reading stale storage.
+the step raise instead of reading stale storage. With observability on,
+a restore and the capture again it forces are traced as instants.
 
 These tests need a GPU and skip without one. On the GPU machine, which has
 no JAX, run them without the repository's conftest:
@@ -14,6 +15,7 @@ no JAX, run them without the repository's conftest:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda_scheduler.py
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ivf_score import ivf_decode
 from repro_torch.kernels.topk_z import topk_z
 from repro_torch.models import Model
+from repro_torch.obs import Observability, ObsConfig
 from repro_torch.serve import (Engine, Request, Scheduler, Server,
                                generate, trace_arrivals)
 
@@ -138,6 +141,25 @@ def test_swap_index_captures_once_again(dev, params):
     fresh = Scheduler(eng, 4, seed=2, eager=True)
     want, _ = _serve(fresh, _requests(3, seed=8))
     assert [c.tokens for c in got] == [c.tokens for c in want]
+
+
+def test_restore_and_its_capture_again_are_traced(dev, params, tmp_path):
+    eng = _engine(dev, params)
+    sched = Scheduler(eng, 4, seed=2)
+    obs = Observability(ObsConfig(trace_path=str(tmp_path / "t.jsonl")))
+    server = Server(sched, obs=obs)
+    server.run(arrivals=trace_arrivals(_requests(2), [0, 2]))
+    eng.restore_index()
+    server.run(arrivals=trace_arrivals(_requests(2, seed=8), [0, 2]))
+    obs.close()
+    inst = [json.loads(line) for line in
+            (tmp_path / "t.jsonl").read_text().splitlines()]
+    inst = [e for e in inst if e["ph"] == "i" and e["name"] in
+            ("index_restore", "recapture")]
+    assert [e["name"] for e in inst] == ["index_restore", "recapture"]
+    assert inst[1]["args"]["tier"] == "mimps"
+    assert inst[1]["args"]["seconds"] == sched.recapture_log[0][1]
+    assert sched.captures == 2
 
 
 def test_rebound_field_raises(dev, params):

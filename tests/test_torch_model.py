@@ -79,4 +79,4 @@ def test_params_from_numpy_keeps_bf16_bits():
 
 def test_non_dense_family_refused():
     with pytest.raises(NotImplementedError):
-        Model(reduced_config("deepseek-moe-16b"))
+        Model(reduced_config("rwkv6-7b"))

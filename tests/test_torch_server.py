@@ -25,6 +25,7 @@ from repro.serve import Server as JServer
 from repro.serve import poisson_arrivals as j_poisson_arrivals
 from repro.serve import server as j_server
 from repro_torch.configs import ServingConfig
+from repro_torch.obs import Observability, ObsConfig
 from repro_torch.serve import (Request, Scheduler, Server, default_ladder,
                                poisson_arrivals, trace_arrivals)
 from repro_torch.serve import server as t_server
@@ -93,9 +94,13 @@ def test_default_ladders_equal_jax():
 
 
 def test_obs_and_unknown_tiers_are_refused(run):
+    # observability is ported: an Observability is no longer refused, it
+    # attaches (the engine's sink, the scheduler's shadow cadence)
     sched = Scheduler(run["teng"], 1)
-    with pytest.raises(NotImplementedError, match="Observability"):
-        Server(sched, obs=object())
+    obs = Observability(ObsConfig(shadow_every=5))
+    assert Server(sched, obs=obs).obs is obs
+    assert run["teng"].obs is obs and sched.shadow_every == 5
+    run["teng"].obs = None
     with pytest.raises(ValueError, match="unknown degradation tier"):
         Server(sched, ServingConfig(degrade_ladder=("mimps", "nope")))
 
