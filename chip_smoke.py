@@ -216,6 +216,25 @@ GPU.
    trace, the snapshot and the scrape checked; the captured step's device
    ms, profile and trunk by kind (experts apart).
 
+11. The families phase (``families_last``), last: gemma3-4b, rwkv6-7b
+   and zamba2-7b in turn, each at its published widths (bf16, seed 0,
+   nothing cut; the parameter count held to the JAX package's) and freed
+   before the next, behind an engine at the config's partition with the
+   guard (mimps at fixed capacity: 768 and 384 blocks; zamba2: exact).
+   Peak memory after the init and after the index; the captured
+   ``generate`` (8 lanes, greedy) bit-equal to the host loop, gemma3's
+   prompt of 1024 carrying every local ring past its 1024 slots;
+   ``ops.ivf_block_scores`` at the index; one busy 16-lane step at each
+   tier with every kernel call held to its plain version and the ring
+   geometry of ``ivf_decode`` and ``union_scores`` logged (d 2560 and
+   4096); the scheduler on a staggered trace, every request in a fresh
+   lane equal to ``generate`` at batch 16, the reused and the dead lane
+   of RWKV6 and Zamba2 logged beside theirs (C11), the captured table
+   equal to ``Scheduler(eager=True)`` bit for bit; the ``Server`` with
+   ``Observability`` on, 32 Poisson requests, one capture; speculation
+   and the prefix pool refused; the step's device ms, profile and trunk
+   by kind (recurrences and conv apart).
+
 Prints the kernel record as one JSON line before the last (each kernel at
 bf16, the gated ``topk_z`` as ``topk_z[gated]``, then each at f32 as
 ``<name>[f32]``), and as the last line ``{"ok": true,
@@ -548,7 +567,13 @@ TRUNK_KINDS = {"rmsnorm": "norms", "apply_rope": "RoPE",
                "rope_frequencies": "RoPE", "_project_qkv": "projections",
                "_dyn_update": "attention", "decode_position": "position",
                "embed": "embedding", "tblock_decode": "elementwise",
-               "mlp": "elementwise", "decode_self_attention": "attention"}
+               "mlp": "elementwise", "decode_self_attention": "attention",
+               "wkv_scan": "recurrence", "ssm_scan": "recurrence",
+               "_causal_conv": "conv", "_token_shift": "token shift",
+               "<genexpr>": "token shift",   # rwkv's five interpolations
+               "rwkv_time_mix": "rwkv mixes", "rwkv_channel_mix":
+               "rwkv mixes", "rwkv_block": "elementwise",
+               "mamba_block": "mamba other", "_copy_into": "state copy"}
 
 
 def trunk_kinds(torch, fn):
@@ -705,6 +730,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()                    # the traffic state is gone
     late.append(moe_last(torch, card, kernels))
+    gc.collect()
+    torch.cuda.empty_cache()                    # the MoE model is gone
+    late.append(families_last(torch, card, kernels))
     for counts, n_gated, held in late:
         for rec in records:                     # bf16 records, by name
             rec["launches"] += n_gated if rec["name"] == "topk_z[gated]" \
@@ -1516,10 +1544,16 @@ def hold_call(torch, label, name, real, args, kwargs):
     """One recorded kernel call made again through its wrapper ``real`` and
     held to its plain version (the kernel phases' tolerances): (record
     name, max abs err, a note for the log)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.fmbe import fmbe_phi_plain, fmbe_z_plain
     from repro_torch.kernels.ivf_score import (ivf_decode_plain,
+                                              stream_geometry,
                                               union_scores_plain)
     from repro_torch.kernels.topk_z import topk_z_plain
+
+    def ring(geo):
+        return (f"{geo['rows']} rows x {geo['stages']} stages of pitch "
+                f"{geo['pitch']} B, {geo['smem']} B of shared memory")
     if name == "ivf_decode":
         k = kwargs["k"]
         hl, tl, iv, ii = real(*args, k=k)
@@ -1528,9 +1562,13 @@ def hold_call(torch, label, name, real, args, kwargs):
                   compare_lse(f"{label} tail_lse", tl, p_tl))
         err_v, n_ids = compare_topk(label, iv, ii, p_v, p_i)
         live, cap = int(args[3]), args[2].shape[0]
+        geo = stream_geometry("ivf_decode", args[0].shape[2], args[0].dtype,
+                              u=cap, l=args[6].shape[0],
+                              grid_x=_build.stream_grid(args[0].device))
         return name, max(err, err_v), (
             f"ivf_decode Q {args[1].shape[0]} union {live} live of {cap} "
-            f"slots, lse err {err:.2e}, top-k err {err_v:.2e} ({n_ids} ids)")
+            f"slots, d {args[0].shape[2]}: ring {ring(geo)}, lse err "
+            f"{err:.2e}, top-k err {err_v:.2e} ({n_ids} ids)")
     if name == "union_scores":
         live = int(args[3])
         us = real(*args)
@@ -1538,8 +1576,11 @@ def hold_call(torch, label, name, real, args, kwargs):
         err = (us[:, :live] - p_us[:, :live]).abs().max().item()
         check(err <= TOL, f"{label}: live slots differ by {err}")
         check(bool((us[:, live:] == 0).all()), f"{label}: pad slots not 0")
+        geo = stream_geometry("union_scores", args[0].shape[2],
+                              args[0].dtype)
         return name, err, (f"union_scores Q {us.shape[0]} union {live} live "
-                           f"of {us.shape[1]} slots, err {err:.2e}")
+                           f"of {us.shape[1]} slots, d {args[0].shape[2]}: "
+                           f"ring {ring(geo)}, err {err:.2e}")
     if name == "topk_z":
         h, w, k = args
         rows = kwargs.get("rows")
@@ -1598,8 +1639,7 @@ def graph_step_ms(torch, sched, params, card, label="traffic"):
     kinds, _ = trunk_kinds(torch, lambda: eng.model.decode_step(
         params, cache, toks, pos))
     del cache
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in _leaves(params["blocks"]))
+    weight_bytes = trunk_bytes(params, eng.cfg)
     log(f"{label} trunk by kind (eager, {s} lanes, KV of {eng.max_len}): "
         f"{sum(v for v, _ in kinds.values()):.3f} ms in "
         f"{sum(n for _, n in kinds.values())} kernels; "
@@ -1972,6 +2012,386 @@ def moe_last(torch, card, kernels):
     path, n_gated = counted.totals()
     log(f"moe path launches {path}, gated topk_z {n_gated}; held max abs "
         f"err {held}; phase {time.time() - t_phase:.1f} s [{card}]")
+    return path, n_gated, held
+
+
+# the families phase: gemma3, RWKV6 and Zamba2 at full width through the
+# captured generate, the slot scheduler and the Server
+F_ARCHS = ("gemma3-4b", "rwkv6-7b", "zamba2-7b")
+# each family's parameters at full width (the JAX package's eval_shape)
+F_PARAMS = {"gemma3-4b": 3_879_907_840, "rwkv6-7b": 7_534_284_800,
+            "zamba2-7b": 6_750_840_528}
+F_SLOTS, F_NEW = 16, 16
+F_RING = 1024                     # gemma3's sliding window: its local rings
+F_PROMPT = {"gemma3-4b": F_RING, "rwkv6-7b": PROMPT, "zamba2-7b": PROMPT}
+F_PROMPT_CAP = {"gemma3-4b": F_RING, "rwkv6-7b": 64, "zamba2-7b": 64}
+F_LENGTHS = (8, 16, 32, 64)       # prompts of the held and served requests
+F_REQUESTS, F_RATE = 32, 0.5      # the Server: Poisson arrivals, seed 0
+# the scheduler's parity trace: (prompt, new tokens, temperature) and the
+# arrival step of each. gemma3: every request counts, the first wraps its
+# local rings (1020 + 12 - 1 positions > 1024). RWKV6 and Zamba2: the six
+# at step 0 enter fresh lanes; the seventh enters lane 6, dead for 5
+# steps, and the eighth lane 0, reused after the first request (C11)
+F_TRACE = {
+    "gemma3-4b": (((1020, 12, 0.0), (40, 16, 0.0), (64, 8, 0.7),
+                   (16, 16, 0.0), (100, 12, 0.9), (24, 6, 0.0)),
+                  (0, 3, 7, 12, 20, 30)),
+    "recurrent": (((8, 2, 0.0), (16, 16, 0.0), (32, 16, 0.8),
+                   (64, 12, 0.0), (24, 16, 0.9), (48, 8, 0.0),
+                   (20, 16, 0.0), (12, 16, 0.0)),
+                  (0, 0, 0, 0, 0, 0, 5, 20)),
+}
+F_HELD_LANES, F_HELD_WARM = 12, 3    # the held steps' busy table
+
+
+def trunk_bytes(params, cfg):
+    """Bytes one decode step reads from the trunk's weights (everything
+    but the embedding, the head and the final norm): the shared block of
+    the hybrid plan once a group."""
+    skip = ("embed", "lm_head", "final_norm")
+    n = sum(t.numel() * t.element_size()
+            for k, v in params.items() if k not in skip
+            for t in (_leaves(v) if isinstance(v, dict) else [v]))
+    if "shared_attn" in params:
+        groups = cfg.n_layers // cfg.shared_attn_every
+        n += (groups - 1) * sum(t.numel() * t.element_size()
+                                for t in _leaves(params["shared_attn"]))
+    return n
+
+
+def families_last(torch, card, kernels):
+    """Phase 11, last: gemma3-4b, rwkv6-7b and zamba2-7b in turn
+    (``family``), each freed before the next. Returns what ``traffic``
+    returns, summed over the three."""
+    path, n_gated, held = {}, 0, {}
+    for arch in F_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        p, g, h = family(torch, card, kernels, arch)
+        for name, n in p.items():
+            path[name] = path.get(name, 0) + n
+        n_gated += g
+        for name, err in h.items():
+            held[name] = max(held.get(name, 0.0), err)
+    return path, n_gated, held
+
+
+def family(torch, card, kernels, arch):
+    """One family at its published widths (bf16, random weights from seed
+    0; nothing cut) behind an engine at the config's partition with the
+    guard (gemma3 and rwkv6: mimps, k 1000, l 1000, n_probe 16, blocks of
+    512 at fixed capacity; zamba2: exact):
+
+    1. The parameter count against the JAX package's, peak memory after
+       the init and after the index build, the trunk's weight bytes and
+       their read time at the memory rate. rwkv6's two projections that
+       write into the residual stream are scaled by 1/sqrt(2 L) after the
+       init (C12: at the JAX init's scales its stream overflows).
+    2. The captured ``generate``, 8 lanes, greedy, bit-equal to the host
+       loop (tokens, log_prob, log_z), each kernel once a step (the
+       partition's and the guard's gated ``topk_z``): gemma3 with a prompt
+       of 1024 and 16 new tokens (every local ring wraps), the others
+       prompt 16 and 16 new. ms a step, new tokens/s, the replay's device
+       ms.
+    3. With an index: ``ops.ivf_block_scores`` on a mimps plan of 16
+       decode hidden states, held to its plain version.
+    4. One eager step of a busy 16-lane table (12 live) at each tier
+       (mimps and topk, or exact), every kernel call held to its plain
+       version (``held_step``; the stream kernels' ring geometry logged).
+    5. The slot scheduler, 16 lanes, on ``F_TRACE`` (staggered): the
+       requests that count (gemma3: all; the others: the six that enter
+       fresh lanes before the first step) each equal ``generate`` at batch
+       16 with the request in every lane (a sampled one with row 0 of
+       generate's noise injected); the late and the reused lane's tokens
+       are logged beside their ``generate`` (C11: admission does not reset
+       a recurrent state and dead lanes step). The same trace through
+       ``Scheduler(eager=True)`` gives the captured table's tokens,
+       log_prob and log Z bit for bit: the capture's warm-up put the
+       recurrent leaves back.
+    6. The ``Server`` with ``Observability`` (trace, snapshot, shadow
+       every 4 steps, harvest every 8): 32 Poisson requests, all complete,
+       one capture, the kernels once a step; the trace's request spans
+       number the completions. Then the captured step's device ms, its
+       profile and the trunk by kind (``graph_step_ms``).
+    7. Speculation (spec_k 4) and the prefix pool each raise
+       ``NotImplementedError``.
+
+    Returns the path's launches, the gated ``topk_z``'s and the held
+    calls' max abs err by record name."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.decode import make_plan
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ivf_score import ivf_score_plain
+    from repro_torch.kernels.ops import ivf_block_scores
+    from repro_torch.models import Model, tree_leaves
+    from repro_torch.obs import ObsConfig, Observability
+    from repro_torch.serve import (Engine, Request, Scheduler, Server,
+                                   generate, poisson_arrivals,
+                                   trace_arrivals)
+    from repro_torch.serve.engine import _draw_gumbel
+
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    counted = PathCounts(torch, kernels)
+    cfg = get_config(arch)
+    pc = cfg.partition
+    exact = pc.method == "exact"
+    kernel = "topk_z" if exact else "ivf_decode"
+    tag = arch.split("-")[0]
+    cap, p_len = F_PROMPT_CAP[arch], F_PROMPT[arch]
+    max_len = cap + F_NEW
+    torch.cuda.reset_peak_memory_stats()
+    left = torch.cuda.memory_allocated() / 1e9
+    # -- 1. model and engine ------------------------------------------------
+    t0 = time.time()
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    if cfg.family == "ssm":
+        # the JAX RWKV6 block has no norm before its mixes, and its channel
+        # mix is quadratic in the stream: at the init's scales a 32-layer
+        # stream overflows by layer 9 (C12). GPT-2's residual scaling keeps
+        # it finite: the two projections that write into the stream at
+        # 1/sqrt(2 L) of their scale (0.125, exact in bf16)
+        for leaf in (params["blocks"]["mix"]["wo"],
+                     params["blocks"]["cmix"]["wv"]):
+            leaf.mul_((2 * cfg.n_layers) ** -0.5)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(n_params == F_PARAMS[arch], f"{tag}: {n_params} params, the JAX "
+          f"package's eval_shape counts {F_PARAMS[arch]}")
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    t_bytes = trunk_bytes(params, cfg)
+    log(f"{tag}: {cfg.name} family {cfg.family} layers {cfg.n_layers} d "
+        f"{cfg.d_model} vocab {cfg.vocab} {cfg.dtype}, {n_params / 1e9:.3f} "
+        f"B params ({cfg.param_count() / 1e9:.3f} B by the config's "
+        f"param_count), {n_bytes / 1e9:.3f} GB, init {init_s:.1f} s; "
+        f"{left:.3f} GB allocated before it, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB after it; a step "
+        f"reads {t_bytes / 1e9:.3f} GB of trunk weights, "
+        f"{t_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at the memory rate "
+        f"[{card}]")
+    t0 = time.time()
+    eng = Engine(model, params, max_len, seed=7, device_index=not exact,
+                 health_guard=True, device=dev)
+    torch.cuda.synchronize()
+    index = eng.index
+    log(f"{tag} engine: {pc.method}, "
+        + ("no index" if index is None else
+           f"{index.n_blocks} blocks of {index.block_rows} rows (fixed "
+           f"capacity)")
+        + f", built in {time.time() - t0:.2f} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB after it; "
+        f"max_len {max_len} [{card}]")
+    # -- 2. the captured generate -------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab, (N_REQ, p_len), generator=gen,
+                           device=dev)
+    steps = p_len + F_NEW - 1
+    run, cap_s = capture_runner(torch, eng)
+    box = {}
+
+    def wrap(fn):
+        res, box["counts"], box["gated"] = counted(fn)
+        return res
+    (toks, aux, secs), (_, _, h_secs) = served_pair(
+        torch, eng, prompt, F_NEW, f"{tag} generate", wrap=wrap)
+    check(all(bool(torch.isfinite(aux[k]).all()) for k in aux),
+          f"{tag} generate: log_prob or log_z not finite")
+    counts, n_g = box["counts"], box["gated"]
+    ungated = counts[kernel] - (n_g if exact else 0)
+    check(ungated == steps and n_g == steps, f"{tag} generate: {ungated} "
+          f"{kernel} and {n_g} gated topk_z launches in {steps} steps, want "
+          f"one of each a step")
+    check(toks.shape == (N_REQ, F_NEW), f"{tag} generate: tokens "
+          f"{tuple(toks.shape)}")
+    log(f"{tag} generate: {N_REQ} requests, prompt {p_len}, {F_NEW} new, "
+        f"greedy: captured {secs / steps * 1e3:.3f} ms/step "
+        f"({N_REQ * F_NEW / secs:.1f} new tokens/s; capture {cap_s:.2f} s, "
+        f"replay {replay_ms(torch, run, prompt):.3f} ms device), host loop "
+        f"{h_secs / steps * 1e3:.3f} ms/step ({N_REQ * F_NEW / h_secs:.1f} "
+        f"tokens/s), bit-equal (tokens, log_prob, log_z)"
+        + (f"; every local ring of {F_RING} slots wrapped at position "
+           f"{F_RING}" if arch == "gemma3-4b" else "")
+        + f"; launches {kernel} {ungated}, gated topk_z {n_g} [{card}]")
+    del run
+    eng._graph_runners = {}
+    # -- 3. ivf_score at the index's shapes ---------------------------------
+    held = {}
+    if index is not None:
+        state = model.init_decode_state(F_SLOTS, 8, dev)
+        h = model.decode_step(params, state, torch.randint(
+            0, cfg.vocab, (F_SLOTS,), generator=gen, device=dev), 0)
+        del state
+        plan = make_plan(index, h, pc.n_probe, pc.l, generator=gen)
+        args = (index.v_blocks, h, plan.block_ids)
+        scores, c, _ = counted(lambda: ivf_block_scores(*args))
+        err = (scores - ivf_score_plain(*args)).abs().max().item()
+        check(c["ivf_score"] > 0 and err <= TOL, f"{tag} ivf_score: "
+              f"{c['ivf_score']} launches, err {err}")
+        held["ivf_score"] = err
+        log(f"{tag} ivf_score: ops.ivf_block_scores, Q {F_SLOTS} x "
+            f"{pc.n_probe} probes of {index.block_rows} x {cfg.d_model}, "
+            f"err {err:.2e} [{card}]")
+    # -- 4. the step's kernels at the table's shapes -------------------------
+    rng = np.random.default_rng(0)
+
+    def requests(n, base):
+        return [Request(prompt=rng.integers(0, cfg.vocab, F_LENGTHS[i % 4]),
+                        max_new_tokens=F_NEW, seed=base + i,
+                        temperature=0.0 if i % 2 == 0 else 0.8)
+                for i in range(n)]
+
+    before = _build.snapshot()
+    s = Scheduler(eng, F_SLOTS, prompt_cap=cap, seed=3, eager=True)
+    busy = requests(F_HELD_LANES, 500)
+    for i, r in enumerate(busy):
+        s.admit(r)
+        if i == F_HELD_LANES // 2 - 1:
+            for _ in range(F_HELD_WARM):
+                s.step()
+    for _ in range(F_HELD_WARM):
+        s.step()
+    for tier in (("exact",) if exact else ("mimps", "topk")):
+        s.set_tier(tier)
+        for name, err in held_step(torch, s, busy[1], f"{tag} held {tier} "
+                                   f"step", card).items():
+            held[name] = max(held.get(name, 0.0), err)
+    s.drain()
+    del s
+    _build.restore(before)
+    for name in ((("topk_z", "topk_z[gated]") if exact else
+                  ("ivf_decode", "union_scores", "topk_z[gated]"))):
+        check(name in held, f"{tag}: no {name} call was held to its plain "
+              f"version at the table's shapes")
+    # -- 5. the slot scheduler against generate, captured against eager ----
+    spec, at = F_TRACE["gemma3-4b" if arch == "gemma3-4b" else "recurrent"]
+    prompts = [rng.integers(0, cfg.vocab, n) for n, _, _ in spec]
+    k = pc.sample_k
+    want, noise = [], []
+    for i, (pr, (_, n, t)) in enumerate(zip(prompts, spec)):
+        # generate at batch 16, the request in every lane; a sampled
+        # request takes row 0 of the (16, k) noise generate draws a step
+        out = generate(eng, torch.as_tensor(pr[None], device=dev)
+                       .expand(F_SLOTS, -1), n, temperature=t,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           40 + i))
+        want.append(out[0].tolist())
+        g2 = torch.Generator(device=dev).manual_seed(40 + i)
+        noise.append(torch.stack([
+            _draw_gumbel((F_SLOTS, k), g2, dev)[0]
+            for _ in range(len(pr) + n - 1)]).cpu().numpy() if t > 0
+            else None)
+
+    def trace_reqs():
+        return [Request(prompt=pr, max_new_tokens=n, temperature=t,
+                        gumbel=g)
+                for pr, (_, n, t), g in zip(prompts, spec, noise)]
+
+    def serve(sched, reqs):
+        t0 = time.time()
+        rep = Server(sched).run(arrivals=trace_arrivals(reqs, list(at)))
+        torch.cuda.synchronize()
+        by_id = {c.request.req_id: c for c in rep.completions}
+        got = [by_id.get(r.req_id) for r in reqs]
+        check(all(c is not None and c.error is None and
+                  len(c.tokens) == r.max_new_tokens
+                  for r, c in zip(reqs, got)),
+              f"{tag} scheduler: a request did not complete")
+        return rep, got, time.time() - t0
+
+    reqs = trace_reqs()
+    sched = Scheduler(eng, F_SLOTS, prompt_cap=cap, seed=3)
+    (rep, got, secs), c, n_g = counted(lambda: serve(sched, reqs))
+    ungated = c[kernel] - (n_g if exact else 0)
+    check(sched.captures == 1 and ungated == rep.steps and
+          n_g == 2 * rep.steps, f"{tag} scheduler: {sched.captures} "
+          f"captures, {ungated} {kernel} and {n_g} gated topk_z launches in "
+          f"{rep.steps} steps, want one capture, 1 and 2 a step")
+    del sched
+    esched = Scheduler(eng, F_SLOTS, prompt_cap=cap, seed=3, eager=True)
+    _, egot, e_secs = serve(esched, trace_reqs())
+    del esched
+    for a, b in zip(got, egot):
+        check(a.tokens == b.tokens and a.log_probs == b.log_probs and
+              a.log_zs == b.log_zs, f"{tag} scheduler: the captured step "
+              f"differs from the eager step")
+    fresh = len(spec) if arch == "gemma3-4b" else 6
+    same = [c_.tokens == w for c_, w in zip(got, want)]
+    check(all(same[:fresh]), f"{tag} scheduler: requests "
+          f"{[i for i in range(fresh) if not same[i]]} differ from "
+          f"generate at batch 16")
+    lanes = {6: "lane 6, dead through 5 steps", 7: "lane 0, reused"}
+    c11 = "; ".join(
+        f"request {i} ({lanes[i]}): "
+        f"{sum(a == b for a, b in zip(got[i].tokens, want[i]))} of "
+        f"{len(want[i])} tokens as generate's, first "
+        f"{got[i].tokens[:4]} vs {want[i][:4]}"
+        for i in range(fresh, len(spec)))
+    log(f"{tag} scheduler: {len(spec)} requests on {F_SLOTS} lanes at steps "
+        f"{list(at)} (prompts {[n for n, _, _ in spec]}), {rep.steps} "
+        f"steps, {secs:.2f} s captured, {e_secs:.2f} s eager; captured = "
+        f"eager bit for bit (tokens, log_prob, log Z); {fresh} requests in "
+        f"fresh lanes each equal generate at batch 16"
+        + (f"; C11 (logged, not held): {c11}" if c11 else
+           f"; the first wraps its {F_RING}-slot local rings")
+        + f" [{card}]")
+    # -- 6. the Server with observability ------------------------------------
+    sreqs = requests(F_REQUESTS, 1000)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.jsonl"
+        obs = Observability(ObsConfig(
+            trace_path=str(trace), snapshot_path=str(Path(tmp) / "s.json"),
+            shadow_every=4, harvest_every=8))
+        sched = Scheduler(eng, F_SLOTS, prompt_cap=cap, seed=3)
+        try:
+            t0 = time.time()
+            rep, c, n_g = counted(lambda: Server(sched, obs=obs).run(
+                arrivals=poisson_arrivals(sreqs, F_RATE, seed=0)))
+            torch.cuda.synchronize()
+            srv_s = time.time() - t0
+        finally:
+            obs.close()
+        spans = [json.loads(line) for line in trace.read_text().splitlines()]
+    done = [x for x in rep.completions if x.error is None and
+            len(x.tokens) == F_NEW]
+    n_spans = sum(e["ph"] == "X" and e["name"] == "request" for e in spans)
+    ungated = c[kernel] - (n_g if exact else 0)
+    check(len(done) == F_REQUESTS and n_spans == F_REQUESTS,
+          f"{tag} server: {len(done)} of {F_REQUESTS} complete, "
+          f"{n_spans} request spans")
+    check(sched.captures_by_tier == {pc.method: 1}, f"{tag} server: "
+          f"captures {sched.captures_by_tier}")
+    check(ungated == rep.steps and n_g == 2 * rep.steps, f"{tag} server: "
+          f"{ungated} {kernel} and {n_g} gated topk_z in {rep.steps} steps")
+    log(f"{tag} server: {F_REQUESTS} requests (prompts {F_LENGTHS}, {F_NEW} "
+        f"new, half at T 0.8), Poisson {F_RATE}/step, {F_SLOTS} lanes, "
+        f"observability on: {rep.summary()}; {srv_s:.2f} s wall, one "
+        f"capture, {len(spans)} trace events [{card}]")
+    step_ms = graph_step_ms(torch, sched, params, card, label=tag)
+    log(f"{tag} step: the captured {F_SLOTS}-lane step replays in "
+        f"{step_ms:.3f} ms device, the trunk's weight read "
+        f"{t_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms [{card}]")
+    # -- 7. refusals ----------------------------------------------------------
+    for kw in (dict(spec_draft="topk", spec_k=4),
+               dict(prefix_cache_blocks=8)):
+        try:
+            Scheduler(eng, F_SLOTS, prompt_cap=cap, **kw)
+        except NotImplementedError:
+            continue
+        raise SmokeError(f"{tag}: a scheduler with {kw} was not refused")
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(sched.table.cache)) / 1e9
+    del sched, eng, params, model
+    path, n_gated = counted.totals()
+    log(f"{tag} path launches {path}, gated topk_z {n_gated}; held max abs "
+        f"err {held}; the {F_SLOTS}-lane decode state {state_gb:.3f} GB; "
+        f"speculation and the prefix pool refused; phase "
+        f"{time.time() - t_phase:.1f} s [{card}]")
     return path, n_gated, held
 
 

@@ -17,6 +17,7 @@ from . import resolve_device
 from .core.feature_maps import FeatureMap
 from .core.lsh import LSHIndex
 from .core.mips import IVFIndex
+from .models.transformer import _gemma_plan
 from .train.optimizer import OptState
 
 
@@ -30,38 +31,88 @@ def to_tensor(a, device="cuda") -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _wq_sites(cfg):
+    """(path, leading axes) of every ``attn`` node of the config's tree:
+    its ``wq`` is (*lead, d, n_heads * head_dim)."""
+    if cfg.local_global_ratio:
+        g, r, tail = _gemma_plan(cfg)
+        sites = [(("local_groups", "attn"), (g, r)),
+                 (("global_groups", "attn"), (g,))]
+        return sites + ([(("local_tail", "attn"), (tail,))] if tail else [])
+    if cfg.family == "hybrid":
+        return [(("shared_attn", "attn"), ())]
+    if cfg.family == "ssm":
+        return []
+    return [(("blocks", "attn"), (cfg.n_layers,))]
+
+
+def _node(tree, path):
+    for key in path:
+        if not isinstance(tree, Mapping) or key not in tree:
+            return None
+        tree = tree[key]
+    return tree
+
+
 def params_from_numpy(tree: Mapping[str, Any], cfg, device="cuda"):
     """The JAX ``Model.init`` tree (leaves as numpy arrays) as the port's
-    parameter dict, every leaf in its own dtype (an MoE router stays f32,
-    bf16 leaves keep their bits). ``cfg`` is checked against the tree's
-    widths: ``wq``, and for an MoE tree the router and every expert
-    leaf against ``cfg.moe``."""
+    parameter dict, every leaf in its own dtype (an MoE router and a Mamba
+    ``a_log`` stay f32, bf16 leaves keep their bits). ``cfg`` is checked
+    against the tree's widths: every ``wq`` the tree has (``blocks.attn``,
+    ``local_groups.attn``, ``global_groups.attn``, ``local_tail.attn``,
+    ``shared_attn.attn``), an RWKV tree's ``blocks.mix.wr`` (L, d, d), and
+    for an MoE tree the router and every expert leaf against
+    ``cfg.moe``."""
     out = {k: params_from_numpy(v, cfg, device) if isinstance(v, Mapping)
            else to_tensor(v, device) for k, v in tree.items()}
-    if "blocks" in out:
-        L, d = cfg.n_layers, cfg.d_model
-        want = {"wq": (L, d, cfg.n_heads * cfg.resolved_head_dim)}
-        got = {"wq": out["blocks"]["attn"]["wq"]}
-        ffn = out["blocks"]["ffn"]
-        if "experts" in ffn:
-            m = cfg.moe
-            if m is None:
-                raise ValueError("the tree holds MoE experts but the config "
-                                 f"{cfg.name!r} has no moe")
-            got["router"] = ffn["router"]
-            want["router"] = (L, d, m.n_experts)
-            for group, n in (("experts", m.n_experts),
-                             ("shared", m.n_shared)):
-                for name, leaf in ffn.get(group, {}).items():
-                    got[f"{group}.{name}"] = leaf
-                    want[f"{group}.{name}"] = (
-                        (L, n, m.expert_d_ff, d) if name == "down"
-                        else (L, n, d, m.expert_d_ff))
-        for name, leaf in got.items():
-            if tuple(leaf.shape) != want[name]:
-                raise ValueError(f"{name} {tuple(leaf.shape)} does not match "
-                                 f"the config's {want[name]}")
+    L, d = cfg.n_layers, cfg.d_model
+    got, want = {}, {}
+    for path, lead in _wq_sites(cfg):
+        attn = _node(out, path)
+        if attn is not None:
+            name = ".".join(path) + ".wq"
+            got[name] = attn["wq"]
+            want[name] = lead + (d, cfg.n_heads * cfg.resolved_head_dim)
+    wr = _node(out, ("blocks", "mix", "wr"))
+    if wr is not None:
+        got["blocks.mix.wr"], want["blocks.mix.wr"] = wr, (L, d, d)
+    ffn = _node(out, ("blocks", "ffn"))
+    if ffn is not None and "experts" in ffn:
+        m = cfg.moe
+        if m is None:
+            raise ValueError("the tree holds MoE experts but the config "
+                             f"{cfg.name!r} has no moe")
+        got["router"] = ffn["router"]
+        want["router"] = (L, d, m.n_experts)
+        for group, n in (("experts", m.n_experts), ("shared", m.n_shared)):
+            for name, leaf in ffn.get(group, {}).items():
+                got[f"{group}.{name}"] = leaf
+                want[f"{group}.{name}"] = (
+                    (L, n, m.expert_d_ff, d) if name == "down"
+                    else (L, n, d, m.expert_d_ff))
+    for name, leaf in got.items():
+        if tuple(leaf.shape) != want[name]:
+            raise ValueError(f"{name} {tuple(leaf.shape)} does not match "
+                             f"the config's {want[name]}")
     return out
+
+
+def decode_state_from_numpy(tree: Mapping[str, Any], device="cuda"):
+    """A JAX decode state (leaves as numpy arrays) as the port's, leaf by
+    leaf in its own dtype. The one layout that differs: the JAX dense and
+    MoE state ``{"kv": {"k", "v"}}`` is the port's flat ``{"k", "v"}``."""
+    if set(tree) == {"kv"}:
+        tree = tree["kv"]
+    return {k: decode_state_from_numpy(v, device) if isinstance(v, Mapping)
+            else to_tensor(v, device) for k, v in tree.items()}
+
+
+def decode_state_to_numpy(tree: Mapping[str, Any]):
+    """A port decode state as numpy, leaf by leaf (bf16 leaves as f32,
+    which holds them exactly), so states compare leaf by leaf."""
+    return {k: decode_state_to_numpy(v) if isinstance(v, Mapping)
+            else (v.float() if v.dtype == torch.bfloat16 else v)
+            .detach().cpu().numpy() for k, v in tree.items()}
 
 
 def opt_state_from_numpy(step, m: Mapping[str, Any], v: Mapping[str, Any],

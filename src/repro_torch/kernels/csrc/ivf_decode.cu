@@ -284,3 +284,19 @@ extern "C" int ivf_decode_launch(
       tail_accept, Q, U, br, d, L, k, grid_x, part_hm, part_hs, part_v,
       part_i, part_tm, part_ts, head_lse, tail_lse, topv, topi, st);
 }
+
+// The ring geometry `layout` picks for a launch at these shapes (U union
+// slots, L tail rows, d, grid_x CTAs): out = {rows a stage, stages, row
+// pitch in bytes, dynamic shared memory in bytes}. Nothing is launched.
+extern "C" int ivf_decode_geometry(int U, int L, int d, int grid_x, int f32,
+                                   int* out) {
+  const Layout m =
+      f32 ? layout<float>(d, 4, DecodeJob<float, 8>::extra(U, L, grid_x))
+          : layout<__nv_bfloat16>(
+                d, 4, DecodeJob<__nv_bfloat16, 8>::extra(U, L, grid_x));
+  out[0] = m.rows;
+  out[1] = m.nst;
+  out[2] = m.pitch;
+  out[3] = m.total;
+  return 0;
+}

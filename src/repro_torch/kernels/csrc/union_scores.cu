@@ -101,3 +101,15 @@ extern "C" int union_scores_launch(const void* w_blocks, const void* h,
   return (int)launch<bf16>(w_blocks, h, head_ids, head_live, Q, U, br, d,
                            grid_x, out, st);
 }
+
+// The ring geometry `layout` picks for these rows at width d (ivf_score's
+// UnionJob takes the same): out = {rows a stage, stages, row pitch in
+// bytes, dynamic shared memory in bytes}. Nothing is launched.
+extern "C" int union_scores_geometry(int d, int f32, int* out) {
+  const Layout m = f32 ? layout<float>(d, 0, 0) : layout<bf16>(d, 0, 0);
+  out[0] = m.rows;
+  out[1] = m.nst;
+  out[2] = m.pitch;
+  out[3] = m.total;
+  return 0;
+}

@@ -242,6 +242,27 @@ def union_launch(w_blocks, h, head_ids, head_live, *, lib=None,
     return out
 
 
+def stream_geometry(kernel: str, d: int, dtype: torch.dtype, *, u: int = 0,
+                    l: int = 0, grid_x: int = 0) -> dict:
+    """The ring geometry ``gather_stream.cuh``'s ``layout`` picks on the
+    host for ``kernel`` at row width ``d``: "ivf_decode" at ``u`` union
+    slots, ``l`` tail rows and ``grid_x`` CTAs, or "union_scores" (whose
+    rows ``ivf_score`` shares). Returns {rows a stage, stages, row pitch
+    and dynamic shared memory in bytes}; launches nothing, but builds and
+    loads the kernel's library, so it needs the GPU toolchain."""
+    if kernel not in ("ivf_decode", "union_scores"):
+        raise ValueError(f"no ring geometry query for {kernel!r}")
+    f32 = _build.KERNEL_DTYPES[dtype]
+    out = (ctypes.c_int * 4)()
+    lib = _build.load(kernel)
+    if kernel == "ivf_decode":
+        err = lib.ivf_decode_geometry(u, l, d, grid_x, f32, out)
+    else:
+        err = lib.union_scores_geometry(d, f32, out)
+    _build.check(f"{kernel} geometry", err)
+    return dict(zip(("rows", "stages", "pitch", "smem"), out))
+
+
 def ivf_decode_plain(w_blocks, h, head_ids, head_live, head_member, row_logw,
                      tail_rows, tail_accept, *, k: int = 1):
     """Plain PyTorch version of ``ivf_decode`` (same arguments and outputs),

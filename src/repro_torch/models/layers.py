@@ -36,7 +36,8 @@ def mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
         h = F.relu(x @ p["up"]).square()
     else:
         a = x @ p["gate"]
-        a = F.silu(a) if act == "silu" else F.gelu(a)
+        # jax.nn.gelu's default is the tanh approximation
+        a = F.silu(a) if act == "silu" else F.gelu(a, approximate="tanh")
         h = a * (x @ p["up"])
     return h @ p["down"]
 

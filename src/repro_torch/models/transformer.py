@@ -1,14 +1,28 @@
-"""Transformer: full-sequence forward (training) and cached decode
-(counterpart of ``repro.models.transformer``; the dense and MoE families).
+"""Transformer: full-sequence forward (training and prefill) and cached
+decode (counterpart of ``repro.models.transformer``) for the dense, MoE,
+gemma3 local/global, RWKV6 (``ssm``) and Zamba2 (``hybrid``) families.
 
 Parameters keep the JAX package's pytree layout — a dict whose per-layer
-leaves are stacked on a leading layer axis — so ``interop.params_from_numpy``
-is a leaf-wise conversion. A Python loop over layers takes the place of
-``lax.scan``, and ``torch.utils.checkpoint`` that of ``jax.checkpoint``.
+leaves are stacked on a leading layer axis, or on (group, member) axes for
+a grouped plan — so ``interop.params_from_numpy`` is a leaf-wise
+conversion. A Python loop over layers takes the place of ``lax.scan``, and
+``torch.utils.checkpoint`` that of ``jax.checkpoint``. The plans:
+
+  gemma3-4b : 5 groups of [5 local + 1 global] + a tail of 4 local
+  zamba2-7b : 13 groups of [6 mamba] each followed by the one shared
+              attention block (one weight copy) + a tail of 3 mamba
+  others    : one homogeneous stack
+
+Decode states are trees stacked the same way. The dense and MoE families
+keep one flat KV pair ``{"k", "v"}``; gemma3's is ``{"local", "global",
+"tail"}`` (a ring of ``min(max_len, sliding_window)`` slots in each local
+layer), RWKV6's ``{"rwkv": {"tm_last", "cm_last", "wkv"}}`` and Zamba2's
+``{"mamba", "shared_kv", "mamba_tail"}``. ``decode_step`` updates every
+leaf in place, so a captured CUDA graph keeps its storage.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -18,7 +32,9 @@ from ..configs.base import ModelConfig
 from .attention import (KVCache, decode_position, decode_self_attention,
                         self_attention)
 from .layers import _dense_init, embed, mlp, rmsnorm
+from .mamba import init_mamba_block, init_mamba_state, mamba_block
 from .moe import init_moe, moe_block
+from .rwkv import RWKVState, init_rwkv_block, rwkv_block
 
 Params = Dict[str, Any]
 
@@ -45,6 +61,49 @@ def _unbind(tree: Params) -> Params:
             for k, v in tree.items()}
 
 
+def tree_paths(tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
+    """(path, leaf) of every tensor of a nested dict, in insertion order;
+    a path reads like ``['rwkv']['wkv']``."""
+    for k, v in tree.items():
+        path = f"{prefix}[{k!r}]"
+        if isinstance(v, dict):
+            yield from tree_paths(v, path)
+        else:
+            yield path, v
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """Every tensor of a nested dict (a decode state), in insertion order."""
+    return [leaf for _, leaf in tree_paths(tree)]
+
+
+def _tree_map(fn: Callable, tree):
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _copy_into(dst, src) -> None:
+    """``dst``'s leaves overwritten in place by ``src``'s (same tree)."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_into(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+def _stack(n: int, make: Callable[[], Params]) -> Params:
+    """``n`` draws of ``make()`` stacked on a new leading axis, drawn one at
+    a time: one draw's tensors (and its f32 draws) are alive at once, not
+    the whole stack's."""
+    first = make()
+    out = _tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    _copy_into(_layer(out, 0), first)
+    del first
+    for i in range(1, n):
+        _copy_into(_layer(out, i), make())
+    return out
+
+
 # the dense family's aux losses, all zero (the JAX package's ZERO_AUX)
 ZERO_AUX = {"moe_balance": 0.0, "moe_zloss": 0.0, "moe_drop_frac": 0.0}
 
@@ -57,12 +116,44 @@ def _add_aux(a: Dict, b: Dict) -> Dict:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.local_global_ratio \
-            or cfg.n_codebooks:
+    if cfg.family == "vlm":
         raise NotImplementedError(
-            f"the port serves the dense and moe families only; {cfg.name!r} "
-            f"is family {cfg.family!r} (repro.models.transformer's "
-            f"{cfg.family} plan is not ported)")
+            f"{cfg.name!r} is family 'vlm': repro.models.transformer's vlm "
+            f"plan (_vlm_plan, cross_block_fwd, attention.cross_attention) "
+            f"is not ported")
+    if cfg.n_codebooks:
+        raise NotImplementedError(
+            f"{cfg.name!r} has {cfg.n_codebooks} codebooks: "
+            f"repro.models.transformer's codebook embedding and heads "
+            f"(Model.embed_tokens, Model.logits with n_codebooks) are not "
+            f"ported")
+    if cfg.family not in ("dense", "audio", "moe", "ssm", "hybrid"):
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def _plan(cfg: ModelConfig) -> str:
+    if cfg.local_global_ratio:
+        return "gemma"
+    if cfg.family in ("ssm", "hybrid"):
+        return cfg.family
+    return "stack"
+
+
+def _gemma_plan(cfg):
+    """(n_groups, locals_per_group, tail_locals)."""
+    r = cfg.local_global_ratio                       # 5 locals : 1 global
+    group = r + 1
+    n_groups = cfg.n_layers // group
+    tail = cfg.n_layers - n_groups * group
+    return n_groups, r, tail
+
+
+def _hybrid_plan(cfg):
+    """(n_groups, mamba_per_group, tail_mamba)."""
+    group = cfg.shared_attn_every
+    n_groups = cfg.n_layers // group
+    tail = cfg.n_layers - n_groups * group
+    return n_groups, group, tail
 
 
 def _ffn(p: Params, y, cfg, kind: str):
@@ -91,53 +182,87 @@ def tblock_decode(p: Params, x, cache: KVCache, pos, cfg, *, kind="dense",
     return x + f
 
 
+def _init_tblocks(gen: torch.Generator, cfg, pre: tuple, dt,
+                  dev) -> Params:
+    """Attention + FFN blocks stacked on the leading axes ``pre`` ((L,)
+    for one stack, () for a single block), each leaf drawn whole."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nh, nkv, ff = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+
+    def dense(shape):
+        return _dense_init(gen, pre + shape, dt, dev)
+
+    def ones(n):
+        return torch.ones(pre + (n,), dtype=dt, device=dev)
+
+    attn = {"wq": dense((d, nh * hd)), "wk": dense((d, nkv * hd)),
+            "wv": dense((d, nkv * hd)), "wo": dense((nh * hd, d))}
+    if cfg.qkv_bias:
+        for name, width in (("bq", nh), ("bk", nkv), ("bv", nkv)):
+            attn[name] = torch.zeros(pre + (width * hd,), dtype=dt,
+                                     device=dev)
+    if cfg.family == "moe":
+        ffn = init_moe(gen, cfg, pre[0], dt, dev)
+    else:
+        ffn = {"down": dense((ff, d))}
+        if cfg.act == "sqrelu":
+            ffn["up"] = dense((d, ff))
+        else:
+            ffn["gate"] = dense((d, ff))
+            ffn["up"] = dense((d, ff))
+    return {"ln1": {"scale": ones(d)}, "attn": attn,
+            "ln2": {"scale": ones(d)}, "ffn": ffn}
+
+
 class Model:
-    """Functional model for one ModelConfig of the dense or MoE family."""
+    """Functional model for one ModelConfig of a ported family."""
 
     def __init__(self, cfg: ModelConfig):
         _check_family(cfg)
         self.cfg = cfg
         self.kind = "moe" if cfg.family == "moe" else "dense"
+        self.plan = _plan(cfg)
 
     def init(self, gen: torch.Generator, device="cuda") -> Params:
         """Seeded random init at the config's widths, on ``device`` (the
-        generator must live there too). Same shapes and scales as the JAX
-        package's ``Model.init``; the random numbers differ."""
+        generator must live there too). Same shapes, scales and dtypes as
+        the JAX package's ``Model.init``; the random numbers differ. The
+        grouped and recurrent plans draw one block (one group of a grouped
+        stack) at a time."""
         dev = resolve_device(device)
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
-        d, L, hd = cfg.d_model, cfg.n_layers, cfg.resolved_head_dim
-        nh, nkv, ff = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+        d = cfg.d_model
 
-        def dense(shape, scale=None):
-            return _dense_init(gen, shape, dt, dev, scale)
+        def block():
+            return _init_tblocks(gen, cfg, (), dt, dev)
 
-        def ones(*shape):
-            return torch.ones(shape, dtype=dt, device=dev)
-
-        attn = {"wq": dense((L, d, nh * hd)), "wk": dense((L, d, nkv * hd)),
-                "wv": dense((L, d, nkv * hd)), "wo": dense((L, nh * hd, d))}
-        if cfg.qkv_bias:
-            for name, width in (("bq", nh), ("bk", nkv), ("bv", nkv)):
-                attn[name] = torch.zeros((L, width * hd), dtype=dt,
-                                         device=dev)
-        if self.kind == "moe":
-            ffn = init_moe(gen, cfg, L, dt, dev)
+        p: Params = {}
+        if self.plan == "stack":
+            p["blocks"] = _init_tblocks(gen, cfg, (cfg.n_layers,), dt, dev)
+        elif self.plan == "gemma":
+            g, r, tail = _gemma_plan(cfg)
+            p["local_groups"] = _stack(g, lambda: _stack(r, block))
+            p["global_groups"] = _stack(g, block)
+            if tail:
+                p["local_tail"] = _stack(tail, block)
+        elif self.plan == "ssm":
+            p["blocks"] = _stack(cfg.n_layers, lambda: init_rwkv_block(
+                gen, cfg, dt, dev))
         else:
-            ffn = {"down": dense((L, ff, d))}
-            if cfg.act == "sqrelu":
-                ffn["up"] = dense((L, d, ff))
-            else:
-                ffn["gate"] = dense((L, d, ff))
-                ffn["up"] = dense((L, d, ff))
-        p: Params = {
-            "embed": {"table": dense((cfg.vocab, d), scale=1.0)},
-            "final_norm": {"scale": ones(d)},
-            "blocks": {"ln1": {"scale": ones(L, d)}, "attn": attn,
-                       "ln2": {"scale": ones(L, d)}, "ffn": ffn},
-        }
+            g, per, tail = _hybrid_plan(cfg)
+
+            def mamba():
+                return init_mamba_block(gen, cfg, dt, dev)
+            p["mamba_groups"] = _stack(g, lambda: _stack(per, mamba))
+            p["shared_attn"] = block()                # ONE weight copy
+            if tail:
+                p["mamba_tail"] = _stack(tail, mamba)
+        p["embed"] = {"table": _dense_init(gen, (cfg.vocab, d), dt, dev,
+                                           scale=1.0)}
+        p["final_norm"] = {"scale": torch.ones((d,), dtype=dt, device=dev)}
         if not cfg.tie_embeddings:
-            p["lm_head"] = dense((cfg.vocab, d))
+            p["lm_head"] = _dense_init(gen, (cfg.vocab, d), dt, dev)
         return p
 
     def embed_tokens(self, p: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -155,9 +280,9 @@ class Model:
     def forward(self, p: Params, tokens: torch.Tensor, *,
                 img=None) -> Tuple[torch.Tensor, Dict[str, float]]:
         """tokens (B, S) -> (hidden (B, S, d), aux). With ``cfg.remat`` other
-        than "none" each block runs under a non-reentrant checkpoint: its
-        activations are recomputed in the backward, as under
-        ``jax.checkpoint``."""
+        than "none" each block (each group of a grouped plan) runs under a
+        non-reentrant checkpoint: its activations are recomputed in the
+        backward, as under ``jax.checkpoint``."""
         if img is not None:
             raise NotImplementedError(
                 "the port's families take no image (the vlm family's "
@@ -165,47 +290,175 @@ class Model:
         cfg = self.cfg
         x = self.embed_tokens(p, tokens)
         remat = cfg.remat != "none"
-        blocks = _unbind(p["blocks"])
-        aux = ZERO_AUX
-        for i in range(cfg.n_layers):
-            layer = _layer(blocks, i)
+
+        def run(fn, layer, x_):
             if remat:
-                x, a = checkpoint(tblock_fwd, layer, x, cfg, kind=self.kind,
-                                  window=cfg.sliding_window,
-                                  use_reentrant=False)
-            else:
-                x, a = tblock_fwd(layer, x, cfg, kind=self.kind,
-                                  window=cfg.sliding_window)
-            aux = _add_aux(aux, a)
+                return checkpoint(fn, layer, x_, use_reentrant=False)
+            return fn(layer, x_)
+
+        aux = ZERO_AUX
+        win = cfg.sliding_window
+        if self.plan == "stack":
+            blocks = _unbind(p["blocks"])
+            for i in range(cfg.n_layers):
+                x, a = run(lambda px, x_: tblock_fwd(
+                    px, x_, cfg, kind=self.kind, window=win),
+                    _layer(blocks, i), x)
+                aux = _add_aux(aux, a)
+        elif self.plan == "gemma":
+            g, r, tail = _gemma_plan(cfg)
+
+            def group(pg, x_):
+                for i in range(r):
+                    x_, _ = tblock_fwd(_layer(pg["local"], i), x_, cfg,
+                                       window=win)
+                return tblock_fwd(pg["global"], x_, cfg, window=0)[0]
+            loc, glob = _unbind(p["local_groups"]), _unbind(
+                p["global_groups"])
+            for gi in range(g):
+                x = run(group, {"local": _layer(loc, gi),
+                                "global": _layer(glob, gi)}, x)
+            if tail:
+                lt = _unbind(p["local_tail"])
+                for i in range(tail):
+                    x = run(lambda px, x_: tblock_fwd(px, x_, cfg,
+                                                      window=win)[0],
+                            _layer(lt, i), x)
+        elif self.plan == "ssm":
+            blocks = _unbind(p["blocks"])
+            for i in range(cfg.n_layers):
+                x = run(lambda px, x_: rwkv_block(px, x_, cfg)[0],
+                        _layer(blocks, i), x)
+        else:
+            g, per, tail = _hybrid_plan(cfg)
+            shared = p["shared_attn"]
+
+            def group(pg, x_):
+                for i in range(per):
+                    x_, _ = mamba_block(_layer(pg["mamba"], i), x_, cfg)
+                return tblock_fwd(pg["shared"], x_, cfg)[0]
+            mg = _unbind(p["mamba_groups"])
+            for gi in range(g):
+                x = run(group, {"mamba": _layer(mg, gi), "shared": shared},
+                        x)
+            if tail:
+                mt = _unbind(p["mamba_tail"])
+                for i in range(tail):
+                    x = run(lambda px, x_: mamba_block(px, x_, cfg)[0],
+                            _layer(mt, i), x)
         return rmsnorm(p["final_norm"], x, cfg.norm_eps), aux
 
     def init_decode_state(self, batch: int, max_len: int,
-                          device) -> Dict[str, torch.Tensor]:
-        """KV cache {"k", "v"}: (L, B, S, n_kv, hd) each."""
+                          device) -> Dict[str, Any]:
+        """The decode state of ``batch`` lanes of ``max_len`` positions,
+        zeros: the dense and MoE families' KV pair {"k", "v"} (L, B, S,
+        n_kv, hd); gemma3's {"local", "global", "tail"}; RWKV6's {"rwkv":
+        ...} and Zamba2's {"mamba", "shared_kv", "mamba_tail"}, each leaf
+        stacked as its parameters are (the JAX package's trees)."""
         cfg = self.cfg
-        length = min(max_len, cfg.sliding_window) if cfg.sliding_window \
-            else max_len
-        shape = (cfg.n_layers, batch, length, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
         dt = torch_dtype(cfg.dtype)
-        return {"k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}
+        hd, nkv = cfg.resolved_head_dim, cfg.n_kv_heads
 
-    def decode_step(self, p: Params, state: Dict[str, torch.Tensor],
+        def kv(*lead):
+            shape = lead + (nkv, hd)
+            return {"k": torch.zeros(shape, dtype=dt, device=device),
+                    "v": torch.zeros(shape, dtype=dt, device=device)}
+
+        def stacked(lead, make):
+            return _tree_map(lambda t: t.new_zeros(lead + tuple(t.shape)),
+                             make())
+
+        if self.plan == "stack":
+            length = min(max_len, cfg.sliding_window) \
+                if cfg.sliding_window else max_len
+            return kv(cfg.n_layers, batch, length)
+        if self.plan == "gemma":
+            g, r, tail = _gemma_plan(cfg)
+            w = min(max_len, cfg.sliding_window)
+            st = {"local": kv(g, r, batch, w), "global": kv(g, batch,
+                                                            max_len)}
+            if tail:
+                st["tail"] = kv(tail, batch, w)
+            return st
+        if self.plan == "ssm":
+            return {"rwkv": stacked((cfg.n_layers,), lambda: RWKVState.init(
+                batch, cfg, dt, device))}
+        g, per, tail = _hybrid_plan(cfg)
+
+        def m0():
+            return init_mamba_state(batch, cfg, dt, device)
+        st = {"mamba": stacked((g, per), m0),
+              "shared_kv": kv(g, batch, max_len)}
+        if tail:
+            st["mamba_tail"] = stacked((tail,), m0)
+        return st
+
+    def decode_step(self, p: Params, state: Dict[str, Any],
                     token: torch.Tensor, pos) -> torch.Tensor:
         """token (B,) at position ``pos`` -> hidden of that position (B, d).
         ``pos`` is an int tensor on the device, 0-d (shared by the batch)
         or (B,) (one a lane), or a Python int (copied to the device).
-        ``state`` (the KV cache) is updated in place; with a tensor
-        position nothing is read to the host."""
+        Every leaf of ``state`` is updated in place (KV rows at their slot,
+        recurrent leaves whole); with a tensor position nothing is read to
+        the host. Each cache length gets one ``decode_position`` a step."""
         cfg = self.cfg
         if not isinstance(pos, torch.Tensor):
             pos = torch.tensor(pos, dtype=torch.int32, device=token.device)
-        dpos = decode_position(pos, state["k"].shape[2], cfg.sliding_window)
         x = embed(p["embed"], token[:, None])                  # (B, 1, d)
-        for i in range(cfg.n_layers):
-            cache = KVCache(k=state["k"][i], v=state["v"][i])
-            x = tblock_decode(_layer(p["blocks"], i), x, cache, dpos, cfg,
-                              kind=self.kind, window=cfg.sliding_window)
+        win = cfg.sliding_window
+
+        def cache(st, *idx):
+            return KVCache(k=st["k"][idx], v=st["v"][idx])
+
+        if self.plan == "stack":
+            dpos = decode_position(pos, state["k"].shape[2], win)
+            for i in range(cfg.n_layers):
+                x = tblock_decode(_layer(p["blocks"], i), x,
+                                  cache(state, i), dpos, cfg,
+                                  kind=self.kind, window=win)
+        elif self.plan == "gemma":
+            g, r, tail = _gemma_plan(cfg)
+            lpos = decode_position(pos, state["local"]["k"].shape[-3], win)
+            gpos = decode_position(pos, state["global"]["k"].shape[-3], 0)
+            for gi in range(g):
+                loc = _layer(p["local_groups"], gi)
+                for i in range(r):
+                    x = tblock_decode(_layer(loc, i), x,
+                                      cache(state["local"], gi, i), lpos,
+                                      cfg, window=win)
+                x = tblock_decode(_layer(p["global_groups"], gi), x,
+                                  cache(state["global"], gi), gpos, cfg,
+                                  window=0)
+            for i in range(tail):
+                x = tblock_decode(_layer(p["local_tail"], i), x,
+                                  cache(state["tail"], i), lpos, cfg,
+                                  window=win)
+        elif self.plan == "ssm":
+            st = state["rwkv"]
+            for i in range(cfg.n_layers):
+                x = _recur(rwkv_block, _layer(p["blocks"], i), x, cfg,
+                           _layer(st, i))
+        else:
+            g, per, tail = _hybrid_plan(cfg)
+            spos = decode_position(pos, state["shared_kv"]["k"].shape[-3], 0)
+            for gi in range(g):
+                pg, sg = _layer(p["mamba_groups"], gi), _layer(
+                    state["mamba"], gi)
+                for i in range(per):
+                    x = _recur(mamba_block, _layer(pg, i), x, cfg,
+                               _layer(sg, i))
+                x = tblock_decode(p["shared_attn"], x,
+                                  cache(state["shared_kv"], gi), spos, cfg)
+            for i in range(tail):
+                x = _recur(mamba_block, _layer(p["mamba_tail"], i), x, cfg,
+                           _layer(state["mamba_tail"], i))
         h = rmsnorm(p["final_norm"], x, cfg.norm_eps)
         return h[:, 0]
+
+
+def _recur(block, p: Params, x, cfg, st: Dict[str, torch.Tensor]):
+    """One step of a recurrent block on its state views ``st``, written
+    back in place; returns the block's output."""
+    x, new = block(p, x, cfg, st)
+    _copy_into(st, new)
+    return x

@@ -29,7 +29,7 @@ from ..core.backends import (BACKENDS, BackendState, fmbe_block_state,
 from ..core.decode import DecodeOut, apply_health_guard
 from ..core.feature_maps import FeatureMap, make_feature_map
 from ..kernels import _build
-from ..models import Model
+from ..models import Model, tree_leaves
 
 # blocks of the index the digest reads at a time (64 blocks of 512 x 2560
 # f32: 336 MB)
@@ -38,7 +38,8 @@ _DIGEST_BLOCKS = 64
 
 @dataclasses.dataclass
 class ServeState:
-    cache: Any                   # KV cache dict, updated in place
+    cache: Any                   # the model's decode-state tree, updated in
+                                 # place
     pos: torch.Tensor            # int32 next position to write: 0-d or (B,)
     last_token: torch.Tensor     # (B,)
 
@@ -441,17 +442,18 @@ class _GraphRunner:
     """The decode step of one (engine, batch, tier), as ``generate``
     replays it (the counterpart of the JAX ``_scan_runner``).
 
-    It owns its KV cache and device buffers: the step index, the position,
-    the last token, the prompt step-major with a replay flag a step (a
-    replay step force-feeds its prompt token with ``torch.where``), the
-    temperature, the per-step tail draws and Gumbel noise, and the per-step
-    outputs, each ``max_len`` steps long. The step reads its inputs at the
-    step index and advances the index, the position and the last token
-    itself, so on a GPU it is captured once in a CUDA graph and replayed
-    once a step, for every prompt length, ``n_tokens`` and temperature; on
-    the CPU it runs eagerly. The launches its capture counted are added to
-    the kernels' counts at every replay. It keeps no reference to its
-    engine (which caches it), so dropping the engine frees the graph."""
+    It owns its decode state and device buffers: the step index, the
+    position, the last token, the prompt step-major with a replay flag a
+    step (a replay step force-feeds its prompt token with
+    ``torch.where``), the temperature, the per-step tail draws and Gumbel
+    noise, and the per-step outputs, each ``max_len`` steps long. The step
+    reads its inputs at the step index and advances the index, the
+    position and the last token itself, so on a GPU it is captured once
+    in a CUDA graph and replayed once a step, for every prompt length,
+    ``n_tokens`` and temperature; on the CPU it runs eagerly. The launches
+    its capture counted are added to the kernels' counts at every replay.
+    It keeps no reference to its engine (which caches it), so dropping
+    the engine frees the graph."""
 
     def __init__(self, engine: Engine, batch: int, tier: Optional[str]):
         self.tier = tier
@@ -478,12 +480,13 @@ class _GraphRunner:
 
     def load(self, prompt: torch.Tensor, tails: Optional[torch.Tensor],
              gumbel: torch.Tensor, temperature: float) -> None:
-        """Reset the step for a new request batch: step 0, position 0, a
-        zeroed KV cache, and the prompt, draws and temperature in place."""
+        """Reset the step for a new request batch: step 0, position 0,
+        every leaf of the decode state zeroed (KV and recurrent), and the
+        prompt, draws and temperature in place."""
         t_replay, total = prompt.shape[1], gumbel.shape[0]
         self.step.zero_()
         self.pos.zero_()
-        for buf in self.cache.values():
+        for buf in tree_leaves(self.cache):
             buf.zero_()
         self.prompt[:t_replay].copy_(prompt.T)
         self.replay_flag.copy_(torch.arange(self.replay_flag.shape[0],

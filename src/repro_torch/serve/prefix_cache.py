@@ -41,12 +41,16 @@ from ..models.attention import slice_lane_window, write_lane_window
 
 
 def cache_is_kv_only(cache) -> bool:
-    """True when every decode-state leaf is a full-attention KV buffer
-    (named 'k' or 'v', at least 4-D): the only states whose rows can be
-    block-copied and position-offset."""
-    return isinstance(cache, dict) and bool(cache) and all(
-        name in ("k", "v") and isinstance(leaf, torch.Tensor)
-        and leaf.dim() >= 4 for name, leaf in cache.items())
+    """True when every leaf of a non-empty decode-state tree is a KV
+    buffer (named 'k' or 'v', at least 4-D), at any depth: the only states
+    whose rows can be block-copied and position-offset. Recurrent leaves
+    (wkv, ssm, conv) fold history into one state and cannot be rewound or
+    spliced."""
+    def kv_only(tree) -> bool:
+        return all(kv_only(leaf) if isinstance(leaf, dict) else
+                   name in ("k", "v") and isinstance(leaf, torch.Tensor)
+                   and leaf.dim() >= 4 for name, leaf in tree.items())
+    return isinstance(cache, dict) and bool(cache) and kv_only(cache)
 
 
 class PrefixPool:

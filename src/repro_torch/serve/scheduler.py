@@ -25,6 +25,11 @@ advances every live lane with one step:
 * **Slot recycling.** A finished lane goes inactive on the device and back
   to the host's free list; the next admission rewinds it to position 0,
   and the per-lane validity mask hides the stale KV above the frontier.
+  As in the JAX package, admission does not reset the lane's decode state
+  and every step runs the trunk over every lane, dead ones included: a
+  recurrent leaf (RWKV, Mamba) carries the previous occupant's history and
+  the dead-lane steps into the next request. KV leaves are rewritten
+  before they are attended, so there it does no harm.
 
 **The slot table is a set of static device tensors updated in place**
 (``SlotTable``): admission, recycling, ``drain``, the prefix pool's loads,
@@ -81,6 +86,7 @@ from ..core.decode import (HEALTH_EMPTY_HEAD, HEALTH_NONFINITE_SCORE,
                            HEALTH_NONFINITE_Z, DecodeOut, apply_health_guard,
                            health_flags)
 from ..kernels import _build
+from ..models import tree_paths
 from ..obs.metrics import (TIER_IX, harvest, init_metric_state, observe_step,
                            reset_metric_state, shadow_rel_err)
 from .engine import _draw_gumbel
@@ -151,8 +157,9 @@ class Completion:
 class SlotTable:
     """The device state the step reads and writes, every field a static
     tensor updated in place (S = n_slots)."""
-    cache: Dict[str, torch.Tensor]  # KV cache {"k", "v"}: (L, S, max_len,
-                                    # n_kv, hd)
+    cache: Dict[str, Any]      # the model's decode-state tree, S lanes:
+                               #      KV leaves (*stack, S, len, n_kv, hd)
+                               #      and recurrent leaves (*stack, S, ...)
     prompt: torch.Tensor       # (S, P_cap) int64 padded prompt tokens
     last_token: torch.Tensor   # (S,) int64 lane's previous sampled token
     t_stream: torch.Tensor     # (S,) int32 step index within the request ==
@@ -351,12 +358,13 @@ class Scheduler:
             outs=torch.zeros((s + 1, 4 * kk + 6), **f32))
 
     def _storage(self) -> List[tuple]:
-        """(name, tensor) of every tensor a captured step reads or writes."""
+        """(name, tensor) of every tensor a captured step reads or writes;
+        a cache leaf is named by its path, as ``cache['rwkv']['wkv']``."""
         out = []
         for f in dataclasses.fields(self.table):
             v = getattr(self.table, f.name)
             if isinstance(v, dict):
-                out += [(f"cache[{k!r}]", t) for k, t in v.items()]
+                out += list(tree_paths(v, f.name))
             else:
                 out.append((f.name, v))
         out += [(f"metrics_state.{f.name}", getattr(self.metrics_state,
@@ -365,11 +373,17 @@ class Scheduler:
         return out
 
     def _small_state(self) -> List[torch.Tensor]:
-        """The tensors a step writes, but the KV cache (a warm-up's KV
-        writes are the ones its step makes again) and the outputs."""
+        """The tensors a step writes, but the KV leaves of the cache (a
+        warm-up's KV writes are the ones its step makes again, once the
+        rest is put back) and the outputs. A recurrent leaf (RWKV's
+        ``wkv``, Mamba's ``ssm`` and conv states) is among them: a step
+        folds it into itself, so a warm-up left in it would be applied
+        twice."""
         tb = self.table
+        recurrent = [t for path, t in tree_paths(tb.cache)
+                     if not path.endswith(("['k']", "['v']"))]
         return [tb.last_token, tb.t_stream, tb.budget, tb.deadline,
-                tb.active, tb.step_idx] + [
+                tb.active, tb.step_idx] + recurrent + [
             getattr(self.metrics_state, f.name)
             for f in dataclasses.fields(self.metrics_state)]
 
