@@ -168,6 +168,36 @@ GPU.
    Then 2 ``fused_ce`` train steps launch one f32 CE kernel of each kind a
    step.
 
+8b. The audio phase (``audio_phase``), after the f32 model is freed:
+   full-width musicgen-medium (48 layers, d 1536, 4 codebooks of vocab
+   2048, untied; bf16, seed 0, nothing cut; the count held to the JAX
+   package's). Serving has no retrieval state: the captured ``generate``
+   (8 requests, prompt (8, 16, 4), 32 new) at temperature 0 and 1.0 on
+   one captured step, bit-equal to the host loop and launching none of
+   the nine kernels, ms a step and frames/s beside the trunk's weight
+   read, the replay's profile and the trunk by kind; ``swap_index`` to new
+   weights drops the captured step and serves a fresh engine's tokens.
+   Training at B 4 x S 256 x 4 codebooks: the fused CE pair at the first
+   step's flattened head (T 4096, V 8192, d 1536) against its plain
+   version and against float64 (``ce_pair_held``: nll/lse within
+   FWD64_REL of a score's sum of |terms|, dh and dW within GRAD_REL of the
+   sum of their terms, two calls bit-equal), then fused_ce and
+   selfnorm 3 steps each (one launch of each CE kernel a step), ce, nce
+   and sampled 2 each (none), at TrainConfig's defaults (lr 3e-4 after a
+   100-step warmup), the loss finite and fused_ce's falling each step.
+8c. gemma3-4b training (``gemma3_train_phase``) at full width (bf16,
+   seed 0, remat full, nothing cut), B 1 x S 2048 past its 1024 window:
+   the CE pair at step 1's inputs (T 2048, V 262144, d 2560) against its
+   plain version and float64, the tied table's gradient against the
+   fused CE's dW plus the gather's scatter taken apart (within one bf16
+   step), 3 fused_ce steps at TrainConfig's defaults (finite, falling
+   each step) and one more split into parts; ms a step and peaks.
+   Both phases run before the traffic phase. Their launches and their
+   errors against the plain versions join the ``fused_ce_fwd``/
+   ``fused_ce_bwd`` records; their errors against float64 go into the
+   records' ``max_err_vs_float64`` and
+   ``max_err_over_sum_terms_vs_float64``.
+
 9. The traffic phase (``traffic``), last, on the serving phase's
    parameters made again from their seed (its ``torch.profiler`` sessions
    slow the host-bound train steps run after them in the same process;
@@ -266,6 +296,10 @@ PHI_CHUNK_BLOCKS = 16          # blocks per fmbe_phi launch in the build
 # may round one bf16 step (<= 2**-7 relative) apart; + 1e-5 for f32 sums
 GRAD_REL = 2 ** -7 + 1e-5      # of sum |terms|, per element
 GRAD_MEAN = 2 ** -10           # of sum |terms|, on average
+# against float64 only the kernel's side rounds the coefficient to bf16: a
+# dW element of one dominant term is off by that rounding alone, up to
+# 2^-8 and 0.72 x 2^-9 on average over a binade
+GRAD64_MEAN = 2 ** -9          # of sum |terms|, on average
 TRAIN_B, TRAIN_S = 4, 256      # T = 1024 tokens a step
 FUSED_STEPS, SELFNORM_STEPS = 4, 2
 EST_STEPS = 4                  # mimps_ce and lsh_ce steps (a refresh after 2)
@@ -566,7 +600,8 @@ def per_lane_step(torch, eng, prompt, card):
 TRUNK_KINDS = {"rmsnorm": "norms", "apply_rope": "RoPE",
                "rope_frequencies": "RoPE", "_project_qkv": "projections",
                "_dyn_update": "attention", "decode_position": "position",
-               "embed": "embedding", "tblock_decode": "elementwise",
+               "embed": "embedding", "embed_tokens": "embedding",
+               "tblock_decode": "elementwise",
                "mlp": "elementwise", "decode_self_attention": "attention",
                "wkv_scan": "recurrence", "ssm_scan": "recurrence",
                "_causal_conv": "conv", "_token_shift": "token shift",
@@ -626,10 +661,11 @@ def trunk_kinds(torch, fn):
     return kinds, out
 
 
-def step_breakdown(torch, run, eng, params, toks, pos, card):
+def step_breakdown(torch, run, eng, params, toks, pos, card, label):
     """One replay of a captured bf16 decode step under torch.profiler (its
     kernels and their device time), and one eager trunk call by kind
-    (``trunk_kinds``), its output bit-equal to the plain call's."""
+    (``trunk_kinds``), its output bit-equal to the plain call's. Returns
+    the replay's kernel count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     load_zero(torch, run, toks[:, None], 2)
@@ -646,7 +682,7 @@ def step_breakdown(torch, run, eng, params, toks, pos, card):
         ms, n = by_name.get(name, (0.0, 0))
         by_name[name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    log(f"captured step profile (mimps, one replay): {len(kern)} kernels, "
+    log(f"captured step profile ({label}, one replay): {len(kern)} kernels, "
         f"{sum(ms for ms, _ in by_name.values()):.3f} ms of kernel time; "
         f"top by time: "
         + "; ".join(f"{n} {ms:.3f} ms x{c}" for n, (ms, c) in top)
@@ -658,12 +694,14 @@ def step_breakdown(torch, run, eng, params, toks, pos, card):
     check(torch.equal(got, want), "the trunk under the profiler's ranges "
           "differs from the plain trunk")
     total = sum(ms for ms, _ in kinds.values())
-    log(f"trunk by kind (eager, 40 layers, kernel time): {total:.3f} ms in "
+    log(f"{label} trunk by kind (eager, "
+        f"{eng.cfg.n_layers} layers, kernel time): {total:.3f} ms in "
         f"{sum(n for _, n in kinds.values())} kernels; "
         + "; ".join(f"{k} {ms:.3f} ms ({n} kernels)" for k, (ms, n) in
                     sorted(kinds.items(), key=lambda kv: -kv[1][0]))
         + f"; weight read bound "
         f"{sum(t.numel() * t.element_size() for t in _leaves(params['blocks'])) / HBM_BYTES_PER_S * 1e3:.3f} ms [{card}]")
+    return len(kern)
 
 
 def main() -> int:
@@ -711,28 +749,43 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    records, study = serve(torch, card, kernels)
+    def timed(phase, *args):
+        t0 = time.time()
+        out = phase(torch, card, *args)
+        log(f"phase {phase.__name__}: {time.time() - t0:.1f} s")
+        return out
+
+    records, study = timed(serve, kernels)
     torch.cuda.empty_cache()                    # the serving state is gone
-    ce_records = train(torch, card, kernels)
+    ce_records = timed(train, kernels)
     records += ce_records
     torch.cuda.empty_cache()                    # the training state is gone
-    estimator_train(torch, card, kernels, ce_records)
+    timed(estimator_train, kernels, ce_records)
     torch.cuda.empty_cache()
-    checkpoint_round_trip(torch, card)
-    f32_records = f32_phase(torch, card, kernels)
+    timed(checkpoint_round_trip)
+    f32_records = timed(f32_phase, kernels)
     for rec in f32_records:                     # the studies ran at f32
         rec["launches"] += study[rec["name"].removesuffix("[f32]")]
     gc.collect()
     torch.cuda.empty_cache()
+    # the audio family and gemma3 training, before the traffic phase
+    for phase in (audio_phase, gemma3_train_phase):
+        counts, held = timed(phase, kernels)
+        gc.collect()
+        torch.cuda.empty_cache()                # the phase's model is gone
+        for rec in ce_records:
+            rec["launches"] += counts[rec["name"]]
+            for key, err in held[rec["name"]].items():
+                rec[key] = max(rec.get(key, 0.0), err)
     # traffic last: its torch.profiler sessions slow the host-bound train
     # steps run after them in the same process
-    late = [traffic_last(torch, card, kernels)]
+    late = [timed(traffic_last, kernels)]
     gc.collect()
     torch.cuda.empty_cache()                    # the traffic state is gone
-    late.append(moe_last(torch, card, kernels))
+    late.append(timed(moe_last, kernels))
     gc.collect()
     torch.cuda.empty_cache()                    # the MoE model is gone
-    late.append(families_last(torch, card, kernels))
+    late.append(timed(families_last, kernels))
     for counts, n_gated, held in late:
         for rec in records:                     # bf16 records, by name
             rec["launches"] += n_gated if rec["name"] == "topk_z[gated]" \
@@ -1077,7 +1130,7 @@ def serve(torch, card, kernels):
         log(f"step part {name}: wall {wall_ms(torch, fn):.3f} ms, "
             f"device {time_ms(torch, fn):.3f} ms [{card}]")
     step_breakdown(torch, runners["mimps"], exact_eng, params, toks, pos1,
-                   card)
+                   card, "mimps")
     del runners
     records = [tz, ivf, uni, fph, fz, lsp, ivs]
     del engines, exact_eng, cache, fstate, fm, lidx, index, plan
@@ -3528,11 +3581,9 @@ def train(torch, card, kernels):
                                              fused_ce_fwd_plain, grad_items,
                                              grad_order)
     from repro_torch.models import Model
-    from repro_torch.train import (adamw_update, harvest_train_metrics,
+    from repro_torch.train import (harvest_train_metrics,
                                    init_train_metric_state, init_train_state,
-                                   make_train_step, observe_train_step,
-                                   streaming_ce)
-    from repro_torch.train.optimizer import tree_leaves
+                                   make_train_step, observe_train_step)
 
     dev = torch.device("cuda")
     cfg = get_config("qwen1.5-4b")
@@ -3741,34 +3792,10 @@ def train(torch, card, kernels):
         f"of {cfg.n_layers} [{card}]")
     log(f"train metrics: {harvest_train_metrics(tm)}")
 
-    # one more fused_ce step, split into its parts: host clock with a
-    # synchronise after each part, beside CUDA-event device time
+    # one more fused_ce step, split into its parts
     tcfg = TrainConfig(loss="fused_ce", warmup_steps=1)
-    leaves = tree_leaves(state.params)
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    walls = []
-
-    def part(i, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        events[i].record()
-        out = fn()
-        events[i + 1].record()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    hidden, _ = part(0, lambda: model.forward(state.params, tokens))
-    loss = part(1, lambda: streaming_ce(
-        hidden.reshape(-1, cfg.d_model), model.head_matrix(state.params),
-        labels.reshape(-1))[0].mean())
-    grads = part(2, lambda: torch.autograd.grad(loss, leaves))
-    _, opt, _ = part(3, lambda: adamw_update(tcfg, state.params, grads,
-                                             state.opt))
-    state = state._replace(opt=opt)
-    for i, name in enumerate(("forward", "loss", "backward", "optimizer")):
-        log(f"train step part {name}: wall {walls[i]:.3f} ms, device "
-            f"{events[i].elapsed_time(events[i + 1]):.3f} ms [{card}]")
+    state, _ = fused_ce_parts(torch, card, model, state, tcfg, batch,
+                              "train")
 
     # one more fused_ce step under the profiler: the device's busy time and
     # idle share, and where the device and the host spend the step
@@ -3783,6 +3810,44 @@ def train(torch, card, kernels):
     fwd["launches"] = totals["fused_ce_fwd"]
     bwd["launches"] = totals["fused_ce_bwd"]
     return [fwd, bwd]
+
+
+def fused_ce_parts(torch, card, model, state, tcfg, batch, label):
+    """One fused_ce step split into forward, loss (the fused CE forward),
+    backward and optimizer: host clock with a synchronise after each part,
+    beside CUDA-event device time. The step's update is kept. Returns (the
+    state, {part: (wall ms, device ms)})."""
+    from repro_torch.train import adamw_update, losses
+    from repro_torch.train.optimizer import tree_leaves
+    leaves = tree_leaves(state.params)
+    for p in leaves:
+        p.requires_grad_(True)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    walls = []
+
+    def part(i, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events[i].record()
+        out = fn()
+        events[i + 1].record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    hidden, _ = part(0, lambda: model.forward(state.params, batch["tokens"]))
+    loss = part(1, lambda: losses.streaming_ce(*losses._flatten_head(
+        model, state.params, hidden, batch["labels"]))[0].mean())
+    grads = part(2, lambda: torch.autograd.grad(loss, leaves))
+    _, opt, _ = part(3, lambda: adamw_update(tcfg, state.params, grads,
+                                             state.opt))
+    del grads, hidden, loss
+    parts = {}
+    for i, name in enumerate(("forward", "loss", "backward", "optimizer")):
+        parts[name] = (walls[i], events[i].elapsed_time(events[i + 1]))
+        log(f"{label} step part {name}: wall {walls[i]:.3f} ms, device "
+            f"{parts[name][1]:.3f} ms [{card}]")
+    return state._replace(opt=opt), parts
 
 
 def sparse_ce_float64(torch, h, w, sp, g_nll):
@@ -4498,22 +4563,31 @@ def fmbe_phi_f32(torch, card, fstate, index, deg_sum):
     return rec
 
 
-def forward64(torch, h, w, lab, block=256):
-    """nll and lse in float64 from f32 h and w, a block of tokens at a
-    time; a label outside [0, V) leaves the label score at NEG."""
-    w64 = w.double()
+CE64_CHUNK = 16384                # vocab rows a float64 chunk
+
+
+def forward64(torch, h, w, lab):
+    """nll, lse and each token's largest sum of |h_i w_i| over the
+    vocabulary (the terms of its largest score) in float64 from h and w,
+    ``CE64_CHUNK`` vocab rows at a time; a label outside [0, V) leaves the
+    label score at -1e30."""
     v = w.shape[0]
-    lse = torch.empty(h.shape[0], dtype=torch.float64, device=h.device)
+    h64, lab64 = h.double(), lab.long()
+    lse = torch.full((h.shape[0],), float("-inf"), dtype=torch.float64,
+                     device=h.device)
     picked = torch.full_like(lse, -1e30)
-    for t0 in range(0, h.shape[0], block):
-        s = slice(t0, t0 + block)
-        logits = h[s].double() @ w64.T
-        lse[s] = torch.logsumexp(logits, -1)
-        ok = (lab[s] >= 0) & (lab[s] < v)
-        got = logits.gather(1, lab[s].long().clamp(0, v - 1)[:, None])[:, 0]
-        picked[s] = torch.where(ok, got, picked[s])
-        del logits
-    return lse - picked, lse
+    terms = torch.zeros_like(lse)
+    for r0 in range(0, v, CE64_CHUNK):
+        r1 = min(v, r0 + CE64_CHUNK)
+        w64 = w[r0:r1].double()
+        logits = h64 @ w64.T
+        lse = torch.logaddexp(lse, torch.logsumexp(logits, -1))
+        hit = (lab64 >= r0) & (lab64 < r1)
+        got = logits.gather(1, (lab64 - r0).clamp(0, r1 - r0 - 1)[:, None])
+        picked = torch.where(hit, got[:, 0], picked)
+        terms = torch.maximum(terms, (h64.abs() @ w64.abs().T).amax(-1))
+        del logits, w64
+    return lse - picked, lse, terms
 
 
 def ce_f32_phase(torch, card, h, w, lab):
@@ -4566,7 +4640,7 @@ def ce_f32_phase(torch, card, h, w, lab):
         del p_nll, p_lse
         torch.cuda.empty_cache()
     f_err = f_errs["plain"]
-    want = forward64(torch, h, w, lab)
+    want = forward64(torch, h, w, lab)[:2]
     f64 = {}
     for name, got in (("kernel", (nll, lse)), ("plain", plain_out)):
         f64[name] = max(((g.double() - x).abs() / (1 + x.abs())).max().item()
@@ -4738,6 +4812,475 @@ def ce_f32_phase(torch, card, h, w, lab):
         for line in ptxas_report(_build_log(name)):
             log(f"  ptxas {name}: {line}")
     return {"fused_ce_fwd": fwd, "fused_ce_bwd": bwd}
+
+
+# --------------------------------------------------------------------------
+# The audio family and gemma3 training (before the traffic phase: its
+# torch.profiler sessions slow the host-bound train steps run after them)
+# --------------------------------------------------------------------------
+
+A_ARCH = "musicgen-medium"
+A_PARAMS = 1_837_254_144          # the JAX package's eval_shape count
+A_PROMPT, A_NEW = 16, 32
+A_MAX_LEN = A_PROMPT + A_NEW
+A_TRAIN_B, A_TRAIN_S = 4, 256     # x 4 codebooks: T = 4096 head rows
+A_STEPS = (("fused_ce", 3), ("selfnorm", 3), ("ce", 2), ("nce", 2),
+           ("sampled", 2))
+G_ARCH = "gemma3-4b"
+G_TRAIN_B, G_TRAIN_S = 1, 2048    # past the 1024-token window
+G_STEPS = 3
+# both phases train at TrainConfig's defaults: lr 3e-4 after a 100-step
+# linear warmup (3e-6, 6e-6, 9e-6 on their first three steps). At the full
+# 3e-4 from the first step their losses fall and then rise in the JAX
+# package too (C14)
+# bf16 scores summed in f32 over d: nll and lse against the plain version
+# and float64, of the token's largest sum of |h_i w_i| over the vocabulary
+# (TOL's 1e-3 absolute is below the f32 sums' rounding at gemma3's head,
+# whose LSEs are near 509)
+FWD64_REL = 1e-5
+CE_KERNELS = ("fused_ce_fwd", "fused_ce_bwd")
+
+
+def ce_pair_held(torch, label, h, w, lab, card):
+    """The bf16 fused CE pair on (h, w, lab) at a fused_ce step's
+    cotangents (g_nll = 1/T, g_lse = 0), two calls of each bit-equal,
+    held against its plain version and against a float64 evaluation of the
+    same formula from the same operands (``CE64_CHUNK`` vocab rows at a
+    time): nll and lse within FWD64_REL of the token's largest sum of
+    |h_i w_i| (``forward64``), dh and dW (f32, before the cast) within
+    GRAD_REL of the sum of their terms' magnitudes per element and
+    GRAD_MEAN (against float64 GRAD64_MEAN) on average, the softmax's terms
+    and the label's counted apart
+    (at a softmax near one hot on the label they cancel in the
+    coefficient, not in the f32 sums). The plain forward's distance from
+    float64 is logged beside. Returns, by record, the errors against the
+    plain version (``max_abs_err``, and ``max_err_over_sum_terms`` for the
+    backward) and against float64 (``max_err_vs_float64``,
+    ``max_err_over_sum_terms_vs_float64``)."""
+    from repro_torch.kernels.fused_ce import (fused_ce_bwd,
+                                             fused_ce_bwd_plain,
+                                             fused_ce_fwd, fused_ce_fwd_plain)
+    t, d = h.shape
+    v = w.shape[0]
+    nll, lse = fused_ce_fwd(h, w, lab)
+    nll2, lse2 = fused_ce_fwd(h, w, lab)
+    g_nll = torch.full((t,), 1.0 / t, device=h.device)
+    g_lse = torch.zeros_like(g_nll)
+    bargs = (h, w, lab, lse, g_nll, g_lse)
+    dh, dw = fused_ce_bwd(*bargs, cast=False)
+    dh2, dw2 = fused_ce_bwd(*bargs, cast=False)
+    torch.cuda.synchronize()
+    check(torch.equal(nll, nll2) and torch.equal(lse, lse2)
+          and torch.equal(dh, dh2) and torch.equal(dw, dw2),
+          f"{label}: the fused CE pair is not bit-reproducible")
+    del nll2, lse2, dh2, dw2
+    # forward: (abs err, err / a score's sum |terms|) of each pair
+    nll64, lse64, terms = forward64(torch, h, w, lab)
+    p_nll, p_lse = fused_ce_fwd_plain(h, w, lab)
+
+    def fwd_err(a, b):
+        err = torch.maximum((a[0].double() - b[0]).abs(),
+                            (a[1].double() - b[1]).abs())
+        return err.max().item(), (err / terms).max().item()
+    fwd = {"plain": fwd_err((nll, lse), (p_nll, p_lse)),
+           "float64": fwd_err((nll, lse), (nll64, lse64)),
+           "plain vs float64": fwd_err((p_nll, p_lse), (nll64, lse64))}
+    del p_nll, p_lse
+    for what in ("plain", "float64"):
+        check(fwd[what][1] <= FWD64_REL, f"{label}: fused_ce_fwd nll/lse "
+              f"{fwd[what][0]:.3e} from {what}, {fwd[what][1]:.3e} of a "
+              f"score's sum |terms|, allowed {FWD64_REL}")
+    # backward: the plain version's dh and dW, then coef = g softmax -
+    # g_nll onehot in float64 chunk by chunk, each chunk's dW rows held to
+    # both
+    p_dh, p_dw = fused_ce_bwd_plain(*bargs, cast=False)
+    h64, lab64, g64 = h.double(), lab.long(), g_nll.double()
+    dh64 = torch.zeros_like(h64)
+    dh_terms = g64[:, None] * w[lab64].double().abs()
+    worst = {"plain": [0.0, 0.0, 0.0], "float64": [0.0, 0.0, 0.0]}
+    for r0 in range(0, v, CE64_CHUNK):
+        r1 = min(v, r0 + CE64_CHUNK)
+        w64 = w[r0:r1].double()
+        soft = torch.exp(h64 @ w64.T - lse64[:, None]) * g64[:, None]
+        hit = (lab64 >= r0) & (lab64 < r1)
+        coef = soft.clone()
+        coef[hit, lab64[hit] - r0] -= g64[hit]
+        dh64 += coef @ w64
+        dh_terms += soft @ w64.abs()
+        dw_terms = (soft.T @ h64.abs()).index_add_(
+            0, lab64[hit] - r0, g64[hit, None] * h64[hit].abs())
+        for what, want in (("plain", p_dw[r0:r1].double()),
+                           ("float64", coef.T @ h64)):
+            err = (dw[r0:r1].double() - want).abs()
+            ratio = err / dw_terms.clamp(min=1e-30)
+            acc = worst[what]
+            acc[0] = max(acc[0], err.max().item())
+            acc[1] = max(acc[1], ratio.max().item())
+            acc[2] += ratio.sum().item() / (v * d)
+            del want, err, ratio
+        del w64, soft, coef, dw_terms
+    del p_dw
+    means = {"plain": GRAD_MEAN, "float64": GRAD64_MEAN}
+    for what, acc in worst.items():
+        check(acc[1] <= GRAD_REL and acc[2] <= means[what],
+              f"{label}: fused_ce_bwd dW up to {acc[1]:.3e} (mean "
+              f"{acc[2]:.3e}) of sum |terms| from {what}, allowed "
+              f"{GRAD_REL:.3e} (mean {means[what]:.3e})")
+    dh_err = {what: compare_terms(f"{label}: fused_ce_bwd dh against "
+                                  f"{what}", dh.double(), want, dh_terms,
+                                  mean_rel=means[what])
+              for what, want in (("plain", p_dh.double()),
+                                 ("float64", dh64))}
+    log(f"{label}: fused CE pair at T {t} V {v} d {d} (g_nll 1/T, g_lse 0), "
+        f"float64 in chunks of {CE64_CHUNK} rows; nll/lse from the plain "
+        f"version {fwd['plain'][0]:.3e} ({fwd['plain'][1]:.3e} of a score's "
+        f"sum |terms|), from float64 {fwd['float64'][0]:.3e} "
+        f"({fwd['float64'][1]:.3e}; the plain version "
+        f"{fwd['plain vs float64'][0]:.3e}, "
+        f"{fwd['plain vs float64'][1]:.3e}; mean lse "
+        f"{lse.mean().item():.3f}, mean sum |terms| "
+        f"{terms.mean().item():.1f}); of sum |terms| from the plain version "
+        f"dh {dh_err['plain'][1]:.3e} (mean {dh_err['plain'][2]:.3e}), dW "
+        f"{worst['plain'][1]:.3e} (mean {worst['plain'][2]:.3e}), from "
+        f"float64 dh {dh_err['float64'][1]:.3e} (mean "
+        f"{dh_err['float64'][2]:.3e}), dW {worst['float64'][1]:.3e} (mean "
+        f"{worst['float64'][2]:.3e}); two calls bit-equal [{card}]")
+    return {"fused_ce_fwd": {
+                "max_abs_err": fwd["plain"][0],
+                "max_err_vs_float64": fwd["float64"][0],
+                "max_err_over_sum_terms_vs_float64": fwd["float64"][1]},
+            "fused_ce_bwd": {
+                "max_abs_err": max(dh_err["plain"][0], worst["plain"][0]),
+                "max_err_over_sum_terms": max(dh_err["plain"][1],
+                                              worst["plain"][1]),
+                "max_err_vs_float64": max(dh_err["float64"][0],
+                                          worst["float64"][0]),
+                "max_err_over_sum_terms_vs_float64": max(
+                    dh_err["float64"][1], worst["float64"][1])}}
+
+
+def train_steps(torch, card, kernels, model, state, batch, loss_name,
+                n_steps, label, **train):
+    """``n_steps`` of ``make_train_step`` at ``loss_name`` and the
+    ``TrainConfig`` fields ``train``, each with the
+    launch counts at 0: the loss finite, the fused CE kernels once a step
+    under fused_ce and selfnorm and no kernel under the others. Returns
+    (state, [(loss, ms)], the CE kernels' launches)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.kernels import _build
+    from repro_torch.train import make_train_step
+    step = make_train_step(model, TrainConfig(loss=loss_name, **train))
+    want = 1 if loss_name in ("fused_ce", "selfnorm") else 0
+    tokens = batch["tokens"].numel()
+    out, total = [], 0
+    for i in range(n_steps):
+        _build.reset_counts(kernels.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {name: kfn.launches for name, kfn in kernels.items()}
+        check(all(counts[name] == want for name in CE_KERNELS)
+              and sum(counts.values()) == 2 * want,
+              f"{label} {loss_name} step {i} launched {counts}")
+        total += want
+        loss = metrics["loss_total"].item()
+        check(math.isfinite(loss), f"{label} {loss_name} step {i}: loss "
+              f"{loss}")
+        out.append((loss, ms))
+        log_z = metrics.get("mean_log_z", torch.tensor(float("nan")))
+        log(f"{label} {loss_name} step {i}: loss {loss:.6f} (mean log Z "
+            f"{log_z.item():.4f}), grad norm "
+            f"{metrics['grad_norm'].item():.4f}, {ms:.1f} ms, "
+            f"{tokens / ms * 1e3:.1f} tokens/s [{card}]")
+    return state, out, total
+
+
+def audio_phase(torch, card, kernels):
+    """The audio family: full-width musicgen-medium (48 layers, d 1536, 24
+    heads of 64, d_ff 6144, 4 codebooks of vocab 2048, untied, bf16,
+    random weights from seed 0; nothing cut).
+
+    1. The parameter count against the JAX package's, the peak after the
+       init, the trunk's weight bytes and their read time.
+    2. Serving (no retrieval state: an exact softmax a codebook): the
+       captured ``generate``, 8 requests, prompt (8, 16, 4), 32 new, at
+       temperature 0 and 1.0 on one captured step, each bit-equal to the
+       host loop (tokens, log_prob, log_z) and launching none of the nine
+       kernels; ms a step and tokens/s of both, the replay's device ms
+       beside the trunk's weight read, the replay's profile and the trunk
+       by kind. ``swap_index`` to new weights drops the captured step, and
+       the next ``generate`` (captured again) gives a fresh engine's
+       tokens on them.
+    3. Training (``init_train_state`` from seed 0, B 4 x S 256 x 4
+       codebooks): the fused CE pair at the first step's inputs (T 4096,
+       V 8192, d 1536: the codebook head flattened, C13) against its plain
+       version and float64 (``ce_pair_held``); then fused_ce and selfnorm
+       3 steps each, ce, nce and sampled 2 each at TrainConfig's defaults
+       (the warmup's first lrs), the loss
+       finite and fused_ce's falling each step; ms a step, tokens/s, the
+       peak.
+
+    Returns (the CE kernels' launches, their worst errors by record)."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import DataIterator, SyntheticCorpus
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, generate
+    from repro_torch.train import init_train_state, losses
+
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    cfg = get_config(A_ARCH)
+    c = cfg.n_codebooks
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    left = torch.cuda.memory_allocated() / 1e9
+    # -- 1. the model --------------------------------------------------------
+    t0 = time.time()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(n_params == A_PARAMS, f"audio: {n_params} params, the JAX "
+          f"package's eval_shape counts {A_PARAMS}")
+    t_bytes = trunk_bytes(params, cfg)
+    read_ms = t_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"audio: {cfg.name} layers {cfg.n_layers} d {cfg.d_model} heads "
+        f"{cfg.n_heads} x {cfg.resolved_head_dim} d_ff {cfg.d_ff} "
+        f"{c} codebooks of vocab {cfg.vocab} {cfg.dtype} remat {cfg.remat}, "
+        f"{n_params / 1e9:.3f} B params, init {time.time() - t0:.1f} s; "
+        f"{left:.3f} GB allocated before it, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB after it; a step "
+        f"reads {t_bytes / 1e9:.3f} GB of trunk weights, {read_ms:.3f} ms "
+        f"at the memory rate [{card}]")
+    # -- 2. serving ----------------------------------------------------------
+    eng = Engine(model, params, A_MAX_LEN, seed=7, device=dev)
+    check(eng.state is None and eng.index is None,
+          "audio engine: built a retrieval state")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab, (N_REQ, A_PROMPT, c), generator=gen,
+                           device=dev)
+    steps = A_PROMPT + A_NEW - 1
+    counted = PathCounts(torch, kernels)
+    run, cap_s = capture_runner(torch, eng)
+    log(f"audio engine: max_len {A_MAX_LEN}, the captured step's noise "
+        f"buffer {run.gumbel.numel() * 4 / 1e6:.1f} MB ({A_MAX_LEN} x "
+        f"{N_REQ} x {c} x {cfg.vocab} f32), capture {cap_s:.2f} s [{card}]")
+    served = {}
+    for temp in (0.0, 1.0):
+        box = {}
+
+        def wrap(fn):
+            res, box["counts"], _ = counted(fn)
+            return res
+        (toks, aux, secs), (_, _, h_secs) = served_pair(
+            torch, eng, prompt, A_NEW, f"audio generate T {temp}",
+            temperature=temp, wrap=wrap)
+        check(tuple(toks.shape) == (N_REQ, A_NEW, c)
+              and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+              f"audio generate: tokens {tuple(toks.shape)}")
+        check(all(bool(torch.isfinite(aux[k]).all()) for k in aux)
+              and bool((aux["log_prob"] <= 1e-4).all()),
+              "audio generate: log_prob or log_z not finite, or a "
+              "log_prob above 0")
+        check(sum(box["counts"].values()) == 0, f"audio generate launched "
+              f"{box['counts']}: the audio head runs none of the kernels")
+        served[temp] = toks
+        log(f"audio generate: {N_REQ} requests, prompt ({N_REQ}, "
+            f"{A_PROMPT}, {c}), {A_NEW} new, T {temp}: captured "
+            f"{secs / steps * 1e3:.3f} ms/step ({N_REQ * A_NEW / secs:.1f} "
+            f"new frames/s, {N_REQ * A_NEW * c / secs:.1f} codebook "
+            f"tokens/s), host loop {h_secs / steps * 1e3:.3f} ms/step "
+            f"({N_REQ * A_NEW / h_secs:.1f} frames/s), bit-equal (tokens, "
+            f"log_prob, log_z) [{card}]")
+    check(eng.captures == 1, f"audio: {eng.captures} captures for two "
+          f"temperatures, want 1")
+    replay = replay_ms(torch, run, prompt)
+    n_kern = step_breakdown(torch, run, eng, params, prompt[:, 0],
+                            torch.zeros((), dtype=torch.int32, device=dev),
+                            card, "audio")
+    log(f"audio step: replay {replay:.3f} ms device, {n_kern} kernels, "
+        f"against the trunk's weight read {read_ms:.3f} ms [{card}]")
+    del run
+    # swap to new weights: the captured step goes, the next one serves them
+    new = model.init(torch.Generator(device=dev).manual_seed(1), dev)
+    t0 = time.time()
+    eng.swap_index(new)
+    swap_s = time.time() - t0
+    check(eng._graph_runners == {} and eng.params is new,
+          "audio swap_index kept the captured step or the old params")
+    got = generate(eng, prompt, A_NEW)
+    fresh = Engine(model, new, A_MAX_LEN, seed=7, device=dev)
+    want = generate(fresh, prompt, A_NEW)
+    check(eng.captures == 2 and torch.equal(got, want)
+          and not torch.equal(got, served[0.0]),
+          f"audio swap_index: {eng.captures} captures, tokens equal to the "
+          f"fresh engine's {torch.equal(got, want)}")
+    log(f"audio swap_index: {swap_s * 1e3:.3f} ms, captured afresh, greedy "
+        f"tokens equal to a fresh engine's on the new weights (and not the "
+        f"old ones') [{card}]")
+    del eng, fresh, params, new, got, want, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- 3. training ---------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, TrainConfig(), seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"audio train state: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"({cfg.dtype} parameters, f32 moments) [{card}]")
+    it = DataIterator(SyntheticCorpus(cfg.vocab, seed=0), A_TRAIN_B,
+                      A_TRAIN_S, n_codebooks=c)
+    tokens, labels = (torch.from_numpy(a).to(dev) for a in next(it))
+    batch = {"tokens": tokens, "labels": labels}
+    with torch.no_grad():
+        hidden, _ = model.forward(state.params, tokens)
+        h, w, lab = losses._flatten_head(model, state.params, hidden,
+                                         labels)
+    held = ce_pair_held(torch, "audio", h, w, lab, card)
+    del hidden, h, w, lab
+    torch.cuda.empty_cache()
+    launches = dict.fromkeys(CE_KERNELS, 0)
+    runs = {}
+    for loss_name, n in A_STEPS:
+        state, runs[loss_name], n_ce = train_steps(
+            torch, card, kernels, model, state, batch, loss_name, n,
+            "audio")
+        for name in CE_KERNELS:
+            launches[name] += n_ce
+    fused = [x[0] for x in runs["fused_ce"]]
+    check(all(b < a for a, b in zip(fused, fused[1:])),
+          f"audio fused_ce loss did not fall each step: {fused}")
+    frames = A_TRAIN_B * A_TRAIN_S
+    for loss_name, rows in runs.items():
+        ms = statistics.median(x[1] for x in rows[1:])
+        log(f"audio train {loss_name}: {ms:.1f} ms a step after the first "
+            f"({frames / ms * 1e3:.1f} frames/s, "
+            f"{frames * c / ms * 1e3:.1f} codebook tokens/s) [{card}]")
+    log(f"audio train: peak {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"GB (max_memory_allocated); the phase {time.time() - t_phase:.1f} "
+        f"s [{card}]")
+    return launches, held
+
+
+def tied_grad_check(torch, card, model, params, tokens, labels):
+    """The tied table's gradient of the fused_ce loss (both uses live)
+    against the fused CE's dW (the embedding gather on a detached table)
+    plus the gather's scatter (the head detached), each taken apart: equal
+    within one bf16 step at each element's magnitude (the largest of the
+    three)."""
+    from repro_torch.train import losses
+    table = params["embed"]["table"]
+    table.requires_grad_(True)
+    d = model.cfg.d_model
+
+    def grad(embed_from, head_from):
+        p = dict(params, embed={"table": embed_from})
+        hidden, _ = model.forward(p, tokens)
+        nll, _ = losses.streaming_ce(hidden.reshape(-1, d), head_from,
+                                     labels.reshape(-1))
+        return torch.autograd.grad(nll.mean(), table)[0]
+    g_total = grad(table, table)
+    g_ce = grad(table.detach(), table)
+    g_emb = grad(table, table.detach())
+    worst, rows = 0.0, 0
+    for r0 in range(0, table.shape[0], CE64_CHUNK):
+        s = slice(r0, r0 + CE64_CHUNK)
+        parts = (g_total[s].float(), g_ce[s].float(), g_emb[s].float())
+        mag = torch.maximum(torch.maximum(parts[0].abs(), parts[1].abs()),
+                            parts[2].abs())
+        step = torch.ldexp(torch.ones_like(mag), torch.frexp(mag)[1] - 8)
+        err = (parts[0] - parts[1] - parts[2]).abs()
+        worst = max(worst, (err / step).max().item())
+        rows += int(parts[2].ne(0).any(-1).sum())
+        del parts, mag, step, err
+    check(worst <= 1.0, f"tied table gradient: {worst:.3f} bf16 steps from "
+          f"dW + scatter, allowed 1")
+    check(rows > 0 and bool(g_ce.ne(0).any()),
+          "tied table gradient: one of its two parts is zero")
+    log(f"gemma3 tied table gradient: the whole (bf16) within {worst:.3f} "
+        f"bf16 steps of the fused CE's dW plus the gather's scatter (into "
+        f"{rows} rows), taken apart [{card}]")
+    del g_total, g_ce, g_emb
+    table.requires_grad_(False)
+
+
+def gemma3_train_phase(torch, card, kernels):
+    """gemma3-4b training at full width (34 layers, d 2560, V 262144 tied,
+    window 1024, bf16, random weights from seed 0, remat full: each group
+    of six blocks under one checkpoint; nothing cut) through
+    ``make_train_step`` with fused_ce and AdamW, B 1 x S 2048 (past the
+    window, so the local layers' band masks):
+
+    1. ``init_train_state`` (f32 moments), the count against the JAX
+       package's, its memory and peak.
+    2. At step 1's inputs (T 2048, V 262144, d 2560) the fused CE pair
+       against its plain version and float64 (``ce_pair_held``), and the
+       tied table's gradient against the fused CE's dW plus the gather's
+       scatter (``tied_grad_check``).
+    3. 3 fused_ce steps at TrainConfig's defaults (the warmup's first
+       lrs), the loss finite and falling each step, each CE kernel once a
+       step; then one more split into its parts (the optimizer apart); ms
+       a step, tokens/s, the peak.
+
+    Returns (the CE kernels' launches, their worst errors by record)."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import DataIterator, SyntheticCorpus
+    from repro_torch.models import Model
+    from repro_torch.train import init_train_state
+
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    cfg = get_config(G_ARCH)
+    model = Model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state = init_train_state(model, TrainConfig(), seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    check(n_params == F_PARAMS[G_ARCH], f"gemma3 train: {n_params} params, "
+          f"the JAX package's eval_shape counts {F_PARAMS[G_ARCH]}")
+    log(f"gemma3 train state: {cfg.name} layers {cfg.n_layers} d "
+        f"{cfg.d_model} vocab {cfg.vocab} tied, window "
+        f"{cfg.sliding_window}, remat {cfg.remat}, {n_params / 1e9:.3f} B "
+        f"params, {torch.cuda.memory_allocated() / 1e9:.2f} GB ({cfg.dtype} "
+        f"parameters, f32 moments), peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+        f"{time.time() - t0:.1f} s [{card}]")
+    it = DataIterator(SyntheticCorpus(cfg.vocab, seed=0), G_TRAIN_B,
+                      G_TRAIN_S)
+    tokens, labels = (torch.from_numpy(a).to(dev) for a in next(it))
+    batch = {"tokens": tokens, "labels": labels}
+    w = model.head_matrix(state.params)
+    with torch.no_grad():
+        hidden, _ = model.forward(state.params, tokens)
+    held = ce_pair_held(torch, "gemma3", hidden.reshape(-1, cfg.d_model),
+                           w, labels.reshape(-1), card)
+    del hidden
+    torch.cuda.empty_cache()
+    tied_grad_check(torch, card, model, state.params, tokens, labels)
+    torch.cuda.empty_cache()
+    log(f"gemma3 checks at step 1's inputs: peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{card}]")
+    torch.cuda.reset_peak_memory_stats()
+    state, rows, n_ce = train_steps(torch, card, kernels, model, state,
+                                    batch, "fused_ce", G_STEPS, "gemma3")
+    check(all(b[0] < a[0] for a, b in zip(rows, rows[1:])),
+          f"gemma3 fused_ce loss did not fall each step: "
+          f"{[round(x[0], 4) for x in rows]}")
+    state, parts = fused_ce_parts(
+        torch, card, model, state, TrainConfig(), batch,
+        "gemma3 train")
+    ms = statistics.median(x[1] for x in rows[1:])
+    t = G_TRAIN_B * G_TRAIN_S
+    log(f"gemma3 train: {G_STEPS} fused_ce steps of B {G_TRAIN_B} x S "
+        f"{G_TRAIN_S}, {ms:.1f} ms a step after the first ({t / ms * 1e3:.1f} "
+        f"tokens/s; the optimizer {parts['optimizer'][0]:.1f} ms of the "
+        f"split step's {sum(x[0] for x in parts.values()):.1f}), peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"(max_memory_allocated over the steps); the phase "
+        f"{time.time() - t_phase:.1f} s [{card}]")
+    del state
+    return dict.fromkeys(CE_KERNELS, n_ce), held
 
 
 def _build_log(name):

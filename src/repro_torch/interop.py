@@ -60,9 +60,10 @@ def params_from_numpy(tree: Mapping[str, Any], cfg, device="cuda"):
     ``a_log`` stay f32, bf16 leaves keep their bits). ``cfg`` is checked
     against the tree's widths: every ``wq`` the tree has (``blocks.attn``,
     ``local_groups.attn``, ``global_groups.attn``, ``local_tail.attn``,
-    ``shared_attn.attn``), an RWKV tree's ``blocks.mix.wr`` (L, d, d), and
-    for an MoE tree the router and every expert leaf against
-    ``cfg.moe``."""
+    ``shared_attn.attn``), an RWKV tree's ``blocks.mix.wr`` (L, d, d),
+    for an MoE tree the router and every expert leaf against ``cfg.moe``,
+    and a codebook tree's (or a codebook config's) ``embed.table`` and
+    untied ``lm_head`` against (n_codebooks, vocab, d)."""
     out = {k: params_from_numpy(v, cfg, device) if isinstance(v, Mapping)
            else to_tensor(v, device) for k, v in tree.items()}
     L, d = cfg.n_layers, cfg.d_model
@@ -76,6 +77,13 @@ def params_from_numpy(tree: Mapping[str, Any], cfg, device="cuda"):
     wr = _node(out, ("blocks", "mix", "wr"))
     if wr is not None:
         got["blocks.mix.wr"], want["blocks.mix.wr"] = wr, (L, d, d)
+    table = _node(out, ("embed", "table"))
+    if table is not None and (cfg.n_codebooks or table.dim() == 3):
+        heads = {"embed.table": table}
+        if not cfg.tie_embeddings and "lm_head" in out:
+            heads["lm_head"] = out["lm_head"]
+        for name, leaf in heads.items():
+            got[name], want[name] = leaf, (cfg.n_codebooks, cfg.vocab, d)
     ffn = _node(out, ("blocks", "ffn"))
     if ffn is not None and "experts" in ffn:
         m = cfg.moe

@@ -1,6 +1,9 @@
 """Transformer: full-sequence forward (training and prefill) and cached
 decode (counterpart of ``repro.models.transformer``) for the dense, MoE,
-gemma3 local/global, RWKV6 (``ssm``) and Zamba2 (``hybrid``) families.
+gemma3 local/global, RWKV6 (``ssm``), Zamba2 (``hybrid``) and audio
+families. An audio config (``n_codebooks`` C > 0, musicgen) takes tokens
+(B, S, C): its embedding is the sum of C per-codebook tables (C, V, d) and
+its head a (C, V, d) stack, one V-way output a codebook.
 
 Parameters keep the JAX package's pytree layout — a dict whose per-layer
 leaves are stacked on a leading layer axis, or on (group, member) axes for
@@ -121,12 +124,6 @@ def _check_family(cfg: ModelConfig) -> None:
             f"{cfg.name!r} is family 'vlm': repro.models.transformer's vlm "
             f"plan (_vlm_plan, cross_block_fwd, attention.cross_attention) "
             f"is not ported")
-    if cfg.n_codebooks:
-        raise NotImplementedError(
-            f"{cfg.name!r} has {cfg.n_codebooks} codebooks: "
-            f"repro.models.transformer's codebook embedding and heads "
-            f"(Model.embed_tokens, Model.logits with n_codebooks) are not "
-            f"ported")
     if cfg.family not in ("dense", "audio", "moe", "ssm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family!r}")
 
@@ -258,14 +255,28 @@ class Model:
             p["shared_attn"] = block()                # ONE weight copy
             if tail:
                 p["mamba_tail"] = _stack(tail, mamba)
-        p["embed"] = {"table": _dense_init(gen, (cfg.vocab, d), dt, dev,
-                                           scale=1.0)}
+        head = ((cfg.n_codebooks,) if cfg.n_codebooks else ()) + (cfg.vocab,
+                                                                   d)
+        p["embed"] = {"table": _dense_init(gen, head, dt, dev, scale=1.0)}
         p["final_norm"] = {"scale": torch.ones((d,), dtype=dt, device=dev)}
         if not cfg.tie_embeddings:
-            p["lm_head"] = _dense_init(gen, (cfg.vocab, d), dt, dev)
+            # the JAX package's fan_in is shape[0]: V for a (V, d) head,
+            # C for the (C, V, d) codebook head
+            p["lm_head"] = _dense_init(gen, head, dt, dev,
+                                       scale=head[0] ** -0.5)
         return p
 
     def embed_tokens(self, p: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (..., ) -> (..., d); with codebooks tokens (..., C) ->
+        the sum of the C per-codebook rows, added as the JAX package adds
+        them (Python's ``sum``: 0 + e0 + e1 + ...; in bf16 every add
+        rounds, so the order is part of the result)."""
+        if self.cfg.n_codebooks:
+            tabs = p["embed"]["table"]                         # (C, V, d)
+            x = 0
+            for c in range(self.cfg.n_codebooks):
+                x = x + tabs[c][tokens[..., c]]
+            return x
         return embed(p["embed"], tokens)
 
     def head_matrix(self, p: Params) -> torch.Tensor:
@@ -274,12 +285,17 @@ class Model:
         return p["lm_head"]
 
     def logits(self, p: Params, hidden: torch.Tensor) -> torch.Tensor:
-        """Full logits — small-vocab path / tests only (O(T V) memory)."""
-        return hidden @ self.head_matrix(p).T
+        """Full logits — small-vocab path / tests only (O(T V) memory):
+        (..., V), or (..., C, V) with codebooks."""
+        w = self.head_matrix(p)
+        if self.cfg.n_codebooks:
+            return torch.einsum("...d,cvd->...cv", hidden, w)
+        return hidden @ w.T
 
     def forward(self, p: Params, tokens: torch.Tensor, *,
                 img=None) -> Tuple[torch.Tensor, Dict[str, float]]:
-        """tokens (B, S) -> (hidden (B, S, d), aux). With ``cfg.remat`` other
+        """tokens (B, S), or (B, S, C) with codebooks -> (hidden (B, S, d),
+        aux). With ``cfg.remat`` other
         than "none" each block (each group of a grouped plan) runs under a
         non-reentrant checkpoint: its activations are recomputed in the
         backward, as under ``jax.checkpoint``."""
@@ -395,7 +411,8 @@ class Model:
 
     def decode_step(self, p: Params, state: Dict[str, Any],
                     token: torch.Tensor, pos) -> torch.Tensor:
-        """token (B,) at position ``pos`` -> hidden of that position (B, d).
+        """token (B,), or (B, C) with codebooks, at position ``pos`` ->
+        hidden of that position (B, d).
         ``pos`` is an int tensor on the device, 0-d (shared by the batch)
         or (B,) (one a lane), or a Python int (copied to the device).
         Every leaf of ``state`` is updated in place (KV rows at their slot,
@@ -404,7 +421,7 @@ class Model:
         cfg = self.cfg
         if not isinstance(pos, torch.Tensor):
             pos = torch.tensor(pos, dtype=torch.int32, device=token.device)
-        x = embed(p["embed"], token[:, None])                  # (B, 1, d)
+        x = self.embed_tokens(p, token[:, None])               # (B, 1, d)
         win = cfg.sliding_window
 
         def cache(st, *idx):

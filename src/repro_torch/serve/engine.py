@@ -14,6 +14,11 @@ On a GPU ``generate`` replays one captured CUDA graph per decode step
 (``_GraphRunner``, the counterpart of the JAX ``_scan_runner``): the step
 reads its position, prompt token, tail draw and Gumbel noise from device
 buffers filled before the replays, so nothing in it reads the host.
+
+An audio model (``n_codebooks`` C > 0) has no retrieval state: each step
+takes tokens (B, C) and samples every codebook from its exact softmax over
+V (``_codebook_distribution``); prompts are (B, S, C) and ``generate``
+returns (B, n_tokens, C).
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ class ServeState:
     cache: Any                   # the model's decode-state tree, updated in
                                  # place
     pos: torch.Tensor            # int32 next position to write: 0-d or (B,)
-    last_token: torch.Tensor     # (B,)
+    last_token: torch.Tensor     # (B,), or (B, C) with codebooks
 
 
 def _capturing(device: torch.device) -> bool:
@@ -109,7 +114,9 @@ class Engine:
     ``device_index=True`` builds the index at its fixed capacity
     (``mips.build_ivf_device``), so ``swap_index`` keeps every shape;
     ``health_guard=True`` routes unhealthy queries of every step to the
-    exact pass (``core.decode.apply_health_guard``)."""
+    exact pass (``core.decode.apply_health_guard``). An audio model builds
+    no retrieval state (``state`` and ``index`` are None) and takes no
+    guard, as in the JAX engine."""
 
     def __init__(self, model: Model, params, max_len: int, *, seed: int = 0,
                  use_kernel: bool = True, device="cuda",
@@ -133,9 +140,11 @@ class Engine:
         # the build's injected randomness, which a restore reuses
         self._injected = dict(assign=index_assign, feature_map=feature_map,
                               lsh_proj=lsh_proj)
-        self.state = self._build(self.backend.build, params,
-                                 **self._injected)
-        self.index = self.state.index
+        # audio: an exact softmax per codebook, no retrieval state
+        self.state = (None if self.cfg.n_codebooks else
+                      self._build(self.backend.build, params,
+                                  **self._injected))
+        self.index = None if self.state is None else self.state.index
         # degradation-tier states, and the digests recorded at every build,
         # swap and restore
         self._tier_states: Dict[str, BackendState] = {}
@@ -179,7 +188,13 @@ class Engine:
         partition config), so whatever took the old state's tensors can take
         the new one's. ``index_assign``/``feature_map``/``lsh_proj`` inject
         the new build's randomness (parity tests); the construction-time
-        assignment belongs to the old head and is never reused."""
+        assignment belongs to the old head and is never reused. An audio
+        engine only takes the new params and drops its captured steps,
+        which read the old params' storage."""
+        if self.cfg.n_codebooks:
+            self.params = params
+            self._graph_runners = {}
+            return
         injected = dict(assign=index_assign, feature_map=feature_map,
                         lsh_proj=lsh_proj)
         new_state = self._build(
@@ -214,7 +229,11 @@ class Engine:
         Index tiers (mimps, mince, topk) reuse the engine's index; the fmbe
         tier builds only its feature map and per-block lambdas over that
         shared index; anything else builds once. Cached until the next
-        swap or restore."""
+        swap or restore. An audio engine has no tiers."""
+        if self.cfg.n_codebooks:
+            raise NotImplementedError(
+                f"{self.cfg.name!r} has an audio codebook head: it serves an "
+                f"exact softmax per codebook and has no degradation tiers")
         if method == self.backend.method:
             return self.state
         st = self._tier_states.get(method)
@@ -245,7 +264,10 @@ class Engine:
         """Checksums ``method``'s index against the digest recorded when it
         was built; on a mismatch rebuilds every retrieval state from the
         params (``restore_index``) before any step reads the corruption.
-        Returns True iff it restored."""
+        Returns True iff it restored (never for an audio engine, which has
+        no index)."""
+        if self.cfg.n_codebooks:
+            return False
         method = method or self.backend.method
         st = self.tier_state(method)
         if st.index is None:
@@ -265,7 +287,10 @@ class Engine:
         build's fresh generator and the randomness the build was given
         (``index_assign``, ``feature_map``, ``lsh_proj``): bit-identical to
         the original build (and the decode generator untouched, so the
-        tokens after a restore are the fault-free run's)."""
+        tokens after a restore are the fault-free run's). An audio engine
+        has nothing to rebuild."""
+        if self.cfg.n_codebooks:
+            return
         self._install(self._build(self.backend.build, self.params,
                                   **self._injected))
         self.index_restores += 1
@@ -291,7 +316,7 @@ class Engine:
     # -- steps ---------------------------------------------------------------
 
     def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, ServeState]:
-        """Full-sequence forward of tokens (B, S) under
+        """Full-sequence forward of tokens (B, S) (or (B, S, C)) under
         ``torch.inference_mode``: (hidden of the last position (B, d), a
         fresh decode state whose next token is the last prompt token; the
         KV cache is filled decode-side, as ``generate`` replays prompts)."""
@@ -357,7 +382,10 @@ class Engine:
         device, which needs ``gumbel``, the (Q, sample_k) noise of the step
         (``generate`` fills it ahead). With a float and no ``gumbel`` the
         noise is drawn from the engine's generator after the decode (none at
-        temperature 0), as are the tail samples without ``tail_idx``."""
+        temperature 0), as are the tail samples without ``tail_idx``. An
+        audio head takes (B, C, V) noise (``_codebook_distribution``)."""
+        if self.cfg.n_codebooks:
+            return self._codebook_distribution(h, temperature, gumbel)
         pc = self.cfg.partition
         backend, st = self._serving(tier)
         out = backend.decode(st, h, pc, k=pc.sample_k,
@@ -366,16 +394,56 @@ class Engine:
         if self.health_guard:
             out, _ = apply_health_guard(out, st.w, h, pc.sample_k,
                                         use_kernel=self.use_kernel)
-        if gumbel is None:
-            if isinstance(temperature, torch.Tensor):
-                raise ValueError("a temperature tensor needs its gumbel "
-                                 "noise (gumbel=)")
-            gumbel = (_draw_gumbel(out.top_score.shape, self.generator,
-                                   h.device) if temperature > 0.0
-                      else torch.zeros_like(out.top_score))
-            temperature = torch.tensor(float(temperature),
-                                       dtype=torch.float32, device=h.device)
+        temperature, gumbel = _noise_for(temperature, gumbel,
+                                         out.top_score.shape, self.generator,
+                                         h.device)
         return _sample_candidates(out, temperature, gumbel)
+
+    def _codebook_distribution(self, h: torch.Tensor, temperature,
+                               gumbel: Optional[torch.Tensor]
+                               ) -> Dict[str, torch.Tensor]:
+        """The audio head (the JAX engine's ``n_codebooks`` branch): the
+        (B, C, V) logits of every codebook in the config dtype, log Z the
+        logsumexp over V of each in that dtype (``jax.nn.logsumexp``'s
+        steps: the max, the sum of exp(logits - max), its log plus the
+        max), the token greedy at temperature 0, else the argmax of
+        logits / T + g over all V (in f32); log_prob = the token's logit -
+        log Z in the config dtype. Every output is (B, C); log_prob and
+        log Z are returned in f32, as the output buffers hold them."""
+        w = self.model.head_matrix(self.params)
+        logits = torch.einsum("bd,cvd->bcv", h, w)
+        amax = logits.amax(-1)
+        amax = torch.where(torch.isfinite(amax), amax,
+                           torch.zeros_like(amax))
+        log_z = torch.log((logits - amax[..., None]).exp().sum(-1)) + amax
+        temperature, gumbel = _noise_for(temperature, gumbel, logits.shape,
+                                         self.generator, h.device)
+        hot = temperature > 0.0
+        safe_t = torch.where(hot, temperature, torch.ones_like(temperature))
+        tok = torch.where(hot,
+                          torch.argmax(logits.float() / safe_t + gumbel, -1),
+                          torch.argmax(logits, -1))
+        top = torch.gather(logits, -1, tok[..., None])[..., 0]
+        return {"token": tok, "log_prob": (top - log_z).float(),
+                "log_z": log_z.float()}
+
+
+def _noise_for(temperature, gumbel: Optional[torch.Tensor], shape,
+               generator: torch.Generator, device):
+    """(temperature as a 0-d f32 tensor, the step's noise): ``gumbel`` as
+    given, or, with a float temperature and none given, drawn from
+    ``generator`` (zeros at temperature 0)."""
+    if isinstance(temperature, torch.Tensor):
+        if gumbel is None:
+            raise ValueError("a temperature tensor needs its gumbel noise "
+                             "(gumbel=)")
+        return temperature, gumbel
+    if gumbel is None:
+        gumbel = (_draw_gumbel(shape, generator, device)
+                  if temperature > 0.0 else
+                  torch.zeros(shape, dtype=torch.float32, device=device))
+    return (torch.tensor(float(temperature), dtype=torch.float32,
+                         device=device), gumbel)
 
 
 def _draw_gumbel(shape, generator: torch.Generator,
@@ -411,7 +479,8 @@ def _step_draws(engine: Engine, backend, state: BackendState, batch: int,
     """The randomness of ``total`` decode steps, drawn ahead (the
     counterpart of the JAX engine's pre-split per-step keys): (tails
     (total, l) int64 or None where the decode samples no tail, gumbel
-    (total, batch, sample_k) f32, zeros at temperature 0). Step ``s`` draws
+    (total, batch, sample_k) f32, or (total, batch, C, V) for an audio
+    head, zeros at temperature 0). Step ``s`` draws
     its tail (from ``tail_source(step_id)``, ``step_id`` ``s`` for a replay
     step and ``10_000 + t`` for generation step ``t``, or from the engine's
     generator), then its noise: the order a step drawing its own would
@@ -422,7 +491,8 @@ def _step_draws(engine: Engine, backend, state: BackendState, batch: int,
     noise_gen = engine.generator if generator is None else generator
     dev = engine.device
     tails, noise = [], []
-    has_tail = backend.has_tail(state)
+    has_tail = _has_tail(backend, state)
+    shape = _noise_shape(engine.cfg, batch)
     for s in range(total):
         if has_tail:
             if tail_source is not None:
@@ -431,11 +501,22 @@ def _step_draws(engine: Engine, backend, state: BackendState, batch: int,
             else:
                 tail = backend.draw_tail(state, pc, engine.generator)
             tails.append(tail.long())
-        shape = (batch, pc.sample_k)
         noise.append(_draw_gumbel(shape, noise_gen, dev)
                      if temperature > 0.0 else
                      torch.zeros(shape, dtype=torch.float32, device=dev))
     return (torch.stack(tails) if has_tail else None), torch.stack(noise)
+
+
+def _has_tail(backend, state: Optional[BackendState]) -> bool:
+    return state is not None and backend.has_tail(state)
+
+
+def _noise_shape(cfg, batch: int) -> tuple:
+    """One step's Gumbel noise: (batch, sample_k) over the retrieved
+    candidates, or (batch, C, V) over every row of an audio head."""
+    if cfg.n_codebooks:
+        return (batch, cfg.n_codebooks, cfg.vocab)
+    return (batch, cfg.partition.sample_k)
 
 
 class _GraphRunner:
@@ -457,24 +538,26 @@ class _GraphRunner:
 
     def __init__(self, engine: Engine, batch: int, tier: Optional[str]):
         self.tier = tier
+        cfg = engine.cfg
         dev, n = engine.device, engine.max_len
-        pc = engine.cfg.partition
         backend, state = engine._serving(tier)
         i64 = dict(dtype=torch.long, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
+        # a lane's token: (), or (C,) with codebooks
+        lane = (cfg.n_codebooks,) if cfg.n_codebooks else ()
         self.cache = engine.model.init_decode_state(batch, n, dev)
         self.step = torch.zeros((), **i64)
         self.pos = torch.zeros((), dtype=torch.int32, device=dev)
-        self.last = torch.zeros((batch,), **i64)
-        self.prompt = torch.zeros((n, batch), **i64)
+        self.last = torch.zeros((batch,) + lane, **i64)
+        self.prompt = torch.zeros((n, batch) + lane, **i64)
         self.replay_flag = torch.zeros((n,), dtype=torch.bool, device=dev)
         self.temperature = torch.zeros((), **f32)
-        self.gumbel = torch.zeros((n, batch, pc.sample_k), **f32)
-        self.tails = (torch.zeros((n, pc.l), **i64)
-                      if backend.has_tail(state) else None)
-        self.outs = {"token": torch.zeros((n, batch), **i64),
-                     "log_prob": torch.zeros((n, batch), **f32),
-                     "log_z": torch.zeros((n, batch), **f32)}
+        self.gumbel = torch.zeros((n,) + _noise_shape(cfg, batch), **f32)
+        self.tails = (torch.zeros((n, cfg.partition.l), **i64)
+                      if _has_tail(backend, state) else None)
+        self.outs = {name: torch.zeros((n, batch) + lane, **kind)
+                     for name, kind in (("token", i64), ("log_prob", f32),
+                                        ("log_z", f32))}
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.counts: dict = {}
 
@@ -488,7 +571,7 @@ class _GraphRunner:
         self.pos.zero_()
         for buf in tree_leaves(self.cache):
             buf.zero_()
-        self.prompt[:t_replay].copy_(prompt.T)
+        self.prompt[:t_replay].copy_(prompt.transpose(0, 1))
         self.replay_flag.copy_(torch.arange(self.replay_flag.shape[0],
                                             device=prompt.device) < t_replay)
         self.last.copy_(prompt[:, 0])
@@ -571,6 +654,7 @@ def generate(engine: Engine, prompt, n_tokens: int, *,
 
     On a GPU every step is one replay of the engine's captured decode step
     (``_GraphRunner``); on the CPU the same step runs eagerly.
+    An audio prompt is (B, S, C) and gives (B, n_tokens, C).
     ``host_loop=True`` is the eager per-step loop over
     ``Engine.decode_step`` (the JAX ``_generate_host``); both read the same
     draws and give the same bits. A GPU engine built with
@@ -620,7 +704,7 @@ def generate(engine: Engine, prompt, n_tokens: int, *,
         run.load(prompt, tails, gumbel, temperature)
         for _ in range(total):
             run.replay(engine)
-        outs = {name: buf[t_replay - 1:total].T.clone()
+        outs = {name: buf[t_replay - 1:total].transpose(0, 1).clone()
                 for name, buf in run.outs.items()}
     if return_aux:
         return outs["token"], {"log_prob": outs["log_prob"],
@@ -633,7 +717,7 @@ def _generate_host(engine: Engine, prompt: torch.Tensor,
                    temperature: float, tier: Optional[str]):
     """The eager loop: one ``Engine.decode_step`` a step on the same draws
     as the captured step. Returns the emitted steps' outputs (B, n_tokens)
-    by name."""
+    (or (B, n_tokens, C)) by name."""
     t_replay, total = prompt.shape[1], gumbel.shape[0]
     temp = torch.tensor(float(temperature), dtype=torch.float32,
                         device=engine.device)

@@ -60,13 +60,21 @@ def streaming_ce(h, w, labels, *, backend: str = "xla"
 
 
 def _flatten_head(model, params, hidden, labels):
-    """Returns (h2d (T, d), w (V, d), lab (T,)) for a single-stream head."""
-    if model.cfg.n_codebooks:
-        raise NotImplementedError(
-            "codebook heads are not ported: the codebook branch of "
-            "repro.train.losses._flatten_head")
-    return (hidden.reshape(-1, hidden.shape[-1]), model.head_matrix(params),
-            labels.reshape(-1))
+    """Returns (h2d (T, d), w (V, d), lab (T,)). A codebook head (C, V, d)
+    becomes one head of C·V rows, as in the JAX package: each token's
+    hidden state repeated C times (token-major), codebook c's label
+    offset by c·V. So the streaming losses normalise a token over all C·V
+    rows together, where ``loss_ce`` normalises each codebook over its own
+    V."""
+    cfg = model.cfg
+    w = model.head_matrix(params)
+    if cfg.n_codebooks:
+        c, t = cfg.n_codebooks, hidden.shape[0] * hidden.shape[1]
+        h2 = hidden.reshape(t, -1).repeat_interleave(c, dim=0)
+        offset = torch.arange(c, device=labels.device) * cfg.vocab
+        lab = labels.reshape(t, c).long() + offset
+        return h2, w.reshape(c * cfg.vocab, -1), lab.reshape(-1)
+    return hidden.reshape(-1, hidden.shape[-1]), w, labels.reshape(-1)
 
 
 def _moe_terms(aux) -> Dict:
@@ -88,7 +96,8 @@ def loss_fused_ce(model, params, batch, key, train_cfg, *,
 
 def loss_ce(model, params, batch, key, train_cfg) -> Tuple[torch.Tensor,
                                                            Dict]:
-    """Naive full-logits CE — small vocabs/tests."""
+    """Naive full-logits CE — small vocabs/tests. With codebooks the
+    logits are (B, S, C, V): each codebook normalised over its own V."""
     tokens, labels = batch["tokens"], batch["labels"]
     hidden, aux = model.forward(params, tokens, img=batch.get("img"))
     logits = model.logits(params, hidden)

@@ -195,7 +195,8 @@ def make_train_step(model, train_cfg: TrainConfig, *, backend: str = "xla",
                     draw_source: Optional[Callable[[int, int], Any]] = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
-    ``batch`` holds ``tokens`` and ``labels`` (B, S) on the parameters'
+    ``batch`` holds ``tokens`` and ``labels`` (B, S), or (B, S, C) for an
+    audio model (``DataIterator(n_codebooks=C)``), on the parameters'
     device. ``microbatches > 1`` takes the gradient of each microbatch in
     turn and averages them in f32. ``backend`` is passed to the streaming
     losses for the JAX signature; the device picks the kernels. The

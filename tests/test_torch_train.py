@@ -21,7 +21,6 @@ both sides from f32 sums taken in another order, so single elements round
 one step apart and carry that through the layers.
 """
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -228,19 +227,13 @@ def test_streaming_ce_backend_selects_nothing():
 
 def test_unported_losses_raise():
     """Every loss of the JAX registry is ported (nce, sampled and the
-    estimator losses since their slice); what is not ported, the codebook
-    heads, still raises NotImplementedError naming the JAX code."""
+    estimator losses since their slice, the codebook heads of
+    ``_flatten_head`` since theirs: tests/test_torch_audio.py), and
+    ``make_train_step`` takes each."""
     assert losses.LOSSES.keys() == jlosses.LOSSES.keys()
     assert losses.ESTIMATOR_LOSSES == jlosses.ESTIMATOR_LOSSES
     _, tcfg = _cfgs()
     tm = Model(tcfg)
-    fake = types.SimpleNamespace(
-        cfg=dataclasses.replace(tcfg, n_codebooks=2))
-    with pytest.raises(NotImplementedError,
-                       match="not ported: the codebook branch of "
-                             "repro.train.losses._flatten_head"):
-        losses._flatten_head(fake, {}, torch.zeros(1, 2, 4),
-                             torch.zeros(1, 2, dtype=torch.long))
     for name in losses.LOSSES:
         assert callable(train_loop.make_train_step(tm,
                                                    TrainConfig(loss=name)))
