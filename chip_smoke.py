@@ -246,7 +246,7 @@ GPU.
    trace, the snapshot and the scrape checked; the captured step's device
    ms, profile and trunk by kind (experts apart).
 
-11. The families phase (``families_last``), last: gemma3-4b, rwkv6-7b
+11. The families phase (``families_last``): gemma3-4b, rwkv6-7b
    and zamba2-7b in turn, each at its published widths (bf16, seed 0,
    nothing cut; the parameter count held to the JAX package's) and freed
    before the next, behind an engine at the config's partition with the
@@ -265,14 +265,36 @@ GPU.
    and the prefix pool refused; the step's device ms, profile and trunk
    by kind (recurrences and conv apart).
 
+12. The VLM phase (``vlm_last``), last, after the families are freed:
+   llama-3.2-vision-90b at its published widths (d 8192, d_ff 28672,
+   vocab 128256, 1601 image tokens; bf16, seed 0) with its depth cut to
+   30 layers, 6 whole groups of 4 self + 1 cross-attention block (the one
+   cut; the count held to the JAX package's 27,770,986,496), the live
+   CUDA tensors before the init, peak memory after the init and after the
+   index build; a mimps engine at the config's partition with the
+   fixed-capacity index and the guard. The captured ``generate`` (8
+   requests, prompt 16, 32 new) with a seeded (8, 1601, 8192) image at
+   temperature 0 and 1.0, bit-equal to the host loop, ``ivf_decode`` and
+   the gated ``topk_z`` once a step; a second image on the same graph
+   (no capture again) gives other tokens; the replay's profile and the
+   trunk by kind ("cross kv", "cross attention" apart). On the prefill's
+   hidden states mimps within 0.05 of the exact log Z; ``topk_z`` and
+   ``ivf_decode`` at d 8192 held to their plain versions and timed
+   (``topk_z[d8192]``, ``ivf_decode[d8192]``), the ring geometry at d
+   8192; one eager step's ``ivf_decode`` and gated ``topk_z`` calls held
+   to their plain versions (the gated one also with every lane flagged).
+
 Prints the kernel record as one JSON line before the last (each kernel at
 bf16, the gated ``topk_z`` as ``topk_z[gated]``, then each at f32 as
-``<name>[f32]``), and as the last line ``{"ok": true,
+``<name>[f32]``, then ``topk_z`` and ``ivf_decode`` at the VLM's d 8192
+as ``<name>[d8192]``, whose launches are the VLM phase's and are counted
+in the bf16 records too), and as the last line ``{"ok": true,
 "device": {...}}``. Any failure exits non-zero.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -492,13 +514,14 @@ def capture_runner(torch, eng, tier=None):
 
 
 def served_pair(torch, eng, prompt, n, label, *, temperature=0.0,
-                tier=None, seed=SERVE_SEED, wrap=None, host_first=None):
+                tier=None, seed=SERVE_SEED, wrap=None, host_first=None,
+                img=None):
     """``generate`` through the captured step, then through the host loop
-    from the same generator state; the tokens, log_prob and log_z must be
-    bit-equal. ``wrap(fn)`` calls the captured run (the main path: a
-    launch count is read there); ``host_first`` runs before the host loop.
-    Returns ((tokens, aux, wall s) captured, (tokens, aux, wall s) host
-    loop)."""
+    from the same generator state (a VLM's image ``img`` in both); the
+    tokens, log_prob and log_z must be bit-equal. ``wrap(fn)`` calls the
+    captured run (the main path: a launch count is read there);
+    ``host_first`` runs before the host loop. Returns ((tokens, aux, wall
+    s) captured, (tokens, aux, wall s) host loop)."""
     from repro_torch.serve import generate
     runs = []
     for host_loop in (False, True):
@@ -508,7 +531,7 @@ def served_pair(torch, eng, prompt, n, label, *, temperature=0.0,
             t0 = time.time()
             out, aux = generate(eng, prompt, n, return_aux=True,
                                 temperature=temperature, tier=tier,
-                                host_loop=host_loop)
+                                host_loop=host_loop, img=img)
             torch.cuda.synchronize()
             return out, aux, time.time() - t0
         if host_loop and host_first is not None:
@@ -611,14 +634,17 @@ TRUNK_KINDS = {"rmsnorm": "norms", "apply_rope": "RoPE",
                "mamba_block": "mamba other", "_copy_into": "state copy"}
 
 
-def trunk_kinds(torch, fn):
+def trunk_kinds(torch, fn, img=None):
     """Device milliseconds of one eager call of the decode trunk ``fn`` by
     kind: each torch call is put under a profiler range named by the port
     function that makes it (``TRUNK_KINDS``; a matmul inside
     ``decode_self_attention`` or ``mlp`` is a projection; inside
     ``moe_block`` the matmuls (experts, shared experts, router) are "moe
-    matmuls" and every other op "moe other"). Returns
-    ({kind: (device ms, kernels)}, the trunk's output)."""
+    matmuls" and every other op "moe other"; inside a VLM's
+    ``cross_attention`` the products of the image ``img`` with wk and wv
+    are "cross kv", the query and output projections "projections" and
+    every other op "cross attention"). Returns ({kind: (device ms,
+    kernels)}, the trunk's output)."""
     from torch.autograd import DeviceType
     from torch.overrides import TorchFunctionMode
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -631,14 +657,19 @@ def trunk_kinds(torch, fn):
                 f = f.f_back
             where = f.f_code.co_name if f is not None else ""
             kind = TRUNK_KINDS.get(where, "other")
-            in_moe = False
-            while f is not None and not in_moe:
+            in_moe = in_cross = False
+            while f is not None and not (in_moe or in_cross):
                 in_moe = f.f_code.co_name == "moe_block"
+                in_cross = f.f_code.co_name == "cross_attention"
                 f = f.f_back
             if getattr(func, "__name__", "") in ("__matmul__", "matmul"):
-                kind = "moe matmuls" if in_moe else "projections"
+                kind = ("moe matmuls" if in_moe else "cross kv"
+                        if in_cross and args and args[0] is img
+                        else "projections")
             elif in_moe:
                 kind = "moe other"
+            elif in_cross:
+                kind = "cross attention"
             with record_function(f"kind:{kind}"):
                 return func(*args, **(kwargs or {}))
 
@@ -661,11 +692,12 @@ def trunk_kinds(torch, fn):
     return kinds, out
 
 
-def step_breakdown(torch, run, eng, params, toks, pos, card, label):
+def step_breakdown(torch, run, eng, params, toks, pos, card, label,
+                   img=None):
     """One replay of a captured bf16 decode step under torch.profiler (its
     kernels and their device time), and one eager trunk call by kind
-    (``trunk_kinds``), its output bit-equal to the plain call's. Returns
-    the replay's kernel count."""
+    (``trunk_kinds``; a VLM's with its image ``img``), its output
+    bit-equal to the plain call's. Returns the replay's kernel count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     load_zero(torch, run, toks[:, None], 2)
@@ -688,9 +720,9 @@ def step_breakdown(torch, run, eng, params, toks, pos, card, label):
         + "; ".join(f"{n} {ms:.3f} ms x{c}" for n, (ms, c) in top)
         + f" [{card}]")
     cache = eng.model.init_decode_state(N_REQ, eng.max_len, toks.device)
-    want = eng.model.decode_step(params, cache, toks, pos)
+    want = eng.model.decode_step(params, cache, toks, pos, img=img)
     kinds, got = trunk_kinds(torch, lambda: eng.model.decode_step(
-        params, cache, toks, pos))
+        params, cache, toks, pos, img=img), img=img)
     check(torch.equal(got, want), "the trunk under the profiler's ranges "
           "differs from the plain trunk")
     total = sum(ms for ms, _ in kinds.values())
@@ -700,7 +732,8 @@ def step_breakdown(torch, run, eng, params, toks, pos, card, label):
         + "; ".join(f"{k} {ms:.3f} ms ({n} kernels)" for k, (ms, n) in
                     sorted(kinds.items(), key=lambda kv: -kv[1][0]))
         + f"; weight read bound "
-        f"{sum(t.numel() * t.element_size() for t in _leaves(params['blocks'])) / HBM_BYTES_PER_S * 1e3:.3f} ms [{card}]")
+        f"{trunk_bytes(params, eng.cfg) / HBM_BYTES_PER_S * 1e3:.3f} ms "
+        f"[{card}]")
     return len(kern)
 
 
@@ -786,6 +819,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()                    # the MoE model is gone
     late.append(timed(families_last, kernels))
+    gc.collect()
+    torch.cuda.empty_cache()                    # the families are gone
+    *vlm, vlm_records = timed(vlm_last, kernels)
+    late.append(vlm)
     for counts, n_gated, held in late:
         for rec in records:                     # bf16 records, by name
             rec["launches"] += n_gated if rec["name"] == "topk_z[gated]" \
@@ -793,7 +830,7 @@ def main() -> int:
             if rec["name"] in held:             # these phases' shapes too
                 rec["max_abs_err"] = max(rec["max_abs_err"],
                                          held[rec["name"]])
-    records += f32_records
+    records += f32_records + vlm_records
     line = {"kernels": records}
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps(line))
@@ -1556,9 +1593,28 @@ def held_step(torch, sched, victim, label, card):
     state and the plan (the live lanes' probe union) of that step, at
     Q = n_slots rows, or n_slots x spec_k in a speculative verify. Returns
     the max abs err by kernel record name."""
-    import importlib
-
     from repro_torch.serve import NanLogitsFault
+    sched.injector = NanLogitsFault([victim.req_id], [sched.steps_done])
+    sched.shadow_every = 1
+    try:
+        rec, calls = recorded_calls(sched.step)
+    finally:
+        sched.injector = None
+        sched.shadow_every = 0
+    torch.cuda.synchronize()
+    check(rec["health_flagged"] >= 1, f"{label}: the NaN lane was not "
+          f"flagged ({rec['health_flagged']})")
+    errs, notes = hold_calls(torch, label, calls)
+    log(f"{label}: {rec['n_active']} of {sched.n_slots} lanes live, tier "
+        f"{rec['tier']}; each kernel call of the step made again and held "
+        f"to its plain version: " + "; ".join(notes) + f" [{card}]")
+    return errs
+
+
+def recorded_calls(fn):
+    """``fn()`` with the kernel wrappers of ``STEP_KERNEL_SITES`` recording
+    their arguments: (its result, [(name, wrapper, args, kwargs)])."""
+    import importlib
     calls, saved = [], []
     for mod_name, fn_name in STEP_KERNEL_SITES:
         mod = importlib.import_module(mod_name)
@@ -1569,28 +1625,23 @@ def held_step(torch, sched, victim, label, card):
             calls.append((_name, _real, args, kwargs))
             return _real(*args, **kwargs)
         setattr(mod, fn_name, record)
-    sched.injector = NanLogitsFault([victim.req_id], [sched.steps_done])
-    sched.shadow_every = 1
     try:
-        rec = sched.step()
+        return fn(), calls
     finally:
         for mod, fn_name, real in saved:
             setattr(mod, fn_name, real)
-        sched.injector = None
-        sched.shadow_every = 0
-    torch.cuda.synchronize()
-    check(rec["health_flagged"] >= 1, f"{label}: the NaN lane was not "
-          f"flagged ({rec['health_flagged']})")
+
+
+def hold_calls(torch, label, calls):
+    """Each recorded call made again and held to its plain version
+    (``hold_call``): (max abs err by record name, a note a call)."""
     errs, notes = {}, []
     for name, real, args, kwargs in calls:
         key, err, note = hold_call(torch, f"{label} {name}", name, real,
                                    args, kwargs)
         errs[key] = max(errs.get(key, 0.0), err)
         notes.append(note)
-    log(f"{label}: {rec['n_active']} of {sched.n_slots} lanes live, tier "
-        f"{rec['tier']}; each kernel call of the step made again and held "
-        f"to its plain version: " + "; ".join(notes) + f" [{card}]")
-    return errs
+    return errs, notes
 
 
 def hold_call(torch, label, name, real, args, kwargs):
@@ -2113,7 +2164,7 @@ def trunk_bytes(params, cfg):
 
 
 def families_last(torch, card, kernels):
-    """Phase 11, last: gemma3-4b, rwkv6-7b and zamba2-7b in turn
+    """Phase 11: gemma3-4b, rwkv6-7b and zamba2-7b in turn
     (``family``), each freed before the next. Returns what ``traffic``
     returns, summed over the three."""
     path, n_gated, held = {}, 0, {}
@@ -2942,6 +2993,227 @@ def lifecycle(torch, card, kernels, params, cfg, floor):
         f"{rec['ungated_ms']:.4f} ms (bit-equal); lse err {err:.2e} "
         f"[{card}]")
     return rec, path
+
+
+V_ARCH = "llama-3.2-vision-90b"
+V_LAYERS = 30                     # 6 whole groups of 4 self + 1 cross
+V_PARAMS = 27_770_986_496         # the JAX package's eval_shape at 30 layers
+V_NEW = 32
+
+
+def vlm_last(torch, card, kernels):
+    """Phase 12, last: llama-3.2-vision-90b at its published widths (d
+    8192, 64 heads over 8 KV heads, d_ff 28672, vocab 128256, 1601 image
+    tokens; bf16, random weights from seed 0) with its depth cut from 100
+    to ``V_LAYERS`` layers, whole groups (the one cut: 100 layers are 175
+    GB), behind a mimps engine at the config's partition (k 1000, l 1000,
+    n_probe 16, blocks of 512 at fixed capacity) with the guard:
+
+    1. The live CUDA tensors of 64 MB or more and the memory allocated
+       before the init; the parameter count against the JAX package's,
+       peak memory after the init and after the index build (with the
+       card's free memory), the trunk's weight bytes and their read time.
+    2. The image (8, 1601, 8192) bf16, standard normal from a seeded
+       generator. The captured ``generate`` (8 requests, prompt 16, 32
+       new) at temperature 0 and 1.0 on one captured step, each bit-equal
+       to the host loop, ``ivf_decode`` and the gated ``topk_z`` once a
+       step; a second image through the same runner gives other tokens
+       with no capture again. ms a step, tokens/s, the replay's device ms,
+       its profile and the trunk by kind ("cross kv": the image's K and V
+       products, projected again every step as in the JAX package;
+       "cross attention").
+    3. On the hidden states of ``Engine.prefill`` with the image: the
+       mimps log Ẑ within 0.05 of the exact log Z (``topk_z`` over the
+       head at d 8192); ``topk_z`` and ``ivf_decode`` against their plain
+       versions and timed at these shapes (records ``topk_z[d8192]`` and
+       ``ivf_decode[d8192]``); the ring geometry of ``ivf_decode`` and
+       ``union_scores`` at d 8192 (two stages or more).
+    4. One eager step: every ``ivf_decode`` and gated ``topk_z`` call made
+       again and held to its plain version, the gated call also with every
+       lane flagged.
+
+    Returns the path's launches, the gated ``topk_z``'s, the held calls'
+    max abs err by record name and the two records (their launches: the
+    path's ``ivf_decode`` and all its ``topk_z``, which the guard gates)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.decode import make_plan
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ivf_score import stream_geometry
+    from repro_torch.kernels.topk_z import topk_z
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, ServeState
+
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    counted = PathCounts(torch, kernels)
+    full = get_config(V_ARCH)
+    cfg = dataclasses.replace(full, n_layers=V_LAYERS)
+    pc = cfg.partition
+    tag = "vlm"
+    # -- 1. memory, model and engine ----------------------------------------
+    big = live_cuda_tensors(torch, 64 << 20)
+    left = torch.cuda.memory_allocated() / 1e9
+    log(f"{tag}: {left:.3f} GB allocated before the init; live CUDA tensors "
+        f"of 64 MB or more: "
+        + ("; ".join(f"{tuple(sh)} {dt} {n / 1e9:.3f} GB"
+                     for sh, dt, n in big) or "none") + f" [{card}]")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(n_params == V_PARAMS, f"{tag}: {n_params} params, the JAX "
+          f"package's eval_shape counts {V_PARAMS}")
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    t_bytes = trunk_bytes(params, cfg)
+    read_ms = t_bytes / HBM_BYTES_PER_S * 1e3
+    groups = cfg.n_layers // cfg.cross_attn_every
+    log(f"{tag}: {cfg.name} family {cfg.family}, depth cut from "
+        f"{full.n_layers} to {cfg.n_layers} layers ({groups} groups of "
+        f"{cfg.cross_attn_every - 1} self + 1 cross; the one cut), d "
+        f"{cfg.d_model}, {cfg.n_heads} heads over "
+        f"{cfg.n_kv_heads} KV, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.n_image_tokens} image tokens, {cfg.dtype}: "
+        f"{n_params / 1e9:.3f} B params, {n_bytes / 1e9:.3f} GB, init "
+        f"{init_s:.1f} s; peak {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+        f" GB after it; a step reads {t_bytes / 1e9:.3f} GB of trunk "
+        f"weights, {read_ms:.3f} ms at the memory rate [{card}]")
+    t0 = time.time()
+    eng = Engine(model, params, PROMPT + V_NEW, seed=7, device_index=True,
+                 health_guard=True, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    index = eng.index
+    free, total = torch.cuda.mem_get_info()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    log(f"{tag} engine: {pc.method}, {index.n_blocks} blocks of "
+        f"{index.block_rows} rows (fixed capacity), built in {build_s:.2f} "
+        f"s; peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+        f"allocated ({peak_reserved / 1e9:.3f} GB reserved) after it, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        f"now; the card {total / 1e9:.3f} GB, free now {free / 1e9:.3f} "
+        f"GB, at the peak {(total - peak_reserved) / 1e9:.3f} GB less what "
+        f"the allocator does not hold [{card}]")
+    # -- 2. the captured generate with the image -----------------------------
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def image():
+        return torch.randn((N_REQ, cfg.n_image_tokens, cfg.d_model),
+                           generator=gen, device=dev).to(torch.bfloat16)
+    img = image()
+    prompt = torch.randint(0, cfg.vocab, (N_REQ, PROMPT), generator=gen,
+                           device=dev)
+    steps = PROMPT + V_NEW - 1
+    run, cap_s = capture_runner(torch, eng)
+    box = {}
+
+    def wrap(fn):
+        res, box["counts"], box["gated"] = counted(fn)
+        return res
+    toks = {}
+    for temp, im, what in ((0.0, img, "T 0"), (1.0, img, "T 1.0"),
+                           (0.0, image(), "T 0, a second image")):
+        (out, aux, secs), (_, _, h_secs) = served_pair(
+            torch, eng, prompt, V_NEW, f"{tag} generate {what}",
+            temperature=temp, wrap=wrap, img=im)
+        check(all(bool(torch.isfinite(aux[k]).all()) for k in aux),
+              f"{tag} generate {what}: log_prob or log_z not finite")
+        counts, n_g = box["counts"], box["gated"]
+        check(counts["ivf_decode"] == steps and n_g == steps, f"{tag} "
+              f"generate {what}: {counts['ivf_decode']} ivf_decode and {n_g} "
+              f"gated topk_z in {steps} steps, want one of each a step")
+        check(eng.captures == 1, f"{tag} generate {what}: {eng.captures} "
+              f"captures, want 1")
+        toks[what] = out
+        log(f"{tag} generate {what}: {N_REQ} requests, prompt {PROMPT}, "
+            f"{V_NEW} new: captured {secs / steps * 1e3:.3f} ms/step "
+            f"({N_REQ * V_NEW / secs:.1f} new tokens/s; capture {cap_s:.2f} "
+            f"s), host loop {h_secs / steps * 1e3:.3f} ms/step "
+            f"({N_REQ * V_NEW / h_secs:.1f} tokens/s), bit-equal (tokens, "
+            f"log_prob, log_z); one capture; launches ivf_decode "
+            f"{counts['ivf_decode']}, gated topk_z {n_g} [{card}]")
+    check(not torch.equal(toks["T 0"], toks["T 0, a second image"]),
+          f"{tag}: the second image gave the first image's tokens")
+    run.load(prompt, None if run.tails is None else run.tails[:1],
+             run.gumbel[:1], 0.0, img)
+    replay = replay_ms(torch, run, prompt)
+    n_kern = step_breakdown(torch, run, eng, params, prompt[:, 0],
+                            torch.zeros((), dtype=torch.int32, device=dev),
+                            card, tag, img=img)
+    log(f"{tag} step: replay {replay:.3f} ms device, {n_kern} kernels, "
+        f"against the trunk's weight read {read_ms:.3f} ms; the second "
+        f"image's tokens differ from the first's in "
+        f"{int((toks['T 0'] != toks['T 0, a second image']).sum())} of "
+        f"{toks['T 0'].numel()} [{card}]")
+    del run
+    eng._graph_runners = {}
+    # -- 3. accuracy, the kernels at d 8192 and their geometry ---------------
+    h, _ = eng.prefill(prompt, img=img)
+    h = h.clone()
+    w, k = eng.state.w, pc.sample_k
+    tail_idx = torch.randint(0, cfg.vocab, (pc.l,), generator=gen,
+                             device=dev)
+    mi = eng.backend.decode(eng.state, h, pc, k=k, tail_idx=tail_idx)
+    exact_lz = topk_z(h, w, k)[0]
+    gap = (mi.log_z - exact_lz).abs().max().item()
+    check(bool(torch.isfinite(mi.log_z).all()) and gap < 0.05,
+          f"{tag}: mimps log Z off the exact log Z by {gap}")
+    log(f"{tag} accuracy: on the prefill's {N_REQ} hidden states (|h|_2 "
+        f"mean {h.float().norm(dim=-1).mean().item():.2f}), mimps log Z "
+        f"within {gap:.4f} of the exact log Z (limit 0.05); exact log Z "
+        f"{[round(x, 3) for x in exact_lz.tolist()]} [{card}]")
+    plan = make_plan(index, h, pc.n_probe, pc.l, generator=gen)
+    records = [topk_z_phase(torch, card, h, w, k, tag="[d8192]"),
+               ivf_decode_phase(torch, card, index, h, plan, pc, k,
+                                tag="[d8192]")]
+    geo = {name: stream_geometry(name, cfg.d_model, torch.bfloat16,
+                                 u=plan.head_ids.shape[0], l=pc.l,
+                                 grid_x=_build.stream_grid(dev))
+           for name in ("ivf_decode", "union_scores")}
+    for name, g in geo.items():
+        check(g["stages"] >= 2, f"{tag}: {name}'s ring at d {cfg.d_model} "
+              f"holds {g['stages']} stages")
+    log(f"{tag} ring geometry at d {cfg.d_model} bf16: " + "; ".join(
+        f"{name} {g['rows']} rows x {g['stages']} stages of pitch "
+        f"{g['pitch']} B, {g['smem']} B of shared memory"
+        for name, g in geo.items()) + f" [{card}]")
+    # -- 4. one eager step's kernel calls held to their plain versions ------
+    temp = torch.zeros((), dtype=torch.float32, device=dev)
+    gumbel = torch.zeros((N_REQ, k), device=dev)
+    state = ServeState(cache=model.init_decode_state(N_REQ, eng.max_len,
+                                                     dev),
+                       pos=torch.zeros((), dtype=torch.int32, device=dev),
+                       last_token=prompt[:, 0])
+    for t in range(5):
+        state = dataclasses.replace(state, last_token=prompt[:, t])
+        tail = eng.backend.draw_tail(eng.state, pc, gen)
+        step = functools.partial(eng.decode_step, state, temp, tail_idx=tail,
+                                 gumbel=gumbel, img=img)
+        if t < 4:
+            _, state = step()
+    _, calls = recorded_calls(step)
+    held, notes = hold_calls(torch, f"{tag} held step", calls)
+    gated = [c for c in calls if c[0] == "topk_z" and
+             c[3].get("rows") is not None]
+    check(len(gated) == 1 and "ivf_decode" in held, f"{tag} held step: "
+          f"calls {[c[0] for c in calls]}")
+    name, real, args, kwargs = gated[0]
+    key, err, note = hold_call(
+        torch, f"{tag} held step, every lane flagged", name, real, args,
+        dict(kwargs, rows=torch.ones_like(kwargs["rows"])))
+    held[key] = max(held[key], err)
+    log(f"{tag} held step (position 4, {N_REQ} lanes): each kernel call "
+        f"made again and held to its plain version: " + "; ".join(notes)
+        + f"; the gated call with every lane flagged: {note} [{card}]")
+    del step, state, calls, gated, args, kwargs, real, eng, params, model
+    path, n_gated = counted.totals()
+    records[0]["launches"] = path["topk_z"] + n_gated
+    records[1]["launches"] = path["ivf_decode"]
+    log(f"{tag} path launches {path}, gated topk_z {n_gated}; held max abs "
+        f"err {held}; phase {time.time() - t_phase:.1f} s [{card}]")
+    return path, n_gated, held, records
 
 
 def topk_z_phase(torch, card, h, w, k, tag=""):

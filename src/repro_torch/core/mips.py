@@ -75,10 +75,16 @@ def _pack(v: torch.Tensor, assign: torch.Tensor, n_clusters: int,
     v_blocks = v_flat.reshape(n_blocks, br, d)
     valid = (row_id_flat >= 0).reshape(n_blocks, br)
     row_id = row_id_flat.reshape(n_blocks, br)
-    vf = v_blocks.float()                    # 2.9 GB at qwen1.5-4b's head
+    # a copy at f32 too, where .float() would alias the blocks
+    vf = v_blocks.to(torch.float32, copy=True)   # 2.9 GB at qwen1.5-4b's head
     counts = torch.clamp(valid.sum(1, keepdim=True), min=1).float()
-    centroids = (vf * valid[..., None]).sum(1) / counts
-    dist = torch.linalg.vector_norm(vf - centroids[:, None, :], dim=-1)
+    # the masked rows, then the rows less their centroid, overwrite vf in
+    # place (the same values as the out-of-place products; a dead row's
+    # distance is dropped below), so one f32 copy of the blocks is alive:
+    # 8.5 GB at llama-3.2-vision-90b's head, where a second would not fit
+    # beside its 55.5 GB of weights
+    centroids = vf.mul_(valid[..., None]).sum(1) / counts
+    dist = torch.linalg.vector_norm(vf.sub_(centroids[:, None, :]), dim=-1)
     del vf
     radius = torch.where(valid, dist, torch.zeros_like(dist)).amax(1)
     return IVFIndex(v_blocks=v_blocks, valid=valid, row_id=row_id,

@@ -17,7 +17,7 @@ from . import resolve_device
 from .core.feature_maps import FeatureMap
 from .core.lsh import LSHIndex
 from .core.mips import IVFIndex
-from .models.transformer import _gemma_plan
+from .models.transformer import _gemma_plan, _vlm_plan
 from .train.optimizer import OptState
 
 
@@ -39,6 +39,10 @@ def _wq_sites(cfg):
         sites = [(("local_groups", "attn"), (g, r)),
                  (("global_groups", "attn"), (g,))]
         return sites + ([(("local_tail", "attn"), (tail,))] if tail else [])
+    if cfg.family == "vlm":
+        g, n_self = _vlm_plan(cfg)
+        return [(("self_groups", "attn"), (g, n_self)),
+                (("cross_groups", "attn"), (g,))]
     if cfg.family == "hybrid":
         return [(("shared_attn", "attn"), ())]
     if cfg.family == "ssm":
@@ -60,7 +64,8 @@ def params_from_numpy(tree: Mapping[str, Any], cfg, device="cuda"):
     ``a_log`` stay f32, bf16 leaves keep their bits). ``cfg`` is checked
     against the tree's widths: every ``wq`` the tree has (``blocks.attn``,
     ``local_groups.attn``, ``global_groups.attn``, ``local_tail.attn``,
-    ``shared_attn.attn``), an RWKV tree's ``blocks.mix.wr`` (L, d, d),
+    ``self_groups.attn``, ``cross_groups.attn``, ``shared_attn.attn``), an
+    RWKV tree's ``blocks.mix.wr`` (L, d, d),
     for an MoE tree the router and every expert leaf against ``cfg.moe``,
     and a codebook tree's (or a codebook config's) ``embed.table`` and
     untied ``lm_head`` against (n_codebooks, vocab, d)."""
@@ -108,7 +113,9 @@ def params_from_numpy(tree: Mapping[str, Any], cfg, device="cuda"):
 def decode_state_from_numpy(tree: Mapping[str, Any], device="cuda"):
     """A JAX decode state (leaves as numpy arrays) as the port's, leaf by
     leaf in its own dtype. The one layout that differs: the JAX dense and
-    MoE state ``{"kv": {"k", "v"}}`` is the port's flat ``{"k", "v"}``."""
+    MoE state ``{"kv": {"k", "v"}}`` is the port's flat ``{"k", "v"}``;
+    every other tree (gemma3's, the VLM's ``{"self": {"k", "v"}}``, the
+    recurrent families') carries across as it is."""
     if set(tree) == {"kv"}:
         tree = tree["kv"]
     return {k: decode_state_from_numpy(v, device) if isinstance(v, Mapping)

@@ -94,28 +94,44 @@ __device__ __forceinline__ void load8(const float* row, int c, float* f) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-// Copies queries [q0, q0 + QT) of h (Q, d) into shared memory as f32, zero
-// rows past Q; 16-byte loads (d % 8 == 0).
+// Copies queries [q0, q0 + QT) of h (Q, d) into shared memory in their own
+// type, zero rows past Q; 16-byte loads and stores (d % 8 == 0). A bf16
+// tile takes half the bytes of an f32 one (131,072 at d 8192, where an f32
+// copy of the bf16 queries would not fit beside topk_z's lists), and every
+// read converts it exactly, so the sums are those of an f32 tile.
 template <class T>
 __device__ __forceinline__ void load_query_tile(const T* h, int Q, int d,
-                                                int q0, float* hs) {
-  const int nvec = d / 8;
+                                                int q0, T* hs) {
+  const int nvec = d * (int)sizeof(T) / 16;
   for (int idx = threadIdx.x; idx < QT * nvec; idx += blockDim.x) {
     const int q = idx / nvec, c = idx - q * nvec;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (q0 + q < Q) load8(h + (size_t)(q0 + q) * d, c, f);
-    float4* dst = reinterpret_cast<float4*>(hs + q * d + c * 8);
-    dst[0] = make_float4(f[0], f[1], f[2], f[3]);
-    dst[1] = make_float4(f[4], f[5], f[6], f[7]);
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (q0 + q < Q)
+      u = __ldg(reinterpret_cast<const uint4*>(h + (size_t)(q0 + q) * d) + c);
+    reinterpret_cast<uint4*>(hs + (size_t)q * d)[c] = u;
   }
   __syncthreads();
 }
 
+// Elements [8 c, 8 c + 8) of a query row in shared memory as f32.
+__device__ __forceinline__ void tile8(const __nv_bfloat16* q, int c,
+                                      float* f) {
+  bf16x8(reinterpret_cast<const uint4*>(q)[c], f);
+}
+
+__device__ __forceinline__ void tile8(const float* q, int c, float* f) {
+  const float4 a = reinterpret_cast<const float4*>(q)[2 * c];
+  const float4 b = reinterpret_cast<const float4*>(q)[2 * c + 1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
 // Dot products of R rows (null = absent, scores 0) with the QT queries in
-// shared memory, accumulated in f32. Every lane returns all R x QT sums.
+// shared memory (``load_query_tile``, of the rows' type), accumulated in
+// f32. Every lane returns all R x QT sums.
 template <class T>
 __device__ __forceinline__ void score_rows(const T* const* rows,
-                                           const float* hs, int d, int lane,
+                                           const T* hs, int d, int lane,
                                            float (&acc)[R][QT]) {
 #pragma unroll
   for (int r = 0; r < R; ++r)
@@ -136,13 +152,13 @@ __device__ __forceinline__ void score_rows(const T* const* rows,
     }
 #pragma unroll
     for (int q = 0; q < QT; ++q) {
-      const float4* hp = reinterpret_cast<const float4*>(hs + q * d + j * 8);
-      float4 a = hp[0], b = hp[1];
+      float hq[8];
+      tile8(hs + (size_t)q * d, j, hq);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        acc[r][q] += wv[r][0] * a.x + wv[r][1] * a.y + wv[r][2] * a.z +
-                     wv[r][3] * a.w + wv[r][4] * b.x + wv[r][5] * b.y +
-                     wv[r][6] * b.z + wv[r][7] * b.w;
+        acc[r][q] += wv[r][0] * hq[0] + wv[r][1] * hq[1] + wv[r][2] * hq[2] +
+                     wv[r][3] * hq[3] + wv[r][4] * hq[4] + wv[r][5] * hq[5] +
+                     wv[r][6] * hq[6] + wv[r][7] * hq[7];
       }
     }
   }

@@ -13,11 +13,19 @@
 // Design: the TPU grid ran one query tile's vocab sweep in order on one core.
 // Here the vocabulary is split over every warp of 2 CTAs per SM, so all SMs
 // stream W at once: a warp loads R rows with 16-byte loads, scores them
-// against the QT queries kept in shared memory (f32 FMAs), and folds them
+// against the QT queries kept in shared memory in the input's dtype (each
+// read converted exactly to f32; f32 FMAs), and folds them
 // into its own partial (m, s, top-k); the CTA folds its warps' partials and
 // merge_partials (streaming.cuh) reduces the CTAs' partials of each query.
 // Each query tile of QT queries is one grid row, so W is streamed once per
 // tile.
+//
+// Wide rows: the tile takes QT * d * sizeof(T) bytes of dynamic shared
+// memory beside the static per-warp lists (16,896 bytes at KMAX 32), and a
+// block takes at most 232,448 on an H100. So at KMAX 32 a bf16 tile fits
+// up to d 13,472 (llama-3.2-vision-90b's d 8192 takes 131,072 bytes) and
+// an f32 one up to d 6,736; topk_z_tile_limit gives the wrapper the bytes
+// a tile may take, and the wrapper refuses a wider one before any launch.
 //
 // The gate: with `rows` (Q,) given, only the queries whose entry is nonzero
 // are scored (the health guard passes its flags). A CTA whose QT queries
@@ -37,7 +45,8 @@ topk_z_partial(const T* __restrict__ h, const T* __restrict__ w, int Q,
                int k, float* __restrict__ part_m, float* __restrict__ part_s,
                float* __restrict__ part_v, int* __restrict__ part_i,
                const int* __restrict__ rows) {
-  extern __shared__ float hs[];
+  extern __shared__ __align__(16) unsigned char tile[];
+  T* hs = reinterpret_cast<T*>(tile);
   const int q0 = blockIdx.y * QT;
   if (rows != nullptr) {
     bool any = false;
@@ -88,7 +97,7 @@ static cudaError_t launch(const T* h, const T* w, int Q, int V, int d, int k,
                           float* part_m, float* part_s, float* part_v,
                           int* part_i, float* lse, float* topv, int* topi,
                           const int* rows, cudaStream_t stream) {
-  const size_t smem = (size_t)QT * d * sizeof(float);
+  const size_t smem = (size_t)QT * d * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       topk_z_partial<T, KMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -140,4 +149,30 @@ extern "C" int topk_z_launch(const void* h, const void* w, int Q, int V,
   return (int)dispatch<__nv_bfloat16>(h, w, Q, V, d, k, grid_x, part_m,
                                       part_s, part_v, part_i, lse, topv,
                                       topi, rows, st);
+}
+
+template <class T, int KMAX>
+static cudaError_t tile_limit(int* bytes) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, topk_z_partial<T, KMAX>);
+  if (err != cudaSuccess) return err;
+  int dev = 0, optin = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  *bytes = optin - (int)attr.sharedSizeBytes;
+  return cudaSuccess;
+}
+
+// The dynamic shared memory a query tile may take on the current device at
+// top-k k and the dtype f32 (1) or bf16 (0): the block's opt-in limit less
+// the kernel's static shared memory.
+extern "C" int topk_z_tile_limit(int k, int f32, int* bytes) {
+  if (f32)
+    return (int)(k <= 8 ? tile_limit<float, 8>(bytes)
+                        : tile_limit<float, 32>(bytes));
+  return (int)(k <= 8 ? tile_limit<__nv_bfloat16, 8>(bytes)
+                      : tile_limit<__nv_bfloat16, 32>(bytes));
 }

@@ -64,11 +64,44 @@ def topk_z_plain(h: torch.Tensor, w: torch.Tensor, k: int,
 
 
 MAX_K = 32
+QT = 8                   # queries a CTA holds in shared memory (streaming.cuh)
 
 
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"topk_z: {msg}")
+
+
+def check_tile(d: int, dtype: torch.dtype, limit: int) -> None:
+    """Raises a ValueError unless the kernel's query tile of ``QT`` rows of
+    width ``d`` in ``dtype`` fits the ``limit`` bytes of dynamic shared
+    memory a block may take beside the kernel's own (``topk_z_tile_limit``
+    on the device: 215,552 on an H100 at k > 8). The tile is kept in the
+    inputs' dtype, so bf16 fits up to d 13,472 there and f32 up to 6,736."""
+    need = QT * d * dtype.itemsize
+    _check(need <= limit,
+           f"the query tile of {QT} rows of d {d} in {dtype} takes {need} "
+           f"bytes of shared memory, over the {limit} a block of this "
+           f"kernel may take on this device")
+
+
+_TILE_LIMITS: dict = {}
+
+
+def _tile_limit(lib, dev: torch.device, k: int, f32: int) -> int:
+    """``topk_z_tile_limit`` of the kernel instance for (k, dtype) on
+    ``dev``, cached."""
+    key = (dev, k <= 8, f32)
+    if key not in _TILE_LIMITS:
+        fn = lib.topk_z_tile_limit
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = ctypes.c_int()
+        with torch.cuda.device(dev):
+            _build.check("topk_z tile limit", fn(k, f32, ctypes.byref(out)))
+        _TILE_LIMITS[key] = out.value
+    return _TILE_LIMITS[key]
 
 
 @_build.counted
@@ -80,8 +113,10 @@ def topk_z(h: torch.Tensor, w: torch.Tensor, k: int, *,
 
     CUDA tensors launch the kernel (bf16 or f32 inputs, both of one dtype;
     f32 accumulation) on the current stream, reading ``rows`` on the device
-    (no host read, so a gated call can be captured in a CUDA graph); CPU
-    tensors run ``topk_z_plain``. A gated launch counts in ``topk_z.gated``
+    (no host read, so a gated call can be captured in a CUDA graph); a
+    query tile too wide for the block's shared memory raises a ValueError
+    first (``check_tile``: f32 at d 8192). CPU tensors run
+    ``topk_z_plain``. A gated launch counts in ``topk_z.gated``
     as well."""
     if h.device.type == "cpu" and w.device.type == "cpu":
         return topk_z_plain(h, w, k, rows)
@@ -103,6 +138,7 @@ def topk_z(h: torch.Tensor, w: torch.Tensor, k: int, *,
                f"rows must be a contiguous ({q},) int32 tensor on {h.device}")
     lib = _build.load("topk_z")
     dev = h.device
+    check_tile(d, h.dtype, _tile_limit(lib, dev, k, is_f32))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows_per_cta_step = 32
     grid_x = max(1, min(2 * sms, -(-v // rows_per_cta_step)))

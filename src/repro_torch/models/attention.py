@@ -1,8 +1,9 @@
-"""Self-attention (counterpart of ``repro.models.attention``, without the
-cross-attention path): the chunked causal attention of training and
-prefill, the cached decode step at a shared or a per-lane position, and the
-lane-window KV ops of the prefix cache. GQA stays grouped: query heads are
-viewed as ``(n_kv, g, hd)`` and KV heads are never repeated."""
+"""Attention (counterpart of ``repro.models.attention``): the chunked
+causal attention of training and prefill, the VLM's cross attention from
+the text stream to the image embeddings, the cached decode step at a shared
+or a per-lane position, and the lane-window KV ops of the prefix cache. GQA
+stays grouped: query heads are viewed as ``(n_kv, g, hd)`` and KV heads are
+never repeated."""
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional
@@ -88,6 +89,18 @@ def self_attention(p: Params, x: torch.Tensor, cfg, *, window: int = 0,
     q = qf.reshape(q.shape)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = flash_attention(q, k, v, causal=True, window=window)
+    return o.reshape(*x.shape[:-1], -1) @ p["wo"]
+
+
+def cross_attention(p: Params, x: torch.Tensor, kv_feats: torch.Tensor,
+                    cfg) -> torch.Tensor:
+    """VLM cross attention: queries from the text stream x (B, S, d), keys
+    and values projected from the image embeddings ``kv_feats`` (B, N, d)
+    in the same dtype; no mask and no RoPE. At decode S is 1 and the
+    image's K and V are projected again every step, as the JAX package
+    does (it keeps no cross-KV cache)."""
+    q, k, v = _project_qkv(p, x, kv_feats, cfg)
+    o = flash_attention(q, k, v, causal=False)
     return o.reshape(*x.shape[:-1], -1) @ p["wo"]
 
 

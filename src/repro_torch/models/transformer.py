@@ -1,7 +1,9 @@
 """Transformer: full-sequence forward (training and prefill) and cached
 decode (counterpart of ``repro.models.transformer``) for the dense, MoE,
-gemma3 local/global, RWKV6 (``ssm``), Zamba2 (``hybrid``) and audio
-families. An audio config (``n_codebooks`` C > 0, musicgen) takes tokens
+gemma3 local/global, RWKV6 (``ssm``), Zamba2 (``hybrid``), VLM and audio
+families. A VLM takes its image embeddings ``img`` (B, n_image_tokens, d)
+in the model's dtype beside the tokens, in ``forward`` and in every
+``decode_step``. An audio config (``n_codebooks`` C > 0, musicgen) takes tokens
 (B, S, C): its embedding is the sum of C per-codebook tables (C, V, d) and
 its head a (C, V, d) stack, one V-way output a codebook.
 
@@ -12,6 +14,7 @@ conversion. A Python loop over layers takes the place of ``lax.scan``, and
 ``torch.utils.checkpoint`` that of ``jax.checkpoint``. The plans:
 
   gemma3-4b : 5 groups of [5 local + 1 global] + a tail of 4 local
+  llama-vision : 20 groups of [4 self + 1 cross-attention to the image]
   zamba2-7b : 13 groups of [6 mamba] each followed by the one shared
               attention block (one weight copy) + a tail of 3 mamba
   others    : one homogeneous stack
@@ -19,7 +22,8 @@ conversion. A Python loop over layers takes the place of ``lax.scan``, and
 Decode states are trees stacked the same way. The dense and MoE families
 keep one flat KV pair ``{"k", "v"}``; gemma3's is ``{"local", "global",
 "tail"}`` (a ring of ``min(max_len, sliding_window)`` slots in each local
-layer), RWKV6's ``{"rwkv": {"tm_last", "cm_last", "wkv"}}`` and Zamba2's
+layer), the VLM's ``{"self": {"k", "v"}}`` (its cross blocks keep no
+cache), RWKV6's ``{"rwkv": {"tm_last", "cm_last", "wkv"}}`` and Zamba2's
 ``{"mamba", "shared_kv", "mamba_tail"}``. ``decode_step`` updates every
 leaf in place, so a captured CUDA graph keeps its storage.
 """
@@ -32,8 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ModelConfig
-from .attention import (KVCache, decode_position, decode_self_attention,
-                        self_attention)
+from .attention import (KVCache, cross_attention, decode_position,
+                        decode_self_attention, self_attention)
 from .layers import _dense_init, embed, mlp, rmsnorm
 from .mamba import init_mamba_block, init_mamba_state, mamba_block
 from .moe import init_moe, moe_block
@@ -119,19 +123,14 @@ def _add_aux(a: Dict, b: Dict) -> Dict:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name!r} is family 'vlm': repro.models.transformer's vlm "
-            f"plan (_vlm_plan, cross_block_fwd, attention.cross_attention) "
-            f"is not ported")
-    if cfg.family not in ("dense", "audio", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "audio", "moe", "ssm", "hybrid", "vlm"):
         raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def _plan(cfg: ModelConfig) -> str:
     if cfg.local_global_ratio:
         return "gemma"
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid", "vlm"):
         return cfg.family
     return "stack"
 
@@ -143,6 +142,17 @@ def _gemma_plan(cfg):
     n_groups = cfg.n_layers // group
     tail = cfg.n_layers - n_groups * group
     return n_groups, r, tail
+
+
+def _vlm_plan(cfg):
+    """(n_groups, self_blocks_per_group): each group is its self-attention
+    blocks, then one cross-attention block."""
+    group = cfg.cross_attn_every                     # 4 self + 1 cross
+    n_groups = cfg.n_layers // group
+    if n_groups * group != cfg.n_layers:
+        raise ValueError(f"vlm layers must divide evenly: {cfg.n_layers} "
+                         f"layers in groups of {group}")
+    return n_groups, group - 1
 
 
 def _hybrid_plan(cfg):
@@ -177,6 +187,25 @@ def tblock_decode(p: Params, x, cache: KVCache, pos, cfg, *, kind="dense",
     x = x + h
     f, _ = _ffn(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, kind)
     return x + f
+
+
+def cross_block_fwd(p: Params, x, img, cfg):
+    """One cross-attention block: x (B, S, d) attends to the image
+    embeddings ``img`` (B, N, d), then the MLP."""
+    x = x + cross_attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                            img, cfg)
+    return x + mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.act)
+
+
+def _check_img(cfg: ModelConfig, img) -> None:
+    """A VLM needs its image; every other family takes none."""
+    if cfg.family == "vlm" and img is None:
+        raise ValueError(f"{cfg.name!r} is a VLM: pass its image "
+                         f"embeddings img (B, {cfg.n_image_tokens}, "
+                         f"{cfg.d_model})")
+    if cfg.family != "vlm" and img is not None:
+        raise ValueError(f"{cfg.name!r} is family {cfg.family!r}, which "
+                         f"takes no image (only a VLM cross-attends to one)")
 
 
 def _init_tblocks(gen: torch.Generator, cfg, pre: tuple, dt,
@@ -243,6 +272,10 @@ class Model:
             p["global_groups"] = _stack(g, block)
             if tail:
                 p["local_tail"] = _stack(tail, block)
+        elif self.plan == "vlm":
+            g, n_self = _vlm_plan(cfg)
+            p["self_groups"] = _stack(g, lambda: _stack(n_self, block))
+            p["cross_groups"] = _stack(g, block)
         elif self.plan == "ssm":
             p["blocks"] = _stack(cfg.n_layers, lambda: init_rwkv_block(
                 gen, cfg, dt, dev))
@@ -295,15 +328,13 @@ class Model:
     def forward(self, p: Params, tokens: torch.Tensor, *,
                 img=None) -> Tuple[torch.Tensor, Dict[str, float]]:
         """tokens (B, S), or (B, S, C) with codebooks -> (hidden (B, S, d),
-        aux). With ``cfg.remat`` other
+        aux); a VLM also takes ``img`` (B, n_image_tokens, d), which every
+        other family refuses. With ``cfg.remat`` other
         than "none" each block (each group of a grouped plan) runs under a
         non-reentrant checkpoint: its activations are recomputed in the
         backward, as under ``jax.checkpoint``."""
-        if img is not None:
-            raise NotImplementedError(
-                "the port's families take no image (the vlm family's "
-                "cross_block_fwd is not ported)")
         cfg = self.cfg
+        _check_img(cfg, img)
         x = self.embed_tokens(p, tokens)
         remat = cfg.remat != "none"
 
@@ -340,6 +371,17 @@ class Model:
                     x = run(lambda px, x_: tblock_fwd(px, x_, cfg,
                                                       window=win)[0],
                             _layer(lt, i), x)
+        elif self.plan == "vlm":
+            g, n_self = _vlm_plan(cfg)
+
+            def group(pg, x_):
+                for i in range(n_self):
+                    x_, _ = tblock_fwd(_layer(pg["self"], i), x_, cfg)
+                return cross_block_fwd(pg["cross"], x_, img, cfg)
+            sg, cg = _unbind(p["self_groups"]), _unbind(p["cross_groups"])
+            for gi in range(g):
+                x = run(group, {"self": _layer(sg, gi),
+                                "cross": _layer(cg, gi)}, x)
         elif self.plan == "ssm":
             blocks = _unbind(p["blocks"])
             for i in range(cfg.n_layers):
@@ -368,7 +410,8 @@ class Model:
                           device) -> Dict[str, Any]:
         """The decode state of ``batch`` lanes of ``max_len`` positions,
         zeros: the dense and MoE families' KV pair {"k", "v"} (L, B, S,
-        n_kv, hd); gemma3's {"local", "global", "tail"}; RWKV6's {"rwkv":
+        n_kv, hd); gemma3's {"local", "global", "tail"}; the VLM's {"self":
+        {"k", "v"}} (G, self blocks a group, B, S, n_kv, hd); RWKV6's {"rwkv":
         ...} and Zamba2's {"mamba", "shared_kv", "mamba_tail"}, each leaf
         stacked as its parameters are (the JAX package's trees)."""
         cfg = self.cfg
@@ -396,6 +439,9 @@ class Model:
             if tail:
                 st["tail"] = kv(tail, batch, w)
             return st
+        if self.plan == "vlm":
+            g, n_self = _vlm_plan(cfg)
+            return {"self": kv(g, n_self, batch, max_len)}
         if self.plan == "ssm":
             return {"rwkv": stacked((cfg.n_layers,), lambda: RWKVState.init(
                 batch, cfg, dt, device))}
@@ -410,15 +456,18 @@ class Model:
         return st
 
     def decode_step(self, p: Params, state: Dict[str, Any],
-                    token: torch.Tensor, pos) -> torch.Tensor:
+                    token: torch.Tensor, pos, *, img=None) -> torch.Tensor:
         """token (B,), or (B, C) with codebooks, at position ``pos`` ->
-        hidden of that position (B, d).
+        hidden of that position (B, d). A VLM takes its image ``img`` (B,
+        n_image_tokens, d) at every step: its cross blocks project the
+        image's K and V again each step, as the JAX package's do.
         ``pos`` is an int tensor on the device, 0-d (shared by the batch)
         or (B,) (one a lane), or a Python int (copied to the device).
         Every leaf of ``state`` is updated in place (KV rows at their slot,
         recurrent leaves whole); with a tensor position nothing is read to
         the host. Each cache length gets one ``decode_position`` a step."""
         cfg = self.cfg
+        _check_img(cfg, img)
         if not isinstance(pos, torch.Tensor):
             pos = torch.tensor(pos, dtype=torch.int32, device=token.device)
         x = self.embed_tokens(p, token[:, None])               # (B, 1, d)
@@ -450,6 +499,16 @@ class Model:
                 x = tblock_decode(_layer(p["local_tail"], i), x,
                                   cache(state["tail"], i), lpos, cfg,
                                   window=win)
+        elif self.plan == "vlm":
+            g, n_self = _vlm_plan(cfg)
+            spos = decode_position(pos, state["self"]["k"].shape[-3], 0)
+            for gi in range(g):
+                sg = _layer(p["self_groups"], gi)
+                for i in range(n_self):
+                    x = tblock_decode(_layer(sg, i), x,
+                                      cache(state["self"], gi, i), spos, cfg)
+                x = cross_block_fwd(_layer(p["cross_groups"], gi), x, img,
+                                    cfg)
         elif self.plan == "ssm":
             st = state["rwkv"]
             for i in range(cfg.n_layers):

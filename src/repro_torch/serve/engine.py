@@ -15,6 +15,11 @@ On a GPU ``generate`` replays one captured CUDA graph per decode step
 reads its position, prompt token, tail draw and Gumbel noise from device
 buffers filled before the replays, so nothing in it reads the host.
 
+A VLM (llama-3.2-vision) serves with its image: ``prefill``,
+``decode_step`` and ``generate`` take ``img`` (B, n_image_tokens, d), and
+the captured step reads it from a buffer of the runner, so a new image
+replays the same graph.
+
 An audio model (``n_codebooks`` C > 0) has no retrieval state: each step
 takes tokens (B, C) and samples every codebook from its exact softmax over
 V (``_codebook_distribution``); prompts are (B, S, C) and ``generate``
@@ -35,6 +40,7 @@ from ..core.decode import DecodeOut, apply_health_guard
 from ..core.feature_maps import FeatureMap, make_feature_map
 from ..kernels import _build
 from ..models import Model, tree_leaves
+from ..models.transformer import _check_img, torch_dtype
 
 # blocks of the index the digest reads at a time (64 blocks of 512 x 2560
 # f32: 336 MB)
@@ -315,14 +321,17 @@ class Engine:
 
     # -- steps ---------------------------------------------------------------
 
-    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, ServeState]:
-        """Full-sequence forward of tokens (B, S) (or (B, S, C)) under
+    def prefill(self, tokens: torch.Tensor,
+                img: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, ServeState]:
+        """Full-sequence forward of tokens (B, S) (or (B, S, C)), with a
+        VLM's image ``img`` (B, n_image_tokens, d), under
         ``torch.inference_mode``: (hidden of the last position (B, d), a
         fresh decode state whose next token is the last prompt token; the
         KV cache is filled decode-side, as ``generate`` replays prompts)."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
         with torch.inference_mode():
-            hidden, _ = self.model.forward(self.params, tokens)
+            hidden, _ = self.model.forward(self.params, tokens, img=img)
         state = ServeState(
             cache=self.model.init_decode_state(tokens.shape[0], self.max_len,
                                                self.device),
@@ -341,10 +350,12 @@ class Engine:
     def decode_step(self, state: ServeState, temperature=0.0,
                     tail_idx: Optional[torch.Tensor] = None, *,
                     gumbel: Optional[torch.Tensor] = None,
-                    tier: Optional[str] = None
+                    tier: Optional[str] = None,
+                    img: Optional[torch.Tensor] = None
                     ) -> tuple[Dict[str, torch.Tensor], ServeState]:
         """One token for every stream; returns sampling outputs + new state.
-        ``state.pos`` is a device int tensor, 0-d or (B,) (per lane).
+        ``state.pos`` is a device int tensor, 0-d or (B,) (per lane). A VLM
+        takes its image ``img`` (B, n_image_tokens, d) at every step.
 
         Cache-capacity guard: outside a CUDA graph capture a position past
         ``max_len`` raises (one host read): the KV write would clobber.
@@ -361,7 +372,7 @@ class Engine:
         overflow = pos >= self.max_len
         pos_safe = torch.clamp(pos, max=self.max_len - 1)
         h = self.model.decode_step(self.params, state.cache,
-                                   state.last_token, pos_safe)
+                                   state.last_token, pos_safe, img=img)
         out = self.next_token_distribution(h, temperature, tail_idx=tail_idx,
                                            gumbel=gumbel, tier=tier)
         out["overflow"] = overflow
@@ -527,7 +538,10 @@ class _GraphRunner:
     position, the last token, the prompt step-major with a replay flag a
     step (a replay step force-feeds its prompt token with
     ``torch.where``), the temperature, the per-step tail draws and Gumbel
-    noise, and the per-step outputs, each ``max_len`` steps long. The step
+    noise, and the per-step outputs, each ``max_len`` steps long; for a
+    VLM also the image (B, n_image_tokens, d) in the model's dtype, which
+    the graph reads as the JAX ``_scan_runner`` takes its traced ``img``,
+    so a new image is a copy into it and no capture again. The step
     reads its inputs at the step index and advances the index, the
     position and the last token itself, so on a GPU it is captured once
     in a CUDA graph and replayed once a step, for every prompt length,
@@ -558,14 +572,20 @@ class _GraphRunner:
         self.outs = {name: torch.zeros((n, batch) + lane, **kind)
                      for name, kind in (("token", i64), ("log_prob", f32),
                                         ("log_z", f32))}
+        self.img = (torch.zeros((batch, cfg.n_image_tokens, cfg.d_model),
+                                dtype=torch_dtype(cfg.dtype), device=dev)
+                    if cfg.family == "vlm" else None)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.counts: dict = {}
 
     def load(self, prompt: torch.Tensor, tails: Optional[torch.Tensor],
-             gumbel: torch.Tensor, temperature: float) -> None:
+             gumbel: torch.Tensor, temperature: float,
+             img: Optional[torch.Tensor] = None) -> None:
         """Reset the step for a new request batch: step 0, position 0,
         every leaf of the decode state zeroed (KV and recurrent), and the
-        prompt, draws and temperature in place."""
+        prompt, draws and temperature in place; a VLM's image ``img``, when
+        given, copied into the image buffer (else the buffer keeps the
+        last one)."""
         t_replay, total = prompt.shape[1], gumbel.shape[0]
         self.step.zero_()
         self.pos.zero_()
@@ -579,6 +599,8 @@ class _GraphRunner:
         self.gumbel[:total].copy_(gumbel)
         if self.tails is not None:
             self.tails[:total].copy_(tails)
+        if img is not None:
+            self.img.copy_(img)
 
     def run_step(self, engine: Engine) -> None:
         """One decode step from the buffers: no host read and no draw."""
@@ -591,7 +613,8 @@ class _GraphRunner:
         state = ServeState(cache=self.cache, pos=self.pos, last_token=last)
         out, new = engine.decode_step(
             state, self.temperature, tail_idx=tail,
-            gumbel=self.gumbel.index_select(0, t)[0], tier=self.tier)
+            gumbel=self.gumbel.index_select(0, t)[0], tier=self.tier,
+            img=self.img)
         for name, buf in self.outs.items():
             buf.index_copy_(0, t, out[name][None].to(buf.dtype))
         self.last.copy_(out["token"])
@@ -647,10 +670,14 @@ def generate(engine: Engine, prompt, n_tokens: int, *,
              tail_source: Optional[Callable[[int], Any]] = None,
              return_aux: bool = False, tier: Optional[str] = None,
              host_loop: bool = False,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None,
+             img: Optional[torch.Tensor] = None):
     """Generation loop; returns (B, n_tokens) token ids on the engine's
     device. The prompt is replayed through the decode cache one step per
-    token, and the last replay step emits the first sample.
+    token, and the last replay step emits the first sample. A VLM needs
+    its image ``img`` (B, n_image_tokens, d), which every step reads; the
+    captured step reads it from its runner's buffer, so a new image runs on
+    the same graph.
 
     On a GPU every step is one replay of the engine's captured decode step
     (``_GraphRunner``); on the CPU the same step runs eagerly.
@@ -678,6 +705,11 @@ def generate(engine: Engine, prompt, n_tokens: int, *,
             "emitted by the last prompt-replay step")
     if n_tokens < 1:
         raise ValueError(f"n_tokens must be >= 1, got {n_tokens}")
+    # checked here: the captured step reads the runner's image buffer
+    _check_img(engine.cfg, img)
+    if img is not None:
+        img = img.to(device=engine.device,
+                     dtype=torch_dtype(engine.cfg.dtype))
     t_replay = prompt.shape[1]
     if t_replay + n_tokens - 1 > engine.max_len:
         raise ValueError(
@@ -696,12 +728,12 @@ def generate(engine: Engine, prompt, n_tokens: int, *,
                                 generator)
     if host_loop:
         outs = _generate_host(engine, prompt, tails, gumbel, temperature,
-                              tier)
+                              tier, img)
     else:
         run = _graph_runner(engine, batch, tier)
         if on_gpu and run.graph is None:
             run.capture(engine)
-        run.load(prompt, tails, gumbel, temperature)
+        run.load(prompt, tails, gumbel, temperature, img)
         for _ in range(total):
             run.replay(engine)
         outs = {name: buf[t_replay - 1:total].transpose(0, 1).clone()
@@ -714,7 +746,8 @@ def generate(engine: Engine, prompt, n_tokens: int, *,
 
 def _generate_host(engine: Engine, prompt: torch.Tensor,
                    tails: Optional[torch.Tensor], gumbel: torch.Tensor,
-                   temperature: float, tier: Optional[str]):
+                   temperature: float, tier: Optional[str],
+                   img: Optional[torch.Tensor] = None):
     """The eager loop: one ``Engine.decode_step`` a step on the same draws
     as the captured step. Returns the emitted steps' outputs (B, n_tokens)
     (or (B, n_tokens, C)) by name."""
@@ -732,7 +765,7 @@ def _generate_host(engine: Engine, prompt: torch.Tensor,
             state = dataclasses.replace(state, last_token=prompt[:, s])
         out, state = engine.decode_step(
             state, temp, tail_idx=None if tails is None else tails[s],
-            gumbel=gumbel[s], tier=tier)
+            gumbel=gumbel[s], tier=tier, img=img)
         if s >= t_replay - 1:
             outs.append(out)
     return {name: torch.stack([o[name] for o in outs], dim=1)

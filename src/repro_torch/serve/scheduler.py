@@ -253,8 +253,9 @@ class Scheduler:
     the estimators' shared tail samples; ``tail_source(step_idx)``
     supplies them instead (parity tests). ``eager=True`` runs the step
     uncaptured on a GPU too (the counterpart of ``generate``'s
-    ``host_loop=True``, for comparisons). Audio (multi-codebook) heads have
-    no slot-table path; use ``generate``."""
+    ``host_loop=True``, for comparisons). Audio (multi-codebook) heads and
+    VLMs (no image in the slot table) have no slot-table path; use
+    ``generate``."""
 
     def __init__(self, engine, n_slots: int, prompt_cap: Optional[int] = None,
                  seed: int = 0, injector=None, health_guard: bool = True,
@@ -271,6 +272,12 @@ class Scheduler:
             raise NotImplementedError(
                 "the slot table over a (data, model) serving mesh "
                 "(repro.serve.scheduler's shard_map step) is not ported")
+        if engine.cfg.family == "vlm":
+            raise NotImplementedError(
+                f"{engine.cfg.name!r} is a VLM: the slot table carries no "
+                f"image for its cross blocks (the JAX scheduler builds for a "
+                f"VLM engine and fails on its first step for the same "
+                f"reason); serve it through serve.generate(img=)")
         dev = engine.device
         if dev.type == "cuda" and not engine.use_kernel:
             raise ValueError(

@@ -1,9 +1,11 @@
-"""Shared setup of the family parity tests (gemma3, RWKV6, Zamba2): a
+"""Shared setup of the family parity tests (gemma3, RWKV6, Zamba2, the
+VLM and the configs no card run has served): a
 reduced config in f32 on both sides, the JAX init carried into the port by
 ``interop.params_from_numpy``, and the checks each family runs against the
 JAX package on the same numpy inputs: the init tree, ``forward``, decode
 steps state leaf by state leaf, ``generate`` on the JAX draws and the slot
-scheduler on the JAX scheduler's draws."""
+scheduler on the JAX scheduler's draws. A VLM's checks take its image
+``img`` as a numpy array."""
 import dataclasses
 
 import jax
@@ -77,28 +79,41 @@ def rel_err(got, want):
     return np.abs(got - want).max() / max(1.0, np.abs(want).max())
 
 
-def forward_err(m, toks):
-    jh, _ = jax.jit(m["jm"].forward)(m["jp"], jnp.asarray(toks))
-    th, _ = m["tm"].forward(m["tp"], torch.from_numpy(toks))
+def _imgs(img):
+    """(JAX image, port image) of a numpy image, or (None, None)."""
+    if img is None:
+        return None, None
+    return jnp.asarray(img), torch.from_numpy(img)
+
+
+def forward_err(m, toks, img=None):
+    jimg, timg = _imgs(img)
+    jh, _ = jax.jit(m["jm"].forward)(m["jp"], jnp.asarray(toks), img=jimg)
+    th, _ = m["tm"].forward(m["tp"], torch.from_numpy(toks), img=timg)
     return rel_err(th.numpy(), jh)
 
 
-def decode_errs(m, toks, max_len):
+def decode_errs(m, toks, max_len, img=None):
     """Both models step through ``toks`` (B, steps) from zero states: the
     worst hidden error of any step, and each state leaf's worst error
     relative to its magnitude over the steps."""
     b, steps = toks.shape
+    jimg, timg = _imgs(img)
     jstate = m["jm"].init_decode_state(b, max_len)
     tstate = m["tm"].init_decode_state(b, max_len, "cpu")
     step = jax.jit(m["jm"].decode_step)
     h_err, leaf_err = 0.0, {}
     for pos in range(steps):
         jh, jstate = step(m["jp"], jstate, jnp.asarray(toks[:, pos]),
-                          jnp.asarray(pos, jnp.int32))
+                          jnp.asarray(pos, jnp.int32), img=jimg)
         th = m["tm"].decode_step(m["tp"], tstate,
-                                 torch.from_numpy(toks[:, pos]), pos)
+                                 torch.from_numpy(toks[:, pos]), pos,
+                                 img=timg)
         h_err = max(h_err, rel_err(th.float().numpy(), jh))
-        jl, tl = leaves(jstate), leaves(decode_state_to_numpy(tstate))
+        # the JAX dense and MoE state {"kv": {"k", "v"}} is the port's
+        # flat {"k", "v"} (interop.decode_state_from_numpy)
+        jl = leaves(jstate["kv"] if set(jstate) == {"kv"} else jstate)
+        tl = leaves(decode_state_to_numpy(tstate))
         assert jl.keys() == tl.keys()
         for name in jl:
             assert tl[name].shape == jl[name].shape, name

@@ -7,8 +7,9 @@ states); ``generate`` through its captured step equals the host loop
 the slot scheduler's captured step equals ``Scheduler(eager=True)`` on a
 trace with a reused lane and a lane that sat dead, which holds only if the
 capture's warm-up puts the recurrent leaves back. And the ring geometry
-the gathered-row kernels pick at d 4096 (rwkv6-7b's width): one bf16 row
-is 8208 bytes with its pitch.
+the gathered-row kernels pick at d 4096 (rwkv6-7b's width) and d 8192
+(llama-3.2-vision-90b's): one bf16 row is 8208 or 16400 bytes with its
+pitch, and at least two stages fit.
 
 These tests need a GPU and skip without one. On the GPU machine, which has
 no JAX, run them without the repository's conftest:
@@ -138,9 +139,12 @@ def test_captured_scheduler_equals_eager_on_a_reused_lane(dev, arch):
 
 
 def test_stream_geometry_at_d4096(dev):
-    for kernel in ("ivf_decode", "union_scores"):
-        g = stream_geometry(kernel, 4096, torch.bfloat16, u=256, l=1000,
-                            grid_x=132)
-        assert g["pitch"] == 8208
-        assert 1 <= g["rows"] <= 16 and g["stages"] >= 1
-        assert g["smem"] <= 232448
+    """At d 4096 and at the VLM's d 8192 (a bf16 row of 16400 bytes with
+    its pitch) the ring still holds at least two stages."""
+    for d, pitch in ((4096, 8208), (8192, 16400)):
+        for kernel in ("ivf_decode", "union_scores"):
+            g = stream_geometry(kernel, d, torch.bfloat16, u=256, l=1000,
+                                grid_x=132)
+            assert g["pitch"] == pitch
+            assert 1 <= g["rows"] <= 16 and g["stages"] >= 2
+            assert g["smem"] <= 232448

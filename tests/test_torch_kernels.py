@@ -16,7 +16,7 @@ from repro.kernels.topk_z import topk_z as jax_topk_z
 from repro_torch.kernels.ivf_score import (ivf_decode, ivf_decode_plain,
                                           union_launch, union_scores,
                                           union_scores_plain)
-from repro_torch.kernels.topk_z import NEG, topk_z, topk_z_plain
+from repro_torch.kernels.topk_z import NEG, check_tile, topk_z, topk_z_plain
 
 ATOL = 1e-4
 NEG32 = np.float32(NEG)   # the f32 value of the filler score
@@ -222,3 +222,21 @@ class TestUnionScoresPlain:
         args = [_t(a) for a in _ivf_inputs(3)[:4]]
         with pytest.raises(ValueError, match="one GPU"):
             union_launch(*args)
+
+
+@pytest.mark.parametrize("d,dtype,fits", [
+    (2560, torch.float32, True), (8192, torch.bfloat16, True),
+    (13472, torch.bfloat16, True), (13480, torch.bfloat16, False),
+    (6736, torch.float32, True), (8192, torch.float32, False)])
+def test_topk_z_tile_check(d, dtype, fits):
+    """The wrapper's check before a launch: the query tile of 8 rows of d
+    in the inputs' dtype against the shared memory a block of the kernel
+    may take (an H100's 232,448 less the k > 8 instance's 16,896 bytes of
+    static lists); a tile that does not fit raises a ValueError naming d,
+    the dtype and the limit."""
+    limit = 232448 - 16896
+    if fits:
+        check_tile(d, dtype, limit)
+        return
+    with pytest.raises(ValueError, match=rf"d {d} in {dtype}.*{limit}"):
+        check_tile(d, dtype, limit)

@@ -267,3 +267,38 @@ class TestDeadBlocksInTheUnion:
         _eq(to.top_id, jo.top_id, "top_id")
         np.testing.assert_array_equal(to.k_eff.numpy(), np.asarray(jo.k_eff))
         assert torch.isneginf(to.tail_lse).all()    # every tail row probed
+
+
+def _out_of_place_statistics(idx):
+    """The block centroids and radii recomputed from the packed blocks with
+    out-of-place products, as ``mips._pack`` computed them before it
+    overwrote its f32 copy in place."""
+    vf = idx.v_blocks.float()
+    counts = torch.clamp(idx.valid.sum(1, keepdim=True), min=1).float()
+    cent = (vf * idx.valid[..., None]).sum(1) / counts
+    dist = torch.linalg.vector_norm(vf - cent[:, None, :], dim=-1)
+    radius = torch.where(idx.valid, dist, torch.zeros_like(dist)).amax(1)
+    return cent.to(idx.v_blocks.dtype), radius
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_statistics_equal_the_out_of_place_arithmetic(dtype):
+    """``_pack`` computes the centroids and radii on one f32 copy of the
+    blocks, overwritten in place: the same bits as the out-of-place
+    products, NaN rows and empty blocks included, and the blocks
+    themselves untouched (at f32 ``.float()`` would alias them)."""
+    gen = torch.Generator().manual_seed(3)
+    v = torch.randn(700, 48, generator=gen).to(dtype)
+    v[17] = float("nan")
+    assign = torch.randint(0, 6, (700,), generator=gen)
+    assign[assign == 4] = 5                    # cluster 4 empty
+    idx = tmips.pack_ivf(v, assign, 6, 64)
+    cent, radius = _out_of_place_statistics(idx)
+    assert torch.equal(_bits(idx.block_centroids), _bits(cent))
+    assert torch.equal(_bits(idx.block_radius), _bits(radius))
+    rows = idx.v_blocks.reshape(-1, 48)[idx.slot_of_row.long()]
+    assert torch.equal(_bits(rows), _bits(v))
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)

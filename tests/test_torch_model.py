@@ -75,10 +75,3 @@ def test_params_from_numpy_keeps_bf16_bits():
     with pytest.raises(ValueError, match="wq"):
         params_from_numpy(jp, dataclasses.replace(tcfg, d_model=64),
                           device="cpu")
-
-
-def test_non_dense_family_refused():
-    # the family still to port: the VLM (the audio heads are ported,
-    # tests/test_torch_audio.py)
-    with pytest.raises(NotImplementedError, match="cross_block_fwd"):
-        Model(reduced_config("llama-3.2-vision-90b"))
