@@ -28,6 +28,10 @@ GPU.
    kernel's share of the bound and its GB/s for ``union_scores`` and
    ``lsh_probe`` (``union_scores`` also with the L2 cache flushed before
    each call, a time its record takes if the warm one beats the bound).
+   ``topk_z`` also runs on 16 decode hidden states of the same model (the
+   traffic path's lanes, ``topk_z[q16]``), and logs its geometry (query
+   tile, CTAs, boxes a CTA, the ring held to the built kernel's) and the
+   time on the rows that give every CTA the same boxes.
    ``ivf_score`` runs on the mimps plan's probe ids (two calls bit-equal,
    the rows its kernels copy equal to its bound's distinct blocks, timed
    as ``ivf_decode`` is, by kernel too) and is then driven through its
@@ -285,7 +289,10 @@ GPU.
    to their plain versions (the gated one also with every lane flagged).
 
 Prints the kernel record as one JSON line before the last (each kernel at
-bf16, the gated ``topk_z`` as ``topk_z[gated]``, then each at f32 as
+bf16, the gated ``topk_z`` as ``topk_z[gated]``, ``topk_z`` at 16 lanes as
+``topk_z[q16]``, whose launches are those of its 16-query instance (Q > 8)
+in every phase and are counted in ``topk_z`` or ``topk_z[gated]`` too,
+then each at f32 as
 ``<name>[f32]``, then ``topk_z`` and ``ivf_decode`` at the VLM's d 8192
 as ``<name>[d8192]``, whose launches are the VLM phase's and are counted
 in the bf16 records too), and as the last line ``{"ok": true,
@@ -830,6 +837,9 @@ def main() -> int:
             if rec["name"] in held:             # these phases' shapes too
                 rec["max_abs_err"] = max(rec["max_abs_err"],
                                          held[rec["name"]])
+    q16 = next(rec for rec in records if rec["name"] == Q16)
+    check(q16["launches"] > 0, f"{Q16}: the 16-lane paths never launched "
+          f"topk_z's 16-query instance")
     records += f32_records + vlm_records
     line = {"kernels": records}
     log(f"total {time.time() - t_start:.1f} s")
@@ -844,9 +854,10 @@ def main() -> int:
 def serve(torch, card, kernels):
     """Phases 2-5c: the serving engines, the seven serving kernels against
     their plain versions, the estimators, serving, the step split, the
-    lifecycle phase and the estimators phase. Returns the eight kernel
-    records (the gated ``topk_z`` last) and the studies' f32 launches by
-    kernel; every serving tensor is freed on return."""
+    lifecycle phase and the estimators phase. Returns the seven kernel
+    records, then the gated ``topk_z``'s and ``topk_z[q16]`` (16 hidden
+    states of the same model, the traffic path's lanes), and the studies'
+    f32 launches by kernel; every serving tensor is freed on return."""
     from repro_torch.configs import get_config
     from repro_torch.core.decode import make_plan
     from repro_torch.kernels import _build
@@ -954,6 +965,19 @@ def serve(torch, card, kernels):
     log(f"graph floor: a CUDA graph of one one-element kernel replays in "
         f"{floor:.4f} ms [{card}]")
     tz = topk_z_phase(torch, card, h, w, k)
+    # the traffic path's 16 lanes: 16 decode hidden states of the same
+    # model (their own generator: the draws below stay as they were)
+    gen16 = torch.Generator(device=dev).manual_seed(3)
+    cache16 = exact_eng.model.init_decode_state(T_SLOTS, max_len, dev)
+    h16 = exact_eng.model.decode_step(
+        params, cache16, torch.randint(0, cfg.vocab, (T_SLOTS,),
+                                       generator=gen16, device=dev), 0)
+    tz16 = dict(topk_z_phase(torch, card, h16, w, k, tag="[q16]"),
+                launches=0)
+    log(f"topk_z at Q {T_SLOTS} against Q {q}: {tz16['ms']:.4f} ms = "
+        f"{tz16['ms'] / tz['ms']:.4f} of the Q {q} time (ten "
+        f"{tz16['graph10_ms'] / tz['graph10_ms']:.4f}) [{card}]")
+    del cache16, h16
     plan = make_plan(index, h, pc.n_probe, pc.l, generator=gen)
     ivf = ivf_decode_phase(torch, card, index, h, plan, pc, k)
     uni = union_scores_phase(torch, card, index, h, plan)
@@ -1180,7 +1204,7 @@ def serve(torch, card, kernels):
                                             cfg, h)
     for rec in records:
         rec["launches"] += layer_counts[rec["name"]]
-    return records + [gated], study_counts
+    return records + [gated, tz16], study_counts
 
 
 # the traffic phase: full-width qwen1.5-4b behind the slot scheduler
@@ -1542,17 +1566,24 @@ def live_cuda_tensors(torch, min_bytes):
     return out
 
 
+# the record of ``topk_z`` at the traffic path's 16 lanes; its launches are
+# those of the bf16 kernel's 16-query instance (Q > 8), gated or not
+Q16 = "topk_z[q16]"
+
+
 class PathCounts:
     """Launches of a phase's main-path runs by kernel: ``counted(fn)``
     runs ``fn`` with every count at 0 and returns (its result, the counts
     of that run, the gated ``topk_z`` launches of that run), adding them to
     the phase's totals. ``topk_z``'s count includes its gated launches;
-    ``totals()`` gives them apart."""
+    ``totals()`` gives them apart. The counts also hold ``Q16``: the
+    launches of ``topk_z``'s 16-query instance among ``topk_z``'s."""
 
     def __init__(self, torch, kernels):
         self.torch = torch
         self.kernels = kernels
         self.path = {name: 0 for name in kernels}
+        self.path[Q16] = 0
         self.gated = 0
 
     def __call__(self, fn):
@@ -1562,7 +1593,8 @@ class PathCounts:
         res = fn()
         self.torch.cuda.synchronize()
         counts = {name: kfn.launches for name, kfn in self.kernels.items()}
-        for name in self.kernels:
+        counts[Q16] = self.kernels["topk_z"].by_variant.get("bf16 n16", 0)
+        for name in counts:
             self.path[name] += counts[name]
         gated = self.kernels["topk_z"].gated
         self.gated += gated
@@ -3219,8 +3251,13 @@ def vlm_last(torch, card, kernels):
 def topk_z_phase(torch, card, h, w, k, tag=""):
     """``topk_z`` against its plain version on hidden states h and the head
     w (both bf16 or both f32); times it beside its byte bound, the plain
-    version and a library call. Returns the record, named with ``tag``."""
-    from repro_torch.kernels.topk_z import topk_z, topk_z_plain
+    version and a library call, and logs its geometry (the bf16 ring held
+    to the built kernel's). At the VLM's d 8192 it also times the kernel
+    on the first rows of w that give every CTA the same number of boxes,
+    to show what the ragged last wave costs. Returns the record, named
+    with ``tag``."""
+    from repro_torch.kernels.topk_z import (geometry, library_ring, topk_z,
+                                            topk_z_plain)
     q, d, v = h.shape[0], h.shape[1], w.shape[0]
     es = h.element_size()
     lse, tv, ti = topk_z(h, w, k)
@@ -3230,6 +3267,8 @@ def topk_z_phase(torch, card, h, w, k, tag=""):
     err_v, n_ids = compare_topk(f"topk_z{tag}", tv, ti, p_v, p_i)
     tz_bytes = v * d * es + q * d * es + q * 4 + q * k * 8
     tz_bound, tz_by = bound_ms(tz_bytes, 2 * q * v * d)
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    geo = geometry(q, v, d, h.dtype, sms)
 
     def library_topk_z():
         logits = torch.matmul(h, w.T)
@@ -3243,13 +3282,42 @@ def topk_z_phase(torch, card, h, w, k, tag=""):
               plain_ms=time_ms(torch, lambda: topk_z_plain(h, w, k)),
               bound_ms=tz_bound, bound_by=tz_by,
               library_ms=time_ms(torch, library_topk_z),
-              graph10_ms=graph10_ms(torch, lambda: topk_z(h, w, k)))
+              graph10_ms=graph10_ms(torch, lambda: topk_z(h, w, k)),
+              geometry={key: val for key, val in geo.items()
+                        if key != "ranges"})
     tz_eager = eager_ms(torch, lambda: topk_z(h, w, k))
     log(f"topk_z{tag}: Q {q} V {v} d {d} k {k} {h.dtype}: lse err "
         f"{err:.2e}, top-k err {err_v:.2e}, {n_ids} ids checked; kernel "
         f"{tz['ms']:.4f} ms (eager call {tz_eager:.4f} ms), plain "
         f"{tz['plain_ms']:.4f} ms, library {tz['library_ms']:.4f} ms, bound "
         f"{tz_bound:.4f} ms ({tz_by}, {tz_bytes / 1e6:.1f} MB) [{card}]")
+    if not geo["tensor_cores"]:
+        log(f"topk_z{tag} geometry: the CUDA-core kernel, {geo['tiles']} "
+            f"tile(s) of {geo['n']} queries x {geo['grid_x']} CTAs")
+        return tz
+    ring = library_ring(geo["n"])
+    check(ring == (geo["stages"], geo["stage_bytes"], geo["smem"]),
+          f"topk_z{tag}: the built ring (stages, stage bytes, shared "
+          f"memory) {ring} is not geometry's")
+    sizes = [b1 - b0 for b0, b1 in geo["ranges"]]
+    log(f"topk_z{tag} geometry: N {geo['n']}, {geo['tiles']} tile(s) x "
+        f"{geo['grid_x']} CTAs over {geo['boxes']} boxes of "
+        f"{geo['box_rows']} rows, {min(sizes)}-{max(sizes)} boxes a CTA (the "
+        f"busiest {max(sizes) * geo['grid_x'] / geo['boxes']:.4f} of the "
+        f"mean), {geo['stages_per_box']} stages a box; a ring of "
+        f"{geo['stages']} stages of {geo['stage_bytes']} B, "
+        f"{geo['in_flight']} B of W in flight an SM, {geo['smem']} B of "
+        f"dynamic shared memory (the built kernel's) [{card}]")
+    if min(sizes) < max(sizes):
+        even = min(sizes) * geo["grid_x"] * geo["box_rows"]
+        w_even = w[:even]
+        even_ms = time_ms(torch, lambda: topk_z(h, w_even, k))
+        tz["even_rows_ms"] = even_ms
+        log(f"topk_z{tag} balance: the first {even} rows ({min(sizes)} boxes "
+            f"every CTA) {even_ms:.4f} ms; all {v} rows {tz['ms']:.4f} ms "
+            f"= {tz['ms'] / even_ms:.4f} of it, against {v / even:.4f} for "
+            f"the bytes and {max(sizes) / min(sizes):.4f} for the busiest "
+            f"CTA's boxes [{card}]")
     return tz
 
 

@@ -176,9 +176,10 @@ COUNTED: list = []
 
 def counted(fn):
     """Gives a kernel wrapper its launch counts: ``fn.launches``, the total,
-    ``fn.by_variant``, launches by input dtype ("bf16" or "f32"), and
-    ``fn.gated``, the launches among them with a per-query gate
-    (``topk_z(..., rows=)``)."""
+    ``fn.by_variant``, launches by input dtype ("bf16" or "f32") and by any
+    instance the wrapper names beside it (``count(variant=)``, a subset of
+    its dtype's), and ``fn.gated``, the launches among them with a
+    per-query gate (``topk_z(..., rows=)``)."""
     fn.launches = 0
     fn.by_variant = {"bf16": 0, "f32": 0}
     fn.gated = 0
@@ -186,17 +187,20 @@ def counted(fn):
     return fn
 
 
-def count(fn, f32: int, gated: bool = False) -> None:
-    """One launch of ``fn``'s kernel at the dtype given by ``f32``."""
+def count(fn, f32: int, gated: bool = False, variant=None) -> None:
+    """One launch of ``fn``'s kernel at the dtype given by ``f32``, and of
+    its instance ``variant`` where one is named."""
     fn.launches += 1
     fn.by_variant["f32" if f32 else "bf16"] += 1
+    if variant is not None:
+        fn.by_variant[variant] = fn.by_variant.get(variant, 0) + 1
     fn.gated += int(gated)
 
 
 def reset_counts(fns) -> None:
     for fn in fns:
         fn.launches = 0
-        fn.by_variant = {"bf16": 0, "f32": 0}
+        fn.by_variant = dict.fromkeys(fn.by_variant, 0)
         fn.gated = 0
 
 
@@ -224,8 +228,8 @@ def counts_since(snap: dict) -> dict:
     for fn, (launches, by_variant, gated) in snap.items():
         if fn.launches != launches:
             out[fn] = (fn.launches - launches,
-                       {k: fn.by_variant[k] - by_variant[k]
-                        for k in by_variant}, fn.gated - gated)
+                       {k: n - by_variant.get(k, 0)
+                        for k, n in fn.by_variant.items()}, fn.gated - gated)
     return out
 
 
@@ -233,5 +237,5 @@ def add_counts(delta: dict) -> None:
     for fn, (launches, by_variant, gated) in delta.items():
         fn.launches += launches
         for k, n in by_variant.items():
-            fn.by_variant[k] += n
+            fn.by_variant[k] = fn.by_variant.get(k, 0) + n
         fn.gated += gated

@@ -376,16 +376,16 @@ static EncodeTiled encode_tiled() {
 
 constexpr int ERR_TENSOR_MAP = 999;   // cudaErrorUnknown
 
-// A bf16 row-major (outer, inner) matrix as a TMA map with 128-byte swizzle.
-// K-major operands take boxes of 64 x 128 (inner x outer), MN-major ones
-// 64 x 64. Returns 0 or ERR_TENSOR_MAP.
-static int make_map(CUtensorMap* map, const void* ptr, uint64_t inner,
-                    uint64_t outer, bool mn) {
+// A bf16 row-major (outer, inner) matrix as a TMA map with 128-byte swizzle
+// and boxes of 64 x `box_rows` (inner x outer). Returns 0 or
+// ERR_TENSOR_MAP.
+static int make_map_rows(CUtensorMap* map, const void* ptr, uint64_t inner,
+                         uint64_t outer, uint32_t box_rows) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return ERR_TENSOR_MAP;
   const cuuint64_t dims[2] = {inner, outer};
   const cuuint64_t strides[1] = {inner * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, mn ? 64u : (cuuint32_t)BM};
+  const cuuint32_t box[2] = {64, box_rows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                         const_cast<void*>(ptr), dims, strides, box, elem,
@@ -394,6 +394,13 @@ static int make_map(CUtensorMap* map, const void* ptr, uint64_t inner,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
+}
+
+// The GEMM's operand maps: K-major operands take boxes of 64 x 128 (inner x
+// outer), MN-major ones 64 x 64.
+static int make_map(CUtensorMap* map, const void* ptr, uint64_t inner,
+                    uint64_t outer, bool mn) {
+  return make_map_rows(map, ptr, inner, outer, mn ? 64u : (uint32_t)BM);
 }
 
 }  // namespace hgemm

@@ -1,21 +1,28 @@
-// Shared pieces of the streaming-score kernels (topk_z.cu; ivf_score.cu
-// uses the row loads, and the gathered-row kernels of gather_stream.cuh the
-// top-k list and merge_partials).
+// Shared pieces of the streaming-score kernels. Who uses what:
+//   - `merge_partials` (with `insert_sorted`): both instances of topk_z.cu,
+//     ivf_decode.cu and lsh_probe.cu.
+//   - `better`: all of them; `TopK` and `write_topk`: topk_z.cu's f32
+//     instance and gather_stream.cuh's partials (ivf_decode.cu,
+//     lsh_probe.cu). topk_z.cu's bf16 instance keeps its lists one entry a
+//     lane of a warp instead. `online_add`: both instances of topk_z.cu.
+//   - The query tile and the CUDA-core scoring (`load_query_tile`,
+//     `tile8`, `load8`, `score_rows`, `pick`) and the per-warp folds
+//     (`cta_lse`, `cta_topk`): topk_z.cu's f32 instance only. Its bf16
+//     instance streams W by TMA into the tensor cores (hopper_gemm.cuh's
+//     pieces) and keeps no query tile.
 //
-// Rows and queries are bf16 or f32 (the template parameter T of the loaders;
-// each kernel is instantiated for both). An f32 row is read as two 16-byte
-// loads per 8 elements instead of one; accumulation is f32 either way.
+// The loaders take rows and queries of bf16 or f32 (their template
+// parameter T); an f32 row is read as two 16-byte loads per 8 elements;
+// accumulation is f32 either way.
 //
-// topk_z streams rows of an output embedding past a small tile of decode
-// queries held in shared memory, and folds each row's scores into a
-// per-query online logsumexp and a running top-k. The TPU kernels ran that
-// fold as one sequential grid per query tile; here the rows are split over
-// every warp of every CTA, each warp keeps its own partial (m, s, top-k),
-// the CTA folds its warps' partials into one, and `merge_partials` reduces
-// the CTAs' partials of one query in a second, small kernel. The top-k
-// order is total -- score descending, then id ascending -- so the result
-// does not depend on which warp saw which row, and it keeps the TPU
-// kernels' rule that the lowest id wins among equal scores.
+// The TPU kernels ran the fold as one sequential grid per query tile; here
+// the rows are split over every CTA (and, in the f32 topk_z, every warp),
+// each keeps its own partial (m, s, top-k), the CTA folds them into one,
+// and `merge_partials` reduces the CTAs' partials of one query in a second,
+// small kernel. The top-k order is total -- score descending, then id
+// ascending -- so the result does not depend on which warp saw which row,
+// and it keeps the TPU kernels' rule that the lowest id wins among equal
+// scores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -95,10 +102,9 @@ __device__ __forceinline__ void load8(const float* row, int c, float* f) {
 }
 
 // Copies queries [q0, q0 + QT) of h (Q, d) into shared memory in their own
-// type, zero rows past Q; 16-byte loads and stores (d % 8 == 0). A bf16
-// tile takes half the bytes of an f32 one (131,072 at d 8192, where an f32
-// copy of the bf16 queries would not fit beside topk_z's lists), and every
-// read converts it exactly, so the sums are those of an f32 tile.
+// type, zero rows past Q; 16-byte loads and stores (d % 8 == 0). A read
+// (`tile8`) converts a bf16 tile exactly, so its sums are those of an f32
+// tile.
 template <class T>
 __device__ __forceinline__ void load_query_tile(const T* h, int Q, int d,
                                                 int q0, T* hs) {

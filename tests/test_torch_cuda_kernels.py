@@ -111,7 +111,8 @@ from repro_torch.kernels.ivf_score import (MAX_BLOCKS, QT, ivf_decode,
                                           union_scores_plain)
 from repro_torch.kernels.lsh_probe import (hash_codes, lsh_probe,
                                           lsh_probe_plain, lsh_query_codes)
-from repro_torch.kernels.topk_z import NEG, topk_z, topk_z_plain
+from repro_torch.kernels.topk_z import (NEG, geometry, library_ring, topk_z,
+                                       topk_z_plain)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-3
@@ -157,11 +158,24 @@ def _counts(fn):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("q,k", [(8, 8), (5, 1), (16, 12), (3, 8), (9, 32)])
-def test_topk_z_matches_plain(gen, head_bf16, q, k, dtype):
+@pytest.mark.parametrize("q,k,v", [
+    (8, 8, 151936), (5, 1, 151936), (16, 12, 151936), (3, 8, 151936),
+    (9, 32, 151936), (16, 32, 151936), (17, 8, 151936),
+    (8, 8, 32003), (17, 32, 32003)])
+def test_topk_z_matches_plain(gen, head_bf16, q, k, v, dtype):
+    """Against the plain version: LSEs and top-k values to 1e-3, ids equal,
+    an exact tie on top to the lowest id. Q 16 is one 16-query tile of the
+    bf16 kernel and Q 17 a ragged second; V 32003 is not a multiple of its
+    128-row box, so the last box holds 3 rows, the rest zeros from TMA that
+    the row mask drops, and the tie's twin is row 32001 of that box."""
     head = head_bf16.to(dtype)
+    twin = 90000
+    if v != head.shape[0]:
+        head = head[:v].clone()
+        twin = v - 2
+        head[twin] = head[100]
     h = torch.randn(q, D, generator=gen, device="cuda").to(dtype)
-    h[0] = (head[90000].float() * 40).to(dtype)         # tie on top
+    h[0] = (head[twin].float() * 40).to(dtype)          # tie on top
     before = _counts(topk_z)
     lse, tv, ti = topk_z(h, head, k)
     torch.cuda.synchronize()
@@ -170,7 +184,23 @@ def test_topk_z_matches_plain(gen, head_bf16, q, k, dtype):
     _close_lse(lse, p_lse)
     assert (tv - p_v).abs().max().item() <= TOL
     assert torch.equal(ti, p_i)
-    assert ti[0, :2].tolist() == [100, 90000][:k]      # lowest id first
+    assert ti[0, :2].tolist() == [100, twin][:k]       # lowest id first
+
+
+def test_topk_z_geometry_is_the_kernels(gen):
+    """``geometry``'s ring (stages, stage bytes, dynamic shared memory) is
+    the built bf16 kernel's at both query tiles, and a 16-lane bf16 call
+    counts in ``by_variant["bf16 n16"]`` where an 8-lane one does not."""
+    for n in (8, 16):
+        geo = geometry(n, 151936, D, torch.bfloat16, 132)
+        assert library_ring(n) == (geo["stages"], geo["stage_bytes"],
+                                   geo["smem"])
+    w = torch.randn(4096, D, generator=gen, device="cuda").bfloat16()
+    h = torch.randn(16, D, generator=gen, device="cuda").bfloat16()
+    topk_z(h[:8], w, 4)
+    wide = topk_z.by_variant.get("bf16 n16", 0)
+    topk_z(h, w, 4)
+    assert topk_z.by_variant["bf16 n16"] == wide + 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -978,13 +1008,14 @@ def test_lsh_path_is_bit_equal_across_processes(gen):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("q,k", [(8, 8), (13, 12), (3, 1)])
+@pytest.mark.parametrize("q,k", [(8, 8), (13, 12), (3, 1), (16, 8)])
 def test_topk_z_gate(gen, head_bf16, q, k, dtype):
     """``rows``: every query flagged gives the ungated call's bits, none
     flagged the filler (lse -inf, (NEG, 0)) in every output, a mix each
     flagged query's ungated bits and the filler elsewhere (a query tile
-    with no flagged query returns at once); each gated call counts once
-    in ``topk_z.gated``."""
+    with no flagged query returns at once); at Q 16 also the second half
+    of the 16 flagged alone. Each gated call counts once in
+    ``topk_z.gated``."""
     head = head_bf16.to(dtype)
     h = torch.randn(q, D, generator=gen, device="cuda").to(dtype)
     full = topk_z(h, head, k)
@@ -992,8 +1023,13 @@ def test_topk_z_gate(gen, head_bf16, q, k, dtype):
     mixed = torch.zeros(q, **i32)
     mixed[-1] = 4                                       # the last tile only
     mixed[0] = 1
+    gates = [torch.ones(q, **i32), torch.zeros(q, **i32), mixed]
+    if q == 16:
+        half = torch.zeros(q, **i32)
+        half[8:] = 1                                    # the second half
+        gates.append(half)
     before, gated = _counts(topk_z), topk_z.gated
-    for rows in (torch.ones(q, **i32), torch.zeros(q, **i32), mixed):
+    for rows in gates:
         got = topk_z(h, head, k, rows=rows)
         torch.cuda.synchronize()
         on = rows != 0
@@ -1003,8 +1039,8 @@ def test_topk_z_gate(gen, head_bf16, q, k, dtype):
         assert (got[1][~on] == NEG).all() and not got[2][~on].any()
         plain = topk_z_plain(h, head, k, rows)
         _close_lse(got[0], plain[0])
-    _launched(topk_z, dtype, before, 3)
-    assert topk_z.gated == gated + 3
+    _launched(topk_z, dtype, before, len(gates))
+    assert topk_z.gated == gated + len(gates)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -8,10 +8,11 @@
   tokens.
 - ``topk_z`` (ungated and gated by ``rows``) and ``ivf_decode`` against
   their plain versions at d 5120, 6144 and 8192 (mistral-nemo-12b's,
-  nemotron-4-15b's and the VLM's widths): LSEs and top-k scores to 1e-3,
-  top ids equal, two calls bit-equal. ``topk_z`` keeps its query tile in
-  the inputs' dtype, so bf16 fits at every width and f32 up to d 6736;
-  f32 at d 8192 raises the wrapper's ValueError before any launch.
+  nemotron-4-15b's and the VLM's widths), ``topk_z`` also at zamba2's d
+  3584 and rwkv6's 4096: LSEs and top-k scores to 1e-3, top ids equal,
+  two calls bit-equal. bf16 ``topk_z`` keeps no query tile, so it runs at
+  every width; the f32 kernel's tile fits up to d 6736, and f32 at d 8192
+  raises the wrapper's ValueError before any launch.
 - The index at the VLM head's size (507 blocks of 512 x 8192 bf16): the
   block centroids and radii, computed on one f32 copy overwritten in
   place, equal the out-of-place products bit for bit.
@@ -84,7 +85,7 @@ def test_captured_generate_with_an_image_equals_host_loop(gen):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("d", (3584, 4096) + WIDTHS)
 def test_topk_z_at_wide_rows(gen, d, dtype):
     q, k, v = 8, 8, 32000
     w = (torch.randn(v, d, generator=gen, device="cuda") * d ** -0.5

@@ -16,7 +16,8 @@ from repro.kernels.topk_z import topk_z as jax_topk_z
 from repro_torch.kernels.ivf_score import (ivf_decode, ivf_decode_plain,
                                           union_launch, union_scores,
                                           union_scores_plain)
-from repro_torch.kernels.topk_z import NEG, check_tile, topk_z, topk_z_plain
+from repro_torch.kernels.topk_z import (NEG, check_tile, geometry, topk_z,
+                                       topk_z_plain)
 
 ATOL = 1e-4
 NEG32 = np.float32(NEG)   # the f32 value of the filler score
@@ -226,17 +227,48 @@ class TestUnionScoresPlain:
 
 @pytest.mark.parametrize("d,dtype,fits", [
     (2560, torch.float32, True), (8192, torch.bfloat16, True),
-    (13472, torch.bfloat16, True), (13480, torch.bfloat16, False),
+    (13472, torch.bfloat16, True), (13480, torch.bfloat16, True),
     (6736, torch.float32, True), (8192, torch.float32, False)])
 def test_topk_z_tile_check(d, dtype, fits):
-    """The wrapper's check before a launch: the query tile of 8 rows of d
-    in the inputs' dtype against the shared memory a block of the kernel
-    may take (an H100's 232,448 less the k > 8 instance's 16,896 bytes of
-    static lists); a tile that does not fit raises a ValueError naming d,
-    the dtype and the limit."""
+    """The wrapper's check before a launch: the f32 kernel's query tile of
+    8 rows of d against the shared memory a block of the kernel may take
+    (an H100's 232,448 less the k > 8 instance's 16,896 bytes of static
+    lists); a tile that does not fit raises a ValueError naming d, the
+    dtype and the limit. The bf16 kernel keeps no query tile, so it takes
+    any d % 8 == 0, past the 13,472 its tile once allowed."""
     limit = 232448 - 16896
     if fits:
         check_tile(d, dtype, limit)
         return
     with pytest.raises(ValueError, match=rf"d {d} in {dtype}.*{limit}"):
         check_tile(d, dtype, limit)
+
+
+@pytest.mark.parametrize("q,v,d", [
+    (8, 151936, 2560), (16, 151936, 2560), (1, 128256, 8192),
+    (9, 128256, 8192), (17, 32003, 13472), (40, 300, 104), (3, 64, 8)])
+def test_topk_z_geometry(q, v, d):
+    """The bf16 kernel's geometry on an H100's 132 SMs: the CTAs' box
+    ranges cover the V rows once, in order, with no overlap, and no CTA
+    has more than one box more than another; the query tile is 8 wide for
+    Q <= 8 and 16 above, one grid row per tile; the ring keeps at least 64
+    KB of W in flight at every width and fits the 232,448 bytes of shared
+    memory a block may take beside its 16 KB of candidate lists."""
+    geo = geometry(q, v, d, torch.bfloat16, 132)
+    assert geo["tensor_cores"] and geo["box_rows"] == 128
+    ranges = geo["ranges"]
+    assert len(ranges) == geo["grid_x"] == min(132, -(-v // 128))
+    assert ranges[0][0] == 0 and ranges[-1][1] == geo["boxes"]
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    sizes = [b1 - b0 for b0, b1 in ranges]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    rows = [r for b0, b1 in ranges
+            for r in range(b0 * 128, min(b1 * 128, v))]
+    assert rows == list(range(v))
+    assert geo["n"] == (8 if q <= 8 else 16)
+    assert geo["tiles"] == -(-q // geo["n"])
+    assert geo["stages_per_box"] == -(-d // 64)
+    assert geo["in_flight"] >= 64 * 1024
+    assert geo["smem"] + 16 * 1024 + 1024 <= 232448
+    f32 = geometry(q, v, d, torch.float32, 132)
+    assert not f32["tensor_cores"] and f32["n"] == 8

@@ -22,7 +22,10 @@ OTHER. Every run makes the same inputs from seed 0:
     build's 474 blocks (``build_fmbe_blocks``, host clock; W's rows, then
     masked padding);
   - the decode kernels at bf16 and at f32, on the first 8 rows of that h
-    and rows of that W: ``topk_z`` (k 8) over all of W; ``union_scores``
+    and rows of that W: ``topk_z`` (k 8) over all of W, also on the first
+    16 rows of h (the traffic path's lanes, ``topk_z q16``) and, at bf16
+    only, on 8 queries over a head at the VLM's width (V 128256, d 8192,
+    drawn as ``Model.init`` draws it, ``topk_z d8192``); ``union_scores``
     over 23 live blocks of a 128-slot union of 474 blocks of 512 rows
     (drawn from W; the bf16 main path's union) and over 31 (the f32
     phase's), ``ivf_decode`` on the 23-block union (random membership,
@@ -37,8 +40,9 @@ OTHER. Every run makes the same inputs from seed 0:
     layers, B 4 x S 256, ``fused_ce``), three steps on the host clock.
 Each bf16 output, and each decode kernel's output at both dtypes, is
 fingerprinted (SHA-256 of its bytes) and must be the same in all four
-runs, but for the kernels in ``REDESIGNED`` (the ones a change redesigns;
-none at present): their bits change by design, so each run holds them to
+runs, but for the kernels in ``REDESIGNED`` (the ones a change redesigns,
+named with the dtype's tag: the bf16 ``topk_z`` at present, its f32 bits
+must not move): their bits change by design, so each run holds them to
 their plain versions instead (scores, LSEs and top-k values to 1e-3, top
 ids where the neighbouring scores are more than 1e-3 apart, signed FMBE
 sums to 1e-4 of the sum of their terms' magnitudes, + 1e-6), and their
@@ -64,9 +68,11 @@ ROOT = Path(__file__).resolve().parents[1]
 T, V, D = 1024, 151936, 2560
 BLOCKS, BLOCK_ROWS, CHUNK_BLOCKS = 474, 512, 16
 N_FEATURES = 4096
-# the decode kernels whose bits a change alters by design (set while it is
-# compared with its parent)
-REDESIGNED = ()
+# the decode kernels whose bits a change alters by design, as
+# "<kernel><tag>" ("[f32]" for f32; set while it is compared with its
+# parent)
+REDESIGNED = ("topk_z",)
+V_WIDE, D_WIDE = 128256, 8192            # llama-3.2-vision-90b's head
 
 
 def events_ms(torch, fn, reps=20, warm=3):
@@ -126,10 +132,10 @@ def held(torch, name, res, plain, terms=None):
         if worst > 1e-3:
             raise RuntimeError(f"{name}: off its plain version by {worst}")
         return worst
-    hl, tl, tv, ti = res
-    p_hl, p_tl, p_v, p_i = plain
+    *lses, tv, ti = res                  # (head_lse, tail_lse) or (lse,)
+    *p_lses, p_v, p_i = plain
     worst = 0.0
-    for got, want in ((hl, p_hl), (tl, p_tl)):
+    for got, want in zip(lses, p_lses):
         if not torch.equal(got.isneginf(), want.isneginf()):
             raise RuntimeError(f"{name}: -inf pattern differs")
         fin = ~want.isneginf()
@@ -159,7 +165,7 @@ def decode_kernels(torch, out, h32, w32, fm, pack):
                                               ivf_score, ivf_score_plain,
                                               union_scores)
     from repro_torch.kernels.lsh_probe import lsh_probe
-    from repro_torch.kernels.topk_z import topk_z
+    from repro_torch.kernels.topk_z import topk_z, topk_z_plain
     dev = h32.device
     gen = torch.Generator(device=dev).manual_seed(1)
     q, k, nb, br, cap, live, n_tail = 8, 8, 474, 512, 128, 23, 1000
@@ -198,10 +204,12 @@ def decode_kernels(torch, out, h32, w32, fm, pack):
              torch.tensor(V, dtype=torch.int32, device=dev))
     for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "[f32]")):
         h, w = h32[:q].to(dtype), w32.to(dtype)
+        h16 = h32[:16].to(dtype)
         wb = w[blocks].reshape(nb, br, D)
         tail_rows = w[tail]
         runs = {
             "topk_z": lambda: topk_z(h, w, k),
+            "topk_z q16": lambda: topk_z(h16, w, k),
             "union_scores": lambda: union_scores(wb, h, head_ids, head_live),
             "union_scores 31 blocks": lambda: union_scores(wb, h, ids31,
                                                            live31),
@@ -218,6 +226,8 @@ def decode_kernels(torch, out, h32, w32, fm, pack):
                 w, h, idx.proj, rows, col, idx.codes, idx.slot_of_row,
                 plan.tail_ids, plan.tail_accept, plan.tail_bias, k=k)
         plains = {
+            "topk_z": lambda: topk_z_plain(h, w, k + 1),
+            "topk_z q16": lambda: topk_z_plain(h16, w, k + 1),
             "ivf_decode": lambda: ivf_decode_plain(
                 wb, h, head_ids, head_live, member, row_logw, tail_rows,
                 accept, k=k + 1),
@@ -226,11 +236,20 @@ def decode_kernels(torch, out, h32, w32, fm, pack):
             "ivf_score": lambda: ivf_score_plain(wb, h, probes),
             "ivf_score 23 blocks": lambda: ivf_score_plain(wb, h, shared),
         }
+        if dtype == torch.bfloat16:
+            hw = torch.randn(q, D_WIDE, generator=gen, device=dev).to(dtype)
+            ww = (torch.randn(V_WIDE, D_WIDE, generator=gen, device=dev)
+                  * V_WIDE ** -0.5).to(dtype)
+            runs["topk_z d8192"] = lambda: topk_z(hw, ww, k)
+            plains["topk_z d8192"] = lambda: topk_z_plain(hw, ww, k + 1)
+        # the first graph timed after the host-side set-up reads some 15%
+        # slow (a second kernel timed right after it does not): warm first
+        graph_ms(torch, runs["topk_z"])
         for name, fn in runs.items():
             res = fn()
             bits = digest(*(res if isinstance(res, tuple) else (res,)))
             kernel = name.split()[0]
-            if kernel in REDESIGNED:
+            if f"{kernel}{tag}" in REDESIGNED:
                 terms = (fmbe_phi_plain(fm.omega, fm.degree, fm.coef, h)
                          * lam if kernel == "fmbe_z" else None)
                 out["held"][f"{name}{tag}"] = held(
@@ -239,7 +258,8 @@ def decode_kernels(torch, out, h32, w32, fm, pack):
             else:
                 out["bits"][f"{name}{tag}"] = bits
             out["ms"][f"{name}{tag}"] = graph_ms(torch, fn)
-        del h, w, wb, tail_rows, runs
+        del h, h16, w, wb, tail_rows, runs, plains
+        hw = ww = None
         torch.cuda.empty_cache()
 
 
