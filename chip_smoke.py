@@ -269,6 +269,24 @@ GPU.
    and the prefix pool refused; the step's device ms, profile and trunk
    by kind (recurrences and conv apart).
 
+11b. The mesh phase (``mesh_last``), after the families are freed, on
+   the traffic phase's model and table (full-width qwen1.5-4b, mimps with
+   the fixed-capacity index and the guard, 16 lanes). (a) In this
+   process, a one-rank NCCL group at mesh (1, 1): the parity trace and 16
+   traffic requests through the captured mesh step, whose tokens and log
+   Z must equal the one-device captured scheduler's bit for bit, one
+   capture; both steps' replay device ms, the NCCL kernels of a replay,
+   the all-reduces of an eager step, the row gather and its all-reduce
+   timed apart, and an eager step's kernel calls held to their plain
+   versions. (b) Four processes of this script (``--mesh-rank``) on the
+   one card over gloo, eager, joined with a deadline: at (1, 4) every
+   method's ``shard_decode`` on 16 hidden states held to the one-device
+   decode on the same operands (top-1 equal, log Z within 1e-5, ids where
+   the scores are 1e-3 apart; whether the bits are equal logged); at
+   (2, 2) four greedy requests of 16 tokens, each equal to ``generate``
+   at batch 8 with the request in every lane (C9: a replica runs 8
+   lanes). The ranks' launches, peak memory and seconds come back.
+
 12. The VLM phase (``vlm_last``), last, after the families are freed:
    llama-3.2-vision-90b at its published widths (d 8192, d_ff 28672,
    vocab 128256, 1601 image tokens; bf16, seed 0) with its depth cut to
@@ -305,6 +323,7 @@ import functools
 import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -756,6 +775,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--mesh-rank"]:        # a rank of mesh_last's (b)
+        return mesh_rank(torch, int(sys.argv[2]), sys.argv[3], sys.argv[4])
     # the plain versions' f32 products run in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -828,6 +849,9 @@ def main() -> int:
     late.append(timed(families_last, kernels))
     gc.collect()
     torch.cuda.empty_cache()                    # the families are gone
+    late.append(timed(mesh_last, kernels))
+    gc.collect()
+    torch.cuda.empty_cache()                    # the mesh ranks are gone
     *vlm, vlm_records = timed(vlm_last, kernels)
     late.append(vlm)
     for counts, n_gated, held in late:
@@ -1612,7 +1636,10 @@ STEP_KERNEL_SITES = (("repro_torch.core.decode", "ivf_decode"),
                      ("repro_torch.core.decode", "union_scores"),
                      ("repro_torch.core.decode", "topk_z"),
                      ("repro_torch.core.backends", "topk_z"),
-                     ("repro_torch.core.feature_maps", "fmbe_z"))
+                     ("repro_torch.core.feature_maps", "fmbe_z"),
+                     ("repro_torch.serve.output_layer", "ivf_decode"),
+                     ("repro_torch.serve.output_layer", "union_scores"),
+                     ("repro_torch.serve.output_layer", "topk_z"))
 
 
 def held_step(torch, sched, victim, label, card):
@@ -3025,6 +3052,420 @@ def lifecycle(torch, card, kernels, params, cfg, floor):
         f"{rec['ungated_ms']:.4f} ms (bit-equal); lse err {err:.2e} "
         f"[{card}]")
     return rec, path
+
+
+M_RANKS = 4                       # (b): four processes on the one card
+M_SLOTS = 16                      # lanes of every mesh table (8 a replica
+                                  # at data 2)
+M_REQS, M_PROMPT, M_NEW = 4, 16, 16   # (b)'s (2, 2) run: greedy requests
+M_DEADLINE_S = 300                # (b)'s ranks are killed past this
+M_TRAFFIC = 16                    # (a): the traffic mix's first requests
+
+
+def mesh_last(torch, card, kernels):
+    """Phase 11b: the serving mesh (``launch.mesh``, ``Engine(mesh=)``,
+    the scheduler's mesh step) on full-width qwen1.5-4b, mimps with the
+    fixed-capacity index and the guard, the traffic phase's table (16
+    lanes, max_len 160).
+
+    (a) In this process, a one-rank NCCL group (``FileStore``), mesh
+        (1, 1): the parity trace and the first ``M_TRAFFIC`` requests of
+        the traffic mix (Poisson, numpy seed 0) through the captured mesh
+        scheduler and through the one-device captured scheduler on an
+        engine of the same index: tokens and log Z bit for bit, one
+        capture, ``ivf_decode`` once a step and the gated ``topk_z`` twice.
+        Each step's graph replay in device ms beside the other's, and the
+        mesh step's NCCL kernels by one replay under ``torch.profiler``
+        (every collective is issued at size 1 too). Then one eager mesh
+        step of a busy table with every kernel call held to its plain
+        version (``held_step``: ``ivf_decode`` on the staged union, the
+        gated ``topk_z`` on the rank's rows). The group is destroyed.
+    (b) ``M_RANKS`` processes of this script on the one card over gloo
+        (``mesh_rank``), eager, after everything above is freed: at (1, 4)
+        every method's ``shard_decode`` on 16 hidden states of the model
+        held to the one-device decode on the same operands (top-1 equal,
+        log Z within 1e-5, top ids equal where the scores are 1e-3 apart,
+        whether the bits are equal logged); at (2, 2) ``M_REQS`` greedy
+        requests of ``M_NEW`` tokens, each equal to ``generate`` at batch
+        8 with the request in every lane (C9's rule: a replica's trunk
+        runs 8 lanes). Each rank's kernel launches in that run, peak
+        memory and seconds come back to this process.
+
+    Returns the path's launches, the gated ``topk_z``'s and the held
+    calls' max abs err by record name."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import Model
+    from repro_torch.serve import (Engine, Request, Scheduler, Server,
+                                   poisson_arrivals, trace_arrivals)
+
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    counted = PathCounts(torch, kernels)
+    cfg = get_config("qwen1.5-4b")
+    params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    tmp = tempfile.mkdtemp(prefix="mesh_")
+    dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/nccl", 1),
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    held = {}
+    try:
+        mesh = make_serving_mesh(1, 1)
+        t0 = time.time()
+        eng = Engine(Model(cfg), params, T_MAX_LEN, seed=7,
+                     device_index=True, health_guard=True, device=dev,
+                     mesh=mesh)
+        solo = Engine(Model(cfg), params, T_MAX_LEN, seed=7,
+                      device_index=True, health_guard=True, device=dev,
+                      index_assign=eng.index.assign)
+        torch.cuda.synchronize()
+        log(f"mesh (a): a one-rank NCCL group, mesh (1, 1); a mesh engine "
+            f"and a one-device engine on its index in "
+            f"{time.time() - t0:.1f} s [{card}]")
+        gen = torch.Generator(device=dev).manual_seed(21)
+
+        def prompt(n):
+            return torch.randint(0, cfg.vocab, (n,), generator=gen,
+                                 device=dev).cpu().numpy()
+        par = [(prompt(p), n, 100 + i, t)
+               for i, (p, n, t) in enumerate(T_PARITY)]
+        lengths = (16, 32, 64, 128)
+        mix = [(prompt(lengths[i % 4]), T_NEW, 1000 + i,
+                0.0 if i % 2 == 0 else 0.8) for i in range(M_TRAFFIC)]
+
+        def run(sched):
+            reqs = [Request(prompt=p, max_new_tokens=n, seed=sd,
+                            temperature=t) for p, n, sd, t in par + mix]
+            arr = (trace_arrivals(reqs[:len(par)], list(T_PARITY_AT))
+                   + [dataclasses.replace(a, at_step=a.at_step + 40)
+                      for a in poisson_arrivals(reqs[len(par):], T_RATE,
+                                                seed=0)])
+            rep = Server(sched).run(arrivals=arr)
+            by = {c.request.req_id: c for c in rep.completions}
+            return rep, [(by[r.req_id].tokens, by[r.req_id].log_zs)
+                         for r in reqs]
+        s_solo = Scheduler(solo, T_SLOTS, prompt_cap=T_PROMPT_CAP, seed=3)
+        rep_s, want = run(s_solo)
+        s_mesh = Scheduler(eng, T_SLOTS, prompt_cap=T_PROMPT_CAP, seed=3)
+        (rep, got), counts, n_gated = counted(lambda: run(s_mesh))
+        check(got == want, "mesh (a): the captured mesh step's tokens or "
+              "log Z differ from the one-device captured scheduler's")
+        check(s_mesh.captures == 1, f"mesh (a): {s_mesh.captures} captures")
+        check(counts["ivf_decode"] == rep.steps, f"mesh (a): ivf_decode "
+              f"launched {counts['ivf_decode']} times in {rep.steps} steps")
+        check(n_gated == 2 * rep.steps, f"mesh (a): the gated topk_z "
+              f"launched {n_gated} times in {rep.steps} steps")
+        ms = {}
+        for name, s in (("one device", s_solo), ("mesh (1, 1)", s_mesh)):
+            ms[name] = _median_events(torch,
+                                      s._graphs[s.tier].graph.replay, 20)
+        nccl = graph_kernels(torch, s_mesh, "nccl")
+        log(f"mesh (a): {len(par) + M_TRAFFIC} requests (the parity trace, "
+            f"then the traffic mix at Poisson {T_RATE}/step), {rep.steps} "
+            f"steps ({rep_s.steps} on one device): tokens and log Z bit-equal "
+            f"to the one-device captured scheduler's; one capture; a step's "
+            f"graph replay {ms['mesh (1, 1)']:.4f} ms device against "
+            f"{ms['one device']:.4f} ms on one device (+"
+            f"{ms['mesh (1, 1)'] - ms['one device']:.4f} ms); NCCL kernels "
+            f"a step: {nccl}; {counts['ivf_decode']} ivf_decode and "
+            f"{n_gated} gated topk_z launches [{card}]")
+        del s_solo, s_mesh
+        # one eager mesh step of a busy table, each kernel call held
+        before = _build.snapshot()
+        s = Scheduler(eng, T_SLOTS, prompt_cap=T_PROMPT_CAP, seed=3,
+                      eager=True)
+        busy = [Request(prompt=p, max_new_tokens=n, seed=sd, temperature=t)
+                for p, n, sd, t in mix[:T_HELD_LANES]]
+        for r in busy:
+            s.admit(r)
+        for _ in range(T_HELD_WARM):
+            s.step()
+        calls = collectives_a_step(torch, s)
+        log(f"mesh (a): an eager mesh step issues {len(calls)} all-reduces "
+            f"(elements {calls}) on the one-rank groups [{card}]")
+        staging_ms(torch, s, calls[0] * 4, card)
+        held = held_step(torch, s, busy[1], "mesh (1, 1) held mimps step",
+                         card)
+        _build.restore(before)
+        for name in ("ivf_decode", "topk_z[gated]"):
+            check(name in held, f"mesh (a): no {name} call was held")
+        s.drain()
+        del s, eng, solo, mesh
+    finally:
+        dist.destroy_process_group()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    path, gated = counted.totals()
+    try:
+        rank_counts = mesh_ranks(torch, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for rc in rank_counts:
+        for name, n in rc["counts"].items():
+            path[name] = path.get(name, 0) + n
+        gated += rc["gated"]
+    log(f"mesh path launches {path}, gated topk_z {gated}; held max abs "
+        f"err {held}; phase {time.time() - t_phase:.1f} s [{card}]")
+    return path, gated, held
+
+
+def staging_ms(torch, sched, n_bytes, card):
+    """Device ms of the mesh step's row gather alone (``gather_rows`` of
+    the plan's capacity: 27 distinct blocks, the pad slots repeating the
+    last as ``plan_heads`` pads, then the tail rows) and of its all-reduce
+    alone, beside the time to write ``n_bytes`` once at the memory rate."""
+    from repro_torch.core.distributed import bitsum_
+    from repro_torch.serve.output_layer import gather_rows
+    index = sched.engine.index
+    nb, br, d = index.v_blocks.shape
+    cap = min(sched.n_slots * sched.engine.cfg.partition.n_probe, nb)
+    dev = index.v_blocks.device
+    ids = torch.clamp(torch.arange(cap, device=dev), max=26) * 20
+    slots = torch.cat([(ids[:, None] * br + torch.arange(br, device=dev)
+                        ).reshape(-1), torch.arange(1000, device=dev)])
+    flat = index.v_blocks.reshape(-1, d)
+    group = sched._model_group
+    rows = gather_rows(flat, slots, group)
+    gather = _median_events(torch, lambda: gather_rows(flat, slots, group),
+                            10)
+    reduce = _median_events(torch, lambda: bitsum_(rows, group), 10)
+    log(f"mesh (a): the row gather of {cap} union slots and 1000 tail rows "
+        f"({rows.numel() * rows.element_size() / 1e6:.1f} MB) "
+        f"{gather:.4f} ms, its all-reduce alone {reduce:.4f} ms, against "
+        f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms to write it once "
+        f"[{card}]")
+
+
+def collectives_a_step(torch, sched):
+    """The element counts of the all-reduces one eager step of ``sched``
+    issues, in order."""
+    import torch.distributed as dist
+    calls, real = [], dist.all_reduce
+
+    def counted(t, *args, **kwargs):
+        calls.append(t.numel())
+        return real(t, *args, **kwargs)
+    dist.all_reduce = counted
+    try:
+        sched.step()
+    finally:
+        dist.all_reduce = real
+    return calls
+
+
+def graph_kernels(torch, sched, needle):
+    """Kernels of one replay of ``sched``'s captured step whose name holds
+    ``needle``: 'n kernels, ms' by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    g = sched._graphs[sched.tier]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g.graph.replay()
+        torch.cuda.synchronize()
+    sched.reset_metrics()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and needle in e.name.lower():
+            name = e.name.split("(")[0][:48]
+            ms, n = by.get(name, (0.0, 0))
+            by[name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return "; ".join(f"{n} x{c} {v:.4f} ms" for n, (v, c) in by.items()) \
+        or "none"
+
+
+def mesh_ranks(torch, card, tmp):
+    """(b): ``M_RANKS`` processes of this script (``--mesh-rank``) joined
+    with a deadline, every one killed past it; returns each rank's
+    results and fails on any rank's failure."""
+    t0 = time.time()
+    procs = []
+    for r in range(M_RANKS):
+        out = open(f"{tmp}/rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+             str(r), f"{tmp}/gloo", tmp], cwd=ROOT, stdout=out,
+            stderr=subprocess.STDOUT), out))
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, t0 + M_DEADLINE_S - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, out in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    secs = time.time() - t0
+    logs = [Path(f"{tmp}/rank{r}.log").read_text() for r in range(M_RANKS)]
+    for r, (p, _) in enumerate(procs):
+        check(p.returncode == 0, f"mesh (b): rank {r} exited "
+              f"{p.returncode} after {secs:.1f} s:\n{logs[r][-3000:]}")
+    res = [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
+           for r in range(M_RANKS)]
+    for line in logs[0].splitlines():
+        log(line)
+    log(f"mesh (b): {M_RANKS} ranks on the one card over gloo in "
+        f"{secs:.1f} s; peak memory by rank "
+        f"{[round(x['peak_gb'], 3) for x in res]} GB, seconds by rank "
+        f"{[round(x['seconds'], 1) for x in res]} [{card}]")
+    check(all(x["tokens"] == res[0]["tokens"] for x in res),
+          "mesh (b): the ranks served different tokens")
+    return res
+
+
+def separated_ids_equal(name, got, ref):
+    """Top-k scores of two decodes to TOL, and their ids equal at every
+    rank whose score is more than TOL from its neighbours' (the last rank:
+    from the one above). Returns the number of ids compared."""
+    gv, gi, rv, ri = (t.float().cpu() for t in (got.top_score, got.top_id,
+                                                ref.top_score, ref.top_id))
+    err = (gv - rv).abs().max().item()
+    check(err <= TOL, f"{name}: top-k scores differ by {err}")
+    n, k = 0, rv.shape[1]
+    for q in range(rv.shape[0]):
+        for j in range(k):
+            up = rv[q, j - 1] - rv[q, j] if j else float("inf")
+            down = rv[q, j] - rv[q, j + 1] if j + 1 < k else float("inf")
+            if up > TOL and down > TOL:
+                check(gi[q, j] == ri[q, j], f"{name}: query {q} rank {j} "
+                      f"id {int(gi[q, j])} != {int(ri[q, j])}")
+                n += 1
+    return n
+
+
+def mesh_rank(torch, rank, store, out):
+    """One rank of ``mesh_last``'s (b), on the one card: a gloo group of
+    ``M_RANKS`` over ``store``, full-width qwen1.5-4b from seed 0, then
+    the (1, 4) decode holds and the (2, 2) run. Writes
+    ``<out>/rank<r>.json``; rank 0 logs."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.backends import get_backend, local_shard
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fmbe import fmbe_z
+    from repro_torch.kernels.ivf_score import ivf_decode, union_scores
+    from repro_torch.kernels.lsh_probe import lsh_probe
+    from repro_torch.kernels.topk_z import topk_z
+    from repro_torch.launch.mesh import axis_group, make_serving_mesh
+    from repro_torch.models import Model
+    from repro_torch.serve import (Engine, Request, Scheduler, Server,
+                                   generate, trace_arrivals)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.time()
+    say = log if rank == 0 else (lambda msg: None)
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo", store=dist.FileStore(store, M_RANKS),
+                            rank=rank, world_size=M_RANKS,
+                            timeout=datetime.timedelta(seconds=120))
+    cfg = get_config("qwen1.5-4b")
+    pc = cfg.partition
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.reset_peak_memory_stats()
+    # -- (1, 4): every method's shard_decode against the one-device decode
+    mesh = make_serving_mesh(1, M_RANKS, device_type="cuda")
+    group = axis_group(mesh, "model")
+    t0 = time.time()
+    eng = Engine(model, params, T_MAX_LEN, seed=7, device_index=True,
+                 health_guard=True, device=dev, mesh=mesh)
+    toks = torch.randint(0, cfg.vocab, (16, M_PROMPT), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(5))
+    h = eng.prefill(toks)[0].contiguous()
+    say(f"mesh (b) (1, 4): engine (index padded to "
+        f"{eng.index.n_blocks} blocks) and 16 hidden states in "
+        f"{time.time() - t0:.1f} s")
+    for method in SERVE_METHODS:
+        backend = get_backend(method)
+        st = eng.tier_state(method)
+        tail = (backend.draw_tail(st, pc, torch.Generator(
+            device=dev).manual_seed(9)) if backend.has_tail(st) else None)
+        # lsh keeps its plain path under the mesh (serve.output_layer)
+        ref = backend.decode(st, h, pc, k=pc.sample_k,
+                             use_kernel=method != "lsh", tail_idx=tail)
+        loc = local_shard(st, M_RANKS, rank)
+
+        def shard():
+            return backend.shard_decode(loc, h, pc, group=group,
+                                        k=pc.sample_k, use_kernel=True,
+                                        tail_idx=tail)
+        got = shard()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        shard()
+        torch.cuda.synchronize()
+        secs = time.time() - t1
+        check(torch.equal(got.top_id[:, 0], ref.top_id[:, 0]),
+              f"mesh (b) (1, 4) {method}: top-1 ids differ")
+        err = (got.log_z - ref.log_z).abs().max().item()
+        check(err <= 1e-5, f"mesh (b) (1, 4) {method}: log Z differs by "
+              f"{err}")
+        n_ids = separated_ids_equal(f"mesh (b) (1, 4) {method}", got, ref)
+        bits = all(torch.equal(a, b) for a, b in zip(got[:6], ref[:6]))
+        say(f"mesh (b) (1, 4) {method}: top-1 equal, log Z err {err:.2e}, "
+            f"{n_ids} separated ids equal, bits equal: {bits}; "
+            f"shard_decode {secs * 1e3:.1f} ms on gloo")
+    assign = eng.index.assign
+    del eng, loc, st, ref, got
+    torch.cuda.empty_cache()
+    # -- (2, 2): M_REQS greedy requests, each held to generate at batch 8
+    mesh = make_serving_mesh(2, M_RANKS // 2, device_type="cuda")
+    eng = Engine(model, params, T_MAX_LEN, seed=7, device_index=True,
+                 health_guard=True, device=dev, mesh=mesh,
+                 index_assign=assign)
+    sched = Scheduler(eng, M_SLOTS, prompt_cap=T_PROMPT_CAP, seed=3,
+                      eager=True)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    reqs = [Request(prompt=torch.randint(0, cfg.vocab, (M_PROMPT,),
+                                         generator=gen, device=dev),
+                    max_new_tokens=M_NEW, seed=200 + i)
+            for i in range(M_REQS)]
+    kernels = {"topk_z": topk_z, "ivf_decode": ivf_decode,
+               "union_scores": union_scores, "fmbe_z": fmbe_z,
+               "lsh_probe": lsh_probe}
+    torch.cuda.synchronize()
+    _build.reset_counts(kernels.values())
+    t0 = time.time()
+    rep = Server(sched).run(arrivals=trace_arrivals(reqs, list(
+        range(M_REQS))))
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    counts = {name: k.launches for name, k in kernels.items()}
+    gated = topk_z.gated
+    counts["topk_z"] -= gated
+    by = {c.request.req_id: c for c in rep.completions}
+    tokens = [by[r.req_id].tokens for r in reqs]
+    check(all(len(t) == M_NEW for t in tokens), "mesh (b) (2, 2): a "
+          "request did not complete")
+    for r, got in zip(reqs, tokens):
+        want = generate(eng, torch.as_tensor(r.prompt, device=dev)[None]
+                        .expand(sched.lanes_per_replica, -1), M_NEW)
+        check(want[0].tolist() == got, f"mesh (b) (2, 2): request "
+              f"{r.req_id}'s tokens differ from generate at batch "
+              f"{sched.lanes_per_replica}")
+    say(f"mesh (b) (2, 2): {M_REQS} requests of {M_NEW} tokens on "
+        f"{M_SLOTS} lanes ({sched.lanes_per_replica} a replica), "
+        f"{rep.steps} eager steps in {secs:.2f} s ({secs / rep.steps * 1e3:.1f}"
+        f" ms a step on gloo), each equal to generate at batch "
+        f"{sched.lanes_per_replica}; launches {counts}, gated topk_z "
+        f"{gated}")
+    res = {"rank": rank, "counts": counts, "gated": gated, "tokens": tokens,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.time() - t_start}
+    dist.destroy_process_group()
+    Path(f"{out}/rank{rank}.json").write_text(json.dumps(res))
+    return 0
 
 
 V_ARCH = "llama-3.2-vision-90b"

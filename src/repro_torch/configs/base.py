@@ -129,8 +129,7 @@ class ServingConfig:
     verify_index_every: int = 0
     # admission lookahead: on a mesh with the prefix cache, the server may
     # HOLD up to admit_window queued requests whose cached blocks live on a
-    # full data replica, force-admitting one after admit_hold holds. The
-    # port serves one replica, so its Server refuses admit_window > 0;
+    # full data replica, force-admitting one after admit_hold holds;
     # 0 = strict FIFO.
     admit_window: int = 0
     admit_hold: int = 8

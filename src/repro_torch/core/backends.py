@@ -5,8 +5,9 @@ port carries ``exact``, ``selfnorm``, ``mimps``, ``mince``, ``topk``,
 A backend has two obligations: ``build`` derives its retrieval state from
 the output embedding ``w (V, d)`` once (``refresh`` rebuilds it from a new
 one), and ``decode`` runs one batched decode step returning the uniform
-``DecodeOut``. Backends also own their byte accounting
-(``embedding_floats`` / ``floats_bound``).
+``DecodeOut``; ``shard_decode`` is its twin under the serving mesh, on the
+rank's shard of the state (``local_shard``). Backends also own their byte
+accounting (``embedding_floats`` / ``floats_bound``).
 """
 from __future__ import annotations
 
@@ -119,6 +120,21 @@ class EstimatorBackend:
                active: Optional[torch.Tensor] = None) -> DecodeOut:
         raise NotImplementedError
 
+    def shard_decode(self, state: BackendState, h: torch.Tensor,
+                     cfg: PartitionConfig, *, group, k: int = 1,
+                     use_kernel: bool = True,
+                     generator: Optional[torch.Generator] = None,
+                     tail_idx: Optional[torch.Tensor] = None,
+                     active: Optional[torch.Tensor] = None) -> DecodeOut:
+        """The serving mesh's twin of ``decode``: ``state`` is this rank's
+        ``local_shard`` (its rows of ``w`` and of the IVF ``v_blocks``, all
+        metadata whole) and ``group`` the mesh's ``model`` group. The same
+        ``DecodeOut``; the probe paths are bit-equal to ``decode`` at every
+        mesh size (``serve.output_layer``). Draws must be the same on every
+        rank of the group (``tail_idx``, or generators seeded alike)."""
+        raise NotImplementedError(
+            f"backend {self.method!r} has no mesh serving path")
+
     def has_tail(self, state: BackendState) -> bool:
         """Whether ``decode`` on this state samples a shared tail (and so
         reads ``tail_idx`` or draws from ``generator``)."""
@@ -174,6 +190,12 @@ class ExactBackend(EstimatorBackend):
                tail_idx=None, active=None):
         return exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel)
 
+    def shard_decode(self, state, h, cfg, *, group, k=1, use_kernel=True,
+                     generator=None, tail_idx=None, active=None):
+        from ..serve.output_layer import mesh_exact_decode
+        return mesh_exact_decode(state.w, h, k=k, use_kernel=use_kernel,
+                                 group=group)
+
 
 @register_backend
 class SelfnormBackend(EstimatorBackend):
@@ -182,6 +204,12 @@ class SelfnormBackend(EstimatorBackend):
     def decode(self, state, h, cfg, *, k=1, use_kernel=True, generator=None,
                tail_idx=None, active=None):
         return selfnorm_decode(state.w, h, k=k, use_kernel=use_kernel)
+
+    def shard_decode(self, state, h, cfg, *, group, k=1, use_kernel=True,
+                     generator=None, tail_idx=None, active=None):
+        from ..serve.output_layer import mesh_selfnorm_decode
+        return mesh_selfnorm_decode(state.w, h, k=k, use_kernel=use_kernel,
+                                    group=group)
 
 
 class _IndexedBackend(EstimatorBackend):
@@ -226,6 +254,19 @@ class MimpsBackend(_IndexedBackend):
                             head_cap=cfg.head_cap, generator=generator,
                             tail_idx=tail_idx, active=active)
 
+    def shard_decode(self, state, h, cfg, *, group, k=1, use_kernel=True,
+                     generator=None, tail_idx=None, active=None):
+        from ..serve.output_layer import (mesh_exact_decode,
+                                          mesh_mimps_decode)
+        if state.index is None:
+            return mesh_exact_decode(state.w, h, k=k, use_kernel=use_kernel,
+                                     group=group)
+        return mesh_mimps_decode(state.index, h, n_probe=cfg.n_probe,
+                                 l=cfg.l, k=k, use_kernel=use_kernel,
+                                 head_cap=cfg.head_cap, generator=generator,
+                                 tail_idx=tail_idx, active=active,
+                                 group=group)
+
 
 @register_backend
 class MinceBackend(_IndexedBackend):
@@ -240,6 +281,21 @@ class MinceBackend(_IndexedBackend):
                             solver=cfg.mince_solver, use_kernel=use_kernel,
                             head_cap=cfg.head_cap, generator=generator,
                             tail_idx=tail_idx, active=active)
+
+    def shard_decode(self, state, h, cfg, *, group, k=1, use_kernel=True,
+                     generator=None, tail_idx=None, active=None):
+        from ..serve.output_layer import (mesh_exact_decode,
+                                          mesh_mince_decode)
+        if state.index is None:
+            return mesh_exact_decode(state.w, h, k=k, use_kernel=use_kernel,
+                                     group=group)
+        return mesh_mince_decode(state.index, h, n_probe=cfg.n_probe,
+                                 l=cfg.l, k=k, iters=cfg.mince_iters,
+                                 solver=cfg.mince_solver,
+                                 use_kernel=use_kernel,
+                                 head_cap=cfg.head_cap, generator=generator,
+                                 tail_idx=tail_idx, active=active,
+                                 group=group)
 
 
 @register_backend
@@ -256,6 +312,16 @@ class TopkBackend(_IndexedBackend):
         return topk_head_decode(state.index, h, n_probe=cfg.n_probe, k=k,
                                 use_kernel=use_kernel, head_cap=cfg.head_cap,
                                 active=active)
+
+    def shard_decode(self, state, h, cfg, *, group, k=1, use_kernel=True,
+                     generator=None, tail_idx=None, active=None):
+        from ..serve.output_layer import mesh_exact_decode, mesh_topk_decode
+        if state.index is None:
+            return mesh_exact_decode(state.w, h, k=k, use_kernel=use_kernel,
+                                     group=group)
+        return mesh_topk_decode(state.index, h, n_probe=cfg.n_probe, k=k,
+                                use_kernel=use_kernel, head_cap=cfg.head_cap,
+                                active=active, group=group)
 
     def embedding_floats(self, state, cfg, q, u=None):
         return _head_floats(state, cfg, q, u)
@@ -298,6 +364,19 @@ class FmbeBackend(EstimatorBackend):
         return fmbe_decode(state.fmbe, state.index, h, n_probe=cfg.n_probe,
                            k=k, use_kernel=use_kernel, head_cap=cfg.head_cap,
                            active=active)
+
+    def shard_decode(self, state, h, cfg, *, group, k=1, use_kernel=True,
+                     generator=None, tail_idx=None, active=None):
+        from ..serve.output_layer import mesh_exact_decode, mesh_fmbe_decode
+        if state.index is None:
+            out = mesh_exact_decode(state.w, h, k=k, use_kernel=use_kernel,
+                                    group=group)
+            z = fmbe_z_batch(state.fmbe, h, use_kernel)   # sketch is whole
+            return out._replace(log_z=torch.log(torch.clamp(z, min=1e-30)))
+        return mesh_fmbe_decode(state.fmbe, state.index, h,
+                                n_probe=cfg.n_probe, k=k,
+                                use_kernel=use_kernel, head_cap=cfg.head_cap,
+                                active=active, group=group)
 
     def embedding_floats(self, state, cfg, q, u=None):
         """The feature sketch (omega and lambda), the candidate head and the
@@ -342,6 +421,18 @@ class LshBackend(EstimatorBackend):
                                generator=generator, tail_ids=tail_idx,
                                active=active)
 
+    def shard_decode(self, state, h, cfg, *, group, k=1, use_kernel=True,
+                     generator=None, tail_idx=None, active=None):
+        """The plain path whatever ``use_kernel`` (``serve.output_layer``
+        says why): eager only."""
+        from ..serve.output_layer import mesh_exact_decode, mesh_lsh_decode
+        if state.lsh is None:
+            return mesh_exact_decode(state.w, h, k=k, use_kernel=use_kernel,
+                                     group=group)
+        return mesh_lsh_decode(state.lsh, state.w, h, l=cfg.l, k=k,
+                               cand_cap=cfg.head_cap, generator=generator,
+                               tail_ids=tail_idx, active=active, group=group)
+
     def has_tail(self, state):
         return state.lsh is not None
 
@@ -372,29 +463,74 @@ def fmbe_block_state(fm: FeatureMap, index: _mips.IVFIndex,
                      pack=pack)
 
 
+def state_partition_specs(state: BackendState,
+                          n_model: int) -> Dict[str, int]:
+    """Which leaves of a retrieval state split over the serving mesh's
+    ``model`` group, as {leaf path: split dim}: only the O(V d) payloads,
+    the embedding rows ``w`` and the IVF ``v_blocks`` block axis. Every
+    per-block metadata leaf, the FMBE sketch and the LSH tables stay whole,
+    which is what lets the mesh bodies plan with the single-device code.
+    A payload whose extent ``n_model`` does not divide stays whole (the
+    engine refuses such a mesh up front)."""
+    specs = {}
+    if state.w.shape[0] % n_model == 0:
+        specs["w"] = 0
+    if state.index is not None and \
+            state.index.v_blocks.shape[0] % n_model == 0:
+        specs["index.v_blocks"] = 0
+    return specs
+
+
+def local_shard(state: BackendState, n_model: int,
+                rank: int) -> BackendState:
+    """Rank ``rank``'s shard of ``state`` by ``state_partition_specs``: its
+    contiguous rows of each split leaf (views, no copy), every other leaf
+    as it is."""
+    specs = state_partition_specs(state, n_model)
+
+    def part(t):
+        n = t.shape[0] // n_model
+        return t[rank * n:(rank + 1) * n]
+
+    w = part(state.w) if "w" in specs else state.w
+    index = state.index
+    if "index.v_blocks" in specs:
+        index = index._replace(v_blocks=part(index.v_blocks))
+    return dataclasses.replace(state, w=w, index=index)
+
+
 def verify_decode(backend: EstimatorBackend, state: BackendState,
                   h: torch.Tensor, cfg: PartitionConfig, *, k: int = 1,
                   active: Optional[torch.Tensor] = None,
                   use_kernel: bool = True,
                   generator: Optional[torch.Generator] = None,
-                  tail_idx: Optional[torch.Tensor] = None) -> DecodeOut:
+                  tail_idx: Optional[torch.Tensor] = None,
+                  group=None) -> DecodeOut:
     """k-position verification in one decode: the (S, k_pos, d) stack of
     drafted hidden states is flattened lane-major to (S * k_pos, d) and
     decoded by the backend; ``active`` is per lane (S,) and expanded to
     rows. Every probe path computes candidates per query, so each row's
     output is what a separate one-position step would give. Leaves come
-    back flat; callers reshape to (S, k_pos, ...)."""
+    back flat; callers reshape to (S, k_pos, ...). With ``group`` (the
+    serving mesh's model group) the state is this rank's shard and the
+    backend's ``shard_decode`` runs."""
     s_lanes, kpos, d = h.shape
     hf = h.reshape(s_lanes * kpos, d)
     act = None if active is None else \
         active[:, None].expand(-1, kpos).reshape(-1)
+    if group is not None:
+        return backend.shard_decode(state, hf, cfg, group=group, k=k,
+                                    use_kernel=use_kernel,
+                                    generator=generator, tail_idx=tail_idx,
+                                    active=act)
     return backend.decode(state, hf, cfg, k=k, use_kernel=use_kernel,
                           generator=generator, tail_idx=tail_idx, active=act)
 
 
 def shadow_exact_log_z(state: BackendState, h: torch.Tensor, *, k: int = 1,
                        use_kernel: bool = True,
-                       rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       rows: Optional[torch.Tensor] = None,
+                       group=None) -> torch.Tensor:
     """Ground-truth log Z for the shadow-telemetry oracle: the ``exact``
     backend's log Z reproduced term for term, through the same
     ``exact_topk_decode`` route (``topk_z`` at ``k`` on the card), so the
@@ -404,7 +540,14 @@ def shadow_exact_log_z(state: BackendState, h: torch.Tensor, *, k: int = 1,
     ``rows`` (Q,) int32 scores only the queries whose entry is nonzero (the
     gated ``topk_z``, no host read) and gives -inf in the others: the
     scheduler's shadow cadence, where JAX takes a ``lax.cond``. A gated
-    row's log Z is the ungated one's bit for bit."""
+    row's log Z is the ungated one's bit for bit. With ``group`` (the
+    serving mesh's model group) ``state.w`` is this rank's rows and the
+    exact tier's mesh log Z is reproduced (``output_layer.
+    mesh_shadow_log_z``)."""
+    if group is not None:
+        from ..serve.output_layer import mesh_shadow_log_z
+        return mesh_shadow_log_z(state.w, h, k=k, use_kernel=use_kernel,
+                                 rows=rows, group=group)
     if rows is None:
         return exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel).log_z
     if use_kernel:

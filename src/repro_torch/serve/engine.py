@@ -122,17 +122,32 @@ class Engine:
     ``health_guard=True`` routes unhealthy queries of every step to the
     exact pass (``core.decode.apply_health_guard``). An audio model builds
     no retrieval state (``state`` and ``index`` are None) and takes no
-    guard, as in the JAX engine."""
+    guard, as in the JAX engine.
+
+    ``mesh`` (``launch.mesh.make_serving_mesh``) is the (data, model)
+    serving mesh the slot scheduler steps over; every rank of it builds
+    the engine from the same seed and params, and the construction checks
+    that they agree (a digest of the params and the index, MAX - MIN over
+    the ranks). The index's block axis is padded to a multiple of the
+    model degree. The engine keeps the whole retrieval state, as the JAX
+    engine does: its own paths (``generate``, ``prefill``) stay on one
+    device and are what the mesh step is held to, and the scheduler takes
+    each rank's rows as views of it. Unlike the JAX engine, which refuses
+    ``use_pallas`` under a mesh because a Pallas call could not run inside
+    ``shard_map``, the port keeps ``use_kernel``: the mesh bodies launch
+    the kernels on gathered operands and compute the same function."""
 
     def __init__(self, model: Model, params, max_len: int, *, seed: int = 0,
                  use_kernel: bool = True, device="cuda",
                  device_index: bool = False, health_guard: bool = False,
                  index_assign: Optional[torch.Tensor] = None,
                  feature_map: Optional[FeatureMap] = None,
-                 lsh_proj: Optional[torch.Tensor] = None):
+                 lsh_proj: Optional[torch.Tensor] = None, mesh=None):
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model.cfg
+        self.mesh = mesh
+        self._block_multiple = self._mesh_multiple(mesh)
         self.params = params
         self.max_len = max_len
         self.use_kernel = use_kernel
@@ -163,6 +178,41 @@ class Engine:
         # restores land in the trace as instants. None = off.
         self.obs = None
         self._record_digest()
+        if mesh is not None:
+            self._check_ranks_agree()
+
+    def _mesh_multiple(self, mesh) -> int:
+        """The JAX engine's mesh checks; returns the index's block
+        multiple (the model degree, 1 without a mesh)."""
+        if mesh is None:
+            return 1
+        from ..launch.mesh import axis_size
+        names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+        for ax in ("data", "model"):
+            if ax not in names:
+                raise ValueError(f"serving mesh must have ('data', 'model') "
+                                 f"dims, got {names}")
+        m = axis_size(mesh, "model")
+        if self.cfg.n_codebooks:
+            raise ValueError("mesh serving does not support audio heads")
+        if m > 1 and self.cfg.vocab % m:
+            raise ValueError(
+                f"vocab {self.cfg.vocab} must divide the model-parallel "
+                f"degree {m} to shard the output embedding rows")
+        return m
+
+    def _check_ranks_agree(self) -> None:
+        """Every rank of the mesh must hold the same params and index: a
+        digest of each (the sum and norm of every parameter, the index's
+        ``_digest``) compared across the ranks."""
+        from ..launch.mesh import check_replicated
+        f32 = torch.float32
+        parts = [torch.stack([torch.sum(t, dtype=f32),
+                              torch.linalg.vector_norm(t, dtype=f32)])
+                 for t in tree_leaves(self.params) if t.is_floating_point()]
+        vals = torch.cat(parts).tolist() if parts else []
+        vals += list(self._digests.get(self.backend.method, ()))
+        check_replicated(vals, what="params and index")
 
     # -- retrieval-state lifecycle ---------------------------------------------
 
@@ -177,7 +227,8 @@ class Engine:
         generator."""
         return build_fn(self.cfg.partition, self.model.head_matrix(params),
                         generator=self._build_generator(), device=self.device,
-                        device_index=self.device_index, **inject)
+                        device_index=self.device_index,
+                        block_multiple=self._block_multiple, **inject)
 
     def _record_digest(self) -> None:
         if self.index is not None:

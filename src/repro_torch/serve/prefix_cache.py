@@ -1,5 +1,5 @@
 """Shared-prefix KV cache for the slot scheduler (counterpart of
-``repro.serve.prefix_cache``; single replica).
+``repro.serve.prefix_cache``).
 
 Every admitted request replays its prompt through its own KV lane one token
 a step, even when many prompts open with the same preamble. The prefix
@@ -29,6 +29,17 @@ frontier. Neither holds for sliding-window ring buffers or recurrent
 states, so the scheduler gates the pool on full-attention KV caches. Lanes
 copy pool blocks instead of sharing them, so eviction can never corrupt a
 request in flight.
+
+Under the serving mesh the block ids split over the data replicas as the
+lanes do: replica r owns blocks [r * n_blocks / R, (r + 1) * n_blocks / R)
+and holds only those on its ranks. The trie is the same on every rank
+(the host loop is replicated); a finished lane's blocks are allocated on
+its own replica, a chain's owner is the replica of its first block, the
+scheduler routes an admission to the owner and a lane elsewhere forfeits
+the hit. A chain may reach into another replica's blocks (a later prompt
+extending an earlier one from another replica); the JAX pool gathers those
+across replicas, while here a load takes only the chain's leading run on
+the owner (``owned_run``): fewer replay steps saved, the same tokens.
 """
 from __future__ import annotations
 
@@ -37,6 +48,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..launch.mesh import serve_cache_spec
 from ..models.attention import slice_lane_window, write_lane_window
 
 
@@ -55,22 +67,19 @@ def cache_is_kv_only(cache) -> bool:
 
 class PrefixPool:
     """Fixed-capacity shared-prefix KV pool, built by the scheduler against
-    its own cache tensors. Single replica: the JAX package's mesh layout
-    (blocks sharded over the data axis, ``serve_cache_spec``) is not
-    ported."""
+    its own cache tensors. ``n_replicas`` is the mesh's data degree and
+    ``replica`` this rank's: the device pool holds that replica's
+    ``n_blocks // n_replicas`` blocks."""
 
     def __init__(self, cache_template, n_blocks: int, block_tokens: int,
-                 max_match_blocks: int, mesh=None, cache_shardings=None,
-                 n_replicas: int = 1):
-        if mesh is not None or cache_shardings is not None or \
-                n_replicas != 1:
-            raise NotImplementedError(
-                "the prefix pool over a (data, model) mesh "
-                "(repro.serve.prefix_cache.PrefixPool with mesh=, "
-                "launch.mesh.serve_cache_spec) is not ported; the port "
-                "serves one replica")
+                 max_match_blocks: int, n_replicas: int = 1,
+                 replica: int = 0):
         if n_blocks < 1 or block_tokens < 1:
             raise ValueError("prefix pool needs n_blocks/block_tokens >= 1")
+        if n_blocks % n_replicas:
+            raise ValueError(
+                f"prefix_cache_blocks {n_blocks} must divide the data "
+                f"degree {n_replicas} (blocks are replica-local)")
         if not cache_is_kv_only(cache_template):
             raise NotImplementedError(
                 "the prefix cache block-copies full-attention KV rows; "
@@ -78,14 +87,18 @@ class PrefixPool:
         self.n_blocks = n_blocks
         self.block_tokens = block_tokens
         self.max_match_blocks = max_match_blocks
+        self.n_replicas = n_replicas
+        self.replica = replica
+        self.blocks_per_replica = n_blocks // n_replicas
 
-        def make(leaf):
+        def make(name, leaf):
             shape = list(leaf.shape)
-            shape[-4] = n_blocks
-            shape[-3] = block_tokens
+            lane = serve_cache_spec(f"[{name!r}]", leaf)    # the lane axis
+            shape[lane] = self.blocks_per_replica
+            shape[lane + 1] = block_tokens
             return torch.zeros(shape, dtype=leaf.dtype, device=leaf.device)
 
-        self.pool = {name: make(leaf) for name, leaf in
+        self.pool = {name: make(name, leaf) for name, leaf in
                      cache_template.items()}
         dev = next(iter(self.pool.values())).device
         self._ids = torch.zeros((max_match_blocks,), dtype=torch.long,
@@ -97,7 +110,9 @@ class PrefixPool:
         self._children: Dict[int, int] = {}
         self._lru: Dict[int, int] = {}
         self._tick = 0
-        self._free: List[int] = list(range(n_blocks))
+        bpr = self.blocks_per_replica
+        self._free: List[List[int]] = [list(range(r * bpr, (r + 1) * bpr))
+                                       for r in range(n_replicas)]
         # -- counters (surfaced through scheduler step records / reports)
         self.hits = 0               # admissions that loaded >= 1 block
         self.saved_steps = 0        # replay steps skipped (sum of t0)
@@ -115,9 +130,10 @@ class PrefixPool:
     def match(self, tokens, p_len: int) -> Tuple[int, List[int],
                                                  Optional[int]]:
         """Longest cached block-aligned prefix of ``tokens``: (matched
-        blocks, block ids, owner replica: 0 on a hit, None on a miss). The
-        usable match is capped at (p_len - 1) // block_tokens: the lane's
-        last replay step must still run to emit the first token."""
+        blocks, block ids, owner replica: that of the first block, None on
+        a miss). The usable match is capped at (p_len - 1) // block_tokens:
+        the lane's last replay step must still run to emit the first
+        token."""
         limit = min((p_len - 1) // self.block_tokens, self.max_match_blocks)
         ids: List[int] = []
         parent = -1
@@ -130,14 +146,24 @@ class PrefixPool:
         self._tick += 1
         for bid in ids:
             self._lru[bid] = self._tick
-        return len(ids), ids, (0 if ids else None)
+        owner = ids[0] // self.blocks_per_replica if ids else None
+        return len(ids), ids, owner
 
-    def _alloc(self, protect) -> Optional[int]:
-        """A free block, else the least recently used leaf outside
-        ``protect`` (evicted), else None."""
-        if self._free:
-            return self._free.pop(0)
-        leaves = [b for b in range(self.n_blocks)
+    def owned_run(self, ids: List[int], replica: int) -> List[int]:
+        """The leading blocks of a matched chain that ``replica`` holds."""
+        n = 0
+        while n < len(ids) and ids[n] // self.blocks_per_replica == replica:
+            n += 1
+        return ids[:n]
+
+    def _alloc(self, replica: int, protect) -> Optional[int]:
+        """A free block of ``replica``, else the least recently used of its
+        leaves outside ``protect`` (evicted), else None."""
+        free = self._free[replica]
+        if free:
+            return free.pop(0)
+        bpr = self.blocks_per_replica
+        leaves = [b for b in range(replica * bpr, (replica + 1) * bpr)
                   if self._children.get(b, 1) == 0 and b not in protect]
         if not leaves:
             return None
@@ -153,15 +179,20 @@ class PrefixPool:
 
     # -- device copies (called by the scheduler) ------------------------------
 
-    def load(self, cache, ids: List[int], lane: int):
-        """Copy matched pool blocks into lane ``lane`` of ``cache`` in place
-        and return it; padded id slots gather block 0, garbage past the
-        matched length that the replay overwrites before it is attended."""
-        padded = np.zeros((self.max_match_blocks,), np.int64)
-        padded[:len(ids)] = ids
-        self._ids.copy_(torch.from_numpy(padded))
+    def load(self, cache, ids: List[int], lane: Optional[int]):
+        """Copy matched pool blocks (this replica's) into lane ``lane`` of
+        ``cache`` in place and return it; padded id slots gather the
+        replica's first block, garbage past the matched length that the
+        replay overwrites before it is attended. ``cache`` None (a lane of
+        another replica) counts the hit and copies nothing."""
         self.hits += 1
         self.saved_steps += len(ids) * self.block_tokens
+        if cache is None:
+            return None
+        padded = np.zeros((self.max_match_blocks,), np.int64)
+        padded[:len(ids)] = np.asarray(ids, np.int64) - \
+            self.replica * self.blocks_per_replica
+        self._ids.copy_(torch.from_numpy(padded))
         mcap, bt = self.max_match_blocks, self.block_tokens
         for name, cleaf in cache.items():
             got = self.pool[name].index_select(-4, self._ids)
@@ -170,10 +201,12 @@ class PrefixPool:
             write_lane_window(cleaf, rows, lane, 0)
         return cache
 
-    def insert(self, tokens, p_len: int, cache, lane: int) -> int:
+    def insert(self, tokens, p_len: int, cache, lane: Optional[int],
+               replica: int = 0) -> int:
         """Register a cleanly finished lane's prompt blocks: walk the trie
-        and copy each missing block out of the lane's KV. Returns the
-        number of blocks saved."""
+        and allocate each missing block on the lane's ``replica``, copying
+        it out of the lane's KV where that replica is this rank's (``lane``
+        its index in ``cache``). Returns the number of blocks saved."""
         limit = min((p_len - 1) // self.block_tokens, self.max_match_blocks)
         parent = -1
         path: set = set()
@@ -181,7 +214,7 @@ class PrefixPool:
         for i, chunk in enumerate(self._chunks(np.asarray(tokens), limit)):
             bid = self._node.get((parent, chunk))
             if bid is None:
-                bid = self._alloc(path)
+                bid = self._alloc(replica, path)
                 if bid is None:
                     break
                 self._node[(parent, chunk)] = bid
@@ -189,11 +222,13 @@ class PrefixPool:
                 self._children[bid] = 0
                 if parent >= 0:
                     self._children[parent] += 1
-                for name, cleaf in cache.items():
-                    rows = slice_lane_window(cleaf, lane,
-                                             i * self.block_tokens,
-                                             self.block_tokens)
-                    write_lane_window(self.pool[name], rows, bid, 0)
+                if replica == self.replica:
+                    local = bid - replica * self.blocks_per_replica
+                    for name, cleaf in cache.items():
+                        rows = slice_lane_window(cleaf, lane,
+                                                 i * self.block_tokens,
+                                                 self.block_tokens)
+                        write_lane_window(self.pool[name], rows, local, 0)
                 self.inserted += 1
                 saved += 1
             self._tick += 1

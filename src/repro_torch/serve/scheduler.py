@@ -1,6 +1,5 @@
 """Continuous-batching slot scheduler: one mixed prefill/decode step over a
-fixed-capacity slot table (counterpart of ``repro.serve.scheduler``;
-single device).
+fixed-capacity slot table (counterpart of ``repro.serve.scheduler``).
 
 ``generate`` serves one synchronous same-length batch a call; under traffic
 that leaves lanes idle while the longest request drains. The scheduler
@@ -68,8 +67,32 @@ a lane with a cheap backend and verifies them with one decode of the
 lane's tier. It is the same step body: at ``spec_k = 1`` (no draft) the
 body is the plain step.
 
-Not ported: the ``(data, model)`` mesh (``shard_map`` over replicas); the
-port serves one replica.
+**The serving mesh.** On an engine with a (data, model) mesh
+(``Engine(mesh=)``, ``launch.mesh``) lane s lives on data replica
+s // lanes_per_replica, and admissions go to the least-loaded replica
+(JAX's ``_pick_slot``). Each rank holds only its replica's lanes of the
+slot table (``launch.mesh.serve_cache_spec``) and its model shard of the
+retrieval payloads (``core.backends.local_shard``); the parameters are
+whole on every rank. The step is the same ``_step_body``; the differences
+are the output layer's ``shard_decode`` over the model group, the mesh
+health guard and shadow oracle, and the combine of the packed per-lane
+outputs over the data group: each replica writes its lanes into a zero
+buffer and one all-reduce of their bit patterns gives every rank all S
+lanes, with the step's counters (``_finish``). The metric state is then
+accumulated from the combined outputs, so it is the same on every rank
+and any rank may harvest.
+
+The ranks keep in step as one SPMD host: every rank runs the same
+``Server``/``Scheduler`` loop on the same arrivals, and every host decision
+(admission, routing, completion, the prefix pool's trie, the injector)
+reads only the virtual clock, the queue and the combined outputs, which
+are the same on every rank. Every rank issues the same collectives in the
+same order every step: none sits behind a host branch (the guard's exact
+fallback runs every step, its rows spliced by ``torch.where``). Tail draws
+come from the scheduler's generator, seeded alike on every rank. An NCCL
+mesh step is captured in a CUDA graph as on one device; a gloo group
+cannot be captured, so the caller passes ``eager=True`` there (nothing
+chooses it from the backend).
 """
 from __future__ import annotations
 
@@ -80,16 +103,20 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..core.backends import get_backend, shadow_exact_log_z, verify_decode
+from ..core.backends import (get_backend, local_shard, shadow_exact_log_z,
+                             verify_decode)
 from ..core.decode import (HEALTH_EMPTY_HEAD, HEALTH_NONFINITE_SCORE,
                            HEALTH_NONFINITE_Z, DecodeOut, apply_health_guard,
                            health_flags)
+from ..core.distributed import bitsum_
 from ..kernels import _build
 from ..models import tree_paths
 from ..obs.metrics import (TIER_IX, harvest, init_metric_state, observe_step,
                            reset_metric_state, shadow_rel_err)
 from .engine import _draw_gumbel
+from .output_layer import mesh_health_guard
 from .prefix_cache import PrefixPool, cache_is_kv_only
 
 _REQ_IDS = itertools.count()
@@ -156,7 +183,8 @@ class Completion:
 @dataclasses.dataclass
 class SlotTable:
     """The device state the step reads and writes, every field a static
-    tensor updated in place (S = n_slots)."""
+    tensor updated in place (S = this rank's lanes: ``n_slots`` on one
+    device, ``lanes_per_replica`` under the mesh)."""
     cache: Dict[str, Any]      # the model's decode-state tree, S lanes:
                                #      KV leaves (*stack, S, len, n_kv, hd)
                                #      and recurrent leaves (*stack, S, ...)
@@ -179,9 +207,12 @@ class SlotTable:
     fault_inf: torch.Tensor    # (S,) bool injected Inf lanes
     extras: torch.Tensor       # (4,) f32 queue depth, last step ms, last
                                #      step's tier, shadow flag
-    outs: torch.Tensor         # (S + 1, 4 k + 6) f32 the step's outputs,
-                               #      read back in one copy (row S: the
-                               #      active count and the union size)
+    outs: torch.Tensor         # (S + 1 + R, 4 k + 6) f32 the step's
+                               #      outputs of all S lanes, read back in
+                               #      one copy (row S: the active count and
+                               #      the union size as int32 bits; row
+                               #      S + 1 + r: replica r's shadow sum,
+                               #      max and count)
 
 
 def sample_slots(out: DecodeOut, noise: torch.Tensor,
@@ -253,9 +284,11 @@ class Scheduler:
     the estimators' shared tail samples; ``tail_source(step_idx)``
     supplies them instead (parity tests). ``eager=True`` runs the step
     uncaptured on a GPU too (the counterpart of ``generate``'s
-    ``host_loop=True``, for comparisons). Audio (multi-codebook) heads and
-    VLMs (no image in the slot table) have no slot-table path; use
-    ``generate``."""
+    ``host_loop=True``, for comparisons, and the mode of a gloo mesh).
+    Audio (multi-codebook) heads and VLMs (no image in the slot table)
+    have no slot-table path; use ``generate``. Under the engine's mesh
+    ``n_slots`` counts the lanes of every replica and must divide the data
+    degree; the table holds this rank's ``lanes_per_replica``."""
 
     def __init__(self, engine, n_slots: int, prompt_cap: Optional[int] = None,
                  seed: int = 0, injector=None, health_guard: bool = True,
@@ -268,10 +301,26 @@ class Scheduler:
             raise NotImplementedError(
                 "the slot scheduler serves single-stream text heads; "
                 "audio codebook decoding goes through serve.generate")
-        if getattr(engine, "mesh", None) is not None:
-            raise NotImplementedError(
-                "the slot table over a (data, model) serving mesh "
-                "(repro.serve.scheduler's shard_map step) is not ported")
+        self.mesh = getattr(engine, "mesh", None)
+        self._data_group = self._model_group = None
+        self.n_replicas, self.replica = 1, 0
+        self._n_model, self._model_rank = 1, 0
+        if self.mesh is not None:
+            from ..launch.mesh import (axis_group, axis_rank, axis_size,
+                                       data_size)
+            self.n_replicas = data_size(self.mesh)
+            if n_slots % self.n_replicas:
+                raise ValueError(
+                    f"n_slots {n_slots} must divide the mesh's data degree "
+                    f"{self.n_replicas} (each replica owns an equal set of "
+                    f"KV lanes)")
+            self.replica = axis_rank(self.mesh, "data")
+            self._n_model = axis_size(self.mesh, "model")
+            self._model_rank = axis_rank(self.mesh, "model")
+            self._data_group = axis_group(self.mesh, "data")
+            self._model_group = axis_group(self.mesh, "model")
+        self.lanes_per_replica = n_slots // self.n_replicas
+        self._lane0 = self.replica * self.lanes_per_replica
         if engine.cfg.family == "vlm":
             raise NotImplementedError(
                 f"{engine.cfg.name!r} is a VLM: the slot table carries no "
@@ -315,6 +364,9 @@ class Scheduler:
         self.spec_draft_probes = int(spec_draft_probes) or \
             max(1, pc.n_probe // 2)
         self.table = self._init_table()
+        self._shards: Dict[str, tuple] = {}
+        if self.mesh is not None:
+            self._first_collectives()
         self.prefix: Optional[PrefixPool] = None
         if self.spec_k > 1 or prefix_cache_blocks:
             if engine.cfg.sliding_window or \
@@ -331,13 +383,16 @@ class Scheduler:
             self.prefix = PrefixPool(
                 self.table.cache, prefix_cache_blocks, prefix_block_tokens,
                 max_match_blocks=max(
-                    1, (self.prompt_cap - 1) // prefix_block_tokens))
+                    1, (self.prompt_cap - 1) // prefix_block_tokens),
+                n_replicas=self.n_replicas, replica=self.replica)
         self._graphs: Dict[str, _StepGraph] = {}
 
     # -- device state --------------------------------------------------------
 
     def _init_table(self) -> SlotTable:
-        s, dev = self.n_slots, self.device
+        """This rank's lanes of the table (all of them on one device); the
+        outputs buffer holds every lane of every replica."""
+        s, dev = self.lanes_per_replica, self.device
         eng = self.engine
         pc = eng.cfg.partition
         i32 = dict(dtype=torch.int32, device=dev)
@@ -362,7 +417,35 @@ class Scheduler:
             fault_nan=torch.zeros((s,), dtype=torch.bool, device=dev),
             fault_inf=torch.zeros((s,), dtype=torch.bool, device=dev),
             extras=torch.tensor([0.0, -1.0, 0.0, 0.0], **f32),
-            outs=torch.zeros((s + 1, 4 * kk + 6), **f32))
+            outs=torch.zeros((self.n_slots + 1 + self.n_replicas,
+                              4 * kk + 6), **f32))
+
+    def _first_collectives(self) -> None:
+        """One collective on each of the mesh's groups, so that a
+        communicator's first call (which cannot be captured) comes before
+        any graph capture."""
+        for g in (self._data_group, self._model_group):
+            bitsum_(torch.zeros((1,), dtype=torch.int32, device=self.device),
+                    g)
+
+    def _tier_state(self, method: str):
+        """The state a step of ``method`` reads: the engine's, or under the
+        mesh this rank's shard of it (views, made again when the engine's
+        state object changes)."""
+        st = self.engine.tier_state(method)
+        if self.mesh is None:
+            return st
+        hit = self._shards.get(method)
+        if hit is None or hit[0] is not st:
+            hit = self._shards[method] = (
+                st, local_shard(st, self._n_model, self._model_rank))
+        return hit[1]
+
+    def _decode(self, backend, state, h, cfg, **kw) -> DecodeOut:
+        if self._model_group is None:
+            return backend.decode(state, h, cfg, **kw)
+        return backend.shard_decode(state, h, cfg, group=self._model_group,
+                                    **kw)
 
     def _storage(self) -> List[tuple]:
         """(name, tensor) of every tensor a captured step reads or writes;
@@ -453,6 +536,10 @@ class Scheduler:
     def _guard(self, out: DecodeOut, w: torch.Tensor, h: torch.Tensor,
                active: torch.Tensor):
         k = self.engine.cfg.partition.sample_k
+        if self.health_guard and self._model_group is not None:
+            return mesh_health_guard(out, w, h, k, active=active,
+                                     use_kernel=self.engine.use_kernel,
+                                     group=self._model_group)
         if self.health_guard:
             return apply_health_guard(out, w, h, k, active=active,
                                       use_kernel=self.engine.use_kernel)
@@ -466,24 +553,26 @@ class Scheduler:
         rows = active & (self.table.extras[3] > 0)
         ref = shadow_exact_log_z(state, h, k=eng.cfg.partition.sample_k,
                                  use_kernel=eng.use_kernel,
-                                 rows=rows.to(torch.int32))
+                                 rows=rows.to(torch.int32),
+                                 group=self._model_group)
         return shadow_rel_err(log_z, ref, rows)
 
-    def _finish(self, tier: str, act, emit, e, finished, overflow, expired,
+    def _finish(self, tier: str, act, emit, finished, overflow, expired,
                 flags, head_live, tok, log_prob, log_z, shadow, spec=None):
-        """The step's metrics and its packed outputs."""
+        """The step's packed outputs, then its metrics from them. This
+        replica's lanes go to their rows of a zero buffer, its counters to
+        row S (int32 bits) and its shadow triple to row S + 1 + replica;
+        under the mesh one all-reduce of the bit patterns over the data
+        group makes every rank hold every replica's rows, and the metrics
+        read the combined buffer. The previous step's host ms differs from
+        rank to rank, so under the mesh the latency histogram takes the
+        largest (a MAX over the model group, then over the replicas' rows)
+        and the metric state stays the same on every rank."""
         tb = self.table
-        x = tb.extras
+        s, kk, n_rep = self.n_slots, self.spec_k, self.n_replicas
         n_active = act.to(torch.int32).sum()
         if head_live is None:
             head_live = torch.zeros((), dtype=torch.int32, device=act.device)
-        kw = {} if spec is None else {
-            k: spec[k] for k in ("spec_proposed", "spec_accepted",
-                                 "draft_flagged")}
-        observe_step(self.metrics_state, TIER_IX[tier], self.n_slots,
-                     n_active=n_active, head_live=head_live, n_emitted=e.sum(),
-                     health_flags=flags, queue_depth=x[0], last_ms=x[1],
-                     last_tier=x[2], shadow=shadow, **kw)
         a = (torch.zeros_like(n_active).expand(act.shape) if spec is None
              else spec["accepted"])
         dflag = (torch.zeros_like(act) if spec is None
@@ -492,9 +581,38 @@ class Scheduler:
         cols = [tok.to(f), log_prob.to(f), log_z.to(f), emit.to(f)] + [
             v.to(f)[:, None] for v in (finished, overflow, expired, flags, a,
                                        dflag)]
-        s = self.n_slots
-        tb.outs[:s].copy_(torch.cat(cols, 1))
-        tb.outs[s, :2].copy_(torch.stack([n_active.to(f), head_live.to(f)]))
+        o = tb.outs
+        oi = o.view(torch.int32)
+        o.zero_()
+        o[self._lane0:self._lane0 + self.lanes_per_replica].copy_(
+            torch.cat(cols, 1))
+        oi[s, :2].copy_(torch.stack([n_active, head_live.to(torch.int32)]))
+        sh_sum, sh_max, sh_n = shadow
+        me = s + 1 + self.replica
+        o[me, :2].copy_(torch.stack([torch.as_tensor(sh_sum).to(f),
+                                     torch.as_tensor(sh_max).to(f)]))
+        oi[me, 2].copy_(torch.as_tensor(sh_n).to(torch.int32))
+        x = tb.extras
+        last_ms = x[1]
+        if self._data_group is not None:
+            ms = x[1:2].clone()
+            dist.all_reduce(ms, op=dist.ReduceOp.MAX,
+                            group=self._model_group)
+            o[me, 3:4].copy_(ms)
+            bitsum_(o, self._data_group)
+            last_ms = o[s + 1:s + 1 + n_rep, 3].max()
+        lanes, reps = o[:s], o[s + 1:s + 1 + n_rep]
+        kw = {} if spec is None else dict(
+            spec_proposed=oi[s, 0] * kk,
+            spec_accepted=lanes[:, 4 * kk + 4].sum(),
+            draft_flagged=lanes[:, 4 * kk + 5].sum())
+        observe_step(self.metrics_state, TIER_IX[tier], s,
+                     n_active=oi[s, 0], head_live=oi[s, 1],
+                     n_emitted=(lanes[:, 3 * kk:4 * kk] > 0).sum(),
+                     health_flags=lanes[:, 4 * kk + 3].to(torch.int32),
+                     queue_depth=x[0], last_ms=last_ms, last_tier=x[2],
+                     shadow=(reps[:, 0].sum(), reps[:, 1].max(),
+                             oi[s + 1:s + 1 + n_rep, 2].sum()), **kw)
 
     def _step_body(self, tier: str) -> None:
         """The mixed replay/decode step on the table, in place: what a
@@ -515,13 +633,13 @@ class Scheduler:
         hides the rest. The ladder changes the verifier; the draft stays."""
         eng = self.engine
         pc = eng.cfg.partition
-        backend, bstate = get_backend(tier), eng.tier_state(tier)
+        backend, bstate = get_backend(tier), self._tier_state(tier)
         if self.spec_k > 1:
             draft = get_backend(self.spec_draft)
-            dstate = eng.tier_state(self.spec_draft)
+            dstate = self._tier_state(self.spec_draft)
             draft_pc = dataclasses.replace(pc, method=self.spec_draft,
                                            n_probe=self.spec_draft_probes)
-        kk, s = self.spec_k, self.n_slots
+        kk, s = self.spec_k, self.lanes_per_replica
         tb = self.table
         max_len = eng.max_len
         act = tb.active.clone()
@@ -539,8 +657,8 @@ class Scheduler:
             noises.append(noise)
             reps.append(is_rep)
             if j < kk - 1:
-                dout = draft.decode(
-                    dstate, h, draft_pc, k=pc.sample_k,
+                dout = self._decode(
+                    draft, dstate, h, draft_pc, k=pc.sample_k,
                     use_kernel=eng.use_kernel,
                     tail_idx=(tb.draft_tail[j] if draft.has_tail(dstate)
                               else None), active=act)
@@ -556,7 +674,8 @@ class Scheduler:
         out = verify_decode(
             backend, bstate, hseq, pc, k=pc.sample_k, active=act,
             use_kernel=eng.use_kernel,
-            tail_idx=tb.tail if backend.has_tail(bstate) else None)
+            tail_idx=tb.tail if backend.has_tail(bstate) else None,
+            group=self._model_group)
         act_r = act[:, None].expand(-1, kk).reshape(-1)
         hflat = hseq.reshape(-1, hseq.shape[-1])
         out, vflags = self._guard(self._corrupt(out, kk), bstate.w, hflat,
@@ -609,12 +728,9 @@ class Scheduler:
                                             torch.zeros_like(vflags[:, j]))
         # the shadow oracle scores the same S x spec_k verify rows
         shadow = self._shadow(out.log_z, bstate, hflat, act_r)
-        flagged = draft_bad & act
-        spec = None if kk == 1 else dict(
-            spec_proposed=act.to(torch.int32).sum() * kk,
-            spec_accepted=a.sum(), draft_flagged=flagged.to(torch.int32).sum(),
-            accepted=a, flagged_lanes=flagged)
-        self._finish(tier, act, emit, e, finished, overflow, expired,
+        spec = None if kk == 1 else dict(accepted=a,
+                                         flagged_lanes=draft_bad & act)
+        self._finish(tier, act, emit, finished, overflow, expired,
                      flags_l, out.head_live, v_tok, v_score - log_z, log_z,
                      shadow, spec=spec)
 
@@ -703,6 +819,58 @@ class Scheduler:
     def n_free(self) -> int:
         return len(self._free)
 
+    def _pick_slot(self, preferred_replica: Optional[int] = None) -> int:
+        """Claim a free lane: the lowest on one replica; under the mesh the
+        lowest lane of the least-loaded replica (most free lanes, ties to
+        the lowest replica), so staggered admissions spread over the
+        replicas. ``preferred_replica`` (the owner of a matched prefix
+        chain) is tried first; without a free lane there the admission
+        falls through to the least-loaded replica and forfeits the hit."""
+        if self.n_replicas == 1:
+            return self._free.pop(0)
+        lpr = self.lanes_per_replica
+        if preferred_replica is not None:
+            cand = [s for s in self._free if s // lpr == preferred_replica]
+            if cand:
+                slot = min(cand)
+                self._free.remove(slot)
+                return slot
+        free_per = [0] * self.n_replicas
+        for s in self._free:
+            free_per[s // lpr] += 1
+        rep = max(range(self.n_replicas), key=lambda r: (free_per[r], -r))
+        slot = min(s for s in self._free if s // lpr == rep)
+        self._free.remove(slot)
+        return slot
+
+    def free_in_replica(self, replica: int) -> int:
+        """Free lanes of one data replica (the whole table on one): the
+        server's look-ahead admission asks it before holding a request for
+        its prefix's owner."""
+        if self.n_replicas == 1:
+            return len(self._free)
+        return sum(1 for s in self._free
+                   if s // self.lanes_per_replica == replica)
+
+    def prefix_preview(self, request: Request):
+        """(cached prefix tokens, owner replica) the prefix pool would give
+        ``request`` at admission; owner None with the pool off or on a
+        miss. The same host walk as admission (it touches the LRU ticks, as
+        the JAX pool's does)."""
+        if self.prefix is None:
+            return 0, None
+        p_len = int(request.prompt.shape[0])
+        if p_len < 1:
+            return 0, None
+        m, _, owner = self.prefix.match(request.prompt, p_len)
+        return m * self.prefix.block_tokens, owner
+
+    def _local(self, slot: int) -> Optional[int]:
+        """``slot``'s lane in this rank's table, or None on another
+        replica."""
+        lane = slot - self._lane0
+        return lane if 0 <= lane < self.lanes_per_replica else None
+
     @property
     def n_in_flight(self) -> int:
         return self.n_slots - len(self._free)
@@ -759,38 +927,45 @@ class Scheduler:
             raise RuntimeError("no free slot; queue the request instead")
         noise = self._request_noise(request, need)
         # prefix cache: a host trie match, then the cached KV copied into
-        # the lane in place; the replay resumes at t0
+        # the lane in place; the replay resumes at t0. Under the mesh a
+        # lane on another replica than the chain's owner forfeits the hit.
         pref_ids: List[int] = []
+        owner = None
         if self.prefix is not None:
-            _, pref_ids, _ = self.prefix.match(request.prompt, p_len)
-        slot = self._free.pop(0)          # the lowest free lane
+            _, pref_ids, owner = self.prefix.match(request.prompt, p_len)
+        slot = self._pick_slot(owner)
+        lane = self._local(slot)
         tb = self.table
         t0 = 0
-        if pref_ids:
-            self.prefix.load(tb.cache, pref_ids, slot)
+        if pref_ids and slot // self.lanes_per_replica == owner:
+            pref_ids = self.prefix.owned_run(pref_ids, owner)
+            self.prefix.load(None if lane is None else tb.cache, pref_ids,
+                             lane)
             t0 = len(pref_ids) * self.prefix.block_tokens
+        self._slot_req[slot] = request
+        self._slot_acc[slot] = Completion(
+            request=request, tokens=[], log_probs=[], log_zs=[],
+            admit_time=time.perf_counter(), first_token_time=None,
+            done_time=0.0)
+        if lane is None:                  # another replica's lane
+            return slot
         prompt_row = np.zeros((self.prompt_cap,), np.int64)
         prompt_row[:p_len] = request.prompt
         pc = self.engine.cfg.partition
         sk = request.sample_k or pc.sample_k
         sk = max(1, min(sk, pc.sample_k))
         ddl = NO_DEADLINE if deadline_steps is None else int(deadline_steps)
-        tb.prompt[slot].copy_(torch.from_numpy(prompt_row))
-        tb.last_token[slot] = int(request.prompt[0])
-        tb.t_stream[slot] = t0
-        tb.t_replay[slot] = p_len
-        tb.budget[slot] = int(request.max_new_tokens)
-        tb.temperature[slot] = float(request.temperature)
-        tb.sample_k[slot] = sk
-        tb.deadline[slot] = ddl
+        tb.prompt[lane].copy_(torch.from_numpy(prompt_row))
+        tb.last_token[lane] = int(request.prompt[0])
+        tb.t_stream[lane] = t0
+        tb.t_replay[lane] = p_len
+        tb.budget[lane] = int(request.max_new_tokens)
+        tb.temperature[lane] = float(request.temperature)
+        tb.sample_k[lane] = sk
+        tb.deadline[lane] = ddl
         if noise is not None:
-            tb.noise[slot, :need].copy_(noise)
-        tb.active[slot] = True
-        self._slot_req[slot] = request
-        self._slot_acc[slot] = Completion(
-            request=request, tokens=[], log_probs=[], log_zs=[],
-            admit_time=time.perf_counter(), first_token_time=None,
-            done_time=0.0)
+            tb.noise[lane, :need].copy_(noise)
+        tb.active[lane] = True
         return slot
 
     def step(self, queue_depth: int = 0) -> dict:
@@ -819,8 +994,11 @@ class Scheduler:
         lanes = None if self.injector is None else \
             self.injector.lane_faults(self)
         if lanes is not None:
-            tb.fault_nan.copy_(torch.from_numpy(np.asarray(lanes[0], bool)))
-            tb.fault_inf.copy_(torch.from_numpy(np.asarray(lanes[1], bool)))
+            mine = slice(self._lane0, self._lane0 + self.lanes_per_replica)
+            tb.fault_nan.copy_(torch.from_numpy(
+                np.asarray(lanes[0], bool)[mine]))
+            tb.fault_inf.copy_(torch.from_numpy(
+                np.asarray(lanes[1], bool)[mine]))
             self._faults_set = True
         elif self._faults_set:
             tb.fault_nan.zero_()
@@ -848,7 +1026,7 @@ class Scheduler:
         finished, overflow, expired = (out[:s, 4 * kk + i] > 0
                                        for i in range(3))
         flags = out[:s, 4 * kk + 3].astype(np.int64)
-        n_active, head_live = int(out[s, 0]), int(out[s, 1])
+        n_active, head_live = (int(v) for v in out.view(np.int32)[s, :2])
         completions = []
         for lane in range(s):
             req = self._slot_req[lane]
@@ -878,7 +1056,8 @@ class Scheduler:
                     # a cleanly finished lane's prompt KV is valid: register
                     # its block-aligned prefix before the slot recycles
                     self.prefix.insert(req.prompt, int(req.prompt.shape[0]),
-                                       tb.cache, lane)
+                                       tb.cache, self._local(lane),
+                                       lane // self.lanes_per_replica)
                 self._slot_req[lane] = None
                 self._slot_acc[lane] = None
                 self._free.append(lane)

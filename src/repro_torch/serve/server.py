@@ -145,6 +145,7 @@ class ServerReport:
     step_faults: int = 0           # FaultErrors caught + retried at step
                                    # boundaries
     # -- raw-speed accounting -------------------------------------------------
+    admit_skipped: int = 0         # look-ahead admission holds
     spec_proposed: int = 0         # lane-positions offered by speculative
                                    # rounds (n_active * spec_k per step)
     spec_accepted: int = 0         # lane-positions actually advanced
@@ -188,6 +189,8 @@ class ServerReport:
         if self.prefix.get("hits") or self.prefix.get("inserted"):
             base += (f"; prefix hits {self.prefix.get('hits', 0)} saving "
                      f"{self.prefix.get('saved_steps', 0)} replay steps")
+        if self.admit_skipped:
+            base += f"; {self.admit_skipped} admission holds"
         return base
 
 
@@ -200,16 +203,13 @@ class Server:
     queued request on the very next step. ``cfg`` (``ServingConfig``)
     activates the overload policy; the default config keeps every mechanism
     off and reproduces the plain unbounded loop.
+
+    Under the serving mesh every rank runs its own ``Server`` on the same
+    arrivals (the SPMD host of ``serve.scheduler``).
     """
 
     def __init__(self, scheduler: Scheduler,
                  cfg: Optional[ServingConfig] = None, obs=None):
-        if cfg is not None and cfg.admit_window:
-            raise NotImplementedError(
-                "bounded look-ahead admission (admit_window > 0) holds a "
-                "request for the data replica that owns its cached prefix; "
-                "the port serves one replica (repro.serve.scheduler's "
-                "(data, model) mesh is not ported); pass admit_window=0")
         self.scheduler = scheduler
         self.cfg = cfg or ServingConfig()
         self.cfg.validate()
@@ -234,6 +234,8 @@ class Server:
         self.queue: deque = deque()
         self._queued_at: dict = {}      # req_id -> virtual step queued
         self._deadline_at: dict = {}    # req_id -> absolute deadline step
+        self._admit_skips: dict = {}    # req_id -> look-ahead holds so far
+        self.admit_skipped = 0
         # per-run accumulators, reset by run() (entries are dropped from
         # _queued_at at admission so bookkeeping stays bounded)
         self._run_waits: List[float] = []
@@ -280,9 +282,18 @@ class Server:
             req.on_complete(req, comp)
 
     def _admit_ready(self) -> None:
-        """Fill free lanes from the queue, strict FIFO. A request whose
-        deadline lapsed while it queued is shed before it pays for prefill;
-        one that cannot be admitted is rejected alone."""
+        """Fill free lanes from the queue. A request whose deadline lapsed
+        while it queued is shed before it pays for prefill; one that cannot
+        be admitted is rejected alone. Default: strict FIFO. With
+        ``admit_window > 0`` the pass looks ahead: a request whose cached
+        prefix's owner replica has no free lane is held (put back at the
+        queue head in order), so later requests that fit elsewhere admit
+        instead of waiting behind it. Each hold is counted
+        (``admit_skipped``); a request held ``admit_hold`` times, or whose
+        deadline is within ``admit_hold`` steps, admits anywhere and
+        forfeits its hit, so none starves past its deadline."""
+        cfg = self.cfg
+        held: List[Request] = []
         while self.queue and self.scheduler.n_free:
             req = self.queue.popleft()
             queued = self._queued_at.get(req.req_id, self.step_i)
@@ -290,11 +301,26 @@ class Server:
             if ddl_at is not None and ddl_at - self.step_i < 1:
                 # expired while queued: shed before paying for prefill
                 self._queued_at.pop(req.req_id, None)
+                self._admit_skips.pop(req.req_id, None)
                 self._reject(req, "deadline_queue",
                              f"deadline lapsed after {self.step_i - queued:g}"
                              " steps in queue", queued_at=queued)
                 continue
+            if cfg.admit_window and len(held) < cfg.admit_window:
+                _, owner = self.scheduler.prefix_preview(req)
+                if owner is not None and \
+                        self.scheduler.free_in_replica(owner) == 0:
+                    skips = self._admit_skips.get(req.req_id, 0)
+                    starving = skips + 1 >= cfg.admit_hold or (
+                        ddl_at is not None
+                        and ddl_at - self.step_i <= cfg.admit_hold)
+                    if not starving:
+                        self._admit_skips[req.req_id] = skips + 1
+                        self.admit_skipped += 1
+                        held.append(req)
+                        continue
             self._queued_at.pop(req.req_id, None)
+            self._admit_skips.pop(req.req_id, None)
             remaining = None if ddl_at is None else int(ddl_at - self.step_i)
             try:
                 self.scheduler.admit(req, deadline_steps=remaining)
@@ -311,6 +337,8 @@ class Server:
                 continue
             self._deadline_at.pop(req.req_id, None)
             self._run_waits.append(self.step_i - queued)
+        for req in reversed(held):
+            self.queue.appendleft(req)
 
     def _update_tier(self) -> None:
         """Hysteresis ladder walk on queue depth. Pressure (depth >= high)
@@ -368,6 +396,8 @@ class Server:
         # submit() calls made before run() (queue_full backpressure) belong
         # to this run's report; both reset after the report is assembled
         self._step_faults = 0
+        self.admit_skipped = 0
+        self._admit_skips = {}
         self.tier_transitions = []
         self._tier_ix = 0
         self._pressure = 0
@@ -535,6 +565,7 @@ class Server:
             health=health,
             index_restores=index_restores,
             step_faults=self._step_faults,
+            admit_skipped=self.admit_skipped,
             spec_proposed=spec_proposed,
             spec_accepted=spec_accepted,
             spec_acceptance=spec_accepted / spec_proposed

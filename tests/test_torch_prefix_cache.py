@@ -119,8 +119,8 @@ def test_kv_only_and_refusals():
     assert not cache_is_kv_only({})
     with pytest.raises(NotImplementedError, match="KV"):
         PrefixPool({"k": leaf, "s": leaf}, 4, 2, 2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        PrefixPool({"k": leaf}, 4, 2, 2, mesh=object())
+    with pytest.raises(ValueError, match="divide the data degree"):
+        PrefixPool({"k": leaf}, 5, 2, 2, n_replicas=2)
     with pytest.raises(ValueError, match="n_blocks"):
         PrefixPool({"k": leaf}, 0, 2, 2)
 

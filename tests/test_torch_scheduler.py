@@ -226,10 +226,15 @@ def test_audio_heads_and_meshes_are_refused():
     eng = types.SimpleNamespace(cfg=types.SimpleNamespace(n_codebooks=4))
     with pytest.raises(NotImplementedError, match="generate"):
         Scheduler(eng, 2)
+    # a mesh's data replicas must split the lanes evenly (checked before
+    # any device work, so a stand-in mesh of data 2 suffices)
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 size=lambda i: (2, 1)[i],
+                                 get_local_rank=lambda name: 0)
     eng = types.SimpleNamespace(
-        cfg=types.SimpleNamespace(n_codebooks=0), mesh=object())
-    with pytest.raises(NotImplementedError, match="shard_map"):
-        Scheduler(eng, 2)
+        cfg=types.SimpleNamespace(n_codebooks=0), mesh=mesh)
+    with pytest.raises(ValueError, match="divide"):
+        Scheduler(eng, 3)
 
 
 def test_table_keeps_its_storage(run):

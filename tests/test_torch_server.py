@@ -105,7 +105,7 @@ def test_obs_and_unknown_tiers_are_refused(run):
         Server(sched, ServingConfig(degrade_ladder=("mimps", "nope")))
 
 
-# -- admission: strict FIFO; the mesh's look-ahead is refused -----------------
+# -- admission: strict FIFO, and the mesh's look-ahead on one replica ---------
 
 
 @pytest.mark.parametrize("cfg", [
@@ -114,9 +114,24 @@ def test_obs_and_unknown_tiers_are_refused(run):
     dict(admit_window=1, admit_hold=8, default_deadline=5)],
     ids=["window", "hold-bound", "deadline-near"])
 def test_lookahead_admission_is_refused(run, cfg):
-    sched = Scheduler(run["teng"], 1)
-    with pytest.raises(NotImplementedError, match="admit_window"):
-        Server(sched, ServingConfig(**cfg))
+    """Look-ahead admission is no longer refused: on one replica the
+    owner of a cached prefix always has the free lane the loop found, so
+    nothing is held and the tokens are strict FIFO's (the held case runs
+    on a mesh of two replicas, tests/test_torch_mesh.py)."""
+    got = {}
+    for key, c in (("fifo", dict(cfg, admit_window=0)), ("window", cfg)):
+        sched = Scheduler(run["teng"], 1, prefix_cache_blocks=8,
+                          prefix_block_tokens=2)
+        srv = Server(sched, ServingConfig(**c))
+        reqs = [Request(prompt=[5, 6, 7, 8, 9 + i], max_new_tokens=2,
+                        seed=i) for i in range(3)]
+        for r in reqs:
+            srv.submit(r)
+        rep = srv.run()
+        assert rep.admit_skipped == 0
+        got[key] = ([(c.tokens, c.reason) for c in S.by_request(rep, reqs)],
+                    sched.prefix.stats())
+    assert got["fifo"] == got["window"]
 
 
 def test_fifo_admission_fills_the_lowest_free_lanes(run):
