@@ -306,6 +306,33 @@ GPU.
    8192; one eager step's ``ivf_decode`` and gated ``topk_z`` calls held
    to their plain versions (the gated one also with every lane flagged).
 
+13. The training mesh phase (``train_mesh_last``), last: (a) in this
+   process, a one-rank NCCL group at mesh (1, 1), full-width, full-depth
+   qwen1.5-4b, fused_ce at B 4 x S 256: three sharded steps
+   (``init_train_state(mesh=)``, ``make_train_step(mesh=)``), then, the
+   sharded state freed, three one-device steps from the same seed: the
+   losses, grad norms and every leaf of the parameters, m and v bit-equal
+   (fingerprints of the int32 words on the device), each CE kernel once a
+   step; ms a step of both, the parameters' gather alone and the third
+   step's all-reduces timed apart. (b) Four processes of this script
+   (``--train-mesh-rank``) on the one card over gloo, qwen1.5-4b at full
+   width with its depth cut to 4 layers (1.095 B parameters), B 8 x S 256:
+   rank 0 first takes two one-device steps, and two more with two
+   microbatches holding the two replicas' rows; at (1, 4) one step, every
+   rank's slices of the parameters, m and v bit-equal to the one-device
+   state's; at (2, 2) two steps, every slice bit-equal to the
+   two-microbatch state's (the mesh sums the same partial gradients), the
+   losses, grad norms and every leaf's gradient (m / (1 - b1) after step
+   1) within ``TM_*``'s limits of the one-device run; one (2, 2) step with
+   ``pod_axis="data"`` and int8: finite, both data replicas of each model
+   slice bit-equal, one int32 all-reduce a leaf in the compressor. Each
+   rank's CE launches, peak memory and seconds come back. (c) ``python -m
+   repro_torch.launch.train --reduced`` on the card: 3 steps with a
+   checkpoint at 2, then a run from that checkpoint alone: the final
+   checkpoints bit-equal. (b) and (c) run at cut depth and the reduced
+   config: four ranks share one card, and a full checkpoint is about 40 GB
+   on disk. (c) runs in a thread beside (b).
+
 Prints the kernel record as one JSON line before the last (each kernel at
 bf16, the gated ``topk_z`` as ``topk_z[gated]``, ``topk_z`` at 16 lanes as
 ``topk_z[q16]``, whose launches are those of its 16-query instance (Q > 8)
@@ -318,6 +345,7 @@ in the bf16 records too), and as the last line ``{"ok": true,
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 import gc
@@ -777,6 +805,9 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--mesh-rank"]:        # a rank of mesh_last's (b)
         return mesh_rank(torch, int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--train-mesh-rank"]:  # a rank of train_mesh_last
+        return train_mesh_rank(torch, int(sys.argv[2]), sys.argv[3],
+                               sys.argv[4])
     # the plain versions' f32 products run in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -854,6 +885,11 @@ def main() -> int:
     torch.cuda.empty_cache()                    # the mesh ranks are gone
     *vlm, vlm_records = timed(vlm_last, kernels)
     late.append(vlm)
+    gc.collect()
+    torch.cuda.empty_cache()                    # the VLM is gone
+    counts, _ = timed(train_mesh_last, kernels)
+    for rec in ce_records:
+        rec["launches"] += counts[rec["name"]]
     for counts, n_gated, held in late:
         for rec in records:                     # bf16 records, by name
             rec["launches"] += n_gated if rec["name"] == "topk_z[gated]" \
@@ -3472,6 +3508,549 @@ V_ARCH = "llama-3.2-vision-90b"
 V_LAYERS = 30                     # 6 whole groups of 4 self + 1 cross
 V_PARAMS = 27_770_986_496         # the JAX package's eval_shape at 30 layers
 V_NEW = 32
+
+
+TM_LAYERS = 4                     # (b): qwen1.5-4b's depth cut to 4 layers
+TM_B = 8                          # (b): B 8 x S 256
+TM_RANKS = 4
+TM_DEADLINE_S = 420               # (b)'s ranks are killed past this
+TM_CLI_TIMEOUT_S = 240            # (c): each run of the train CLI
+# data > 1 against one device: a mean of replica means, so rounding alone
+TM_LOSS_REL, TM_GNORM_REL = 1e-5, 1e-3
+TM_GRAD_MAX, TM_GRAD_L2 = 2 ** -7, 1e-2   # of the leaf's max |g|; rel L2
+# a figure that moves more than that when one device splits the same rows
+# into the replicas' two microbatches (the embedding table's gradient,
+# which CUDA's embedding backward rounds to bf16 in chunks of indices; the
+# key bias's, 0 in exact arithmetic and so all rounding) is held to twice
+# that move instead
+TM_NOISE = 2.0
+
+
+def word_sums(torch, x, chunk=1 << 24):
+    """A whole leaf's fingerprint on the device: (sum w, sum (i + 1) w) mod
+    2**64 over its int32 words w (its bytes where they do not fill
+    words)."""
+    b = x.detach().contiguous().view(-1).view(torch.uint8)
+    w = b.view(torch.int32) if b.numel() % 4 == 0 else b.to(torch.int32)
+    s1 = s2 = 0
+    for start in range(0, w.numel(), chunk):
+        c = w[start:start + chunk].long()
+        i = torch.arange(start + 1, start + 1 + c.numel(), device=c.device)
+        s1 += int(c.sum())
+        s2 += int((c * i).sum())
+    return [s1 % 2 ** 64, s2 % 2 ** 64]
+
+
+def state_fingerprints(torch, state, specs=None, coord=0, parts=1):
+    """``word_sums`` of every leaf of the parameters, m and v, by name, as
+    the state holds them (a rank's slices); given the whole state and the
+    leaves' specs by path (``param_spec`` at model ``parts``), of the slice
+    at model coordinate ``coord`` instead."""
+    from repro_torch.models.transformer import tree_paths
+    out = {}
+    for part, tree in (("params", state.params), ("m", state.opt.m),
+                       ("v", state.opt.v)):
+        for path, x in tree_paths(tree):
+            for dim, entry in enumerate(() if specs is None
+                                        else specs[path]):
+                if entry == "model":
+                    n = x.shape[dim] // parts
+                    x = x.narrow(dim, coord * n, n)
+            out[part + path] = word_sums(torch, x)
+    return out
+
+
+def timed_collectives(torch, fn):
+    """Runs ``fn`` with every ``all_reduce`` synchronised and timed on the
+    host clock: (fn's result, {dtype: [calls, elements, ms]})."""
+    import torch.distributed as dist
+    real, by = dist.all_reduce, {}
+
+    def timed(t, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(t, *args, **kwargs)
+        torch.cuda.synchronize()
+        rec = by.setdefault(str(t.dtype).removeprefix("torch."), [0, 0, 0.0])
+        rec[0] += 1
+        rec[1] += t.numel()
+        rec[2] += (time.perf_counter() - t0) * 1e3
+        return out
+    dist.all_reduce = timed
+    try:
+        return fn(), by
+    finally:
+        dist.all_reduce = real
+
+
+def mesh_train_steps(torch, kernels, step, state, batches, label, card,
+                     first=0, per=1):
+    """``step`` over ``batches`` (steps ``first``, ...), each from launch
+    counts at 0 and timed (wall, synchronised); every step must launch each
+    CE kernel ``per`` times (once a microbatch). Returns (state, [(loss,
+    grad_norm, ms)], the counts summed)."""
+    from repro_torch.kernels import _build
+    names = ("fused_ce_fwd", "fused_ce_bwd")
+    logs, total = [], dict.fromkeys(names, 0)
+    for i, batch in enumerate(batches, first):
+        _build.reset_counts(kernels[n] for n in names)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {n: kernels[n].launches for n in names}
+        check(counts == dict.fromkeys(names, per), f"{label} step {i} "
+              f"launched {counts}, want each CE kernel {per} times")
+        for n in names:
+            total[n] += counts[n]
+        loss, gn = met["loss_total"].item(), met["grad_norm"].item()
+        check(math.isfinite(loss), f"{label} step {i}: loss {loss}")
+        logs.append((loss, gn, ms))
+        log(f"{label} step {i}: loss {loss!r}, grad norm {gn!r}, {ms:.1f} "
+            f"ms [{card}]")
+    return state, logs, total
+
+
+def train_mesh_last(torch, card, kernels):
+    """Phase 13: the training mesh (``launch.mesh``'s rules, the sharded
+    ``make_train_step``, ``compress_psum``, ``launch/train.py``).
+
+    (a) In this process, a one-rank NCCL group (``FileStore``), mesh
+        (1, 1): full-width, full-depth qwen1.5-4b (bf16, seed 0), fused_ce
+        at B ``TRAIN_B`` x S ``TRAIN_S``, ``TrainConfig(warmup_steps=1)``;
+        two sharded steps from ``init_train_state(mesh=)`` and a third with
+        its all-reduces timed apart (``timed_collectives``), then, the
+        sharded state freed, three one-device steps from the same seed (two
+        states do not fit at once): the losses, grad norms and every leaf
+        of the parameters, m and v (``state_fingerprints``) equal; each of
+        the first two steps launches each CE kernel once. ms a step of
+        both; the parameters' gather alone.
+    (b) ``TM_RANKS`` processes of this script (``--train-mesh-rank``) on
+        the one card over gloo, eager, joined with a deadline: qwen1.5-4b
+        at full width with its depth cut to ``TM_LAYERS``, B ``TM_B``; at
+        (1, 4) one step bit-equal to the one-device step (rank 0's, taken
+        first), at (2, 2) two steps bit-equal to one device's with two
+        microbatches of the replicas' rows and within the limits of the
+        one-device steps, one (2, 2) step with
+        ``pod_axis="data"`` and int8 (finite, every rank's gathered state
+        the same, one int32 all-reduce a leaf). Each rank's CE launches,
+        peak memory and seconds come back.
+    (c) ``python -m repro_torch.launch.train --reduced`` on the card,
+        beside (b): 3 steps with a checkpoint at 2, and a run from that
+        checkpoint alone: the final checkpoints equal bit for bit.
+
+    Returns the CE kernels' launches on the path and no held errors."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import DataIterator, SyntheticCorpus
+    from repro_torch.launch.mesh import gather_tree, make_mesh_2d
+    from repro_torch.models import Model
+    from repro_torch.train import (init_train_state, make_train_step,
+                                   params_placements)
+
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    cfg = get_config("qwen1.5-4b")
+    model = Model(cfg)
+    tc = TrainConfig(loss="fused_ce", warmup_steps=1)
+    it = DataIterator(SyntheticCorpus(cfg.vocab, seed=0), TRAIN_B, TRAIN_S)
+    batches = [{k: torch.from_numpy(a).to(dev)
+                for k, a in zip(("tokens", "labels"), next(it))}
+               for _ in range(2)]
+    tmp = tempfile.mkdtemp(prefix="train_mesh_")
+    counts = {"fused_ce_fwd": 0, "fused_ce_bwd": 0}
+    dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/nccl", 1),
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh_2d((1, 1))
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(model, tc, 0, dev, mesh=mesh)
+        step = make_train_step(model, tc, mesh=mesh)
+        state, logs, got = mesh_train_steps(
+            torch, kernels, step, state, batches, "train mesh (a) (1, 1)",
+            card)
+        for n in counts:
+            counts[n] += got[n]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        places = params_placements(model, mesh)
+        gather = _median_events(torch, lambda: gather_tree(state.params,
+                                                           places), 3)
+        (state, _), by = timed_collectives(
+            torch, lambda: step(state, batches[1]))
+        fp = state_fingerprints(torch, state)
+        log(f"train mesh (a): peak {peak:.2f} GB; the parameters' gather "
+            f"alone {gather:.4f} ms; a third step's all-reduces, each "
+            f"synchronised: {by} (dtype: calls, elements, ms) [{card}]")
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, tc, 0, dev)
+    step = make_train_step(model, tc)
+    state, ref_logs, _ = mesh_train_steps(
+        torch, kernels, step, state, batches, "train mesh (a) one device",
+        card)
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9
+    # the third step above changed the sharded state: take it here too
+    state, _ = step(state, batches[1])
+    ref_fp = state_fingerprints(torch, state)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    check([x[:2] for x in logs] == [x[:2] for x in ref_logs],
+          f"train mesh (a): losses and grad norms {logs} differ from one "
+          f"device's {ref_logs}")
+    differ = [k for k in ref_fp if fp[k] != ref_fp[k]]
+    check(not differ, f"train mesh (a): {len(differ)} leaves differ from "
+          f"one device's, first {differ[:3]}")
+    log(f"train mesh (a): {len(fp)} leaves of the parameters, m and v "
+        f"bit-equal to one device after 3 steps; ms a step mesh "
+        f"{[round(x[2], 1) for x in logs]} against one device "
+        f"{[round(x[2], 1) for x in ref_logs]}; peak {peak:.2f} against "
+        f"{ref_peak:.2f} GB [{card}]")
+
+    # (c) beside (b): the CLI's two short processes need no collective
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            cli = pool.submit(train_cli, torch, card, tmp)
+            res = train_mesh_ranks(torch, card, tmp)
+            cli.result()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in res:
+        for n in counts:
+            counts[n] += r["counts"][n]
+    log(f"train mesh path launches {counts}; phase "
+        f"{time.time() - t_phase:.1f} s [{card}]")
+    return counts, {}
+
+
+def train_mesh_ranks(torch, card, tmp):
+    """(b): ``TM_RANKS`` processes of this script (``--train-mesh-rank``)
+    joined with a deadline, every one killed past it; returns each rank's
+    results and fails on any rank's failure."""
+    t0 = time.time()
+    procs = []
+    for r in range(TM_RANKS):
+        out = open(f"{tmp}/train_rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--train-mesh-rank", str(r), f"{tmp}/gloo", tmp], cwd=ROOT,
+            stdout=out, stderr=subprocess.STDOUT), out))
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, t0 + TM_DEADLINE_S - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, out in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    secs = time.time() - t0
+    logs = [Path(f"{tmp}/train_rank{r}.log").read_text()
+            for r in range(TM_RANKS)]
+    for r, (p, _) in enumerate(procs):
+        check(p.returncode == 0, f"train mesh (b): rank {r} exited "
+              f"{p.returncode} after {secs:.1f} s:\n{logs[r][-3000:]}")
+    res = [json.loads(Path(f"{tmp}/train_rank{r}.json").read_text())
+           for r in range(TM_RANKS)]
+    for line in logs[0].splitlines():
+        log(line)
+    # (1, 4): rank r holds model slice r of the one-device state; (2, 2):
+    # rank r model slice r % 2 of one device's with two microbatches of the
+    # replicas' rows; int8: the two data replicas of each model slice hold
+    # the same bits
+    for x in res:
+        differ = [k for k, v in res[0]["ref_fp"][x["rank"]].items()
+                  if x["fp_1x4"][k] != v]
+        check(not differ, f"train mesh (b) (1, 4): rank {x['rank']}'s "
+              f"slices of {len(differ)} leaves differ from one device's, "
+              f"first {differ[:3]}")
+        differ = [k for k, v in res[0]["ref_fp_2x2"][x["rank"] % 2].items()
+                  if x["fp_2x2"][k] != v]
+        check(not differ, f"train mesh (b) (2, 2): rank {x['rank']}'s "
+              f"slices of {len(differ)} leaves differ after 2 steps from one "
+              f"device's with 2 microbatches of the replicas' rows, first "
+              f"{differ[:3]}")
+        check(x["int8_fp"] == res[x["rank"] % 2]["int8_fp"], f"train mesh "
+              f"(b) int8: ranks {x['rank']} and {x['rank'] % 2} hold "
+              f"different bits of their model slice")
+    for x in res:
+        check(x["counts"]["fused_ce_fwd"] > 0 and x["counts"][
+            "fused_ce_bwd"] > 0, f"train mesh (b): rank {x['rank']} "
+              f"launched {x['counts']}")
+    log(f"train mesh (b): {TM_RANKS} ranks on the one card over gloo in "
+        f"{secs:.1f} s; every rank's slices of the parameters, m and v "
+        f"bit-equal at (1, 4) to one device's after one step and at (2, 2) "
+        f"to one device's with 2 microbatches of the replicas' rows after "
+        f"two; after the int8 step each model slice the same on both data "
+        f"replicas; "
+        f"CE launches by rank {[x['counts'] for x in res]}; peak memory by "
+        f"rank {[round(x['peak_gb'], 3) for x in res]} GB, seconds by rank "
+        f"{[round(x['seconds'], 1) for x in res]} [{card}]")
+    return res
+
+
+def train_mesh_rank(torch, rank, store, out):
+    """One rank of ``train_mesh_last``'s (b), on the one card: a gloo
+    group of ``TM_RANKS`` over ``store``; rank 0 first takes two
+    one-device steps (its fingerprints after step 1, m after step 1 on the
+    host, both steps' loss and grad norm) while the others wait. Writes
+    ``<out>/train_rank<r>.json``; rank 0 logs and checks."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import DataIterator, SyntheticCorpus
+    from repro_torch.kernels.fused_ce import fused_ce_bwd, fused_ce_fwd
+    from repro_torch.launch.mesh import gather_leaf, make_mesh_2d, param_spec
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import tree_paths
+    from repro_torch.train import (init_train_state, make_train_step,
+                                   params_placements, train_loop)
+
+    t_start = time.time()
+    say = log if rank == 0 else (lambda msg: None)
+    dev = torch.device("cuda")
+    card = card_line()
+    kernels = {"fused_ce_fwd": fused_ce_fwd, "fused_ce_bwd": fused_ce_bwd}
+    dist.init_process_group("gloo", store=dist.FileStore(store, TM_RANKS),
+                            rank=rank, world_size=TM_RANKS,
+                            timeout=datetime.timedelta(seconds=300))
+    cfg = dataclasses.replace(get_config("qwen1.5-4b"), n_layers=TM_LAYERS)
+    model = Model(cfg)
+    tc = TrainConfig(loss="fused_ce", warmup_steps=1)
+    it = DataIterator(SyntheticCorpus(cfg.vocab, seed=0), TM_B, TRAIN_S)
+    batches = [{k: torch.from_numpy(a).to(dev)
+                for k, a in zip(("tokens", "labels"), next(it))}
+               for _ in range(2)]
+    n_params = sum(x.numel() for _, x in tree_paths(
+        model.init(torch.Generator(), "meta")))
+    counts = {"fused_ce_fwd": 0, "fused_ce_bwd": 0}
+
+    def add(got):
+        for n in counts:
+            counts[n] += got[n]
+    specs = {n: {p: param_spec(p, x, n) for p, x in tree_paths(
+        model.init(torch.Generator(), "meta"))} for n in (2, TM_RANKS)}
+    # one device with two microbatches, microbatch i holding replica i's
+    # rows (``_batch_rows`` takes rows i::2): at (2, 2) the mesh sums
+    # these same partial gradients
+    half = TM_B // 2
+    perm = torch.stack([torch.arange(half), torch.arange(half, TM_B)],
+                       1).reshape(-1).to(dev)
+    replica_rows = [{k: v[perm] for k, v in b.items()} for b in batches]
+    if rank == 0:
+        say(f"train mesh (b): qwen1.5-4b, {TM_LAYERS} layers, "
+            f"{n_params / 1e9:.3f} B parameters, B {TM_B} x S {TRAIN_S}")
+        refs = {}
+        for name, tcr, rows, per in (
+                ("one device", tc, batches, 1),
+                ("one device, 2 microbatches of the replicas' rows",
+                 dataclasses.replace(tc, microbatches=2), replica_rows, 2)):
+            state = init_train_state(model, tcr, 0, dev)
+            step = make_train_step(model, tcr)
+            state, ref_logs, _ = mesh_train_steps(
+                torch, kernels, step, state, rows[:1],
+                f"train mesh (b) {name}", card, per=per)
+            fp1 = [state_fingerprints(torch, state, specs[TM_RANKS], c,
+                                      TM_RANKS) for c in range(TM_RANKS)]
+            m1 = {p: m.to("cpu", copy=True) for p, m in tree_paths(
+                state.opt.m)}
+            state, logs2, _ = mesh_train_steps(
+                torch, kernels, step, state, rows[1:],
+                f"train mesh (b) {name}", card, 1, per=per)
+            fp2 = [state_fingerprints(torch, state, specs[2], c, 2)
+                   for c in range(2)]
+            refs[per] = (ref_logs + logs2, fp1, m1, fp2)
+            del state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        ref_logs, ref_fp, ref_m, _ = refs[1]
+        mb_logs, _, mb_m, ref_fp_2x2 = refs[2]
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (1, 4): one step, bit for bit
+    mesh = make_mesh_2d((1, TM_RANKS), "cuda")
+    state = init_train_state(model, tc, 0, dev, mesh=mesh)
+    step = make_train_step(model, tc, mesh=mesh)
+    state, logs, got = mesh_train_steps(
+        torch, kernels, step, state, batches[:1], "train mesh (b) (1, 4)",
+        card)
+    add(got)
+    fp_1x4 = state_fingerprints(torch, state)
+    if rank == 0:
+        check(logs[0][:2] == ref_logs[0][:2], f"train mesh (b) (1, 4): "
+              f"loss and grad norm {logs[0][:2]} against one device's "
+              f"{ref_logs[0][:2]}")
+        say(f"train mesh (b) (1, 4): loss and grad norm equal to one "
+            f"device's, {logs[0][2]:.1f} ms on gloo [{card}]")
+    del state, step
+    torch.cuda.empty_cache()
+
+    # (2, 2): two steps; bit for bit against one device's two microbatches
+    # of the replicas' rows, and within the limits of the one-device step;
+    # the second step with its all-reduces timed apart
+    mesh = make_mesh_2d((2, TM_RANKS // 2), "cuda")
+    places = dict(tree_paths(params_placements(model, mesh)))
+    state = init_train_state(model, tc, 0, dev, mesh=mesh)
+    step = make_train_step(model, tc, mesh=mesh)
+    state, logs, got = mesh_train_steps(
+        torch, kernels, step, state, batches[:1], "train mesh (b) (2, 2)",
+        card)
+    add(got)
+    errs = {}
+
+    def rel(g, r):
+        return (((g - r).abs().max() / r.abs().max()).item(),
+                ((g - r).norm() / r.norm()).item())
+    for path, leaf in tree_paths(state.opt.m):
+        g = gather_leaf(leaf, places[path])
+        if rank == 0:      # m / (1 - b1) of both: the gradients (clipped)
+            errs[path] = rel(g.cpu(), ref_m[path]), rel(mb_m[path],
+                                                        ref_m[path])
+        del g
+    (state, logs2, got), by = timed_collectives(
+        torch, lambda: mesh_train_steps(torch, kernels, step, state,
+                                        batches[1:], "train mesh (b) (2, 2)",
+                                        card, 1))
+    add(got)
+    logs += logs2
+    fp_2x2 = state_fingerprints(torch, state)
+    if rank == 0:
+        by_max = sorted(errs.items(), key=lambda kv: -kv[1][0][0])[:3]
+        by_l2 = sorted(errs.items(), key=lambda kv: -kv[1][0][1])[:3]
+        rel = [(abs(x[0] - r[0]) / abs(r[0]), abs(x[1] - r[1]) / abs(r[1]))
+               for x, r in zip(logs, ref_logs)]
+        say(f"train mesh (b) (2, 2): losses {[x[0] for x in logs]} against "
+            f"{[x[0] for x in ref_logs]}, grad norms {[x[1] for x in logs]} "
+            f"against {[x[1] for x in ref_logs]} (relative errors {rel}); "
+            f"losses and grad norms equal to 2 microbatches' "
+            f"{[x[:2] for x in mb_logs] == [x[:2] for x in logs]}; each "
+            f"leaf's gradient after step 1 against one device's, (of its max "
+            f"|g|, in L2) beside 2 microbatches': the worst of its max "
+            f"{by_max}, the worst in L2 {by_l2}; ms a step "
+            f"{[round(x[2], 1) for x in logs]}; the second step's "
+            f"all-reduces, each synchronised: {by} (dtype: calls, elements, "
+            f"ms) [{card}]")
+        check([x[:2] for x in logs] == [x[:2] for x in mb_logs],
+              f"train mesh (b) (2, 2): losses and grad norms {logs} differ "
+              f"from one device's 2 microbatches of the replicas' rows "
+              f"{mb_logs}")
+        bad = [p for p, ((d_max, d_l2), (f_max, f_l2)) in errs.items()
+               if d_max > max(TM_GRAD_MAX, TM_NOISE * f_max)
+               or d_l2 > max(TM_GRAD_L2, TM_NOISE * f_l2)]
+        check(not bad, f"train mesh (b) (2, 2): {len(bad)} leaves' "
+              f"gradients past the limits: {bad[:5]}")
+        for i, ((d_loss, d_gn), x, r) in enumerate(zip(rel, mb_logs,
+                                                        ref_logs)):
+            f_loss, f_gn = (abs(x[0] - r[0]) / abs(r[0]),
+                            abs(x[1] - r[1]) / abs(r[1]))
+            check(d_loss <= max(TM_LOSS_REL, TM_NOISE * f_loss)
+                  and d_gn <= max(TM_GNORM_REL, TM_NOISE * f_gn),
+                  f"train mesh (b) (2, 2) step {i}: loss and grad norm off "
+                  f"by {d_loss} and {d_gn} of one device's")
+    del state, step
+    torch.cuda.empty_cache()
+
+    # (2, 2), pod_axis="data", int8: finite, the same state on every rank
+    tc8 = dataclasses.replace(tc, grad_compression="int8")
+    state = init_train_state(model, tc8, 0, dev, mesh=mesh)
+    step = make_train_step(model, tc8, mesh=mesh, pod_axis="data")
+    int32, real_cp, real_ar = [], train_loop.compress_psum, dist.all_reduce
+
+    def counting(t, *args, **kwargs):
+        if t.dtype == torch.int32:
+            int32.append(t.numel())
+        return real_ar(t, *args, **kwargs)
+
+    def compress(grads, group, mode):
+        dist.all_reduce = counting
+        try:
+            return real_cp(grads, group, mode)
+        finally:
+            dist.all_reduce = real_ar
+    train_loop.compress_psum = compress
+    try:
+        state, logs, got = mesh_train_steps(
+            torch, kernels, step, state, batches[:1],
+            "train mesh (b) (2, 2) int8 over data", card)
+    finally:
+        train_loop.compress_psum = real_cp
+    add(got)
+    n_leaves = len(list(tree_paths(state.params)))
+    check(len(int32) == n_leaves, f"train mesh (b) int8: {len(int32)} int32 "
+          f"all-reduces in the compressor for {n_leaves} leaves")
+    int8_fp = state_fingerprints(torch, state)
+    say(f"train mesh (b) (2, 2) int8 over data: loss {logs[0][0]!r}, grad "
+        f"norm {logs[0][1]!r}, {len(int32)} int32 all-reduces "
+        f"({sum(int32)} elements), {logs[0][2]:.1f} ms [{card}]")
+    del state, step
+    res = {"rank": rank, "counts": counts, "fp_1x4": fp_1x4,
+           "fp_2x2": fp_2x2, "ref_fp": ref_fp if rank == 0 else None,
+           "ref_fp_2x2": ref_fp_2x2 if rank == 0 else None,
+           "int8_fp": int8_fp,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.time() - t_start}
+    dist.destroy_process_group()
+    Path(f"{out}/train_rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def train_cli(torch, card, tmp):
+    """(c): ``launch/train.py`` on the card, reduced: 3 steps with a
+    checkpoint at 2, then a run from that checkpoint alone; the two final
+    checkpoints must hold the same bits."""
+    import os
+
+    import numpy as np
+    runs = {}
+    flags = ["--reduced", "--steps", "3", "--ckpt-every", "2",
+             "--harvest-every", "1"]
+    for name in ("a", "b"):
+        d = Path(tmp) / f"cli_{name}"
+        if name == "b":
+            shutil.copytree(Path(tmp) / "cli_a" / "step_0000000002",
+                            d / "step_0000000002")
+        t0 = time.time()
+        p = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *flags,
+             "--ckpt-dir", str(d)], cwd=ROOT, capture_output=True,
+            text=True, timeout=TM_CLI_TIMEOUT_S,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        check(p.returncode == 0, f"train mesh (c): the CLI run {name} exited "
+              f"{p.returncode}:\n{p.stdout[-2000:]}\n{p.stderr[-2000:]}")
+        runs[name] = (time.time() - t0, p.stdout)
+    check("resumed from step 2" in runs["b"][1], "train mesh (c): the "
+          "second run did not resume from step 2")
+    arrays = []
+    for name in ("a", "b"):
+        with np.load(Path(tmp) / f"cli_{name}" / "step_0000000003" /
+                     "arrays.npz") as data:
+            arrays.append({k: data[k] for k in data.files})
+    check(arrays[0].keys() == arrays[1].keys() and all(
+        np.array_equal(arrays[0][k].reshape(-1).view(np.uint8),
+                       arrays[1][k].reshape(-1).view(np.uint8))
+        for k in arrays[0]), "train mesh (c): the resumed run's final "
+          "checkpoint differs from the uninterrupted run's")
+    for line in runs["a"][1].splitlines():
+        log(f"  cli: {line}")
+    log(f"train mesh (c): the train CLI (reduced, cuda) 3 steps in "
+        f"{runs['a'][0]:.1f} s, resumed from step 2 in {runs['b'][0]:.1f} "
+        f"s; {len(arrays[0])} arrays of the final checkpoints bit-equal "
+        f"[{card}]")
 
 
 def vlm_last(torch, card, kernels):

@@ -1,2 +1,3 @@
-"""Process-mesh set-up for serving (counterpart of ``repro.launch``; the
-port carries the serving mesh of ``launch.mesh``)."""
+"""Process meshes and entry points (counterpart of ``repro.launch``): the
+serving and training meshes and their sharding rules (``launch.mesh``)
+and the training entry point (``launch.train``)."""

@@ -18,7 +18,12 @@
  * the manifest holds the step, a fingerprint of the configuration
    (``config_fingerprint``) and the data iterator's state, so a resume
    neither replays nor skips a batch, and ``restore(config=...)`` refuses a
-   checkpoint of another configuration.
+   checkpoint of another configuration;
+ * a sharded state (``train_loop.init_train_state(mesh=)``) is saved whole:
+   ``save(shardings=)`` gathers every sharded leaf on every rank, rank 0
+   writes and the others wait at a barrier; ``restore(shardings=)`` reads
+   on every rank and keeps the rank's slices, so a checkpoint saved at one
+   mesh shape restores at another or on one device.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..launch.mesh import gather_leaf, shard_leaf
 
 
 def config_fingerprint(*configs) -> str:
@@ -62,6 +68,11 @@ def _flatten(tree, prefix=""):
     return out
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
 def _to_numpy(v) -> np.ndarray:
     if isinstance(v, torch.Generator):
         return v.get_state().numpy().copy()
@@ -86,18 +97,34 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any, extra: Dict[str, Any] = None, *,
              config: Optional[str] = None,
-             data_state: Optional[Dict[str, Any]] = None) -> None:
+             data_state: Optional[Dict[str, Any]] = None,
+             shardings: Any = None) -> None:
         """Snapshot ``state`` at ``step``: the tensors are copied to the
         host now, the files written now or, if async, by a writer thread.
         ``config`` is a ``config_fingerprint``; ``data_state`` the data
-        iterator's ``DataState.to_dict()``."""
-        arrays = {k.replace("/", "__"): _to_numpy(v)
-                  for k, v in _flatten(state).items()}
+        iterator's ``DataState.to_dict()``. ``shardings`` (the state's
+        placements, ``train_loop.state_shardings``; every rank of the mesh
+        calls ``save``) gathers each sharded leaf whole, one at a time;
+        rank 0 writes, at once, and every rank returns after the write."""
+        places = _flatten(shardings)
+        sharded = bool(places)
+        writer = not sharded or _rank() == 0
+        arrays = {}
+        for k, v in _flatten(state).items():
+            if k in places:
+                v = gather_leaf(v, places[k])
+            if writer:
+                arrays[k.replace("/", "__")] = _to_numpy(v)
         manifest = {"step": int(step), "time": time.time(),
                     "keys": sorted(arrays), "config": config,
                     "data": data_state, "extra": extra or {}}
         self.wait()                           # one writer at a time
-        if self.async_write:
+        if sharded:
+            if writer:
+                self._write(step, arrays, manifest)
+            import torch.distributed as dist
+            dist.barrier()
+        elif self.async_write:
             self._thread = threading.Thread(
                 target=self._write, args=(step, arrays, manifest),
                 daemon=True)
@@ -147,12 +174,16 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: Optional[int], like: Any, *,
-                config: Optional[str] = None, device=None
-                ) -> Tuple[Any, Dict]:
+                config: Optional[str] = None, device=None,
+                shardings: Any = None) -> Tuple[Any, Dict]:
         """Restore into the structure of ``like``: each tensor in its
         dtype, on its device (or on ``device``), each int field as an int,
         each generator as a new generator. ``step`` None takes the latest.
-        Raises if ``config`` is given and differs from the saved one."""
+        Raises if ``config`` is given and differs from the saved one.
+        ``shardings`` (placements in ``like``'s structure,
+        ``train_loop.state_shardings``) keeps this rank's slice of each
+        sharded leaf: the elastic restart's reshard onto the current
+        mesh."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -165,10 +196,14 @@ class CheckpointManager:
                 f"checkpoint {path} was saved under configuration "
                 f"{manifest.get('config')}, not {config}")
         dev = None if device is None else resolve_device(device)
+        places = _flatten(shardings)
         with np.load(os.path.join(path, "arrays.npz")) as data:
             vals = {}
             for k, ref in _flatten(like).items():
-                vals[k] = _from_numpy(data[k.replace("/", "__")], ref, dev)
+                arr = data[k.replace("/", "__")]
+                if k in places:
+                    arr = shard_leaf(torch.from_numpy(arr), places[k]).numpy()
+                vals[k] = _from_numpy(arr, ref, dev)
         return _unflatten_like(like, vals), manifest
 
 

@@ -10,7 +10,7 @@ update's f32 temporaries never exceed two of the largest leaf.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -88,14 +88,18 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: TrainConfig, params, grads, state: OptState
+def adamw_update(cfg: TrainConfig, params, grads, state: OptState, *,
+                 gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, OptState, Dict[str, Any]]:
     """One AdamW step with the JAX package's arithmetic: clip by the global
     norm, bias-corrected moments, ``delta = m_hat / (sqrt(v_hat) + 1e-8) +
     wd * p``, ``p - lr * delta`` cast back to p's dtype. ``grads`` is the
     parameters' tree or its leaves in tree order. ``params`` and the
-    moments are updated in place and returned."""
-    gnorm = global_norm(grads)
+    moments are updated in place and returned. ``gnorm`` is the global
+    norm to clip by where ``grads`` are slices of the gradient (the
+    sharded step passes the whole gradient's); by default, ``grads``'."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     b1, b2 = cfg.beta1, cfg.beta2

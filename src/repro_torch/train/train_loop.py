@@ -14,9 +14,24 @@ from the initial output embedding (an ``IVFIndex`` through
 ``lsh.build_lsh_device`` for lsh_ce), every loss call plans through it,
 and ``make_index_refresh`` re-clusters (or re-hashes) it from the current
 embedding into tensors of the same shapes and dtypes.
+
+Under a mesh (``launch.mesh``; ``init_train_state(mesh=)``,
+``make_train_step(mesh=)``) each rank stores the slice of each parameter
+leaf that ``param_spec`` gives its ``model`` coordinate, with its AdamW
+moments. A step gathers the whole leaves over ``model`` exactly (bit
+patterns), runs the one-device loss, autograd and kernels on the rank's
+rows of the batch (contiguous rows over the data axes, as the JAX
+package's ``batch_shardings``; the ranks of one replica compute the same
+rows), averages the gradients over the data axes in f32 (the gradient of
+the global batch's mean loss) or, over ``pod_axis``, sums them through
+``compress_psum``, clips by the norm of the whole gradient and updates the
+rank's slices. AdamW is elementwise, so at data 1 the slices equal the
+one-device step's bit for bit. The compute is not split over ``model``:
+a rank holds whole parameters and gradients during the step.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -25,8 +40,11 @@ from .. import resolve_device
 from ..configs.base import ModelConfig, TrainConfig
 from ..core import lsh as _lsh
 from ..core import mips as _mips
+from ..launch import mesh as _mesh
+from .compression import compress_psum
 from .losses import DRAW_ARGS, ESTIMATOR_LOSSES, get_loss
-from .optimizer import OptState, adamw_update, init_opt_state, tree_leaves
+from .optimizer import (OptState, adamw_update, global_norm, init_opt_state,
+                        tree_leaves)
 
 # added to the seed of init_train_state for the index build's generator
 # (the JAX package folds 0x1DF into its key)
@@ -116,15 +134,34 @@ def _resolve_n_clusters(cfg: ModelConfig) -> int:
     return max(1, cfg.vocab // (4 * pc.block_rows))
 
 
+def params_placements(model, mesh):
+    """The placement of every parameter leaf on ``mesh``
+    (``launch.mesh.params_shardings`` of the whole leaves' shapes, from a
+    ``meta`` init)."""
+    return _mesh.params_shardings(mesh, model.init(torch.Generator(),
+                                                   "meta"))
+
+
+def state_shardings(model, mesh) -> TrainState:
+    """The placements of a sharded ``TrainState``'s tensors, in its
+    structure (the parameters' for the parameters and both moments; the
+    step, generator and index whole), for ``CheckpointManager``."""
+    ps = params_placements(model, mesh)
+    return TrainState(params=ps, opt=OptState(step=None, m=ps, v=ps),
+                      rng=None, index=None)
+
+
 def init_train_state(model, train_cfg: TrainConfig, seed: int,
-                     device="cuda") -> TrainState:
+                     device="cuda", *, mesh=None) -> TrainState:
     """Seeded parameters (``Model.init`` from a generator seeded with
     ``seed``), zero f32 moments, and a training generator seeded with
     ``seed + 1``, all on ``device``. An estimator-backed loss also gets
     its index of the initial head matrix, drawn from a generator seeded
     with ``seed + INDEX_SEED_OFFSET`` (0x1DF): an ``LSHIndex`` (its
     hyperplanes) for lsh_ce, else the fixed-capacity ``IVFIndex`` (its
-    k-means seeding)."""
+    k-means seeding). With ``mesh`` every rank draws the same whole state
+    and keeps its slices of the parameters (``params_placements``) and
+    moments of their shapes; the generator and the index stay whole."""
     dev = resolve_device(device)
     params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
     index = None
@@ -145,6 +182,8 @@ def init_train_state(model, train_cfg: TrainConfig, seed: int,
                 w, block_rows=pc.block_rows,
                 n_clusters=_resolve_n_clusters(model.cfg), generator=gen,
                 device=dev)
+    if mesh is not None:
+        params = _mesh.shard_tree(params, params_placements(model, mesh))
     return TrainState(params=params, opt=init_opt_state(params),
                       rng=torch.Generator(device=dev).manual_seed(seed + 1),
                       index=index)
@@ -155,21 +194,30 @@ def _layout(index):
             for f, t in zip(index._fields, index)]
 
 
-def make_index_refresh(model, train_cfg: TrainConfig):
+def make_index_refresh(model, train_cfg: TrainConfig, *, mesh=None):
     """``refresh(state) -> (state, {"churn", "drift"})``: re-cluster and
     repack the IVF index from the current head matrix (``refresh_ivf``,
     warm-started from the index's assignment,
     ``train_cfg.index_refresh_kmeans_iters`` Lloyd steps), or for lsh_ce
     re-hash it keeping the hyperplanes (``rehash_lsh``). Every index
     tensor keeps its shape and dtype; a refresh that would change one
-    raises and leaves the state as it was."""
+    raises and leaves the state as it was. With ``mesh`` the state is
+    sharded and every rank gathers the whole head first."""
     n_clusters = _resolve_n_clusters(model.cfg)
     iters = train_cfg.index_refresh_kmeans_iters
     lsh = train_cfg.loss == "lsh_ce"
+    placements = None if mesh is None else params_placements(model, mesh)
+
+    def head(params):
+        if placements is None:
+            return model.head_matrix(params)
+        keys = [k for k in ("embed", "lm_head") if k in params]
+        return model.head_matrix(_mesh.gather_tree(
+            {k: params[k] for k in keys}, {k: placements[k] for k in keys}))
 
     def refresh(state: TrainState):
         with torch.no_grad():
-            w = model.head_matrix(state.params).detach()
+            w = head(state.params).detach()
             if lsh:
                 new, metrics = _lsh.rehash_lsh(state.index, w)
             else:
@@ -192,7 +240,8 @@ def _batch_rows(batch: Dict[str, torch.Tensor], i: int, mb: int):
 
 
 def make_train_step(model, train_cfg: TrainConfig, *, backend: str = "xla",
-                    draw_source: Optional[Callable[[int, int], Any]] = None):
+                    draw_source: Optional[Callable[[int, int], Any]] = None,
+                    mesh=None, pod_axis: Optional[str] = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch`` holds ``tokens`` and ``labels`` (B, S), or (B, S, C) for an
@@ -206,7 +255,18 @@ def make_train_step(model, train_cfg: TrainConfig, *, backend: str = "xla",
     ``draw_source(step, microbatch)``, take its return value as their draw
     (``losses.DRAW_ARGS`` names the argument: noise words or tail ids), so
     a test can replay the JAX package's draws; ``step`` is the optimizer's
-    step count before the update."""
+    step count before the update.
+
+    ``mesh`` takes the state of ``init_train_state(mesh=)`` and the whole
+    batch on every rank (see the module's notes). Where the batch splits
+    over the data axes, nce and sampled draw each microbatch's noise whole
+    (from ``state.rng`` or ``draw_source``), as one device does, and keep
+    the rank's rows, and the loss and the scalar metrics are averaged over
+    the data axes. ``pod_axis`` names a mesh dim whose gradients are
+    summed through ``compress_psum`` (``train_cfg.grad_compression``); the
+    other data axes are averaged first. The estimator-backed losses plan
+    one head union and one tail over the whole batch, so they refuse a
+    mesh whose data axes hold more than one rank."""
     loss_name = train_cfg.loss
     loss_fn = get_loss(loss_name)
     est_loss = loss_name in ESTIMATOR_LOSSES
@@ -214,6 +274,9 @@ def make_train_step(model, train_cfg: TrainConfig, *, backend: str = "xla",
                                                     "selfnorm") else {}
     if draw_source is not None and loss_name not in DRAW_ARGS:
         raise ValueError(f"loss {loss_name!r} draws nothing to inject")
+    if pod_axis is not None and (
+            mesh is None or pod_axis not in mesh.mesh_dim_names):
+        raise ValueError(f"pod_axis {pod_axis!r} is not a dim of the mesh")
 
     def grads_of(params, leaves, batch, gen, index, draws):
         kw = dict(kwargs)
@@ -227,34 +290,41 @@ def make_train_step(model, train_cfg: TrainConfig, *, backend: str = "xla",
                    for k, v in metrics.items()}
         return loss.detach(), metrics, grads
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
-                   ) -> Tuple[TrainState, Dict[str, Any]]:
-        leaves = tree_leaves(state.params)
+    def loss_and_grads(params, batch, gen, index, draws):
+        """The one-device body: (loss, metrics, gradient leaves), the
+        microbatches' averaged in f32; ``draws(i)`` is microbatch i's
+        injected draw or None."""
+        leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
         mb = train_cfg.microbatches
+        if mb <= 1:
+            return grads_of(params, leaves, batch, gen, index, draws(0))
+        grads, loss = None, 0.0
+        for i in range(mb):
+            l_i, metrics, g = grads_of(params, leaves,
+                                       _batch_rows(batch, i, mb), gen, index,
+                                       draws(i))
+            if grads is None:
+                grads = [x.float() for x in g]
+            else:
+                for acc, x in zip(grads, g):
+                    acc.add_(x)
+            loss = loss + l_i
+        for acc in grads:
+            acc.div_(mb)
+        return loss / mb, metrics, grads
 
+    def injected(state):
         def draws(i):
             return None if draw_source is None else draw_source(
                 state.opt.step, i)
-        if mb <= 1:
-            loss, metrics, grads = grads_of(state.params, leaves, batch,
-                                            state.rng, state.index, draws(0))
-        else:
-            grads, loss = None, 0.0
-            for i in range(mb):
-                l_i, metrics, g = grads_of(state.params, leaves,
-                                           _batch_rows(batch, i, mb),
-                                           state.rng, state.index, draws(i))
-                if grads is None:
-                    grads = [x.float() for x in g]
-                else:
-                    for acc, x in zip(grads, g):
-                        acc.add_(x)
-                loss = loss + l_i
-            for acc in grads:
-                acc.div_(mb)
-            loss = loss / mb
+        return draws
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[TrainState, Dict[str, Any]]:
+        loss, metrics, grads = loss_and_grads(state.params, batch, state.rng,
+                                              state.index, injected(state))
         params, opt, opt_metrics = adamw_update(
             train_cfg, state.params, grads, state.opt)
         metrics = dict(metrics)
@@ -263,4 +333,87 @@ def make_train_step(model, train_cfg: TrainConfig, *, backend: str = "xla",
         return TrainState(params=params, opt=opt, rng=state.rng,
                           index=state.index), metrics
 
-    return train_step
+    if mesh is None:
+        return train_step
+    if est_loss and _mesh.data_size(mesh) > 1:
+        raise NotImplementedError(
+            f"{loss_name} plans one head union and one tail over the whole "
+            f"batch; at data {_mesh.data_size(mesh)} each rank holds only "
+            f"its rows, and gathering the hidden states over 'data' is not "
+            f"ported: train it at data 1")
+    placement_tree = params_placements(model, mesh)
+    d_axes = _mesh.data_axes(mesh)
+    mean_axes = [a for a in d_axes if a != pod_axis]
+    sampled = loss_name in ("nce", "sampled")
+    n_head = model.cfg.vocab * max(model.cfg.n_codebooks, 1)
+
+    def coord():
+        """This rank's replica: its coordinate over the data axes."""
+        c = 0
+        for a in d_axes:
+            c = c * _mesh.axis_size(mesh, a) + _mesh.axis_rank(mesh, a)
+        return c
+
+    def sum_over(t, axes):
+        for a in axes:
+            torch.distributed.all_reduce(t, group=_mesh.axis_group(mesh, a))
+        return t
+
+    def sharded_step(state: TrainState, batch: Dict[str, torch.Tensor]
+                     ) -> Tuple[TrainState, Dict[str, Any]]:
+        n = batch["tokens"].shape[0]
+        split = (_mesh.batch_axis_for(mesh, n) is not None
+                 and _mesh.data_size(mesh) > 1)
+        draws = injected(state)
+        if split:
+            d, mb = _mesh.data_size(mesh), max(train_cfg.microbatches, 1)
+            if n % (d * mb):
+                raise ValueError(f"batch {n} does not split into {mb} "
+                                 f"microbatches on each of {d} replicas")
+            rows = _mesh.shard_tree(batch, _mesh.batch_shardings(mesh,
+                                                                 batch, n))
+            if sampled:
+                whole, c = draws, coord()
+
+                def draws(i):
+                    # microbatch i's draw over its whole rows, as one
+                    # device draws it; the rank's rows are block c of it
+                    t = batch["labels"].numel() // mb
+                    got = whole(i)
+                    if got is None:
+                        got = torch.randint(
+                            0, n_head, (t, train_cfg.nce_noise),
+                            generator=state.rng,
+                            device=batch["labels"].device)
+                    got = torch.as_tensor(got)
+                    return got[c * (t // d):(c + 1) * (t // d)]
+        else:
+            rows = batch
+        full = _mesh.gather_tree(state.params, placement_tree)
+        loss, metrics, grads = loss_and_grads(full, rows, state.rng,
+                                              state.index, draws)
+        del full
+        if split and mean_axes:
+            k = math.prod(_mesh.axis_size(mesh, a) for a in mean_axes)
+            grads = [sum_over(g.float(), mean_axes).div_(k) for g in grads]
+        if pod_axis is not None:
+            grads = compress_psum(grads, _mesh.axis_group(mesh, pod_axis),
+                                  mode=train_cfg.grad_compression)
+        gnorm = global_norm(grads)
+        local = [_mesh.local_view(g, p) for g, p in zip(
+            grads, _mesh.placements_like(state.params, placement_tree))]
+        params, opt, opt_metrics = adamw_update(
+            train_cfg, state.params, local, state.opt, gnorm=gnorm)
+        metrics = dict(metrics)
+        metrics["loss_total"] = loss
+        if split:
+            keys = [k for k, v in metrics.items() if torch.is_tensor(v)
+                    and v.dim() == 0 and v.is_floating_point()]
+            vals = sum_over(torch.stack([metrics[k].float() for k in keys]),
+                            d_axes) / _mesh.data_size(mesh)
+            metrics.update(zip(keys, vals.unbind()))
+        metrics.update(opt_metrics)
+        return TrainState(params=params, opt=opt, rng=state.rng,
+                          index=state.index), metrics
+
+    return sharded_step
