@@ -306,7 +306,7 @@ GPU.
    8192; one eager step's ``ivf_decode`` and gated ``topk_z`` calls held
    to their plain versions (the gated one also with every lane flagged).
 
-13. The training mesh phase (``train_mesh_last``), last: (a) in this
+13. The training mesh phase (``train_mesh_last``): (a) in this
    process, a one-rank NCCL group at mesh (1, 1), full-width, full-depth
    qwen1.5-4b, fused_ce at B 4 x S 256: three sharded steps
    (``init_train_state(mesh=)``, ``make_train_step(mesh=)``), then, the
@@ -332,6 +332,27 @@ GPU.
    checkpoints bit-equal. (b) and (c) run at cut depth and the reduced
    config: four ranks share one card, and a full checkpoint is about 40 GB
    on disk. (c) runs in a thread beside (b).
+
+14. The serving entry point and the autotuner (``serve_cli_last``),
+   last: full-width qwen1.5-4b with a cold autotune cache of its own. (a)
+   ``Engine(autotune=True, autotune_batch=16)`` at mimps sweeps
+   ``ivf_decode`` at 8 and at 16 queries (one sweep a query-tile count);
+   ``tune`` of the engine's exact, topk, fmbe and lsh tier states sweeps
+   ``topk_z``, ``union_scores``, ``fmbe_z`` and ``lsh_probe`` on the same
+   seeded batch's 8 and 16 rows: every candidate's burst time, each
+   winner's ten-call graph time beside the default launch's, and the
+   winner at its sweep's operands held to its plain version; the sweeps'
+   timing launches are logged apart from the path's. (b) A second
+   autotuned engine reads the cache (no sweep, the same config). (c)
+   ``generate`` of 8 lanes, 32 new tokens at T 0 on the tuned engine
+   (captured = host loop) equals an untuned engine's tokens; the two
+   engines' captured steps at 8 and 16 lanes replayed in turns. (d)
+   ``python -m repro_torch.launch.serve`` (16 slots, 32 requests, 16 new
+   tokens, ``--sequential``, a trace and a snapshot) in a subprocess exits
+   0 with every request done; goodput, sequential tokens/s, the C9
+   agreement count and the trace's step spans (the first, which holds the
+   step's capture, apart) logged; the port's ``obs_report`` exits 0 on
+   the trace.
 
 Prints the kernel record as one JSON line before the last (each kernel at
 bf16, the gated ``topk_z`` as ``topk_z[gated]``, ``topk_z`` at 16 lanes as
@@ -890,6 +911,9 @@ def main() -> int:
     counts, _ = timed(train_mesh_last, kernels)
     for rec in ce_records:
         rec["launches"] += counts[rec["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()                    # the training mesh is gone
+    late.append(timed(serve_cli_last, kernels))
     for counts, n_gated, held in late:
         for rec in records:                     # bf16 records, by name
             rec["launches"] += n_gated if rec["name"] == "topk_z[gated]" \
@@ -1740,7 +1764,8 @@ def hold_calls(torch, label, calls):
 
 
 def hold_call(torch, label, name, real, args, kwargs):
-    """One recorded kernel call made again through its wrapper ``real`` and
+    """One recorded kernel call made again through its wrapper ``real``
+    (with its keyword arguments: ``k``, ``rows``, the launch knobs) and
     held to its plain version (the kernel phases' tolerances): (record
     name, max abs err, a note for the log)."""
     from repro_torch.kernels import _build
@@ -1748,6 +1773,7 @@ def hold_call(torch, label, name, real, args, kwargs):
     from repro_torch.kernels.ivf_score import (ivf_decode_plain,
                                               stream_geometry,
                                               union_scores_plain)
+    from repro_torch.kernels.lsh_probe import lsh_probe_plain
     from repro_torch.kernels.topk_z import topk_z_plain
 
     def ring(geo):
@@ -1755,22 +1781,23 @@ def hold_call(torch, label, name, real, args, kwargs):
                 f"{geo['pitch']} B, {geo['smem']} B of shared memory")
     if name == "ivf_decode":
         k = kwargs["k"]
-        hl, tl, iv, ii = real(*args, k=k)
+        hl, tl, iv, ii = real(*args, **kwargs)
         p_hl, p_tl, p_v, p_i = ivf_decode_plain(*args, k=k + 1)
         err = max(compare_lse(f"{label} head_lse", hl, p_hl),
                   compare_lse(f"{label} tail_lse", tl, p_tl))
         err_v, n_ids = compare_topk(label, iv, ii, p_v, p_i)
         live, cap = int(args[3]), args[2].shape[0]
-        geo = stream_geometry("ivf_decode", args[0].shape[2], args[0].dtype,
-                              u=cap, l=args[6].shape[0],
-                              grid_x=_build.stream_grid(args[0].device))
+        geo = stream_geometry(
+            "ivf_decode", args[0].shape[2], args[0].dtype, u=cap,
+            l=args[6].shape[0],
+            grid_x=kwargs.get("grid_x") or _build.stream_grid(args[0].device))
         return name, max(err, err_v), (
             f"ivf_decode Q {args[1].shape[0]} union {live} live of {cap} "
             f"slots, d {args[0].shape[2]}: ring {ring(geo)}, lse err "
             f"{err:.2e}, top-k err {err_v:.2e} ({n_ids} ids)")
     if name == "union_scores":
         live = int(args[3])
-        us = real(*args)
+        us = real(*args, **kwargs)
         p_us = union_scores_plain(*args)
         err = (us[:, :live] - p_us[:, :live]).abs().max().item()
         check(err <= TOL, f"{label}: live slots differ by {err}")
@@ -1783,7 +1810,7 @@ def hold_call(torch, label, name, real, args, kwargs):
     if name == "topk_z":
         h, w, k = args
         rows = kwargs.get("rows")
-        lse, tv, ti = real(h, w, k, rows=rows)
+        lse, tv, ti = real(h, w, k, **kwargs)
         p_lse, p_v, p_i = topk_z_plain(h, w, k + 1, rows)
         err = compare_lse(f"{label} lse", lse, p_lse)
         err_v, n_ids = compare_topk(label, tv, ti, p_v, p_i)
@@ -1791,6 +1818,18 @@ def hold_call(torch, label, name, real, args, kwargs):
         key = "topk_z" if rows is None else "topk_z[gated]"
         return key, max(err, err_v), (
             f"{key} Q {h.shape[0]} ({on} rows scored), lse err {err:.2e}, "
+            f"top-k err {err_v:.2e} ({n_ids} ids)")
+    if name == "lsh_probe":
+        k = kwargs["k"]
+        hl, tl, iv, ii, cnt = real(*args, **kwargs)
+        p_hl, p_tl, p_v, p_i, p_cnt = lsh_probe_plain(*args, k=k + 1)
+        err = max(compare_lse(f"{label} head_lse", hl, p_hl),
+                  compare_lse(f"{label} tail_lse", tl, p_tl))
+        err_v, n_ids = compare_topk(label, iv, ii, p_v, p_i)
+        check(torch.equal(cnt, p_cnt), f"{label}: collision counts differ")
+        return name, max(err, err_v), (
+            f"lsh_probe Q {args[1].shape[0]} over {int(args[4])} live of "
+            f"{args[3].shape[0]} candidate columns, lse err {err:.2e}, "
             f"top-k err {err_v:.2e} ({n_ids} ids)")
     omega, degree, coef, lam, x = args
     z = real(*args, **kwargs)
@@ -4051,6 +4090,250 @@ def train_cli(torch, card, tmp):
         f"{runs['a'][0]:.1f} s, resumed from step 2 in {runs['b'][0]:.1f} "
         f"s; {len(arrays[0])} arrays of the final checkpoints bit-equal "
         f"[{card}]")
+
+
+# -- phase 14: the serving entry point and the autotuner --------------------
+
+CLI_LANES = 16                    # (a): the sweeps' batch, the traffic lanes
+CLI_NEW = 32                      # (c): new tokens of the 8-lane generate
+CLI_MAX_LEN = PROMPT + CLI_NEW
+CLI_TIMEOUT_S = 300               # (d): the CLI's run
+CLI_ARGS = ("--arch", "qwen1.5-4b", "--method", "mimps", "--slots", "16",
+            "--requests", "32", "--gen", "16", "--sequential")
+TIER_KERNELS = {"exact": "topk_z", "topk": "union_scores",
+                "fmbe": "fmbe_z", "lsh": "lsh_probe"}
+
+
+def serve_cli_last(torch, card, kernels):
+    """Phase 14, last: the kernel autotuner and the serving entry point on
+    full-width qwen1.5-4b (bf16, 40 layers, ``_MIMPS``: 553 blocks), with a
+    cold autotune cache of its own (``REPRO_TORCH_AUTOTUNE_CACHE`` under a
+    temporary directory).
+
+    (a) ``Engine(autotune=True, autotune_batch=16)`` at mimps (the sweeps
+        of ``ivf_decode`` at 8 and 16 queries, one a query-tile count),
+        then ``tune`` of the engine's exact, topk, fmbe and lsh tier states
+        on the same seeded batch's first 8 and 16 rows (``topk_z``,
+        ``union_scores``, ``fmbe_z``, ``lsh_probe``): every candidate's
+        burst time, each winner's ten-call graph time beside the default
+        launch's, and each winner's call at its sweep's operands held to
+        its plain version (``hold_call``). The sweeps' launches are timing
+        launches: logged apart, not the path's.
+    (b) A second autotuned engine (the k-means assignment injected) reads
+        the cache: no sweep, the same ``kernel_cfg``, the read's seconds.
+    (c) ``generate`` of 8 lanes, 32 new tokens, T 0 on the tuned engine
+        (captured = host loop bit for bit, ``served_pair``) and on an
+        untuned engine of the same index: the same tokens; log Z's largest
+        difference logged (a grid splits the partials otherwise). Then the
+        captured step of each engine at 8 and at 16 lanes replayed in
+        turns (tuned, default, tuned, default): device ms a step.
+    (d) ``python -m repro_torch.launch.serve`` with ``CLI_ARGS`` and a
+        trace and snapshot in a subprocess: exit 0, every request
+        completed, goodput, sequential tokens/s and the count of requests
+        whose sequential tokens equal the slot table's (C9: logged, not
+        held); the trace's ``device_step`` spans: the first step's (the
+        step's capture) apart from the median of the rest; the port's
+        ``obs_report`` exits 0 on the trace.
+    Returns (launches by kernel, gated ``topk_z`` launches, the held max
+    abs err by record name) of (c)."""
+    import os
+    import re
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core.backends import get_backend
+    from repro_torch.kernels import autotune as at
+    from repro_torch.launch import obs_report
+    from repro_torch.models import Model
+    from repro_torch.models.transformer import torch_dtype
+    from repro_torch.serve import Engine
+    from repro_torch.serve import engine as engine_mod
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen1.5-4b")
+    pc = cfg.partition
+    counted = PathCounts(torch, kernels)
+    sweeps = PathCounts(torch, kernels)
+    held = {}
+    tmp = Path(tempfile.mkdtemp(prefix="serve_cli_"))
+    saved_env = os.environ.get(at.ENV)
+    os.environ[at.ENV] = str(tmp / "autotune.json")
+    try:
+        params = Model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                 dev)
+        qs = [min(CLI_LANES, t * at.QUERY_TILE)
+              for t in range(1, at.query_tiles(CLI_LANES) + 1)]
+
+        # (a) the sweeps
+        def tuned_build():
+            t0 = time.time()
+            eng = Engine(Model(cfg), params, CLI_MAX_LEN, seed=1,
+                         autotune=True, autotune_batch=CLI_LANES)
+            torch.cuda.synchronize()
+            build_s = time.time() - t0
+            # the engine's own tuning batch; its sweeps read back from the
+            # cache (a hit: the build swept them), then each tier's
+            gen = torch.Generator(device=dev).manual_seed(eng.seed + 0xA07)
+            h = (0.1 * torch.randn((CLI_LANES, cfg.d_model), generator=gen,
+                                   device=dev)).to(torch_dtype(cfg.dtype))
+            recs, tiers = [], {}
+            for q in qs:
+                eng.backend.tune(eng.state, pc, h[:q], generator=gen)
+                recs.append(("ivf_decode", q, dict(at.LAST["ivf_decode"])))
+            for m, name in TIER_KERNELS.items():
+                for q in qs:
+                    tiers[(m, q)] = get_backend(m).tune(
+                        eng.tier_state(m), pc, h[:q], generator=gen)
+                    recs.append((name, q, dict(at.LAST[name])))
+            torch.cuda.synchronize()
+            return eng, recs, tiers, build_s
+
+        (eng, recs, tiers, build_s), sweep_counts, _ = sweeps(tuned_build)
+        want = {t + 1: eng.kernel_cfg.get(t + 1) for t in range(len(qs))}
+        check(all(want.values()) and set(eng.kernel_cfg) == set(want),
+              f"serve_cli (a): the mimps engine's kernel_cfg "
+              f"{eng.kernel_cfg}, want one a query-tile count of {qs}")
+        log(f"serve_cli (a): Engine(autotune=True, autotune_batch="
+            f"{CLI_LANES}) built in {build_s:.1f} s, kernel_cfg by query "
+            f"tiles {eng.kernel_cfg}; tiers' tune by (tier, Q) {tiers}; "
+            f"the sweeps' timing launches (not the path's) {sweep_counts} "
+            f"[{card}]")
+        for name, q, rec in recs:
+            check(rec["hit"] == (name == "ivf_decode") and
+                  rec["ms"] is not None,
+                  f"serve_cli (a): {name} at Q {q} did not sweep where "
+                  f"it should: {rec}")
+            sweep = "; ".join(
+                f"{c['config']} " + (f"{c['ms']:.4f}" if "ms" in c
+                                     else c["error"])
+                for c in rec["swept"])
+            check(all("ms" in c for c in rec["swept"]),
+                  f"serve_cli (a): {name} at Q {q}: a candidate failed: "
+                  f"{sweep}")
+            real, args, kw = rec["call"]
+            win = rec["config"]
+            ten = graph10_ms(torch, lambda: real(*args, **kw, **win))
+            ten_dflt = graph10_ms(torch, lambda: real(*args, **kw))
+            key, err, note = hold_call(torch, f"serve_cli (a) {name}", name,
+                                       real, args, dict(kw, **win))
+            held[key] = max(held.get(key, 0.0), err)
+            log(f"autotune {name} Q {q}: {len(rec['swept'])} candidates "
+                f"(ms a call, burst of {at.BURST}): {sweep}; winner {win} "
+                f"at {rec['ms']:.4f}; ten-call graph {ten:.4f} ms against "
+                f"the default launch's {ten_dflt:.4f} "
+                f"({ten / ten_dflt:.3f}x); held: {note} [{card}]")
+
+        # (b) the cache read
+        t0 = time.time()
+        eng2 = Engine(Model(cfg), params, CLI_MAX_LEN, seed=1, autotune=True,
+                      autotune_batch=CLI_LANES, index_assign=eng.index.assign)
+        torch.cuda.synchronize()
+        rec = at.LAST["ivf_decode"]
+        check(rec["hit"] and eng2.kernel_cfg == eng.kernel_cfg,
+              f"serve_cli (b): the second engine swept again or tuned "
+              f"otherwise: {eng2.kernel_cfg} against {eng.kernel_cfg}")
+        log(f"serve_cli (b): a second autotuned engine read the cache in "
+            f"{rec['seconds'] * 1e3:.2f} ms (the last of its "
+            f"{len(qs)} reads; engine build {time.time() - t0:.1f} s, "
+            f"k-means assignment injected) [{card}]")
+        del eng2
+
+        # (c) tuned and default tokens, then the captured steps' replays
+        plain = Engine(Model(cfg), params, CLI_MAX_LEN, seed=1,
+                       index_assign=eng.index.assign)
+        gen = torch.Generator(device=dev).manual_seed(4)
+        prompt = torch.randint(0, cfg.vocab, (CLI_LANES, PROMPT),
+                               generator=gen, device=dev)
+        got = {}
+        engines = (("tuned", eng), ("default", plain))
+        for label, e in engines:
+            (out, aux, s), _ = served_pair(
+                torch, e, prompt[:N_REQ], CLI_NEW, f"serve_cli (c) {label}",
+                wrap=lambda fn: counted(fn)[0])
+            got[label] = (out, aux)
+            log(f"serve_cli (c) {label}: generate {N_REQ} lanes x {CLI_NEW} "
+                f"new tokens at T 0, captured bit-equal to the host loop, "
+                f"{N_REQ * CLI_NEW / s:.1f} tokens/s (wall, the capture "
+                f"included) [{card}]")
+        check(torch.equal(got["tuned"][0], got["default"][0]),
+              "serve_cli (c): the tuned engine's tokens differ from the "
+              "default engine's")
+        dz = (got["tuned"][1]["log_z"] -
+              got["default"][1]["log_z"]).abs().max().item()
+        log(f"serve_cli (c): tuned tokens = default tokens; log Z's largest "
+            f"difference {dz:.3e} [{card}]")
+        for lanes in (N_REQ, CLI_LANES):
+            runs = {}
+            for label, e in engines:
+                run = engine_mod._graph_runner(e, lanes, None)
+                if run.graph is None:
+                    run.capture(e)
+                runs[label] = run
+            ms = {label: [] for label, _ in engines}
+            for label in ("tuned", "default", "tuned", "default"):
+                ms[label].append(replay_ms(torch, runs[label],
+                                           prompt[:lanes]))
+            t, d = min(ms["tuned"]), min(ms["default"])
+            log(f"serve_cli (c) step at {lanes} lanes (knobs "
+                f"{eng.knobs(lanes)}): captured replay tuned "
+                f"{ms['tuned'][0]:.4f}, {ms['tuned'][1]:.4f} ms, default "
+                f"{ms['default'][0]:.4f}, {ms['default'][1]:.4f} ms "
+                f"(tuned/default {t / d:.4f}, best of two each) [{card}]")
+        del eng, plain, params, got, runs
+        at.LAST.clear()                         # the sweeps' operands
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the CLI
+        trace, snap = tmp / "trace.jsonl", tmp / "snap.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *CLI_ARGS,
+               "--trace-out", str(trace), "--metrics-snapshot", str(snap)]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.time()
+        res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=CLI_TIMEOUT_S)
+        cli_s = time.time() - t0
+        for line in res.stdout.splitlines():
+            log(f"  serve CLI | {line}")
+        check(res.returncode == 0, f"serve_cli (d): exit {res.returncode}:"
+              f" {res.stderr[-2000:]}")
+        n_req = re.search(r"continuous: (\d+) requests", res.stdout)
+        good = re.search(r"([\d.]+) tok/s goodput", res.stdout)
+        seq = re.search(r"sequential: \d+ tokens in [\d.]+s \(([\d.]+) "
+                        r"tok/s\).*for (\d+)/(\d+) requests", res.stdout)
+        check(n_req and int(n_req.group(1)) == 32 and good and seq,
+              "serve_cli (d): the report lines are missing")
+        check("robustness" not in res.stdout, "serve_cli (d): a request "
+              "was shed or evicted")
+        spans = []
+        for line in trace.read_text().splitlines():
+            e = json.loads(line)
+            if e.get("ph") == "X" and e["name"].startswith("device_step:"):
+                spans.append((e["ts"], e["dur"] / 1e3))
+        spans = [ms for _, ms in sorted(spans)]
+        check(len(spans) >= 2, f"serve_cli (d): {len(spans)} device_step "
+              f"spans in the trace")
+        rc = obs_report.main([str(trace), "--snapshot", str(snap)])
+        check(rc == 0, f"serve_cli (d): obs_report exit {rc}")
+        log(f"serve_cli (d): the CLI in {cli_s:.1f} s: 32 requests done, "
+            f"goodput {good.group(1)} tok/s, sequential {seq.group(1)} "
+            f"tok/s, sequential tokens equal to the slot table's for "
+            f"{seq.group(2)}/{seq.group(3)} requests (C9: logged, not "
+            f"held); device_step spans (host clock, dispatch to read-back): "
+            f"{len(spans)}, mean {statistics.mean(spans):.2f} ms, the first "
+            f"(the step's capture) {spans[0]:.2f} ms, the rest mean "
+            f"{statistics.mean(spans[1:]):.2f} median "
+            f"{statistics.median(spans[1:]):.2f} max {max(spans[1:]):.2f} "
+            f"ms; obs_report exit 0 [{card}]")
+    finally:
+        if saved_env is None:
+            os.environ.pop(at.ENV, None)
+        else:
+            os.environ[at.ENV] = saved_env
+        shutil.rmtree(tmp, ignore_errors=True)
+    path, n_gated = counted.totals()
+    log(f"serve_cli path launches {path}, gated topk_z {n_gated}; held max "
+        f"abs err {held}")
+    return path, n_gated, held
 
 
 def vlm_last(torch, card, kernels):

@@ -6,7 +6,9 @@ A backend has two obligations: ``build`` derives its retrieval state from
 the output embedding ``w (V, d)`` once (``refresh`` rebuilds it from a new
 one), and ``decode`` runs one batched decode step returning the uniform
 ``DecodeOut``; ``shard_decode`` is its twin under the serving mesh, on the
-rank's shard of the state (``local_shard``). Backends also own their byte
+rank's shard of the state (``local_shard``). ``tune`` measures the launch
+knobs of the kernel ``decode`` launches (``kernels.autotune``), which
+``decode`` then takes as ``**kernel_cfg``. Backends also own their byte
 accounting (``embedding_floats`` / ``floats_bound``).
 """
 from __future__ import annotations
@@ -20,13 +22,23 @@ from .. import resolve_device
 from ..configs.base import PartitionConfig
 from . import lsh as _lsh
 from . import mips as _mips
-from .decode import (DecodeOut, draw_tail_idx, exact_topk_decode,
-                     fmbe_decode, mimps_decode, mince_decode,
-                     selfnorm_decode, topk_head_decode)
+from .decode import (DecodeOut, _tail_rows, draw_tail_idx,
+                     exact_topk_decode, fmbe_decode, make_plan, mimps_decode,
+                     mince_decode, selfnorm_decode, topk_head_decode)
 from ..kernels.fmbe import pack_if_needed
 from ..kernels.topk_z import topk_z
 from .feature_maps import (FeatureMap, FMBEState, build_fmbe,
                            build_fmbe_blocks, fmbe_z_batch, make_feature_map)
+
+
+# the launch knobs every tuned kernel takes (``kernels.autotune``)
+KNOBS = ("grid_x",)
+
+
+def _knobs(kernel_cfg: dict) -> dict:
+    """The knobs of ``kernel_cfg`` that a backend's kernel takes; a backend
+    drops the others."""
+    return {k: v for k, v in kernel_cfg.items() if k in KNOBS}
 
 
 @dataclasses.dataclass
@@ -117,7 +129,11 @@ class EstimatorBackend:
                cfg: PartitionConfig, *, k: int = 1, use_kernel: bool = True,
                generator: Optional[torch.Generator] = None,
                tail_idx: Optional[torch.Tensor] = None,
-               active: Optional[torch.Tensor] = None) -> DecodeOut:
+               active: Optional[torch.Tensor] = None,
+               **kernel_cfg) -> DecodeOut:
+        """``kernel_cfg`` carries the launch knobs ``tune`` measured for
+        the backend's kernel (empty: the default launch); knobs that kernel
+        does not take are dropped."""
         raise NotImplementedError
 
     def shard_decode(self, state: BackendState, h: torch.Tensor,
@@ -125,15 +141,28 @@ class EstimatorBackend:
                      use_kernel: bool = True,
                      generator: Optional[torch.Generator] = None,
                      tail_idx: Optional[torch.Tensor] = None,
-                     active: Optional[torch.Tensor] = None) -> DecodeOut:
+                     active: Optional[torch.Tensor] = None,
+                     **kernel_cfg) -> DecodeOut:
         """The serving mesh's twin of ``decode``: ``state`` is this rank's
         ``local_shard`` (its rows of ``w`` and of the IVF ``v_blocks``, all
         metadata whole) and ``group`` the mesh's ``model`` group. The same
         ``DecodeOut``; the probe paths are bit-equal to ``decode`` at every
         mesh size (``serve.output_layer``). Draws must be the same on every
-        rank of the group (``tail_idx``, or generators seeded alike)."""
+        rank of the group (``tail_idx``, or generators seeded alike).
+        ``kernel_cfg`` reaches the kernels the mesh bodies launch as
+        ``decode`` does (the plain bodies ignore it)."""
         raise NotImplementedError(
             f"backend {self.method!r} has no mesh serving path")
+
+    def tune(self, state: BackendState, cfg: PartitionConfig,
+             h: torch.Tensor, *, generator: Optional[torch.Generator] = None,
+             path: Optional[str] = None) -> dict:
+        """Measure and cache the launch knobs of the kernel ``decode``
+        launches, for a decode batch shaped like ``h``
+        (``kernels.autotune``; ``generator`` draws the plan's tail, where
+        there is one). Returns kwargs for ``decode``; {} = nothing to tune
+        (CPU tensors, or no kernel on this state)."""
+        return {}
 
     def has_tail(self, state: BackendState) -> bool:
         """Whether ``decode`` on this state samples a shared tail (and so
@@ -187,14 +216,21 @@ class ExactBackend(EstimatorBackend):
     method = "exact"
 
     def decode(self, state, h, cfg, *, k=1, use_kernel=True, generator=None,
-               tail_idx=None, active=None):
-        return exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel)
+               tail_idx=None, active=None, **kernel_cfg):
+        return exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel,
+                                 kernel_cfg=_knobs(kernel_cfg))
 
     def shard_decode(self, state, h, cfg, *, group, k=1, use_kernel=True,
-                     generator=None, tail_idx=None, active=None):
+                     generator=None, tail_idx=None, active=None,
+                     **kernel_cfg):
         from ..serve.output_layer import mesh_exact_decode
         return mesh_exact_decode(state.w, h, k=k, use_kernel=use_kernel,
-                                 group=group)
+                                 group=group,
+                                 kernel_cfg=_knobs(kernel_cfg))
+
+    def tune(self, state, cfg, h, *, generator=None, path=None):
+        from ..kernels.autotune import tune_topk_z
+        return tune_topk_z(h, state.w, cfg.sample_k, path=path)
 
 
 @register_backend
@@ -202,14 +238,19 @@ class SelfnormBackend(EstimatorBackend):
     method = "selfnorm"
 
     def decode(self, state, h, cfg, *, k=1, use_kernel=True, generator=None,
-               tail_idx=None, active=None):
-        return selfnorm_decode(state.w, h, k=k, use_kernel=use_kernel)
+               tail_idx=None, active=None, **kernel_cfg):
+        return selfnorm_decode(state.w, h, k=k, use_kernel=use_kernel,
+                               kernel_cfg=_knobs(kernel_cfg))
 
     def shard_decode(self, state, h, cfg, *, group, k=1, use_kernel=True,
-                     generator=None, tail_idx=None, active=None):
+                     generator=None, tail_idx=None, active=None,
+                     **kernel_cfg):
         from ..serve.output_layer import mesh_selfnorm_decode
         return mesh_selfnorm_decode(state.w, h, k=k, use_kernel=use_kernel,
-                                    group=group)
+                                    group=group,
+                                    kernel_cfg=_knobs(kernel_cfg))
+
+    tune = ExactBackend.tune
 
 
 class _IndexedBackend(EstimatorBackend):
@@ -246,16 +287,18 @@ class MimpsBackend(_IndexedBackend):
     method = "mimps"
 
     def decode(self, state, h, cfg, *, k=1, use_kernel=True, generator=None,
-               tail_idx=None, active=None):
+               tail_idx=None, active=None, **kernel_cfg):
         if state.index is None:
             return exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel)
         return mimps_decode(state.index, h, n_probe=cfg.n_probe, l=cfg.l,
                             k=k, use_kernel=use_kernel,
                             head_cap=cfg.head_cap, generator=generator,
-                            tail_idx=tail_idx, active=active)
+                            tail_idx=tail_idx, active=active,
+                            kernel_cfg=_knobs(kernel_cfg))
 
     def shard_decode(self, state, h, cfg, *, group, k=1, use_kernel=True,
-                     generator=None, tail_idx=None, active=None):
+                     generator=None, tail_idx=None, active=None,
+                     **kernel_cfg):
         from ..serve.output_layer import (mesh_exact_decode,
                                           mesh_mimps_decode)
         if state.index is None:
@@ -265,7 +308,22 @@ class MimpsBackend(_IndexedBackend):
                                  l=cfg.l, k=k, use_kernel=use_kernel,
                                  head_cap=cfg.head_cap, generator=generator,
                                  tail_idx=tail_idx, active=active,
-                                 group=group)
+                                 group=group,
+                                 kernel_cfg=_knobs(kernel_cfg))
+
+    def tune(self, state, cfg, h, *, generator=None, path=None):
+        """``ivf_decode`` on a plan made from ``h``."""
+        if state.index is None:
+            return {}
+        from ..kernels.autotune import tune_ivf_decode
+        index = state.index
+        plan = make_plan(index, h, cfg.n_probe, max(cfg.l, 1),
+                         generator=generator)
+        row_logw = torch.where(index.valid, 0.0, -1e30).float()
+        return tune_ivf_decode(index.v_blocks, h, plan.head_ids,
+                               plan.head_live, plan.head_member, row_logw,
+                               _tail_rows(index, plan), plan.tail_accept,
+                               k=cfg.sample_k, path=path)
 
 
 @register_backend
@@ -273,17 +331,19 @@ class MinceBackend(_IndexedBackend):
     method = "mince"
 
     def decode(self, state, h, cfg, *, k=1, use_kernel=True, generator=None,
-               tail_idx=None, active=None):
+               tail_idx=None, active=None, **kernel_cfg):
         if state.index is None:
             return exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel)
         return mince_decode(state.index, h, n_probe=cfg.n_probe, l=cfg.l,
                             k=k, iters=cfg.mince_iters,
                             solver=cfg.mince_solver, use_kernel=use_kernel,
                             head_cap=cfg.head_cap, generator=generator,
-                            tail_idx=tail_idx, active=active)
+                            tail_idx=tail_idx, active=active,
+                            kernel_cfg=_knobs(kernel_cfg))
 
     def shard_decode(self, state, h, cfg, *, group, k=1, use_kernel=True,
-                     generator=None, tail_idx=None, active=None):
+                     generator=None, tail_idx=None, active=None,
+                     **kernel_cfg):
         from ..serve.output_layer import (mesh_exact_decode,
                                           mesh_mince_decode)
         if state.index is None:
@@ -295,7 +355,17 @@ class MinceBackend(_IndexedBackend):
                                  use_kernel=use_kernel,
                                  head_cap=cfg.head_cap, generator=generator,
                                  tail_idx=tail_idx, active=active,
-                                 group=group)
+                                 group=group,
+                                 kernel_cfg=_knobs(kernel_cfg))
+
+    def tune(self, state, cfg, h, *, generator=None, path=None):
+        """``union_scores`` on a plan made from ``h``."""
+        if state.index is None:
+            return {}
+        from ..kernels.autotune import tune_union_scores
+        plan = make_plan(state.index, h, cfg.n_probe, 0)
+        return tune_union_scores(state.index.v_blocks, h, plan.head_ids,
+                                 plan.head_live, path=path)
 
 
 @register_backend
@@ -306,22 +376,27 @@ class TopkBackend(_IndexedBackend):
     samples_tail = False
 
     def decode(self, state, h, cfg, *, k=1, use_kernel=True, generator=None,
-               tail_idx=None, active=None):
+               tail_idx=None, active=None, **kernel_cfg):
         if state.index is None:
             return exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel)
         return topk_head_decode(state.index, h, n_probe=cfg.n_probe, k=k,
                                 use_kernel=use_kernel, head_cap=cfg.head_cap,
-                                active=active)
+                                active=active,
+                                kernel_cfg=_knobs(kernel_cfg))
 
     def shard_decode(self, state, h, cfg, *, group, k=1, use_kernel=True,
-                     generator=None, tail_idx=None, active=None):
+                     generator=None, tail_idx=None, active=None,
+                     **kernel_cfg):
         from ..serve.output_layer import mesh_exact_decode, mesh_topk_decode
         if state.index is None:
             return mesh_exact_decode(state.w, h, k=k, use_kernel=use_kernel,
                                      group=group)
         return mesh_topk_decode(state.index, h, n_probe=cfg.n_probe, k=k,
                                 use_kernel=use_kernel, head_cap=cfg.head_cap,
-                                active=active, group=group)
+                                active=active, group=group,
+                                kernel_cfg=_knobs(kernel_cfg))
+
+    tune = MinceBackend.tune
 
     def embedding_floats(self, state, cfg, q, u=None):
         return _head_floats(state, cfg, q, u)
@@ -356,27 +431,47 @@ class FmbeBackend(EstimatorBackend):
         return state
 
     def decode(self, state, h, cfg, *, k=1, use_kernel=True, generator=None,
-               tail_idx=None, active=None):
+               tail_idx=None, active=None, **kernel_cfg):
+        knobs = _knobs(kernel_cfg)       # fmbe_z's
         if state.index is None:
             out = exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel)
-            z = fmbe_z_batch(state.fmbe, h, use_kernel)
+            z = fmbe_z_batch(state.fmbe, h, use_kernel, knobs)
             return out._replace(log_z=torch.log(torch.clamp(z, min=1e-30)))
         return fmbe_decode(state.fmbe, state.index, h, n_probe=cfg.n_probe,
                            k=k, use_kernel=use_kernel, head_cap=cfg.head_cap,
-                           active=active)
+                           active=active, kernel_cfg=knobs)
 
     def shard_decode(self, state, h, cfg, *, group, k=1, use_kernel=True,
-                     generator=None, tail_idx=None, active=None):
+                     generator=None, tail_idx=None, active=None,
+                     **kernel_cfg):
         from ..serve.output_layer import mesh_exact_decode, mesh_fmbe_decode
+        knobs = _knobs(kernel_cfg)
         if state.index is None:
             out = mesh_exact_decode(state.w, h, k=k, use_kernel=use_kernel,
                                     group=group)
-            z = fmbe_z_batch(state.fmbe, h, use_kernel)   # sketch is whole
+            z = fmbe_z_batch(state.fmbe, h, use_kernel,
+                             knobs)                       # sketch is whole
             return out._replace(log_z=torch.log(torch.clamp(z, min=1e-30)))
         return mesh_fmbe_decode(state.fmbe, state.index, h,
                                 n_probe=cfg.n_probe, k=k,
                                 use_kernel=use_kernel, head_cap=cfg.head_cap,
-                                active=active, group=group)
+                                active=active, group=group,
+                                kernel_cfg=knobs)
+
+    def tune(self, state, cfg, h, *, generator=None, path=None):
+        """``fmbe_z`` at the decode's lambda: per query (the probed blocks'
+        complement, on a plan made from ``h``) where the sketch is
+        block-partitioned, else the global sum."""
+        from ..kernels.autotune import tune_fmbe_z
+        fs = state.fmbe
+        lam = fs.lambda_tilde
+        if fs.lambda_blocks is not None and state.index is not None:
+            plan = make_plan(state.index, h, cfg.n_probe, 0)
+            lam = (fs.lambda_tilde[None, :] -
+                   fs.lambda_blocks[plan.block_ids.long()].sum(1))
+        fm = fs.fm
+        return tune_fmbe_z(fm.omega, fm.degree, fm.coef, lam, h,
+                           pack=fs.pack, path=path)
 
     def embedding_floats(self, state, cfg, q, u=None):
         """The feature sketch (omega and lambda), the candidate head and the
@@ -413,18 +508,20 @@ class LshBackend(EstimatorBackend):
         return state
 
     def decode(self, state, h, cfg, *, k=1, use_kernel=True, generator=None,
-               tail_idx=None, active=None):
+               tail_idx=None, active=None, **kernel_cfg):
         if state.lsh is None:
             return exact_topk_decode(state.w, h, k=k, use_kernel=use_kernel)
         return _lsh.lsh_decode(state.lsh, state.w, h, l=cfg.l, k=k,
                                cand_cap=cfg.head_cap, use_kernel=use_kernel,
                                generator=generator, tail_ids=tail_idx,
-                               active=active)
+                               active=active,
+                               kernel_cfg=_knobs(kernel_cfg))
 
     def shard_decode(self, state, h, cfg, *, group, k=1, use_kernel=True,
-                     generator=None, tail_idx=None, active=None):
+                     generator=None, tail_idx=None, active=None,
+                     **kernel_cfg):
         """The plain path whatever ``use_kernel`` (``serve.output_layer``
-        says why): eager only."""
+        says why): eager only, and no kernel to take ``kernel_cfg``."""
         from ..serve.output_layer import mesh_exact_decode, mesh_lsh_decode
         if state.lsh is None:
             return mesh_exact_decode(state.w, h, k=k, use_kernel=use_kernel,
@@ -432,6 +529,15 @@ class LshBackend(EstimatorBackend):
         return mesh_lsh_decode(state.lsh, state.w, h, l=cfg.l, k=k,
                                cand_cap=cfg.head_cap, generator=generator,
                                tail_ids=tail_idx, active=active, group=group)
+
+    def tune(self, state, cfg, h, *, generator=None, path=None):
+        """``lsh_probe`` on the candidate set a real decode scores."""
+        if state.lsh is None:
+            return {}
+        from ..kernels.autotune import tune_lsh_probe
+        return tune_lsh_probe(state.lsh, state.w, h, l=max(cfg.l, 1),
+                              cand_cap=cfg.head_cap, k=cfg.sample_k,
+                              generator=generator, path=path)
 
     def has_tail(self, state):
         return state.lsh is not None
@@ -505,7 +611,7 @@ def verify_decode(backend: EstimatorBackend, state: BackendState,
                   use_kernel: bool = True,
                   generator: Optional[torch.Generator] = None,
                   tail_idx: Optional[torch.Tensor] = None,
-                  group=None) -> DecodeOut:
+                  group=None, **kernel_cfg) -> DecodeOut:
     """k-position verification in one decode: the (S, k_pos, d) stack of
     drafted hidden states is flattened lane-major to (S * k_pos, d) and
     decoded by the backend; ``active`` is per lane (S,) and expanded to
@@ -513,7 +619,8 @@ def verify_decode(backend: EstimatorBackend, state: BackendState,
     output is what a separate one-position step would give. Leaves come
     back flat; callers reshape to (S, k_pos, ...). With ``group`` (the
     serving mesh's model group) the state is this rank's shard and the
-    backend's ``shard_decode`` runs."""
+    backend's ``shard_decode`` runs. ``kernel_cfg`` goes to the backend's
+    kernel."""
     s_lanes, kpos, d = h.shape
     hf = h.reshape(s_lanes * kpos, d)
     act = None if active is None else \
@@ -522,9 +629,10 @@ def verify_decode(backend: EstimatorBackend, state: BackendState,
         return backend.shard_decode(state, hf, cfg, group=group, k=k,
                                     use_kernel=use_kernel,
                                     generator=generator, tail_idx=tail_idx,
-                                    active=act)
+                                    active=act, **kernel_cfg)
     return backend.decode(state, hf, cfg, k=k, use_kernel=use_kernel,
-                          generator=generator, tail_idx=tail_idx, active=act)
+                          generator=generator, tail_idx=tail_idx, active=act,
+                          **kernel_cfg)
 
 
 def shadow_exact_log_z(state: BackendState, h: torch.Tensor, *, k: int = 1,

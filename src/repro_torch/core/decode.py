@@ -206,11 +206,13 @@ def mimps_decode(index: _mips.IVFIndex, h: torch.Tensor, *, n_probe: int,
                  head_cap: int = 0,
                  generator: Optional[torch.Generator] = None,
                  tail_idx: Optional[torch.Tensor] = None,
-                 active: Optional[torch.Tensor] = None) -> DecodeOut:
+                 active: Optional[torch.Tensor] = None,
+                 kernel_cfg: Optional[dict] = None) -> DecodeOut:
     """Batched sublinear decode: h (Q, d) -> log Ẑ and top-k rows, per Eq. 5.
 
     ``use_kernel=True`` goes through ``kernels.ivf_score.ivf_decode`` (the
-    CUDA kernel on a GPU tensor, its plain version on a CPU tensor);
+    CUDA kernel on a GPU tensor, its plain version on a CPU tensor), with
+    ``kernel_cfg``'s launch knobs (``kernels.autotune``);
     ``use_kernel=False`` is the reference branch of the JAX package's XLA
     path (one gather, one matmul over head and tail rows), on the union
     trimmed to ``head_cap`` slots (0 = auto) when it fits."""
@@ -221,7 +223,8 @@ def mimps_decode(index: _mips.IVFIndex, h: torch.Tensor, *, n_probe: int,
         row_logw = torch.where(index.valid, 0.0, NEG_INF).float()
         head_lse, tail_lse, topv, topi = ivf_decode(
             index.v_blocks, h, plan.head_ids, plan.head_live,
-            plan.head_member, row_logw, tail_rows_g, plan.tail_accept, k=k)
+            plan.head_member, row_logw, tail_rows_g, plan.tail_accept, k=k,
+            **(kernel_cfg or {}))
     else:
         def branch(ids, member):
             scores, mask, ts, slot = _head_scores_plain(
@@ -241,11 +244,13 @@ def mimps_decode(index: _mips.IVFIndex, h: torch.Tensor, *, n_probe: int,
 
 
 def union_head_scores(index: _mips.IVFIndex, h: torch.Tensor,
-                      plan: DecodePlan):
+                      plan: DecodePlan, kernel_cfg: Optional[dict] = None):
     """Score the deduplicated probe union for every query through
-    ``kernels.ivf_score.union_scores``, which reads the U live blocks once:
-    (scores (Q, U, br) f32, mask (Q, U, br) bool)."""
-    scores = union_scores(index.v_blocks, h, plan.head_ids, plan.head_live)
+    ``kernels.ivf_score.union_scores`` (with ``kernel_cfg``'s launch
+    knobs), which reads the U live blocks once: (scores (Q, U, br) f32,
+    mask (Q, U, br) bool)."""
+    scores = union_scores(index.v_blocks, h, plan.head_ids, plan.head_live,
+                          **(kernel_cfg or {}))
     mask = (plan.head_member[:, :, None] &
             index.valid[plan.head_ids.long()][None])
     return scores, mask
@@ -269,15 +274,15 @@ def _head_topk(index: _mips.IVFIndex, head_ids: torch.Tensor,
 def _scored_head(index: _mips.IVFIndex, h: torch.Tensor, plan: DecodePlan,
                  k: int, use_kernel: bool,
                  tail_rows: Optional[torch.Tensor] = None,
-                 head_cap: int = 0):
+                 head_cap: int = 0, kernel_cfg: Optional[dict] = None):
     """Head LSE and top-k of the plan's union, plus the (Q, l) f32 scores
     of ``tail_rows`` when given: the union through ``union_head_scores``
-    and the tail by one matmul, or (plain branch) head and tail rows in one
-    gather and one matmul over the union trimmed to ``head_cap`` slots
-    (0 = auto) when it fits."""
+    (with ``kernel_cfg``) and the tail by one matmul, or (plain branch) head
+    and tail rows in one gather and one matmul over the union trimmed to
+    ``head_cap`` slots (0 = auto) when it fits."""
     q, d = h.shape
     if use_kernel:
-        scores, mask = union_head_scores(index, h, plan)
+        scores, mask = union_head_scores(index, h, plan, kernel_cfg)
         scores, mask = scores.reshape(q, -1), mask.reshape(q, -1)
         ts = None if tail_rows is None else h.float() @ tail_rows.float().T
         return _head_topk(index, plan.head_ids, scores, mask, k) + (ts,)
@@ -303,13 +308,16 @@ def _probe_out(index: _mips.IVFIndex, plan: DecodePlan, log_z, head_lse,
 def topk_head_decode(index: _mips.IVFIndex, h: torch.Tensor, *,
                      n_probe: int, k: int = 1, use_kernel: bool = True,
                      head_cap: int = 0,
-                     active: Optional[torch.Tensor] = None) -> DecodeOut:
+                     active: Optional[torch.Tensor] = None,
+                     kernel_cfg: Optional[dict] = None) -> DecodeOut:
     """Head-only decode (Eq. 4 at the output layer), the cheapest serving
     tier: the MIMPS probe plan and candidates with no tail, so log Ẑ is the
-    probed head's LSE, a deterministic underestimate of log Z."""
+    probed head's LSE, a deterministic underestimate of log Z.
+    ``kernel_cfg``: ``union_scores``'s launch knobs."""
     plan = make_plan(index, h, n_probe, 0, active=active)
     head_lse, topv, topi, _ = _scored_head(index, h, plan, k, use_kernel,
-                                           head_cap=head_cap)
+                                           head_cap=head_cap,
+                                           kernel_cfg=kernel_cfg)
     no_tail = torch.full_like(head_lse, float("-inf"))
     return _probe_out(index, plan, head_lse, head_lse, no_tail, topv, topi)
 
@@ -319,7 +327,8 @@ def mince_decode(index: _mips.IVFIndex, h: torch.Tensor, *, n_probe: int,
                  use_kernel: bool = True, head_cap: int = 0,
                  generator: Optional[torch.Generator] = None,
                  tail_idx: Optional[torch.Tensor] = None,
-                 active: Optional[torch.Tensor] = None) -> DecodeOut:
+                 active: Optional[torch.Tensor] = None,
+                 kernel_cfg: Optional[dict] = None) -> DecodeOut:
     """Batched sublinear MINCE (Eq. 6/7): the IVF probe head against the
     plan's shared uniform tail as the noise set. The anchored NCE
     equation's root is the Eq. 5 anchor (the collapse identity of the JAX
@@ -329,7 +338,8 @@ def mince_decode(index: _mips.IVFIndex, h: torch.Tensor, *, n_probe: int,
 
     Degenerate heads are guarded per query: k_eff == 0 falls back to the
     uniform-noise estimate over the tail, and an empty complement (k_eff ==
-    N or no surviving sample) to the exactly scored head."""
+    N or no surviving sample) to the exactly scored head. ``kernel_cfg``:
+    ``union_scores``'s launch knobs."""
     del iters, solver
     if l < 1:
         raise ValueError("MINCE needs at least one noise sample (l >= 1)")
@@ -337,7 +347,7 @@ def mince_decode(index: _mips.IVFIndex, h: torch.Tensor, *, n_probe: int,
                      tail_idx=tail_idx, active=active)
     head_lse, topv, topi, ts = _scored_head(
         index, h, plan, k, use_kernel, tail_rows=_tail_rows(index, plan),
-        head_cap=head_cap)
+        head_cap=head_cap, kernel_cfg=kernel_cfg)
     tail_lse = _masked_tail_lse(ts, plan.tail_accept)
     k_eff = plan.k_eff.float()
     n_acc = plan.n_accept.float()
@@ -354,35 +364,40 @@ def mince_decode(index: _mips.IVFIndex, h: torch.Tensor, *, n_probe: int,
 def fmbe_decode(state: FMBEState, index: _mips.IVFIndex, h: torch.Tensor,
                 *, n_probe: int, k: int = 1, use_kernel: bool = True,
                 head_cap: int = 0,
-                active: Optional[torch.Tensor] = None) -> DecodeOut:
+                active: Optional[torch.Tensor] = None,
+                kernel_cfg: Optional[dict] = None) -> DecodeOut:
     """Batched FMBE decode: the probed head scored exactly, the feature
     sketch estimating only the complement mass (``fmbe_tail_z``):
 
         log Ẑ = logaddexp(head_lse, log max(phi(h) . lambda_rest, 1e-30))
 
     With no per-block table the global sketch estimates all of Z. The
-    estimate is deterministic given the feature map; no tail is planned."""
+    estimate is deterministic given the feature map; no tail is planned.
+    ``kernel_cfg``: ``fmbe_z``'s launch knobs (the head's ``union_scores``
+    launches as it is)."""
     plan = make_plan(index, h, n_probe, 0, active=active)
     head_lse, topv, topi, _ = _scored_head(index, h, plan, k, use_kernel,
                                            head_cap=head_cap)
     if state.lambda_blocks is not None:
-        z_tail = fmbe_tail_z(state, h, plan.block_ids, use_kernel)
+        z_tail = fmbe_tail_z(state, h, plan.block_ids, use_kernel,
+                             kernel_cfg)
         log_z = torch.logaddexp(head_lse,
                                 torch.log(torch.clamp(z_tail, min=1e-30)))
     else:
-        z = fmbe_z_batch(state, h, use_kernel)
+        z = fmbe_z_batch(state, h, use_kernel, kernel_cfg)
         log_z = torch.log(torch.clamp(z, min=1e-30))
     no_tail = torch.full_like(log_z, float("-inf"))
     return _probe_out(index, plan, log_z, head_lse, no_tail, topv, topi)
 
 
 def exact_topk_decode(w: torch.Tensor, h: torch.Tensor, *, k: int = 1,
-                      use_kernel: bool = True) -> DecodeOut:
-    """Exact log Z + top-k in one pass: ``kernels.topk_z.topk_z`` or the
-    reference branch (logits in the input dtype, then f32, as the JAX
-    package's XLA path computes them)."""
+                      use_kernel: bool = True,
+                      kernel_cfg: Optional[dict] = None) -> DecodeOut:
+    """Exact log Z + top-k in one pass: ``kernels.topk_z.topk_z`` (with
+    ``kernel_cfg``'s launch knobs) or the reference branch (logits in the
+    input dtype, then f32, as the JAX package's XLA path computes them)."""
     if use_kernel:
-        lse, topv, topi = topk_z(h, w, k)
+        lse, topv, topi = topk_z(h, w, k, **(kernel_cfg or {}))
     else:
         logits = (h @ w.T).float()
         lse = torch.logsumexp(logits, -1)
@@ -397,10 +412,12 @@ def exact_topk_decode(w: torch.Tensor, h: torch.Tensor, *, k: int = 1,
 
 
 def selfnorm_decode(w: torch.Tensor, h: torch.Tensor, *, k: int = 1,
-                    use_kernel: bool = True) -> DecodeOut:
+                    use_kernel: bool = True,
+                    kernel_cfg: Optional[dict] = None) -> DecodeOut:
     """Self-normalised head: the exact pass's candidates with Z taken as 1
     (log Ẑ == 0; the model was trained with the selfnorm penalty)."""
-    out = exact_topk_decode(w, h, k=k, use_kernel=use_kernel)
+    out = exact_topk_decode(w, h, k=k, use_kernel=use_kernel,
+                            kernel_cfg=kernel_cfg)
     return out._replace(log_z=torch.zeros_like(out.log_z))
 
 

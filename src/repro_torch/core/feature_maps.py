@@ -116,11 +116,12 @@ def build_fmbe_blocks(fm: FeatureMap, v_blocks: torch.Tensor,
 
 
 def fmbe_tail_z(state: FMBEState, x: torch.Tensor,
-                probed_blocks: torch.Tensor,
-                use_kernel: bool = True) -> torch.Tensor:
+                probed_blocks: torch.Tensor, use_kernel: bool = True,
+                kernel_cfg: Optional[dict] = None) -> torch.Tensor:
     """Signed sketch estimate of the complement mass per query: x (Q, d),
     probed_blocks (Q, p) -> (Q,)
-    phi(x_q) . (lambda_tilde - sum_{b in probed_q} lambda_blocks[b])."""
+    phi(x_q) . (lambda_tilde - sum_{b in probed_q} lambda_blocks[b]);
+    ``kernel_cfg``: ``fmbe_z``'s launch knobs."""
     if state.lambda_blocks is None:
         raise ValueError("fmbe_tail_z needs a block-partitioned build "
                          "(build_fmbe_blocks)")
@@ -129,7 +130,7 @@ def fmbe_tail_z(state: FMBEState, x: torch.Tensor,
     fm = state.fm
     if use_kernel:
         return fmbe_z(fm.omega, fm.degree, fm.coef, lam_rest, x,
-                      pack=state.pack)
+                      pack=state.pack, **(kernel_cfg or {}))
     return (apply_feature_map(fm, x) * lam_rest).sum(-1)
 
 
@@ -141,11 +142,13 @@ def fmbe_estimate_z(state: FMBEState, q: torch.Tensor) -> torch.Tensor:
 
 
 def fmbe_z_batch(state: FMBEState, x: torch.Tensor,
-                 use_kernel: bool = True) -> torch.Tensor:
+                 use_kernel: bool = True,
+                 kernel_cfg: Optional[dict] = None) -> torch.Tensor:
     """Batched signed Z_hat for a decode batch: x (Q, d) -> (Q,), through
-    ``kernels.fmbe.fmbe_z`` or the reference feature map."""
+    ``kernels.fmbe.fmbe_z`` (with ``kernel_cfg``'s launch knobs) or the
+    reference feature map."""
     fm = state.fm
     if use_kernel:
         return fmbe_z(fm.omega, fm.degree, fm.coef, state.lambda_tilde, x,
-                      pack=state.pack)
+                      pack=state.pack, **(kernel_cfg or {}))
     return apply_feature_map(fm, x) @ state.lambda_tilde

@@ -439,9 +439,11 @@ def lsh_decode(index: LSHIndex, w: torch.Tensor, h: torch.Tensor, *, l: int,
                k: int = 1, cand_cap: int = 0, use_kernel: bool = True,
                generator: Optional[torch.Generator] = None,
                tail_ids: Optional[torch.Tensor] = None,
-               active: Optional[torch.Tensor] = None) -> DecodeOut:
+               active: Optional[torch.Tensor] = None,
+               kernel_cfg: Optional[dict] = None) -> DecodeOut:
     """Batched sublinear decode through the LSH index: h (Q, d) -> log Ẑ
     and top-k rows, per Eq. 5 with the collision head as S(q).
+    ``kernel_cfg``: ``lsh_probe``'s launch knobs.
 
     The index supplies routing only: candidate and tail rows are read from
     the live ``w``. ``use_kernel=True`` goes through
@@ -458,7 +460,8 @@ def lsh_decode(index: LSHIndex, w: torch.Tensor, h: torch.Tensor, *, l: int,
         rows, live = device_cands(plan)
         head_lse, tail_lse, topv, topi = lsh_probe(
             w, h, index.proj, rows, live, index.codes, index.slot_of_row,
-            plan.tail_ids, plan.tail_accept, plan.tail_bias, k=k)[:4]
+            plan.tail_ids, plan.tail_accept, plan.tail_bias, k=k,
+            **(kernel_cfg or {}))[:4]
     else:
         tail_rows = w[plan.tail_ids.long()].float()
 

@@ -32,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of each entry point ``<name>_launch``; every function returns
 # its cudaError_t (0 = success). ``f32`` is 1 for f32 rows and queries, 0
-# for bf16.
+# for bf16. ``grid_x`` is the persistent grid's CTA count, the knob
+# ``kernels.autotune`` sweeps.
 SIGNATURES = {
     # h, w, Q, V, d, k, grid_x, part_m, part_s, part_v, part_i,
     # lse, topv, topi, rows, f32, stream
@@ -47,9 +48,9 @@ SIGNATURES = {
     # x, pack, start, tile_j0, degree, coef, Q, P, d, n_tiles, grid, out,
     # x_planes, f32, stream
     "fmbe_phi_wgmma": [_P] * 6 + [_I] * 5 + [_P] * 2 + [_I, _P],
-    # x, pack, tile_j0, start, degree, coef, lam, lam_stride, Q, P, d,
+    # x, pack, tile_j0, start, degree, coef, lam, lam_stride, Q, d,
     # n_tiles, grid_x, proj, z, x_planes, f32, stream
-    "fmbe_z": [_P] * 7 + [_I] * 6 + [_P] * 3 + [_I, _P],
+    "fmbe_z": [_P] * 7 + [_I] * 5 + [_P] * 3 + [_I, _P],
     # h, w, labels, T, V, d, n_split, per, grid, part_m, part_s, part_p,
     # nll, lse, h_planes, w_planes, f32, stream
     "fused_ce_fwd": [_P] * 3 + [_I] * 6 + [_P] * 7 + [_I, _P],
@@ -148,10 +149,31 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def stream_grid(dev: torch.device) -> int:
-    """The persistent grid of ``union_scores``, ``ivf_score``, ``ivf_decode``
-    and ``lsh_probe``: every SM, ``STREAM_CTAS_PER_SM`` CTAs each."""
+    """The persistent grid of ``union_scores``, ``ivf_score``, ``ivf_decode``,
+    ``lsh_probe`` and ``fmbe_z``: every SM, ``STREAM_CTAS_PER_SM`` CTAs
+    each."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return sms * STREAM_CTAS_PER_SM
+
+
+def grid_knob(name: str, dev: torch.device, grid_x) -> int:
+    """A gathered-row kernel's ``grid_x`` knob (None = ``stream_grid``),
+    checked; a ValueError names the kernel otherwise."""
+    if grid_x is None:
+        return stream_grid(dev)
+    if int(grid_x) < 1:
+        raise ValueError(f"{name}: grid_x must be >= 1, got {grid_x}")
+    return int(grid_x)
+
+
+def last_error(name: str) -> int:
+    """The CUDA error state of ``csrc/<name>.cu``'s library, read and
+    cleared (its ``kernel_last_error``): 0 when its last launch left
+    nothing behind. Each library links its own CUDA runtime, whose error
+    state the process's other libraries do not see."""
+    fn = load(name).kernel_last_error
+    fn.restype = ctypes.c_int
+    return fn()
 
 
 def check(name: str, err: int) -> None:

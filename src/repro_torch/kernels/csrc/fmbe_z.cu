@@ -149,9 +149,8 @@ fmbe_z_features(const float* __restrict__ proj, int n_cols,
 template <int NP>
 int launch(const bf16* x, const void* pack, const int* tile_j0,
            const int* start, const int* degree, const float* coef,
-           const float* lam, int lam_stride, int Q, int P, int d,
-           int n_tiles, int grid_x, float* proj, float* z,
-           cudaStream_t st) {
+           const float* lam, int lam_stride, int Q, int d, int n_tiles,
+           int grid_x, float* proj, float* z, cudaStream_t st) {
   const int n_cols = n_tiles * PACK_TILE;
   ProjJob job{static_cast<const bf16*>(pack), n_cols, d, proj};
   const Layout m = layout<bf16, NP>(d, job.side_bytes, job.extra_bytes);
@@ -190,10 +189,9 @@ int launch(const bf16* x, const void* pack, const int* tile_j0,
 extern "C" int fmbe_z_launch(const void* x, const void* pack,
                              const void* tile_j0, const void* start,
                              const void* degree, const void* coef,
-                             const void* lam, int lam_stride, int Q, int P,
-                             int d, int n_tiles, int grid_x, void* proj,
-                             void* z, void* x_planes, int f32,
-                             void* stream) {
+                             const void* lam, int lam_stride, int Q, int d,
+                             int n_tiles, int grid_x, void* proj, void* z,
+                             void* x_planes, int f32, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto ti = static_cast<const int*>(tile_j0);
   auto sj = static_cast<const int*>(start);
@@ -204,11 +202,11 @@ extern "C" int fmbe_z_launch(const void* x, const void* pack,
   auto zz = static_cast<float*>(z);
   if (!f32)
     return launch<1>(static_cast<const bf16*>(x), pack, ti, sj, dg, cf, lm,
-                     lam_stride, Q, P, d, n_tiles, grid_x, pj, zz, st);
+                     lam_stride, Q, d, n_tiles, grid_x, pj, zz, st);
   auto planes = static_cast<bf16*>(x_planes);
   const int e = split_launch(static_cast<const float*>(x), Q, d, Q, d,
                              planes, st);
   if (e) return e;
-  return launch<3>(planes, pack, ti, sj, dg, cf, lm, lam_stride, Q, P, d,
+  return launch<3>(planes, pack, ti, sj, dg, cf, lm, lam_stride, Q, d,
                    n_tiles, grid_x, pj, zz, st);
 }

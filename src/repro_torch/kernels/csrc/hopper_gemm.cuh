@@ -407,3 +407,8 @@ static int make_map(CUtensorMap* map, const void* ptr, uint64_t inner,
 
 // The dynamic shared memory a CTA of the mainloop asks for (reports).
 extern "C" int hgemm_smem_bytes() { return (int)hgemm::SMEM_BYTES; }
+
+// The library's CUDA error state, read and cleared (cudaGetLastError).
+// Each source builds into a library with its own static CUDA runtime, so a
+// caller reads each kernel's library apart (kernels/_build.py last_error).
+extern "C" int kernel_last_error() { return (int)cudaGetLastError(); }

@@ -334,7 +334,8 @@ def fmbe_phi(omega, degree, coef, x, *, pack: Optional[FmbePack] = None):
 
 
 @_build.counted
-def fmbe_z(omega, degree, coef, lam, x, *, pack: Optional[FmbePack] = None):
+def fmbe_z(omega, degree, coef, lam, x, *, pack: Optional[FmbePack] = None,
+           grid_x=None):
     """Fused decode estimate z(x) = phi(x) . lambda, (Q,) signed f32.
 
     ``lam`` is (P,), one shared sketch sum (the global-Z path), or (Q, P),
@@ -345,7 +346,10 @@ def fmbe_z(omega, degree, coef, lam, x, *, pack: Optional[FmbePack] = None):
     the map itself, which reads ``degree`` to the host (never in a decode
     step). On the GPU, bf16 x is counted as a "bf16" launch and f32 x
     (three planes) as "f32". On CPU tensors: ``fmbe_z_pack_plain`` given a
-    pack, else ``fmbe_z_plain``."""
+    pack, else ``fmbe_z_plain``. ``grid_x`` (None: ``_build.stream_grid``)
+    is the projections' launch knob (``kernels.autotune``); every
+    projection is written by one thread and summed in a fixed order, so it
+    leaves the bits as they are. CPU tensors ignore it."""
     if pack is not None:
         _check_pack(pack, omega, degree, coef, "fmbe_z")
     if all(t.device.type == "cpu" for t in (omega, degree, coef, lam, x)):
@@ -360,6 +364,7 @@ def fmbe_z(omega, degree, coef, lam, x, *, pack: Optional[FmbePack] = None):
         pack = fmbe_pack(omega, degree, coef)
     n_tiles = _check_pack_rows(pack, x, "fmbe_z")
     dev = x.device
+    grid_x = _build.grid_knob("fmbe_z", dev, grid_x)
     is_f32 = _build.KERNEL_DTYPES[x.dtype]
     # f32 x: the (3, Q, d) bf16 planes that the kernel splits it into
     planes = (torch.empty((3, q, d), dtype=torch.bfloat16, device=dev)
@@ -372,8 +377,8 @@ def fmbe_z(omega, degree, coef, lam, x, *, pack: Optional[FmbePack] = None):
         *[ptr(t.data_ptr()) for t in (x, pack.rows, pack.tile_j0,
                                       pack.start, pack.degree, pack.coef,
                                       lam)],
-        p if lam.dim() == 2 else 0, q, p, d, n_tiles,
-        _build.stream_grid(dev), ptr(proj.data_ptr()), ptr(z.data_ptr()),
+        p if lam.dim() == 2 else 0, q, d, n_tiles, grid_x,
+        ptr(proj.data_ptr()), ptr(z.data_ptr()),
         ptr(planes.data_ptr() if is_f32 else None), is_f32, _stream(dev))
     _build.check("fmbe_z", err)
     _build.count(fmbe_z, is_f32)

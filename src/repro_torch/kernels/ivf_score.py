@@ -187,7 +187,7 @@ def union_scores_plain(w_blocks, h, head_ids, head_live):
 
 
 @_build.counted
-def union_scores(w_blocks, h, head_ids, head_live):
+def union_scores(w_blocks, h, head_ids, head_live, *, grid_x=None):
     """Scores of a deduplicated block union for a whole query batch.
 
       w_blocks  (nb, br, d)  block-IVF rows
@@ -198,11 +198,13 @@ def union_scores(w_blocks, h, head_ids, head_live):
                              device (the kernel reads it; no host sync)
 
     Returns scores (Q, U, br) f32; slots at or past ``head_live`` are 0
-    (callers mask them through the plan's membership)."""
+    (callers mask them through the plan's membership). ``grid_x`` is the
+    launch knob (``kernels.autotune``; None gives the default launch); CPU
+    tensors ignore it."""
     args = (w_blocks, h, head_ids, head_live)
     if all(t.device.type == "cpu" for t in args):
         return union_scores_plain(*args)
-    out = union_launch(*args)
+    out = union_launch(*args, grid_x=grid_x)
     _build.count(union_scores, _build.KERNEL_DTYPES[h.dtype])
     return out
 
@@ -211,8 +213,8 @@ def union_launch(w_blocks, h, head_ids, head_live, *, lib=None,
                  grid_x=None):
     """``union_scores``'s kernel on CUDA tensors, without its launch count.
     ``lib`` is the built library to call (default: the package's build of
-    ``csrc/union_scores.cu``) and ``grid_x`` its grid (default:
-    ``_build.stream_grid``); both are for timing variant builds."""
+    ``csrc/union_scores.cu``, for timing variant builds) and ``grid_x`` its
+    grid (default: ``_build.stream_grid``)."""
     args = (w_blocks, h, head_ids, head_live)
     dev = h.device
     _check(all(t.device == dev for t in args) and dev.type == "cuda",
@@ -230,8 +232,8 @@ def union_launch(w_blocks, h, head_ids, head_live, *, lib=None,
     _check(d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (w_blocks, h)),
            "rows must be 16-byte aligned (d % 8 == 0)", "union_scores")
     _check(q >= 1 and u >= 1, "empty input", "union_scores")
+    grid_x = _build.grid_knob("union_scores", dev, grid_x)
     lib = _build.load("union_scores") if lib is None else lib
-    grid_x = _build.stream_grid(dev) if grid_x is None else grid_x
     out = torch.empty((q, u, br), dtype=torch.float32, device=dev)
     p = ctypes.c_void_p
     err = lib.union_scores_launch(
@@ -288,7 +290,7 @@ def ivf_decode_plain(w_blocks, h, head_ids, head_live, head_member, row_logw,
 
 @_build.counted
 def ivf_decode(w_blocks, h, head_ids, head_live, head_member, row_logw,
-               tail_rows, tail_accept, *, k: int = 1):
+               tail_rows, tail_accept, *, k: int = 1, grid_x=None):
     """Fused batched MIMPS decode.
 
       w_blocks    (nb, br, d)  block-IVF rows
@@ -303,7 +305,10 @@ def ivf_decode(w_blocks, h, head_ids, head_live, head_member, row_logw,
       tail_accept (Q, l) bool  sample j survives rejection for query q
 
     Returns (head_lse (Q,), tail_lse (Q,), topv (Q, k), topi (Q, k) int32
-    global slot ids)."""
+    global slot ids). ``grid_x`` (None: ``_build.stream_grid``) is the
+    launch knob (``kernels.autotune``); another grid splits the rows
+    otherwise, so the f32 partials may merge in another order. CPU tensors
+    ignore it."""
     args = (w_blocks, h, head_ids, head_live, head_member, row_logw,
             tail_rows, tail_accept)
     if all(t.device.type == "cpu" for t in args):
@@ -331,8 +336,8 @@ def ivf_decode(w_blocks, h, head_ids, head_live, head_member, row_logw,
            "rows must be 16-byte aligned (d % 8 == 0)")
     _check(1 <= k <= MAX_K, f"k={k} outside [1, {MAX_K}]")
     _check(q >= 1 and u >= 1 and l >= 1, "empty input")
-    lib = _build.load("ivf_decode")
-    grid_x = _build.stream_grid(dev)                 # one partial a CTA
+    grid_x = _build.grid_knob("ivf_decode", dev, grid_x)
+    lib = _build.load("ivf_decode")                  # one partial a CTA
     f32, i32 = torch.float32, torch.int32
     part = [torch.empty((q, grid_x), dtype=f32, device=dev) for _ in range(4)]
     part_v = torch.empty((q, grid_x, k), dtype=f32, device=dev)

@@ -127,7 +127,7 @@ def _check_codes_inputs(h, proj, name):
 
 @_build.counted
 def lsh_probe(w, h, proj, cand_rows, cand_live, codes, slot_of_row,
-              tail_ids, tail_accept, tail_bias, *, k: int = 1):
+              tail_ids, tail_accept, tail_bias, *, k: int = 1, grid_x=None):
     """Fused LSH probe-and-decode over a candidate set read by id.
 
       w           (V, d)        output embedding (bf16 or f32, as h)
@@ -144,12 +144,14 @@ def lsh_probe(w, h, proj, cand_rows, cand_live, codes, slot_of_row,
                                 added to the sample's score
 
     Returns (head_lse (Q,), tail_lse (Q,), topv (Q, k), topi (Q, k) int32
-    original row ids, counts (Q, C) int32). Ids must lie in [0, V)."""
+    original row ids, counts (Q, C) int32). Ids must lie in [0, V).
+    ``grid_x`` (None: ``_build.stream_grid``) is the probe's launch knob
+    (``kernels.autotune``); CPU tensors ignore it."""
     args = (w, h, proj, cand_rows, cand_live, codes, slot_of_row, tail_ids,
             tail_accept, tail_bias)
     if all(t.device.type == "cpu" for t in args):
         return lsh_probe_plain(*args, k=k)
-    out = probe_launch(*args, k=k)
+    out = probe_launch(*args, k=k, grid_x=grid_x)
     _build.count(lsh_probe, _build.KERNEL_DTYPES[h.dtype])
     return out
 
@@ -159,8 +161,8 @@ def probe_launch(w, h, proj, cand_rows, cand_live, codes, slot_of_row,
                  grid_x=None):
     """``lsh_probe``'s kernels on CUDA tensors, without its launch count.
     ``lib`` is the built library to call (default: the package's build of
-    ``csrc/lsh_probe.cu``) and ``grid_x`` its probe's grid (default:
-    ``_build.stream_grid``); both are for timing variant builds."""
+    ``csrc/lsh_probe.cu``, for timing variant builds) and ``grid_x`` its
+    probe's grid (default: ``_build.stream_grid``)."""
     args = (w, h, proj, cand_rows, cand_live, codes, slot_of_row, tail_ids,
             tail_accept, tail_bias)
     dev = h.device
@@ -187,8 +189,8 @@ def probe_launch(w, h, proj, cand_rows, cand_live, codes, slot_of_row,
            "rows must be 16-byte aligned (d % 8 == 0)")
     _check(1 <= k <= MAX_K, f"k={k} outside [1, {MAX_K}]")
     _check(c >= 1 and l >= 1, "empty input")
+    grid_x = _build.grid_knob("lsh_probe", dev, grid_x)
     lib = _build.load("lsh_probe") if lib is None else lib
-    grid_x = _build.stream_grid(dev) if grid_x is None else grid_x
     f32, i32 = torch.float32, torch.int32
     qcodes = torch.empty((q, ltab), dtype=i32, device=dev)
     counts = torch.empty((q, c), dtype=i32, device=dev)

@@ -80,9 +80,12 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"topk_z: {msg}")
 
 
-def geometry(q: int, v: int, d: int, dtype: torch.dtype, sms: int) -> dict:
+def geometry(q: int, v: int, d: int, dtype: torch.dtype, sms: int,
+             grid_x: Optional[int] = None) -> dict:
     """The launch geometry of ``topk_z`` for Q queries over V rows of width
-    d in ``dtype`` on a card of ``sms`` SMs.
+    d in ``dtype`` on a card of ``sms`` SMs; ``grid_x`` asks for another
+    CTA count a grid row (the autotuner's knob), clamped to the kernel's
+    limit.
 
     bf16 (the tensor-core kernel): ``n`` queries a grid row (8 for Q <= 8,
     else 16), ``tiles`` grid rows, ``grid_x`` CTAs a row (one an SM, at most
@@ -94,11 +97,12 @@ def geometry(q: int, v: int, d: int, dtype: torch.dtype, sms: int) -> dict:
     f32 (the CUDA-core kernel): ``n`` = QT, ``tiles`` and ``grid_x`` (up to
     2 CTAs an SM, one a 32-row group)."""
     if dtype == torch.float32:
+        want = 2 * sms if grid_x is None else grid_x
         return dict(tensor_cores=False, n=QT, tiles=-(-q // QT),
-                    grid_x=max(1, min(2 * sms, -(-v // 32))))
+                    grid_x=max(1, min(want, -(-v // 32))))
     n = 8 if q <= 8 else QTILE
     boxes = -(-v // BOX_ROWS)
-    grid_x = max(1, min(sms, boxes))
+    grid_x = max(1, min(sms if grid_x is None else grid_x, boxes))
     stage = BOX_ROWS * BOX_COLS * 2 + n * BOX_COLS * 2
     return dict(tensor_cores=True, n=n, tiles=-(-q // n), grid_x=grid_x,
                 box_rows=BOX_ROWS, box_cols=BOX_COLS, boxes=boxes,
@@ -157,7 +161,8 @@ def _tile_limit(lib, dev: torch.device, k: int) -> int:
 
 @_build.counted
 def topk_z(h: torch.Tensor, w: torch.Tensor, k: int, *,
-           rows: Optional[torch.Tensor] = None):
+           rows: Optional[torch.Tensor] = None,
+           grid_x: Optional[int] = None):
     """h (Q, d), w (V, d) -> (lse (Q,), topv (Q, k), topi (Q, k)); with
     ``rows (Q,)`` int32 only the queries whose entry is nonzero, the filler
     in the others.
@@ -169,7 +174,10 @@ def topk_z(h: torch.Tensor, w: torch.Tensor, k: int, *,
     wide for the block's shared memory raises a ValueError first
     (``check_tile``: f32 at d 8192). CPU tensors run ``topk_z_plain``. A
     gated launch counts in ``topk_z.gated`` as well, and a launch of the
-    bf16 kernel's 16-query instance (Q > 8) in ``by_variant["bf16 n16"]``."""
+    bf16 kernel's 16-query instance (Q > 8) in ``by_variant["bf16 n16"]``.
+    ``grid_x`` asks for another CTA count a grid row (``kernels.autotune``;
+    ``geometry`` clamps it), which splits the vocabulary otherwise, so the
+    partials may merge in another order; CPU tensors ignore it."""
     if h.device.type == "cpu" and w.device.type == "cpu":
         return topk_z_plain(h, w, k, rows)
     _check(h.is_cuda and w.is_cuda and h.device == w.device,
@@ -184,6 +192,7 @@ def topk_z(h: torch.Tensor, w: torch.Tensor, k: int, *,
            "rows must be 16-byte aligned (d % 8 == 0)")
     _check(1 <= k <= MAX_K, f"k={k} outside [1, {MAX_K}]")
     _check(q >= 1 and v >= 1, "empty input")
+    _check(grid_x is None or int(grid_x) >= 1, f"grid_x={grid_x} < 1")
     if rows is not None:
         _check(rows.device == h.device and rows.dtype == torch.int32
                and rows.shape == (q,) and rows.is_contiguous(),
@@ -193,7 +202,7 @@ def topk_z(h: torch.Tensor, w: torch.Tensor, k: int, *,
     if is_f32:
         check_tile(d, h.dtype, _tile_limit(lib, dev, k))
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid_x = geometry(q, v, d, h.dtype, sms)["grid_x"]
+    grid_x = geometry(q, v, d, h.dtype, sms, grid_x)["grid_x"]
     n_part = grid_x                                      # one per CTA
     f32, i32 = torch.float32, torch.int32
     part_m = torch.empty((q, n_part), dtype=f32, device=dev)

@@ -39,6 +39,7 @@ from ..core.backends import (BACKENDS, BackendState, fmbe_block_state,
 from ..core.decode import DecodeOut, apply_health_guard
 from ..core.feature_maps import FeatureMap, make_feature_map
 from ..kernels import _build
+from ..kernels.autotune import QUERY_TILE, query_tiles
 from ..models import Model, tree_leaves
 from ..models.transformer import _check_img, torch_dtype
 
@@ -124,6 +125,19 @@ class Engine:
     no retrieval state (``state`` and ``index`` are None) and takes no
     guard, as in the JAX engine.
 
+    ``autotune=True`` measures the launch knobs of the backend's kernel at
+    build (``EstimatorBackend.tune``, ``kernels.autotune``: sweeps cached
+    on disk), once a query-tile count up to ``autotune_batch``'s
+    (``autotune.query_tiles``: the grid that wins depends on it), each on
+    the first rows of one seeded batch of ``autotune_batch`` hidden states
+    drawn from 0.1 N(0, 1) in the model's dtype. ``kernel_cfg`` keeps them
+    by tile count, and every decode of the engine's own method takes those
+    of its batch's count (``knobs``: ``generate``'s captured step and host
+    loop, the scheduler's steps); a batch of a count not tuned launches as
+    by default. Only a CUDA engine with ``use_kernel`` sweeps; otherwise
+    ``kernel_cfg`` is {}. Swaps and restores keep it: the shapes it was
+    tuned for stay.
+
     ``mesh`` (``launch.mesh.make_serving_mesh``) is the (data, model)
     serving mesh the slot scheduler steps over; every rank of it builds
     the engine from the same seed and params, and the construction checks
@@ -142,7 +156,8 @@ class Engine:
                  device_index: bool = False, health_guard: bool = False,
                  index_assign: Optional[torch.Tensor] = None,
                  feature_map: Optional[FeatureMap] = None,
-                 lsh_proj: Optional[torch.Tensor] = None, mesh=None):
+                 lsh_proj: Optional[torch.Tensor] = None, mesh=None,
+                 autotune: bool = False, autotune_batch: int = 64):
         self.device = resolve_device(device)
         self.model = model
         self.cfg = model.cfg
@@ -180,6 +195,36 @@ class Engine:
         self._record_digest()
         if mesh is not None:
             self._check_ranks_agree()
+        self.kernel_cfg: Dict[int, dict] = {}
+        if autotune and use_kernel and self.state is not None and \
+                self.device.type == "cuda":
+            self.kernel_cfg = self._tune(autotune_batch)
+
+    def _tune(self, batch: int) -> Dict[int, dict]:
+        """The backend's ``tune`` at each query-tile count up to
+        ``batch``'s, on the first min(batch, tiles x ``QUERY_TILE``) rows of
+        a seeded (batch, d) batch of 0.1 N(0, 1) in the model's dtype, from
+        a generator of its own (the decode draws stay as they were). The
+        counts whose tune returns nothing are left out."""
+        gen = torch.Generator(device=self.device).manual_seed(
+            self.seed + 0xA07)
+        h = (0.1 * torch.randn((batch, self.cfg.d_model), generator=gen,
+                               device=self.device)
+             ).to(torch_dtype(self.cfg.dtype))
+        out = {}
+        for tiles in range(1, query_tiles(batch) + 1):
+            q = min(batch, tiles * QUERY_TILE)
+            knobs = self.backend.tune(self.state, self.cfg.partition, h[:q],
+                                      generator=gen)
+            if knobs:
+                out[tiles] = knobs
+        return out
+
+    def knobs(self, q: int) -> dict:
+        """The tuned launch knobs of a decode of ``q`` queries: those
+        measured at its query-tile count, {} (the default launch) where
+        none were."""
+        return self.kernel_cfg.get(query_tiles(q), {})
 
     def _mesh_multiple(self, mesh) -> int:
         """The JAX engine's mesh checks; returns the index's block
@@ -450,9 +495,12 @@ class Engine:
             return self._codebook_distribution(h, temperature, gumbel)
         pc = self.cfg.partition
         backend, st = self._serving(tier)
+        kernel_cfg = self.knobs(h.shape[0]) if backend is self.backend \
+            else {}
         out = backend.decode(st, h, pc, k=pc.sample_k,
                              use_kernel=self.use_kernel,
-                             generator=self.generator, tail_idx=tail_idx)
+                             generator=self.generator, tail_idx=tail_idx,
+                             **kernel_cfg)
         if self.health_guard:
             out, _ = apply_health_guard(out, st.w, h, pc.sample_k,
                                         use_kernel=self.use_kernel)

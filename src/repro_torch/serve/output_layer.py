@@ -135,15 +135,17 @@ def _head_scores(index: _mips.IVFIndex, h: torch.Tensor, head_ids, member,
 
 
 def _union_kernel_scores(index: _mips.IVFIndex, h: torch.Tensor,
-                         plan: DecodePlan, k: int, tail_slots, group):
+                         plan: DecodePlan, k: int, tail_slots, group,
+                         kernel_cfg=None):
     """``core.decode._scored_head``'s kernel branch on staged rows:
-    ``union_scores`` over the staged union (ids 0 .. U - 1, the plan's live
-    count), the tail by one matmul."""
+    ``union_scores`` (with ``kernel_cfg``'s launch knobs) over the staged
+    union (ids 0 .. U - 1, the plan's live count), the tail by one
+    matmul."""
     blocks, tail = _stage(index, plan.head_ids, tail_slots, group)
     u = plan.head_ids.shape[0]
     scores = union_scores(blocks, h, torch.arange(u, dtype=torch.int32,
                                                   device=h.device),
-                          plan.head_live)
+                          plan.head_live, **(kernel_cfg or {}))
     q = h.shape[0]
     mask = (plan.head_member[:, :, None] &
             index.valid[plan.head_ids.long()][None]).reshape(q, -1)
@@ -152,11 +154,13 @@ def _union_kernel_scores(index: _mips.IVFIndex, h: torch.Tensor,
                               mask, k) + (ts,)
 
 
-def _scored_head(index, h, plan, k, use_kernel, tail_slots, head_cap, group):
+def _scored_head(index, h, plan, k, use_kernel, tail_slots, head_cap, group,
+                 kernel_cfg=None):
     """``core.decode._scored_head`` under the mesh: (head_lse, topv, top
     slot ids, tail scores or None)."""
     if use_kernel:
-        return _union_kernel_scores(index, h, plan, k, tail_slots, group)
+        return _union_kernel_scores(index, h, plan, k, tail_slots, group,
+                                    kernel_cfg)
 
     def branch(ids, member):
         scores, mask, ts, _ = _head_scores(index, h, ids, member, tail_slots,
@@ -175,10 +179,11 @@ def mesh_mimps_decode(index: _mips.IVFIndex, h: torch.Tensor, *,
                       generator: Optional[torch.Generator] = None,
                       tail_idx: Optional[torch.Tensor] = None,
                       active: Optional[torch.Tensor] = None,
-                      group=None) -> DecodeOut:
+                      group=None, kernel_cfg=None) -> DecodeOut:
     """MIMPS (Eq. 5) under the serving mesh, bit-equal to
-    ``mimps_decode`` at every mesh size: ``ivf_decode`` on the staged union
-    and tail, or the plain branch on the same staged rows."""
+    ``mimps_decode`` at every mesh size: ``ivf_decode`` (with
+    ``kernel_cfg``'s launch knobs) on the staged union and tail, or the
+    plain branch on the same staged rows."""
     plan = _mesh_plan(index, h, n_probe, l, generator, tail_idx, active)
     tail_slots = _tail_slots(index, plan)
     if use_kernel:
@@ -189,7 +194,7 @@ def mesh_mimps_decode(index: _mips.IVFIndex, h: torch.Tensor, *,
         head_lse, tail_lse, topv, topi = ivf_decode(
             blocks, h, torch.arange(u, dtype=torch.int32, device=h.device),
             plan.head_live, plan.head_member, row_logw, tail,
-            plan.tail_accept, k=k)
+            plan.tail_accept, k=k, **(kernel_cfg or {}))
         # staged slot u * br + r is the index's head_ids[u] * br + r
         glob = plan.head_ids.long()[topi.long() // br] * br + topi.long() % br
         topi = torch.where(topv > NEG * 0.5, glob,
@@ -221,7 +226,7 @@ def mesh_mince_decode(index: _mips.IVFIndex, h: torch.Tensor, *,
                       generator: Optional[torch.Generator] = None,
                       tail_idx: Optional[torch.Tensor] = None,
                       active: Optional[torch.Tensor] = None,
-                      group=None) -> DecodeOut:
+                      group=None, kernel_cfg=None) -> DecodeOut:
     """MINCE (Eq. 6/7) under the serving mesh: ``mince_decode``'s closed
     form on gathered rows (``iters``/``solver`` ignored, as there)."""
     del iters, solver
@@ -230,7 +235,7 @@ def mesh_mince_decode(index: _mips.IVFIndex, h: torch.Tensor, *,
     plan = _mesh_plan(index, h, n_probe, l, generator, tail_idx, active)
     head_lse, topv, topi, ts = _scored_head(
         index, h, plan, k, use_kernel, _tail_slots(index, plan), head_cap,
-        group)
+        group, kernel_cfg)
     tail_lse = _decode._masked_tail_lse(ts, plan.tail_accept)
     k_eff = plan.k_eff.float()
     n_acc = plan.n_accept.float()
@@ -249,11 +254,11 @@ def mesh_topk_decode(index: _mips.IVFIndex, h: torch.Tensor, *,
                      n_probe: int, k: int = 1, use_kernel: bool = True,
                      head_cap: int = 0,
                      active: Optional[torch.Tensor] = None,
-                     group=None) -> DecodeOut:
+                     group=None, kernel_cfg=None) -> DecodeOut:
     """The head-only tier (``topk_head_decode``) under the serving mesh."""
     plan = _mesh_plan(index, h, n_probe, 0, None, None, active)
     head_lse, topv, topi, _ = _scored_head(index, h, plan, k, use_kernel,
-                                           None, head_cap, group)
+                                           None, head_cap, group, kernel_cfg)
     no_tail = torch.full_like(head_lse, float("-inf"))
     return _decode._probe_out(index, plan, head_lse, head_lse, no_tail, topv,
                               topi)
@@ -263,19 +268,20 @@ def mesh_fmbe_decode(state: FMBEState, index: _mips.IVFIndex,
                      h: torch.Tensor, *, n_probe: int, k: int = 1,
                      use_kernel: bool = True, head_cap: int = 0,
                      active: Optional[torch.Tensor] = None,
-                     group=None) -> DecodeOut:
+                     group=None, kernel_cfg=None) -> DecodeOut:
     """FMBE under the serving mesh: the sketch and its per-block lambdas
-    are replicated (``fmbe_z`` as on one device); only the candidate head
-    rows are gathered."""
+    are replicated (``fmbe_z`` as on one device, with ``kernel_cfg``'s
+    launch knobs); only the candidate head rows are gathered."""
     plan = _mesh_plan(index, h, n_probe, 0, None, None, active)
     head_lse, topv, topi, _ = _scored_head(index, h, plan, k, use_kernel,
                                            None, head_cap, group)
     if state.lambda_blocks is not None:
-        z_tail = fmbe_tail_z(state, h, plan.block_ids, use_kernel)
+        z_tail = fmbe_tail_z(state, h, plan.block_ids, use_kernel,
+                             kernel_cfg)
         log_z = torch.logaddexp(head_lse,
                                 torch.log(torch.clamp(z_tail, min=1e-30)))
     else:
-        z = fmbe_z_batch(state, h, use_kernel)
+        z = fmbe_z_batch(state, h, use_kernel, kernel_cfg)
         log_z = torch.log(torch.clamp(z, min=1e-30))
     no_tail = torch.full_like(log_z, float("-inf"))
     return _decode._probe_out(index, plan, log_z, head_lse, no_tail, topv,
@@ -283,14 +289,15 @@ def mesh_fmbe_decode(state: FMBEState, index: _mips.IVFIndex,
 
 
 def _exact_parts(w_local: torch.Tensor, h: torch.Tensor, k: int,
-                 use_kernel: bool, rows, group):
+                 use_kernel: bool, rows, group, kernel_cfg=None):
     """(log Z, topv, global top ids) with the embedding row-split over
-    ``group``: each rank's LSE and top-k (``topk_z``, gated by ``rows``, or
-    the reference logits), the LSEs combined in log domain and the
-    candidates merged."""
+    ``group``: each rank's LSE and top-k (``topk_z``, gated by ``rows``,
+    with ``kernel_cfg``'s launch knobs, or the reference logits), the LSEs
+    combined in log domain and the candidates merged."""
     n_loc = w_local.shape[0]
     if use_kernel:
-        lse, topv, topi = topk_z(h, w_local, k, rows=rows)
+        lse, topv, topi = topk_z(h, w_local, k, rows=rows,
+                                 **(kernel_cfg or {}))
     else:
         logits = (h @ w_local.T).float()
         lse = torch.logsumexp(logits, -1)
@@ -302,11 +309,13 @@ def _exact_parts(w_local: torch.Tensor, h: torch.Tensor, k: int,
 
 
 def mesh_exact_decode(w_local: torch.Tensor, h: torch.Tensor, *, k: int = 1,
-                      use_kernel: bool = True, group=None) -> DecodeOut:
+                      use_kernel: bool = True, group=None,
+                      kernel_cfg=None) -> DecodeOut:
     """Exact log Z and top-k with the embedding row-split over the model
     group. The candidates are the single-device pass's (each a score of
     one row); log Z agrees to the rounding of the reduction order."""
-    log_z, topv, topi = _exact_parts(w_local, h, k, use_kernel, None, group)
+    log_z, topv, topi = _exact_parts(w_local, h, k, use_kernel, None, group,
+                                     kernel_cfg)
     q = h.shape[0]
     v = w_local.shape[0] * group_size(group)
     return DecodeOut(log_z=log_z, top_score=topv, top_id=topi,
@@ -319,9 +328,9 @@ def mesh_exact_decode(w_local: torch.Tensor, h: torch.Tensor, *, k: int = 1,
 
 def mesh_selfnorm_decode(w_local: torch.Tensor, h: torch.Tensor, *,
                          k: int = 1, use_kernel: bool = True,
-                         group=None) -> DecodeOut:
+                         group=None, kernel_cfg=None) -> DecodeOut:
     out = mesh_exact_decode(w_local, h, k=k, use_kernel=use_kernel,
-                            group=group)
+                            group=group, kernel_cfg=kernel_cfg)
     return out._replace(log_z=torch.zeros_like(out.log_z))
 
 

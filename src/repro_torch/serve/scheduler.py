@@ -265,6 +265,15 @@ def spec_accept(n_ok: torch.Tensor, t_stream: torch.Tensor,
     return torch.where(active, a, torch.zeros_like(a)).to(torch.int32)
 
 
+def vlm_refusal(cfg) -> str:
+    """Why the slot scheduler does not step a VLM (``cfg.family ==
+    "vlm"``)."""
+    return (f"{cfg.name!r} is a VLM: the slot table carries no image for "
+            f"its cross blocks (the JAX scheduler builds for a VLM engine "
+            f"and fails on its first step for the same reason); serve it "
+            f"through serve.generate(img=)")
+
+
 @dataclasses.dataclass
 class _StepGraph:
     """A tier's captured step: the objects it read at capture (compared by
@@ -322,11 +331,7 @@ class Scheduler:
         self.lanes_per_replica = n_slots // self.n_replicas
         self._lane0 = self.replica * self.lanes_per_replica
         if engine.cfg.family == "vlm":
-            raise NotImplementedError(
-                f"{engine.cfg.name!r} is a VLM: the slot table carries no "
-                f"image for its cross blocks (the JAX scheduler builds for a "
-                f"VLM engine and fails on its first step for the same "
-                f"reason); serve it through serve.generate(img=)")
+            raise NotImplementedError(vlm_refusal(engine.cfg))
         dev = engine.device
         if dev.type == "cuda" and not engine.use_kernel:
             raise ValueError(
@@ -671,11 +676,15 @@ class Scheduler:
                 dtoks.append(d_tok)
                 d_prev = d_tok
         hseq = torch.stack(hs, 1)
+        # the engine's tuned launch knobs are its own method's, at this
+        # verify's rows; the other tiers and the draft launch as they are
+        kernel_cfg = eng.knobs(hseq.shape[0] * hseq.shape[1]) \
+            if tier == eng.backend.method else {}
         out = verify_decode(
             backend, bstate, hseq, pc, k=pc.sample_k, active=act,
             use_kernel=eng.use_kernel,
             tail_idx=tb.tail if backend.has_tail(bstate) else None,
-            group=self._model_group)
+            group=self._model_group, **kernel_cfg)
         act_r = act[:, None].expand(-1, kk).reshape(-1)
         hflat = hseq.reshape(-1, hseq.shape[-1])
         out, vflags = self._guard(self._corrupt(out, kk), bstate.w, hflat,

@@ -5,6 +5,9 @@ JAX's references from the inputs this script writes. Every rank writes its
 results to ``<out>/rank<r>.pt``.
 
     python tests/_torch_mesh_rank.py RANK WORLD STORE OUT [cuda]
+    python tests/_torch_mesh_rank.py serve-cli RANK WORLD STORE OUT ARGS...
+
+(the second runs ``launch.serve`` with ARGS on the rank: ``serve_cli``).
 
 With ``cuda`` (``tests/test_torch_cuda_mesh.py``: four ranks sharing one
 card over gloo) the engines serve from the card through the kernels, and
@@ -321,5 +324,30 @@ def main(rank: int, world: int, store: str, out: str,
     torch.save(res, os.path.join(out, f"rank{rank}.pt"))
 
 
+def serve_cli(rank: int, world: int, store: str, out: str,
+              *argv: str) -> None:
+    """One rank of ``launch.serve`` under a mesh
+    (``tests/test_torch_launch_serve.py``): the gloo group from the
+    FileStore, then the CLI's ``main(argv)`` in process; its printed lines
+    and exit code go to ``<out>/serve<r>.txt``."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(store, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=60))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(list(argv))
+    dist.destroy_process_group()
+    with open(os.path.join(out, f"serve{rank}.txt"), "w") as f:
+        f.write(f"rc {rc}\n{buf.getvalue()}")
+
+
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:])
+    if sys.argv[1] == "serve-cli":
+        serve_cli(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:])
+    else:
+        main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:])

@@ -41,17 +41,15 @@ OTHER. Every run makes the same inputs from seed 0:
 Each bf16 output, and each decode kernel's output at both dtypes, is
 fingerprinted (SHA-256 of its bytes) and must be the same in all four
 runs, but for the kernels in ``REDESIGNED`` (the ones a change redesigns,
-named with the dtype's tag: the bf16 ``topk_z`` at present, its f32 bits
-must not move): their bits change by design, so each run holds them to
-their plain versions instead (scores, LSEs and top-k values to 1e-3, top
-ids where the neighbouring scores are more than 1e-3 apart, signed FMBE
-sums to 1e-4 of the sum of their terms' magnitudes, + 1e-6), and their
-fingerprints must agree within each tree. A CE or ``fmbe_phi``
-time is the
-median of 20 calls timed with CUDA events after 3 to warm up; a decode
-kernel's is the median of 20 replays of a CUDA graph of one call. Prints
-each measurement's four values in run order with the card's name and power
-limit, whether each fingerprint is the same in all four runs, and writes
+named with the dtype's tag; none at present): their bits change by
+design, so each run holds them to their plain versions instead (scores,
+LSEs and top-k values to 1e-3, top ids where the neighbouring scores are
+more than 1e-3 apart, signed FMBE sums to 1e-4 of the sum of their terms'
+magnitudes, + 1e-6), and their fingerprints must agree within each tree.
+A CE or ``fmbe_phi`` time is the median of 20 calls timed with CUDA
+events after 3 to warm up; a decode kernel's is the median of 20 replays
+of a CUDA graph of one call. Prints each measurement's four values in run
+order with the card's name and power limit, whether each fingerprint is the same in all four runs, and writes
 all of it to ``chiprun_out/tree_compare.json``.
 """
 from __future__ import annotations
@@ -71,7 +69,7 @@ N_FEATURES = 4096
 # the decode kernels whose bits a change alters by design, as
 # "<kernel><tag>" ("[f32]" for f32; set while it is compared with its
 # parent)
-REDESIGNED = ("topk_z",)
+REDESIGNED = ()
 V_WIDE, D_WIDE = 128256, 8192            # llama-3.2-vision-90b's head
 
 
