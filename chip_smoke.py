@@ -354,6 +354,26 @@ GPU.
    step's capture, apart) logged; the port's ``obs_report`` exits 0 on
    the trace.
 
+15. The dry run and cost report (``dryrun_last``), last: (a)
+   ``python -m repro_torch.launch.dryrun`` for qwen1.5-4b at train_4k,
+   prefill_32k, decode_32k and decode_32k mimps on mesh ``single`` (a
+   fake process group of 256 ranks, one CPU process a cell, started
+   first and joined last): each cell's per-rank counts logged and
+   decode_32k's trunk FLOPs held to the config's closed form. (b) The
+   traffic phase's captured 16-lane mimps step counted on fake tensors
+   (``hlo_analysis.fake_copy`` of the scheduler) beside its replay by CUDA
+   events and by kind (``breakdown.measure_step``): the whole step's share
+   of the card's bound. (c) ``streaming_logz_argmax``'s ``topk_z`` route
+   against its plain chunks at V 151936, then four processes of this
+   script (``--dryrun-rank``) over gloo at mesh (1, 4): ``sharded_decode``
+   mimps, mince and fmbe on (b)'s index with and without the kernels
+   (``ivf_score``, ``fmbe_z``), held to each other, the exhaustive probe
+   to ``topk_z``'s exact log Z, every rank's outputs bit-equal.
+
+Every phase logs its seconds, the CUDA memory allocated before and after
+it and its peak; a phase that leaves more than 256 MB allocated also logs
+the allocator's largest segments (``memory_summary``).
+
 Prints the kernel record as one JSON line before the last (each kernel at
 bf16, the gated ``topk_z`` as ``topk_z[gated]``, ``topk_z`` at 16 lanes as
 ``topk_z[q16]``, whose launches are those of its 16-query instance (Q > 8)
@@ -417,6 +437,33 @@ PATH_KERNELS = {"exact": ("topk_z",), "mimps": ("ivf_decode",),
 
 class SmokeError(RuntimeError):
     pass
+
+
+MEM_LEFT_BYTES = 256e6          # a phase that leaves more: its segments
+
+
+def memory_summary(torch, phase, top=6):
+    """Logs the largest segments of the caching allocator
+    (``torch.cuda.memory_snapshot()``): size, bytes allocated, the pool
+    (a CUDA graph's private pool is not (0, 0)), the largest live blocks,
+    and their allocation frames where the allocator recorded them (only
+    with ``torch.cuda.memory._record_memory_history``, which this script
+    leaves off: it would slow every timed phase)."""
+    segs = sorted(torch.cuda.memory_snapshot(),
+                  key=lambda s: -s["allocated_size"])[:top]
+    for seg in segs:
+        live = sorted((b for b in seg["blocks"]
+                       if b["state"] == "active_allocated"),
+                      key=lambda b: -b["size"])[:3]
+        blocks = "; ".join(
+            f"{b['size'] / 1e6:.1f} MB"
+            + "".join(f" <- {f['filename'].rsplit('/', 1)[-1]}:{f['line']}"
+                      f" {f['name']}" for f in b.get("frames", [])[:3])
+            for b in live)
+        log(f"  {phase} left: segment {seg['total_size'] / 1e6:.1f} MB, "
+            f"{seg['allocated_size'] / 1e6:.1f} MB allocated, pool "
+            f"{seg.get('segment_pool_id')}, stream {seg['stream']}; "
+            f"largest live blocks: {blocks}")
 
 
 def check(cond, msg):
@@ -826,6 +873,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--mesh-rank"]:        # a rank of mesh_last's (b)
         return mesh_rank(torch, int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    if sys.argv[1:2] == ["--dryrun-rank"]:      # a rank of dryrun_last's (c)
+        return dryrun_rank(torch, int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if sys.argv[1:2] == ["--train-mesh-rank"]:  # a rank of train_mesh_last
         return train_mesh_rank(torch, int(sys.argv[2]), sys.argv[3],
                                sys.argv[4])
@@ -864,8 +913,21 @@ def main() -> int:
 
     def timed(phase, *args):
         t0 = time.time()
+        gc.collect()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         out = phase(torch, card, *args)
-        log(f"phase {phase.__name__}: {time.time() - t0:.1f} s")
+        gc.collect()
+        left = torch.cuda.memory_allocated()
+        log(f"phase {phase.__name__}: {time.time() - t0:.1f} s; allocated "
+            f"{left / 1e9:.3f} GB after it ({start / 1e9:.3f} GB before), "
+            f"peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB since "
+            f"its last reset [{card}]")
+        if left - start > MEM_LEFT_BYTES:
+            try:
+                memory_summary(torch, phase.__name__)
+            except Exception as e:                          # noqa: BLE001
+                log(f"  memory_summary failed: {type(e).__name__}: {e}")
         return out
 
     records, study = timed(serve, kernels)
@@ -914,6 +976,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()                    # the training mesh is gone
     late.append(timed(serve_cli_last, kernels))
+    gc.collect()
+    torch.cuda.empty_cache()                    # the served engines are gone
+    late.append(timed(dryrun_last, kernels))
     for counts, n_gated, held in late:
         for rec in records:                     # bf16 records, by name
             rec["launches"] += n_gated if rec["name"] == "topk_z[gated]" \
@@ -3540,6 +3605,372 @@ def mesh_rank(torch, rank, store, out):
            "seconds": time.time() - t_start}
     dist.destroy_process_group()
     Path(f"{out}/rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+# -- phase 15: the dry run and cost report -----------------------------------
+
+D_ARCH = "qwen1.5-4b"
+D_CELLS = (("train_4k", "exact"), ("prefill_32k", "exact"),
+           ("decode_32k", "exact"), ("decode_32k", "mimps"))
+D_DEADLINE_S = 420            # (a)'s cell processes are killed past this
+D_RANKS = 4                   # (c): four processes on the one card, gloo
+D_RANK_DEADLINE_S = 240       # (c)'s ranks are killed past this
+D_QUERIES = 16                # (c): prefill hidden states of 16 prompts
+
+
+def dryrun_last(torch, card, kernels):
+    """Phase 15, last (``dryrun_last``): the dry run and cost report
+    (``launch.dryrun``, ``hlo_analysis``, ``breakdown``) and the dry-run
+    bodies of ``serve.output_layer`` on the card.
+
+    (a) ``launch.dryrun`` for qwen1.5-4b at train_4k, prefill_32k,
+        decode_32k and decode_32k mimps on mesh ``single`` (a fake process
+        group of 256 ranks), one CPU process a cell, started first and
+        joined last: each cell's per-rank FLOPs, bytes, collectives, peak
+        and trace seconds logged; decode_32k's trunk FLOPs equal the
+        config's closed form (8 lanes at KV 32768).
+    (b) The traffic phase's captured 16-lane step (a guarded
+        ``device_index`` mimps engine, max_len 160, one device: the
+        mesh (1, 1) step without its size-1 collectives) counted on fake
+        tensors (``hlo_analysis.fake_copy`` of the scheduler), its replay
+        timed with CUDA events and by kind (``breakdown.measure_step``),
+        and the whole step's share of the card's bound.
+    (c) ``D_RANKS`` processes of this script (``--dryrun-rank``) on the
+        one card over gloo, mesh (1, 4): ``sharded_decode`` mimps, mince
+        and fmbe on (b)'s index (553 blocks of 512 padded with dead
+        blocks to 556, 139 a rank), 16 prefill hidden states, p 4 and l
+        250 a rank, with and without ``use_kernel``: ``ivf_score`` held to
+        its plain version, log Z within 1e-3, top ids equal unless their
+        scores are within 1e-3, the exhaustive probe within 1e-3 of
+        ``topk_z``'s exact log Z, every rank's outputs bit-equal. Here,
+        ``streaming_logz_argmax``'s ``topk_z`` route against its plain
+        chunks at V 151936.
+
+    Returns (the path's launches by record name, 0, the holds' max abs
+    err by record name)."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import breakdown
+    from repro_torch.launch.hlo_analysis import fake_copy
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, Request, Scheduler, Server
+    from repro_torch.serve import trace_arrivals
+    from repro_torch.serve.output_layer import streaming_logz_argmax
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    cells = []
+    for shape, mode in D_CELLS:                 # (a), in the background
+        out = open(f"{tmp}/{shape}_{mode}.log", "w")
+        cells.append((shape, mode, out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             D_ARCH, "--shape", shape, "--mesh", "single", "--output-mode",
+             mode, "--out", f"{tmp}/a"], cwd=ROOT, env=env, stdout=out,
+            stderr=subprocess.STDOUT)))
+    counts, held = {"topk_z": 0, "ivf_score": 0, "fmbe_z": 0}, {}
+    try:
+        # -- (b) the captured 16-lane step, counted and measured ----------
+        cfg = get_config(D_ARCH)
+        pc = cfg.partition
+        model = Model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        t0 = time.time()
+        eng = Engine(model, params, T_MAX_LEN, seed=7, device_index=True,
+                     health_guard=True, device=dev)
+        sched = Scheduler(eng, T_SLOTS, prompt_cap=T_PROMPT_CAP, seed=3)
+        gen = torch.Generator(device=dev).manual_seed(31)
+        req = Request(prompt=torch.randint(0, cfg.vocab, (16,), generator=gen,
+                                           device=dev).cpu().numpy(),
+                      max_new_tokens=4, seed=300)
+        Server(sched).run(arrivals=trace_arrivals([req], [0]))
+        check(sched.captures == 1, f"dryrun (b): {sched.captures} captures")
+        g = sched._graphs[sched.tier]
+        replay_ms = _median_events(torch, g.graph.replay, 20)
+        t_build = time.time() - t0
+        fm = FakeTensorMode()
+        fake = fake_copy(sched, fm)
+        t1 = time.time()
+        ms, by_kind, c = breakdown.measure_step(
+            g.graph.replay, lambda: fake._step_body(fake.tier),
+            fake_mode=fm, log=log)
+        t_count = time.time() - t1
+        bound_s = max(c.flops / BF16_FLOPS, c.bytes / HBM_BYTES_PER_S)
+        dev_ms = sum(ms.values())
+        log(f"dryrun (b): the captured {T_SLOTS}-lane {sched.tier} step "
+            f"(max_len {T_MAX_LEN}, engine and capture "
+            f"{t_build:.1f} s): counted on fake tensors in "
+            f"{t_count:.1f} s: {c.flops / 1e9:.4f} GFLOP, "
+            f"{c.bytes / 1e9:.4f} GB, {c.transcendentals / 1e6:.3f} M "
+            f"transcendentals; replay {replay_ms:.4f} ms (CUDA events, "
+            f"median of 20), {dev_ms:.4f} ms of kernel time under the "
+            f"profiler; bound max({c.flops / BF16_FLOPS * 1e3:.4f}, "
+            f"{c.bytes / HBM_BYTES_PER_S * 1e3:.4f}) ms = "
+            f"{bound_s * 1e3:.4f} ms: whole-step share "
+            f"{bound_s / (replay_ms / 1e3):.4f} [{card}]")
+        unmatched = [k for k in set(ms) | set(by_kind)
+                     if k.startswith("unmatched")]
+        log(f"dryrun (b): kinds unmatched between the count and the "
+            f"profile: {unmatched or 'none'}")
+        # the inputs of (c): the index padded to a multiple of the ranks,
+        # dead blocks ranked last by their radius, 16 hidden states, the
+        # fmbe tier's feature map and sketch, the exact log Z
+        idx = eng.index
+        nb, br = idx.n_blocks, idx.block_rows
+        pad = -nb % D_RANKS
+        valid = torch.cat([idx.valid, idx.valid.new_zeros((pad, br))])
+        live = valid.any(-1)
+        radius = torch.cat([idx.block_radius.float(),
+                            idx.block_radius.new_zeros(pad).float()])
+        radius = torch.where(live, radius,
+                             torch.full_like(radius, float("-inf")))
+        toks = torch.randint(0, cfg.vocab, (D_QUERIES, 16), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(5))
+        h = eng.prefill(toks)[0].clone().contiguous()
+        fst = eng.tier_state("fmbe").fmbe
+        w = model.head_matrix(params)
+        lse_exact = kernels["topk_z"](h, w.contiguous(), 1)[0]
+        torch.save({
+            "v_blocks": torch.cat([idx.v_blocks, idx.v_blocks.new_zeros(
+                (pad,) + tuple(idx.v_blocks.shape[1:]))]).cpu(),
+            "centroids": torch.cat([idx.block_centroids,
+                                    idx.block_centroids.new_zeros(
+                                        (pad, idx.block_centroids.shape[1]))
+                                    ]).cpu(),
+            "radius": radius.cpu(), "valid": valid.cpu(), "h": h.cpu(),
+            "omega": fst.fm.omega.cpu(), "degree": fst.fm.degree.cpu(),
+            "coef": fst.fm.coef.cpu(), "p": fst.fm.p,
+            "lambda": fst.lambda_tilde.cpu(), "lse_exact": lse_exact.cpu(),
+            "n_probe": pc.n_probe, "l": pc.l}, f"{tmp}/c_inputs.pt")
+        log(f"dryrun (c): index {nb} blocks of {br} + {pad} dead, "
+            f"{D_QUERIES} hidden states saved for the ranks")
+        # streaming_logz_argmax: the topk_z route (the path) and its plain
+        # chunks on the whole head
+        _build.reset_counts(kernels.values())
+        got = streaming_logz_argmax(h, w.contiguous(), use_kernel=True)
+        torch.cuda.synchronize()
+        counts["topk_z"] += kernels["topk_z"].launches
+        want = streaming_logz_argmax(h, w.contiguous(), use_kernel=False)
+        err = (got[0] - want[0]).abs().max().item()
+        check(err <= TOL, f"dryrun (c): streaming_logz_argmax's topk_z "
+              f"route differs from its plain chunks by {err} in log Z")
+        differ = got[1] != want[1]
+        gap = (got[2] - want[2]).abs()
+        check(bool((gap[differ] <= TOL).all()), "dryrun (c): "
+              "streaming_logz_argmax's top ids differ where their scores "
+              "are more than 1e-3 apart")
+        held["topk_z"] = err
+        log(f"dryrun (c): streaming_logz_argmax at V {w.shape[0]}, "
+            f"{D_QUERIES} queries: topk_z route log Z err {err:.2e} from "
+            f"the plain chunks, {int(differ.sum())} top ids differ (within "
+            f"1e-3) [{card}]")
+        del sched, fake, g, eng, params, model, w, h, fst, idx
+        gc.collect()
+        torch.cuda.empty_cache()
+        # -- (c) the ranks -------------------------------------------------
+        res = dryrun_ranks(torch, card, tmp)
+        for r in res:
+            for name, n in r["counts"].items():
+                counts[name] += n
+            for name, e in r["held"].items():
+                held[name] = max(held.get(name, 0.0), e)
+        # -- (a) the cells ---------------------------------------------------
+        dryrun_cells_join(cfg, cells, tmp, card)
+    finally:
+        for *_, out, p in cells:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"dryrun path launches {counts}; held max abs err {held}; phase "
+        f"{time.time() - t_phase:.1f} s [{card}]")
+    return counts, 0, held
+
+
+def dryrun_cells_join(cfg, cells, tmp, card):
+    """(a): each cell's process joined with a deadline; its record
+    logged, decode_32k's trunk held to the closed form."""
+    t_end = time.time() + D_DEADLINE_S
+    for shape, mode, out, p in cells:
+        try:
+            p.wait(timeout=max(1.0, t_end - time.time()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        out.flush()
+        text = Path(out.name).read_text()
+        check(p.returncode == 0, f"dryrun (a): {D_ARCH} {shape} {mode} "
+              f"exited {p.returncode}:\n{text[-3000:]}")
+        suffix = "" if mode == "exact" else f"__{mode}"
+        r = json.loads(Path(f"{tmp}/a/single/{D_ARCH}__{shape}{suffix}"
+                            f".json").read_text())
+        log(f"dryrun (a): {D_ARCH} {shape} {mode} on mesh single "
+            f"({r['n_chips']} fake ranks), {r['step']}: per rank "
+            f"{r['flops_per_device']:.6e} FLOP, "
+            f"{r['bytes_per_device']:.6e} bytes, collectives "
+            f"{r['collective_bytes']}, peak "
+            f"{r['peak_bytes_per_device'] / 1e9:.3f} GB, traced in "
+            f"{r['trace_s']} s on the host (counts, not measurements) "
+            f"[{card}]")
+        if shape == "decode_32k" and mode == "exact":
+            hd, s, lanes = cfg.resolved_head_dim, 32768, r["lanes_per_rank"]
+            proj = cfg.d_model * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) \
+                + cfg.n_heads * hd * cfg.d_model + 3 * cfg.d_model * cfg.d_ff
+            trunk = 2 * (proj + 2 * cfg.n_heads * hd * s) * cfg.n_layers \
+                * lanes
+            got = r["sections"]["trunk"]["flops"]
+            check(got == trunk, f"dryrun (a): decode_32k's trunk counts "
+                  f"{got} FLOP, the closed form {trunk}")
+            log(f"dryrun (a): decode_32k's trunk {got / 1e9:.2f} GFLOP = "
+                f"the closed form at {lanes} lanes of KV {s}")
+
+
+def dryrun_ranks(torch, card, tmp):
+    """(c): ``D_RANKS`` processes of this script (``--dryrun-rank``) joined
+    with a deadline; every rank's outputs bit-equal; returns each rank's
+    results."""
+    t0 = time.time()
+    procs = []
+    for r in range(D_RANKS):
+        out = open(f"{tmp}/rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dryrun-rank",
+             str(r), f"{tmp}/gloo", tmp], cwd=ROOT, stdout=out,
+            stderr=subprocess.STDOUT), out))
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, t0 + D_RANK_DEADLINE_S - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, out in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    secs = time.time() - t0
+    logs = [Path(f"{tmp}/rank{r}.log").read_text() for r in range(D_RANKS)]
+    for r, (p, _) in enumerate(procs):
+        check(p.returncode == 0, f"dryrun (c): rank {r} exited "
+              f"{p.returncode} after {secs:.1f} s:\n{logs[r][-3000:]}")
+    for line in logs[0].splitlines():
+        log(line)
+    outs = [torch.load(f"{tmp}/rank{r}.pt") for r in range(D_RANKS)]
+    for r in range(1, D_RANKS):
+        for key, vals in outs[0].items():
+            check(all(torch.equal(a, b) for a, b in zip(vals, outs[r][key])),
+                  f"dryrun (c): rank {r}'s {key} differs from rank 0's")
+    res = [json.loads(Path(f"{tmp}/rank{r}.json").read_text())
+           for r in range(D_RANKS)]
+    log(f"dryrun (c): {D_RANKS} ranks over gloo in {secs:.1f} s, every "
+        f"rank's outputs bit-equal; launches by rank "
+        f"{[x['counts'] for x in res]} [{card}]")
+    return res
+
+
+def dryrun_rank(torch, rank, store, tmp):
+    """One rank of ``dryrun_last``'s (c), on the one card. Writes
+    ``<tmp>/rank<r>.pt`` (each case's kernel-route outputs) and
+    ``<tmp>/rank<r>.json``; rank 0 logs."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core.feature_maps import FeatureMap, FMBEState
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fmbe import fmbe_pack, fmbe_z
+    from repro_torch.kernels.ivf_score import ivf_score, ivf_score_plain
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.serve import output_layer as ol
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say = log if rank == 0 else (lambda msg: None)
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo", store=dist.FileStore(store, D_RANKS),
+                            rank=rank, world_size=D_RANKS,
+                            timeout=datetime.timedelta(seconds=120))
+    mesh = make_serving_mesh(1, D_RANKS, device_type="cuda")
+    z = torch.load(f"{tmp}/c_inputs.pt", mmap=True)
+    nb = z["v_blocks"].shape[0]
+    part = slice(rank * nb // D_RANKS, (rank + 1) * nb // D_RANKS)
+    ivf = ol.IVFSpecs(
+        v_blocks=z["v_blocks"][part].to(dev).contiguous(),
+        centroids=z["centroids"][part].to(dev).contiguous(),
+        radius=z["radius"][part].to(dev).contiguous(),
+        valid=z["valid"][part].to(dev).contiguous())
+    h = z["h"].to(dev)
+    fm = FeatureMap(omega=z["omega"].to(dev), degree=z["degree"].to(dev),
+                    coef=z["coef"].to(dev), p=z["p"])
+    fstate = FMBEState(fm=fm, lambda_tilde=z["lambda"].to(dev),
+                       pack=fmbe_pack(fm.omega, fm.degree, fm.coef))
+    nb_l, br = ivf.v_blocks.shape[:2]
+    p_local = max(1, z["n_probe"] // D_RANKS)
+    l_local = max(8, z["l"] // D_RANKS)
+    slots = torch.randint(0, nb_l * br, (l_local,), device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(100 + rank))
+    cases = (("mimps", p_local), ("mince", p_local), ("fmbe", p_local),
+             ("mimps", nb_l), ("mince", nb_l))
+
+    def run(method, p, use_kernel):
+        kw = {"fmbe_state": fstate} if method == "fmbe" else {"slots": slots}
+        if method == "mince":
+            kw.update(iters=3, solver="halley")
+        return ol.sharded_decode(mesh, method, ivf, h, n_probe_local=p,
+                                 l_local=l_local, use_kernel=use_kernel,
+                                 **kw)
+    torch.cuda.synchronize()
+    _build.reset_counts([ivf_score, fmbe_z])
+    got = {f"{m}@p{p}": run(m, p, True) for m, p in cases}
+    torch.cuda.synchronize()
+    counts = {"ivf_score": ivf_score.launches, "fmbe_z": fmbe_z.launches}
+    held = {}
+    for (m, p), (key, k_out) in zip(cases, got.items()):
+        t1 = time.perf_counter()
+        p_out = run(m, p, False)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        err = (k_out[0] - p_out[0]).abs().max().item()
+        check(err <= TOL, f"dryrun (c) {key}: log Z differs from the plain "
+              f"route by {err}")
+        differ = k_out[1] != p_out[1]
+        check(bool(((k_out[2] - p_out[2]).abs()[differ] <= TOL).all()),
+              f"dryrun (c) {key}: top ids differ where their scores are "
+              f"more than 1e-3 apart")
+        name = "fmbe_z" if m == "fmbe" else "ivf_score"
+        held[name] = max(held.get(name, 0.0), err)
+        note = ""
+        if p == nb_l:
+            ex = (k_out[0] - z["lse_exact"].to(dev)).abs().max().item()
+            check(ex <= TOL, f"dryrun (c) {key}: the exhaustive probe's "
+                  f"log Z is {ex} from topk_z's exact log Z")
+            note = f", exact log Z err {ex:.2e}"
+        say(f"dryrun (c) rank 0 {key} (l {l_local}): log Z err {err:.2e} "
+            f"from plain, {int(differ.sum())} top ids differ within 1e-3"
+            f"{note}; plain route {plain_s * 1e3:.1f} ms on gloo")
+    bids = ol._local_probe(ivf, h, p_local, False)[0]
+    s_k = ivf_score(ivf.v_blocks, h, bids)
+    s_p = ivf_score_plain(ivf.v_blocks, h, bids)
+    err = (s_k - s_p).abs().max().item()
+    check(err <= TOL, f"dryrun (c): ivf_score differs from its plain "
+          f"version by {err}")
+    held["ivf_score"] = max(held["ivf_score"], err)
+    say(f"dryrun (c) rank 0: ivf_score at ({D_QUERIES}, {p_local}, {br}) "
+        f"on {nb_l} local blocks: max abs err {err:.2e}")
+    torch.save({k: tuple(t.cpu() for t in v) for k, v in got.items()},
+               f"{tmp}/rank{rank}.pt")
+    Path(f"{tmp}/rank{rank}.json").write_text(json.dumps(
+        {"rank": rank, "counts": counts, "held": held}))
+    dist.destroy_process_group()
     return 0
 
 

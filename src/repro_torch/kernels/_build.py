@@ -9,6 +9,7 @@ at once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -194,19 +195,36 @@ def f32_flag(name: str, **tensors) -> int:
 
 # every wrapper given its counts by ``counted``
 COUNTED: list = []
+# while a cost count is active (``launch.hlo_analysis.CostCounter``), the
+# callable every wrapper's call goes through: hook(name, fn, args, kwargs)
+_COST_HOOK = None
+
+
+def set_cost_hook(hook):
+    """Installs ``hook`` (None: none) and returns the one it replaces."""
+    global _COST_HOOK
+    prev, _COST_HOOK = _COST_HOOK, hook
+    return prev
 
 
 def counted(fn):
-    """Gives a kernel wrapper its launch counts: ``fn.launches``, the total,
-    ``fn.by_variant``, launches by input dtype ("bf16" or "f32") and by any
-    instance the wrapper names beside it (``count(variant=)``, a subset of
-    its dtype's), and ``fn.gated``, the launches among them with a
-    per-query gate (``topk_z(..., rows=)``)."""
-    fn.launches = 0
-    fn.by_variant = {"bf16": 0, "f32": 0}
-    fn.gated = 0
-    COUNTED.append(fn)
-    return fn
+    """Gives a kernel wrapper its launch counts: ``wrapper.launches``, the
+    total, ``wrapper.by_variant``, launches by input dtype ("bf16" or
+    "f32") and by any instance the wrapper names beside it
+    (``count(variant=)``, a subset of its dtype's), and ``wrapper.gated``,
+    the launches among them with a per-query gate (``topk_z(...,
+    rows=)``). A call costs one check of the cost hook beyond ``fn``'s."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if _COST_HOOK is None:
+            return fn(*args, **kwargs)
+        return _COST_HOOK(fn.__name__, fn, args, kwargs)
+
+    wrapper.launches = 0
+    wrapper.by_variant = {"bf16": 0, "f32": 0}
+    wrapper.gated = 0
+    COUNTED.append(wrapper)
+    return wrapper
 
 
 def count(fn, f32: int, gated: bool = False, variant=None) -> None:

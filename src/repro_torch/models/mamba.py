@@ -18,6 +18,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from ..launch.hlo_analysis import scan
 from .layers import _dense_init, rmsnorm
 
 Params = Dict[str, Any]
@@ -87,14 +88,11 @@ def ssm_scan(x, b_in, c_in, a, dt, h0):
     """The recurrence over time, in f32: x (B, S, H, P), b_in and c_in (B,
     S, N), a and dt (B, S, H), h0 (B, H, P, N). Returns (y (B, S, H, P),
     the last state)."""
-    h = h0
-    ys = []
-    for t in range(x.shape[1]):
-        upd = torch.einsum("bhp,bn->bhpn", dt[:, t, :, None] * x[:, t],
-                           b_in[:, t])
-        h = h * a[:, t, :, None, None] + upd
-        ys.append(torch.einsum("bhpn,bn->bhp", h, c_in[:, t]))
-    return torch.stack(ys, 1), h
+    def step(h, x_t, b_t, c_t, a_t, dt_t):
+        upd = torch.einsum("bhp,bn->bhpn", dt_t[:, :, None] * x_t, b_t)
+        h = h * a_t[:, :, None, None] + upd
+        return h, torch.einsum("bhpn,bn->bhp", h, c_t)
+    return scan(step, h0, (x, b_in, c_in, a, dt))
 
 
 def mamba_block(p: Params, x: torch.Tensor, cfg, state=None):

@@ -22,6 +22,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..launch.hlo_analysis import scan
 from .layers import _dense_init
 
 Params = Dict[str, Any]
@@ -74,14 +75,12 @@ def wkv_scan(r, k, v, w, u, state0):
     """The recurrence over time. r, k, v (B, S, H, hs) in the model dtype,
     w (B, S, H, hs) f32 decay in (0, 1), u (H, hs) f32, state (B, H, hs,
     hs) f32. Returns (out (B, S, H, hs) f32, state)."""
-    s = state0
-    outs = []
-    for t in range(r.shape[1]):
-        kv = torch.einsum("bhk,bhv->bhkv", k[:, t].float(), v[:, t].float())
-        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t].float(),
-                                 s + u[None, :, :, None] * kv))
-        s = s * w[:, t][..., None] + kv
-    return torch.stack(outs, 1), s
+    def step(s, r_t, k_t, v_t, w_t):
+        kv = torch.einsum("bhk,bhv->bhkv", k_t.float(), v_t.float())
+        out = torch.einsum("bhk,bhkv->bhv", r_t.float(),
+                           s + u[None, :, :, None] * kv)
+        return s * w_t[..., None] + kv, out
+    return scan(step, state0, (r, k, v, w))
 
 
 def rwkv_time_mix(p: Params, x: torch.Tensor, cfg, x_last, state0

@@ -35,25 +35,39 @@ id with a dense fallback as wide as the vocabulary, which a staging buffer
 would have to hold whole, so its mesh body stages the trimmed union on the
 host's choice (one host read) and cannot be captured.
 
-The dry-run bodies of the JAX module (``streaming_logz_argmax``,
-``IVFSpecs``, ``sharded_*_decode``, ``sharded_decode``) serve only its
-HLO dry run and are not ported.
+The dry-run bodies (``streaming_logz_argmax``, ``IVFSpecs``,
+``sharded_*_decode``, ``sharded_decode``; ``launch.dryrun`` counts them)
+split everything by rank instead: each rank of the model group probes and
+tail-samples only its own blocks (``IVFSpecs`` of its shard), the partial
+log Z terms are combined by ``logspace_psum`` (mince: one all-reduce of
+the stacked ``MinceStats`` sums, then the same solve on every rank) and
+the top-1 candidates by one gather. Their estimates differ from the
+single-device decode's (another head and tail), as the JAX bodies' do;
+they serve throughput studies, not tokens. Every shape is static and
+nothing reads the host, so they trace under ``FakeTensorMode`` and can be
+captured. With ``use_kernel`` the block scores are ``ivf_score``, the
+fmbe estimate ``fmbe_z`` and ``streaming_logz_argmax`` ``topk_z`` at k 1;
+the tail and centroid products stay ``torch.matmul``, as the JAX package
+computes them outside Pallas. Tail draws are injected: each rank's
+``slots`` (l_local,), or an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..core import decode as _decode
 from ..core import lsh as _lsh
+from ..core import mince as _mince
 from ..core import mips as _mips
 from ..core.decode import DecodeOut, DecodePlan
-from ..core.distributed import (bitsum_, group_rank, group_size,
-                                logspace_psum, merge_topk)
+from ..core.distributed import (bitsum_, gather_stack, group_rank,
+                                group_size, logspace_psum, merge_topk)
 from ..core.estimators import NEG_INF, combine_head_tail_lse
 from ..core.feature_maps import FMBEState, fmbe_tail_z, fmbe_z_batch
-from ..kernels.ivf_score import ivf_decode, union_scores
+from ..kernels.ivf_score import (ivf_decode, ivf_score, ivf_score_plain,
+                                 union_scores)
 from ..kernels.topk_z import NEG, select_topk, topk_z
 
 
@@ -425,3 +439,289 @@ def mesh_shadow_log_z(w_local: torch.Tensor, h: torch.Tensor, *, k: int = 1,
         log_z = torch.where(rows != 0, log_z,
                             torch.full_like(log_z, float("-inf")))
     return log_z
+
+
+# ---------------------------------------------------------------------------
+# the dry-run bodies: everything split by rank (see the module docstring)
+# ---------------------------------------------------------------------------
+
+def streaming_logz_argmax(h: torch.Tensor, w: torch.Tensor,
+                          chunk: int = 8192, *,
+                          use_kernel: Optional[bool] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """h (B, d), w (V, d) -> (log_z (B,) f32, top_id (B,) int32,
+    top_score (B,) f32): exact log Z and top-1 over the rows ``w``.
+
+    With ``use_kernel`` (None: when both are CUDA tensors) one ``topk_z``
+    at k 1, whose products are f32 sums; on CPU tensors its plain version.
+    Else the JAX package's scan: chunks interleaved by row (chunk j holds
+    rows j, j + n, j + 2n, ... of its n chunks), each chunk's f32 products
+    folded into a running max and sum and its first maximum kept where it
+    beats the earlier chunks'. JAX rounds each product to the input dtype
+    before the f32 cast; here the products are f32 sums, as in the kernel,
+    so both routes agree on bf16 rows too."""
+    if use_kernel is None:
+        use_kernel = h.is_cuda and w.is_cuda
+    if use_kernel:
+        lse, topv, topi = topk_z(h, w, 1)
+        return lse, topi[:, 0], topv[:, 0]
+    v = w.shape[0]
+    n_chunks = -(-v // chunk)
+    b, dev = h.shape[0], h.device
+    m = torch.full((b,), NEG, dtype=torch.float32, device=dev)
+    s = torch.zeros((b,), dtype=torch.float32, device=dev)
+    bi = torch.zeros((b,), dtype=torch.int32, device=dev)
+    bs = torch.full((b,), NEG, dtype=torch.float32, device=dev)
+    hf = h.float()
+    for j in range(n_chunks):
+        wi = w[j::n_chunks]
+        scores = hf @ wi.float().T
+        col = torch.arange(wi.shape[0], device=dev, dtype=torch.int32) \
+            * n_chunks + j
+        cmax, am = scores.amax(-1), scores.argmax(-1)
+        m_new = torch.maximum(m, cmax)
+        s = s * torch.exp(m - m_new) + torch.exp(
+            scores - m_new[:, None]).sum(-1)
+        better = cmax > bs
+        bi = torch.where(better, col[am], bi)
+        bs = torch.maximum(bs, cmax)
+        m = m_new
+    return m + torch.log(s), bi, bs
+
+
+class IVFSpecs(NamedTuple):
+    """A block-IVF index's tensors; the leading (block) dim splits over
+    the model group (``ivf_partition_specs``), each rank holding its
+    blocks."""
+    v_blocks: torch.Tensor   # (nb, br, d)
+    centroids: torch.Tensor  # (nb, d)
+    radius: torch.Tensor     # (nb,) f32
+    valid: torch.Tensor      # (nb, br) bool
+
+
+def ivf_specs_for(vocab: int, d: int, block_rows: int, dtype,
+                  shard_multiple: int = 16, device="meta") -> IVFSpecs:
+    """Empty tensors of the dry run's index shapes (perfect packing
+    assumed), on ``device`` (``meta``; under ``FakeTensorMode`` any device
+    gives fake tensors): the block count rounded up to ``shard_multiple``
+    so it splits over the model group, as the index build pads it."""
+    nb = -(-vocab // block_rows)
+    nb = -(-nb // shard_multiple) * shard_multiple
+    return IVFSpecs(
+        v_blocks=torch.empty((nb, block_rows, d), dtype=dtype, device=device),
+        centroids=torch.empty((nb, d), dtype=dtype, device=device),
+        radius=torch.empty((nb,), dtype=torch.float32, device=device),
+        valid=torch.empty((nb, block_rows), dtype=torch.bool, device=device))
+
+
+def ivf_partition_specs() -> IVFSpecs:
+    """Each tensor's spec (``launch.mesh``'s tuples): blocks over
+    'model'."""
+    return IVFSpecs(v_blocks=("model", None, None), centroids=("model", None),
+                    radius=("model",), valid=("model", None))
+
+
+def _local_probe(ivf: IVFSpecs, h: torch.Tensor, n_probe_local: int,
+                 use_kernel: bool = True):
+    """The rank's blocks ranked by their ball's upper bound, the best
+    ``n_probe_local`` scored (``ivf_score``, or its plain version):
+    (bids (B, p) int32, scores (B, p, br) f32 with invalid rows NEG,
+    bvalid (B, p, br), k_eff (B,))."""
+    nb_l = ivf.v_blocks.shape[0]
+    qn = torch.linalg.vector_norm(h.float(), dim=-1, keepdim=True)
+    cs = (h @ ivf.centroids.T).float() + ivf.radius[None] * qn
+    # lax.top_k's order: score descending, the lowest block on ties
+    bids = torch.sort(cs, dim=-1, descending=True, stable=True).indices[
+        :, :n_probe_local].to(torch.int32)
+    score = ivf_score if use_kernel else ivf_score_plain
+    scores = score(ivf.v_blocks, h, bids)
+    bvalid = ivf.valid[bids.long()]
+    scores = torch.where(bvalid, scores, torch.full_like(scores, NEG))
+    return bids, scores, bvalid, bvalid.sum((-2, -1))
+
+
+def _local_tail(ivf: IVFSpecs, bids: torch.Tensor, h: torch.Tensor,
+                l_local: int, slots: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+    """A uniform tail of ``l_local`` slots of the rank's blocks, shared by
+    the batch (``slots``, or drawn from ``generator``), each rejected for
+    the queries that probed its block: (tail (B, l) f32, ok (B, l),
+    n_valid_local ())."""
+    nb_l, br, d = ivf.v_blocks.shape
+    n_slots = nb_l * br
+    flat = ivf.v_blocks.reshape(n_slots, d)
+    flat_valid = ivf.valid.reshape(n_slots)
+    if slots is None:
+        if generator is None:
+            raise ValueError("the tail needs its slots or a generator")
+        slots = torch.randint(0, n_slots, (l_local,), generator=generator,
+                              device=h.device)
+    slots = slots.long()
+    sblk = slots // br
+    unprobed = ~(sblk[None, :, None] == bids.long()[:, None, :]).any(-1)
+    ok = unprobed & flat_valid[slots][None, :]
+    tail = h.float() @ flat[slots].float().T
+    return tail, ok, flat_valid.sum()
+
+
+def _merge_candidates(bids: torch.Tensor, scores: torch.Tensor, nb_l: int,
+                      br: int, group):
+    """Each rank's best probed row, one gather of the (score, slot) pairs,
+    the first best over the ranks: (global slot id (B,) int32, its score
+    (B,))."""
+    b = scores.shape[0]
+    fs = scores.reshape(b, -1)
+    am = fs.argmax(-1)
+    cand_s = fs.gather(1, am[:, None])[:, 0]
+    cand_i = bids.long().gather(1, (am // br)[:, None])[:, 0] * br + am % br
+    packed = torch.stack([cand_s.float().contiguous().view(torch.int32),
+                          cand_i.to(torch.int32)])
+    both = gather_stack(packed, group)                       # (T, 2, B)
+    all_s = both[:, 0].contiguous().view(torch.float32)
+    all_i = both[:, 1]
+    best = all_s.argmax(0)
+    top_score = all_s.gather(0, best[None])[0]
+    top_slot = all_i.gather(0, best[None])[0]
+    return (best * nb_l * br + top_slot).to(torch.int32), top_score
+
+
+def _masked_lse(x: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    return torch.logsumexp(torch.where(ok, x, torch.full_like(x, NEG)), -1)
+
+
+def _local_ivf_logz(ivf: IVFSpecs, h: torch.Tensor, n_probe_local: int,
+                    l_local: int, group, *, slots=None, generator=None,
+                    use_kernel: bool = True):
+    """MIMPS (Eq. 5) on the rank's blocks, the partial log Z combined over
+    the group: each query's probed head, one tail shared by the batch
+    scaled by its unprobed population over its accepted samples."""
+    nb_l, br, _ = ivf.v_blocks.shape
+    bids, scores, _, k_eff = _local_probe(ivf, h, n_probe_local, use_kernel)
+    head_lse = torch.logsumexp(scores.reshape(h.shape[0], -1), -1)
+    tail, ok, n_valid = _local_tail(ivf, bids, h, l_local, slots, generator)
+    local = combine_head_tail_lse(
+        head_lse, _masked_lse(tail, ok),
+        torch.clamp(n_valid - k_eff, min=0).float(), ok.sum(-1).float())
+    top_id, top_score = _merge_candidates(bids, scores, nb_l, br, group)
+    return logspace_psum(local, group), top_id, top_score
+
+
+def _local_mince_logz(ivf: IVFSpecs, h: torch.Tensor, n_probe_local: int,
+                      l_local: int, group, *, iters: int = 3,
+                      solver: str = "halley", n_bins: int = 128,
+                      slots=None, generator=None, use_kernel: bool = True):
+    """MINCE (Eq. 6/7): each rank's atoms (its probed head and tail) in the
+    ``MinceStats`` histograms around the global Eq. 5 anchor, ONE
+    all-reduce of the stacked (B, S, 4) sums, then the same bracketed
+    solve on every rank (no collective an iteration)."""
+    import torch.distributed as dist
+    nb_l, br, _ = ivf.v_blocks.shape
+    b = h.shape[0]
+    bids, scores, bvalid, k_eff_l = _local_probe(ivf, h, n_probe_local,
+                                                 use_kernel)
+    tail, ok, n_valid_l = _local_tail(ivf, bids, h, l_local, slots,
+                                      generator)
+    counts = torch.stack([k_eff_l.long(), ok.sum(-1).long(),
+                          n_valid_l.long().expand(b)])
+    dist.all_reduce(counts, group=group)
+    k_eff, n_acc, n_valid = counts.float().unbind(0)
+    n_tail = torch.clamp(n_valid - k_eff, min=0.0)
+    c_t = n_tail / torch.clamp(n_acc, min=1.0)
+    theta0 = logspace_psum(torch.logsumexp(scores.reshape(b, -1), -1), group)
+    tail_lse = logspace_psum(_masked_lse(tail, ok), group)
+    anchor = combine_head_tail_lse(theta0, tail_lse, n_tail, n_acc)
+    s_all = torch.cat([scores.reshape(b, -1), tail], -1)
+    m_all = torch.cat([bvalid.reshape(b, -1).float(),
+                       ok.float() * c_t[:, None]], -1)
+    alpha, wd, wn = _mince.anchored_atoms(s_all, m_all, n_valid, k_eff,
+                                          n_acc, anchor)
+    st = _mince.mince_stats(alpha, wd, wn, anchor, n_bins=n_bins)
+    g = torch.stack([st.w_data, st.w_noise, st.a_data * st.w_data,
+                     st.a_noise * st.w_noise], -1).contiguous()
+    dist.all_reduce(g, group=group)
+    stats = _mince.MinceStats(
+        a_data=g[..., 2] / torch.clamp(g[..., 0], min=1e-30),
+        w_data=g[..., 0],
+        a_noise=g[..., 3] / torch.clamp(g[..., 1], min=1e-30),
+        w_noise=g[..., 1], lo=st.lo, hi=st.hi)
+    theta = _mince.solve_from_stats(stats, anchor, iters=iters,
+                                    solver=solver)
+    uniform = tail_lse + torch.log(torch.clamp(n_valid, min=1.0)) - \
+        torch.log(torch.clamp(n_acc, min=1.0))
+    log_z = torch.where(k_eff == 0, uniform, theta)
+    log_z = torch.where((n_acc == 0) | (n_tail == 0), theta0, log_z)
+    top_id, top_score = _merge_candidates(bids, scores, nb_l, br, group)
+    return log_z, top_id, top_score
+
+
+def _local_ivf_topk(ivf: IVFSpecs, h: torch.Tensor, n_probe_local: int,
+                    group, use_kernel: bool = True):
+    """The candidates alone (FMBE): the probe and the top-1 merge."""
+    nb_l, br, _ = ivf.v_blocks.shape
+    bids, scores, _, _ = _local_probe(ivf, h, n_probe_local, use_kernel)
+    return _merge_candidates(bids, scores, nb_l, br, group)
+
+
+def _model_group(mesh):
+    from ..launch.mesh import axis_group
+    return axis_group(mesh, "model")
+
+
+def sharded_ivf_decode(mesh, ivf: IVFSpecs, h: torch.Tensor, *,
+                       n_probe_local: int, l_local: int, slots=None,
+                       generator=None, use_kernel: bool = True):
+    """MIMPS over the model group of ``mesh``: ``ivf`` is this rank's
+    shard, h (B, d) its lanes. Returns (log_z, top_id, top_score), each
+    (B,)."""
+    return _local_ivf_logz(ivf, h, n_probe_local, l_local,
+                           _model_group(mesh), slots=slots,
+                           generator=generator, use_kernel=use_kernel)
+
+
+def sharded_mince_decode(mesh, ivf: IVFSpecs, h: torch.Tensor, *,
+                         n_probe_local: int, l_local: int, iters: int = 3,
+                         solver: str = "halley", slots=None, generator=None,
+                         use_kernel: bool = True):
+    """MINCE over the model group (one stats all-reduce, local solve)."""
+    return _local_mince_logz(ivf, h, n_probe_local, l_local,
+                             _model_group(mesh), iters=iters, solver=solver,
+                             slots=slots, generator=generator,
+                             use_kernel=use_kernel)
+
+
+def sharded_fmbe_decode(mesh, ivf: IVFSpecs, h: torch.Tensor, *,
+                        n_probe_local: int, fmbe_state: FMBEState,
+                        l_local: int = 0, slots=None, generator=None,
+                        use_kernel: bool = True):
+    """FMBE: the replicated sketch's estimate (``fmbe_z``) and the
+    candidates over the model group."""
+    del l_local, slots, generator
+    z = fmbe_z_batch(fmbe_state, h, use_kernel)
+    log_z = torch.log(torch.clamp(z, min=1e-30))
+    top_id, top_score = _local_ivf_topk(ivf, h, n_probe_local,
+                                        _model_group(mesh), use_kernel)
+    return log_z, top_id, top_score
+
+
+SHARDED_BACKENDS = {
+    "mimps": sharded_ivf_decode,
+    "mince": sharded_mince_decode,
+    "fmbe": sharded_fmbe_decode,
+}
+
+
+def sharded_decode(mesh, method: str, ivf: IVFSpecs, h: torch.Tensor, *,
+                   n_probe_local: int, l_local: int, **method_kwargs):
+    """The method's dry-run body over the model group of ``mesh``:
+    (log_z, top_id, top_score), each (B,). 'exact' has no index: call
+    ``streaming_logz_argmax`` on the rank's rows instead."""
+    try:
+        fn = SHARDED_BACKENDS[method]
+    except KeyError:
+        raise ValueError(
+            f"no sharded backend for method {method!r}; have "
+            f"{sorted(SHARDED_BACKENDS)} + 'exact' via streaming_logz_argmax"
+        ) from None
+    return fn(mesh, ivf, h, n_probe_local=n_probe_local, l_local=l_local,
+              **method_kwargs)

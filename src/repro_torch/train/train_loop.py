@@ -41,6 +41,7 @@ from ..configs.base import ModelConfig, TrainConfig
 from ..core import lsh as _lsh
 from ..core import mips as _mips
 from ..launch import mesh as _mesh
+from ..launch.hlo_analysis import section
 from .compression import compress_psum
 from .losses import DRAW_ARGS, ESTIMATOR_LOSSES, get_loss
 from .optimizer import (OptState, adamw_update, global_norm, init_opt_state,
@@ -302,15 +303,17 @@ def make_train_step(model, train_cfg: TrainConfig, *, backend: str = "xla",
             return grads_of(params, leaves, batch, gen, index, draws(0))
         grads, loss = None, 0.0
         for i in range(mb):
-            l_i, metrics, g = grads_of(params, leaves,
-                                       _batch_rows(batch, i, mb), gen, index,
-                                       draws(i))
-            if grads is None:
-                grads = [x.float() for x in g]
-            else:
-                for acc, x in zip(grads, g):
-                    acc.add_(x)
-            loss = loss + l_i
+            # a cost count (launch.dryrun) reads one microbatch's share
+            with section(f"microbatch {i}"):
+                l_i, metrics, g = grads_of(params, leaves,
+                                           _batch_rows(batch, i, mb), gen,
+                                           index, draws(i))
+                if grads is None:
+                    grads = [x.float() for x in g]
+                else:
+                    for acc, x in zip(grads, g):
+                        acc.add_(x)
+                loss = loss + l_i
         for acc in grads:
             acc.div_(mb)
         return loss / mb, metrics, grads
