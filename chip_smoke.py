@@ -317,17 +317,26 @@ GPU.
    step's all-reduces timed apart. (b) Four processes of this script
    (``--train-mesh-rank``) on the one card over gloo, qwen1.5-4b at full
    width with its depth cut to 4 layers (1.095 B parameters), B 8 x S 256:
-   rank 0 first takes two one-device steps, and two more with two
-   microbatches holding the two replicas' rows; at (1, 4) one step, every
-   rank's slices of the parameters, m and v bit-equal to the one-device
-   state's; at (2, 2) two steps, every slice bit-equal to the
-   two-microbatch state's (the mesh sums the same partial gradients), the
-   losses, grad norms and every leaf's gradient (m / (1 - b1) after step
-   1) within ``TM_*``'s limits of the one-device run; one (2, 2) step with
-   ``pod_axis="data"`` and int8: finite, both data replicas of each model
-   slice bit-equal, one int32 all-reduce a leaf in the compressor. Each
-   rank's CE launches, peak memory and seconds come back. (c) ``python -m
-   repro_torch.launch.train --reduced`` on the card: 3 steps with a
+   rank 0 first takes two one-device steps, two more with two
+   microbatches holding the two replicas' rows, and one mimps_ce step of
+   each kind. The
+   step computes on each rank's slices (the compute split over 'model':
+   attention heads, MLP columns, vocab rows); no leaf is gathered whole.
+   At (1, 4) one step and at (2, 2) two, fused_ce: the losses, grad norms
+   and every leaf's gradient (m / (1 - b1) after step 1) within
+   ``TM_*``'s limits of the one-device run, each model slice the same on
+   both data replicas, and each rank's ``fused_ce_fwd`` and
+   ``fused_ce_bwd`` at its V / model rows (the labels shifted, the LSEs
+   combined over 'model') held to their plain versions; at (2, 2) one
+   mimps_ce step (one plan over the whole batch) within the limits of
+   one device's mimps_ce step (a figure past them within ``TM_NOISE``
+   times its move in the two-microbatch mimps_ce step); one (2, 2) step
+   with ``pod_axis="data"`` and int8: finite, both data replicas of each
+   model slice bit-equal, one int32 all-reduce a leaf in the compressor.
+   Each rank's CE launches, peak memory (beside the 6.57 GB of whole bf16
+   parameters and f32 gradients a gathering rank holds), leaves gathered
+   and seconds come back. (c) ``python -m repro_torch.launch.train
+   --reduced`` on the card: 3 steps with a
    checkpoint at 2, then a run from that checkpoint alone: the final
    checkpoints bit-equal. (b) and (c) run at cut depth and the reduced
    config: four ranks share one card, and a full checkpoint is about 40 GB
@@ -390,6 +399,7 @@ import concurrent.futures
 import dataclasses
 import functools
 import gc
+import itertools
 import json
 import math
 import shutil
@@ -918,9 +928,14 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         out = phase(torch, card, *args)
         gc.collect()
+        # C15: cuBLAS keeps a workspace for every stream a matmul ran on
+        # (each graph capture's), after the phase's graphs are gone
+        held = torch.cuda.memory_allocated()
+        torch._C._cuda_clearCublasWorkspaces()
         left = torch.cuda.memory_allocated()
         log(f"phase {phase.__name__}: {time.time() - t0:.1f} s; allocated "
-            f"{left / 1e9:.3f} GB after it ({start / 1e9:.3f} GB before), "
+            f"{left / 1e9:.3f} GB after it ({start / 1e9:.3f} GB before; "
+            f"{(held - left) / 1e9:.3f} GB of cuBLAS workspaces freed), "
             f"peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB since "
             f"its last reset [{card}]")
         if left - start > MEM_LEFT_BYTES:
@@ -970,9 +985,11 @@ def main() -> int:
     late.append(vlm)
     gc.collect()
     torch.cuda.empty_cache()                    # the VLM is gone
-    counts, _ = timed(train_mesh_last, kernels)
+    counts, held = timed(train_mesh_last, kernels)
     for rec in ce_records:
         rec["launches"] += counts[rec["name"]]
+        for key, err in held[rec["name"]].items():
+            rec[key] = max(rec.get(key, 0.0), err)
     gc.collect()
     torch.cuda.empty_cache()                    # the training mesh is gone
     late.append(timed(serve_cli_last, kernels))
@@ -4098,19 +4115,23 @@ def train_mesh_last(torch, card, kernels):
         both; the parameters' gather alone.
     (b) ``TM_RANKS`` processes of this script (``--train-mesh-rank``) on
         the one card over gloo, eager, joined with a deadline: qwen1.5-4b
-        at full width with its depth cut to ``TM_LAYERS``, B ``TM_B``; at
-        (1, 4) one step bit-equal to the one-device step (rank 0's, taken
-        first), at (2, 2) two steps bit-equal to one device's with two
-        microbatches of the replicas' rows and within the limits of the
-        one-device steps, one (2, 2) step with
-        ``pod_axis="data"`` and int8 (finite, every rank's gathered state
-        the same, one int32 all-reduce a leaf). Each rank's CE launches,
-        peak memory and seconds come back.
+        at full width with its depth cut to ``TM_LAYERS``, B ``TM_B``; the
+        compute split at (1, 4) one step and at (2, 2) two (fused_ce),
+        and at (2, 2) one mimps_ce step, each within the limits of the
+        one-device steps of its loss (rank 0's, taken first: on the
+        whole batch, and with the replicas' rows as two microbatches for
+        ``TM_NOISE``), no leaf gathered whole,
+        the data replicas of each model slice bit-equal, each rank's CE
+        pair at its vocab rows held to plain (``hold_ce_shard``); one
+        (2, 2) step with ``pod_axis="data"`` and int8 (finite, the
+        replicas the same, one int32 all-reduce a leaf). Each rank's CE
+        launches, peak memory and seconds come back.
     (c) ``python -m repro_torch.launch.train --reduced`` on the card,
         beside (b): 3 steps with a checkpoint at 2, and a run from that
         checkpoint alone: the final checkpoints equal bit for bit.
 
-    Returns the CE kernels' launches on the path and no held errors."""
+    Returns the CE kernels' launches on the path and their max abs errors
+    at the ranks' rows."""
     import datetime
     import tempfile
 
@@ -4191,16 +4212,17 @@ def train_mesh_last(torch, card, kernels):
     try:
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             cli = pool.submit(train_cli, torch, card, tmp)
-            res = train_mesh_ranks(torch, card, tmp)
+            res, held = train_mesh_ranks(torch, card, tmp)
             cli.result()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for r in res:
         for n in counts:
             counts[n] += r["counts"][n]
-    log(f"train mesh path launches {counts}; phase "
+    log(f"train mesh path launches {counts}; the CE pair held to plain at "
+        f"the ranks' rows, max abs err {held}; phase "
         f"{time.time() - t_phase:.1f} s [{card}]")
-    return counts, {}
+    return counts, {n: {"max_abs_err": e} for n, e in held.items()}
 
 
 def train_mesh_ranks(torch, card, tmp):
@@ -4236,46 +4258,52 @@ def train_mesh_ranks(torch, card, tmp):
            for r in range(TM_RANKS)]
     for line in logs[0].splitlines():
         log(line)
-    # (1, 4): rank r holds model slice r of the one-device state; (2, 2):
-    # rank r model slice r % 2 of one device's with two microbatches of the
-    # replicas' rows; int8: the two data replicas of each model slice hold
-    # the same bits
+    # the split: no leaf of qwen1.5-4b gathered whole under fused_ce; the
+    # two data replicas of each model slice the same bits after the (2, 2)
+    # steps and after the int8 step
     for x in res:
-        differ = [k for k, v in res[0]["ref_fp"][x["rank"]].items()
-                  if x["fp_1x4"][k] != v]
-        check(not differ, f"train mesh (b) (1, 4): rank {x['rank']}'s "
-              f"slices of {len(differ)} leaves differ from one device's, "
-              f"first {differ[:3]}")
-        differ = [k for k, v in res[0]["ref_fp_2x2"][x["rank"] % 2].items()
-                  if x["fp_2x2"][k] != v]
-        check(not differ, f"train mesh (b) (2, 2): rank {x['rank']}'s "
-              f"slices of {len(differ)} leaves differ after 2 steps from one "
-              f"device's with 2 microbatches of the replicas' rows, first "
-              f"{differ[:3]}")
-        check(x["int8_fp"] == res[x["rank"] % 2]["int8_fp"], f"train mesh "
-              f"(b) int8: ranks {x['rank']} and {x['rank'] % 2} hold "
-              f"different bits of their model slice")
-    for x in res:
+        for key in ("1x4", "2x2"):
+            check(x["gathered"][key] == [], f"train mesh (b) {key}: rank "
+                  f"{x['rank']} gathered {x['gathered'][key]} whole")
+        for what in ("fp_2x2", "int8_fp"):
+            check(x[what] == res[x["rank"] % 2][what], f"train mesh (b) "
+                  f"{what}: ranks {x['rank']} and {x['rank'] % 2} hold "
+                  f"different bits of their model slice")
         check(x["counts"]["fused_ce_fwd"] > 0 and x["counts"][
             "fused_ce_bwd"] > 0, f"train mesh (b): rank {x['rank']} "
               f"launched {x['counts']}")
+    held = {"fused_ce_fwd": max(h["fwd_err"] for x in res
+                                for h in x["held"].values()),
+            "fused_ce_bwd": max(max(h["dh_err"][0], h["dw_err"][0])
+                                for x in res for h in x["held"].values())}
+    for key in res[0]["held"]:
+        log(f"train mesh (b) {key}: the CE pair at each rank's rows held to "
+            f"plain: " + "; ".join(
+                f"rank {x['rank']} T {h['t']} x {h['rows']} rows "
+                f"({h['labels_on_shard']} labels on the shard): fwd "
+                f"{h['fwd_err']:.2e}, dh {h['dh_err'][0]:.2e} "
+                f"({h['dh_err'][1]:.2e} of sum |terms|), dW "
+                f"{h['dw_err'][0]:.2e} ({h['dw_err'][1]:.2e})"
+                for x in res for h in [x["held"][key]]) + f" [{card}]")
     log(f"train mesh (b): {TM_RANKS} ranks on the one card over gloo in "
-        f"{secs:.1f} s; every rank's slices of the parameters, m and v "
-        f"bit-equal at (1, 4) to one device's after one step and at (2, 2) "
-        f"to one device's with 2 microbatches of the replicas' rows after "
-        f"two; after the int8 step each model slice the same on both data "
-        f"replicas; "
-        f"CE launches by rank {[x['counts'] for x in res]}; peak memory by "
-        f"rank {[round(x['peak_gb'], 3) for x in res]} GB, seconds by rank "
+        f"{secs:.1f} s; the split step within the limits of one device's at "
+        f"(1, 4) and (2, 2) (fused_ce) and at (2, 2) (mimps_ce), leaves "
+        f"gathered whole by rank {[x['gathered'] for x in res]}; each model "
+        f"slice the same on both data replicas after the (2, 2) and int8 "
+        f"steps; CE launches by rank {[x['counts'] for x in res]}; peak "
+        f"memory by rank {[x['peaks_gb'] for x in res]} GB beside the "
+        f"{res[0]['whole_gb']:.2f} GB of whole bf16 parameters and f32 "
+        f"gradients a gathering rank holds; seconds by rank "
         f"{[round(x['seconds'], 1) for x in res]} [{card}]")
-    return res
+    return res, held
 
 
 def train_mesh_rank(torch, rank, store, out):
     """One rank of ``train_mesh_last``'s (b), on the one card: a gloo
-    group of ``TM_RANKS`` over ``store``; rank 0 first takes two
-    one-device steps (its fingerprints after step 1, m after step 1 on the
-    host, both steps' loss and grad norm) while the others wait. Writes
+    group of ``TM_RANKS`` over ``store``; rank 0 first takes the
+    one-device steps the split is held to (fused_ce: two steps on the
+    whole batch and two with two microbatches of the replicas' rows;
+    mimps_ce: one step of each) while the others wait. Writes
     ``<out>/train_rank<r>.json``; rank 0 logs and checks."""
     import datetime
 
@@ -4284,11 +4312,14 @@ def train_mesh_rank(torch, rank, store, out):
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data import DataIterator, SyntheticCorpus
     from repro_torch.kernels.fused_ce import fused_ce_bwd, fused_ce_fwd
-    from repro_torch.launch.mesh import gather_leaf, make_mesh_2d, param_spec
+    from repro_torch.launch.mesh import (axis_group, batch_shardings,
+                                         gather_leaf, make_mesh_2d,
+                                         shard_tree)
     from repro_torch.models import Model
     from repro_torch.models.transformer import tree_paths
-    from repro_torch.train import (init_train_state, make_train_step,
-                                   params_placements, train_loop)
+    from repro_torch.train import (init_train_state, losses,
+                                   make_train_step, params_placements,
+                                   train_loop)
 
     t_start = time.time()
     say = log if rank == 0 else (lambda msg: None)
@@ -4301,144 +4332,202 @@ def train_mesh_rank(torch, rank, store, out):
     cfg = dataclasses.replace(get_config("qwen1.5-4b"), n_layers=TM_LAYERS)
     model = Model(cfg)
     tc = TrainConfig(loss="fused_ce", warmup_steps=1)
+    tc_est = dataclasses.replace(tc, loss="mimps_ce")
     it = DataIterator(SyntheticCorpus(cfg.vocab, seed=0), TM_B, TRAIN_S)
     batches = [{k: torch.from_numpy(a).to(dev)
                 for k, a in zip(("tokens", "labels"), next(it))}
                for _ in range(2)]
     n_params = sum(x.numel() for _, x in tree_paths(
         model.init(torch.Generator(), "meta")))
+    # what a rank that gathers every leaf holds during a step: the whole
+    # bf16 parameters and their whole f32 gradients
+    whole_gb = n_params * (2 + 4) / 1e9
     counts = {"fused_ce_fwd": 0, "fused_ce_bwd": 0}
 
     def add(got):
         for n in counts:
             counts[n] += got[n]
-    specs = {n: {p: param_spec(p, x, n) for p, x in tree_paths(
-        model.init(torch.Generator(), "meta"))} for n in (2, TM_RANKS)}
     # one device with two microbatches, microbatch i holding replica i's
-    # rows (``_batch_rows`` takes rows i::2): at (2, 2) the mesh sums
-    # these same partial gradients
+    # rows (``_batch_rows`` takes rows i::2): at (2, 2) the mesh sums the
+    # same rows' partial gradients
     half = TM_B // 2
     perm = torch.stack([torch.arange(half), torch.arange(half, TM_B)],
                        1).reshape(-1).to(dev)
     replica_rows = [{k: v[perm] for k, v in b.items()} for b in batches]
+    fused = est = None
     if rank == 0:
         say(f"train mesh (b): qwen1.5-4b, {TM_LAYERS} layers, "
-            f"{n_params / 1e9:.3f} B parameters, B {TM_B} x S {TRAIN_S}")
+            f"{n_params / 1e9:.3f} B parameters, B {TM_B} x S {TRAIN_S}; "
+            f"whole bf16 parameters + f32 gradients {whole_gb:.2f} GB")
         refs = {}
-        for name, tcr, rows, per in (
-                ("one device", tc, batches, 1),
+        # mimps_ce plans per microbatch on one device, but over the whole
+        # batch on the mesh: its two-microbatch run replays the whole
+        # batch's plan (recorded in the run before it), microbatch i cut
+        # to its rows as data replica i cuts it, so that its move is the
+        # data split's rounding alone
+        real_plan, whole_plan = losses._plan_whole_batch, []
+        mb_calls = itertools.count()
+
+        def recorded(plan_fn, h2, lab):
+            whole_plan.append(real_plan(plan_fn, h2, lab))
+            return whole_plan[-1]
+
+        def replayed(plan_fn, h2, lab):
+            (sp, aux), i, t = whole_plan[0], next(mb_calls), h2.shape[0]
+            return sp._replace(**{k: getattr(sp, k)[i * t:(i + 1) * t]
+                                  for k in losses._PER_TOKEN}), aux
+
+        for name, tcr, rows, per, n_steps, plan in (
+                ("one device", tc, batches, 1, 2, real_plan),
                 ("one device, 2 microbatches of the replicas' rows",
-                 dataclasses.replace(tc, microbatches=2), replica_rows, 2)):
+                 dataclasses.replace(tc, microbatches=2), replica_rows, 2,
+                 2, real_plan),
+                ("one device mimps_ce", tc_est, batches, 0, 1, recorded),
+                ("one device mimps_ce, 2 microbatches of the replicas' "
+                 "rows", dataclasses.replace(tc_est, microbatches=2),
+                 replica_rows, 0, 1, replayed)):
             state = init_train_state(model, tcr, 0, dev)
             step = make_train_step(model, tcr)
-            state, ref_logs, _ = mesh_train_steps(
-                torch, kernels, step, state, rows[:1],
-                f"train mesh (b) {name}", card, per=per)
-            fp1 = [state_fingerprints(torch, state, specs[TM_RANKS], c,
-                                      TM_RANKS) for c in range(TM_RANKS)]
-            m1 = {p: m.to("cpu", copy=True) for p, m in tree_paths(
-                state.opt.m)}
-            state, logs2, _ = mesh_train_steps(
-                torch, kernels, step, state, rows[1:],
-                f"train mesh (b) {name}", card, 1, per=per)
-            fp2 = [state_fingerprints(torch, state, specs[2], c, 2)
-                   for c in range(2)]
-            refs[per] = (ref_logs + logs2, fp1, m1, fp2)
+            losses._plan_whole_batch = plan
+            try:
+                state, ref_logs, _ = mesh_train_steps(
+                    torch, kernels, step, state, rows[:1],
+                    f"train mesh (b) {name}", card, per=per)
+                m1 = {p: m.to("cpu", copy=True) for p, m in tree_paths(
+                    state.opt.m)}
+                if n_steps > 1:
+                    state, logs2, _ = mesh_train_steps(
+                        torch, kernels, step, state, rows[1:],
+                        f"train mesh (b) {name}", card, 1, per=per)
+                    ref_logs += logs2
+            finally:
+                losses._plan_whole_batch = real_plan
+            refs[name] = (ref_logs, m1)
             del state, step
             gc.collect()
             torch.cuda.empty_cache()
-        ref_logs, ref_fp, ref_m, _ = refs[1]
-        mb_logs, _, mb_m, ref_fp_2x2 = refs[2]
+        whole_plan.clear()              # its tensors stay on the card
+        n_replayed = next(mb_calls)
+        check(n_replayed == 2, "train mesh (b): the two-microbatch mimps_ce "
+              f"step replayed the whole batch's plan {n_replayed} times, "
+              "not once a microbatch")
+        # (the one-device run, the two-microbatch run) of each loss
+        mb = ", 2 microbatches of the replicas' rows"
+        fused = refs["one device"], refs["one device" + mb]
+        est = refs["one device mimps_ce"], refs["one device mimps_ce" + mb]
     dist.barrier()
-    torch.cuda.reset_peak_memory_stats()
-
-    # (1, 4): one step, bit for bit
-    mesh = make_mesh_2d((1, TM_RANKS), "cuda")
-    state = init_train_state(model, tc, 0, dev, mesh=mesh)
-    step = make_train_step(model, tc, mesh=mesh)
-    state, logs, got = mesh_train_steps(
-        torch, kernels, step, state, batches[:1], "train mesh (b) (1, 4)",
-        card)
-    add(got)
-    fp_1x4 = state_fingerprints(torch, state)
-    if rank == 0:
-        check(logs[0][:2] == ref_logs[0][:2], f"train mesh (b) (1, 4): "
-              f"loss and grad norm {logs[0][:2]} against one device's "
-              f"{ref_logs[0][:2]}")
-        say(f"train mesh (b) (1, 4): loss and grad norm equal to one "
-            f"device's, {logs[0][2]:.1f} ms on gloo [{card}]")
-    del state, step
-    torch.cuda.empty_cache()
-
-    # (2, 2): two steps; bit for bit against one device's two microbatches
-    # of the replicas' rows, and within the limits of the one-device step;
-    # the second step with its all-reduces timed apart
-    mesh = make_mesh_2d((2, TM_RANKS // 2), "cuda")
-    places = dict(tree_paths(params_placements(model, mesh)))
-    state = init_train_state(model, tc, 0, dev, mesh=mesh)
-    step = make_train_step(model, tc, mesh=mesh)
-    state, logs, got = mesh_train_steps(
-        torch, kernels, step, state, batches[:1], "train mesh (b) (2, 2)",
-        card)
-    add(got)
-    errs = {}
+    peaks, gathered, held = {}, {}, {}
 
     def rel(g, r):
         return (((g - r).abs().max() / r.abs().max()).item(),
                 ((g - r).norm() / r.norm()).item())
-    for path, leaf in tree_paths(state.opt.m):
-        g = gather_leaf(leaf, places[path])
-        if rank == 0:      # m / (1 - b1) of both: the gradients (clipped)
-            errs[path] = rel(g.cpu(), ref_m[path]), rel(mb_m[path],
-                                                        ref_m[path])
-        del g
-    (state, logs2, got), by = timed_collectives(
-        torch, lambda: mesh_train_steps(torch, kernels, step, state,
-                                        batches[1:], "train mesh (b) (2, 2)",
-                                        card, 1))
-    add(got)
-    logs += logs2
-    fp_2x2 = state_fingerprints(torch, state)
-    if rank == 0:
+
+    def grad_errors(state, places, refs):
+        """Each leaf's gradient after step 1 (m / (1 - b1), gathered whole
+        from the slices; every rank calls) against the one-device run's of
+        ``refs`` (one device, two microbatches), beside the two-microbatch
+        run's move: on rank 0, {path: (ours, its move)}."""
+        errs = {}
+        for path, leaf in tree_paths(state.opt.m):
+            g = gather_leaf(leaf, places[path])
+            if rank == 0:
+                (_, ref_m), (_, mb_m) = refs
+                errs[path] = rel(g.cpu(), ref_m[path]), rel(mb_m[path],
+                                                            ref_m[path])
+            del g
+        return errs
+
+    def held_to(label, logs, refs, errs):
+        """Rank 0: the losses, grad norms and each leaf's gradient within
+        ``TM_*``'s limits of the one-device run's of ``refs``, or within
+        ``TM_NOISE`` times the two-microbatch run's move of the same
+        figure, both runs of the same loss."""
+        (ref, _), (mb_logs, _) = refs
         by_max = sorted(errs.items(), key=lambda kv: -kv[1][0][0])[:3]
         by_l2 = sorted(errs.items(), key=lambda kv: -kv[1][0][1])[:3]
-        rel = [(abs(x[0] - r[0]) / abs(r[0]), abs(x[1] - r[1]) / abs(r[1]))
-               for x, r in zip(logs, ref_logs)]
-        say(f"train mesh (b) (2, 2): losses {[x[0] for x in logs]} against "
-            f"{[x[0] for x in ref_logs]}, grad norms {[x[1] for x in logs]} "
-            f"against {[x[1] for x in ref_logs]} (relative errors {rel}); "
-            f"losses and grad norms equal to 2 microbatches' "
-            f"{[x[:2] for x in mb_logs] == [x[:2] for x in logs]}; each "
-            f"leaf's gradient after step 1 against one device's, (of its max "
-            f"|g|, in L2) beside 2 microbatches': the worst of its max "
+        moves = [(abs(x[0] - r[0]) / abs(r[0]), abs(x[1] - r[1]) / abs(r[1]))
+                 for x, r in zip(logs, ref)]
+        say(f"{label}: losses {[x[0] for x in logs]} against "
+            f"{[x[0] for x in ref]}, grad norms {[x[1] for x in logs]} "
+            f"against {[x[1] for x in ref]} (relative errors {moves}); each "
+            f"leaf's gradient after step 1 against one device's (of its max "
+            f"|g|, in L2) beside 2 microbatches' move: the worst of its max "
             f"{by_max}, the worst in L2 {by_l2}; ms a step "
-            f"{[round(x[2], 1) for x in logs]}; the second step's "
-            f"all-reduces, each synchronised: {by} (dtype: calls, elements, "
-            f"ms) [{card}]")
-        check([x[:2] for x in logs] == [x[:2] for x in mb_logs],
-              f"train mesh (b) (2, 2): losses and grad norms {logs} differ "
-              f"from one device's 2 microbatches of the replicas' rows "
-              f"{mb_logs}")
+            f"{[round(x[2], 1) for x in logs]} [{card}]")
         bad = [p for p, ((d_max, d_l2), (f_max, f_l2)) in errs.items()
                if d_max > max(TM_GRAD_MAX, TM_NOISE * f_max)
                or d_l2 > max(TM_GRAD_L2, TM_NOISE * f_l2)]
-        check(not bad, f"train mesh (b) (2, 2): {len(bad)} leaves' "
-              f"gradients past the limits: {bad[:5]}")
-        for i, ((d_loss, d_gn), x, r) in enumerate(zip(rel, mb_logs,
-                                                        ref_logs)):
+        check(not bad, f"{label}: {len(bad)} leaves' gradients past the "
+              f"limits: {bad[:5]}")
+        for i, ((d_loss, d_gn), x, r) in enumerate(zip(moves, mb_logs,
+                                                        ref)):
             f_loss, f_gn = (abs(x[0] - r[0]) / abs(r[0]),
                             abs(x[1] - r[1]) / abs(r[1]))
             check(d_loss <= max(TM_LOSS_REL, TM_NOISE * f_loss)
                   and d_gn <= max(TM_GNORM_REL, TM_NOISE * f_gn),
-                  f"train mesh (b) (2, 2) step {i}: loss and grad norm off "
-                  f"by {d_loss} and {d_gn} of one device's")
+                  f"{label} step {i}: loss and grad norm off by {d_loss} "
+                  f"and {d_gn} of one device's")
+
+    def start(mesh, tcr, key, **kw):
+        # the peak is the steps': init_train_state draws the whole state
+        # on every rank before it keeps the slices
+        state = init_train_state(model, tcr, 0, dev, mesh=mesh)
+        step = make_train_step(model, tcr, mesh=mesh, **kw)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gathered[key] = step.gathered
+        return state, step
+
+    # (1, 4) and (2, 2), fused_ce: the split step within the limits of one
+    # device's; each rank's CE kernels at its V / model rows held to their
+    # plain versions; at (2, 2) a second step, its all-reduces timed apart,
+    # and each model slice the same bits on both data replicas
+    fp_2x2 = by = None
+    for shape in ((1, TM_RANKS), (2, TM_RANKS // 2)):
+        key = f"{shape[0]}x{shape[1]}"
+        mesh = make_mesh_2d(shape, "cuda")
+        places = dict(tree_paths(params_placements(model, mesh)))
+        state, step = start(mesh, tc, key)
+        state, logs, got = mesh_train_steps(
+            torch, kernels, step, state, batches[:1],
+            f"train mesh (b) {shape}", card)
+        add(got)
+        errs = grad_errors(state, places, fused)
+        if shape[0] > 1:
+            (state, logs2, got), by = timed_collectives(
+                torch, lambda: mesh_train_steps(
+                    torch, kernels, step, state, batches[1:],
+                    f"train mesh (b) {shape}", card, 1))
+            add(got)
+            logs += logs2
+            fp_2x2 = state_fingerprints(torch, state)
+        peaks[key] = torch.cuda.max_memory_allocated() / 1e9
+        if rank == 0:
+            held_to(f"train mesh (b) {shape}", logs, fused, errs)
+        rows = shard_tree(batches[0], batch_shardings(mesh, batches[0],
+                                                      TM_B))
+        held[key] = hold_ce_shard(torch, model, state.params, rows,
+                                  axis_group(mesh, "model"))
+        del state, step
+    say(f"train mesh (b) (2, 2): the second step's all-reduces, each "
+        f"synchronised: {by} (dtype: calls, elements, ms) [{card}]")
+
+    # (2, 2), mimps_ce: the hidden states gathered over 'data', one plan
+    # over the whole batch, within the limits of one device's step on it
+    # (or of twice its move with the replicas' rows as two microbatches)
+    state, step = start(mesh, tc_est, "mimps_ce 2x2")
+    state, logs, got = mesh_train_steps(
+        torch, kernels, step, state, batches[:1],
+        "train mesh (b) (2, 2) mimps_ce", card, per=0)
+    errs = grad_errors(state, places, est)
+    peaks["mimps_ce 2x2"] = torch.cuda.max_memory_allocated() / 1e9
+    if rank == 0:
+        held_to("train mesh (b) (2, 2) mimps_ce", logs, est, errs)
     del state, step
-    torch.cuda.empty_cache()
 
     # (2, 2), pod_axis="data", int8: finite, the same state on every rank
     tc8 = dataclasses.replace(tc, grad_compression="int8")
-    state = init_train_state(model, tc8, 0, dev, mesh=mesh)
-    step = make_train_step(model, tc8, mesh=mesh, pod_axis="data")
+    state, step = start(mesh, tc8, "int8 2x2", pod_axis="data")
     int32, real_cp, real_ar = [], train_loop.compress_psum, dist.all_reduce
 
     def counting(t, *args, **kwargs):
@@ -4446,10 +4535,10 @@ def train_mesh_rank(torch, rank, store, out):
             int32.append(t.numel())
         return real_ar(t, *args, **kwargs)
 
-    def compress(grads, group, mode):
+    def compress(grads, group, mode, amax_group=None):
         dist.all_reduce = counting
         try:
-            return real_cp(grads, group, mode)
+            return real_cp(grads, group, mode, amax_group)
         finally:
             dist.all_reduce = real_ar
     train_loop.compress_psum = compress
@@ -4468,15 +4557,61 @@ def train_mesh_rank(torch, rank, store, out):
         f"norm {logs[0][1]!r}, {len(int32)} int32 all-reduces "
         f"({sum(int32)} elements), {logs[0][2]:.1f} ms [{card}]")
     del state, step
-    res = {"rank": rank, "counts": counts, "fp_1x4": fp_1x4,
-           "fp_2x2": fp_2x2, "ref_fp": ref_fp if rank == 0 else None,
-           "ref_fp_2x2": ref_fp_2x2 if rank == 0 else None,
-           "int8_fp": int8_fp,
-           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+    res = {"rank": rank, "counts": counts, "fp_2x2": fp_2x2,
+           "int8_fp": int8_fp, "peaks_gb": peaks, "whole_gb": whole_gb,
+           "gathered": gathered, "held": held,
            "seconds": time.time() - t_start}
     dist.destroy_process_group()
     Path(f"{out}/train_rank{rank}.json").write_text(json.dumps(res))
     return 0
+
+
+def hold_ce_shard(torch, model, params, batch, group):
+    """A rank's CE pair at its vocab rows, on the split forward's hidden
+    states of its rows of the batch: ``fused_ce_fwd`` with the labels
+    shifted to the shard held to ``fused_ce_fwd_plain`` (``TOL``), its
+    LSEs combined over ``group``,
+    then ``fused_ce_bwd`` with that lse held to ``fused_ce_bwd_plain``
+    (``compare_terms``), both on the same inputs. Every rank of ``group``
+    calls it. Returns the shapes and errors."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core.distributed import logspace_psum, split_compute
+    from repro_torch.kernels.fused_ce import (ce_coef, fused_ce_bwd,
+                                             fused_ce_bwd_plain, fused_ce_fwd,
+                                             fused_ce_fwd_plain)
+    import torch.distributed as dist
+    with split_compute(group), torch.no_grad():
+        hidden, _ = model.forward(params, batch["tokens"])
+    h = hidden.reshape(-1, hidden.shape[-1])
+    w = model.head_matrix(params).detach()
+    n = w.shape[0]
+    lab = (batch["labels"].reshape(-1).long()
+           - dist.get_rank(group) * n).to(torch.int32)
+    mine = (lab >= 0) & (lab < n)
+    nll, lse_l = fused_ce_fwd(h, w, lab)
+    p_nll, p_lse = fused_ce_fwd_plain(h, w, lab)
+    f_err = max((lse_l - p_lse).abs().max().item(),
+                (nll - p_nll)[mine].abs().max().item() if mine.any()
+                else 0.0)
+    check(f_err <= TOL, f"fused_ce_fwd at {n} rows: nll/lse differ by "
+          f"{f_err}")
+    del p_nll, p_lse
+    lse = logspace_psum(lse_l, group)
+    t = h.shape[0]
+    g_nll = torch.full((t,), 1.0 / t, device=h.device)
+    g_lse = 2 * TrainConfig().selfnorm_alpha * lse / t
+    bargs = (h, w, lab, lse, g_nll, g_lse)
+    dh, dw = fused_ce_bwd(*bargs, cast=False)
+    p_dh, p_dw = fused_ce_bwd_plain(*bargs, cast=False)
+    coef = ce_coef(*bargs).abs()
+    dh_err = compare_terms(f"fused_ce_bwd dh at {n} rows", dh, p_dh,
+                           coef @ w.float().abs())
+    dw_err = compare_terms(f"fused_ce_bwd dw at {n} rows", dw, p_dw,
+                           coef.T @ h.float().abs())
+    del coef, dh, dw, p_dh, p_dw
+    torch.cuda.empty_cache()
+    return {"t": t, "rows": n, "labels_on_shard": int(mine.sum()),
+            "fwd_err": f_err, "dh_err": dh_err, "dw_err": dw_err}
 
 
 def train_cli(torch, card, tmp):

@@ -21,6 +21,7 @@ serves NCCL, gloo on the CPU and gloo on CUDA tensors alike.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -175,3 +176,150 @@ def sharded_mimps_log_z(v_local: torch.Tensor, q: torch.Tensor,
     mv, mi = merge_topk(hv, hi + r * n_local, k_local, group)
     return log_z, ShardedTopK(scores=mv[0], ids=mi[0])
 
+
+# ---------------------------------------------------------------------------
+# training's compute split over the mesh's 'model' group
+# ---------------------------------------------------------------------------
+#
+# A train step under a mesh runs its column-parallel products (the fan-out
+# of wq/wk/wv/gate/up), its row-parallel products (the fan-in of wo/down),
+# its experts and its vocabulary rows on the rank's slices of the leaves.
+# The step opens ``split_compute`` with its groups; a block that finds a
+# sliced leaf (fewer heads, d_ff columns, experts or vocab rows than the
+# config's) reads the group from ``model_group()`` and places the
+# operators below around its products, Megatron's f and g:
+#
+#   to_model    identity forward, sum of the gradient over 'model' backward
+#               (before a column-parallel product: each rank's dx is the
+#               part from its slice);
+#   from_model  sum over 'model' forward, identity backward (after a
+#               row-parallel product: each rank's output is a partial sum).
+#
+# Sums of activations run in f32 and are rounded once to the input's dtype.
+# A whole leaf needs no collective, so a block with no sliced leaf computes
+# as on one device, bit for bit.
+
+_SPLIT = {"model": None, "data": ()}
+
+
+@contextlib.contextmanager
+def split_compute(model=None, data=()):
+    """The step's ``model`` group and its data groups (the gather order of
+    ``gather_data``: the innermost mesh dim first), for the blocks and
+    losses inside the block. A group of one rank counts as none. A module
+    global, not a thread's: the backward (and a checkpoint's recompute)
+    may run on autograd's device thread."""
+    prev = dict(_SPLIT)
+    _SPLIT.update(model=model if model is not None
+                  and group_size(model) > 1 else None,
+                  data=tuple(g for g in data if group_size(g) > 1))
+    try:
+        yield
+    finally:
+        _SPLIT.update(prev)
+
+
+def model_group():
+    """The ``model`` group of the open ``split_compute``, or None."""
+    return _SPLIT["model"]
+
+
+def data_groups() -> tuple:
+    """The data groups of the open ``split_compute`` (innermost first),
+    or ()."""
+    return _SPLIT["data"]
+
+
+def _sum_f32(x: torch.Tensor, group) -> torch.Tensor:
+    s = x.to(torch.float32, copy=True).contiguous()
+    _dist().all_reduce(s, op=_dist().ReduceOp.SUM, group=group)
+    return s.to(x.dtype)
+
+
+class _ToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.group), None
+
+
+class _FromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _FromModelExclusive(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return bitsum_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def split_group():
+    """The open ``split_compute``'s 'model' group; raises outside one."""
+    g = model_group()
+    if g is None:
+        raise RuntimeError("a block holds a slice of its leaves outside a "
+                           "split_compute over 'model' (the sharded train "
+                           "step opens one)")
+    return g
+
+
+def model_rank() -> int:
+    """This rank's coordinate in the open ``split_compute``'s 'model'
+    group; raises outside one."""
+    return group_rank(split_group())
+
+
+def to_model(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; the gradient summed over the 'model' group
+    backward. Placed before a column-parallel product."""
+    return _ToModel.apply(x, split_group())
+
+
+def from_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the 'model' group in f32, rounded to x's dtype;
+    identity backward. Placed after a row-parallel product."""
+    return _FromModel.apply(x, split_group())
+
+
+def from_model_exclusive(x: torch.Tensor) -> torch.Tensor:
+    """``from_model`` where at most one rank holds a nonzero at each
+    position (the others +0.0): the sum of bit patterns (``bitsum_``),
+    exact. The vocab-parallel lookup's combine."""
+    return _FromModelExclusive.apply(x, split_group())
+
+
+def gather_data(x: torch.Tensor) -> torch.Tensor:
+    """Every data replica's rows of ``x``, detached, in the replicas'
+    order (the mesh's data coordinate, its first dim major): the whole
+    batch's rows where each replica holds a contiguous block. ``x`` itself
+    outside a ``split_compute`` with data groups."""
+    out = x.detach()
+    for g in data_groups():
+        out = gather_stack(out.contiguous(), g).reshape(
+            -1, *out.shape[1:])
+    return out
+
+
+def data_coord() -> int:
+    """This rank's replica among the data groups of the open
+    ``split_compute`` (its rows are block ``data_coord()`` of
+    ``gather_data``'s), 0 outside one."""
+    c, mult = 0, 1
+    for g in data_groups():
+        c += group_rank(g) * mult
+        mult *= group_size(g)
+    return c

@@ -34,11 +34,55 @@ class FusedCrossEntropy(torch.autograd.Function):
         return dh, dw, None
 
 
+class VocabParallelCrossEntropy(torch.autograd.Function):
+    """``FusedCrossEntropy`` with w's rows split over a process group (the
+    train step's 'model' group): rank r holds rows [r n, (r + 1) n) of the
+    V = m n, h and labels are every rank's. Forward: ``fused_ce_fwd`` on
+    the local rows with the labels shifted by r n (a label off the shard
+    leaves the kernel's label score at NEG), the ranks' LSEs combined by
+    ``logspace_psum``, the label's score taken from its owning shard and
+    summed over the group. Backward: ``fused_ce_bwd`` on the local rows
+    with the combined lse, so dW is exactly this shard's rows of the whole
+    dW and dh a partial sum, summed over the group in f32."""
+
+    @staticmethod
+    def forward(ctx, h, w, labels, group):
+        from ..core.distributed import (bitsum_, group_rank, group_size,
+                                        logspace_psum)
+        n = w.shape[0]
+        v = n * group_size(group)
+        lab = labels.long()
+        local = (lab - group_rank(group) * n).to(torch.int32)
+        nll_l, lse_l = _fce.fused_ce_fwd(h, w, local)
+        mine = (local >= 0) & (local < n)
+        picked = torch.where(mine, lse_l - nll_l, torch.zeros_like(lse_l))
+        picked = bitsum_(picked.contiguous(), group)
+        picked = torch.where((lab >= 0) & (lab < v), picked,
+                             torch.full_like(picked, _fce.NEG))
+        lse = logspace_psum(lse_l, group)
+        ctx.group = group
+        ctx.save_for_backward(h, w, local, lse)
+        return lse - picked, lse
+
+    @staticmethod
+    def backward(ctx, g_nll, g_lse):
+        import torch.distributed as dist
+        h, w, local, lse = ctx.saved_tensors
+        dh, dw = _fce.fused_ce_bwd(h, w, local, lse, g_nll, g_lse,
+                                   cast=False)
+        dh = dh.contiguous()
+        dist.all_reduce(dh, op=dist.ReduceOp.SUM, group=ctx.group)
+        return dh.to(h.dtype), dw.to(w.dtype), None, None
+
+
 def fused_cross_entropy(h: torch.Tensor, w: torch.Tensor,
-                        labels: torch.Tensor
+                        labels: torch.Tensor, group=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(nll (T,), lse (T,)) = streaming softmax CE; dh in h.dtype and dw in
-    w.dtype from the backward kernel."""
+    w.dtype from the backward kernel. With ``group``, w is this rank's
+    slice of the vocabulary rows (``VocabParallelCrossEntropy``)."""
+    if group is not None:
+        return VocabParallelCrossEntropy.apply(h, w, labels, group)
     return FusedCrossEntropy.apply(h, w, labels)
 
 

@@ -286,11 +286,18 @@ def count_step(step: Step) -> Dict[str, Any]:
 def _extrapolate(c: Dict[str, Any], rule: int) -> Dict[str, Any]:
     """Counts at ``rule`` microbatches from a step traced at 2: the step's
     counts plus ``rule - 2`` times its second microbatch's (the section
-    ``train_loop`` marks, its gradient accumulation included)."""
+    ``train_loop`` marks, its gradient accumulation and, under the compute
+    split, its collectives over 'model' included)."""
     one = c["sections"]["microbatch 1"]
     out = dict(c)
     for k in ("flops", "bytes", "transcendentals"):
         out[k] = c[k] + (rule - 2) * one[k]
+    coll = dict(c["collectives"])
+    for k, v in one.items():
+        if k.startswith("collective:"):
+            kind = k.split(":", 1)[1]
+            coll[kind] = coll.get(kind, 0) + (rule - 2) * v
+    out["collectives"] = coll
     return out
 
 

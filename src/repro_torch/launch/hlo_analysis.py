@@ -351,7 +351,9 @@ but its last (see the module docstring)."""
     def _totals(self) -> Counter:
         return Counter(flops=self.flops, bytes=self.bytes,
                        transcendentals=self.transcendentals,
-                       collective_bytes=sum(self.collectives.values()))
+                       collective_bytes=sum(self.collectives.values()),
+                       **{f"collective:{k}": v
+                          for k, v in self.collectives.items()})
 
     def summary(self) -> Dict[str, Any]:
         return {"flops": float(self.flops),
@@ -492,7 +494,8 @@ def scan(step, carry, xs):
 def section(name: str):
     """What the active counters count inside this block is also added to
     their ``sections[name]`` (flops, bytes, transcendentals,
-    collective_bytes); without a counter it does nothing."""
+    collective_bytes, and ``collective:<type>`` by type); without a
+    counter it does nothing."""
     before = [(c, c._totals()) for c in _ACTIVE]
     try:
         yield

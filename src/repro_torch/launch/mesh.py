@@ -201,6 +201,67 @@ def param_spec(path, leaf, model_axis_size: int = 16) -> Tuple:
     return _pad(nd, [])        # norms, routers, mu, ... replicated
 
 
+# ---------------------------------------------------------------------------
+# the train step's compute split
+# ---------------------------------------------------------------------------
+
+# losses whose output layer runs on the rank's vocab rows (the
+# vocab-parallel fused CE pair); the others score against the whole head
+SPLIT_HEAD_LOSSES = ("fused_ce", "selfnorm")
+_ATTN = {"wq", "wk", "wv", "wo", "bq", "bk", "bv"}
+_MLP = {"gate", "up", "down"}
+
+
+def split_kind(path, spec, cfg, loss: str, model_axis_size: int) -> str:
+    """How the train step computes on one parameter leaf of spec ``spec``
+    (``param_spec``): ``"whole"`` where nothing is split over 'model',
+    ``"split"`` where its block computes on the rank's slice, ``"gather"``
+    where the slice is not one its block can compute on, so that the step
+    gathers the leaf whole first:
+
+      attention  wq/wk/wv/wo and their biases split where the KV heads
+                 divide over 'model' (a slice then holds whole heads, the
+                 q heads with their KV group); else gathered (gemma3's wq
+                 at model 16 would cut a 256-wide head in half)
+      MLP        gate/up (column) and down (row), the dense blocks', MoE's
+                 shared experts' and zamba2's shared block's
+      experts    the MoE experts (E / model of them a rank)
+      vocab      the embedding rows (a masked local lookup), and the head
+                 rows under ``SPLIT_HEAD_LOSSES``; an untied head, or a
+                 tied table, is gathered for every other loss and for a
+                 codebook (audio) head
+      gathered   RWKV6 blocks, Mamba2 blocks and the VLM's cross blocks
+    """
+    if "model" not in [n for e in spec for n in _names(e)]:
+        return "whole"
+    keys = path_keys(path)
+    name = keys[-1]
+    if cfg.family in ("ssm", "hybrid") and keys[0] in (
+            "blocks", "mamba_groups", "mamba_tail"):
+        return "gather"
+    if "cross_groups" in keys:
+        return "gather"
+    if name in ("table", "lm_head"):
+        whole_head = cfg.n_codebooks or loss not in SPLIT_HEAD_LOSSES
+        if name == "lm_head" or cfg.tie_embeddings:
+            return "gather" if whole_head else "split"
+        return "gather" if cfg.n_codebooks else "split"
+    if "experts" in keys or ("ffn" in keys and name in _MLP):
+        return "split"
+    if "attn" in keys and name in _ATTN:
+        return ("split" if cfg.n_kv_heads % model_axis_size == 0
+                else "gather")
+    return "gather"
+
+
+def split_plan(cfg, params_struct, model_axis_size: int, loss: str):
+    """{tree path: ``split_kind``} of every parameter leaf."""
+    from ..models.transformer import tree_paths
+    return {p: split_kind(p, param_spec(p, x, model_axis_size), cfg, loss,
+                          model_axis_size)
+            for p, x in tree_paths(params_struct)}
+
+
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """A leaf's spec on a mesh (the counterpart of ``NamedSharding``)."""

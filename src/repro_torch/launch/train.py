@@ -9,9 +9,12 @@ On one process it trains on one device (``--device``, ``cuda`` by
 default). Under ``torchrun`` (``WORLD_SIZE`` > 1) every rank runs this
 same script: it initialises the default process group (NCCL on ``cuda``,
 gloo on ``cpu``; ``--dist-backend gloo`` for several ranks on one card)
-and trains over ``make_elastic_mesh(--model-parallel)``, each rank holding
-its slices of the state (``train.train_loop``). A restart with fewer ranks
-restores the same checkpoint onto the smaller mesh.
+and trains over ``make_elastic_mesh(--model-parallel)``: K x M ranks
+with ``--model-parallel M`` make the (K, M) mesh. Each rank holds its
+slices of the state and computes on them (``train.train_loop``: attention
+heads, MLP columns, experts and vocab rows split over 'model'; RWKV6,
+Mamba2 and the VLM's cross blocks gathered whole). A restart with fewer
+ranks restores the same checkpoint onto the smaller mesh.
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
         --reduced --steps 20 --model-parallel 2 --ckpt-dir /tmp/ckpt

@@ -10,6 +10,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
+from ..core.distributed import from_model, to_model
 from .layers import apply_rope
 
 Params = Dict[str, Any]
@@ -21,14 +22,24 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
+def attn_split(p: Params, cfg) -> bool:
+    """Whether the attention leaves ``p`` hold a slice of the heads (a
+    train step's compute split): the column-parallel q/k/v of the rank's
+    heads, the row-parallel ``wo`` summed over the ``model`` group."""
+    return p["wo"].shape[-2] != cfg.n_heads * cfg.resolved_head_dim
+
+
 def _project_qkv(p: Params, x: torch.Tensor, kv_x: torch.Tensor, cfg):
-    hd, nh, nkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    """q (..., Kv, G, Dh), k and v (..., Kv, Dh) of the KV heads the
+    leaves hold (all of them, or a split's whole groups)."""
+    hd = cfg.resolved_head_dim
+    g = cfg.n_heads // cfg.n_kv_heads
+    nkv = p["wk"].shape[-1] // hd
     q = x @ p["wq"]
     k = kv_x @ p["wk"]
     v = kv_x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    g = nh // nkv
     q = q.reshape(*x.shape[:-1], nkv, g, hd)       # grouped query heads
     k = k.reshape(*kv_x.shape[:-1], nkv, hd)
     v = v.reshape(*kv_x.shape[:-1], nkv, hd)
@@ -79,7 +90,12 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
 
 def self_attention(p: Params, x: torch.Tensor, cfg, *, window: int = 0,
                    positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Training / prefill self-attention (causal). x (B, S, d)."""
+    """Training / prefill self-attention (causal). x (B, S, d). On a
+    head slice (``attn_split``) it attends with the rank's heads and sums
+    the output projection over the ``model`` group."""
+    split = attn_split(p, cfg)
+    if split:
+        x = to_model(x)
     q, k, v = _project_qkv(p, x, x, cfg)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
@@ -89,7 +105,8 @@ def self_attention(p: Params, x: torch.Tensor, cfg, *, window: int = 0,
     q = qf.reshape(q.shape)
     k = apply_rope(k, positions, cfg.rope_theta)
     o = flash_attention(q, k, v, causal=True, window=window)
-    return o.reshape(*x.shape[:-1], -1) @ p["wo"]
+    out = o.reshape(*x.shape[:-1], -1) @ p["wo"]
+    return from_model(out) if split else out
 
 
 def cross_attention(p: Params, x: torch.Tensor, kv_feats: torch.Tensor,

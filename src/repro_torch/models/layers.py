@@ -11,6 +11,9 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from ..core.distributed import (from_model, from_model_exclusive,
+                                model_rank, to_model)
+
 Params = Dict[str, Any]
 
 
@@ -31,7 +34,16 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"].float()).to(x.dtype)
 
 
-def mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, act: str, d_ff: int = 0, *,
+        reduce: bool = True) -> torch.Tensor:
+    """The gated (silu, gelu) or squared-ReLU MLP. Where ``down`` holds
+    fewer than ``d_ff`` rows (a d_ff slice of a train step's compute
+    split), gate/up run column-parallel and down row-parallel: the output
+    is summed over the ``model`` group, or left as this rank's partial sum
+    with ``reduce=False``."""
+    split = bool(d_ff) and p["down"].shape[-2] != d_ff
+    if split:
+        x = to_model(x)
     if act == "sqrelu":
         h = F.relu(x @ p["up"]).square()
     else:
@@ -39,11 +51,26 @@ def mlp(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
         # jax.nn.gelu's default is the tanh approximation
         a = F.silu(a) if act == "silu" else F.gelu(a, approximate="tanh")
         h = a * (x @ p["up"])
-    return h @ p["down"]
+    out = h @ p["down"]
+    return from_model(out) if split and reduce else out
 
 
-def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+def embed(p: Params, tokens: torch.Tensor, vocab: int = 0) -> torch.Tensor:
+    """The table's rows of ``tokens``. Where the table holds fewer than
+    ``vocab`` rows (a train step's vocab slice, rank r holding rows [r n,
+    (r + 1) n)), each rank looks up the tokens on its rows, zeros
+    elsewhere, and the ``model`` group sums the bit patterns: exactly the
+    whole table's lookup."""
+    table = p["table"]
+    n = table.shape[0]
+    if not vocab or n == vocab:
+        return table[tokens]
+    lo = model_rank() * n
+    local = tokens - lo
+    mine = (local >= 0) & (local < n)
+    rows = table[torch.clamp(local, 0, n - 1)]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return from_model_exclusive(rows)
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:

@@ -27,6 +27,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..core.distributed import from_model, model_rank, to_model
 from .layers import _dense_init, mlp
 
 Params = Dict[str, Any]
@@ -128,13 +129,28 @@ def moe_block(p: Params, x: torch.Tensor,
     tok_idx = torch.arange(t, device=x.device)[:, None].expand(t, k) \
         .reshape(-1)
     buf = torch.zeros((n_exp, cap + 1, d), dtype=x.dtype, device=x.device)
+    # expert parallelism: a train step's split holds E / model experts a
+    # rank, [lo, lo + n_local); their dispatch rows come from every rank's
+    # copy of x, so x's gradient through them is summed over 'model'
+    n_local = p["experts"]["down"].shape[-3]
+    split_e = n_local != n_exp
+    lo = model_rank() * n_local if split_e else 0
+    xe = to_model(xf) if split_e else xf
     buf[flat_e, torch.where(keep, slot, torch.full_like(slot, cap))] = \
-        xf[tok_idx]
-    out_buf = mlp(p["experts"], buf[:, :cap], cfg.act)         # (E, C, d)
+        xe[tok_idx]
+    out_buf = mlp(p["experts"], buf[lo:lo + n_local, :cap],
+                  cfg.act)                                     # (E, C, d)
 
     # combine: the k choices of a token summed in choice order from zeros
-    gathered = out_buf[flat_e, torch.clamp(slot, 0, cap - 1)]
-    gathered = torch.where(keep[:, None], gathered,
+    # (under the split, this rank's experts' choices, then summed over
+    # 'model'; the router's gradient through top_p likewise)
+    mine = keep
+    if split_e:
+        mine = keep & (flat_e >= lo) & (flat_e < lo + n_local)
+        top_p = to_model(top_p)
+    gathered = out_buf[torch.clamp(flat_e - lo, 0, n_local - 1),
+                       torch.clamp(slot, 0, cap - 1)]
+    gathered = torch.where(mine[:, None], gathered,
                            torch.zeros_like(gathered))
     contrib = (gathered * top_p.reshape(-1)[:, None].to(x.dtype)
                ).reshape(t, k, d)
@@ -142,8 +158,19 @@ def moe_block(p: Params, x: torch.Tensor,
     for j in range(k):
         out = out + contrib[:, j]
 
+    partial = split_e          # out is this rank's part of the sum
     if m.n_shared:
-        out = out + mlp(p["shared"], xf, cfg.act).sum(0)
+        # the shared experts column/row split over their d_ff
+        split_s = p["shared"]["down"].shape[-2] != m.expert_d_ff
+        shared = mlp(p["shared"], xf, cfg.act, m.expert_d_ff,
+                     reduce=False).sum(0)
+        if split_s and not partial:
+            shared = from_model(shared)
+        elif partial and not split_s:
+            out, partial = from_model(out), False
+        out = out + shared
+    if partial:
+        out = from_model(out)
 
     # aux losses: load balance (Switch-style) and the router z-loss
     me = probs.mean(0)

@@ -166,7 +166,7 @@ def _hybrid_plan(cfg):
 def _ffn(p: Params, y, cfg, kind: str):
     if kind == "moe":
         return moe_block(p, y, cfg)
-    return mlp(p, y, cfg.act), ZERO_AUX
+    return mlp(p, y, cfg.act, cfg.d_ff), ZERO_AUX
 
 
 def tblock_fwd(p: Params, x, cfg, *, kind="dense", window=0):
@@ -303,16 +303,19 @@ class Model:
         """tokens (..., ) -> (..., d); with codebooks tokens (..., C) ->
         the sum of the C per-codebook rows, added as the JAX package adds
         them (Python's ``sum``: 0 + e0 + e1 + ...; in bf16 every add
-        rounds, so the order is part of the result)."""
+        rounds, so the order is part of the result). A vocab slice of the
+        table looks up vocab-parallel (``layers.embed``)."""
         if self.cfg.n_codebooks:
             tabs = p["embed"]["table"]                         # (C, V, d)
             x = 0
             for c in range(self.cfg.n_codebooks):
                 x = x + tabs[c][tokens[..., c]]
             return x
-        return embed(p["embed"], tokens)
+        return embed(p["embed"], tokens, self.cfg.vocab)
 
     def head_matrix(self, p: Params) -> torch.Tensor:
+        """The output embedding (V, d), or (C, V, d) with codebooks: under
+        a train step's vocab split, the rank's rows of it."""
         if self.cfg.tie_embeddings:
             return p["embed"]["table"]
         return p["lm_head"]

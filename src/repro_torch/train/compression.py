@@ -33,12 +33,15 @@ def _quantize_int8(x: torch.Tensor):
 
 
 def compress_psum(grads: Sequence[torch.Tensor], group,
-                  mode: str = "none") -> List[torch.Tensor]:
+                  mode: str = "none", amax_group=None) -> List[torch.Tensor]:
     """Each gradient summed over ``group``; ``mode='int8'`` quantises it
     first: an all-reduce MAX of max |g| in f32, + 1e-12, scale = amax / 127,
     q = clip(round(g / scale), -127, 127) (half to even), an int32
     all-reduce SUM of q, and the sum times scale in g's dtype. ``none``
-    sums in g's dtype. Returns new tensors."""
+    sums in g's dtype. Returns new tensors. ``amax_group`` also takes the
+    MAX over that group: where a gradient is a rank's slice of a leaf
+    split over it (the 'model' group of a train step's compute split), the
+    scale is then the whole leaf's, as one device's."""
     dist = _dist()
     if mode == "none":
         out = []
@@ -54,6 +57,8 @@ def compress_psum(grads: Sequence[torch.Tensor], group,
         gf = g.float()
         amax = gf.abs().max().reshape(1)
         dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        if amax_group is not None:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=amax_group)
         scale = _scale(amax)
         q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int32)
         del gf

@@ -40,6 +40,8 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..core import lsh as _lsh
+from ..core.distributed import (data_coord, data_groups, gather_data,
+                                split_group)
 from ..core.decode import (_masked_tail_lse, _with_trimmed_head,
                            head_row_table, make_plan, tail_row_ids)
 from ..core.estimators import NEG_INF, combine_head_tail_lse
@@ -49,14 +51,17 @@ from ..kernels.ops import fused_cross_entropy
 BACKENDS = ("xla", "pallas")
 
 
-def streaming_ce(h, w, labels, *, backend: str = "xla"
+def streaming_ce(h, w, labels, *, backend: str = "xla", vocab: int = 0
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(nll, lse) per token; h (T, d), w (V, d). ``backend`` is accepted
     for the JAX signature; the tensors' device picks kernel or plain
-    version."""
+    version. Where w holds fewer than ``vocab`` rows (a train step's vocab
+    slice), the pair runs vocab-parallel over the 'model' group."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} not in {BACKENDS}")
-    return fused_cross_entropy(h, w, labels)
+    split = bool(vocab) and w.shape[0] != vocab
+    return fused_cross_entropy(h, w, labels,
+                               split_group() if split else None)
 
 
 def _flatten_head(model, params, hidden, labels):
@@ -77,6 +82,11 @@ def _flatten_head(model, params, hidden, labels):
     return hidden.reshape(-1, hidden.shape[-1]), w, labels.reshape(-1)
 
 
+def _head_rows(cfg) -> int:
+    """Rows of the whole (flattened) head: V, or C·V with codebooks."""
+    return cfg.vocab * max(cfg.n_codebooks, 1)
+
+
 def _moe_terms(aux) -> Dict:
     return {k: v for k, v in aux.items() if "moe" in k}
 
@@ -86,7 +96,8 @@ def loss_fused_ce(model, params, batch, key, train_cfg, *,
     tokens, labels = batch["tokens"], batch["labels"]
     hidden, aux = model.forward(params, tokens, img=batch.get("img"))
     h2, w, lab = _flatten_head(model, params, hidden, labels)
-    nll, lse = streaming_ce(h2, w, lab, backend=backend)
+    nll, lse = streaming_ce(h2, w, lab, backend=backend,
+                            vocab=_head_rows(model.cfg))
     loss = nll.mean()
     metrics = {"loss": loss, "ppl_proxy": loss, "mean_log_z": lse.mean(),
                **_moe_terms(aux)}
@@ -115,7 +126,8 @@ def loss_selfnorm(model, params, batch, key, train_cfg, *,
     tokens, labels = batch["tokens"], batch["labels"]
     hidden, aux = model.forward(params, tokens, img=batch.get("img"))
     h2, w, lab = _flatten_head(model, params, hidden, labels)
-    nll, lse = streaming_ce(h2, w, lab, backend=backend)
+    nll, lse = streaming_ce(h2, w, lab, backend=backend,
+                            vocab=_head_rows(model.cfg))
     alpha = train_cfg.selfnorm_alpha
     penalty = torch.mean(lse ** 2)
     loss = nll.mean() + alpha * penalty
@@ -445,6 +457,26 @@ def loss_sampled(model, params, batch, key, train_cfg, *,
                                                 "mean_log_z": log_z.mean()}
 
 
+_PER_TOKEN = ("labels", "head_mask", "tail_accept", "n_tail_total",
+              "label_in_head")
+
+
+def _plan_whole_batch(plan_fn, h2, lab):
+    """``plan_fn(h, labels) -> (SparsePlan, aux)`` over the whole batch
+    where a train step splits its rows over data replicas
+    (``core.distributed.data_groups``): the detached hidden states and
+    labels gathered from every replica, one head union and one tail
+    planned on every rank (equal generator states draw an equal tail),
+    and the plan's per-token entries cut to this rank's rows. The aux
+    metrics are the whole batch's."""
+    if not data_groups():
+        return plan_fn(h2, lab)
+    sp, aux = plan_fn(gather_data(h2), gather_data(lab))
+    t = h2.shape[0]
+    rows = slice(data_coord() * t, (data_coord() + 1) * t)
+    return sp._replace(**{k: getattr(sp, k)[rows] for k in _PER_TOKEN}), aux
+
+
 def _estimator_head(model, params, batch, index, what: str):
     if index is None:
         raise ValueError(
@@ -477,9 +509,11 @@ def _loss_estimator_ce(model, params, batch, key, train_cfg, *, index,
     h2, w, lab, aux = _estimator_head(model, params, batch, index,
                                       "an estimator-backed loss")
     pc = model.cfg.partition
-    nll, lse, est_aux = estimator_ce(index, h2, w, lab, key,
-                                     n_probe=pc.n_probe, l=pc.l,
-                                     head_cap=pc.head_cap, tail_idx=tail_idx)
+    sp, est_aux = _plan_whole_batch(
+        lambda h, lb: estimator_plan(index, h, lb, key, n_probe=pc.n_probe,
+                                     l=pc.l, head_cap=pc.head_cap,
+                                     tail_idx=tail_idx), h2, lab)
+    nll, lse = _sparse_ce(h2, w, *sp)
     return _estimator_metrics(nll, lse, est_aux, aux)
 
 
@@ -510,9 +544,11 @@ def loss_lsh_ce(model, params, batch, key, train_cfg, *, index,
     from ``key`` or given as ``tail_ids``."""
     h2, w, lab, aux = _estimator_head(model, params, batch, index, "lsh_ce")
     pc = model.cfg.partition
-    nll, lse, est_aux = lsh_estimator_ce(index, h2, w, lab, key, l=pc.l,
+    sp, est_aux = _plan_whole_batch(
+        lambda h, lb: lsh_estimator_plan(index, h, lb, key, l=pc.l,
                                          cand_cap=pc.head_cap,
-                                         tail_ids=tail_ids)
+                                         tail_ids=tail_ids)[:2], h2, lab)
+    nll, lse = _sparse_ce(h2, w, *sp)
     return _estimator_metrics(nll, lse, est_aux, aux)
 
 

@@ -10,7 +10,7 @@ update's f32 temporaries never exceed two of the largest leaf.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -77,14 +77,23 @@ def _sq_norm(g: torch.Tensor) -> torch.Tensor:
     return sq
 
 
+def leaf_squares(tree) -> List[torch.Tensor]:
+    """Each leaf's sum of squares (``_sq_norm``), in leaf order."""
+    return [_sq_norm(g) for g in _leaves_of(tree)]
+
+
+def norm_of_squares(squares: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of the leaves' sums of squares, in f32."""
+    return torch.sqrt(torch.stack(list(squares)).sum()).float()
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf (a tree, or its leaves),
     returned in f32. Each leaf is summed in chunks (``_sq_norm``): one
     f32 ``vector_norm`` of a whole leaf on the CPU was 1.6e-5 off on an
     estimator loss's gradient and 4e-4 off on a dense (4096, 2560) one,
     where the JAX package's f32 sum is exact to about 1e-7."""
-    return torch.sqrt(torch.stack([_sq_norm(g)
-                                   for g in _leaves_of(tree)]).sum()).float()
+    return norm_of_squares(leaf_squares(tree))
 
 
 @torch.no_grad()

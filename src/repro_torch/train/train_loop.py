@@ -18,16 +18,21 @@ embedding into tensors of the same shapes and dtypes.
 Under a mesh (``launch.mesh``; ``init_train_state(mesh=)``,
 ``make_train_step(mesh=)``) each rank stores the slice of each parameter
 leaf that ``param_spec`` gives its ``model`` coordinate, with its AdamW
-moments. A step gathers the whole leaves over ``model`` exactly (bit
-patterns), runs the one-device loss, autograd and kernels on the rank's
+moments. A step computes on those slices where its blocks can
+(``launch.mesh.split_plan``, inside ``core.distributed.split_compute``):
+column- and row-parallel attention and MLP, the rank's experts, the
+vocab-parallel embedding and, under fused_ce and selfnorm, the
+vocab-parallel CE pair; every other leaf that ``param_spec`` splits is
+gathered whole first, exactly (bit patterns). The loss runs on the rank's
 rows of the batch (contiguous rows over the data axes, as the JAX
 package's ``batch_shardings``; the ranks of one replica compute the same
-rows), averages the gradients over the data axes in f32 (the gradient of
-the global batch's mean loss) or, over ``pod_axis``, sums them through
-``compress_psum``, clips by the norm of the whole gradient and updates the
-rank's slices. AdamW is elementwise, so at data 1 the slices equal the
-one-device step's bit for bit. The compute is not split over ``model``:
-a rank holds whole parameters and gradients during the step.
+rows; the estimator losses plan over the whole batch, gathered over the
+data axes). The gradients, slices where the leaf was computed as one,
+are averaged over the data axes in f32 (the gradient of the global
+batch's mean loss) or, over ``pod_axis``, summed through
+``compress_psum``; the step clips by the norm of the whole gradient and
+updates the rank's slices. AdamW is elementwise, so at model 1 and data 1
+the slices equal the one-device step's bit for bit.
 """
 from __future__ import annotations
 
@@ -40,12 +45,14 @@ from .. import resolve_device
 from ..configs.base import ModelConfig, TrainConfig
 from ..core import lsh as _lsh
 from ..core import mips as _mips
+from ..core.distributed import split_compute
 from ..launch import mesh as _mesh
 from ..launch.hlo_analysis import section
+from ..models.transformer import tree_paths
 from .compression import compress_psum
 from .losses import DRAW_ARGS, ESTIMATOR_LOSSES, get_loss
-from .optimizer import (OptState, adamw_update, global_norm, init_opt_state,
-                        tree_leaves)
+from .optimizer import (OptState, adamw_update, init_opt_state,
+                        leaf_squares, norm_of_squares, tree_leaves)
 
 # added to the seed of init_train_state for the index build's generator
 # (the JAX package folds 0x1DF into its key)
@@ -234,6 +241,16 @@ def make_index_refresh(model, train_cfg: TrainConfig, *, mesh=None):
     return refresh
 
 
+def _tree_of(tree, leaves):
+    """``tree``'s structure holding ``leaves`` (in its leaf order)."""
+    it = iter(leaves)
+
+    def build(t):
+        return {k: build(v) if isinstance(v, dict) else next(it)
+                for k, v in t.items()}
+    return build(tree)
+
+
 def _batch_rows(batch: Dict[str, torch.Tensor], i: int, mb: int):
     """Microbatch ``i`` of ``mb``: rows i, i + mb, ... — the rows the JAX
     package's (B/mb, mb) reshape and swap give microbatch i."""
@@ -265,9 +282,11 @@ def make_train_step(model, train_cfg: TrainConfig, *, backend: str = "xla",
     the rank's rows, and the loss and the scalar metrics are averaged over
     the data axes. ``pod_axis`` names a mesh dim whose gradients are
     summed through ``compress_psum`` (``train_cfg.grad_compression``); the
-    other data axes are averaged first. The estimator-backed losses plan
-    one head union and one tail over the whole batch, so they refuse a
-    mesh whose data axes hold more than one rank."""
+    other data axes are averaged first. The step computes on the rank's
+    slices where ``launch.mesh.split_plan`` allows, gathers the other
+    split leaves whole (rank 0 prints how many; the returned step's
+    ``gathered`` lists their paths), and sums each slice's squares over
+    ``model`` once for the global norm."""
     loss_name = train_cfg.loss
     loss_fn = get_loss(loss_name)
     est_loss = loss_name in ESTIMATOR_LOSSES
@@ -338,13 +357,17 @@ def make_train_step(model, train_cfg: TrainConfig, *, backend: str = "xla",
 
     if mesh is None:
         return train_step
-    if est_loss and _mesh.data_size(mesh) > 1:
-        raise NotImplementedError(
-            f"{loss_name} plans one head union and one tail over the whole "
-            f"batch; at data {_mesh.data_size(mesh)} each rank holds only "
-            f"its rows, and gathering the hidden states over 'data' is not "
-            f"ported: train it at data 1")
     placement_tree = params_placements(model, mesh)
+    model_size = _mesh.axis_size(mesh, "model")
+    plan = _mesh.split_plan(model.cfg, model.init(torch.Generator(), "meta"),
+                            model_size, loss_name)
+    gathered = [p for p, k in plan.items() if k == "gather"]
+    if torch.distributed.get_rank() == 0:
+        n_split = list(plan.values()).count("split")
+        print(f"split step ({loss_name}, model {model_size}): {n_split} "
+              f"leaves computed as slices, {len(gathered)} gathered whole"
+              + (f" {gathered}" if gathered else ""), flush=True)
+    m_group = _mesh.axis_group(mesh, "model")
     d_axes = _mesh.data_axes(mesh)
     mean_axes = [a for a in d_axes if a != pod_axis]
     sampled = loss_name in ("nce", "sampled")
@@ -392,19 +415,38 @@ def make_train_step(model, train_cfg: TrainConfig, *, backend: str = "xla",
                     return got[c * (t // d):(c + 1) * (t // d)]
         else:
             rows = batch
-        full = _mesh.gather_tree(state.params, placement_tree)
-        loss, metrics, grads = loss_and_grads(full, rows, state.rng,
-                                              state.index, draws)
-        del full
+        placements = _mesh.placements_like(state.params, placement_tree)
+        kinds = [plan[p] for p, _ in tree_paths(state.params)]
+        step_params = _tree_of(state.params, [
+            _mesh.gather_leaf(x, p) if k == "gather" else x
+            for x, p, k in zip(tree_leaves(state.params), placements,
+                               kinds)])
+        data_groups = [_mesh.axis_group(mesh, a) for a in reversed(d_axes)]
+        with split_compute(m_group, data_groups if split else ()):
+            loss, metrics, grads = loss_and_grads(step_params, rows,
+                                                  state.rng, state.index,
+                                                  draws)
+        del step_params
         if split and mean_axes:
             k = math.prod(_mesh.axis_size(mesh, a) for a in mean_axes)
             grads = [sum_over(g.float(), mean_axes).div_(k) for g in grads]
         if pod_axis is not None:
             grads = compress_psum(grads, _mesh.axis_group(mesh, pod_axis),
-                                  mode=train_cfg.grad_compression)
-        gnorm = global_norm(grads)
-        local = [_mesh.local_view(g, p) for g, p in zip(
-            grads, _mesh.placements_like(state.params, placement_tree))]
+                                  mode=train_cfg.grad_compression,
+                                  amax_group=m_group)
+        # the squares of the slices' gradients summed over 'model' once,
+        # of the whole ones (replicated or gathered) once: at model 1 (or
+        # with nothing split) global_norm of the whole gradient, bit for bit
+        sq = leaf_squares(grads)
+        cut = [i for i, k in enumerate(kinds) if k == "split"]
+        if cut and model_size > 1:
+            part = torch.stack([sq[i] for i in cut])
+            torch.distributed.all_reduce(part, group=m_group)
+            for i, x in zip(cut, part.unbind()):
+                sq[i] = x
+        gnorm = norm_of_squares(sq)
+        local = [_mesh.local_view(g, p) if k == "gather" else g
+                 for g, p, k in zip(grads, placements, kinds)]
         params, opt, opt_metrics = adamw_update(
             train_cfg, state.params, local, state.opt, gnorm=gnorm)
         metrics = dict(metrics)
@@ -419,4 +461,5 @@ def make_train_step(model, train_cfg: TrainConfig, *, backend: str = "xla",
         return TrainState(params=params, opt=opt, rng=state.rng,
                           index=state.index), metrics
 
+    sharded_step.gathered = gathered
     return sharded_step

@@ -12,9 +12,11 @@
 * The ``fused_ce`` train step equals 3 x the trunk's forward plus 4 head
   products (the forward, and the backward's recomputed logits, dh and
   dW).
-* On a 2 x 2 fake mesh the train step's collective bytes equal their
-  closed form from ``params_placements``; the decode step's equal the
-  head's combine.
+* The split train step at (1, m) counts the one-device step's FLOPs
+  divided by m. On a 2 x 2 fake mesh its collective bytes equal their
+  closed form (the activations' sums, the vocab-parallel lookup and CE
+  pair, the gradient slices' mean over 'data'); the decode step's equal
+  the head's combine.
 * ``ivf_specs_for`` gives JAX's shapes and dtypes for every arch.
 * ``run_cell`` at full width writes only under its ``out`` and leaves no
   process group; qwen1.5-4b's decode trunk is the config's closed form;
@@ -161,9 +163,18 @@ def test_fused_ce_train_step_is_3_forwards_and_4_head_products():
     assert got == 3 * fwd + 4 * head == 343_932_928
 
 
+@pytest.mark.parametrize("m", [2, 4])
+def test_split_train_step_flops_are_the_closed_form_over_m(m):
+    """At mesh (1, m) the split step computes on the rank's heads, d_ff
+    columns and vocab rows: its FLOPs are one device's closed form (3
+    trunk forwards + 4 head products, above) divided by m."""
+    got = port_counts(reduced_config("qwen1.5-4b"), TRAIN, shape=(1, m))
+    assert got.flops * m == 343_932_928
+
+
 def _placed_bytes(cfg, mesh_shape):
-    """(bytes of the leaves split over 'model', all parameter bytes in
-    f32) by ``params_placements``."""
+    """(the count of leaves split over 'model', the f32 bytes of this
+    rank's slices of every leaf) by ``params_placements``."""
     from repro_torch.train.train_loop import params_placements
     with dryrun.fake_mesh(mesh_shape, ("data", "model")) as mesh:
         model = Model(cfg)
@@ -172,23 +183,33 @@ def _placed_bytes(cfg, mesh_shape):
     from repro_torch.launch.mesh import placements_like
     from repro_torch.models.transformer import tree_leaves
     leaves = tree_leaves(meta)
-    split = sum(x.numel() * x.element_size() for x, p in zip(
-        leaves, placements_like(meta, place)) if any(
-            e is not None for e in p.spec))
-    return split, sum(4 * x.numel() for x in leaves)
+    m = mesh_shape[1]
+    n_split, local = 0, 0
+    for x, p in zip(leaves, placements_like(meta, place)):
+        cut = any(e is not None for e in p.spec)
+        n_split += cut
+        local += 4 * x.numel() // (m if cut else 1)
+    return n_split, local
 
 
 def test_collective_bytes_on_a_2x2_mesh():
-    """The sharded train step gathers each leaf split over 'model' whole
-    (one all-reduce of its bit patterns), averages every gradient over
-    'data' in f32 and the scalar metrics once; the exact decode step
+    """The split train step gathers no leaf of qwen1.5-4b: its collectives
+    are the activations' sums over 'model' (for each layer the attention's
+    and the MLP's output forward and their input gradients backward,
+    (T, d) f32 each), the vocab-parallel lookup ((T, d) bit patterns),
+    the CE pair's (the label score and the LSE's two all-reduces of (T,)
+    f32 forward, dh (T, d) f32 backward), the slices' squares for the
+    norm (one f32 a split leaf); then every gradient slice averaged over
+    'data' in f32 and the scalar metrics once. The exact decode step
     combines log Z (two all-reduces of (B,) f32) and gathers the top-1
     candidates ((2, B, 2) int32)."""
     cfg = dataclasses.replace(reduced_config("qwen1.5-4b"), dtype="float32")
     sc = ShapeConfig("t", 16, 4, "train")
     c = port_counts(cfg, sc, shape=(2, 2))
-    split, grads = _placed_bytes(cfg, (2, 2))
-    n_metrics = c.collectives["all-reduce"] - split - grads
+    n_split, grads = _placed_bytes(cfg, (2, 2))
+    t = sc.global_batch // 2 * sc.seq_len                # the rank's tokens
+    act = (4 * cfg.n_layers + 2) * t * cfg.d_model * 4 + 3 * t * 4
+    n_metrics = c.collectives["all-reduce"] - act - 4 * n_split - grads
     assert 0 < n_metrics <= 4 * 16, c.collectives
     assert set(c.collectives) == {"all-reduce"}
     d = port_counts(cfg, ShapeConfig("d", 16, 4, "decode"), shape=(2, 2))
@@ -318,6 +339,21 @@ def test_train_microbatches_extrapolate_exactly():
         got = dryrun.count_cell(cfg, sc, mesh)
         whole = dryrun.count_step(dryrun.build_step(cfg, sc, mesh))
     assert got["traced_microbatches"] == 2 and got["microbatches"] == 5
+    for k in ("flops", "bytes", "transcendentals", "collectives"):
+        assert got[k] == whole[k], k
+
+
+def test_train_microbatches_extrapolate_the_split_collectives():
+    """Under the compute split (mesh (1, 2)) each microbatch issues its
+    own all-reduces over 'model': extrapolated from 2 microbatches, the
+    counts and collective bytes equal the whole step's traced at 5."""
+    cfg = reduced_config("qwen1.5-4b")
+    sc = ShapeConfig("t", 16, 5, "train")
+    with dryrun.fake_mesh((1, 2), ("data", "model")) as mesh:
+        got = dryrun.count_cell(cfg, sc, mesh)
+        whole = dryrun.count_step(dryrun.build_step(cfg, sc, mesh))
+    assert got["traced_microbatches"] == 2
+    assert whole["sections"]["microbatch 4"]["collective_bytes"] > 0
     for k in ("flops", "bytes", "transcendentals", "collectives"):
         assert got[k] == whole[k], k
 
